@@ -8,9 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile every CUDA source of ``src/repro_torch/csrc`` with nvcc
    (in parallel) and warm up the Triton kernels;
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the shapes the serving path gives it, with its time, its
-   plain version's time, a library call's time where one exists, and its
-   bound (the least time the card could take for the same work);
+   the card, at the shapes the serving and training paths give it, with its
+   time, its plain version's time, a library call's time where one exists,
+   and its bound (the least time the card could take for the same work);
 4. serve gemma3-1b at full width and depth (26 layers, bf16, seeded random
    weights): (a) fixed batch 4, prompt 1024, 32 new tokens, q8 cache;
    (b) the same with a q4 cache; (c) the continuous scheduler, 8 requests
@@ -19,7 +19,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel of its path; bytes/token must equal the wire accounting; logits
    must be finite; prefill logits must match the same forward in reference
    mode, and decode from the same caches in reference mode must give every
-   request the same tokens and leave the same caches.
+   request the same tokens and leave the same caches;
+5. train ResNet-18 at full width, the paper's layout (5 workers x 128
+   images, 32x32x3, 10 classes, seeded init, f32 with TF32 off), a few
+   steps each of (d) LQ-SGD rank 1, b = 8, (e) LQ-SGD rank 1, b = 4 and
+   (f) QSGD b = 4. Each run starts with the launch counts at 0 and must
+   launch every kernel of its path; every step's wire bits must equal the
+   static accounting (370136 bits for (d), 3.655093 MB/epoch) and its
+   collectives the count from the plans; losses must be finite; and the
+   same run in reference mode, from the same init and batches, must ship
+   the same codes (but for one-step bin-edge flips; QSGD's bytes exactly,
+   from the same generator seeds) and end with the same synced gradients
+   and parameters, within the tolerance of :func:`train_tol`.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -45,6 +56,10 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 # f32 operations per value of the log-quant maps (abs, scale, log1p/expm1,
 # divide, sign, level multiply, round, clip), counted from the formula
 QUANT_OPS, DEQUANT_OPS = 10, 7
+# integer operations per code of the nibble pack (mask, shift, or), counted
+# at the f32 rate: the table of peaks has no int32 ALU rate, and the pack's
+# bound is its bytes by a factor of ~30 at either rate
+PACK_OPS = 2
 
 ARCH = "gemma3-1b"
 BATCH, PROMPT, GEN = 4, 1024, 32
@@ -63,6 +78,26 @@ LOGITS_REL_TOL = 5e-2
 # Caches after decode: codes equal but for one-step bin-edge flips; scales
 # within 1% of the largest (a flip moves what later layers see).
 CACHE_SCALE_REL_TOL = 1e-2
+
+TRAIN_WORKERS, TRAIN_BATCH, TRAIN_HW, TRAIN_CLASSES = 5, 128, 32, 10
+TRAIN_STEPS, TRAIN_LR = 3, 0.05
+CIFAR_TRAIN_IMAGES = 50_000
+# Training, kernel path vs reference mode from the same init and batches:
+# the encodes match their plain versions but for one-step flips at bin
+# edges and the dequant within 2 ulp, so synced gradients and parameters
+# agree to f32 noise (1e-5 of a leaf's largest value over 3 steps) unless a
+# code flipped. A one-step flip of one worker's code moves the mean code by
+# 1/N level, which scales that value by at most (1 + alpha)^(1/(N L)); the
+# bound then is twice that change. QSGD's path differs only in the exact
+# pack, so its bytes, gradients and parameters must be equal.
+ALPHA = 10.0
+
+
+def train_tol(bits, flips):
+    if flips == 0:
+        return 1e-5
+    levels = (1 << (bits - 1)) - 1
+    return 2 * ((1 + ALPHA) ** (1 / (TRAIN_WORKERS * levels)) - 1)
 
 
 class SmokeFailure(RuntimeError):
@@ -158,6 +193,8 @@ def phase_build():
     log_quant.log_quantize_pack_triton(x, 1.0, bits=4)
     scales = torch.ones(16, 1, device="cuda")
     log_quant.log_dequantize_rows_triton(codes.view(16, 256), scales, bits=8)
+    log_quant.log_dequantize_triton(x, 1.0, bits=8)
+    log_quant.pack_nibbles_triton(codes.clamp(-8, 7))
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
     print(
@@ -201,8 +238,10 @@ def phase_kernels(gen):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.log_quant import (
         log_dequantize_rows_triton,
+        log_dequantize_triton,
         log_quantize_pack_triton,
         log_quantize_triton,
+        pack_nibbles_triton,
     )
 
     results = {}
@@ -331,6 +370,59 @@ def phase_kernels(gen):
         if window is None:
             results["flash_attention"] = res
     results["flash_attention"]["max_abs_err"] = worst
+
+    print("kernels at the training path's shapes")
+    # ---- #5 log_dequantize, within 2 ulp of the plain version: the
+    # paper-mode mean of 5 workers' b=8 codes at the largest factor of
+    # ResNet-18 (P of a 3x3x512 conv, 4608 x rank 1), and the decoded codes
+    # of 5 workers for the largest raw leaf (512) under dequant_then_mean
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda").float()
+
+    inputs = {
+        "paper-mode mean": codes((TRAIN_WORKERS, 4608, 1)).mean(0),
+        "raw codes": codes((TRAIN_WORKERS, 512)),
+    }
+    for where, c in inputs.items():
+        shape = tuple(c.shape)
+        got = log_dequantize_triton(c, 1.0, bits=8)
+        want = ref.log_dequantize_ref(c, 1.0, 8, ALPHA)
+        ulp = torch.nextafter(want.abs(), torch.full_like(want, math.inf)) - want.abs()
+        check(bool(((got - want).abs() <= 2 * ulp).all()), f"dequant {where}: > 2 ulp")
+        n = c.numel()
+        b_ms, b_by = bound_ms(n * 4 + n * 4, n * DEQUANT_OPS, "f32")
+        res = dict(
+            max_abs_err=float((got - want).abs().max()),
+            ms=cuda_ms(lambda: log_dequantize_triton(c, 1.0, bits=8), 50),
+            plain_ms=cuda_ms(lambda: ref.log_dequantize_ref(c, 1.0, 8, ALPHA), 20),
+            bound_ms=b_ms,
+            bound_by=b_by,
+            library_ms=None,
+        )
+        print(f"  log_dequantize {where} {shape}: max abs err {res['max_abs_err']:.2e}")
+        emit({"kernel": "log_dequantize", "input": where, "shape": list(shape), **res})
+        if where == "paper-mode mean":
+            results["log_dequantize"] = res
+
+    # ---- #2 pack_nibbles, exact: QSGD b=4 codes of ResNet-18's largest leaf
+    # (3x3x512x512) over the 5 workers, packed in one launch
+    shape = (TRAIN_WORKERS, 3, 3, 512, 512)
+    c = torch.randint(-7, 8, shape, generator=gen, device="cuda").to(torch.int8)
+    got, want = pack_nibbles_triton(c), ref.pack_nibbles_ref(c)
+    check(torch.equal(got, want), "pack_nibbles: bytes differ from the plain version")
+    n = c.numel()
+    b_ms, b_by = bound_ms(n + (n + 1) // 2, n * PACK_OPS, "f32")
+    res = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: pack_nibbles_triton(c), 50),
+        plain_ms=cuda_ms(lambda: ref.pack_nibbles_ref(c), 20),
+        bound_ms=b_ms,
+        bound_by=b_by,
+        library_ms=None,
+    )
+    print(f"  pack_nibbles {shape}: bytes equal to the plain version")
+    emit({"kernel": "pack_nibbles", "shape": list(shape), **res})
+    results["pack_nibbles"] = res
     return results
 
 
@@ -552,6 +644,170 @@ def phase_serve(card, gen):
     return total
 
 
+def _wire_codes(g, bits):
+    """A gathered wire array as integer codes (b <= 4 unpacked)."""
+    from repro_torch.core.codec import unpack_nibbles
+
+    return unpack_nibbles(g, 2 * g.shape[-1]) if bits <= 4 else g.int()
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def resnet18_train_flops(hw, n_classes, images):
+    """FLOPs of forward + backward of ResNet-18 over ``images`` images at
+    hw x hw: the forward counted from the conv and head shapes (2 kh kw cin
+    cout per output pixel), the backward as twice the forward."""
+    size, cin = hw, 64
+    fwd = 2 * 9 * 3 * 64 * size * size  # stem
+    for cout, blocks, stride in ((64, 2, 1), (128, 2, 2), (256, 2, 2), (512, 2, 2)):
+        for bi in range(blocks):
+            s = stride if bi == 0 else 1
+            size = -(-size // s)
+            fwd += 2 * 9 * (cin + cout) * cout * size * size  # conv1, conv2
+            if s != 1 or cin != cout:
+                fwd += 2 * cin * cout * size * size  # 1x1 projection
+            cin = cout
+    fwd += 2 * 512 * n_classes
+    return 3 * fwd * images
+
+
+def phase_train(card):
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models.resnet import init_resnet18
+    from repro_torch.train.data_parallel import mb_per_epoch, train_one
+
+    # the same init and batches give the same gradients in both modes
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = {
+        "d": (
+            CompressorConfig(name="lq_sgd", rank=1, bits=8),
+            ("log_quantize", "log_dequantize"),
+        ),
+        "e": (
+            CompressorConfig(name="lq_sgd", rank=1, bits=4),
+            ("log_quantize_pack", "log_dequantize"),
+        ),
+        "f": (CompressorConfig(name="qsgd", bits=4), ("pack_nibbles",)),
+    }
+    total = {name: 0 for name in ops.KERNELS}
+    init = tree_leaves(init_resnet18(TRAIN_CLASSES, seed=0, device="cuda"))
+
+    def run(cfg):
+        return train_one(
+            cfg,
+            n_workers=TRAIN_WORKERS,
+            batch=TRAIN_BATCH,
+            hw=TRAIN_HW,
+            n_classes=TRAIN_CLASSES,
+            steps=TRAIN_STEPS,
+            lr=TRAIN_LR,
+            seed=0,
+            device="cuda",
+            record_wire=True,
+        )
+
+    for variant, (cfg, need) in runs.items():
+        tag = f"{cfg.name}_b{cfg.bits}" + ("_r1" if cfg.name == "lq_sgd" else "")
+        label = f"({variant}) ResNet-18 {tag}, {TRAIN_WORKERS} workers x {TRAIN_BATCH}"
+        with ops.reference_mode():
+            want = run(cfg)
+        ops.reset_launch_counts()
+        out = run(cfg)
+        counts = ops.launch_counts()
+        print(f"{label}: launches {counts}")
+        for name in need:
+            check(counts[name] > 0, f"{label}: kernel {name} never launched")
+        for name, c in counts.items():
+            total[name] += c
+
+        comp = out.comp
+        n_raw = sum(pl.route != "lowrank" for pl in comp.plans)
+        n_comp = len(comp.plans) - n_raw
+        if cfg.name == "lq_sgd":  # a scale pmax + a gather per tensor per phase
+            colls = 2 * 2 * n_comp + 2 * n_raw
+        else:  # raw pmeans + a scale pmax and a gather per quantized tensor
+            colls = n_raw + 2 * n_comp
+        bits = comp.wire_bits_per_step()
+        if variant == "d":
+            check(bits == 370136, f"{label}: {bits} wire bits/step, not 370136")
+        for st in out.steps + want.steps:
+            check(st.rec.bits_sent == bits, f"{label}: sent {st.rec.bits_sent} bits")
+            check(st.rec.n_collectives == colls, f"{label}: {st.rec.n_collectives}")
+        losses = out.losses + want.losses
+        check(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
+
+        with torch.no_grad():
+            got_w, want_w = out.comm.gathered, want.comm.gathered
+            check(len(got_w) == len(want_w), f"{label}: gathers differ in number")
+            flips = n_codes = 0
+            for g, w in zip(got_w, want_w):
+                if cfg.name == "qsgd":
+                    check(torch.equal(g, w), f"{label}: wire bytes differ")
+                    continue
+                d = (_wire_codes(g, cfg.bits) - _wire_codes(w, cfg.bits)).abs()
+                check(int(d.max()) <= 1, f"{label}: a code moved more than one step")
+                flips += int((d > 0).sum())
+                n_codes += d.numel()
+            check(flips <= 1e-3 * max(n_codes, 1), f"{label}: {flips} code flips")
+            tol = 0.0 if cfg.name == "qsgd" else train_tol(cfg.bits, flips)
+            grad_rel = param_rel = 0.0
+            pairs = zip(tree_leaves(out.last_grads), tree_leaves(want.last_grads))
+            for g, w in pairs:
+                err, top = float((g - w).abs().max()), float(w.abs().max())
+                check(err <= tol * top, f"{label}: synced grads differ by {err:.3e}")
+                grad_rel = max(grad_rel, err / max(top, 1e-30))
+            trios = zip(tree_leaves(out.params), tree_leaves(want.params), init)
+            for p, w, p0 in trios:
+                err, moved = float((p - w).abs().max()), float((w - p0).abs().max())
+                check(err <= tol * moved, f"{label}: params differ by {err:.3e}")
+                param_rel = max(param_rel, err / max(moved, 1e-30))
+
+        steady = out.steps[1:]
+        split = {
+            "grad": _median([st.grad_ms for st in steady]),
+            "sync": _median([st.sync_ms for st in steady]),
+            "update": _median([st.update_ms for st in steady]),
+        }
+        mb = mb_per_epoch(comp, CIFAR_TRAIN_IMAGES, TRAIN_WORKERS * TRAIN_BATCH)
+        flops = resnet18_train_flops(
+            TRAIN_HW, TRAIN_CLASSES, TRAIN_WORKERS * TRAIN_BATCH
+        )
+        grad_tflops = flops / (split["grad"] * 1e-3) / 1e12
+        print(
+            f"  {label}: {bits} wire bits/step = {mb:.6f} MB/epoch, {colls} "
+            f"collectives/step, step ms grad {split['grad']:.1f} "
+            f"({flops / 1e12:.3f} TFLOP, {grad_tflops:.1f} TFLOP/s) sync "
+            f"{split['sync']:.1f} update {split['update']:.1f}, losses "
+            f"{[round(v, 4) for v in out.losses]}; vs reference mode: {flips} of "
+            f"{n_codes} codes flipped, synced grads rel {grad_rel:.2e}, params rel "
+            f"{param_rel:.2e}; {card}"
+        )
+        emit(
+            {
+                "train": f"{variant}_{tag}",
+                "card": card,
+                "mb_per_epoch": mb,
+                "wire_bits_per_step": bits,
+                "collectives_per_step": colls,
+                "step_ms": split,
+                "grad_tflop": flops / 1e12,
+                "grad_tflop_per_s": grad_tflops,
+                "losses": out.losses,
+                "reference_losses": want.losses,
+                "launches": counts,
+                "code_flips": flips,
+                "synced_grad_rel_err": grad_rel,
+                "param_rel_err": param_rel,
+            }
+        )
+    return total
+
+
 KERNEL_INFO = {
     "log_quantize": (
         "triton",
@@ -573,6 +829,16 @@ KERNEL_INFO = {
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:75",
     ),
+    "pack_nibbles": (
+        "triton",
+        "src/repro_torch/kernels/log_quant.py",
+        "src/repro/kernels/log_quant.py:99",
+    ),
+    "log_dequantize": (
+        "triton",
+        "src/repro_torch/kernels/log_quant.py",
+        "src/repro/kernels/log_quant.py:258",
+    ),
 }
 
 
@@ -582,6 +848,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = phase_kernels(gen)
     launches = phase_serve(card, gen)
+    for name, c in phase_train(card).items():
+        launches[name] += c
     kernels = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
         entry = {

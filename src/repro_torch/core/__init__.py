@@ -1,1 +1,1 @@
-"""Quantization math and the wire codec (serving subset)."""
+"""Quantization math, the wire codec, collectives and the gradient compressors."""

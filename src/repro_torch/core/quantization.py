@@ -27,6 +27,9 @@ __all__ = [
     "log_expand",
     "quantize",
     "dequantize",
+    "quantize_with_scale",
+    "dequantize_with_scale",
+    "roundtrip",
     "code_dtype",
     "wire_bits",
     "f32_log1p",
@@ -106,3 +109,30 @@ def quantize(x: torch.Tensor, cfg: LogQuantConfig) -> torch.Tensor:
 def dequantize(codes: torch.Tensor, cfg: LogQuantConfig) -> torch.Tensor:
     """Signed integer codes -> normalized float values (|x| <= 1)."""
     return log_expand(f32_div(codes.float(), cfg.levels), cfg.alpha)
+
+
+def quantize_with_scale(
+    x: torch.Tensor, cfg: LogQuantConfig, scale: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Max-normalize, then log-quantize: returns ``(codes, scale)``.
+
+    A given ``scale`` (a pmax'd one, so every worker shares the grid) is used
+    in place of the local max |x|. An all-zero tensor divides by 1 and gets
+    zero codes; the scale it returns is still 0."""
+    x = x.float()
+    if scale is None:
+        scale = x.abs().max()
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return quantize(x / safe, cfg), scale  # a tensor divisor: IEEE division
+
+
+def dequantize_with_scale(
+    codes: torch.Tensor, scale: torch.Tensor, cfg: LogQuantConfig
+) -> torch.Tensor:
+    return dequantize(codes, cfg) * scale
+
+
+def roundtrip(x: torch.Tensor, cfg: LogQuantConfig) -> torch.Tensor:
+    """quantize -> dequantize with the tensor's own scale (error analysis)."""
+    codes, scale = quantize_with_scale(x, cfg)
+    return dequantize_with_scale(codes, scale, cfg)

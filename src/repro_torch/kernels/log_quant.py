@@ -1,27 +1,32 @@
 """Triton kernels of the log-quant codec on Hopper: encode, fused encode +
-nibble pack, and the row-scaled dequant of the KV-cache read.
+nibble pack, the row-scaled dequant of the KV-cache read, the dequant of
+the training wire (the expand of averaged codes) and the bare nibble pack.
 
 Replaces, in ``src/repro/kernels/log_quant.py``:
 
 * ``log_quantize_pallas``        -> :func:`log_quantize_triton`
+* ``pack_nibbles_pallas``        -> :func:`pack_nibbles_triton`
 * ``log_quantize_pack_pallas``   -> :func:`log_quantize_pack_triton`
 * ``log_dequantize_rows_pallas`` -> :func:`log_dequantize_rows_triton`
+* ``log_dequantize_pallas``      -> :func:`log_dequantize_triton`
 
 What bounds them on the H100: bytes. Each is one elementwise pass with no
 reuse: 4 bytes read and 1 (b=8) or 1/2 (b=4) written per value for the
-encodes, 1 or 1/2 read and 4 written per value for the dequant, against a
-few dozen operations; far below the card's ridge of ~20 f32 FLOP per byte.
+encodes, 1 or 1/2 read and 4 written per value for the row dequant, 4 read
+and 4 written for the wire dequant (its input is the f32 mean of gathered
+codes), 1 read and 1/2 written for the pack, against a few dozen
+operations; far below the card's ridge of ~20 f32 FLOP per byte.
 
 What the design does about it: one program per block of 2048 flat elements
-(2048 packed bytes for the fused pack, 4096 codes' worth of rows for the
-dequant), masked
-loads and stores so nothing is padded, codes built in registers and written
-once in their final container: int8 codes, or two nibbles per byte, so the
-codes never round-trip through device memory between quantize and pack.
-Rounding is ``libdevice.rint`` (half to even, like ``jnp.round``) and every
-division is ``div_rn`` (IEEE), so the arithmetic matches the plain version
-op for op; only the last ulp of ``log1p``/``expm1`` may differ between the
-device's libdevice and the host's math library.
+(2048 packed bytes for the packs, 4096 codes' worth of rows for the row
+dequant), masked loads and stores so nothing is padded, codes built in
+registers and written once in their final container: int8 codes, or two
+nibbles per byte, so the codes never round-trip through device memory
+between quantize and pack. Rounding is ``libdevice.rint`` (half to even,
+like ``jnp.round``) and every division is ``div_rn`` (IEEE), so the
+arithmetic matches the plain version op for op; only the last ulp of
+``log1p``/``expm1`` may differ between the device's libdevice and the
+host's math library.
 
 Triton is imported when a kernel is first launched, never at module import,
 so the CPU tests import this module without it. (No ``from __future__
@@ -39,11 +44,15 @@ __all__ = [
     "log_quantize_triton",
     "log_quantize_pack_triton",
     "log_dequantize_rows_triton",
+    "log_dequantize_triton",
+    "pack_nibbles_triton",
 ]
 
 _BLOCK = 2048
 _ROW_TILE = 4096  # codes per dequant program: rows * padded row width
 _FLOAT_IN = (torch.float32, torch.bfloat16)
+# the wire dequant takes integer codes or the f32 mean of gathered codes
+_CODES_IN = (torch.float32, torch.bfloat16, torch.int8, torch.int16)
 
 
 @functools.cache
@@ -131,8 +140,33 @@ def _kernels() -> SimpleNamespace:
             val = _log_value(v.to(tl.float32), alpha, log1p_alpha, levels) * s
             tl.store(out, val, mask=m)
 
+    @triton.jit
+    def dequant(
+        c_ptr, o_ptr, n, scale, alpha, log1p_alpha, levels, BLOCK: tl.constexpr
+    ):
+        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+        m = offs < n
+        c = tl.load(c_ptr + offs, mask=m, other=0).to(tl.float32)
+        val = _log_value(c, alpha, log1p_alpha, levels) * scale
+        tl.store(o_ptr + offs, val, mask=m)
+
+    @triton.jit
+    def pack(c_ptr, o_ptr, n, n_bytes, BLOCK: tl.constexpr):
+        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+        lo_i = 2 * offs
+        hi_i = lo_i + 1
+        # the pad code of an odd n loads as 0
+        lo = tl.load(c_ptr + lo_i, mask=lo_i < n, other=0).to(tl.int32)
+        hi = tl.load(c_ptr + hi_i, mask=hi_i < n, other=0).to(tl.int32)
+        byte = (lo & 0xF) | ((hi & 0xF) << 4)
+        tl.store(o_ptr + offs, byte.to(tl.int8), mask=offs < n_bytes)
+
     return SimpleNamespace(
-        quantize=quantize, quantize_pack=quantize_pack, dequant_rows=dequant_rows
+        quantize=quantize,
+        quantize_pack=quantize_pack,
+        dequant_rows=dequant_rows,
+        dequant=dequant,
+        pack=pack,
     )
 
 
@@ -226,6 +260,37 @@ def log_dequantize_rows_triton(
     return out
 
 
+def log_dequantize_triton(
+    codes: torch.Tensor, scale: float, *, bits: int = 8, alpha: float = 10.0
+) -> torch.Tensor:
+    """Codes of any shape (int8/int16, or f32/bf16 means of codes) and a
+    scalar scale -> f32 values, same shape."""
+    _check_cuda(codes, "codes", _CODES_IN)
+    out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+    n = codes.numel()
+    if n:
+        grid = (_cdiv(n, _BLOCK),)
+        _kernels().dequant[grid](
+            codes, out, n, float(scale), *_consts(bits, alpha), BLOCK=_BLOCK
+        )
+        log_dequantize_triton.launches += 1
+    return out
+
+
+def pack_nibbles_triton(codes: torch.Tensor) -> torch.Tensor:
+    """Signed 4-bit codes (int8, any shape) -> 1-D int8 of ceil(n/2) bytes,
+    byte i = code[2i] | code[2i+1] << 4 of the flattened input."""
+    _check_cuda(codes, "codes", (torch.int8,))
+    n = codes.numel()
+    n_bytes = (n + 1) // 2
+    out = torch.empty((n_bytes,), dtype=torch.int8, device=codes.device)
+    if n:
+        grid = (_cdiv(n_bytes, _BLOCK),)
+        _kernels().pack[grid](codes, out, n, n_bytes, BLOCK=_BLOCK)
+        pack_nibbles_triton.launches += 1
+    return out
+
+
 def _cdiv(n: int, block: int) -> int:
     return -(-n // block)
 
@@ -233,3 +298,5 @@ def _cdiv(n: int, block: int) -> int:
 log_quantize_triton.launches = 0
 log_quantize_pack_triton.launches = 0
 log_dequantize_rows_triton.launches = 0
+log_dequantize_triton.launches = 0
+pack_nibbles_triton.launches = 0

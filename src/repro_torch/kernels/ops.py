@@ -1,13 +1,13 @@
 """Dispatch by tensor device, and the kernels' launch counters.
 
-Model and cache code call these wrappers. A tensor on the CPU takes the
+Model, cache and codec code call these wrappers. A tensor on the CPU takes the
 kernel's plain version (``repro_torch.kernels.ref``); a CUDA tensor launches
 the hand-written kernel, or the kernel's wrapper raises. There is no
 fallback from a failed launch or build to the plain version.
 
 :func:`reference_mode` routes CUDA tensors to the plain versions inside a
 ``with`` block, so ``chip_smoke.py`` and the tests can run the same forward
-both ways on the card and compare. The serving entry points never enter it.
+both ways on the card and compare. The entry points never enter it.
 """
 
 from __future__ import annotations
@@ -21,8 +21,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.log_quant import (
     log_dequantize_rows_triton,
+    log_dequantize_triton,
     log_quantize_pack_triton,
     log_quantize_triton,
+    pack_nibbles_triton,
 )
 
 __all__ = [
@@ -30,6 +32,8 @@ __all__ = [
     "log_quantize",
     "log_quantize_pack",
     "log_dequantize_rows",
+    "log_dequantize",
+    "pack_nibbles",
     "flash_attention",
     "reference_mode",
     "launch_counts",
@@ -42,6 +46,8 @@ KERNELS = {
     "log_quantize_pack": log_quantize_pack_triton,
     "log_dequantize_rows": log_dequantize_rows_triton,
     "flash_attention": flash_attention_cuda,
+    "pack_nibbles": pack_nibbles_triton,
+    "log_dequantize": log_dequantize_triton,
 }
 
 _reference = False
@@ -102,6 +108,22 @@ def log_dequantize_rows(
     if _plain(packed):
         return ref.log_dequantize_rows_ref(packed, scales, bits, alpha)
     return log_dequantize_rows_triton(packed, scales, bits=bits, alpha=alpha)
+
+
+def log_dequantize(
+    codes: torch.Tensor, scale: float = 1.0, *, bits: int = 8, alpha: float = 10.0
+) -> torch.Tensor:
+    """Expand codes (integer, or f32 means of gathered codes) to f32 values."""
+    if _plain(codes):
+        return ref.log_dequantize_ref(codes, scale, bits, alpha)
+    return log_dequantize_triton(codes.contiguous(), scale, bits=bits, alpha=alpha)
+
+
+def pack_nibbles(codes: torch.Tensor) -> torch.Tensor:
+    """Signed 4-bit int8 codes -> 1-D int8, two codes per byte."""
+    if _plain(codes):
+        return ref.pack_nibbles_ref(codes)
+    return pack_nibbles_triton(codes.contiguous())
 
 
 def flash_attention(

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of every kernel of the serving slice.
+"""Plain PyTorch versions of every kernel the port has ported.
 
 The CPU path runs these; on the card ``chip_smoke.py`` and the tests hold
 each hand-written kernel against them on the same inputs. They repeat the
@@ -17,6 +17,8 @@ __all__ = [
     "log_quantize_ref",
     "log_quantize_pack_ref",
     "log_dequantize_rows_ref",
+    "log_dequantize_ref",
+    "pack_nibbles_ref",
     "attention_ref",
     "chunked_attention_ref",
 ]
@@ -51,6 +53,21 @@ def log_dequantize_rows_ref(
         codes = packed
     vals = log_expand(f32_div(codes.float(), levels), alpha)
     return vals * scales.float()
+
+
+def log_dequantize_ref(
+    codes: torch.Tensor, scale: float, bits: int, alpha: float
+) -> torch.Tensor:
+    """Codes of any shape (integer, or f32 means of integer codes) -> f32
+    ``sign(q) * expm1(|q| log1p(alpha)) / alpha * scale`` with q = codes / L."""
+    levels = LogQuantConfig(bits=bits, alpha=alpha).levels
+    return log_expand(f32_div(codes.float(), levels), alpha) * scale
+
+
+def pack_nibbles_ref(codes: torch.Tensor) -> torch.Tensor:
+    """Signed 4-bit codes (int8, any shape) -> 1-D int8 of ``ceil(n / 2)``
+    bytes, byte i = c[2i] | c[2i+1] << 4; an odd count packs a zero code."""
+    return codec.pack_nibbles(codes)
 
 
 def _repeat_kv(k: torch.Tensor, rep: int) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""Decoder-only LM layers and the model forward (dense attention stacks)."""
+"""Decoder-only LM layers, the model forward, and ResNet-18."""

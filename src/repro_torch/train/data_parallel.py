@@ -1,0 +1,238 @@
+"""The data-parallel training step of the paper's Algorithm 1, over N
+simulated workers on one device: the worker loop of the JAX package's
+``benchmarks/convergence.py::train_one``.
+
+Each step, every worker takes the gradient of its own loss on its own
+shard (a loop over workers, so BatchNorm statistics are per worker, as in
+the vmap'd reference); the compressor's ``sync`` replaces the all-reduce;
+SGD steps the shared parameters with the synced gradient, which every
+worker holds alike. The loss reported is the mean over workers (the
+reference's pmean'd loss). Two models: ResNet-18 (the paper's) and the
+reference's 4-conv mini-CNN (its CPU-budget stand-in for the figures).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from collections.abc import Callable
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.comm import CommRecord, SimComm
+from repro_torch.core.compressors import (
+    CompressorConfig,
+    GradCompressor,
+    make_compressor,
+)
+from repro_torch.core.tree import Tree, tree_leaves, tree_map, tree_unflatten
+from repro_torch.data.synthetic import ImageDataConfig, image_batch
+from repro_torch.models.common import resolve_device
+from repro_torch.models.resnet import conv_same, init_resnet18, resnet18_forward
+from repro_torch.train.optimizer import Optimizer, sgd
+
+__all__ = [
+    "MODELS",
+    "StepResult",
+    "TrainResult",
+    "init_mini_cnn",
+    "mini_cnn_forward",
+    "cross_entropy",
+    "worker_grads",
+    "train_step",
+    "train_one",
+    "steps_per_epoch",
+    "mb_per_epoch",
+]
+
+Forward = Callable[[Tree, torch.Tensor], torch.Tensor]
+
+
+def init_mini_cnn(n_classes: int = 10, *, seed: int = 0, device="cuda") -> Tree:
+    """The reference's 4-conv mini-net (He-normal convs, N(0, 0.05^2) head)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def conv(*s):
+        w = torch.randn(s, generator=gen, device=dev)
+        return w * math.sqrt(2.0 / (s[0] * s[1] * s[2]))
+
+    return {
+        "c1": conv(3, 3, 3, 16),
+        "c2": conv(3, 3, 16, 32),
+        "c3": conv(3, 3, 32, 64),
+        "w": torch.randn((64, n_classes), generator=gen, device=dev) * 0.05,
+        "b": torch.zeros(n_classes, device=dev),
+    }
+
+
+def mini_cnn_forward(p: Tree, x: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, C) -> logits: three stride-2 SAME convs with ReLU, mean."""
+    h = x.permute(0, 3, 1, 2)
+    for name in ("c1", "c2", "c3"):
+        h = F.relu(conv_same(h, p[name], 2))
+    return h.mean(dim=(2, 3)) @ p["w"] + p["b"]
+
+
+# model name -> (seeded init, forward)
+MODELS: dict[str, tuple[Callable[..., Tree], Forward]] = {
+    "resnet18": (init_resnet18, resnet18_forward),
+    "cnn": (init_mini_cnn, mini_cnn_forward),
+}
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-mean(log_softmax(logits)[i, labels[i]]), the reference's loss."""
+    return -F.log_softmax(logits, dim=-1).gather(1, labels[:, None]).mean()
+
+
+def worker_grads(
+    forward: Forward, params: Tree, images: torch.Tensor, labels: torch.Tensor
+) -> tuple[torch.Tensor, Tree]:
+    """Each worker's loss and gradient on its own shard: images (N, B, H, W,
+    C), labels (N, B) -> losses (N,), grads shaped like ``params`` with a
+    leading worker dim."""
+    leaves = tree_leaves(params)
+    per_leaf: list[list[torch.Tensor]] = [[] for _ in leaves]
+    losses = []
+    for w in range(images.shape[0]):
+        loss = cross_entropy(forward(params, images[w]), labels[w])
+        for acc, g in zip(per_leaf, torch.autograd.grad(loss, leaves)):
+            acc.append(g)
+        losses.append(loss.detach())
+    grads = [torch.stack(gs) for gs in per_leaf]
+    return torch.stack(losses), tree_unflatten(params, grads)
+
+
+def _clock(device: torch.device) -> float:
+    """Host seconds after the device has finished the work queued so far."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+@dataclasses.dataclass
+class StepResult:
+    loss: float  # mean over workers
+    rec: CommRecord  # the sync's accounting
+    grad_ms: float
+    sync_ms: float
+    update_ms: float
+
+
+def train_step(
+    forward: Forward,
+    params: Tree,
+    opt: Optimizer,
+    opt_state: Any,
+    comp: GradCompressor,
+    comp_state: dict[str, Any],
+    comm: SimComm,
+    images: torch.Tensor,
+    labels: torch.Tensor,
+) -> tuple[StepResult, Tree, Any, dict[str, Any]]:
+    """One step of every worker: grads -> ``comp.sync`` -> SGD in place.
+    Returns (result, synced grads, new optimizer state, new compressor
+    state). The times split the step on the host clock, each phase ending
+    in a device sync."""
+    dev = images.device
+    t0 = _clock(dev)
+    losses, grads = worker_grads(forward, params, images, labels)
+    t1 = _clock(dev)
+    synced, comp_state, rec = comp.sync(grads, comp_state, comm)
+    t2 = _clock(dev)
+    opt_state = opt.update(synced, opt_state, params)
+    t3 = _clock(dev)
+    res = StepResult(
+        loss=float(comm.pmean(losses)),
+        rec=rec,
+        grad_ms=(t1 - t0) * 1e3,
+        sync_ms=(t2 - t1) * 1e3,
+        update_ms=(t3 - t2) * 1e3,
+    )
+    return res, synced, opt_state, comp_state
+
+
+@dataclasses.dataclass
+class TrainResult:
+    losses: list[float]
+    acc: float  # on a fresh batch (step 10_000 of the data), final params
+    secs_per_step: float
+    steps: list[StepResult]
+    params: Tree
+    comp: GradCompressor
+    comp_state: dict[str, Any]
+    last_grads: Tree  # the last step's synced gradients
+    comm: SimComm  # with ``record_wire``, every gathered wire array
+
+
+def train_one(
+    comp_cfg: CompressorConfig,
+    *,
+    model: str = "resnet18",
+    n_workers: int = 4,
+    batch: int = 32,
+    hw: int = 16,
+    n_classes: int = 10,
+    steps: int = 60,
+    lr: float = 0.05,
+    seed: int = 0,
+    device="cuda",
+    record_wire: bool = False,
+    on_step: Callable[[int, StepResult], None] | None = None,
+) -> TrainResult:
+    """Train ``model`` for ``steps`` steps over ``n_workers`` simulated
+    workers of ``batch`` images each, syncing through ``comp_cfg``'s
+    compressor, with plain SGD as the reference steps. The defaults are the
+    reference's (4 workers x 32, 16x16). The init and the data come from
+    ``seed``, the compressor state from seed 7 (the reference's
+    ``PRNGKey(7)``). ``on_step(step, result)`` sees each step as it ends;
+    ``record_wire`` keeps every gathered wire array in the result's comm."""
+    dev = resolve_device(device)
+    if model not in MODELS:
+        raise ValueError(f"unknown model {model!r}; options: {sorted(MODELS)}")
+    init, forward = MODELS[model]
+    params = init(n_classes, seed=seed, device=dev)
+    params = tree_map(lambda t: t.requires_grad_(True), params)
+    comp = make_compressor(comp_cfg, params)
+    comp_state = comp.init_state(7, n_workers, dev)
+    comm = SimComm(n_workers, record=record_wire)
+    opt = sgd(lr)
+    opt_state = opt.init(params)
+    data_cfg = ImageDataConfig(
+        n_classes=n_classes, hw=hw, batch=n_workers * batch, seed=seed
+    )
+
+    results, losses, synced = [], [], None
+    t0 = _clock(dev)
+    for step in range(steps):
+        b = image_batch(data_cfg, step, dev)
+        imgs = b["images"].reshape((n_workers, batch) + b["images"].shape[1:])
+        lbls = b["labels"].reshape(n_workers, batch)
+        res, synced, opt_state, comp_state = train_step(
+            forward, params, opt, opt_state, comp, comp_state, comm, imgs, lbls
+        )
+        results.append(res)
+        losses.append(res.loss)
+        if on_step is not None:
+            on_step(step, res)
+    secs = (_clock(dev) - t0) / max(steps, 1)
+    with torch.no_grad():
+        b = image_batch(data_cfg, 10_000, dev)
+        hit = forward(params, b["images"]).argmax(-1) == b["labels"]
+        acc = float(hit.float().mean())
+    return TrainResult(
+        losses, acc, secs, results, params, comp, comp_state, synced, comm
+    )
+
+
+def steps_per_epoch(n_train: int, global_batch: int) -> int:
+    return -(-n_train // global_batch)
+
+
+def mb_per_epoch(comp: GradCompressor, n_train: int, global_batch: int) -> float:
+    """The paper's 'Size' column: wire MB each worker sends per epoch."""
+    return comp.wire_bits_per_step() / 8e6 * steps_per_epoch(n_train, global_batch)

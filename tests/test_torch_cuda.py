@@ -23,8 +23,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.log_quant import (
     log_dequantize_rows_triton,
+    log_dequantize_triton,
     log_quantize_pack_triton,
     log_quantize_triton,
+    pack_nibbles_triton,
 )
 
 pytestmark = pytest.mark.cuda
@@ -115,6 +117,49 @@ def test_log_dequantize_rows_kernel(cuda, bits, r, nb):
 
 
 @pytest.mark.parametrize(
+    "shape", [(0,), (1,), (7,), (4096,), (4097,), (513, 7), (5, 3, 3, 512, 512)]
+)
+def test_pack_nibbles_kernel(cuda, shape):
+    """Exact: the same bytes as the plain version, odd tails packing a zero
+    code; an empty tensor launches nothing."""
+    c = torch.randint(-8, 8, shape, generator=cuda, device="cuda").to(torch.int8)
+    before = pack_nibbles_triton.launches
+    got = pack_nibbles_triton(c)
+    assert pack_nibbles_triton.launches == before + (1 if c.numel() else 0)
+    want = ref.pack_nibbles_ref(c)
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def _ulp(x):
+    """The f32 spacing at |x|: the distance to the next float away from 0."""
+    a = x.abs()
+    return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+
+@pytest.mark.parametrize("shape", [(0,), (1,), (7,), (4608, 1), (5, 512), (1000, 33)])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("kind", ["f32_mean", "int8"])
+def test_log_dequantize_kernel(cuda, shape, bits, kind):
+    """Within 2 ulp of the plain version: expm1 of the device's libdevice and
+    of torch may differ in the last bit, and the division by alpha and the
+    scale multiply each round once more. Inputs: integer codes, and the f32
+    mean of 5 workers' codes as the paper's avg mode hands the expand."""
+    lv = (1 << (bits - 1)) - 1
+    codes = torch.randint(-lv, lv + 1, (5,) + shape, generator=cuda, device="cuda")
+    if kind == "int8":
+        c = codes[0].to(torch.int8)
+    else:
+        c = codes.float().mean(0)
+    for scale in (1.0, 0.37):
+        got = log_dequantize_triton(c, scale, bits=bits)
+        want = ref.log_dequantize_ref(c, scale, bits, 10.0)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert bool(((got - want).abs() <= 2 * _ulp(want)).all())
+        assert bool(((got == 0) == (want == 0)).all())
+
+
+@pytest.mark.parametrize(
     "b,hq,hkv,s,d",
     [(1, 2, 2, 64, 32), (2, 4, 2, 128, 64), (1, 8, 1, 96, 64), (1, 4, 4, 33, 128),
      (1, 4, 1, 1, 256), (2, 4, 1, 300, 256)],
@@ -138,6 +183,12 @@ def test_dispatch_launches_kernels_and_reference_mode_does_not(cuda):
     x = torch.randn(1024, generator=cuda, device="cuda")
     ops.reset_launch_counts()
     ops.log_quantize(x, 1.0)
+    ops.log_dequantize(x)
+    ops.pack_nibbles(torch.zeros(9, dtype=torch.int8, device="cuda"))
     with ops.reference_mode():
         ops.log_quantize(x, 1.0)
-    assert ops.launch_counts()["log_quantize"] == 1
+        ops.log_dequantize(x)
+        ops.pack_nibbles(torch.zeros(9, dtype=torch.int8, device="cuda"))
+    counts = ops.launch_counts()
+    assert counts["log_quantize"] == counts["log_dequantize"] == 1
+    assert counts["pack_nibbles"] == 1

@@ -100,8 +100,17 @@ def plain_forbidden(monkeypatch):
             _fake(torch.zeros(4, 16, dtype=torch.int8)), _fake(torch.ones(4, 1)), bits=8
         ),
         lambda: ops.flash_attention(*[_fake(torch.randn(1, 2, 8, 32))] * 3),
+        lambda: ops.log_dequantize(_fake(torch.randn(4608, 1)), bits=8),
+        lambda: ops.pack_nibbles(_fake(torch.zeros(64, dtype=torch.int8))),
     ],
-    ids=["log_quantize", "log_quantize_pack", "log_dequantize_rows", "flash_attention"],
+    ids=[
+        "log_quantize",
+        "log_quantize_pack",
+        "log_dequantize_rows",
+        "flash_attention",
+        "log_dequantize",
+        "pack_nibbles",
+    ],
 )
 def test_cuda_tensor_never_takes_the_plain_version(plain_forbidden, call):
     assert not torch.cuda.is_available()

@@ -19,9 +19,11 @@ from repro.core.codec import pack_nibbles
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.log_quant import (
+    log_dequantize_pallas,
     log_dequantize_rows_pallas,
     log_quantize_pack_pallas,
     log_quantize_pallas,
+    pack_nibbles_pallas,
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
@@ -127,6 +129,68 @@ def test_log_dequantize_rows_matches_pallas(bits, r, d):
     )
     assert got.shape == tuple(want.shape)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------------------- #2 pack_nibbles, exact bytes
+@pytest.mark.parametrize("numel", [1, 2, 7, 63, 100, 101, 1000, 4096])
+def test_pack_nibbles_matches_pallas(numel):
+    """Packed bytes equal (tolerance 0) over the sizes of the JAX codec
+    tests, odd sizes packing a zero pad code."""
+    codes = np.random.default_rng(numel).integers(-8, 8, size=numel).astype(np.int8)
+    want = pack_nibbles_pallas(jnp.asarray(codes), interpret=True)
+    got = ops.pack_nibbles(torch.from_numpy(codes.copy()))
+    assert got.dtype == torch.int8 and tuple(got.shape) == ((numel + 1) // 2,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_pack_nibbles_keeps_flat_order_of_any_shape():
+    codes = np.random.default_rng(5).integers(-7, 8, size=(5, 3, 3, 7)).astype(np.int8)
+    want = pack_nibbles_pallas(jnp.asarray(codes), interpret=True)
+    got = ops.pack_nibbles(torch.from_numpy(codes.copy()))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------------------ #5 log_dequantize
+def _mean_codes(shape, bits, n_workers, seed):
+    """The f32 mean over workers of integer codes, as the paper's avg mode
+    hands the expand."""
+    lv = (1 << (bits - 1)) - 1
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-lv, lv + 1, size=(n_workers,) + shape)
+    return jnp.mean(jnp.asarray(codes, jnp.float32), axis=0)
+
+
+@pytest.mark.parametrize("shape", [(4608, 1), (7,), (3, 48, 16), (513, 7)])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("scale", [1.0, 0.37])
+def test_log_dequantize_means_match_pallas(shape, bits, scale):
+    """f32 mean codes in, rtol 1e-6 (f32 expm1 of the two math libraries
+    may differ in the last ulp)."""
+    mean = _mean_codes(shape, bits, 5, seed=bits)
+    want = log_dequantize_pallas(mean, jnp.float32(scale), bits=bits, alpha=ALPHA)
+    got = ops.log_dequantize(torch.from_numpy(np.array(mean)), scale, bits=bits)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("bits,dtype", [(4, np.int8), (8, np.int8), (12, np.int16)])
+def test_log_dequantize_int_codes_match_pallas(bits, dtype):
+    """Integer codes in (int8, or int16 above b = 8), rtol 1e-6."""
+    lv = (1 << (bits - 1)) - 1
+    codes = np.random.default_rng(bits).integers(-lv, lv + 1, size=(5, 512))
+    codes = codes.astype(dtype)
+    want = log_dequantize_pallas(jnp.asarray(codes), jnp.float32(1.0), bits=bits)
+    got = ops.log_dequantize(torch.from_numpy(codes.copy()), bits=bits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
+
+
+def test_log_dequantize_inverts_log_quantize_on_the_grid():
+    """expand(codes(x)) lands on the grid point of each code: codes of the
+    expanded values are the codes again (exact)."""
+    x = torch.from_numpy(np.linspace(-1.0, 1.0, 255, dtype=np.float32))
+    codes = ops.log_quantize(x, 1.0, bits=8)
+    again = ops.log_quantize(ops.log_dequantize(codes, bits=8), 1.0, bits=8)
+    assert torch.equal(again, codes)
 
 
 # ------------------------------------------------------ #6 flash attention
