@@ -30,7 +30,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    same run in reference mode, from the same init and batches, must ship
    the same codes (but for one-step bin-edge flips; QSGD's bytes exactly,
    from the same generator seeds) and end with the same synced gradients
-   and parameters, within the tolerance of :func:`train_tol`.
+   and parameters, within the tolerance of :func:`train_tol`;
+6. serve mamba2-370m at full width and depth (48 Mamba-2 layers, bf16,
+   seeded random weights; f32 matmuls with TF32 off, as phase 1 sets),
+   fixed scheduler: (g1) batch 4, prompt 1024 (4 chunks), 32 new tokens,
+   raw and with ``--cache-bits 8`` (which leaves the SSM cache raw);
+   (g2) batch 4, prompt 1000 (a ragged last chunk); (g3) batch 1, prompt
+   8192 (32 chunks). Each prefill launches ``ssd_chunk`` once per layer and
+   each decode step none; prefill logits and caches must match the same
+   prefill in reference mode; greedy tokens are compared with a
+   reference-mode run; bytes/token must equal the accounting (48290.909
+   for (g1), the JAX package's figure).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -92,6 +102,27 @@ CIFAR_TRAIN_IMAGES = 50_000
 # pack, so its bytes, gradients and parameters must be equal.
 ALPHA = 10.0
 
+SSM_ARCH = "mamba2-370m"
+# (g1) batch 4, prompt 1024 (4 chunks of 256); (g2) prompt 1000, a ragged
+# last chunk; (g3) one prompt of 8192 (32 chunks), the long-prompt case
+SSM_RUNS = {"g1": (4, 1024), "g2": (4, 1000), "g3": (1, 8192)}
+SSM_GEN = 32
+# (g1)'s cache: conv (48, 4, 3, 2304) bf16 + ssm (48, 4, 32, 64, 128) f32 =
+# 203,980,800 bytes over 4 x 1056 positions, the JAX package's
+# cache_bytes_per_token for this shape
+SSM_G1_BYTES_PER_TOKEN = 203_980_800 / (4 * 1056)
+# ssd_chunk vs its plain version, f32: max abs error <= 1e-4 of max |Y|.
+# Both sum up to N + Q = 384 f32 products an entry, in other orders (K eps
+# = 2.3e-5 for K = 384).
+SSD_REL_TOL = 1e-4
+# Prefill, kernel path vs reference mode: the intra-chunk term may differ
+# from the plain version's in the last f32 bits (another summation order),
+# every layer casts its output to bf16, where such a difference now and
+# then flips a rounding (2^-8 relative), and 48 layers carry the flips on.
+# Logits: LOGITS_REL_TOL and the argmax rule, as for gemma3-1b; caches
+# (conv window, SSM state): within 5% of each leaf's largest value.
+SSM_CACHE_REL_TOL = 5e-2
+
 
 def train_tol(bits, flips):
     if flips == 0:
@@ -148,6 +179,27 @@ def host_ms(fn, repeats=3):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return sorted(times)[len(times) // 2]
+
+
+def device_ms_by_kernel(fn):
+    """Device time of one warm call of ``fn`` by kernel name, from
+    torch.profiler: {name: [ms, launches]}; empty where the profiler saw no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            ms_n = by_name.setdefault(evt.name, [0.0, 0])
+            ms_n[0] += evt.time_range.elapsed_us() / 1e3
+            ms_n[1] += 1
+    return by_name
 
 
 def bound_ms(n_bytes, n_ops, kind):
@@ -233,6 +285,7 @@ def _rows(gen, shape):
 
 
 def phase_kernels(gen):
+    from repro_torch.configs import get_config
     from repro_torch.core.codec import unpack_nibbles
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -243,6 +296,7 @@ def phase_kernels(gen):
         log_quantize_triton,
         pack_nibbles_triton,
     )
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
 
     results = {}
     layer = (BATCH, 1, PROMPT + GEN, 256)
@@ -423,7 +477,56 @@ def phase_kernels(gen):
     print(f"  pack_nibbles {shape}: bytes equal to the plain version")
     emit({"kernel": "pack_nibbles", "shape": list(shape), **res})
     results["pack_nibbles"] = res
+
+    print("kernels at the SSM serving path's shapes")
+    # ---- #7 ssd_chunk, f32, max abs error <= SSD_REL_TOL of max |Y|: one
+    # prefill layer of mamba2-370m at (g1) 4 x 1024 and (g3) 1 x 8192 tokens
+    cfg = get_config(SSM_ARCH)
+    h, q = cfg.ssm_heads, cfg.ssm_chunk
+    for run in ("g1", "g3"):
+        batch, prompt = SSM_RUNS[run]
+        x, a_cum, bm, cm = _ssd_inputs(gen, cfg, batch, prompt // q)
+        got = ssd_chunk_cuda(x, a_cum, bm, cm)
+        bh, ch = (t.expand(-1, h, -1, -1, -1) for t in (bm, cm))
+        want = ref.ssd_chunk_ref(x, a_cum, bh, ch)
+        err, top = float((got - want).abs().max()), float(want.abs().max())
+        check(err <= SSD_REL_TOL * top, f"ssd_chunk ({run}): max err {err} of {top}")
+        cells = x.shape[0] * h * x.shape[2]
+        n_ops = cells * q * (q + 1) // 2 * 2 * (cfg.ssm_state + cfg.ssm_head_dim)
+        n_bytes = 4 * (2 * x.numel() + bm.numel() + cm.numel() + a_cum.numel())
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "f32")
+        res = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: ssd_chunk_cuda(x, a_cum, bm, cm), 10),
+            plain_ms=cuda_ms(lambda: ref.ssd_chunk_ref(x, a_cum, bh, ch), 3),
+            bound_ms=b_ms,
+            bound_by=b_by,
+            library_ms=None,
+        )
+        shape = list(x.shape)
+        print(
+            f"  ssd_chunk ({run}) x {shape}: max abs err {err:.2e}, "
+            f"{err / top:.2e} of max |Y|; {res['ms']:.4f} ms, bound {b_ms:.4f} ms"
+        )
+        emit({"kernel": "ssd_chunk", "run": run, "shape": shape, **res})
+        if run == "g1":
+            results["ssd_chunk"] = res
     return results
+
+
+def _ssd_inputs(gen, cfg, batch, nc):
+    """One layer's ssd_chunk inputs at ``cfg``'s widths as the model hands
+    them over: permuted views of x (B, NC, Q, H, P), a_cum and B/C per group
+    (B, NC, Q, G, N). The per-step log-decay dt * A is drawn from [-1.6, 0],
+    so a_cum falls to about -200 within a chunk of 256, as in the model."""
+    q, h, g = cfg.ssm_chunk, cfg.ssm_heads, cfg.ssm_groups
+    x = torch.randn((batch, nc, q, h, cfg.ssm_head_dim), generator=gen, device="cuda")
+    a = -torch.rand((batch, nc, q, h), generator=gen, device="cuda") * 1.6
+    bc = torch.randn((2, batch, nc, q, g, cfg.ssm_state), generator=gen, device="cuda")
+    heads_first = (0, 3, 1, 2, 4)
+    a_cum = torch.cumsum(a.permute(0, 3, 1, 2), dim=-1)
+    bm, cm = (t.permute(heads_first) for t in bc)
+    return x.permute(heads_first), a_cum, bm, cm
 
 
 def _logits_close(got, want, label):
@@ -808,6 +911,194 @@ def phase_train(card):
     return total
 
 
+def _greedy(cfg, params, logits, caches, prompt, n):
+    """``n`` greedy tokens from a prefill's last-position logits and caches
+    (decoded from them in place), and the top-2 logit gap of each step."""
+    from repro_torch.serving.engine import build_decode_step, greedy_sample
+
+    decode = build_decode_step(cfg)
+    toks, gaps = [], []
+    for i in range(n):
+        if i:
+            logits, caches = decode(params, caches, toks[-1], prompt + i - 1)
+        top2 = logits[:, -1].float().topk(2, dim=-1).values
+        gaps.append(top2[:, 0] - top2[:, 1])
+        toks.append(greedy_sample(logits))
+    return torch.cat(toks, dim=1), torch.stack(gaps, dim=1)
+
+
+def _kernel_split(label, card, by_name):
+    """Print and emit one step's device time: the SSD kernel, the matmuls
+    (cuBLAS), everything else, and the eight longest kernels."""
+    total = sum(ms for ms, _ in by_name.values())
+    if not total:
+        print(f"  {label}: device time by kernel not measured (no device events)")
+        return
+    groups = {"ssd_chunk": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, (ms, _) in by_name.items():
+        low = name.lower()
+        if "ssd_chunk" in low:
+            groups["ssd_chunk"] += ms
+        elif any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
+            groups["matmul"] += ms
+        else:
+            groups["other"] += ms
+    n = sum(c for _, c in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    print(
+        f"  {label}: {n} kernels, {total:.2f} ms of device time: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items())
+    )
+    emit(
+        {
+            "profile": label,
+            "card": card,
+            "kernels": n,
+            "device_ms": total,
+            "groups_ms": groups,
+            "top": [[name[:80], ms, c] for name, (ms, c) in top],
+        }
+    )
+
+
+def phase_ssm(card):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import count_params, init_params
+    from repro_torch.serving.engine import build_decode_step, build_prefill_step
+    from repro_torch.serving.kv_cache import (
+        CacheQuantConfig,
+        tree_is_quantized,
+        tree_leaves,
+    )
+
+    cfg = get_config(SSM_ARCH)
+    total = {name: 0 for name in ops.KERNELS}
+    # one prefill: ssd_chunk once per layer, no other kernel (no attention,
+    # no KV leaf to quantize); a decode step launches none
+    per_prefill = {**total, "ssd_chunk": cfg.n_layers}
+    t0 = time.perf_counter()
+    params = init_params(cfg, 1, "cuda")
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    print(
+        f"serve {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, {n_params} params in "
+        f"{cfg.dtype}, init {time.perf_counter() - t0:.1f} s"
+    )
+    check(n_params == 368_338_432, f"{cfg.name}: {n_params} params")
+    rng = np.random.default_rng(1)
+    decode = build_decode_step(cfg)
+
+    def main_run(tokens, qcfg, label):
+        ops.reset_launch_counts()
+        out = serve.run_fixed(cfg, params, tokens, gen=SSM_GEN, qcfg=qcfg)
+        counts = ops.launch_counts()
+        check(counts == per_prefill, f"{label}: launches {counts}")
+        for name, c in counts.items():
+            total[name] += c
+        return out
+
+    for run, (batch, prompt) in SSM_RUNS.items():
+        label = f"({run}) {cfg.name} batch {batch} x prompt {prompt} + {SSM_GEN}"
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt)))
+        tokens = tokens.cuda()
+        max_seq = prompt + SSM_GEN
+        prefill = build_prefill_step(cfg, max_seq)
+
+        # prefill, kernel path vs reference mode: logits and caches
+        logits, caches = prefill(params, tokens)
+        with ops.reference_mode():
+            ref_logits, ref_caches = prefill(params, tokens)
+        _logits_close(logits, ref_logits, label)
+        worst = {}
+        pairs = zip(tree_leaves(caches), tree_leaves(ref_caches), strict=True)
+        for (path, g), (_, w) in pairs:
+            g, w = g.float(), w.float()
+            check(bool(torch.isfinite(g).all()), f"{label}: non-finite {path}")
+            rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            check(rel <= SSM_CACHE_REL_TOL, f"{label}: cache {path} rel {rel:.3e}")
+            worst[path[-1]] = max(worst.get(path[-1], 0.0), rel)
+        print(f"  {label}: prefill caches vs reference mode, max rel {worst}")
+        with ops.reference_mode():
+            ref_toks, ref_gaps = _greedy(
+                cfg, params, ref_logits, ref_caches, prompt, SSM_GEN
+            )
+        del caches, ref_caches
+
+        # the main path: prefill + decode through the launcher's run_fixed
+        out = main_run(tokens, None, label)
+        toks = out["tokens"]
+        check(tuple(toks.shape) == (batch, SSM_GEN), f"{label}: tokens {toks.shape}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{label}: ids")
+        check(bool(torch.isfinite(out["logits"]).all()), f"{label}: logits")
+        same = toks == ref_toks
+        note = ""
+        if not bool(same.all()):
+            row, step = (int(v) for v in (~same).nonzero()[0])
+            gap = float(ref_gaps[row, step])
+            note = (
+                f"; first divergence at row {row} step {step}, where the "
+                f"reference's top-2 logit gap is {gap:.4g}"
+            )
+        print(
+            f"  {label}: greedy tokens equal to the reference-mode run in "
+            f"{int(same.sum())} of {same.numel()}{note}"
+        )
+        leaves = list(tree_leaves(out["caches"]))
+        n_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+        bpt, acc = out["bytes_per_token"], out["bytes_per_token_accounted"]
+        check(bpt == acc == n_bytes / (batch * max_seq), f"{label}: {bpt} vs {acc}")
+        if run == "g1":
+            check(bpt == SSM_G1_BYTES_PER_TOKEN, f"{label}: bytes/token {bpt}")
+            q8 = main_run(tokens, CacheQuantConfig(bits=8), label + ", q8")
+            check(not tree_is_quantized(q8["caches"]), f"{label}: q8 quantized")
+            check(q8["bytes_per_token"] == bpt, f"{label}: q8 bytes/token")
+            check(torch.equal(q8["tokens"], toks), f"{label}: q8 changed tokens")
+            print(f"  {label}: --cache-bits 8 leaves the cache raw, tokens equal")
+        print(
+            f"  {label}: {bpt:.3f} bytes/token measured = accounted; prefill "
+            f"{out['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{batch * (SSM_GEN - 1) / out['decode_s']:.1f} tokens/s; {card}"
+        )
+
+        # where the time goes: each step eager against a CUDA-graph replay
+        caches, last = out["caches"], toks[:, -1:].contiguous()
+        steps = {
+            "prefill": lambda: prefill(params, tokens),
+            "decode_step": lambda: decode(params, caches, last, max_seq - 1),
+        }
+        for step, fn in steps.items():
+            h_ms, g_ms = host_ms(fn), cuda_ms(fn, 1)
+            emit(
+                {
+                    "split": f"mamba_{step}_{run}",
+                    "card": card,
+                    "host_ms": h_ms,
+                    "graph_ms": g_ms,
+                    "idle_share": 1 - g_ms / h_ms,
+                }
+            )
+            if run == "g1":
+                _kernel_split(f"mamba_{step}_{run}", card, device_ms_by_kernel(fn))
+        emit(
+            {
+                "serve": f"mamba_{run}",
+                "card": card,
+                "prefill_ms": out["prefill_s"] * 1e3,
+                "decode_tokens_per_s": batch * (SSM_GEN - 1) / out["decode_s"],
+                "bytes_per_token": bpt,
+                "bytes_per_token_accounted": acc,
+                "tokens_equal_reference": int(same.sum()),
+                "tokens": same.numel(),
+            }
+        )
+        del out, caches
+    return total
+
+
 KERNEL_INFO = {
     "log_quantize": (
         "triton",
@@ -839,6 +1130,11 @@ KERNEL_INFO = {
         "src/repro_torch/kernels/log_quant.py",
         "src/repro/kernels/log_quant.py:258",
     ),
+    "ssd_chunk": (
+        "cuda",
+        "src/repro_torch/csrc/ssd_chunk.cu",
+        "src/repro/kernels/ssd_chunk.py:45",
+    ),
 }
 
 
@@ -848,8 +1144,9 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = phase_kernels(gen)
     launches = phase_serve(card, gen)
-    for name, c in phase_train(card).items():
-        launches[name] += c
+    for phase in (phase_train, phase_ssm):
+        for name, c in phase(card).items():
+            launches[name] += c
     kernels = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
         entry = {

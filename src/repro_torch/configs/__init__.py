@@ -1,14 +1,15 @@
 """Config registry of the port.
 
 ``get_config("gemma3-1b")`` is the full model, ``smoke=True`` its reduced
-variant for CPU tests. The JAX package knows nine more architectures; they
-need kernels and layers (Mamba-2/SSD, MLA, MoE) that later slices port, so
-asking for one raises ``NotImplementedError`` naming that slice.
+variant for CPU tests. The port serves gemma3-1b and mamba2-370m. The JAX
+package knows eight more architectures; they need layers (MLA, MoE,
+multimodal stubs, multi-codebook heads) that later slices port, so asking
+for one raises ``NotImplementedError`` naming that slice.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import gemma3_1b
+from repro_torch.configs import gemma3_1b, mamba2_370m
 from repro_torch.configs.base import (
     INPUT_SHAPES,
     InputShape,
@@ -18,12 +19,11 @@ from repro_torch.configs.base import (
     mamba,
 )
 
-ARCHS = {"gemma3-1b": gemma3_1b}
+ARCHS = {"gemma3-1b": gemma3_1b, "mamba2-370m": mamba2_370m}
 
 # architectures of the JAX package and the port slice that brings each one
 LATER_SLICES = {
-    "mamba2-370m": "the SSM slice (ssd_chunk kernel, Mamba-2 layers)",
-    "jamba-v0.1-52b": "the SSM slice (Mamba-2 layers) and the MoE layers",
+    "jamba-v0.1-52b": "the LM training-stack slice (MoE layers)",
     "deepseek-v3-671b": "the LM training-stack slice (MLA, MoE, MTP)",
     "qwen2-72b": "the LM training-stack slice (model zoo)",
     "mixtral-8x7b": "the LM training-stack slice (MoE layers)",

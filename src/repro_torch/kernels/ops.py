@@ -26,6 +26,7 @@ from repro_torch.kernels.log_quant import (
     log_quantize_triton,
     pack_nibbles_triton,
 )
+from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
 
 __all__ = [
     "KERNELS",
@@ -35,6 +36,7 @@ __all__ = [
     "log_dequantize",
     "pack_nibbles",
     "flash_attention",
+    "ssd_chunk",
     "reference_mode",
     "launch_counts",
     "reset_launch_counts",
@@ -48,6 +50,7 @@ KERNELS = {
     "flash_attention": flash_attention_cuda,
     "pack_nibbles": pack_nibbles_triton,
     "log_dequantize": log_dequantize_triton,
+    "ssd_chunk": ssd_chunk_cuda,
 }
 
 _reference = False
@@ -151,3 +154,18 @@ def flash_attention(
         window=window,
         sm_scale=sm_scale,
     )
+
+
+def ssd_chunk(
+    x: torch.Tensor, a_cum: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor
+) -> torch.Tensor:
+    """Mamba-2's intra-chunk term: x (B, H, NC, Q, P), a_cum (B, H, NC, Q),
+    bm/cm (B, G, NC, Q, N) with H % G == 0, head h reading group
+    h // (H // G) -> float32 (B, H, NC, Q, P). The kernel reads the groups
+    in place; the plain version takes them broadcast to heads."""
+    if _plain(x):
+        rep = x.shape[1] // bm.shape[1]
+        if rep > 1:
+            bm, cm = bm.repeat_interleave(rep, 1), cm.repeat_interleave(rep, 1)
+        return ref.ssd_chunk_ref(x, a_cum, bm, cm)
+    return ssd_chunk_cuda(x, a_cum, bm, cm)

@@ -21,6 +21,7 @@ __all__ = [
     "pack_nibbles_ref",
     "attention_ref",
     "chunked_attention_ref",
+    "ssd_chunk_ref",
 ]
 
 
@@ -137,3 +138,22 @@ def chunked_attention_ref(
         logits = logits.masked_fill(~m, -1e30)
         outs.append(torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, -1), v32))
     return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def ssd_chunk_ref(
+    x: torch.Tensor, a_cum: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor
+) -> torch.Tensor:
+    """Mamba-2's intra-chunk term per (batch, head, chunk) cell, in f32:
+    ``(C B^T * L) X`` with L[i, j] = exp(a_cum[i] - a_cum[j]) for i >= j and
+    0 above the diagonal (the exponent is masked to -inf first, so no masked
+    entry is ever multiplied as inf * 0).
+
+    x (B, H, NC, Q, P), a_cum (B, H, NC, Q), bm/cm (B, H, NC, Q, N), groups
+    broadcast to heads -> (B, H, NC, Q, P) float32."""
+    q = a_cum.shape[-1]
+    a = a_cum.float()
+    seg = a[..., :, None] - a[..., None, :]
+    causal = torch.ones((q, q), dtype=torch.bool, device=a.device).tril()
+    decay = torch.exp(seg.masked_fill(~causal, float("-inf")))
+    s = torch.einsum("bhcqn,bhckn->bhcqk", cm.float(), bm.float())
+    return torch.einsum("bhcqk,bhckp->bhcqp", s * decay, x.float())

@@ -7,7 +7,10 @@
 requests the same length); ``continuous`` runs the paged admit/decode/retire
 loop (per-request lengths, slot reuse). ``--cache-bits 4|8`` stores the KV
 cache as log-quant codes + per-row scales; 0 keeps the raw
-``--cache-dtype``. Runs on the card unless ``--device cpu`` is given;
+``--cache-dtype``. ``--arch mamba2-370m`` serves with the fixed scheduler
+only (the continuous one refuses SSM stacks, as the JAX package's does),
+and its cache, a conv window and an SSM state per layer, stays raw
+whatever ``--cache-bits``. Runs on the card unless ``--device cpu`` is given;
 weights come from a seeded init. :func:`run_fixed` and
 :func:`run_continuous` are the two paths as functions, for callers that
 bring their own weights and prompts.

@@ -1,7 +1,8 @@
-"""Decoder layers: attention mixer + dense FFN, pre-norm residual.
+"""Decoder layers: (attention | Mamba-2) mixer + optional dense FFN, pre-norm
+residual.
 
-Mamba-2 mixers, MLA attention and MoE FFNs are not ported yet; asking for
-one raises ``NotImplementedError`` naming the slice that brings it.
+MLA attention and MoE FFNs are not ported yet; asking for one raises
+``NotImplementedError`` naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.attention import attn_forward, init_attn, init_attn_cache
 from repro_torch.models.common import rms_norm
 from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.ssm import init_mamba, init_mamba_cache, mamba_forward
 
 __all__ = ["init_layer", "init_layer_cache", "layer_forward", "has_ffn"]
 
@@ -21,9 +23,7 @@ Params = dict[str, Any]
 
 
 def _check_ported(spec: LayerSpec, cfg: ModelConfig) -> None:
-    if spec.kind == "mamba":
-        raise NotImplementedError("Mamba-2 layers come with the SSM slice")
-    if cfg.use_mla:
+    if spec.kind == "attn" and cfg.use_mla:
         raise NotImplementedError("MLA attention comes with the LM training slice")
     if spec.moe:
         raise NotImplementedError("MoE FFNs come with the LM training slice")
@@ -38,10 +38,11 @@ def init_layer(
 ) -> Params:
     _check_ported(spec, cfg)
     d = cfg.d_model
-    p: Params = {
-        "ln1": torch.zeros(d, device=device),
-        "mixer": init_attn(gen, cfg, device),
-    }
+    p: Params = {"ln1": torch.zeros(d, device=device)}
+    if spec.kind == "attn":
+        p["mixer"] = init_attn(gen, cfg, device)
+    else:
+        p["mixer"] = init_mamba(gen, cfg, device)
     if has_ffn(spec, cfg):
         p["ln2"] = torch.zeros(d, device=device)
         p["ffn"] = init_mlp(gen, d, cfg.d_ff, device)
@@ -58,8 +59,11 @@ def init_layer_cache(
 ) -> Params:
     """A full ``max_seq`` buffer for every attention layer, sliding-window
     ones included: the JAX package does not cap SWA caches at the window,
-    and bytes/token are compared with it."""
+    and bytes/token are compared with it. A Mamba-2 layer's cache is its
+    conv window and SSM state, whatever ``max_seq``."""
     _check_ported(spec, cfg)
+    if spec.kind == "mamba":
+        return init_mamba_cache(cfg, batch, dtype, device)
     return init_attn_cache(cfg, batch, max_seq, dtype, device)
 
 
@@ -76,15 +80,18 @@ def layer_forward(
     """Pre-norm residual block. Returns (x, cache)."""
     _check_ported(spec, cfg)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    mix, cache = attn_forward(
-        p["mixer"],
-        h,
-        spec,
-        cfg,
-        positions=positions,
-        cache=cache,
-        cache_index=cache_index,
-    )
+    if spec.kind == "attn":
+        mix, cache = attn_forward(
+            p["mixer"],
+            h,
+            spec,
+            cfg,
+            positions=positions,
+            cache=cache,
+            cache_index=cache_index,
+        )
+    else:
+        mix, cache = mamba_forward(p["mixer"], h, cfg, cache=cache)
     x = x + mix
     if has_ffn(spec, cfg):
         x = x + mlp_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.mlp_act)

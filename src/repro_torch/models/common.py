@@ -11,6 +11,7 @@ import torch.nn.functional as F
 __all__ = [
     "resolve_device",
     "rms_norm",
+    "gated_rms_norm",
     "act_fn",
     "dense_init",
     "embed_init",
@@ -39,6 +40,14 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + weight.float())).to(x.dtype)
+
+
+def gated_rms_norm(
+    x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """Mamba-2's norm before out_proj: rms_norm(x * silu(gate)), the gate's
+    silu in f32 and cast to x's dtype before the product."""
+    return rms_norm(x * F.silu(gate.float()).to(x.dtype), weight, eps)
 
 
 def act_fn(name: str):

@@ -1,13 +1,14 @@
-"""TransformerLM: embed -> layers -> final norm -> tied head.
+"""The LM: embed -> layers (attention or Mamba-2 mixers) -> final norm -> tied head.
 
 The layer stack is ``lead + pattern * repeats + tail`` (configs/base.py),
 run as one Python loop. Parameters are a dict ``{"embed", "layers",
 "final_norm"}`` with ``layers`` in execution order and every weight in the
 JAX layout (d_in, d_out), applied as ``x @ w``; ``repro_torch.weights``
 converts the JAX package's stacked pytree into it. Caches keep the JAX tree
-layout (``lead``/``scan``/``tail``, scan leaves stacked by repeat); each
-layer works on views of its slice, so prefill and decode fill the cache in
-place.
+layout (``lead``/``scan``/``tail``, scan leaves stacked by repeat: K/V rows
+for an attention layer, the conv window and SSM state ``{"conv", "ssm"}``
+for a Mamba-2 layer); each layer works on views of its slice, so prefill
+and decode fill the cache in place.
 
 Modes (same function, driven by the cache arguments):
   * train:   caches=None                      -> logits

@@ -21,6 +21,7 @@ from repro_torch.core.quantization import f32_div
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
 from repro_torch.kernels.log_quant import (
     log_dequantize_rows_triton,
     log_dequantize_triton,
@@ -179,16 +180,65 @@ def test_flash_attention_kernel(cuda, b, hq, hkv, s, d, window, dtype):
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=0)
 
 
+def _ssd_inputs(gen, b, h, g, nc, q, p, n):
+    """x, a_cum, B, C as the model hands them to the kernel: permuted views of
+    (B, NC, Q, H, P), (B, NC, Q, H) and (B, NC, Q, G, N), not copies. a_cum
+    falls to about -200 within a chunk of 256, as dt * A does in mamba2-370m,
+    so the decay underflows to 0 where it does in the model."""
+    x = torch.randn((b, nc, q, h, p), generator=gen, device="cuda")
+    a = -torch.rand((b, nc, q, h), generator=gen, device="cuda") * 1.6
+    bm = torch.randn((b, nc, q, g, n), generator=gen, device="cuda")
+    cm = torch.randn((b, nc, q, g, n), generator=gen, device="cuda")
+    a_cum = torch.cumsum(a.permute(0, 3, 1, 2), dim=-1)
+    heads_first = (0, 3, 1, 2, 4)
+    return x.permute(heads_first), a_cum, bm.permute(heads_first), cm.permute(heads_first)
+
+
+@pytest.mark.parametrize("nc", [1, 5])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("p", [8, 64])
+@pytest.mark.parametrize("n", [16, 128])
+@pytest.mark.parametrize("q", [16, 64, 100, 256])
+def test_ssd_chunk_kernel(cuda, q, n, p, groups, nc):
+    """Against the plain version on the groups broadcast to heads (jnp.repeat's
+    order), f32: max abs error <= 1e-4 of max |Y|. Both sum up to N + Q f32
+    products per entry in other orders; K eps for K = 384 is 2.3e-5."""
+    x, a_cum, bm, cm = _ssd_inputs(cuda, 2, 4, groups, nc, q, p, n)
+    before = ssd_chunk_cuda.launches
+    got = ssd_chunk_cuda(x, a_cum, bm, cm)
+    assert ssd_chunk_cuda.launches == before + 1
+    rep = 4 // groups
+    want = ref.ssd_chunk_ref(
+        x, a_cum, bm.repeat_interleave(rep, 1), cm.repeat_interleave(rep, 1)
+    )
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert got.is_contiguous()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+def test_ssd_chunk_kernel_refuses_what_a_block_cannot_hold(cuda):
+    x, a_cum, bm, cm = _ssd_inputs(cuda, 1, 2, 1, 1, 16, 128, 16)
+    with pytest.raises(ValueError, match="P 128"):
+        ssd_chunk_cuda(x, a_cum, bm, cm)
+    x, a_cum, bm, cm = _ssd_inputs(cuda, 1, 2, 1, 1, 16, 8, 16)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_chunk_cuda(x.double(), a_cum, bm, cm)
+
+
 def test_dispatch_launches_kernels_and_reference_mode_does_not(cuda):
     x = torch.randn(1024, generator=cuda, device="cuda")
+    ssd = _ssd_inputs(cuda, 1, 2, 1, 2, 16, 8, 16)
     ops.reset_launch_counts()
     ops.log_quantize(x, 1.0)
     ops.log_dequantize(x)
     ops.pack_nibbles(torch.zeros(9, dtype=torch.int8, device="cuda"))
+    ops.ssd_chunk(*ssd)
     with ops.reference_mode():
         ops.log_quantize(x, 1.0)
         ops.log_dequantize(x)
         ops.pack_nibbles(torch.zeros(9, dtype=torch.int8, device="cuda"))
+        ops.ssd_chunk(*ssd)
     counts = ops.launch_counts()
     assert counts["log_quantize"] == counts["log_dequantize"] == 1
-    assert counts["pack_nibbles"] == 1
+    assert counts["pack_nibbles"] == counts["ssd_chunk"] == 1

@@ -102,6 +102,11 @@ def plain_forbidden(monkeypatch):
         lambda: ops.flash_attention(*[_fake(torch.randn(1, 2, 8, 32))] * 3),
         lambda: ops.log_dequantize(_fake(torch.randn(4608, 1)), bits=8),
         lambda: ops.pack_nibbles(_fake(torch.zeros(64, dtype=torch.int8))),
+        lambda: ops.ssd_chunk(
+            _fake(torch.randn(1, 2, 1, 16, 8)),
+            _fake(torch.zeros(1, 2, 1, 16)),
+            *[_fake(torch.randn(1, 1, 1, 16, 4))] * 2,
+        ),
     ],
     ids=[
         "log_quantize",
@@ -110,6 +115,7 @@ def plain_forbidden(monkeypatch):
         "flash_attention",
         "log_dequantize",
         "pack_nibbles",
+        "ssd_chunk",
     ],
 )
 def test_cuda_tensor_never_takes_the_plain_version(plain_forbidden, call):

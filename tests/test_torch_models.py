@@ -288,16 +288,20 @@ def test_swa_caches_are_not_capped_at_the_window():
 
 
 @pytest.mark.parametrize(
-    "kw,slice_name",
+    "spec_kw,cfg_kw,slice_name",
     [
-        (dict(kind="mamba"), "SSM slice"),
-        (dict(moe=True), "LM training slice"),
+        # this case asked for a Mamba-2 layer until the SSM slice ported it;
+        # it keeps its id and now asks for MLA attention, which still raises
+        pytest.param({}, dict(use_mla=True), "LM training slice", id="kw0-SSM slice"),
+        pytest.param(dict(moe=True), {}, "LM training slice", id="kw1-LM training slice"),
     ],
 )
-def test_unported_layers_raise_naming_their_slice(kw, slice_name):
+def test_unported_layers_raise_naming_their_slice(spec_kw, cfg_kw, slice_name):
+    import dataclasses
+
     from repro_torch.configs.base import LayerSpec
     from repro_torch.models.blocks import init_layer
 
-    cfg = get_config("gemma3-1b", smoke=True)
+    cfg = dataclasses.replace(get_config("gemma3-1b", smoke=True), **cfg_kw)
     with pytest.raises(NotImplementedError, match=slice_name):
-        init_layer(torch.Generator(), LayerSpec(**kw), cfg, "cpu")
+        init_layer(torch.Generator(), LayerSpec(**spec_kw), cfg, "cpu")
