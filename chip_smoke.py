@@ -19,7 +19,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel of its path; bytes/token must equal the wire accounting; logits
    must be finite; prefill logits must match the same forward in reference
    mode, and decode from the same caches in reference mode must give every
-   request the same tokens and leave the same caches;
+   request the same tokens and leave the same caches; torch.profiler splits
+   the device time of (a)'s prefill and (b)'s decode step by kernel;
 5. train ResNet-18 at full width, the paper's layout (5 workers x 128
    images, 32x32x3, 10 classes, seeded init, f32 with TF32 off), a few
    steps each of (d) LQ-SGD rank 1, b = 8, (e) LQ-SGD rank 1, b = 4 and
@@ -101,6 +102,11 @@ CIFAR_TRAIN_IMAGES = 50_000
 # bound then is twice that change. QSGD's path differs only in the exact
 # pack, so its bytes, gradients and parameters must be equal.
 ALPHA = 10.0
+
+# the hand-written kernels of a gemma3-1b step, by a substring of the kernel
+# name the profiler reports, for the step's device time by kernel
+GEMMA_KERNELS = {"flash_attention": "flash_fwd", "dequant": "dequant_rows"}
+MATMUL_KERNELS = ("gemm", "gemv", "cutlass", "xmma", "nvjet")  # cuBLAS
 
 SSM_ARCH = "mamba2-370m"
 # (g1) batch 4, prompt 1024 (4 chunks of 256); (g2) prompt 1000, a ragged
@@ -243,8 +249,6 @@ def phase_build():
     x = torch.randn(4096, device="cuda")
     codes = log_quant.log_quantize_triton(x, 1.0, bits=8)
     log_quant.log_quantize_pack_triton(x, 1.0, bits=4)
-    scales = torch.ones(16, 1, device="cuda")
-    log_quant.log_dequantize_rows_triton(codes.view(16, 256), scales, bits=8)
     log_quant.log_dequantize_triton(x, 1.0, bits=8)
     log_quant.pack_nibbles_triton(codes.clamp(-8, 7))
     torch.cuda.synchronize()
@@ -289,8 +293,8 @@ def phase_kernels(gen):
     from repro_torch.core.codec import unpack_nibbles
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.log_dequant_rows import log_dequantize_rows_cuda
     from repro_torch.kernels.log_quant import (
-        log_dequantize_rows_triton,
         log_dequantize_triton,
         log_quantize_pack_triton,
         log_quantize_triton,
@@ -356,7 +360,7 @@ def phase_kernels(gen):
     s2 = layer_scale.reshape(r, 1).contiguous()
     errs = {}
     for bits, c in ((8, codes8.reshape(r, d)), (4, packed4.reshape(r, d // 2))):
-        got = log_dequantize_rows_triton(c, s2, bits=bits)
+        got = log_dequantize_rows_cuda(c, s2, bits=bits)
         want = ref.log_dequantize_rows_ref(c, s2, bits, 10.0)
         rel = (got - want).abs() / want.abs().clamp_min(1e-30)
         rel = rel.masked_fill(want == 0, 0)
@@ -367,7 +371,7 @@ def phase_kernels(gen):
         b_ms, b_by = bound_ms(r * nb + r * 4 + r * d * 4, r * d * DEQUANT_OPS, "f32")
         res = dict(
             max_abs_err=errs[bits],
-            ms=cuda_ms(lambda: log_dequantize_rows_triton(c, s2, bits=bits), 50),
+            ms=cuda_ms(lambda: log_dequantize_rows_cuda(c, s2, bits=bits), 50),
             plain_ms=cuda_ms(
                 lambda: ref.log_dequantize_rows_ref(c, s2, bits, 10.0), 20
             ),
@@ -661,6 +665,10 @@ def phase_serve(card, gen):
                     "graph_ms": cuda_ms(fn, 1),
                 }
             )
+            if (variant, step) in (("a", "prefill"), ("b", "decode_step")):
+                _kernel_split(
+                    f"{step}_q{bits}", card, device_ms_by_kernel(fn), GEMMA_KERNELS
+                )
         emit(
             {
                 "serve": f"fixed_q{bits}",
@@ -927,22 +935,31 @@ def _greedy(cfg, params, logits, caches, prompt, n):
     return torch.cat(toks, dim=1), torch.stack(gaps, dim=1)
 
 
-def _kernel_split(label, card, by_name):
-    """Print and emit one step's device time: the SSD kernel, the matmuls
-    (cuBLAS), everything else, and the eight longest kernels."""
+def kernel_groups(by_name, kernels):
+    """Device ms of :func:`device_ms_by_kernel`'s kernels by group: each of
+    ``kernels`` (group name -> a substring of its kernel's name), the
+    matmuls (cuBLAS) and everything else."""
+    groups = dict.fromkeys([*kernels, "matmul", "other"], 0.0)
+    for name, (ms, _) in by_name.items():
+        low = name.lower()
+        mine = [group for group, key in kernels.items() if key in low]
+        if mine:
+            groups[mine[0]] += ms
+        elif any(k in low for k in MATMUL_KERNELS):
+            groups["matmul"] += ms
+        else:
+            groups["other"] += ms
+    return groups
+
+
+def _kernel_split(label, card, by_name, kernels):
+    """Print and emit one step's device time by :func:`kernel_groups` and
+    its eight longest kernels."""
     total = sum(ms for ms, _ in by_name.values())
     if not total:
         print(f"  {label}: device time by kernel not measured (no device events)")
         return
-    groups = {"ssd_chunk": 0.0, "matmul": 0.0, "other": 0.0}
-    for name, (ms, _) in by_name.items():
-        low = name.lower()
-        if "ssd_chunk" in low:
-            groups["ssd_chunk"] += ms
-        elif any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
-            groups["matmul"] += ms
-        else:
-            groups["other"] += ms
+    groups = kernel_groups(by_name, kernels)
     n = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     print(
@@ -1082,7 +1099,12 @@ def phase_ssm(card):
                 }
             )
             if run == "g1":
-                _kernel_split(f"mamba_{step}_{run}", card, device_ms_by_kernel(fn))
+                _kernel_split(
+                    f"mamba_{step}_{run}",
+                    card,
+                    device_ms_by_kernel(fn),
+                    {"ssd_chunk": "ssd_chunk"},
+                )
         emit(
             {
                 "serve": f"mamba_{run}",
@@ -1111,8 +1133,8 @@ KERNEL_INFO = {
         "src/repro/kernels/log_quant.py:153",
     ),
     "log_dequantize_rows": (
-        "triton",
-        "src/repro_torch/kernels/log_quant.py",
+        "cuda",
+        "src/repro_torch/csrc/log_dequant_rows.cu",
         "src/repro/kernels/log_quant.py:215",
     ),
     "flash_attention": (

@@ -1,10 +1,15 @@
 """Prefill attention on Hopper: the wrapper of ``csrc/flash_attention.cu``.
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention_pallas``.
-The kernel is bound by operations (see the note at the top of the source);
-this first version is scalar f32 FMA with an online softmax, one block per
-(32-row query tile, head, batch), visiting only the key tiles inside the
-causal window. Its plain version is ``repro_torch.kernels.ref.attention_ref``.
+The kernel is bound by operations: about 400 FLOP a byte at gemma3-1b's
+prefill shape, above the card's bf16 ridge (see the note at the top of the
+source). So bf16 inputs go to the tensor cores: one block of 4 warps per
+(64-row query tile, head, batch), S = Q K^T and O += P V by ``mma.sync``
+m16n8k16 from ``ldmatrix`` operands, 64-key K/V tiles double-buffered in
+shared memory by ``cp.async``, the online softmax in f32 registers, only
+the key tiles inside the causal window visited, the heaviest query tiles
+launched first. f32 inputs, which no serving path gives it, take a scalar
+f32 FMA kernel. Its plain version is ``repro_torch.kernels.ref.attention_ref``.
 """
 
 from __future__ import annotations

@@ -1,32 +1,30 @@
 """Triton kernels of the log-quant codec on Hopper: encode, fused encode +
-nibble pack, the row-scaled dequant of the KV-cache read, the dequant of
-the training wire (the expand of averaged codes) and the bare nibble pack.
+nibble pack, the dequant of the training wire (the expand of averaged
+codes) and the bare nibble pack. (The row dequant of the KV-cache read is
+CUDA C++: ``kernels/log_dequant_rows.py``.)
 
 Replaces, in ``src/repro/kernels/log_quant.py``:
 
 * ``log_quantize_pallas``        -> :func:`log_quantize_triton`
 * ``pack_nibbles_pallas``        -> :func:`pack_nibbles_triton`
 * ``log_quantize_pack_pallas``   -> :func:`log_quantize_pack_triton`
-* ``log_dequantize_rows_pallas`` -> :func:`log_dequantize_rows_triton`
 * ``log_dequantize_pallas``      -> :func:`log_dequantize_triton`
 
 What bounds them on the H100: bytes. Each is one elementwise pass with no
 reuse: 4 bytes read and 1 (b=8) or 1/2 (b=4) written per value for the
-encodes, 1 or 1/2 read and 4 written per value for the row dequant, 4 read
-and 4 written for the wire dequant (its input is the f32 mean of gathered
-codes), 1 read and 1/2 written for the pack, against a few dozen
-operations; far below the card's ridge of ~20 f32 FLOP per byte.
+encodes, 4 read and 4 written for the wire dequant (its input is the f32
+mean of gathered codes), 1 read and 1/2 written for the pack, against a few
+dozen operations; far below the card's ridge of ~20 f32 FLOP per byte.
 
 What the design does about it: one program per block of 2048 flat elements
-(2048 packed bytes for the packs, 4096 codes' worth of rows for the row
-dequant), masked loads and stores so nothing is padded, codes built in
-registers and written once in their final container: int8 codes, or two
-nibbles per byte, so the codes never round-trip through device memory
-between quantize and pack. Rounding is ``libdevice.rint`` (half to even,
-like ``jnp.round``) and every division is ``div_rn`` (IEEE), so the
-arithmetic matches the plain version op for op; only the last ulp of
-``log1p``/``expm1`` may differ between the device's libdevice and the
-host's math library.
+(2048 packed bytes for the packs), masked loads and stores so nothing is
+padded, codes built in registers and written once in their final
+container: int8 codes, or two nibbles per byte, so the codes never
+round-trip through device memory between quantize and pack. Rounding is
+``libdevice.rint`` (half to even, like ``jnp.round``) and every division is
+``div_rn`` (IEEE), so the arithmetic matches the plain version op for op;
+only the last ulp of ``log1p``/``expm1`` may differ between the device's
+libdevice and the host's math library.
 
 Triton is imported when a kernel is first launched, never at module import,
 so the CPU tests import this module without it. (No ``from __future__
@@ -43,13 +41,11 @@ from repro_torch.core.quantization import LogQuantConfig, code_dtype, f32_log1p
 __all__ = [
     "log_quantize_triton",
     "log_quantize_pack_triton",
-    "log_dequantize_rows_triton",
     "log_dequantize_triton",
     "pack_nibbles_triton",
 ]
 
 _BLOCK = 2048
-_ROW_TILE = 4096  # codes per dequant program: rows * padded row width
 _FLOAT_IN = (torch.float32, torch.bfloat16)
 # the wire dequant takes integer codes or the f32 mean of gathered codes
 _CODES_IN = (torch.float32, torch.bfloat16, torch.int8, torch.int16)
@@ -106,41 +102,6 @@ def _kernels() -> SimpleNamespace:
         tl.store(o_ptr + offs, byte.to(tl.int8), mask=offs < n_bytes)
 
     @triton.jit
-    def dequant_rows(
-        c_ptr,
-        s_ptr,
-        o_ptr,
-        n_rows,
-        n_bytes,
-        alpha,
-        log1p_alpha,
-        levels,
-        PACKED: tl.constexpr,
-        BLOCK_R: tl.constexpr,
-        BLOCK_C: tl.constexpr,
-    ):
-        rows = tl.program_id(0).to(tl.int64) * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.arange(0, BLOCK_C)
-        rm = rows < n_rows
-        m = rm[:, None] & (cols[None, :] < n_bytes)
-        v = tl.load(c_ptr + rows[:, None] * n_bytes + cols[None, :], mask=m, other=0)
-        v = v.to(tl.int32)
-        s = tl.load(s_ptr + rows, mask=rm, other=0.0)[:, None]
-        if PACKED:
-            v = v & 0xFF
-            lo = ((v & 0xF) ^ 8) - 8  # sign-extend each 4-bit nibble
-            hi = (((v >> 4) & 0xF) ^ 8) - 8
-            out = o_ptr + rows[:, None] * (2 * n_bytes) + 2 * cols[None, :]
-            val_lo = _log_value(lo.to(tl.float32), alpha, log1p_alpha, levels) * s
-            val_hi = _log_value(hi.to(tl.float32), alpha, log1p_alpha, levels) * s
-            tl.store(out, val_lo, mask=m)
-            tl.store(out + 1, val_hi, mask=m)
-        else:
-            out = o_ptr + rows[:, None] * n_bytes + cols[None, :]
-            val = _log_value(v.to(tl.float32), alpha, log1p_alpha, levels) * s
-            tl.store(out, val, mask=m)
-
-    @triton.jit
     def dequant(
         c_ptr, o_ptr, n, scale, alpha, log1p_alpha, levels, BLOCK: tl.constexpr
     ):
@@ -164,7 +125,6 @@ def _kernels() -> SimpleNamespace:
     return SimpleNamespace(
         quantize=quantize,
         quantize_pack=quantize_pack,
-        dequant_rows=dequant_rows,
         dequant=dequant,
         pack=pack,
     )
@@ -224,42 +184,6 @@ def log_quantize_pack_triton(
     return out
 
 
-def log_dequantize_rows_triton(
-    packed: torch.Tensor, scales: torch.Tensor, *, bits: int = 8, alpha: float = 10.0
-) -> torch.Tensor:
-    """(R, nbytes) int8 codes + (R, 1) f32 scales -> (R, d) f32, where
-    d = 2 * nbytes for nibble-packed b <= 4 and d = nbytes for b = 8."""
-    _check_cuda(packed, "packed", (torch.int8,))
-    _check_cuda(scales, "scales", (torch.float32,))
-    if packed.dim() != 2 or scales.shape != (packed.shape[0], 1):
-        raise ValueError(
-            f"want (R, nbytes) codes + (R, 1) scales, got "
-            f"{tuple(packed.shape)} / {tuple(scales.shape)}"
-        )
-    r, nb = packed.shape
-    is_packed = bits <= 4
-    out = torch.empty(
-        (r, 2 * nb if is_packed else nb), dtype=torch.float32, device=packed.device
-    )
-    if r and nb:
-        block_c = max(16, 1 << (nb - 1).bit_length())
-        block_r = max(1, _ROW_TILE // block_c)
-        grid = (_cdiv(r, block_r),)
-        _kernels().dequant_rows[grid](
-            packed,
-            scales,
-            out,
-            r,
-            nb,
-            *_consts(bits, alpha),
-            PACKED=is_packed,
-            BLOCK_R=block_r,
-            BLOCK_C=block_c,
-        )
-        log_dequantize_rows_triton.launches += 1
-    return out
-
-
 def log_dequantize_triton(
     codes: torch.Tensor, scale: float, *, bits: int = 8, alpha: float = 10.0
 ) -> torch.Tensor:
@@ -297,6 +221,5 @@ def _cdiv(n: int, block: int) -> int:
 
 log_quantize_triton.launches = 0
 log_quantize_pack_triton.launches = 0
-log_dequantize_rows_triton.launches = 0
 log_dequantize_triton.launches = 0
 pack_nibbles_triton.launches = 0

@@ -19,8 +19,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.log_dequant_rows import log_dequantize_rows_cuda
 from repro_torch.kernels.log_quant import (
-    log_dequantize_rows_triton,
     log_dequantize_triton,
     log_quantize_pack_triton,
     log_quantize_triton,
@@ -46,7 +46,7 @@ __all__ = [
 KERNELS = {
     "log_quantize": log_quantize_triton,
     "log_quantize_pack": log_quantize_pack_triton,
-    "log_dequantize_rows": log_dequantize_rows_triton,
+    "log_dequantize_rows": log_dequantize_rows_cuda,
     "flash_attention": flash_attention_cuda,
     "pack_nibbles": pack_nibbles_triton,
     "log_dequantize": log_dequantize_triton,
@@ -110,7 +110,7 @@ def log_dequantize_rows(
 ) -> torch.Tensor:
     if _plain(packed):
         return ref.log_dequantize_rows_ref(packed, scales, bits, alpha)
-    return log_dequantize_rows_triton(packed, scales, bits=bits, alpha=alpha)
+    return log_dequantize_rows_cuda(packed, scales, bits=bits, alpha=alpha)
 
 
 def log_dequantize(

@@ -21,9 +21,9 @@ from repro_torch.core.quantization import f32_div
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.log_dequant_rows import log_dequantize_rows_cuda
 from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
 from repro_torch.kernels.log_quant import (
-    log_dequantize_rows_triton,
     log_dequantize_triton,
     log_quantize_pack_triton,
     log_quantize_triton,
@@ -103,18 +103,31 @@ def test_zero_scale_reads_as_one(cuda):
     assert torch.equal(log_quantize_triton(x, 0.0), ref.log_quantize_ref(x, 0.0, 8, 10.0))
 
 
-@pytest.mark.parametrize("bits,r,nb", [(8, 4224, 256), (4, 4224, 128), (4, 37, 4), (8, 5, 33)])
+@pytest.mark.parametrize(
+    "bits,r,nb",
+    [(8, 4224, 256), (4, 4224, 128), (4, 37, 4), (8, 5, 33), (4, 300, 37)],
+)
 def test_log_dequantize_rows_kernel(cuda, bits, r, nb):
-    """Relative error <= 1e-6 (expm1 of the device and of torch)."""
+    """Relative error <= 1e-6 (expm1 of the device and of torch), so zeros
+    stay where they were. Widths that are no multiple of 16 bytes (4, 33,
+    37) find each byte's row, and their last bytes take the scalar tail."""
     c = torch.randint(-128, 128, (r, nb), generator=cuda, device="cuda").to(torch.int8)
     if bits == 8:
         c = c.clamp(-127, 127)
     s = torch.rand((r, 1), generator=cuda, device="cuda") * 3
     s[0] = 0
-    got = log_dequantize_rows_triton(c, s, bits=bits)
+    before = log_dequantize_rows_cuda.launches
+    got = log_dequantize_rows_cuda(c, s, bits=bits)
+    assert log_dequantize_rows_cuda.launches == before + 1
     want = ref.log_dequantize_rows_ref(c, s, bits, 10.0)
     assert got.shape == want.shape
     assert bool(((got - want).abs() <= 1e-6 * want.abs()).all())
+
+
+def test_log_dequantize_rows_kernel_refuses_unaligned_codes(cuda):
+    c = torch.zeros(4 * 64 + 1, dtype=torch.int8, device="cuda")[1:].view(4, 64)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        log_dequantize_rows_cuda(c, torch.ones((4, 1), device="cuda"), bits=8)
 
 
 @pytest.mark.parametrize(
@@ -163,17 +176,24 @@ def test_log_dequantize_kernel(cuda, shape, bits, kind):
 @pytest.mark.parametrize(
     "b,hq,hkv,s,d",
     [(1, 2, 2, 64, 32), (2, 4, 2, 128, 64), (1, 8, 1, 96, 64), (1, 4, 4, 33, 128),
-     (1, 4, 1, 1, 256), (2, 4, 1, 300, 256)],
+     (1, 4, 1, 1, 256), (2, 4, 1, 300, 256),
+     # gemma3-1b's heads, ending inside, at and just past a 64-row tile
+     (2, 4, 1, 63, 256), (2, 4, 1, 64, 256), (2, 4, 1, 65, 256),
+     (2, 4, 1, 129, 256), (2, 4, 1, 1000, 256)],
 )
-@pytest.mark.parametrize("window", [None, 1, 16, 100])
+# 48 and 512 end inside a 64-key tile of the bf16 kernel
+@pytest.mark.parametrize("window", [None, 1, 16, 100, 48, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(cuda, b, hq, hkv, s, d, window, dtype):
-    """atol 1e-4 in f32 (scalar FMA vs torch's f32 GEMM), 2e-2 in bf16."""
+    """atol 1e-4 in f32 (scalar FMA vs torch's f32 GEMM), 2e-2 in bf16
+    (tensor cores, P rounded to bf16)."""
     q, k, v = (
         torch.randn((b, h, s, d), generator=cuda, device="cuda").to(dtype)
         for h in (hq, hkv, hkv)
     )
+    before = flash_attention_cuda.launches
     got = flash_attention_cuda(q, k, v, window=window)
+    assert flash_attention_cuda.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = ref.attention_ref(q.float(), k.float(), v.float(), window=window)
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
@@ -229,16 +249,23 @@ def test_ssd_chunk_kernel_refuses_what_a_block_cannot_hold(cuda):
 def test_dispatch_launches_kernels_and_reference_mode_does_not(cuda):
     x = torch.randn(1024, generator=cuda, device="cuda")
     ssd = _ssd_inputs(cuda, 1, 2, 1, 2, 16, 8, 16)
-    ops.reset_launch_counts()
-    ops.log_quantize(x, 1.0)
-    ops.log_dequantize(x)
-    ops.pack_nibbles(torch.zeros(9, dtype=torch.int8, device="cuda"))
-    ops.ssd_chunk(*ssd)
-    with ops.reference_mode():
+    codes = torch.zeros((4, 128), dtype=torch.int8, device="cuda")
+    scales = torch.ones((4, 1), device="cuda")
+    qkv = [torch.randn((1, 1, 70, 64), device="cuda").bfloat16() for _ in range(3)]
+
+    def every_kernel():
         ops.log_quantize(x, 1.0)
         ops.log_dequantize(x)
         ops.pack_nibbles(torch.zeros(9, dtype=torch.int8, device="cuda"))
         ops.ssd_chunk(*ssd)
+        ops.log_dequantize_rows(codes, scales, bits=4)
+        ops.flash_attention(*qkv)
+
+    ops.reset_launch_counts()
+    every_kernel()
+    with ops.reference_mode():
+        every_kernel()
     counts = ops.launch_counts()
     assert counts["log_quantize"] == counts["log_dequantize"] == 1
     assert counts["pack_nibbles"] == counts["ssd_chunk"] == 1
+    assert counts["log_dequantize_rows"] == counts["flash_attention"] == 1

@@ -152,6 +152,39 @@ def test_asking_for_the_card_without_cuda_raises():
         serve.main(["--arch", "gemma3-1b", "--smoke"])
 
 
+def test_row_dequant_module_imports_without_nvcc_or_jax(tmp_path):
+    """The CUDA row dequant's wrapper module imports, and ops with it, where
+    there is no nvcc: nothing is built before the first CUDA launch."""
+    code = (
+        "import sys\n"
+        "from repro_torch.kernels import build, ops\n"
+        "from repro_torch.kernels import log_dequant_rows as m\n"
+        "assert ops.KERNELS['log_dequantize_rows'] is m.log_dequantize_rows_cuda\n"
+        "assert m.log_dequantize_rows_cuda.launches == 0 and not build._loaded\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(_ENV, CUDA_HOME=str(tmp_path), PATH=str(tmp_path))
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_row_dequant_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels.log_dequant_rows import log_dequantize_rows_cuda
+
+    codes, scales = torch.zeros(4, 16, dtype=torch.int8), torch.ones(4, 1)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        log_dequantize_rows_cuda(codes, scales, bits=8)
+    assert log_dequantize_rows_cuda.launches == 0
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -131,6 +131,27 @@ def test_log_dequantize_rows_matches_pallas(bits, r, d):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
 
 
+def test_log_dequantize_rows_on_cpu_takes_the_plain_version(monkeypatch):
+    """A CPU tensor never reaches the CUDA wrapper: q4 rows of 37 bytes (no
+    multiple of 16) against the Pallas kernel, rtol 1e-6 / atol 1e-7."""
+
+    def boom(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA wrapper")
+
+    monkeypatch.setattr(ops, "log_dequantize_rows_cuda", boom)
+    rng = np.random.default_rng(11)
+    codes = rng.integers(-8, 8, size=(300, 74))
+    packed = np.asarray(pack_nibbles(jnp.asarray(codes))).reshape(300, 37)
+    scales = rng.uniform(0.0, 3.0, size=(300, 1)).astype(np.float32)
+    want = log_dequantize_rows_pallas(
+        jnp.asarray(packed), jnp.asarray(scales), bits=4, alpha=ALPHA
+    )
+    got = ops.log_dequantize_rows(
+        torch.from_numpy(packed.copy()), torch.from_numpy(scales), bits=4
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
 # ------------------------------------------------- #2 pack_nibbles, exact bytes
 @pytest.mark.parametrize("numel", [1, 2, 7, 63, 100, 101, 1000, 4096])
 def test_pack_nibbles_matches_pallas(numel):
