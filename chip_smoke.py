@@ -247,6 +247,10 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     x = torch.randn(4096, device="cuda")
+    # the encode's every launch shape, at the unit scale its callers pass
+    for top, _, _ in log_quant.QUANTIZE_LAUNCH:
+        n = top or 1 << 20
+        log_quant.log_quantize_triton(torch.randn(n, device="cuda"), 1.0, bits=8)
     codes = log_quant.log_quantize_triton(x, 1.0, bits=8)
     log_quant.log_quantize_pack_triton(x, 1.0, bits=4)
     log_quant.log_dequantize_triton(x, 1.0, bits=8)
@@ -495,10 +499,20 @@ def phase_kernels(gen):
         want = ref.ssd_chunk_ref(x, a_cum, bh, ch)
         err, top = float((got - want).abs().max()), float(want.abs().max())
         check(err <= SSD_REL_TOL * top, f"ssd_chunk ({run}): max err {err} of {top}")
+        # the work the function needs over the causal pairs: S = C B^T once
+        # per (batch, group, chunk), M X per (batch, head, chunk), in f32
+        pairs = q * (q + 1) // 2
+        groups = x.shape[0] * bm.shape[1] * x.shape[2]
         cells = x.shape[0] * h * x.shape[2]
-        n_ops = cells * q * (q + 1) // 2 * 2 * (cfg.ssm_state + cfg.ssm_head_dim)
+        n_ops = pairs * (groups * 2 * cfg.ssm_state + cells * 2 * cfg.ssm_head_dim)
         n_bytes = 4 * (2 * x.numel() + bm.numel() + cm.numel() + a_cum.numel())
         b_ms, b_by = bound_ms(n_bytes, n_ops, "f32")
+        per_head = cells * pairs * 2 * (cfg.ssm_state + cfg.ssm_head_dim)
+        print(
+            f"  ssd_chunk ({run}) work: {n_ops / 1e9:.3f} GFLOP with S once per "
+            f"group ({per_head / 1e9:.3f} GFLOP if every head formed its own "
+            f"S), {n_bytes / 1e6:.1f} MB"
+        )
         res = dict(
             max_abs_err=err,
             ms=cuda_ms(lambda: ssd_chunk_cuda(x, a_cum, bm, cm), 10),

@@ -16,11 +16,19 @@ encodes, 4 read and 4 written for the wire dequant (its input is the f32
 mean of gathered codes), 1 read and 1/2 written for the pack, against a few
 dozen operations; far below the card's ridge of ~20 f32 FLOP per byte.
 
-What the design does about it: one program per block of 2048 flat elements
-(2048 packed bytes for the packs), masked loads and stores so nothing is
-padded, codes built in registers and written once in their final
-container: int8 codes, or two nibbles per byte, so the codes never
-round-trip through device memory between quantize and pack. Rounding is
+What the design does about it: one program per block of flat elements,
+masked loads and stores so nothing is padded, codes built in registers and
+written once in their final container: int8 codes, or two nibbles per
+byte, so the codes never round-trip through device memory between quantize
+and pack. The encode (:func:`log_quantize_triton`) takes its block and
+warps from n (:func:`quantize_launch`): a decode append of one token (1024
+values) runs as 8 programs of 128 values on 4 warps, one value a thread on
+8 SMs, rather than one program whose threads walk 16 values each; larger
+inputs take 4 values a thread (one 16-byte load), a prefill's million
+values in thousands of programs. Its unit scale, which every serving and
+training caller passes (the codec normalizes first), is a compile-time case
+that drops the division by 1 (exact, so no code changes). The other kernels
+take blocks of 2048 values (packed bytes for the packs). Rounding is
 ``libdevice.rint`` (half to even, like ``jnp.round``) and every division is
 ``div_rn`` (IEEE), so the arithmetic matches the plain version op for op;
 only the last ulp of ``log1p``/``expm1`` may differ between the device's
@@ -39,6 +47,8 @@ import torch
 from repro_torch.core.quantization import LogQuantConfig, code_dtype, f32_log1p
 
 __all__ = [
+    "QUANTIZE_LAUNCH",
+    "quantize_launch",
     "log_quantize_triton",
     "log_quantize_pack_triton",
     "log_dequantize_triton",
@@ -46,6 +56,12 @@ __all__ = [
 ]
 
 _BLOCK = 2048
+# log_quantize's launch shapes: (largest n, BLOCK, num_warps), by n; the
+# last row takes every larger n
+QUANTIZE_LAUNCH = (
+    (1 << 14, 128, 4),  # decode appends: one value a thread, 8 programs at 1024
+    (None, 512, 4),  # four values a thread, one 16-byte load; >= 33 programs
+)
 _FLOAT_IN = (torch.float32, torch.bfloat16)
 # the wire dequant takes integer codes or the f32 mean of gathered codes
 _CODES_IN = (torch.float32, torch.bfloat16, torch.int8, torch.int16)
@@ -77,12 +93,23 @@ def _kernels() -> SimpleNamespace:
 
     @triton.jit
     def quantize(
-        x_ptr, o_ptr, n, scale, alpha, log1p_alpha, levels, BLOCK: tl.constexpr
+        x_ptr,
+        o_ptr,
+        n,
+        scale,
+        alpha,
+        log1p_alpha,
+        levels,
+        BLOCK: tl.constexpr,
+        UNIT: tl.constexpr,
     ):
         offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
         m = offs < n
         x = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32)
-        y = libdevice.div_rn(x, scale)
+        if UNIT:  # x / 1.0 is x
+            y = x
+        else:
+            y = libdevice.div_rn(x, scale)
         c = _log_code(y, alpha, log1p_alpha, levels)
         tl.store(o_ptr + offs, c.to(o_ptr.dtype.element_ty), mask=m)
 
@@ -156,11 +183,29 @@ def log_quantize_triton(
     out = torch.empty(x.shape, dtype=code_dtype(bits), device=x.device)
     n = x.numel()
     if n:
-        grid = (_cdiv(n, _BLOCK),)
+        block, warps = quantize_launch(n)
         safe = float(scale) if scale > 0 else 1.0
-        _kernels().quantize[grid](x, out, n, safe, *_consts(bits, alpha), BLOCK=_BLOCK)
+        _kernels().quantize[(_cdiv(n, block),)](
+            x,
+            out,
+            n,
+            safe,
+            *_consts(bits, alpha),
+            BLOCK=block,
+            UNIT=safe == 1.0,
+            num_warps=warps,
+        )
         log_quantize_triton.launches += 1
     return out
+
+
+def quantize_launch(n: int) -> tuple[int, int]:
+    """(BLOCK, num_warps) of :func:`log_quantize_triton` for n values: the
+    first row of ``QUANTIZE_LAUNCH`` whose bound n does not exceed."""
+    for top, block, warps in QUANTIZE_LAUNCH:
+        if top is None or n <= top:
+            return block, warps
+    raise AssertionError("QUANTIZE_LAUNCH has no last row")
 
 
 def log_quantize_pack_triton(

@@ -87,6 +87,27 @@ def test_log_quantize_pack_kernel(cuda, shape, dtype, bits):
     _assert_codes(unpack_nibbles(got, n), unpack_nibbles(want, n), near)
 
 
+@pytest.mark.parametrize("n", [1024, 16383, 16384, 16385, 1 << 18])
+@pytest.mark.parametrize("unit", [True, False])
+def test_log_quantize_kernel_launch_shapes(cuda, n, unit):
+    """Every launch shape of ``QUANTIZE_LAUNCH`` at an n just under, at and
+    just over each of its bounds, and the decode append (4, 1, 1, 256): on
+    rows normalized as the codec does (scale 1.0, the compile-time unit
+    case) and on raw values with their max as a general scale."""
+    shape = (4, 1, 1, 256) if n == 1024 else (n,)
+    x = torch.randn(shape, generator=cuda, device="cuda") * 2
+    if unit:
+        x, scale = x / x.abs().amax(-1, keepdim=True), 1.0
+    else:
+        scale = float(x.abs().max())
+    before = log_quantize_triton.launches
+    got = log_quantize_triton(x, scale, bits=8)
+    assert log_quantize_triton.launches == before + 1
+    want = ref.log_quantize_ref(x, scale, 8, 10.0)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _assert_codes(got, want, _near_half(x, scale, 8))
+
+
 def test_plain_versions_divide_as_ieee_f32(cuda):
     """The plain versions divide through ``f32_div``: equal bit for bit to
     numpy's f32 division. (PyTorch's CUDA ``x / python_float`` multiplies by
@@ -235,6 +256,54 @@ def test_ssd_chunk_kernel(cuda, q, n, p, groups, nc):
     assert got.is_contiguous()
     err = float((got - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize(
+    "b,h,g,nc,q,n,p,slab",
+    [
+        (1, 32, 1, 2, 256, 128, 64, None),  # mamba2-370m's heads, default slab
+        (1, 32, 1, 2, 256, 128, 64, 32),  # the whole group in one slab
+        (1, 32, 1, 2, 256, 128, 64, 5),  # slabs of 5 and a last one of 2
+        (2, 12, 2, 2, 256, 128, 64, 4),  # 6 heads a group: slabs of 4 and 2
+        (2, 12, 2, 3, 100, 16, 8, 5),  # ragged Q, slabs of 5 and 1
+        (2, 10, 2, 2, 200, 17, 10, 3),  # N, P no multiple of 4: 4-byte copies
+        (1, 6, 3, 1, 77, 40, 7, 2),  # odd P: scalar stores
+    ],
+)
+def test_ssd_chunk_kernel_head_layouts(cuda, b, h, g, nc, q, n, p, slab):
+    """Head slabs that share C B^T, whole or not dividing a group's heads,
+    against the plain version: max abs error <= 1e-4 of max |Y|."""
+    x, a_cum, bm, cm = _ssd_inputs(cuda, b, h, g, nc, q, p, n)
+    before = ssd_chunk_cuda.launches
+    got = ssd_chunk_cuda(x, a_cum, bm, cm, slab=slab)
+    assert ssd_chunk_cuda.launches == before + 1
+    rep = h // g
+    want = ref.ssd_chunk_ref(
+        x, a_cum, bm.repeat_interleave(rep, 1), cm.repeat_interleave(rep, 1)
+    )
+    assert got.shape == want.shape and got.is_contiguous()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+def test_ssd_chunk_kernel_equals_plain_bit_for_bit(cuda):
+    """mamba2-370m's (g1) prefill layer, the groups broadcast to heads as
+    reference mode does: the kernel sums in its plain version's order (one
+    f32 FMA chain an entry, ascending), so the two agree bit for bit. The
+    served model's logits against reference mode need it: 48 bf16 layers
+    carry any last-bit difference to about 5% of the logits."""
+    x, a_cum, bm, cm = _ssd_inputs(cuda, 4, 32, 1, 4, 256, 64, 128)
+    got = ssd_chunk_cuda(x, a_cum, bm, cm)
+    rep = lambda t: t.repeat_interleave(32, 1)
+    assert torch.equal(got, ref.ssd_chunk_ref(x, a_cum, rep(bm), rep(cm)))
+
+
+def test_ssd_chunk_kernel_is_deterministic(cuda):
+    """mamba2-370m's (g1) prefill layer twice: the same bits (no atomics;
+    every sum in one order), which the q8-equals-raw token check needs."""
+    x, a_cum, bm, cm = _ssd_inputs(cuda, 4, 32, 1, 4, 256, 64, 128)
+    first = ssd_chunk_cuda(x, a_cum, bm, cm)
+    assert torch.equal(first, ssd_chunk_cuda(x, a_cum, bm, cm))
 
 
 def test_ssd_chunk_kernel_refuses_what_a_block_cannot_hold(cuda):
