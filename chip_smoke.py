@@ -22,9 +22,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    request the same tokens and leave the same caches; torch.profiler splits
    the device time of (a)'s prefill and (b)'s decode step by kernel;
 5. train ResNet-18 at full width, the paper's layout (5 workers x 128
-   images, 32x32x3, 10 classes, seeded init, f32 with TF32 off), a few
-   steps each of (d) LQ-SGD rank 1, b = 8, (e) LQ-SGD rank 1, b = 4 and
-   (f) QSGD b = 4. Each run starts with the launch counts at 0 and must
+   images, 32x32x3, 10 classes, seeded init, f32: the phase turns both
+   TF32 flags on, PyTorch's cuDNN default, and every step must find them
+   off, as the training entry point sets them, and both back on after
+   it), a few steps each of (d) LQ-SGD rank 1, b = 8, (e) LQ-SGD rank 1,
+   b = 4 and (f) QSGD b = 4. Each run starts with the launch counts at 0 and must
    launch every kernel of its path; every step's wire bits must equal the
    static accounting (370136 bits for (d), 3.655093 MB/epoch) and its
    collectives the count from the plans; losses must be finite; and the
@@ -247,13 +249,19 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     x = torch.randn(4096, device="cuda")
-    # the encode's every launch shape, at the unit scale its callers pass
-    for top, _, _ in log_quant.QUANTIZE_LAUNCH:
-        n = top or 1 << 20
-        log_quant.log_quantize_triton(torch.randn(n, device="cuda"), 1.0, bits=8)
+    # every launch shape of the encode, the fused encode + pack (its table
+    # counts packed bytes) and the wire dequant, at the unit scale their
+    # callers pass
+    warm_ups = (
+        (log_quant.QUANTIZE_LAUNCH, 1, log_quant.log_quantize_triton, 8),
+        (log_quant.PACK_LAUNCH, 2, log_quant.log_quantize_pack_triton, 4),
+        (log_quant.DEQUANT_LAUNCH, 1, log_quant.log_dequantize_triton, 8),
+    )
+    for table, per_row, kernel, bits in warm_ups:
+        for top, _, _ in table:
+            n = per_row * top if top else 1 << 20
+            kernel(torch.randn(n, device="cuda"), 1.0, bits=bits)
     codes = log_quant.log_quantize_triton(x, 1.0, bits=8)
-    log_quant.log_quantize_pack_triton(x, 1.0, bits=4)
-    log_quant.log_dequantize_triton(x, 1.0, bits=8)
     log_quant.pack_nibbles_triton(codes.clamp(-8, 7))
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
@@ -799,15 +807,27 @@ def resnet18_train_flops(hw, n_classes, images):
 
 
 def phase_train(card):
+    # the same init and batches give the same gradients in both modes
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    # TF32 on, as PyTorch leaves cuDNN's convolutions: the runs below must
+    # hold the training entry point's own f32 setting, not phase_device's
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    was = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        return _train_runs(card)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = was
+
+
+def _train_runs(card):
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.core.tree import tree_leaves
     from repro_torch.kernels import ops
     from repro_torch.models.resnet import init_resnet18
     from repro_torch.train.data_parallel import mb_per_epoch, train_one
 
-    # the same init and batches give the same gradients in both modes
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
     runs = {
         "d": (
             CompressorConfig(name="lq_sgd", rank=1, bits=8),
@@ -822,6 +842,9 @@ def phase_train(card):
     total = {name: 0 for name in ops.KERNELS}
     init = tree_leaves(init_resnet18(TRAIN_CLASSES, seed=0, device="cuda"))
 
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+    tf32_in_steps = []
+
     def run(cfg):
         return train_one(
             cfg,
@@ -834,6 +857,9 @@ def phase_train(card):
             seed=0,
             device="cuda",
             record_wire=True,
+            on_step=lambda step, res: tf32_in_steps.extend(
+                f.allow_tf32 for f in flags
+            ),
         )
 
     for variant, (cfg, need) in runs.items():
@@ -849,6 +875,12 @@ def phase_train(card):
             check(counts[name] > 0, f"{label}: kernel {name} never launched")
         for name, c in counts.items():
             total[name] += c
+        check(
+            tf32_in_steps and not any(tf32_in_steps),
+            f"{label}: a step ran with TF32 on",
+        )
+        check(all(f.allow_tf32 for f in flags), f"{label}: TF32 flags not restored")
+        tf32_in_steps.clear()
 
         comp = out.comp
         n_raw = sum(pl.route != "lowrank" for pl in comp.plans)

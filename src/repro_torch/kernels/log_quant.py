@@ -20,19 +20,25 @@ What the design does about it: one program per block of flat elements,
 masked loads and stores so nothing is padded, codes built in registers and
 written once in their final container: int8 codes, or two nibbles per
 byte, so the codes never round-trip through device memory between quantize
-and pack. The encode (:func:`log_quantize_triton`) takes its block and
-warps from n (:func:`quantize_launch`): a decode append of one token (1024
-values) runs as 8 programs of 128 values on 4 warps, one value a thread on
-8 SMs, rather than one program whose threads walk 16 values each; larger
-inputs take 4 values a thread (one 16-byte load), a prefill's million
-values in thousands of programs. Its unit scale, which every serving and
-training caller passes (the codec normalizes first), is a compile-time case
-that drops the division by 1 (exact, so no code changes). The other kernels
-take blocks of 2048 values (packed bytes for the packs). Rounding is
-``libdevice.rint`` (half to even, like ``jnp.round``) and every division is
-``div_rn`` (IEEE), so the arithmetic matches the plain version op for op;
-only the last ulp of ``log1p``/``expm1`` may differ between the device's
-libdevice and the host's math library.
+and pack. The encode (:func:`log_quantize_triton`), the fused encode + pack
+(:func:`log_quantize_pack_triton`) and the wire dequant
+(:func:`log_dequantize_triton`) take their block and warps from n
+(:func:`launch_shape` over ``QUANTIZE_LAUNCH``, ``PACK_LAUNCH`` and
+``DEQUANT_LAUNCH``): a decode append of one token (1024 values) runs as
+several programs of a value or two a thread on as many SMs, rather than
+one program whose threads walk 16 values each; larger inputs take one
+16-byte load a thread, a prefill's million values in thousands of
+programs. The fused pack loads its 2 x BLOCK inputs as one contiguous run
+and splits it into the [BLOCK, 2] pairs of its bytes in registers (no
+stride-2 loads; at two bytes a thread the split stays in registers, at
+four Triton moved it through shared memory). Their unit scale, which every
+serving and training caller passes (the codec normalizes first), is a
+compile-time case that drops the division or multiply by 1 (exact, so no
+code or value changes). The bare pack takes blocks of 2048 bytes.
+Rounding is ``libdevice.rint`` (half to even, like ``jnp.round``) and
+every division is ``div_rn`` (IEEE), so the arithmetic matches the plain
+version op for op; only the last ulp of ``log1p``/``expm1`` may differ
+between the device's libdevice and the host's math library.
 
 Triton is imported when a kernel is first launched, never at module import,
 so the CPU tests import this module without it. (No ``from __future__
@@ -48,6 +54,9 @@ from repro_torch.core.quantization import LogQuantConfig, code_dtype, f32_log1p
 
 __all__ = [
     "QUANTIZE_LAUNCH",
+    "PACK_LAUNCH",
+    "DEQUANT_LAUNCH",
+    "launch_shape",
     "quantize_launch",
     "log_quantize_triton",
     "log_quantize_pack_triton",
@@ -56,11 +65,22 @@ __all__ = [
 ]
 
 _BLOCK = 2048
-# log_quantize's launch shapes: (largest n, BLOCK, num_warps), by n; the
-# last row takes every larger n
+# Launch shapes: (largest n, BLOCK, num_warps), by n; the last row takes
+# every larger n. log_quantize's, in values:
 QUANTIZE_LAUNCH = (
     (1 << 14, 128, 4),  # decode appends: one value a thread, 8 programs at 1024
     (None, 512, 4),  # four values a thread, one 16-byte load; >= 33 programs
+)
+# log_quantize_pack's, in packed bytes (two values each); at four bytes a
+# thread the pairs' split went through shared memory and ran ~20% slower
+PACK_LAUNCH = (
+    (1 << 13, 128, 4),  # decode appends: a byte a thread, 4 programs at 512 bytes
+    (None, 256, 4),  # two bytes a thread, one 16-byte load; >= 33 programs
+)
+# log_dequantize's, in values:
+DEQUANT_LAUNCH = (
+    (1 << 16, 128, 4),  # the training wire's tensors: one value a thread
+    (None, 512, 4),  # four values a thread, one 16-byte load
 )
 _FLOAT_IN = (torch.float32, torch.bfloat16)
 # the wire dequant takes integer codes or the f32 mean of gathered codes
@@ -115,27 +135,50 @@ def _kernels() -> SimpleNamespace:
 
     @triton.jit
     def quantize_pack(
-        x_ptr, o_ptr, n, n_bytes, scale, alpha, log1p_alpha, levels, BLOCK: tl.constexpr
+        x_ptr,
+        o_ptr,
+        n,
+        n_bytes,
+        scale,
+        alpha,
+        log1p_alpha,
+        levels,
+        BLOCK: tl.constexpr,
+        UNIT: tl.constexpr,
     ):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        lo_i = 2 * offs
-        hi_i = lo_i + 1
-        # a pad element (odd n) loads 0.0 and encodes as code 0
-        xl = tl.load(x_ptr + lo_i, mask=lo_i < n, other=0.0).to(tl.float32)
-        xh = tl.load(x_ptr + hi_i, mask=hi_i < n, other=0.0).to(tl.float32)
-        cl = _log_code(libdevice.div_rn(xl, scale), alpha, log1p_alpha, levels)
-        ch = _log_code(libdevice.div_rn(xh, scale), alpha, log1p_alpha, levels)
-        byte = (cl.to(tl.int32) & 0xF) | ((ch.to(tl.int32) & 0xF) << 4)
-        tl.store(o_ptr + offs, byte.to(tl.int8), mask=offs < n_bytes)
+        # the program's 2 x BLOCK inputs in one contiguous load, then split
+        # into the low and high value of each byte; a pad element (odd n)
+        # loads 0.0 and encodes as code 0
+        pid = tl.program_id(0).to(tl.int64)
+        idx = pid * (2 * BLOCK) + tl.arange(0, 2 * BLOCK)
+        x = tl.load(x_ptr + idx, mask=idx < n, other=0.0).to(tl.float32)
+        if UNIT:  # x / 1.0 is x
+            y = x
+        else:
+            y = libdevice.div_rn(x, scale)
+        c = _log_code(y, alpha, log1p_alpha, levels).to(tl.int32) & 0xF
+        lo, hi = tl.split(tl.reshape(c, (BLOCK, 2)))
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        tl.store(o_ptr + offs, (lo | (hi << 4)).to(tl.int8), mask=offs < n_bytes)
 
     @triton.jit
     def dequant(
-        c_ptr, o_ptr, n, scale, alpha, log1p_alpha, levels, BLOCK: tl.constexpr
+        c_ptr,
+        o_ptr,
+        n,
+        scale,
+        alpha,
+        log1p_alpha,
+        levels,
+        BLOCK: tl.constexpr,
+        UNIT: tl.constexpr,
     ):
         offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
         m = offs < n
         c = tl.load(c_ptr + offs, mask=m, other=0).to(tl.float32)
-        val = _log_value(c, alpha, log1p_alpha, levels) * scale
+        val = _log_value(c, alpha, log1p_alpha, levels)
+        if not UNIT:  # v * 1.0 is v
+            val = val * scale
         tl.store(o_ptr + offs, val, mask=m)
 
     @triton.jit
@@ -199,13 +242,18 @@ def log_quantize_triton(
     return out
 
 
-def quantize_launch(n: int) -> tuple[int, int]:
-    """(BLOCK, num_warps) of :func:`log_quantize_triton` for n values: the
-    first row of ``QUANTIZE_LAUNCH`` whose bound n does not exceed."""
-    for top, block, warps in QUANTIZE_LAUNCH:
+def launch_shape(table, n: int) -> tuple[int, int]:
+    """(BLOCK, num_warps) for n from a launch table: its first row whose
+    bound n does not exceed."""
+    for top, block, warps in table:
         if top is None or n <= top:
             return block, warps
-    raise AssertionError("QUANTIZE_LAUNCH has no last row")
+    raise AssertionError("a launch table needs a last row with no bound")
+
+
+def quantize_launch(n: int) -> tuple[int, int]:
+    """(BLOCK, num_warps) of :func:`log_quantize_triton` for n values."""
+    return launch_shape(QUANTIZE_LAUNCH, n)
 
 
 def log_quantize_pack_triton(
@@ -220,10 +268,18 @@ def log_quantize_pack_triton(
     n_bytes = (n + 1) // 2
     out = torch.empty((n_bytes,), dtype=torch.int8, device=x.device)
     if n:
-        grid = (_cdiv(n_bytes, _BLOCK),)
+        block, warps = launch_shape(PACK_LAUNCH, n_bytes)
         safe = float(scale) if scale > 0 else 1.0
-        _kernels().quantize_pack[grid](
-            x, out, n, n_bytes, safe, *_consts(bits, alpha), BLOCK=_BLOCK
+        _kernels().quantize_pack[(_cdiv(n_bytes, block),)](
+            x,
+            out,
+            n,
+            n_bytes,
+            safe,
+            *_consts(bits, alpha),
+            BLOCK=block,
+            UNIT=safe == 1.0,
+            num_warps=warps,
         )
         log_quantize_pack_triton.launches += 1
     return out
@@ -238,9 +294,17 @@ def log_dequantize_triton(
     out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
     n = codes.numel()
     if n:
-        grid = (_cdiv(n, _BLOCK),)
-        _kernels().dequant[grid](
-            codes, out, n, float(scale), *_consts(bits, alpha), BLOCK=_BLOCK
+        block, warps = launch_shape(DEQUANT_LAUNCH, n)
+        scale = float(scale)
+        _kernels().dequant[(_cdiv(n, block),)](
+            codes,
+            out,
+            n,
+            scale,
+            *_consts(bits, alpha),
+            BLOCK=block,
+            UNIT=scale == 1.0,
+            num_warps=warps,
         )
         log_dequantize_triton.launches += 1
     return out

@@ -13,10 +13,11 @@ reference's 4-conv mini-CNN (its CPU-budget stand-in for the figures).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
-from collections.abc import Callable
+from collections.abc import Callable, Iterator
 from typing import Any
 
 import torch
@@ -169,6 +170,22 @@ class TrainResult:
     comm: SimComm  # with ``record_wire``, every gathered wire array
 
 
+@contextlib.contextmanager
+def _tf32_off() -> Iterator[None]:
+    """Turn TF32 off for cuDNN's convolutions and cuBLAS's matmuls, through
+    the legacy ``allow_tf32`` flags (setting PyTorch's newer
+    ``fp32_precision`` as well would make it raise on the mix), and restore
+    both on exit."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    was = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = was
+
+
+@_tf32_off()
 def train_one(
     comp_cfg: CompressorConfig,
     *,
@@ -190,7 +207,14 @@ def train_one(
     reference's (4 workers x 32, 16x16). The init and the data come from
     ``seed``, the compressor state from seed 7 (the reference's
     ``PRNGKey(7)``). ``on_step(step, result)`` sees each step as it ends;
-    ``record_wire`` keeps every gathered wire array in the result's comm."""
+    ``record_wire`` keeps every gathered wire array in the result's comm.
+
+    The steps run with TF32 off for convolutions and matmuls, whatever the
+    caller set: the reference computes in f32, and PyTorch's default
+    ``torch.backends.cudnn.allow_tf32 = True`` would run every f32
+    convolution on the card through cuDNN in TF32, which keeps about three
+    decimal digits. The two flags are put back as the caller had them when
+    this returns or raises."""
     dev = resolve_device(device)
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r}; options: {sorted(MODELS)}")

@@ -17,13 +17,20 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.codec import unpack_nibbles
+from repro_torch.core.compressors import CompressorConfig
 from repro_torch.core.quantization import f32_div
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.data.synthetic import ImageDataConfig, image_batch
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.log_dequant_rows import log_dequantize_rows_cuda
 from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
+from repro_torch.models.resnet import init_resnet18, resnet18_forward
+from repro_torch.train.data_parallel import train_one, worker_grads
 from repro_torch.kernels.log_quant import (
+    DEQUANT_LAUNCH,
+    PACK_LAUNCH,
     log_dequantize_triton,
     log_quantize_pack_triton,
     log_quantize_triton,
@@ -59,7 +66,9 @@ def _assert_codes(got, want, near):
     assert not bool(((diff == 1) & ~near).any())
 
 
-@pytest.mark.parametrize("shape", [(7,), (64, 32), (3, 48, 16), (1000,), (513, 7), (4, 1, 1056, 256)])
+@pytest.mark.parametrize(
+    "shape", [(7,), (64, 32), (3, 48, 16), (1000,), (513, 7), (4, 1, 1056, 256)]
+)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [4, 8, 12])
 def test_log_quantize_kernel(cuda, shape, dtype, bits):
@@ -73,7 +82,9 @@ def test_log_quantize_kernel(cuda, shape, dtype, bits):
     _assert_codes(got, want, _near_half(x.float(), scale, bits))
 
 
-@pytest.mark.parametrize("shape", [(7,), (64, 32), (3, 48, 16), (1001,), (513, 7), (4, 1, 1056, 256)])
+@pytest.mark.parametrize(
+    "shape", [(7,), (64, 32), (3, 48, 16), (1001,), (513, 7), (4, 1, 1056, 256)]
+)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [3, 4])
 def test_log_quantize_pack_kernel(cuda, shape, dtype, bits):
@@ -108,6 +119,37 @@ def test_log_quantize_kernel_launch_shapes(cuda, n, unit):
     _assert_codes(got, want, _near_half(x, scale, 8))
 
 
+# values just under, at and just over each bound of PACK_LAUNCH (in bytes:
+# an odd n one byte under, an even n at it, an odd n one byte over), the q4
+# decode append, a prefill layer and an odd n on the last row
+_PACK_NS = [1024, 4 * 1056 * 256, (1 << 20) + 1]
+_PACK_NS += [n for t, _, _ in PACK_LAUNCH[:-1] for n in (2 * t - 3, 2 * t, 2 * t + 1)]
+
+
+@pytest.mark.parametrize("n", _PACK_NS)
+@pytest.mark.parametrize("unit", [True, False])
+def test_log_quantize_pack_kernel_launch_shapes(cuda, n, unit):
+    """Every launch shape of ``PACK_LAUNCH``, on rows normalized as the codec
+    does (scale 1.0, the compile-time unit case) and on raw values with
+    their max as a general scale: the codes of the plain version, an odd
+    n's pad nibble 0, one launch."""
+    shapes = {1024: (4, 1, 1, 256), 4 * 1056 * 256: (4, 1, 1056, 256)}
+    x = torch.randn(shapes.get(n, (n,)), generator=cuda, device="cuda") * 2
+    if unit:
+        x, scale = x / x.abs().amax(-1, keepdim=True), 1.0
+    else:
+        scale = float(x.abs().max())
+    before = log_quantize_pack_triton.launches
+    got = log_quantize_pack_triton(x, scale, bits=4)
+    assert log_quantize_pack_triton.launches == before + 1
+    want = ref.log_quantize_pack_ref(x, scale, 4, 10.0)
+    assert got.dtype == torch.int8 and got.shape == want.shape == ((n + 1) // 2,)
+    if n % 2:
+        assert int(got[-1]) >> 4 == 0
+    near = _near_half(x.reshape(-1), scale, 4)
+    _assert_codes(unpack_nibbles(got, n), unpack_nibbles(want, n), near)
+
+
 def test_plain_versions_divide_as_ieee_f32(cuda):
     """The plain versions divide through ``f32_div``: equal bit for bit to
     numpy's f32 division. (PyTorch's CUDA ``x / python_float`` multiplies by
@@ -121,7 +163,9 @@ def test_plain_versions_divide_as_ieee_f32(cuda):
 
 def test_zero_scale_reads_as_one(cuda):
     x = torch.linspace(-1, 1, 257, device="cuda")
-    assert torch.equal(log_quantize_triton(x, 0.0), ref.log_quantize_ref(x, 0.0, 8, 10.0))
+    assert torch.equal(
+        log_quantize_triton(x, 0.0), ref.log_quantize_ref(x, 0.0, 8, 10.0)
+    )
 
 
 @pytest.mark.parametrize(
@@ -194,13 +238,47 @@ def test_log_dequantize_kernel(cuda, shape, bits, kind):
         assert bool(((got == 0) == (want == 0)).all())
 
 
+# values just under, at and just over each bound of DEQUANT_LAUNCH, the
+# training wire's two shapes and one on the last row
+_DEQUANT_SHAPES = [(4608, 1), (5, 512), (1 << 20,)]
+_DEQUANT_SHAPES += [(t + d,) for t, _, _ in DEQUANT_LAUNCH[:-1] for d in (-1, 0, 1)]
+
+
+@pytest.mark.parametrize("shape", _DEQUANT_SHAPES)
+@pytest.mark.parametrize("kind", ["f32_mean", "int8"])
+def test_log_dequantize_kernel_launch_shapes(cuda, shape, kind):
+    """Every launch shape of ``DEQUANT_LAUNCH`` at scale 1.0 (the
+    compile-time unit case every caller takes) and at a general scale:
+    within 2 ulp of the plain version, zeros where it has them, one launch
+    a call."""
+    codes = torch.randint(-127, 128, (5,) + shape, generator=cuda, device="cuda")
+    c = codes[0].to(torch.int8) if kind == "int8" else codes.float().mean(0)
+    for scale in (1.0, 0.37):
+        before = log_dequantize_triton.launches
+        got = log_dequantize_triton(c, scale, bits=8)
+        assert log_dequantize_triton.launches == before + 1
+        want = ref.log_dequantize_ref(c, scale, 8, 10.0)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert bool(((got - want).abs() <= 2 * _ulp(want)).all())
+        assert bool(((got == 0) == (want == 0)).all())
+
+
 @pytest.mark.parametrize(
     "b,hq,hkv,s,d",
-    [(1, 2, 2, 64, 32), (2, 4, 2, 128, 64), (1, 8, 1, 96, 64), (1, 4, 4, 33, 128),
-     (1, 4, 1, 1, 256), (2, 4, 1, 300, 256),
-     # gemma3-1b's heads, ending inside, at and just past a 64-row tile
-     (2, 4, 1, 63, 256), (2, 4, 1, 64, 256), (2, 4, 1, 65, 256),
-     (2, 4, 1, 129, 256), (2, 4, 1, 1000, 256)],
+    [
+        (1, 2, 2, 64, 32),
+        (2, 4, 2, 128, 64),
+        (1, 8, 1, 96, 64),
+        (1, 4, 4, 33, 128),
+        (1, 4, 1, 1, 256),
+        (2, 4, 1, 300, 256),
+        # gemma3-1b's heads, ending inside, at and just past a 64-row tile
+        (2, 4, 1, 63, 256),
+        (2, 4, 1, 64, 256),
+        (2, 4, 1, 65, 256),
+        (2, 4, 1, 129, 256),
+        (2, 4, 1, 1000, 256),
+    ],
 )
 # 48 and 512 end inside a 64-key tile of the bf16 kernel
 @pytest.mark.parametrize("window", [None, 1, 16, 100, 48, 512])
@@ -232,7 +310,9 @@ def _ssd_inputs(gen, b, h, g, nc, q, p, n):
     cm = torch.randn((b, nc, q, g, n), generator=gen, device="cuda")
     a_cum = torch.cumsum(a.permute(0, 3, 1, 2), dim=-1)
     heads_first = (0, 3, 1, 2, 4)
-    return x.permute(heads_first), a_cum, bm.permute(heads_first), cm.permute(heads_first)
+    return (
+        x.permute(heads_first), a_cum, bm.permute(heads_first), cm.permute(heads_first)
+    )
 
 
 @pytest.mark.parametrize("nc", [1, 5])
@@ -338,3 +418,41 @@ def test_dispatch_launches_kernels_and_reference_mode_does_not(cuda):
     assert counts["log_quantize"] == counts["log_dequantize"] == 1
     assert counts["pack_nibbles"] == counts["ssd_chunk"] == 1
     assert counts["log_dequantize_rows"] == counts["flash_attention"] == 1
+
+
+def test_train_one_computes_in_f32_with_tf32_on(cuda):
+    """With both TF32 flags on (cuDNN's default for convolutions), a step of
+    ``train_one`` (the training launcher's loop) on ResNet-18 gives the
+    gradients of the same step taken in f32 with both flags off: the mean
+    of the workers' gradients within 1e-4 x each leaf's max |grad|, the f32
+    tolerance of tests/test_torch_resnet.py. cuDNN deterministic, so the
+    two runs pick their algorithms alike; the flags come back on."""
+    workers, batch, hw = 2, 8, 32
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    was = cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32
+    try:
+        cudnn.deterministic, cudnn.benchmark = True, False
+        cudnn.allow_tf32 = matmul.allow_tf32 = True
+        out = train_one(
+            CompressorConfig(name="none"),
+            n_workers=workers,
+            batch=batch,
+            hw=hw,
+            steps=1,
+            device="cuda",
+        )
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+        params = init_resnet18(10, seed=0, device="cuda")
+        params = tree_map(lambda t: t.requires_grad_(True), params)
+        data = ImageDataConfig(n_classes=10, hw=hw, batch=workers * batch, seed=0)
+        b = image_batch(data, 0, "cuda")
+        images = b["images"].reshape((workers, batch) + b["images"].shape[1:])
+        labels = b["labels"].reshape(workers, batch)
+        _, grads = worker_grads(resnet18_forward, params, images, labels)
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = was
+    for got, w in zip(tree_leaves(out.last_grads), tree_leaves(grads)):
+        want = w.mean(0)
+        err, top = float((got - want).abs().max()), float(want.abs().max())
+        assert err <= 1e-4 * top, (err, top)

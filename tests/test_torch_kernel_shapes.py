@@ -10,7 +10,9 @@
   need the three products.)
 * :func:`repro_torch.kernels.ssd_chunk.head_slab`, the heads a block walks.
 * :func:`repro_torch.kernels.log_quant.quantize_launch`, ``log_quantize``'s
-  launch shape for n values.
+  launch shape for n values, and the launch tables of ``log_quantize_pack``
+  (``PACK_LAUNCH``, in packed bytes) and ``log_dequantize``
+  (``DEQUANT_LAUNCH``).
 """
 
 import numpy as np
@@ -19,7 +21,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.log_quant import QUANTIZE_LAUNCH, quantize_launch
+from repro_torch.kernels.log_quant import (
+    DEQUANT_LAUNCH,
+    PACK_LAUNCH,
+    QUANTIZE_LAUNCH,
+    launch_shape,
+    quantize_launch,
+)
 from repro_torch.kernels.ssd_chunk import head_slab
 
 # the card's bound on ssd_chunk against its plain version (test_torch_cuda.py,
@@ -136,22 +144,33 @@ def _halvings(rep):
         w = -(-w // 2)
 
 
-def test_quantize_launch_covers_every_n():
-    """From 1 to 4.3 M values (a gemma3-1b scan leaf is 4,325,376): each
-    shape a power-of-two block of at least one value a thread on a
+def _covers_every_n(table, launch):
+    """From 1 to 4.4 M (a gemma3-1b scan leaf is 4,325,376 values): each
+    shape a power-of-two block of at least one element a thread on a
     power-of-two count of warps, and a grid that covers n with no program
     left empty."""
-    tops = [top for top, _, _ in QUANTIZE_LAUNCH[:-1]]
-    assert tops == sorted(tops) and QUANTIZE_LAUNCH[-1][0] is None
+    tops = [top for top, _, _ in table[:-1]]
+    assert tops == sorted(tops) and table[-1][0] is None
     ns = {1, 2, 7, 1000, 1024, 4_325_376, 4_400_000}
     ns |= {t + d for t in tops for d in (-1, 0, 1)}
     ns |= {int(v) for v in np.geomspace(1, 4.4e6, 200)}
     for n in sorted(ns):
-        block, warps = quantize_launch(n)
+        block, warps = launch(n)
         assert block & (block - 1) == 0 and warps & (warps - 1) == 0, n
         assert 1 <= warps <= 8 and block >= 32 * warps, n
         programs = -(-n // block)
         assert programs * block >= n > (programs - 1) * block, n
+
+
+def test_quantize_launch_covers_every_n():
+    _covers_every_n(QUANTIZE_LAUNCH, quantize_launch)
+
+
+@pytest.mark.parametrize("name", ["pack", "dequant"])
+def test_launch_table_covers_every_n(name):
+    """``PACK_LAUNCH`` over packed bytes, ``DEQUANT_LAUNCH`` over values."""
+    table = {"pack": PACK_LAUNCH, "dequant": DEQUANT_LAUNCH}[name]
+    _covers_every_n(table, lambda n: launch_shape(table, n))
 
 
 def test_quantize_launch_spreads_the_decode_append():
@@ -162,3 +181,23 @@ def test_quantize_launch_spreads_the_decode_append():
     assert -(-1024 // block) >= 4 and block // (32 * warps) <= 4
     block, _ = quantize_launch(4 * 1056 * 256)
     assert -(-(4 * 1056 * 256) // block) >= H100_SMS
+
+
+def test_pack_launch_spreads_the_decode_append():
+    """A q4 decode append (1024 values, 512 bytes) runs as at least 4
+    programs of a byte or two a thread; a prefill layer's 540,672 bytes run
+    as at least one program an SM at up to 4 bytes (8 values) a thread."""
+    append, layer = 4 * 256 // 2, 4 * 1056 * 256 // 2
+    block, warps = launch_shape(PACK_LAUNCH, append)
+    assert -(-append // block) >= 4 and block // (32 * warps) <= 2
+    block, warps = launch_shape(PACK_LAUNCH, layer)
+    assert -(-layer // block) >= H100_SMS and block // (32 * warps) <= 4
+
+
+@pytest.mark.parametrize("n", [5 * 512, 4608])
+def test_dequant_launch_takes_one_value_a_thread_on_the_training_wire(n):
+    """The expand's inputs on the training path, from the decoded codes of
+    5 workers for a 512-value leaf to the mean code of ResNet-18's largest
+    factor (4608 x 1): one value a thread, over a dozen programs or more."""
+    block, warps = launch_shape(DEQUANT_LAUNCH, n)
+    assert block == 32 * warps and -(-n // block) >= 12
