@@ -43,7 +43,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    each decode step none; prefill logits and caches must match the same
    prefill in reference mode; greedy tokens are compared with a
    reference-mode run; bytes/token must equal the accounting (48290.909
-   for (g1), the JAX package's figure).
+   for (g1), the JAX package's figure);
+7. the gradient-inversion trust claim (paper §V-C), through
+   ``python -m repro_torch.bench.gia_ssim``'s ``bench``: (h1) the JAX
+   benchmark's sweep as it stands (its 2-conv victim net, a 16x16x3 target,
+   all 8 methods, 10 victim steps, attacks at steps 0 and 9, best of 8
+   restarts, 300 sign-Adam steps) and (h2) the same harness on ResNet-18 at
+   full width (one 32x32x3 target; sgd, lq_sgd_r1, lq_sgd_r1_b4), in f32:
+   the phase turns both TF32 flags on and every victim sync and gradient
+   must find them off. Each run starts with the launch counts at 0 and
+   must launch the LQ-SGD kernels; every victim step's observed gradient
+   must equal the same run's in reference mode (codes but for one-step
+   bin-edge flips, synced gradients within :func:`train_tol`) and its bits
+   the accounting; at (h1)'s cold start SGD must leak more than 0.15 SSIM,
+   and at its steady state at least as much as LQ-SGD r1 by the mean best
+   SSIM of 8 restarts over 32 groups (the JAX package's own claims). It
+   prints the SSIM table, the ms of one batched attack step, its idle
+   share and a torch.profiler split of (h2)'s.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -132,11 +148,29 @@ SSD_REL_TOL = 1e-4
 SSM_CACHE_REL_TOL = 5e-2
 
 
-def train_tol(bits, flips):
+# Phase 7, the GIA runs: (h1) the JAX benchmark's victim net, (h2) ResNet-18
+GIA_RUNS = {"h1": "cnn", "h2": "resnet18"}
+# the JAX package's claims (tests/test_privacy.py): at the cold start the
+# attack recovers structure from the raw gradient (SSIM above 0.15); at the
+# steady state SGD leaks at least as much as LQ-SGD r1
+GIA_COLD_SSIM_MIN = 0.15
+# The steady-state claim is about the benchmark's statistic, the best SSIM of
+# 8 restarts, whose spread between draws is larger than the effect: over 16
+# harness seeds SGD's best of 8 minus LQ-SGD r1's was 0.139 +- 0.186 (sd) on
+# the CPU and 0.068 +- 0.235 on the H100, below 0 in 4 and 5 of them
+# (tools/gia_ordering.py). One draw does not decide it, so the check takes
+# the mean best of 8 over 32 groups of 8 restarts (256 restarts in one
+# batched attack a method, the same starting images for both methods).
+GIA_ORDER_RESTARTS, GIA_ORDER_GROUP = 256, 8
+# the device-time split of an attack step: cuDNN's convolutions by kernel name
+CONV_KERNELS = ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd")
+
+
+def train_tol(bits, flips, workers=TRAIN_WORKERS):
     if flips == 0:
         return 1e-5
     levels = (1 << (bits - 1)) - 1
-    return 2 * ((1 + ALPHA) ** (1 / (TRAIN_WORKERS * levels)) - 1)
+    return 2 * ((1 + ALPHA) ** (1 / (workers * levels)) - 1)
 
 
 class SmokeFailure(RuntimeError):
@@ -251,7 +285,7 @@ def phase_build():
     x = torch.randn(4096, device="cuda")
     # every launch shape of the encode, the fused encode + pack (its table
     # counts packed bytes) and the wire dequant, at the unit scale their
-    # callers pass
+    # callers pass; then every launch shape of the bare pack
     warm_ups = (
         (log_quant.QUANTIZE_LAUNCH, 1, log_quant.log_quantize_triton, 8),
         (log_quant.PACK_LAUNCH, 2, log_quant.log_quantize_pack_triton, 4),
@@ -261,8 +295,10 @@ def phase_build():
         for top, _, _ in table:
             n = per_row * top if top else 1 << 20
             kernel(torch.randn(n, device="cuda"), 1.0, bits=bits)
-    codes = log_quant.log_quantize_triton(x, 1.0, bits=8)
-    log_quant.pack_nibbles_triton(codes.clamp(-8, 7))
+    codes = log_quant.log_quantize_triton(x, 1.0, bits=8).clamp(-8, 7)
+    for top, _, _ in log_quant.NIBBLE_LAUNCH:  # in packed bytes, two codes each
+        n = 2 * top if top else 1 << 20
+        log_quant.pack_nibbles_triton(codes.repeat(n // codes.numel()))
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
     print(
@@ -983,12 +1019,13 @@ def _greedy(cfg, params, logits, caches, prompt, n):
 
 def kernel_groups(by_name, kernels):
     """Device ms of :func:`device_ms_by_kernel`'s kernels by group: each of
-    ``kernels`` (group name -> a substring of its kernel's name), the
-    matmuls (cuBLAS) and everything else."""
+    ``kernels`` (group name -> a substring of its kernel's name, or a tuple
+    of them), the matmuls (cuBLAS) and everything else."""
     groups = dict.fromkeys([*kernels, "matmul", "other"], 0.0)
+    keys = {g: (k,) if isinstance(k, str) else k for g, k in kernels.items()}
     for name, (ms, _) in by_name.items():
         low = name.lower()
-        mine = [group for group, key in kernels.items() if key in low]
+        mine = [group for group, ks in keys.items() if any(k in low for k in ks)]
         if mine:
             groups[mine[0]] += ms
         elif any(k in low for k in MATMUL_KERNELS):
@@ -1167,6 +1204,273 @@ def phase_ssm(card):
     return total
 
 
+def _tf32_flags():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+class _SyncRecorder:
+    """A compressor whose one-worker syncs are kept in ``log``: each call's
+    synced gradient, ``CommRecord``, gathered wire and TF32 flags."""
+
+    def __init__(self, inner, log):
+        self.inner, self.log = inner, log
+
+    def init_state(self, seed, n_workers, device):
+        return self.inner.init_state(seed, n_workers, device)
+
+    def sync_once(self, grads, state, *, comm=None):
+        from repro_torch.core.comm import SimComm
+
+        comm = SimComm(1, record=True)
+        out, new_state, rec = self.inner.sync_once(grads, state, comm=comm)
+        bits = self.inner.wire_bits_per_step()
+        self.log.append(
+            dict(out=out, rec=rec, bits=bits, wire=comm.gathered, tf32=_tf32_flags())
+        )
+        return out, new_state, rec
+
+
+def _recorded_victim(model, logs, flags):
+    """``gia_ssim.setup(model)`` with every compressed method's syncs kept in
+    ``logs[method]`` and the TF32 flags of every gradient call in ``flags``."""
+    from repro_torch.bench import gia_ssim
+    from repro_torch.core.compressors import make_compressor
+
+    victim = gia_ssim.setup(model, "cuda")
+    inner_grad = victim["grad_fn"]
+
+    def grad_fn(p, x, y):
+        flags.append(_tf32_flags())
+        return inner_grad(p, x, y)
+
+    def recorded(cfg, log):
+        return lambda abstract: _SyncRecorder(make_compressor(cfg, abstract), log)
+
+    methods = {}
+    for name, cfg in victim["methods"].items():
+        if cfg is not None:
+            logs[name] = []
+            cfg = recorded(cfg, logs[name])
+        methods[name] = cfg
+    return {**victim, "grad_fn": grad_fn, "methods": methods}
+
+
+def phase_gia(card):
+    # the same init, generators and cuDNN algorithms give the same attack
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    # TF32 on, as PyTorch leaves cuDNN's convolutions: the harness must hold
+    # its own f32 setting
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    was = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        return _gia_runs(card)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = was
+
+
+def _check_victim_steps(label, comp_cfgs, logs, ref_logs):
+    """Every compressed method's victim syncs against reference mode's."""
+    from repro_torch.core.tree import tree_leaves
+
+    for name, log in logs.items():
+        want_log, cfg = ref_logs[name], comp_cfgs[name]
+        check(len(log) == len(want_log) > 0, f"{label} {name}: {len(log)} syncs")
+        bits = log[0]["bits"]
+        flips = n_codes = 0
+        grad_rel = 0.0
+        for step, (got, want) in enumerate(zip(log, want_log)):
+            at = f"{label} {name} step {step}"
+            for rec in (got["rec"], want["rec"]):
+                check(rec.bits_sent == bits, f"{at}: sent {rec.bits_sent} of {bits}")
+            check(not any(got["tf32"]), f"{at}: a sync ran with TF32 on")
+            check(len(got["wire"]) == len(want["wire"]), f"{at}: gathers differ")
+            step_flips = 0
+            for g, w in zip(got["wire"], want["wire"]):
+                if g.dtype == torch.float32 or cfg.name != "lq_sgd":
+                    check(torch.equal(g, w), f"{at}: wire differs")
+                    continue
+                d = (_wire_codes(g, cfg.bits) - _wire_codes(w, cfg.bits)).abs()
+                check(int(d.max()) <= 1, f"{at}: a code moved more than one step")
+                step_flips += int((d > 0).sum())
+                n_codes += d.numel()
+            flips += step_flips
+            tol = train_tol(cfg.bits, step_flips, workers=1)
+            pairs = zip(tree_leaves(got["out"]), tree_leaves(want["out"]), strict=True)
+            for g, w in pairs:
+                err, top = float((g - w).abs().max()), float(w.abs().max())
+                check(err <= tol * top, f"{at}: synced grads differ by {err:.3e}")
+                grad_rel = max(grad_rel, err / max(top, 1e-30))
+        check(flips <= 1e-3 * max(n_codes, 1), f"{label} {name}: {flips} code flips")
+        print(
+            f"  {label} {name}: {len(log)} victim steps equal to reference mode: "
+            f"{bits} wire bits each, {flips} of {n_codes} codes flipped, synced "
+            f"grads rel {grad_rel:.2e}"
+        )
+
+
+def _attack_step_split(label, card, victim, cfg, model):
+    """One batched attack step (every restart) of ``victim``: its host time,
+    a CUDA-graph replay's time, and (ResNet-18) torch.profiler's split of
+    its device time."""
+    from repro_torch.core.privacy.gia import make_attack_step
+    from repro_torch.train.data_parallel import _tf32_off
+
+    params, x, y = victim["params"], victim["x"], victim["y"]
+    g_obs = victim["grad_fn"](params, x, y)
+    step = make_attack_step(victim["grad_fn"], params, g_obs, y, cfg.gia)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (cfg.n_attack_seeds,) + tuple(x.shape)
+    xs = torch.randn(shape, generator=gen, device="cuda")
+    m, v = torch.zeros_like(xs), torch.zeros_like(xs)
+    with _tf32_off():
+        h_ms = host_ms(lambda: step(xs, m, v, 0), repeats=5)
+        g_ms = cuda_ms(lambda: step(xs, m, v, 0), 1)
+        by_name = device_ms_by_kernel(lambda: step(xs, m, v, 0))
+    n_kernels = sum(c for _, c in by_name.values())
+    print(
+        f"  ({label}) {model} attack step, {cfg.n_attack_seeds} restarts batched: "
+        f"{h_ms:.3f} ms on the host clock, graph replay {g_ms:.3f} ms, idle "
+        f"{1 - g_ms / h_ms:.1%}, {n_kernels} kernels; {card}"
+    )
+    emit(
+        {
+            "split": f"gia_attack_step_{label}",
+            "card": card,
+            "host_ms": h_ms,
+            "graph_ms": g_ms,
+            "idle_share": 1 - g_ms / h_ms,
+        }
+    )
+    if model == "resnet18":
+        _kernel_split(f"gia_attack_step_{label}", card, by_name, {"conv": CONV_KERNELS})
+
+
+def _gia_ordering(label, card, cfg):
+    """(h1)'s steady-state claim, SGD leaks at least as much as LQ-SGD r1,
+    on the mean best of ``GIA_ORDER_GROUP`` restarts over
+    ``GIA_ORDER_RESTARTS`` restarts."""
+    import dataclasses
+    import statistics
+
+    from repro_torch.bench import gia_ssim
+
+    victim = gia_ssim.setup("cnn", "cuda")
+    methods = ("sgd", "lq_sgd_r1")
+    victim["methods"] = {m: victim["methods"][m] for m in methods}
+    steady = max(cfg.attack_steps)
+    many = dataclasses.replace(
+        cfg, attack_steps=(steady,), n_attack_seeds=GIA_ORDER_RESTARTS
+    )
+    t0 = time.perf_counter()
+    rows, _ = gia_ssim.bench(model="cnn", cfg=many, victim=victim)
+    k = GIA_ORDER_GROUP
+    best = {}
+    for r in rows:
+        s = r["seed_ssims"]
+        best[r["method"]] = [max(s[i : i + k]) for i in range(0, len(s), k)]
+    mean = {m: statistics.fmean(best[m]) for m in methods}
+    diffs = [a - b for a, b in zip(best["sgd"], best["lq_sgd_r1"], strict=True)]
+    se = statistics.stdev(diffs) / math.sqrt(len(diffs))
+    wins = sum(d >= 0 for d in diffs)
+    print(
+        f"  {label}: steady state over {len(diffs)} groups of {k} restarts: mean "
+        f"best-of-{k} ssim sgd {mean['sgd']:.4f}, lq_sgd_r1 {mean['lq_sgd_r1']:.4f} "
+        f"(difference {statistics.fmean(diffs):.4f} +- {se:.4f} s.e.; sgd >= "
+        f"lq_sgd_r1 in {wins} of {len(diffs)} groups), {time.perf_counter() - t0:.1f} "
+        f"s; {card}"
+    )
+    check(mean["sgd"] >= mean["lq_sgd_r1"], f"{label}: LQ-SGD leaks more than SGD")
+    emit(
+        {
+            "gia_ordering": "h1",
+            "card": card,
+            "restarts": GIA_ORDER_RESTARTS,
+            "group": k,
+            "mean_best": mean,
+            "difference_se": se,
+            "groups_sgd_ge_lq": wins,
+        }
+    )
+
+
+def _gia_runs(card):
+    import dataclasses
+
+    from repro_torch.bench import gia_ssim
+    from repro_torch.kernels import ops
+
+    need = {
+        "lq_sgd_r4": ("log_quantize", "log_dequantize"),
+        "lq_sgd_r1": ("log_quantize", "log_dequantize"),
+        "lq_sgd_r1_b4": ("log_quantize_pack", "log_dequantize"),
+    }
+    total = {name: 0 for name in ops.KERNELS}
+    cfg = gia_ssim.harness_config(quick=False)
+    for run, model in GIA_RUNS.items():
+        t0 = time.perf_counter()
+        label = f"({run}) GIA {model}"
+        comp_cfgs = gia_ssim.setup(model, "cuda")["methods"]
+        # the victim's trajectory in reference mode, no attack
+        ref_logs, ref_flags = {}, []
+        victim = _recorded_victim(model, ref_logs, ref_flags)
+        with ops.reference_mode():
+            gia_ssim.bench(
+                model=model,
+                device="cuda",
+                cfg=dataclasses.replace(cfg, attack_steps=()),
+                victim=victim,
+            )
+        # the main path: the sweep as the entry point runs it
+        logs, flags = {}, []
+        victim = _recorded_victim(model, logs, flags)
+        ops.reset_launch_counts()
+        rows, _ = gia_ssim.bench(model=model, device="cuda", victim=victim)
+        counts = ops.launch_counts()
+        seconds = time.perf_counter() - t0
+        print(f"{label}: {len(victim['methods'])} methods, launches {counts}")
+        for name in {k for m in victim["methods"] for k in need.get(m, ())}:
+            check(counts[name] > 0, f"{label}: kernel {name} never launched")
+        for name, c in counts.items():
+            total[name] += c
+        check(flags and not any(any(f) for f in flags), f"{label}: TF32 was on")
+        check(all(_tf32_flags()), f"{label}: TF32 flags not restored")
+        _check_victim_steps(label, comp_cfgs, logs, ref_logs)
+
+        by = {(r["method"], r["phase"]): r for r in rows}
+        for r in rows:
+            finite = math.isfinite(r["ssim"]) and math.isfinite(r["psnr"])
+            check(finite, f"{label}: {r['method']} {r['phase']}: not finite")
+            print(
+                f"  {label} {r['method']:>13} {r['phase']:>12}: ssim {r['ssim']:.4f} "
+                f"psnr {r['psnr']:.2f} attack {r['attack_seconds']:.2f} s"
+            )
+        steady, cold = by[("sgd", "steady_state")], by[("sgd", "cold_start")]
+        lq = by[("lq_sgd_r1", "steady_state")]
+        order = ">=" if steady["ssim"] >= lq["ssim"] else "<"
+        print(
+            f"  {label}: steady state ssim sgd {steady['ssim']:.4f}, lq_sgd_r1 "
+            f"{lq['ssim']:.4f} (SGD {order} LQ-SGD r1); cold start sgd "
+            f"{cold['ssim']:.4f}; phase {seconds:.1f} s; {card}"
+        )
+        if run == "h1":
+            check(cold["ssim"] > GIA_COLD_SSIM_MIN, f"{label}: cold-start SGD ssim")
+            _gia_ordering(label, card, cfg)
+        table = [{k: v for k, v in r.items() if k != "seed_ssims"} for r in rows]
+        emit(
+            {
+                "gia": run,
+                "model": model,
+                "card": card,
+                "seconds": seconds,
+                "rows": table,
+            }
+        )
+        _attack_step_split(run, card, gia_ssim.setup(model, "cuda"), cfg, model)
+    return total
+
+
 KERNEL_INFO = {
     "log_quantize": (
         "triton",
@@ -1212,7 +1516,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = phase_kernels(gen)
     launches = phase_serve(card, gen)
-    for phase in (phase_train, phase_ssm):
+    for phase in (phase_train, phase_ssm, phase_gia):
         for name, c in phase(card).items():
             launches[name] += c
     kernels = []

@@ -26,6 +26,11 @@ the keyword-only ``key`` (a ``torch.Generator`` on the tensor's device) in
 ``codes``/``encode``; a deterministic one rejects it, since a key silently
 unused would make a run look reproducible when it is not.
 
+Privacy contract: ``epsilon_per_use(delta)`` is the per-message DP epsilon
+under the Gaussian-mechanism convention of
+:mod:`repro_torch.core.privacy.accounting`; ``inf`` for every codec ported
+so far, since none injects calibrated noise.
+
 :func:`codec_phase` is the one collective primitive the compressors share:
 it scales (pmax), encodes, ships (ONE fused flat gather with ``fuse=True``,
 else one gather per tensor), decodes and averages a list of tensors whose
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import math
 from collections.abc import Callable, Sequence
 from typing import Any
 
@@ -209,6 +215,10 @@ class WireCodec:
     def scale_bits(self, n_scales: int) -> int:
         return 32 * n_scales if self.needs_scale else 0
 
+    def epsilon_per_use(self, delta: float = 1e-5) -> float:
+        """Per-message DP epsilon at ``delta``: ``inf``, no guarantee."""
+        return math.inf
+
     def _check_key(self, key: torch.Generator | None) -> None:
         if self.requires_key and key is None:
             raise ValueError(
@@ -304,7 +314,9 @@ class QSGDCodec(WireCodec):
     Needs a generator per call (per tensor, per step; one draw covers every
     worker of a (N, ...) tensor). The draws are the port's own: they cannot
     reproduce ``jax.random``, so the codec is held to the reference
-    statistically, and its wire bits exactly."""
+    statistically, and its wire bits exactly. Its rounding noise has bounded
+    support, so ``epsilon_per_use`` stays ``inf``: no (epsilon, delta) claim
+    under the Gaussian accountant."""
 
     bits: int = 8
     needs_scale: bool = True

@@ -44,7 +44,7 @@ class CommRecord:
     def add_gated(self, bits: int, n: int, gate) -> None:
         raise NotImplementedError(
             "gated accounting belongs to lazy aggregation, which is not ported "
-            "yet (ROADMAP Queue 1, slice C item 11)"
+            "yet (ROADMAP Queue 1, item 11)"
         )
 
     def add_down(self, bits: int) -> None:

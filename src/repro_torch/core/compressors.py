@@ -37,7 +37,13 @@ import torch
 
 from repro_torch.core.comm import CommRecord, SimComm
 from repro_torch.core.low_rank import matricize_shape
-from repro_torch.core.tree import Tree, flatten_with_paths, tree_leaves, tree_unflatten
+from repro_torch.core.tree import (
+    Tree,
+    flatten_with_paths,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 from repro_torch.core.wire import SymmetricWire, as_wire
 
 __all__ = [
@@ -176,11 +182,16 @@ def build_plans(
     )
 
 
-def leaf_generator(seed: int, step: int, leaf: int, device) -> torch.Generator:
+def leaf_generator(
+    seed: int, step: int, leaf: int, device, *, stream: int = 0
+) -> torch.Generator:
     """The generator of one leaf at one step, derived from the state's seed
     (the counterpart of ``fold_in(fold_in(key, step), leaf)``: the port's
-    own stream, mixed by numpy's SeedSequence)."""
-    mixed = np.random.SeedSequence([seed, step, leaf]).generate_state(1, np.uint64)
+    own stream, mixed by numpy's SeedSequence). Another ``stream`` gives
+    another, independent generator for the same (seed, step, leaf)."""
+    spawn_key = (stream,) if stream else ()
+    seq = np.random.SeedSequence([seed, step, leaf], spawn_key=spawn_key)
+    mixed = seq.generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(mixed[0]) >> 1)
 
 
@@ -246,6 +257,13 @@ class LeafGroupHandler:
         another width than it is accounted (TopK's dense f32 stand-in for the
         sparse payload, ``psum_sim``'s f32 codes)."""
         return self.leaf_wire_bits(pl)
+
+    def leaf_epsilon(self, pl: LeafPlan, delta: float = 1e-5) -> float:
+        """Per-step DP epsilon spent transmitting this leaf: the sum of
+        ``epsilon_per_use`` over every encode of the leaf's sync (``inf``
+        for any deterministic transmission, which has no DP guarantee)."""
+        del delta
+        return math.inf
 
 
 class TopKHandler(LeafGroupHandler):
@@ -451,6 +469,23 @@ class GradCompressor:
             rec,
         )
 
+    def sync_once(
+        self, grads: Tree, state: dict[str, Any], *, comm: SimComm | None = None
+    ) -> tuple[Tree, dict[str, Any], CommRecord]:
+        """One worker's :meth:`sync`: ``grads`` without a worker dim, over a
+        ``SimComm(1)`` (``comm``, or a fresh one; one with ``record=True``
+        keeps the wire). The compression is still lossy: the output is the
+        reconstruction an eavesdropper observes on the wire. ``state`` is the
+        port's per-worker state of one worker, as ``init_state(seed, 1,
+        device)`` makes it (every tensor keeps its leading worker dim of 1),
+        and so is the returned state, which MUST be threaded into the next
+        call for error feedback and warm-start Q to evolve as in training.
+        Returns ``(synced, new_state, CommRecord)``."""
+        comm = comm if comm is not None else SimComm(1)
+        if comm.size() != 1:
+            raise ValueError(f"sync_once runs one worker, got a comm of {comm.size()}")
+        return self.sync(tree_map(lambda g: g[None], grads), state, comm)
+
     # ---- static accounting -----------------------------------------------
     def wire_bits_per_step(self) -> int:
         return sum(self.handler.leaf_wire_bits(pl) for pl in self.plans)
@@ -459,6 +494,26 @@ class GradCompressor:
         return {
             self.method: sum(self.handler.leaf_physical_bits(pl) for pl in self.plans)
         }
+
+    def privacy_epsilon_per_step(self, delta: float = 1e-5) -> float:
+        """Per-step DP epsilon under basic composition over every leaf's
+        transmissions; ``inf`` as soon as ANY leaf ships deterministically.
+        Compose across steps with :mod:`repro_torch.core.privacy.accounting`."""
+        return sum(self.handler.leaf_epsilon(pl, delta) for pl in self.plans)
+
+    def privacy_budget(
+        self, steps: int, *, delta: float = 1e-5, sampling_rate: float = 1.0
+    ):
+        """End-of-training :class:`~repro_torch.core.privacy.accounting.
+        TrainingBudget` for a ``steps``-step run of this compressor."""
+        from repro_torch.core.privacy.accounting import compose_training
+
+        return compose_training(
+            self.privacy_epsilon_per_step(delta),
+            steps,
+            delta=delta,
+            sampling_rate=sampling_rate,
+        )
 
 
 class NoCompression(GradCompressor):

@@ -69,6 +69,11 @@ class LQSGDHandler(PowerSGDHandler):
         codec = self._raw_codec(pl)
         return codec.wire_bits(numel) + codec.scale_bits(1)
 
+    def leaf_epsilon(self, pl, delta: float = 1e-5) -> float:
+        if pl.route == "lowrank":
+            return super().leaf_epsilon(pl, delta)
+        return self._raw_codec(pl).epsilon_per_use(delta)
+
     def leaf_physical_bits(self, pl):
         if pl.route == "lowrank" or self.cfg.wire_accounting != "psum_sim":
             return super().leaf_physical_bits(pl)

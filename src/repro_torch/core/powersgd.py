@@ -153,6 +153,14 @@ class PowerSGDHandler(LeafGroupHandler):
             + cq.scale_bits(n_layers)  # Q (+ scales)
         )
 
+    def leaf_epsilon(self, pl, delta: float = 1e-5) -> float:
+        """Both factor phases spend (or the raw route does): a leaf ships in
+        the clear, at an infinite spend, unless both are randomized."""
+        if pl.route == "lowrank":
+            eps_p = self._codec_p(pl).epsilon_per_use(delta)
+            return eps_p + self._codec_q(pl).epsilon_per_use(delta)
+        return super().leaf_epsilon(pl, delta)
+
     def leaf_physical_bits(self, pl):
         if pl.route != "lowrank" or self.cfg.wire_accounting != "psum_sim":
             return self.leaf_wire_bits(pl)

@@ -67,7 +67,7 @@ def as_wire(
         return SymmetricWire(comm)
     if topology == "server":
         raise NotImplementedError(
-            "the server wire is not ported yet (ROADMAP Queue 1, slice C item 12)"
+            "the server wire is not ported yet (ROADMAP Queue 1, item 12)"
         )
     raise ValueError(
         f"unknown wire topology {topology!r}; options: 'symmetric', 'server'"

@@ -34,7 +34,14 @@ stride-2 loads; at two bytes a thread the split stays in registers, at
 four Triton moved it through shared memory). Their unit scale, which every
 serving and training caller passes (the codec normalizes first), is a
 compile-time case that drops the division or multiply by 1 (exact, so no
-code or value changes). The bare pack takes blocks of 2048 bytes.
+code or value changes). The bare pack (:func:`pack_nibbles_triton`) reads
+its codes the same way, 2 x BLOCK in one contiguous run paired in
+registers, with its block and warps from its packed bytes
+(``NIBBLE_LAUNCH``): on large inputs two 16-byte loads and a 16-byte store
+a thread. A masked load is a vector load only where Triton knows its
+bound n to be a multiple of 16, as every training leaf's is; for other n
+the whole groups of 16 codes load that way and the program that holds the
+last n % 16 codes loads those alone.
 Rounding is ``libdevice.rint`` (half to even, like ``jnp.round``) and
 every division is ``div_rn`` (IEEE), so the arithmetic matches the plain
 version op for op; only the last ulp of ``log1p``/``expm1`` may differ
@@ -56,6 +63,7 @@ __all__ = [
     "QUANTIZE_LAUNCH",
     "PACK_LAUNCH",
     "DEQUANT_LAUNCH",
+    "NIBBLE_LAUNCH",
     "launch_shape",
     "quantize_launch",
     "log_quantize_triton",
@@ -64,7 +72,6 @@ __all__ = [
     "pack_nibbles_triton",
 ]
 
-_BLOCK = 2048
 # Launch shapes: (largest n, BLOCK, num_warps), by n; the last row takes
 # every larger n. log_quantize's, in values:
 QUANTIZE_LAUNCH = (
@@ -81,6 +88,11 @@ PACK_LAUNCH = (
 DEQUANT_LAUNCH = (
     (1 << 16, 128, 4),  # the training wire's tensors: one value a thread
     (None, 512, 4),  # four values a thread, one 16-byte load
+)
+# pack_nibbles's, in packed bytes (two codes each):
+NIBBLE_LAUNCH = (
+    (1 << 13, 128, 4),  # a byte a thread: QSGD's small leaves span several SMs
+    (None, 2048, 4),  # 16 bytes a thread: two 16-byte loads, one 16-byte store
 )
 _FLOAT_IN = (torch.float32, torch.bfloat16)
 # the wire dequant takes integer codes or the f32 mean of gathered codes
@@ -182,15 +194,23 @@ def _kernels() -> SimpleNamespace:
         tl.store(o_ptr + offs, val, mask=m)
 
     @triton.jit
-    def pack(c_ptr, o_ptr, n, n_bytes, BLOCK: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        lo_i = 2 * offs
-        hi_i = lo_i + 1
-        # the pad code of an odd n loads as 0
-        lo = tl.load(c_ptr + lo_i, mask=lo_i < n, other=0).to(tl.int32)
-        hi = tl.load(c_ptr + hi_i, mask=hi_i < n, other=0).to(tl.int32)
-        byte = (lo & 0xF) | ((hi & 0xF) << 4)
-        tl.store(o_ptr + offs, byte.to(tl.int8), mask=offs < n_bytes)
+    def pack(c_ptr, o_ptr, n, n_bytes, BLOCK: tl.constexpr, EXACT: tl.constexpr):
+        # the program's 2 x BLOCK codes in one contiguous load, split into the
+        # low and high code of each byte; a pad code (odd n) loads as 0
+        pid = tl.program_id(0).to(tl.int64)
+        idx = pid * (2 * BLOCK) + tl.arange(0, 2 * BLOCK)
+        if EXACT:  # n a multiple of 16: the masked loads stay vector loads
+            c = tl.load(c_ptr + idx, mask=idx < n, other=0)
+        else:  # whole groups of 16 codes by vector loads, the rest (< 16 codes,
+            # in one program) by that program alone
+            n16 = (n // 16) * 16
+            c = tl.load(c_ptr + idx, mask=idx < n16, other=0)
+            if pid == (n - 1) // (2 * BLOCK):
+                c += tl.load(c_ptr + idx, mask=(idx >= n16) & (idx < n), other=0)
+        c = c.to(tl.int32) & 0xF
+        lo, hi = tl.split(tl.reshape(c, (BLOCK, 2)))
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        tl.store(o_ptr + offs, (lo | (hi << 4)).to(tl.int8), mask=offs < n_bytes)
 
     return SimpleNamespace(
         quantize=quantize,
@@ -318,8 +338,10 @@ def pack_nibbles_triton(codes: torch.Tensor) -> torch.Tensor:
     n_bytes = (n + 1) // 2
     out = torch.empty((n_bytes,), dtype=torch.int8, device=codes.device)
     if n:
-        grid = (_cdiv(n_bytes, _BLOCK),)
-        _kernels().pack[grid](codes, out, n, n_bytes, BLOCK=_BLOCK)
+        block, warps = launch_shape(NIBBLE_LAUNCH, n_bytes)
+        _kernels().pack[(_cdiv(n_bytes, block),)](
+            codes, out, n, n_bytes, BLOCK=block, EXACT=n % 16 == 0, num_warps=warps
+        )
         pack_nibbles_triton.launches += 1
     return out
 

@@ -9,6 +9,7 @@ machine without a CUDA device. On the GPU machine run
 need not have; nothing here uses it.)
 """
 
+import functools
 import math
 
 import numpy as np
@@ -28,8 +29,11 @@ from repro_torch.kernels.log_dequant_rows import log_dequantize_rows_cuda
 from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
 from repro_torch.models.resnet import init_resnet18, resnet18_forward
 from repro_torch.train.data_parallel import train_one, worker_grads
+from repro_torch.bench import gia_ssim
+from repro_torch.core.privacy.gia import attack_loss
 from repro_torch.kernels.log_quant import (
     DEQUANT_LAUNCH,
+    NIBBLE_LAUNCH,
     PACK_LAUNCH,
     log_dequantize_triton,
     log_quantize_pack_triton,
@@ -208,6 +212,39 @@ def test_pack_nibbles_kernel(cuda, shape):
     want = ref.pack_nibbles_ref(c)
     assert got.dtype == torch.int8 and got.shape == want.shape
     assert torch.equal(got, want)
+
+
+# codes (two a byte): 1, 2 and 3; 2 x BLOCK - 1 and + 1 of every row of
+# NIBBLE_LAUNCH; just under, at and just over the bound between its rows
+_NIBBLE_NS = [1, 2, 3]
+_NIBBLE_NS += [n for _, b, _ in NIBBLE_LAUNCH for n in (2 * b - 1, 2 * b + 1)]
+_NIBBLE_NS += [n for t, _, _ in NIBBLE_LAUNCH[:-1] for n in (2 * t - 1, 2 * t + 1)]
+_NIBBLE_NS += [2 * t for t, _, _ in NIBBLE_LAUNCH[:-1]]
+
+
+@pytest.mark.parametrize("n", _NIBBLE_NS)
+def test_pack_nibbles_kernel_launch_shapes(cuda, n):
+    """Every launch shape of ``NIBBLE_LAUNCH`` and the odd tail: the bytes
+    of the plain version, an odd n's high nibble 0, one launch."""
+    c = torch.randint(-8, 8, (n,), generator=cuda, device="cuda").to(torch.int8)
+    before = pack_nibbles_triton.launches
+    got = pack_nibbles_triton(c)
+    assert pack_nibbles_triton.launches == before + 1
+    assert torch.equal(got, ref.pack_nibbles_ref(c))
+    if n % 2:
+        assert (int(got[-1]) >> 4) & 0xF == 0
+
+
+@pytest.mark.parametrize("n", [1, 2, 4096, 4097])
+def test_pack_nibbles_kernel_reads_a_view_at_an_odd_address(cuda, n):
+    """A view with a storage offset of 1 (an odd data pointer, so no
+    16-byte vector loads): the plain version's bytes, through the dispatch
+    too."""
+    base = torch.randint(-8, 8, (n + 1,), generator=cuda, device="cuda")
+    view = base.to(torch.int8)[1:]
+    assert view.storage_offset() == 1 and view.data_ptr() % 2 == 1
+    assert torch.equal(pack_nibbles_triton(view), ref.pack_nibbles_ref(view))
+    assert torch.equal(ops.pack_nibbles(view), ref.pack_nibbles_ref(view))
 
 
 def _ulp(x):
@@ -418,6 +455,52 @@ def test_dispatch_launches_kernels_and_reference_mode_does_not(cuda):
     assert counts["log_quantize"] == counts["log_dequantize"] == 1
     assert counts["pack_nibbles"] == counts["ssd_chunk"] == 1
     assert counts["log_dequantize_rows"] == counts["flash_attention"] == 1
+
+
+def _attack_inputs(model, dtype, dev):
+    """The GIA benchmark's victim on ``dev`` in ``dtype``, its observed raw
+    gradient, and 4 seeded restarts x̂ (drawn on the CPU)."""
+    victim = gia_ssim.setup(model, "cpu")
+    p = tree_map(lambda t: t.to(dev, dtype), victim["params"])
+    x, y = victim["x"].to(dev, dtype), victim["y"].to(dev)
+    g_obs = victim["grad_fn"](p, x, y)
+    gen = torch.Generator().manual_seed(1)
+    x_hat = 0.5 * torch.randn((4,) + tuple(x.shape), generator=gen, dtype=dtype)
+    loss = functools.partial(attack_loss, victim["grad_fn"], p, g_obs, y, 5e-3)
+    return loss, x_hat.to(dev)
+
+
+@pytest.mark.parametrize(
+    "model,dtype,tol",
+    [("cnn", torch.float32, 1e-4), ("resnet18", torch.float64, 1e-8)],
+)
+def test_attack_gradient_on_the_card_equals_the_cpu(cuda, model, dtype, tol):
+    """The attack's double backward, ∂(attack loss)/∂x̂ at a seeded x̂ for
+    the GIA benchmark's victims (the 2-conv net at 16x16, ResNet-18 at
+    32x32), on the card against the same call on the CPU, TF32 off: within
+    ``tol`` of the largest |∂|. The 2-conv net in f32; ResNet-18 in f64,
+    since f32 rounding alone moves its attack gradient by 8e-3 of the
+    largest on the CPU (BatchNorm over a batch of one). No kernel of the
+    port runs in it: its convolutions are cuDNN's."""
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        loss, x_hat = _attack_inputs(model, dtype, dev)
+        grads[dev] = torch.func.grad(loss)(x_hat[0]).cpu()
+    want, got = grads["cpu"], grads["cuda"]
+    top = float(want.abs().max())
+    assert top > 0 and got.dtype == dtype
+    assert float((got - want).abs().max()) <= tol * top
+
+
+def test_batched_attack_gradient_on_the_card_equals_a_loop(cuda):
+    """Restarts under ``torch.func.vmap`` (one convolution over all of
+    them) against one call a restart, on the card: within 1e-4 of the
+    largest |∂|."""
+    loss, x_hat = _attack_inputs("cnn", torch.float32, "cuda")
+    batched = torch.func.vmap(torch.func.grad(loss))(x_hat)
+    looped = torch.stack([torch.func.grad(loss)(x) for x in x_hat])
+    top = float(looped.abs().max())
+    assert float((batched - looped).abs().max()) <= 1e-4 * top
 
 
 def test_train_one_computes_in_f32_with_tf32_on(cuda):

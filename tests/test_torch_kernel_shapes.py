@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ref
 from repro_torch.kernels.log_quant import (
     DEQUANT_LAUNCH,
+    NIBBLE_LAUNCH,
     PACK_LAUNCH,
     QUANTIZE_LAUNCH,
     launch_shape,
@@ -166,10 +167,12 @@ def test_quantize_launch_covers_every_n():
     _covers_every_n(QUANTIZE_LAUNCH, quantize_launch)
 
 
-@pytest.mark.parametrize("name", ["pack", "dequant"])
+@pytest.mark.parametrize("name", ["pack", "dequant", "nibble"])
 def test_launch_table_covers_every_n(name):
-    """``PACK_LAUNCH`` over packed bytes, ``DEQUANT_LAUNCH`` over values."""
-    table = {"pack": PACK_LAUNCH, "dequant": DEQUANT_LAUNCH}[name]
+    """``PACK_LAUNCH`` and ``NIBBLE_LAUNCH`` over packed bytes,
+    ``DEQUANT_LAUNCH`` over values."""
+    table = {"pack": PACK_LAUNCH, "dequant": DEQUANT_LAUNCH, "nibble": NIBBLE_LAUNCH}
+    table = table[name]
     _covers_every_n(table, lambda n: launch_shape(table, n))
 
 
@@ -192,6 +195,19 @@ def test_pack_launch_spreads_the_decode_append():
     assert -(-append // block) >= 4 and block // (32 * warps) <= 2
     block, warps = launch_shape(PACK_LAUNCH, layer)
     assert -(-layer // block) >= H100_SMS and block // (32 * warps) <= 4
+
+
+def test_nibble_launch_packs_16_bytes_a_thread_on_the_qsgd_leaf():
+    """(f)'s QSGD leaf, 5 x 3x3x512x512 codes (5,898,240 bytes): 16 bytes a
+    thread (32 codes, two 16-byte loads), over far more programs than SMs;
+    QSGD's smallest compressed leaf, 5 x 3x3x3x64 codes, still spans
+    several SMs."""
+    leaf = 5 * 3 * 3 * 512 * 512 // 2
+    block, warps = launch_shape(NIBBLE_LAUNCH, leaf)
+    assert block // (32 * warps) == 16 and -(-leaf // block) >= 10 * H100_SMS
+    small = 5 * 3 * 3 * 3 * 64 // 2
+    block, warps = launch_shape(NIBBLE_LAUNCH, small)
+    assert -(-small // block) >= 8
 
 
 @pytest.mark.parametrize("n", [5 * 512, 4608])

@@ -9,17 +9,23 @@ inputs it draws: ``ssd_chunk`` at mamba2-370m's (g1) and (g3) prefill
 layers; ``log_quantize`` b=8 and ``log_quantize_pack`` b=4 at the decode
 append, prefill layer and scan leaf of gemma3-1b; ``log_dequantize`` at the
 training path's two shapes (the f32 mean code of (4608, 1), the raw codes
-of (5, 512)) and ``pack_nibbles`` at its; and mamba2-370m's (g1) prefill
-(4 x 1024 tokens, seeded weights), three replays and torch.profiler's
-device time by kernel group. Prints one JSON line. To compare two trees,
-run it in one call on one card, in turns: parent, change, change, parent.
+of (5, 512)) and ``pack_nibbles`` at (f)'s QSGD leaf (5, 3, 3, 512, 512)
+and at an odd n one code short of it (the tail path); and mamba2-370m's
+(g1) prefill (4 x 1024 tokens, seeded weights), three replays and
+torch.profiler's device time by kernel group. Prints one JSON line. To
+compare two trees, run it in one call on one card, in turns: parent,
+change, change, parent.
 
 ``--variants`` (this tree only) also times ``ssd_chunk`` at every head slab
-and the kernels of ``log_quantize``, ``log_quantize_pack`` and
-``log_dequantize`` at other launch shapes (BLOCK x warps) than their
-tables pick, on the same inputs, with the global and shared memory
-instructions of each compiled variant's PTX (whether the loads are vector
-loads, and whether a layout change went through shared memory).
+and the kernels of ``log_quantize``, ``log_quantize_pack``,
+``log_dequantize`` and ``pack_nibbles`` at other launch shapes (BLOCK x
+warps) than their tables pick, on the same inputs, with the global and
+shared memory instructions of each compiled variant's PTX (whether the
+loads are vector loads, and whether a layout change went through shared
+memory). For ``pack_nibbles`` it also times the other design of its
+read, :func:`pair_pack_kernel` (the codes read as int16 pairs), beside
+the shipped one (int8 codes, 2 x BLOCK in one contiguous run, split into
+pairs in registers).
 """
 
 import collections
@@ -47,6 +53,29 @@ PACK_VARIANTS = ((32, 1), (64, 1), (64, 2), (128, 4), (256, 2), (256, 4))
 PACK_VARIANTS += ((256, 8), (512, 4), (512, 8), (1024, 4), (1024, 8), (2048, 4))
 DEQUANT_VARIANTS = ((32, 1), (64, 2), (128, 4), (256, 4), (256, 8), (512, 4))
 DEQUANT_VARIANTS += ((1024, 4), (2048, 4))
+# pack_nibbles's BLOCK counts packed bytes: 1 to 32 a thread for either
+# design of the read
+NIBBLE_VARIANTS = ((128, 4), (256, 4), (512, 4), (1024, 4), (2048, 4))
+NIBBLE_VARIANTS += ((4096, 4), (512, 8), (1024, 8), (2048, 8), (4096, 8))
+
+
+def pair_pack_kernel():
+    """The nibble pack's other read: the int8 codes as int16 pairs through
+    an int16 view, one pair a byte, little-endian (low byte code 2i), so the
+    byte is ``(v & 0xF) | ((v >> 4) & 0xF0)``. Even n only."""
+    global tl
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def pack_pairs(p_ptr, o_ptr, n_pairs, BLOCK: tl.constexpr):
+        pid = tl.program_id(0).to(tl.int64)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        v = tl.load(p_ptr + offs, mask=offs < n_pairs, other=0).to(tl.int32)
+        byte = ((v & 0xF) | ((v >> 4) & 0xF0)).to(tl.int8)
+        tl.store(o_ptr + offs, byte, mask=offs < n_pairs)
+
+    return pack_pairs
 
 
 def ptx_memory_ops(compiled):
@@ -74,6 +103,7 @@ def main(root, label, variants=False):
     import repro_torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import log_quant
+    from repro_torch.kernels import ref as log_quant_ref
     from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import build_prefill_step
@@ -177,9 +207,52 @@ def main(root, label, variants=False):
             result[f"log_dequantize_{where}_ptx"] = ptx
     codes = torch.randint(-7, 8, (5, 3, 3, 512, 512), generator=gen, device="cuda")
     codes = codes.to(torch.int8)
-    result["pack_nibbles"] = chip_smoke.cuda_ms(
-        lambda: log_quant.pack_nibbles_triton(codes), 50
-    )
+    odd = codes.reshape(-1)[:-1]
+    for where, c in (("", codes), ("_odd", odd)):
+        got, want = log_quant.pack_nibbles_triton(c), log_quant_ref.pack_nibbles_ref(c)
+        if not torch.equal(got, want):
+            raise SystemExit(f"pack_nibbles{where}: bytes differ from the plain one")
+        result[f"pack_nibbles{where}"] = chip_smoke.cuda_ms(
+            lambda: log_quant.pack_nibbles_triton(c), 50
+        )
+    if variants:
+        n = codes.numel()
+        pairs = codes.reshape(-1).view(torch.int16)
+        packed = torch.empty((n // 2,), dtype=torch.int8, device="cuda")
+        want = log_quant_ref.pack_nibbles_ref(codes)
+        pair_pack = pair_pack_kernel()
+
+        def int8_split(block, warps):
+            grid = (-(-packed.numel() // block),)
+            return log_quant._kernels().pack[grid](
+                codes,
+                packed,
+                n,
+                packed.numel(),
+                BLOCK=block,
+                EXACT=True,
+                num_warps=warps,
+            )
+
+        def int16_pairs(block, warps):
+            grid = (-(-packed.numel() // block),)
+            return pair_pack[grid](
+                pairs, packed, packed.numel(), BLOCK=block, num_warps=warps
+            )
+
+        timed = (
+            ("int8_split", int8_split, NIBBLE_VARIANTS),
+            ("int16_pairs", int16_pairs, NIBBLE_VARIANTS),
+        )
+        for design, launch, shapes in timed:
+            for block, warps in shapes:
+                packed.zero_()
+                launch(block, warps)
+                if not torch.equal(packed, want):
+                    raise SystemExit(f"pack_nibbles {design} {block}x{warps}: bytes")
+            times, ptx = time_variants(launch, shapes)
+            result[f"pack_nibbles_{design}_by_launch"] = times
+            result[f"pack_nibbles_{design}_ptx"] = ptx
 
     params = init_params(cfg, 1, "cuda")
     batch, prompt = chip_smoke.SSM_RUNS["g1"]
