@@ -19,8 +19,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel of its path; bytes/token must equal the wire accounting; logits
    must be finite; prefill logits must match the same forward in reference
    mode, and decode from the same caches in reference mode must give every
-   request the same tokens and leave the same caches; torch.profiler splits
-   the device time of (a)'s prefill and (b)'s decode step by kernel;
+   request the same tokens and leave the same caches; the decode, which
+   replays a CUDA graph of the decode step (the launcher's default on the
+   card), must give the same tokens, caches and launch counts as the same
+   run with ``graph=False`` (for (c) the eager scheduler: its later
+   requests reuse the slots of the graph captured at the first chunk),
+   with decode tokens/s both ways and the capture's seconds printed;
+   torch.profiler splits the device time of (a)'s prefill and (b)'s decode
+   step by kernel;
 5. train ResNet-18 at full width, the paper's layout (5 workers x 128
    images, 32x32x3, 10 classes, seeded init, f32: the phase turns both
    TF32 flags on, PyTorch's cuDNN default, and every step must find them
@@ -42,8 +48,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    8192 (32 chunks). Each prefill launches ``ssd_chunk`` once per layer and
    each decode step none; prefill logits and caches must match the same
    prefill in reference mode; greedy tokens are compared with a
-   reference-mode run; bytes/token must equal the accounting (48290.909
-   for (g1), the JAX package's figure);
+   reference-mode run; the graphed decode must equal the eager one
+   (tokens, caches, launches), as in phase 4; bytes/token must equal the
+   accounting (48290.909 for (g1), the JAX package's figure);
 7. the gradient-inversion trust claim (paper §V-C), through
    ``python -m repro_torch.bench.gia_ssim``'s ``bench``: (h1) the JAX
    benchmark's sweep as it stands (its 2-conv victim net, a 16x16x3 target,
@@ -57,9 +64,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    bin-edge flips, synced gradients within :func:`train_tol`) and its bits
    the accounting; at (h1)'s cold start SGD must leak more than 0.15 SSIM,
    and at its steady state at least as much as LQ-SGD r1 by the mean best
-   SSIM of 8 restarts over 32 groups (the JAX package's own claims). It
-   prints the SSIM table, the ms of one batched attack step, its idle
-   share and a torch.profiler split of (h2)'s.
+   SSIM of 8 restarts over 32 groups (the JAX package's own claims). Every
+   attack replays a CUDA graph of its step (the harness's default on the
+   card); the (sgd, cold_start) cell's attack, run again graphed and with
+   ``graph=False``, must give equal x̂ and losses and the main run's SSIM.
+   It prints the SSIM table, the seconds of that attack both ways, the ms
+   of one batched attack step, its idle share and a torch.profiler split
+   of (h2)'s.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -630,6 +641,58 @@ def _caches_match(got, want, label):
     return flips
 
 
+def _cache_tensors(caches):
+    from repro_torch.serving.kv_cache import QuantKV, tree_leaves
+
+    for path, leaf in tree_leaves(caches):
+        if isinstance(leaf, QuantKV):
+            yield path, leaf.codes
+            yield path, leaf.scale
+        else:
+            yield path, leaf
+
+
+def _graph_equals_eager(label, card, graphed, eager, counts, eager_counts):
+    """A served run that replayed the decode step's CUDA graph against the
+    same run with ``graph=False``: tokens and every cache tensor equal,
+    the same launch counts; prints and emits decode tokens/s both ways and
+    the capture's host seconds."""
+    if "scheduler" in graphed:  # run_continuous
+        check(graphed["tokens"] == eager["tokens"], f"{label}: graph tokens differ")
+        caches = graphed["scheduler"].caches, eager["scheduler"].caches
+        n_tokens = sum(len(t) for t in graphed["tokens"].values())
+        secs = graphed["seconds"], eager["seconds"]
+        what = "requests' tokens, end to end"
+    else:
+        same = torch.equal(graphed["tokens"], eager["tokens"])
+        check(same, f"{label}: graph tokens differ from the eager decode")
+        caches = graphed["caches"], eager["caches"]
+        b, n = graphed["tokens"].shape
+        n_tokens = b * (n - 1)
+        secs = graphed["decode_s"], eager["decode_s"]
+        what = "decode tokens"
+    pairs = zip(_cache_tensors(caches[0]), _cache_tensors(caches[1]), strict=True)
+    for (path, g), (_, e) in pairs:
+        check(torch.equal(g, e), f"{label}: graph cache at {path} differs from eager")
+    check(counts == eager_counts, f"{label}: launches {counts} vs {eager_counts}")
+    rate = [n_tokens / t for t in secs]
+    print(
+        f"  {label}: CUDA-graph decode equal to the eager decode (tokens, caches, "
+        f"launches); {what}/s graph {rate[0]:.1f} (capture "
+        f"{graphed['capture_s']:.3f} s) vs eager {rate[1]:.1f}; {card}"
+    )
+    emit(
+        {
+            "graph_vs_eager": label,
+            "card": card,
+            "tokens_per_s": rate[0],
+            "eager_tokens_per_s": rate[1],
+            "capture_s": graphed["capture_s"],
+            "launches": counts,
+        }
+    )
+
+
 def phase_serve(card, gen):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -678,6 +741,11 @@ def phase_serve(card, gen):
             check(counts[name] > 0, f"{label}: kernel {name} never launched")
         for name, c in counts.items():
             total[name] += c
+        # the same run with the decode steps dispatched one by one
+        ops.reset_launch_counts()
+        eager = serve.run_fixed(cfg, params, tokens, gen=GEN, qcfg=qcfg, graph=False)
+        _graph_equals_eager(label, card, out, eager, counts, ops.launch_counts())
+        del eager
         _logits_close(out["logits"], ref_logits, label)
         toks = out["tokens"]
         check(tuple(toks.shape) == (BATCH, GEN), f"{label}: tokens {tuple(toks.shape)}")
@@ -733,6 +801,7 @@ def phase_serve(card, gen):
                 "card": card,
                 "prefill_ms": out["prefill_s"] * 1e3,
                 "decode_tokens_per_s": BATCH * (GEN - 1) / out["decode_s"],
+                "capture_s": out["capture_s"],
                 "bytes_per_token": bpt,
                 "bytes_per_token_accounted": acc,
             }
@@ -742,10 +811,19 @@ def phase_serve(card, gen):
         rng.integers(0, cfg.vocab_size, size=int(n))
         for n in rng.integers(200, 1001, size=N_REQUESTS)
     ]
+    def continuous(graph=None):
+        return serve.run_continuous(
+            cfg,
+            params,
+            prompts,
+            gen=GEN,
+            slots=SLOTS,
+            qcfg=CacheQuantConfig(bits=8),
+            graph=graph,
+        )
+
     ops.reset_launch_counts()
-    out = serve.run_continuous(
-        cfg, params, prompts, gen=GEN, slots=SLOTS, qcfg=CacheQuantConfig(bits=8)
-    )
+    out = continuous()
     counts = ops.launch_counts()
     label = f"(c) continuous {N_REQUESTS} requests through {SLOTS} slots, q8"
     print(f"{label}: prompt lengths {[len(p) for p in prompts]}, launches {counts}")
@@ -753,14 +831,22 @@ def phase_serve(card, gen):
         check(counts[name] > 0, f"{label}: kernel {name} never launched")
     for name, c in counts.items():
         total[name] += c
+    # the same requests through an eager scheduler: requests 5-8 enter the
+    # slots that 1-4 left, so the graph captured at the first chunk replays
+    # over reused slots
+    ops.reset_launch_counts()
+    eager = continuous(graph=False)
+    _graph_equals_eager(label, card, out, eager, counts, ops.launch_counts())
+    del eager
     done = out["tokens"]
     check(sorted(done) == list(range(N_REQUESTS)), f"{label}: requests {sorted(done)}")
     for uid, toks in done.items():
         check(len(toks) == GEN, f"{label}: request {uid} has {len(toks)} tokens")
         check(all(0 <= t < cfg.vocab_size for t in toks), f"{label}: bad ids")
-    # the same requests again with every decode chunk in reference mode; the
-    # admission prefills stay on the kernels, so each chunk starts from the
-    # main run's caches, and every request must get the main run's tokens
+    # the same requests again with every decode chunk in reference mode (a
+    # graph of its own); the admission prefills stay on the kernels, so each
+    # chunk starts from the main run's caches, and every request must get
+    # the main run's tokens
     sched = out["scheduler"]
     ref_sched = ContinuousScheduler(
         cfg,
@@ -770,13 +856,13 @@ def phase_serve(card, gen):
         qcfg=CacheQuantConfig(bits=8),
         device="cuda",
     )
-    kernel_generate = ref_sched._generate
+    kernel_chunk = ref_sched._decode_chunk
 
-    def plain_generate(*args):
+    def plain_chunk():
         with ops.reference_mode():
-            return kernel_generate(*args)
+            return kernel_chunk()
 
-    ref_sched._generate = plain_generate
+    ref_sched._decode_chunk = plain_chunk
     want = ref_sched.run(
         [Request(uid=i, prompt=p, max_new=GEN) for i, p in enumerate(prompts)]
     )
@@ -804,6 +890,7 @@ def phase_serve(card, gen):
             "serve": "continuous_q8",
             "card": card,
             "seconds": out["seconds"],
+            "capture_s": out["capture_s"],
             "tokens_per_s": N_REQUESTS * GEN / out["seconds"],
             "decode_chunks": out["scheduler"].steps,
             "bytes_per_token": bpt,
@@ -1128,8 +1215,13 @@ def phase_ssm(card):
             )
         del caches, ref_caches
 
-        # the main path: prefill + decode through the launcher's run_fixed
+        # the main path: prefill + decode through the launcher's run_fixed,
+        # then the same with the decode steps dispatched one by one
         out = main_run(tokens, None, label)
+        ops.reset_launch_counts()
+        eager = serve.run_fixed(cfg, params, tokens, gen=SSM_GEN, graph=False)
+        _graph_equals_eager(label, card, out, eager, per_prefill, ops.launch_counts())
+        del eager
         toks = out["tokens"]
         check(tuple(toks.shape) == (batch, SSM_GEN), f"{label}: tokens {toks.shape}")
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{label}: ids")
@@ -1194,6 +1286,7 @@ def phase_ssm(card):
                 "card": card,
                 "prefill_ms": out["prefill_s"] * 1e3,
                 "decode_tokens_per_s": batch * (SSM_GEN - 1) / out["decode_s"],
+                "capture_s": out["capture_s"],
                 "bytes_per_token": bpt,
                 "bytes_per_token_accounted": acc,
                 "tokens_equal_reference": int(same.sum()),
@@ -1324,10 +1417,11 @@ def _attack_step_split(label, card, victim, cfg, model):
     shape = (cfg.n_attack_seeds,) + tuple(x.shape)
     xs = torch.randn(shape, generator=gen, device="cuda")
     m, v = torch.zeros_like(xs), torch.zeros_like(xs)
+    t = torch.zeros((), device="cuda")
     with _tf32_off():
-        h_ms = host_ms(lambda: step(xs, m, v, 0), repeats=5)
-        g_ms = cuda_ms(lambda: step(xs, m, v, 0), 1)
-        by_name = device_ms_by_kernel(lambda: step(xs, m, v, 0))
+        h_ms = host_ms(lambda: step(xs, m, v, t), repeats=5)
+        g_ms = cuda_ms(lambda: step(xs, m, v, t), 1)
+        by_name = device_ms_by_kernel(lambda: step(xs, m, v, t))
     n_kernels = sum(c for _, c in by_name.values())
     print(
         f"  ({label}) {model} attack step, {cfg.n_attack_seeds} restarts batched: "
@@ -1345,6 +1439,54 @@ def _attack_step_split(label, card, victim, cfg, model):
     )
     if model == "resnet18":
         _kernel_split(f"gia_attack_step_{label}", card, by_name, {"conv": CONV_KERNELS})
+
+
+def _attack_graph_vs_eager(label, card, model, cfg, row):
+    """The (sgd, cold_start) cell's attack again, as the harness runs it
+    (the victim's initial weights, its raw gradient, the cell's restart
+    generators), graphed and with ``graph=False``: x̂ and the losses must be
+    equal, and the graphed best SSIM the main run's. Prints the seconds of
+    each whole attack on the host clock."""
+    from repro_torch.bench import gia_ssim
+    from repro_torch.core.privacy import invert_gradients_batched, ssim
+    from repro_torch.core.privacy.harness import _restart_keys
+    from repro_torch.train.data_parallel import _tf32_off
+
+    victim = gia_ssim.setup(model, "cuda")
+    params, x, y, grad_fn = (victim[k] for k in ("params", "x", "y", "grad_fn"))
+    with _tf32_off():  # as the harness observes it
+        g_obs = grad_fn(params, x, y)
+    out, secs = {}, {}
+    for graph in (None, False):
+        keys = _restart_keys(cfg.seed, 0, cfg.n_attack_seeds, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[graph] = invert_gradients_batched(
+            grad_fn, params, g_obs, tuple(x.shape), y, keys, cfg.gia, graph=graph
+        )
+        torch.cuda.synchronize()
+        secs[graph] = time.perf_counter() - t0
+    (gx, gl), (ex, el) = out[None], out[False]
+    at = f"({label}) {model} sgd cold-start attack"
+    check(torch.equal(gx, ex), f"{at}: graphed x-hat differs from the eager loop's")
+    check(torch.equal(gl, el), f"{at}: graphed losses differ from the eager loop's")
+    best = max(float(ssim(x, gx[s])) for s in range(cfg.n_attack_seeds))
+    check(best == row["ssim"], f"{at}: best ssim {best} vs the main run's {row}")
+    print(
+        f"  {at}, {cfg.gia.steps} steps x {cfg.n_attack_seeds} restarts: CUDA graph "
+        f"{secs[None]:.2f} s vs eager {secs[False]:.2f} s, x-hat and losses equal, "
+        f"best ssim {best:.4f} = the main run's; {card}"
+    )
+    emit(
+        {
+            "gia_attack_graph_vs_eager": label,
+            "card": card,
+            "steps": cfg.gia.steps,
+            "restarts": cfg.n_attack_seeds,
+            "graph_s": secs[None],
+            "eager_s": secs[False],
+        }
+    )
 
 
 def _gia_ordering(label, card, cfg):
@@ -1468,6 +1610,7 @@ def _gia_runs(card):
             }
         )
         _attack_step_split(run, card, gia_ssim.setup(model, "cuda"), cfg, model)
+        _attack_graph_vs_eager(run, card, model, cfg, by[("sgd", "cold_start")])
     return total
 
 
@@ -1511,14 +1654,23 @@ KERNEL_INFO = {
 
 
 def main():
+    t0 = time.perf_counter()
     card = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = phase_kernels(gen)
+    seconds = {"device_build_kernels": time.perf_counter() - t0}
+    t = time.perf_counter()
     launches = phase_serve(card, gen)
+    seconds["serve"] = time.perf_counter() - t
     for phase in (phase_train, phase_ssm, phase_gia):
+        t = time.perf_counter()
         for name, c in phase(card).items():
             launches[name] += c
+        seconds[phase.__name__.removeprefix("phase_")] = time.perf_counter() - t
+    seconds["total"] = time.perf_counter() - t0
+    print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    emit({"phase_seconds": seconds, "card": card})
     kernels = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
         entry = {

@@ -19,6 +19,12 @@ then mix them. ``g_obs`` is a constant of the attack. The initial images
 are drawn from explicit ``torch.Generator`` s (``init_scale`` · N(0, 1)),
 or passed in by the caller (``x0``), so a test can feed in another
 framework's draw. The attack runs in f32 with TF32 off.
+
+The JAX package runs the steps as one jitted ``lax.scan``. Here the step
+updates x̂ and the Adam moments in place and counts its steps in a 0-dim
+f32 tensor, so on CUDA :func:`invert_gradients_batched` runs step 0
+eagerly, captures one step into a CUDA graph and replays it for the rest
+(``repro_torch.graphs``); on the CPU every step runs eagerly.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.train.data_parallel import _tf32_off
 
@@ -122,8 +129,11 @@ def make_attack_step(
     grad_fn: Callable, params: Any, g_obs: Any, y: torch.Tensor, cfg: GIAConfig
 ) -> Callable:
     """One sign-Adam step of the attack over stacked restarts:
-    ``step(x, m, v, t) -> (x, m, v, losses)`` with x, m, v of (S, *x_shape)
-    and the losses (S,) at x before the step (t counts from 0)."""
+    ``step(x, m, v, t) -> losses`` updates x, m, v of (S, *x_shape) in
+    place and returns the losses (S,) at x before the step. ``t``, a 0-dim
+    f32 tensor on their device, counts the steps from 0 and is advanced in
+    place; the bias corrections take it in f32, as the JAX package's scan
+    over an f32 ``arange`` does."""
     g_obs = tree_map(lambda t: t.detach(), g_obs)
     loss = functools.partial(attack_loss, grad_fn, params, g_obs, y, cfg.tv_coef)
     grad_and_loss = torch.func.vmap(torch.func.grad_and_value(loss))
@@ -132,12 +142,13 @@ def make_attack_step(
         g, losses = grad_and_loss(x)
         # the sign trick (Geiping et al.) stabilizes cosine-loss inversion
         g = torch.sign(g)
-        m = _B1 * m + (1 - _B1) * g
-        v = _B2 * v + (1 - _B2) * g * g
+        m.copy_(_B1 * m + (1 - _B1) * g)
+        v.copy_(_B2 * v + (1 - _B2) * g * g)
         mh = m / (1 - _B1 ** (t + 1))
         vh = v / (1 - _B2 ** (t + 1))
-        x = x - cfg.lr * mh / (torch.sqrt(vh) + _EPS)
-        return x, m, v, losses
+        x.copy_(x - cfg.lr * mh / (torch.sqrt(vh) + _EPS))
+        t.add_(1)
+        return losses
 
     return step
 
@@ -153,11 +164,15 @@ def invert_gradients_batched(
     cfg: GIAConfig = GIAConfig(),
     *,
     x0: torch.Tensor | None = None,
+    graph: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Independent restarts of the attack, one per generator of ``keys``
     (x̂₀ = ``init_scale`` · N(0, 1) from each), or from the initial images
     ``x0`` (S, *x_shape). Returns ``(x_hats, losses)`` of shapes
-    ``(S, *x_shape)`` and ``(S,)``, the losses at the last step."""
+    ``(S, *x_shape)`` and ``(S,)``, the losses at the last step. On CUDA the
+    steps after the first are replays of one captured step, unless
+    ``graph=False``; ``graph=True`` on the CPU raises. A graph is captured
+    for each call."""
     if (keys is None) == (x0 is None):
         raise ValueError("give exactly one of keys (generators) and x0")
     if x0 is None:
@@ -172,9 +187,17 @@ def invert_gradients_batched(
     step = make_attack_step(grad_fn, params, g_obs, y, cfg)
     x = x0.float().clone()
     m, v = torch.zeros_like(x), torch.zeros_like(x)
+    t = torch.zeros((), device=x.device)
     losses = torch.full((x.shape[0],), float("nan"), device=x.device)
-    for t in range(cfg.steps):
-        x, m, v, losses = step(x, m, v, t)
+
+    def one_step():
+        losses.copy_(step(x, m, v, t))
+
+    if graphs.use_graph(graph, x.device):
+        graphs.StepGraph(one_step, x.device).run(cfg.steps)
+    else:
+        for _ in range(cfg.steps):
+            one_step()
     return x, losses
 
 

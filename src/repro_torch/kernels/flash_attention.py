@@ -19,7 +19,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 __all__ = ["flash_attention_cuda", "SUPPORTED_HEAD_DIMS"]
 
@@ -88,7 +88,7 @@ def flash_attention_cuda(
     )
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    flash_attention_cuda.launches += 1
+    launches.count(flash_attention_cuda)
     return out
 
 

@@ -17,7 +17,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 from repro_torch.kernels.log_quant import _check_cuda, _consts
 
 __all__ = ["log_dequantize_rows_cuda"]
@@ -66,7 +66,7 @@ def log_dequantize_rows_cuda(
         )
         if err:
             raise RuntimeError(f"log_dequant_rows launch failed: CUDA error {err}")
-        log_dequantize_rows_cuda.launches += 1
+        launches.count(log_dequantize_rows_cuda)
     return out
 
 

@@ -58,6 +58,7 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch.core.quantization import LogQuantConfig, code_dtype, f32_log1p
+from repro_torch.kernels import launches
 
 __all__ = [
     "QUANTIZE_LAUNCH",
@@ -258,7 +259,7 @@ def log_quantize_triton(
             UNIT=safe == 1.0,
             num_warps=warps,
         )
-        log_quantize_triton.launches += 1
+        launches.count(log_quantize_triton)
     return out
 
 
@@ -301,7 +302,7 @@ def log_quantize_pack_triton(
             UNIT=safe == 1.0,
             num_warps=warps,
         )
-        log_quantize_pack_triton.launches += 1
+        launches.count(log_quantize_pack_triton)
     return out
 
 
@@ -326,7 +327,7 @@ def log_dequantize_triton(
             UNIT=scale == 1.0,
             num_warps=warps,
         )
-        log_dequantize_triton.launches += 1
+        launches.count(log_dequantize_triton)
     return out
 
 
@@ -342,7 +343,7 @@ def pack_nibbles_triton(codes: torch.Tensor) -> torch.Tensor:
         _kernels().pack[(_cdiv(n_bytes, block),)](
             codes, out, n, n_bytes, BLOCK=block, EXACT=n % 16 == 0, num_warps=warps
         )
-        pack_nibbles_triton.launches += 1
+        launches.count(pack_nibbles_triton)
     return out
 
 

@@ -7,7 +7,13 @@ fallback from a failed launch or build to the plain version.
 
 :func:`reference_mode` routes CUDA tensors to the plain versions inside a
 ``with`` block, so ``chip_smoke.py`` and the tests can run the same forward
-both ways on the card and compare. The entry points never enter it.
+both ways on the card and compare. The entry points never enter it. A CUDA
+graph bakes in the choice made at its capture, so ``repro_torch.graphs``
+keys its graphs on :func:`in_reference_mode`.
+
+:func:`launch_counts` are the launches that ran on the card: a graph's
+capture records its launches and each replay adds them
+(``repro_torch.kernels.launches``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ __all__ = [
     "flash_attention",
     "ssd_chunk",
     "reference_mode",
+    "in_reference_mode",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -70,6 +77,11 @@ def reference_mode() -> Iterator[None]:
         _reference = prev
 
 
+def in_reference_mode() -> bool:
+    """True inside a :func:`reference_mode` block."""
+    return _reference
+
+
 def _plain(t: torch.Tensor) -> bool:
     """True for the plain version, False for the kernel; raises on a device
     that has neither."""
@@ -81,6 +93,7 @@ def _plain(t: torch.Tensor) -> bool:
 
 
 def launch_counts() -> dict[str, int]:
+    """Each kernel's launches that ran on the card since the last reset."""
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 

@@ -15,7 +15,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 __all__ = ["ssd_chunk_cuda", "head_slab", "MAX_Q", "MAX_N", "MAX_P"]
 
@@ -114,7 +114,7 @@ def ssd_chunk_cuda(
     )
     if err:
         raise RuntimeError(f"ssd_chunk launch failed: CUDA error {err}")
-    ssd_chunk_cuda.launches += 1
+    launches.count(ssd_chunk_cuda)
     return out
 
 

@@ -11,9 +11,12 @@ cache as log-quant codes + per-row scales; 0 keeps the raw
 only (the continuous one refuses SSM stacks, as the JAX package's does),
 and its cache, a conv window and an SSM state per layer, stays raw
 whatever ``--cache-bits``. Runs on the card unless ``--device cpu`` is given;
-weights come from a seeded init. :func:`run_fixed` and
-:func:`run_continuous` are the two paths as functions, for callers that
-bring their own weights and prompts.
+weights come from a seeded init. On the card both schedulers decode by
+replaying a CUDA graph of the decode step (``repro_torch.graphs``); on the
+CPU the steps run eagerly. :func:`run_fixed` and :func:`run_continuous` are
+the two paths as functions, for callers that bring their own weights and
+prompts; their ``graph=False`` gives the eager decode on the card, for
+comparisons.
 """
 
 from __future__ import annotations
@@ -59,17 +62,21 @@ def run_fixed(
     qcfg: CacheQuantConfig | None = None,
     cache_dtype: torch.dtype = torch.bfloat16,
     temperature: float = 0.0,
+    graph: bool | None = None,
 ) -> dict[str, Any]:
-    """Batched prefill of ``tokens`` (B, L), then ``gen - 1`` decode steps.
+    """Batched prefill of ``tokens`` (B, L), then ``gen - 1`` decode steps,
+    replayed from a CUDA graph on the card unless ``graph=False``.
 
     Returns the prefill's last-position logits, the caches, the ``gen``
     tokens of each row, bytes/token (measured and accounted) and the host
-    seconds of prefill and of decode, each ending in a device sync."""
+    seconds of prefill and of decode, each ending in a device sync;
+    ``decode_s`` includes the graph's capture, whose host seconds
+    ``capture_s`` also gives on their own."""
     device = tokens.device
     b, prompt_len = tokens.shape
     max_seq = prompt_len + gen
     prefill = build_prefill_step(cfg, max_seq, cache_dtype=cache_dtype, qcfg=qcfg)
-    generate = build_generate_fn(cfg, temperature=temperature)
+    generate = build_generate_fn(cfg, temperature=temperature, graph=graph)
     t0 = time.perf_counter()
     logits, caches = prefill(params, tokens)
     _sync(device)
@@ -93,6 +100,7 @@ def run_fixed(
         ),
         "prefill_s": t_prefill,
         "decode_s": t_decode,
+        "capture_s": generate.capture_s,
     }
 
 
@@ -106,11 +114,14 @@ def run_continuous(
     qcfg: CacheQuantConfig | None = None,
     cache_dtype: torch.dtype = torch.bfloat16,
     temperature: float = 0.0,
+    graph: bool | None = None,
 ) -> dict[str, Any]:
     """Every prompt as a request of ``gen`` new tokens through ``slots``
-    decode slots of the continuous scheduler, on the device of ``params``.
-    Returns each request's tokens, the scheduler, bytes/token (measured and
-    accounted) and host seconds."""
+    decode slots of the continuous scheduler, on the device of ``params``,
+    its decode chunks replayed from a CUDA graph on the card unless
+    ``graph=False``. Returns each request's tokens, the scheduler,
+    bytes/token (measured and accounted), the host seconds of the whole run
+    and, within them, of the graph's capture (``capture_s``)."""
     device = params["embed"].device
     max_seq = max(len(p) for p in prompts) + gen
     sched = ContinuousScheduler(
@@ -122,6 +133,7 @@ def run_continuous(
         qcfg=qcfg,
         temperature=temperature,
         device=device,
+        graph=graph,
     )
     reqs = [Request(uid=i, prompt=p, max_new=gen) for i, p in enumerate(prompts)]
     t0 = time.perf_counter()
@@ -135,6 +147,7 @@ def run_continuous(
             sched.caches, slots, max_seq
         ),
         "seconds": time.perf_counter() - t0,
+        "capture_s": sched.capture_s,
     }
 
 
@@ -196,7 +209,8 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         print(
             f"continuous: {n_req} requests x {args.gen} tokens through "
             f"{args.batch} slots in {dt:.2f}s ({total / max(dt, 1e-9):.1f} tok/s, "
-            f"{out['scheduler'].steps} chunks) on {device}"
+            f"{out['scheduler'].steps} chunks, capture {out['capture_s']:.3f}s) "
+            f"on {device}"
         )
         print(
             f"cache: quantized={tree_is_quantized(out['scheduler'].caches)} "
@@ -226,7 +240,8 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
     dt = out["decode_s"]
     print(
         f"decoded {args.gen} tokens/seq x {args.batch} seqs in {dt:.3f}s "
-        f"({args.gen * args.batch / max(dt, 1e-9):.1f} tok/s)"
+        f"({args.gen * args.batch / max(dt, 1e-9):.1f} tok/s, capture "
+        f"{out['capture_s']:.3f}s)"
     )
     print("sample token ids:", out["tokens"][0, :16].tolist())
     return out

@@ -1,11 +1,14 @@
 """Serving engine: prefill, decode, the generate loop, and sampling.
 
-The JAX package jits these steps and runs generation as one ``lax.scan``;
-PyTorch runs eagerly, so generation here is a Python loop over decode steps
-that keeps every tensor on the device (the host reads tokens only when the
-caller asks for them). Sharding of caches over a TPU mesh
-(``cache_specs``/``serve_shardings`` in the JAX package) waits for a
-multi-chip slice.
+The JAX package jits these steps and runs generation as one ``lax.scan``,
+one dispatch per chunk instead of one per token. Here generation is a
+:class:`DecodeLoop`: on CUDA one decode step (decode, sample, append)
+captured into a CUDA graph (``repro_torch.graphs``) and replayed once per
+token, over buffers the loop owns; on the CPU the same step runs eagerly.
+Every tensor stays on the device; the host reads tokens only when the
+caller asks for them. Prefill stays eager: a fixed batch prefills once.
+Sharding of caches over a TPU mesh (``cache_specs``/``serve_shardings`` in
+the JAX package) waits for multi-GPU serving.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import apply_head, forward, init_caches
 from repro_torch.serving.kv_cache import CacheQuantConfig, quantize_tree
@@ -23,6 +27,7 @@ __all__ = [
     "build_prefill_step",
     "build_decode_step",
     "build_generate_fn",
+    "DecodeLoop",
     "greedy_sample",
     "temperature_sample",
 ]
@@ -74,8 +79,10 @@ def build_prefill_step(
 
 def build_decode_step(cfg: ModelConfig):
     """decode(params, caches, tokens (B, 1), index) -> (logits, caches);
-    ``index`` is an int or a (B,) tensor of per-request positions. The
-    caches are appended in place and returned."""
+    ``index`` is an int or a (B,) long tensor of per-request positions on
+    the device (continuous batching, and any graphed step, which must not
+    bake a position in). Within range both give the same logits and
+    caches. The caches are appended in place and returned."""
 
     def decode(params: dict, caches: Any, tokens: torch.Tensor, index):
         return forward(params, tokens, cfg, caches=caches, cache_index=index)
@@ -83,25 +90,111 @@ def build_decode_step(cfg: ModelConfig):
     return decode
 
 
-def build_generate_fn(cfg: ModelConfig, *, temperature: float = 0.0):
+class DecodeLoop:
+    """``n_steps`` decode steps of a batch of ``batch`` rows over ``caches``
+    (appended in place), each step decoding ``tok`` at ``idx``, sampling
+    the next token into ``tok`` and column ``i`` of ``sampled`` (B,
+    n_steps), and advancing ``idx``. On CUDA (unless ``graph=False``) the
+    step is a :class:`~repro_torch.graphs.StepGraph`: ``tok``, the (B,)
+    positions, the column counter and ``sampled`` are static buffers, and a
+    loop that runs again (the continuous scheduler's chunks) replays the
+    graph it captured the first time. ``graph=True`` on the CPU raises.
+    ``gen`` is the generator temperature sampling draws from."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: dict,
+        caches: Any,
+        batch: int,
+        n_steps: int,
+        *,
+        temperature: float = 0.0,
+        gen: torch.Generator | None = None,
+        graph: bool | None = None,
+    ):
+        device = params["embed"].device
+        self._decode = build_decode_step(cfg)
+        self.params, self.caches = params, caches
+        self.temperature, self.gen = temperature, gen
+        self.n_steps = n_steps
+        self.tok = torch.zeros((batch, 1), dtype=torch.long, device=device)
+        self._index = torch.zeros((batch,), dtype=torch.long, device=device)
+        self.idx: int | torch.Tensor = self._index
+        self._col = torch.zeros((1,), dtype=torch.long, device=device)
+        self.sampled = torch.zeros((batch, n_steps), dtype=torch.long, device=device)
+        self._graph = None
+        if graphs.use_graph(graph, device):
+            draws = gen is not None and temperature > 0
+            self._graph = graphs.StepGraph(
+                self._step, device, generators=[gen] if draws else []
+            )
+
+    @property
+    def capture_s(self) -> float:
+        """Host seconds spent capturing graphs so far (0 when eager)."""
+        return self._graph.capture_s if self._graph is not None else 0.0
+
+    def _step(self) -> None:
+        logits, _ = self._decode(self.params, self.caches, self.tok, self.idx)
+        nxt = temperature_sample(self.gen, logits[:, -1, :], self.temperature)
+        self.sampled.index_copy_(1, self._col, nxt[:, None])
+        self._col.add_(1)
+        self.tok.copy_(nxt[:, None])
+        if isinstance(self.idx, int):
+            self.idx += 1
+        else:
+            self.idx.add_(1)
+
+    def run(self, tokens: torch.Tensor, index: int | torch.Tensor) -> torch.Tensor:
+        """Decode ``n_steps`` tokens from ``tokens`` (B, 1) at ``index``, an
+        int or a (B,) tensor of positions; returns ``sampled``. Eagerly an
+        int index takes the int path; a graph takes it as a (B,) tensor."""
+        self.tok.copy_(tokens)
+        self._col.zero_()
+        if isinstance(index, int) and self._graph is None:
+            self.idx = index
+        else:
+            self._index[:] = index
+            self.idx = self._index
+        if self._graph is not None:
+            self._graph.run(self.n_steps)
+        else:
+            for _ in range(self.n_steps):
+                self._step()
+        return self.sampled
+
+
+def build_generate_fn(
+    cfg: ModelConfig, *, temperature: float = 0.0, graph: bool | None = None
+):
     """generate(params, caches, tokens, index, gen, n_steps) ->
     (caches, next_tokens, new_index, sampled (B, n_steps)).
 
-    ``tokens`` is the (B, 1) token each row decodes first; ``gen`` is the
-    ``torch.Generator`` that temperature sampling draws from (on the
-    device of the logits; unused when greedy)."""
-    decode = build_decode_step(cfg)
+    ``tokens`` is the (B, 1) token each row decodes first, at ``index`` (an
+    int or a (B,) tensor); ``gen`` is the ``torch.Generator`` that
+    temperature sampling draws from (on the device of the logits; unused
+    when greedy). Each call runs a :class:`DecodeLoop`: on CUDA a graph
+    captured for the call and replayed ``n_steps - 1`` times, unless
+    ``graph=False``; ``graph=True`` on the CPU raises. After a call
+    ``generate.capture_s`` holds the host seconds of its capture."""
 
     def generate(params, caches, tokens, index, gen, n_steps: int):
-        tok, idx, out = tokens, index, []
-        for _ in range(n_steps):
-            logits, caches = decode(params, caches, tok, idx)
-            nxt = temperature_sample(gen, logits[:, -1, :], temperature)
-            out.append(nxt)
-            tok, idx = nxt[:, None], idx + 1
-        sampled = torch.stack(out, dim=1) if out else tokens[:, :0]
-        return caches, tok, idx, sampled
+        loop = DecodeLoop(
+            cfg,
+            params,
+            caches,
+            tokens.shape[0],
+            n_steps,
+            temperature=temperature,
+            gen=gen,
+            graph=graph,
+        )
+        sampled = loop.run(tokens, index)
+        generate.capture_s = loop.capture_s
+        return caches, loop.tok, index + n_steps, sampled
 
+    generate.capture_s = 0.0
     return generate
 
 
@@ -114,9 +207,14 @@ def temperature_sample(
     gen: torch.Generator | None, logits: torch.Tensor, temperature: float = 1.0
 ) -> torch.Tensor:
     """Greedy at temperature <= 0, else a categorical draw from
-    softmax(logits / temperature) with ``gen``. The JAX package draws with
-    ``jax.random``, which this cannot reproduce: parity is greedy only."""
+    softmax(logits / temperature) with ``gen``. The draw is an exponential
+    race, argmax of probs / E with E ~ Exp(1) from ``gen``: what
+    ``torch.multinomial`` computes for one sample, without its host-side
+    check of the probabilities, which a CUDA graph cannot capture. The JAX
+    package draws with ``jax.random``, which this cannot reproduce: parity
+    is greedy only."""
     if temperature <= 0:
         return greedy_sample(logits)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=gen).squeeze(-1)
+    race = torch.empty_like(probs).exponential_(1.0, generator=gen)
+    return (probs / race).argmax(dim=-1)

@@ -16,6 +16,11 @@ Phases per :meth:`ContinuousScheduler.step`, as in the JAX package:
      caches into the slot.
   2. **decode**: one chunk of ``decode_chunk`` tokens advances every active
      slot; idle slots compute masked garbage, the price of the static grid.
+     On CUDA the grid's decode step is a CUDA graph, captured once at the
+     first chunk and replayed ``decode_chunk`` times a chunk; the slots'
+     tokens and lengths are copied into its static buffers per chunk, and
+     the caches keep their addresses (admission writes into a slot in
+     place).
   3. **retire**: harvest sampled tokens, finish requests at ``max_new``,
      release their pages.
 
@@ -34,7 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.serving.engine import (
-    build_generate_fn,
+    DecodeLoop,
     build_prefill_step,
     init_serving_caches,
     temperature_sample,
@@ -88,6 +93,7 @@ class ContinuousScheduler:
         temperature: float = 0.0,
         decode_chunk: int = 8,
         device: torch.device | str = "cuda",
+        graph: bool | None = None,
     ):
         if any(s.kind == "mamba" for s in cfg.layers):
             raise ValueError(
@@ -114,13 +120,28 @@ class ContinuousScheduler:
         self._prefill = build_prefill_step(
             cfg, max_seq, cache_dtype=cache_dtype, qcfg=qcfg, full_logits=True
         )
-        self._generate = build_generate_fn(cfg, temperature=temperature)
         self._gen = torch.Generator(device=self.device).manual_seed(0)
+        # the grid's decode chunk: a CUDA graph unless graph=False or the CPU
+        self._loop = DecodeLoop(
+            cfg,
+            params,
+            self.caches,
+            slots,
+            decode_chunk,
+            temperature=temperature,
+            gen=self._gen,
+            graph=graph,
+        )
         self.lengths = np.zeros(slots, np.int64)  # per-slot next write position
         self.cur = np.zeros(slots, np.int64)  # per-slot pending token
         self.active: dict[int, Request] = {}
         self.waiting: deque[Request] = deque()
         self.steps = 0
+
+    @property
+    def capture_s(self) -> float:
+        """Host seconds spent capturing the decode graph."""
+        return self._loop.capture_s
 
     # ------------------------------------------------------------- plumbing
     def _insert(self, one_caches: Any, slot: int) -> None:
@@ -177,22 +198,23 @@ class ContinuousScheduler:
         self.pool.release(req.uid)
         req.slot = -2
 
+    def _decode_chunk(self) -> np.ndarray:
+        """One chunk over the whole grid from the slots' pending tokens and
+        lengths: the (slots, decode_chunk) sampled tokens, read once."""
+        sampled = self._loop.run(
+            torch.as_tensor(self.cur[:, None], device=self.device),
+            torch.as_tensor(self.lengths, device=self.device),
+        )
+        return sampled.cpu().numpy()
+
     def step(self) -> int:
         """One admit -> decode-chunk -> retire cycle; returns the number of
         tokens harvested (0 when idle)."""
         self._admit()
         if not self.active:
             return 0
-        self.caches, _, _, sampled = self._generate(
-            self.params,
-            self.caches,
-            torch.as_tensor(self.cur[:, None], device=self.device),
-            torch.as_tensor(self.lengths, device=self.device),
-            self._gen,
-            self.decode_chunk,
-        )
+        sampled = self._decode_chunk()
         self.steps += 1
-        sampled = sampled.cpu().numpy()
         harvested = 0
         for slot in list(self.active):
             req = self.active[slot]

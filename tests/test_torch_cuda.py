@@ -30,7 +30,17 @@ from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
 from repro_torch.models.resnet import init_resnet18, resnet18_forward
 from repro_torch.train.data_parallel import train_one, worker_grads
 from repro_torch.bench import gia_ssim
-from repro_torch.core.privacy.gia import attack_loss
+from repro_torch.configs import get_config
+from repro_torch.core.privacy.gia import (
+    GIAConfig,
+    attack_loss,
+    invert_gradients_batched,
+)
+from repro_torch.launch.serve import run_continuous, run_fixed
+from repro_torch.models.model import init_params
+from repro_torch.serving.engine import DecodeLoop, build_prefill_step
+from repro_torch.serving.kv_cache import CacheQuantConfig, QuantKV
+from repro_torch.serving.kv_cache import tree_leaves as kv_tree_leaves
 from repro_torch.kernels.log_quant import (
     DEQUANT_LAUNCH,
     NIBBLE_LAUNCH,
@@ -539,3 +549,129 @@ def test_train_one_computes_in_f32_with_tf32_on(cuda):
         want = w.mean(0)
         err, top = float((got - want).abs().max()), float(want.abs().max())
         assert err <= 1e-4 * top, (err, top)
+
+
+# ------------------------------------------------- graphed decode and attack
+def _smoke_server(arch, bits):
+    cfg = get_config(arch, smoke=True)
+    params = init_params(cfg, 0, "cuda")
+    qcfg = CacheQuantConfig(bits=bits) if bits else None
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 20))).cuda()
+    return cfg, params, qcfg, tokens
+
+
+def _cache_tensors(caches):
+    for _, leaf in kv_tree_leaves(caches):
+        yield from (leaf.codes, leaf.scale) if isinstance(leaf, QuantKV) else (leaf,)
+
+
+def _caches_equal(a, b):
+    pairs = zip(_cache_tensors(a), _cache_tensors(b), strict=True)
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+@pytest.mark.parametrize(
+    "arch,bits,temperature",
+    [
+        ("gemma3-1b", 8, 0.0),
+        ("gemma3-1b", 4, 0.0),
+        ("mamba2-370m", 0, 0.0),
+        ("gemma3-1b", 8, 1.0),
+    ],
+)
+def test_graphed_generate_equals_eager(cuda, arch, bits, temperature):
+    """``run_fixed`` replaying a CUDA graph of the decode step (the default
+    on the card) against ``graph=False``: the same tokens (at temperature
+    1 too, from the same generator seed, twice), every cache tensor equal
+    byte for byte, the same launch counts; only the graph run captures."""
+    cfg, params, qcfg, tokens = _smoke_server(arch, bits)
+    runs, counts = [], []
+    for graph in (None, False, None):
+        ops.reset_launch_counts()
+        kw = dict(gen=12, qcfg=qcfg, temperature=temperature, graph=graph)
+        runs.append(run_fixed(cfg, params, tokens, **kw))
+        counts.append(ops.launch_counts())
+    graphed, eager, again = runs
+    assert graphed["capture_s"] > 0 and eager["capture_s"] == 0
+    for other in (eager, again):
+        assert torch.equal(graphed["tokens"], other["tokens"])
+        assert _caches_equal(graphed["caches"], other["caches"])
+    assert counts[0] == counts[1] == counts[2]
+    if arch == "gemma3-1b":
+        # 11 decode steps x 2 layers x a K and a V read, all but one replayed
+        assert counts[0]["log_dequantize_rows"] == 11 * 4
+
+
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_graphed_continuous_scheduler_equals_eager(cuda, temperature):
+    """5 requests of 3-14 tokens x 10 through 2 slots, q8: the grid's graph
+    is captured at the first chunk and replayed while requests retire and
+    new ones take their slots (admission prefills and draws run eagerly
+    between replays). Tokens, caches and launch counts equal the eager
+    scheduler's."""
+    cfg, params, qcfg, _ = _smoke_server("gemma3-1b", 8)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 9, 14, 3, 11)]
+    runs, counts = [], []
+    for graph in (None, False):
+        ops.reset_launch_counts()
+        kw = dict(gen=10, slots=2, qcfg=qcfg, temperature=temperature, graph=graph)
+        runs.append(run_continuous(cfg, params, prompts, **kw))
+        counts.append(ops.launch_counts())
+    graphed, eager = runs
+    assert graphed["scheduler"].steps == eager["scheduler"].steps >= 3
+    assert graphed["capture_s"] > 0 and eager["capture_s"] == 0
+    assert graphed["tokens"] == eager["tokens"]
+    assert _caches_equal(graphed["scheduler"].caches, eager["scheduler"].caches)
+    assert counts[0] == counts[1]
+
+
+def test_a_graph_in_reference_mode_runs_no_kernel(cuda):
+    """A decode loop keys its graphs on ``ops.reference_mode()``: run in
+    reference mode it captures a graph of its own, whose replays launch no
+    kernel; back outside, the kernel graph replays and launches."""
+    cfg, params, qcfg, tokens = _smoke_server("gemma3-1b", 8)
+    _, caches = build_prefill_step(cfg, 32, qcfg=qcfg)(params, tokens)
+    loop = DecodeLoop(cfg, params, caches, 3, 4)
+    first = tokens[:, -1:]
+    ops.reset_launch_counts()
+    kernel_tokens = loop.run(first, 20).clone()
+    assert ops.launch_counts()["log_dequantize_rows"] == 4 * 4
+    with ops.reference_mode():
+        ops.reset_launch_counts()
+        plain_tokens = loop.run(first, 20).clone()
+        assert set(ops.launch_counts().values()) == {0}
+    ops.reset_launch_counts()
+    assert torch.equal(loop.run(first, 20), kernel_tokens)
+    assert ops.launch_counts()["log_dequantize_rows"] == 4 * 4
+    assert plain_tokens.shape == kernel_tokens.shape == (3, 4)
+    assert loop.capture_s > 0
+
+
+@pytest.mark.parametrize("model", ["cnn", "resnet18"])
+def test_graphed_attack_equals_the_eager_loop(cuda, model):
+    """20 sign-Adam steps over 4 restarts, graphed (step 0 eager, one step
+    captured, 19 replays) against ``graph=False``: x̂ and the losses equal
+    bit for bit, cuDNN deterministic as the benchmark runs it."""
+    victim = gia_ssim.setup(model, "cuda")
+    p, x, y = victim["params"], victim["x"], victim["y"]
+    g_obs = victim["grad_fn"](p, x, y)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x0 = 0.5 * torch.randn((4,) + tuple(x.shape), generator=gen, device="cuda")
+    cfg = GIAConfig(steps=20, lr=0.05, tv_coef=5e-3)
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic, cudnn.benchmark
+    try:
+        cudnn.deterministic, cudnn.benchmark = True, False
+        out = [
+            invert_gradients_batched(
+                victim["grad_fn"], p, g_obs, tuple(x.shape), y, cfg=cfg, x0=x0, graph=g
+            )
+            for g in (None, False)
+        ]
+    finally:
+        cudnn.deterministic, cudnn.benchmark = was
+    (gx, gl), (ex, el) = out
+    assert bool(torch.isfinite(gl).all()) and not torch.equal(gx, x0)
+    assert torch.equal(gx, ex) and torch.equal(gl, el)
