@@ -70,7 +70,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``graph=False``, must give equal x̂ and losses and the main run's SSIM.
    It prints the SSIM table, the seconds of that attack both ways, the ms
    of one batched attack step, its idle share and a torch.profiler split
-   of (h2)'s.
+   of (h2)'s;
+8. the composite compressor on ResNet-18 as in phase 5 (TF32 turned on
+   first and found off in every step): (i1) the per-leaf policy
+   ``fc=qsgd:bits=4,stage3=lq_sgd:rank=1:bits=4,*=lq_sgd:bits=8`` (a QSGD
+   b4 group, LQ-SGD b4 and b8 sub-groups), warm-up 2 with the rebuild at
+   step 2, fused, 6 steps, and the ``policy="auto"`` plan under the H100's
+   cost model printed (not trained); (i2) LQ-SGD r1 b8 fused with lazy
+   aggregation (tau 2.0, max_stale 2), 8 steps, in ``lazy_mode="elide"``,
+   ``"gate"`` and elide in reference mode; (i3) the server wire
+   (participation 0.5, tau 1.5, max_stale 4) on non-IID shards (Dirichlet
+   alpha 0.3), 8 steps. Each kernel run starts with the launch counts at 0
+   and must launch the kernels of its path; against reference mode the
+   fire patterns, participation masks and contributions are equal, codes
+   equal but for one-step flips, QSGD's bytes exact, synced gradients of
+   every step and final parameters within :func:`train_tol`; elide equals
+   gate bit for bit (synced gradients, parameters, every state tensor,
+   effective bits and collectives); a skipped elide round gathers nothing,
+   launches nothing and runs one collective; every step's effective bits
+   equal the accounting (the static sideband plus the payload of what
+   fired or contributed) and, on the server wire, the downlink 32 bits a
+   parameter. Every step's grad / sync / update ms is printed, (i2)'s sync
+   split by fired and skipped rounds.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -122,6 +143,15 @@ CACHE_SCALE_REL_TOL = 1e-2
 TRAIN_WORKERS, TRAIN_BATCH, TRAIN_HW, TRAIN_CLASSES = 5, 128, 32, 10
 TRAIN_STEPS, TRAIN_LR = 3, 0.05
 CIFAR_TRAIN_IMAGES = 50_000
+# (i1) three handler groups: fc by QSGD b4, stage3 by LQ-SGD r1 b4, the rest
+# by LQ-SGD b8; warm-up for 2 steps, rebuilt at step 2
+I1_SPEC = "fc=qsgd:bits=4,stage3=lq_sgd:rank=1:bits=4,*=lq_sgd:bits=8"
+I1_STEPS = 6
+# (i2) symmetric lazy aggregation: a skip needs innovation below tau^2 = 4
+# of the norm, and a fire is forced after 2 skips in a row
+I2_THRESH, I2_MAX_STALE, I2_STEPS = 2.0, 2, 8
+# (i3) the JAX federated benchmark's federated_gate / noniid_a0.3 setting
+I3_STEPS, I3_ALPHA = 8, 0.3
 # Training, kernel path vs reference mode from the same init and batches:
 # the encodes match their plain versions but for one-step flips at bin
 # edges and the dequant within 2 ulp, so synced gradients and parameters
@@ -1088,6 +1118,432 @@ def _train_runs(card):
     return total
 
 
+def _steps_recorder(comm):
+    """on_step / on_sync hooks that keep, per step, the synced grads, the
+    gathers the step added to ``comm``, the launches it ran, the effective
+    bits and collectives, and the step times; and the state at the end."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+
+    log = {"grads": [], "gathers": [], "launches": [], "steps": [], "tf32": []}
+    seen = {"gathers": 0, "launches": ops.launch_counts()}
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+
+    def on_step(step, res):
+        log["steps"].append(res)
+        log["tf32"].extend(f.allow_tf32 for f in flags)
+
+    def on_sync(step, synced, state):
+        log["grads"].append([g.clone() for g in tree_leaves(synced)])
+        log["gathers"].append(comm.gathered[seen["gathers"] :])
+        seen["gathers"] = len(comm.gathered)
+        now = ops.launch_counts()
+        log["launches"].append({k: now[k] - seen["launches"][k] for k in now})
+        seen["launches"] = now
+        log["state"] = state
+
+    return log, on_step, on_sync
+
+
+def _composite_run(cfg, steps, **kw):
+    from repro_torch.core.comm import SimComm
+    from repro_torch.train.data_parallel import train_one
+
+    comm = SimComm(TRAIN_WORKERS, record=True)
+    log, on_step, on_sync = _steps_recorder(comm)
+    out = train_one(
+        cfg,
+        n_workers=TRAIN_WORKERS,
+        batch=TRAIN_BATCH,
+        hw=TRAIN_HW,
+        n_classes=TRAIN_CLASSES,
+        steps=steps,
+        lr=TRAIN_LR,
+        seed=0,
+        device="cuda",
+        comm=comm,
+        on_step=on_step,
+        on_sync=on_sync,
+        **kw,
+    )
+    check(log["tf32"] and not any(log["tf32"]), f"{cfg}: a step ran with TF32 on")
+    check(all(math.isfinite(v) for v in out.losses), f"losses {out.losses}")
+    return out, log
+
+
+def _wire_flips(got, want, label, exact=()):
+    """Gathered wire arrays of two runs: f32 arrays (flags) and those at
+    the positions in ``exact`` equal; codes equal but for one-step flips,
+    an int8 array read as b8 codes or as two b4 nibbles, whichever holds.
+    Returns (flips, codes)."""
+    from repro_torch.core.codec import unpack_nibbles
+
+    check(len(got) == len(want), f"{label}: gathers differ in number")
+    flips = n_codes = 0
+    for j, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == torch.float32 or j in exact:
+            check(torch.equal(g, w), f"{label}: gather {j} differs")
+            continue
+        d8 = (g.int() - w.int()).abs()
+        nibbles = [unpack_nibbles(a, 2 * a.shape[-1]) for a in (g, w)]
+        d4 = (nibbles[0] - nibbles[1]).abs()
+        d = d8 if int(d8.max()) <= 1 else d4
+        check(int(d.max()) <= 1, f"{label}: a code moved more than one step")
+        flips += int((d > 0).sum())
+        n_codes += d.numel()
+    check(flips <= 1e-3 * max(n_codes, 1), f"{label}: {flips} code flips")
+    return flips, n_codes
+
+
+def _close_to_reference(label, out, want, log, ref_log, bits, flips, init):
+    """Synced grads of every step and the final params against the
+    reference-mode run: within 1e-5 of each leaf's largest value, or
+    ``train_tol`` where a code flipped."""
+    from repro_torch.core.tree import tree_leaves
+
+    tol = train_tol(bits, flips)
+    grad_rel = param_rel = 0.0
+    for step, (gs, ws) in enumerate(zip(log["grads"], ref_log["grads"])):
+        for g, w in zip(gs, ws):
+            err, top = float((g - w).abs().max()), float(w.abs().max())
+            check(err <= tol * top, f"{label}: step {step} grads differ by {err:.3e}")
+            grad_rel = max(grad_rel, err / max(top, 1e-30))
+    trios = zip(tree_leaves(out.params), tree_leaves(want.params), init)
+    for p, w, p0 in trios:
+        err, moved = float((p - w).abs().max()), float((w - p0).abs().max())
+        check(err <= tol * moved, f"{label}: params differ by {err:.3e}")
+        param_rel = max(param_rel, err / max(moved, 1e-30))
+    return grad_rel, param_rel
+
+
+def _split_ms(steps, fired=None):
+    """Median grad / sync / update ms over the steps after the first; the
+    sync split by fired and skipped rounds when ``fired`` is given."""
+    rest = list(enumerate(steps))[1:]
+    split = {
+        "grad": _median([st.grad_ms for _, st in rest]),
+        "sync": _median([st.sync_ms for _, st in rest]),
+        "update": _median([st.update_ms for _, st in rest]),
+    }
+    if fired is not None:
+        for name, want in (("sync_fired", True), ("sync_skipped", False)):
+            ms = [st.sync_ms for t, st in rest if fired[t] == want]
+            split[name] = _median(ms) if ms else None
+    return split
+
+
+def _print_steps(label, steps, fired=None):
+    for t, st in enumerate(steps):
+        tag = "" if fired is None else (" fired" if fired[t] else " skipped")
+        print(
+            f"    {label} step {t}{tag}: grad {st.grad_ms:.1f} ms, sync "
+            f"{st.sync_ms:.1f} ms, update {st.update_ms:.1f} ms; wire "
+            f"{st.wire_bits:g} bits, {st.collectives:g} collectives"
+        )
+
+
+def phase_composite(card):
+    """(i) the composite compressor on ResNet-18: per-leaf policies and
+    warm-up, symmetric lazy aggregation, the server wire."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    was = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        total = {}
+        for part in (_composite_policy, _composite_lazy, _composite_server):
+            for name, c in part(card).items():
+                total[name] = total.get(name, 0) + c
+        return total
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = was
+
+
+def _collectives_per_step(comp):
+    """The static collectives of a round where every group fires."""
+    n = sum(
+        comp.handlers[m].group_collectives([comp.plans[i] for i in idxs])
+        for m, idxs in comp.groups.items()
+    )
+    return n + len(comp.lazy_groups)
+
+
+def _composite_policy(card):
+    from repro_torch.core.compressors import CompressorConfig, make_compressor
+    from repro_torch.core.policy import format_plan_report
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models.resnet import init_resnet18
+
+    label = f"(i1) ResNet-18 per-leaf policy + warm-up, {TRAIN_WORKERS} x {TRAIN_BATCH}"
+    cfg = CompressorConfig(
+        name="lq_sgd",
+        rank=1,
+        bits=8,
+        policy=I1_SPEC,
+        warmup_steps=2,
+        fuse_collectives=True,
+    )
+    init = tree_leaves(init_resnet18(TRAIN_CLASSES, seed=0, device="cuda"))
+    with ops.reference_mode():
+        want, ref_log = _composite_run(cfg, I1_STEPS)
+    ops.reset_launch_counts()
+    out, log = _composite_run(cfg, I1_STEPS)
+    counts = ops.launch_counts()
+    print(f"{label}: launches {counts}")
+    for name in ("log_quantize", "log_quantize_pack", "log_dequantize", "pack_nibbles"):
+        check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    comp = out.comp
+    check(comp.schedule.warmup_steps == 0, f"{label}: no rebuild at the warm-up's end")
+    groups = {
+        m: sorted({comp.plans[i].policy.bits for i in idxs})
+        for m, idxs in comp.groups.items()
+    }
+    check(groups == {"qsgd": [4], "lq_sgd": [4, 8]}, f"{label}: groups {groups}")
+    bits, colls = comp.wire_bits_per_step(), _collectives_per_step(comp)
+    for st in log["steps"] + ref_log["steps"]:
+        check(st.wire_bits == bits, f"{label}: sent {st.wire_bits} bits, not {bits}")
+        check(st.collectives == colls, f"{label}: {st.collectives} collectives")
+    per_step = len(log["gathers"][0])
+    # the qsgd group syncs first (leaf 0 is fc's bias): its gather is the
+    # first of every step, and its bytes come from the same generator seeds
+    qsgd_at = {t * per_step for t in range(I1_STEPS)}
+    flat = [g for gs in log["gathers"] for g in gs]
+    flat_ref = [g for gs in ref_log["gathers"] for g in gs]
+    flips, n_codes = _wire_flips(flat, flat_ref, label, exact=qsgd_at)
+    grad_rel, param_rel = _close_to_reference(
+        label, out, want, log, ref_log, 4, flips, init
+    )
+    split = _split_ms(log["steps"])
+    _print_steps("(i1)", log["steps"])
+    print(
+        f"  {label}: groups {groups}, {bits} wire bits/step, {colls} collectives"
+        f"/step, step ms {split}; vs reference mode: {flips} of {n_codes} codes "
+        f"flipped, synced grads rel {grad_rel:.2e}, params rel {param_rel:.2e}; {card}"
+    )
+    # the planner with the H100's constants, on ResNet-18's shapes (not trained)
+    auto_cfg = CompressorConfig(name="lq_sgd", policy="auto", error_budget=0.25)
+    params = init_resnet18(TRAIN_CLASSES, seed=0, device="cpu")
+    abstract = tree_map(lambda t: torch.empty(t.shape, device="meta"), params)
+    auto = make_compressor(auto_cfg, abstract)
+    print(format_plan_report(auto.plan_report))
+    print(
+        f"  (i1) auto plan, H100 cost model, budget 0.25: "
+        f"{auto.wire_bits_per_step()} wire bits/step, by method "
+        f"{auto.wire_bits_by_method()}"
+    )
+    emit(
+        {
+            "train": "i1_policy_warmup",
+            "card": card,
+            "spec": I1_SPEC,
+            "wire_bits_per_step": bits,
+            "collectives_per_step": colls,
+            "step_ms": split,
+            "per_step_ms": [
+                [st.grad_ms, st.sync_ms, st.update_ms] for st in log["steps"]
+            ],
+            "losses": out.losses,
+            "reference_losses": want.losses,
+            "launches": counts,
+            "code_flips": flips,
+            "synced_grad_rel_err": grad_rel,
+            "param_rel_err": param_rel,
+            "auto_wire_bits_per_step": auto.wire_bits_per_step(),
+            "auto_by_method": auto.wire_bits_by_method(),
+        }
+    )
+    return counts
+
+
+def _composite_lazy(card):
+    import dataclasses
+
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models.resnet import init_resnet18
+
+    label = f"(i2) ResNet-18 lq_sgd r1 b8 lazy, {TRAIN_WORKERS} x {TRAIN_BATCH}"
+    cfg = CompressorConfig(
+        name="lq_sgd",
+        rank=1,
+        bits=8,
+        fuse_collectives=True,
+        lazy_thresh=I2_THRESH,
+        max_stale=I2_MAX_STALE,
+    )
+    init = tree_leaves(init_resnet18(TRAIN_CLASSES, seed=0, device="cuda"))
+    with ops.reference_mode():
+        want, ref_log = _composite_run(cfg, I2_STEPS)
+    gate_cfg = dataclasses.replace(cfg, lazy_mode="gate")
+    gate, gate_log = _composite_run(gate_cfg, I2_STEPS)
+    ops.reset_launch_counts()
+    out, log = _composite_run(cfg, I2_STEPS)
+    counts = ops.launch_counts()
+    print(f"{label}: launches {counts}")
+    for name in ("log_quantize", "log_dequantize"):
+        check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    comp = out.comp
+    payload = comp.wire_bits_per_step() - comp.decision_bits_per_step()
+    side = comp.decision_bits_per_step()
+    colls = _collectives_per_step(comp)
+
+    def fire_pattern(steps):
+        return [st.collectives > 1 for st in steps]
+
+    fired = fire_pattern(log["steps"])
+    check(fired[0], f"{label}: round 0 did not fire")
+    check(any(fired[1:]) and not all(fired), f"{label}: fire pattern {fired}")
+    # kernel path vs reference mode: the same decisions, and values
+    ref_fired = fire_pattern(ref_log["steps"])
+    check(fired == ref_fired, f"{label}: fire {fired}, reference mode {ref_fired}")
+    flat = [g for gs in log["gathers"] for g in gs]
+    flat_ref = [g for gs in ref_log["gathers"] for g in gs]
+    flips, n_codes = _wire_flips(flat, flat_ref, label)
+    grad_rel, param_rel = _close_to_reference(
+        label, out, want, log, ref_log, 8, flips, init
+    )
+    # elide vs gate: bit for bit
+    for t, (gs, ws) in enumerate(zip(log["grads"], gate_log["grads"])):
+        same = all(torch.equal(g, w) for g, w in zip(gs, ws))
+        check(same, f"{label}: step {t} grads elide != gate")
+    for p, w in zip(tree_leaves(out.params), tree_leaves(gate.params)):
+        check(torch.equal(p, w), f"{label}: params elide != gate")
+    for ns, sub in log["state"].items():
+        if ns == "step":
+            continue
+        for k, v in sub.items():
+            same = torch.equal(v, gate_log["state"][ns][k])
+            check(same, f"{label}: state {ns}/{k} elide != gate")
+    for st, gst in zip(log["steps"], gate_log["steps"]):
+        same = (st.wire_bits, st.collectives) == (gst.wire_bits, gst.collectives)
+        check(same, f"{label}: effective counts elide != gate")
+    # what a skip issues, and the accounting
+    for t, st in enumerate(log["steps"]):
+        want_bits = side + (payload if fired[t] else 0)
+        sent = f"{label}: step {t} sent {st.wire_bits} bits, {st.collectives} coll."
+        check(st.wire_bits == want_bits, f"{sent}; accounted {want_bits}")
+        check(st.collectives == (colls if fired[t] else 1), sent)
+        if not fired[t]:
+            check(not log["gathers"][t], f"{label}: skipped step {t} gathered")
+            ran = {k: v for k, v in log["launches"][t].items() if v}
+            check(not ran, f"{label}: skipped step {t} launched {ran}")
+    split = _split_ms(log["steps"], fired)
+    gate_split = _split_ms(gate_log["steps"], fired)
+    _print_steps("(i2) elide", log["steps"], fired)
+    _print_steps("(i2) gate", gate_log["steps"], fired)
+    print(
+        f"  {label}: fire pattern {''.join('F' if f else 's' for f in fired)}, "
+        f"fired {payload + side} bits / skipped {side} bits, step ms elide {split}, "
+        f"gate {gate_split}; vs reference mode: {flips} of {n_codes} codes flipped, "
+        f"synced grads rel {grad_rel:.2e}, params rel {param_rel:.2e}; {card}"
+    )
+    emit(
+        {
+            "train": "i2_lazy",
+            "card": card,
+            "fired": fired,
+            "fired_bits": payload + side,
+            "skipped_bits": side,
+            "step_ms_elide": split,
+            "step_ms_gate": gate_split,
+            "per_step_sync_ms_elide": [st.sync_ms for st in log["steps"]],
+            "per_step_sync_ms_gate": [st.sync_ms for st in gate_log["steps"]],
+            "losses": out.losses,
+            "launches": counts,
+            "code_flips": flips,
+            "synced_grad_rel_err": grad_rel,
+            "param_rel_err": param_rel,
+        }
+    )
+    return counts
+
+
+def _composite_server(card):
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.lazy import SERVER_DECISION_BITS_PER_GROUP
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.core.wire import PARTICIPATION_FLAG_BITS
+    from repro_torch.kernels import ops
+    from repro_torch.models.resnet import init_resnet18
+
+    label = f"(i3) ResNet-18 server wire, {TRAIN_WORKERS} x {TRAIN_BATCH}"
+    cfg = CompressorConfig(
+        name="lq_sgd",
+        rank=1,
+        bits=8,
+        fuse_collectives=True,
+        topology="server",
+        participation=0.5,
+        lazy_thresh=1.5,
+        max_stale=4,
+    )
+    init = tree_leaves(init_resnet18(TRAIN_CLASSES, seed=0, device="cuda"))
+    with ops.reference_mode():
+        want, ref_log = _composite_run(cfg, I3_STEPS, noniid_alpha=I3_ALPHA)
+    ops.reset_launch_counts()
+    out, log = _composite_run(cfg, I3_STEPS, noniid_alpha=I3_ALPHA)
+    counts = ops.launch_counts()
+    print(f"{label}: launches {counts}")
+    for name in ("log_quantize", "log_dequantize"):
+        check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    comp = out.comp
+    n_params = sum(math.prod(pl.shape) for pl in comp.plans)
+    payload = comp.wire_bits_per_step() - comp.decision_bits_per_step()
+    side = PARTICIPATION_FLAG_BITS + SERVER_DECISION_BITS_PER_GROUP
+    colls = _collectives_per_step(comp) + 1  # and the participation gather
+    masks, contribs = [], []
+    for t, (gs, rs) in enumerate(zip(log["gathers"], ref_log["gathers"])):
+        # the round's first gather is the participation flags, the second
+        # the contribution flags; both f32, one a worker
+        part, contrib = gs[0], gs[1]
+        check(torch.equal(part, rs[0]), f"{label}: step {t} participation masks differ")
+        check(torch.equal(contrib, rs[1]), f"{label}: step {t} contributions differ")
+        masks.append([int(v) for v in part.tolist()])
+        contribs.append([int(v) for v in contrib.tolist()])
+        st = log["steps"][t]
+        want_bits = side + float(contrib.mean()) * payload
+        sent = f"{label}: step {t} sent {st.wire_bits} bits, {st.collectives} coll."
+        check(abs(st.wire_bits - want_bits) <= 1e-6 * want_bits, f"{sent}; {want_bits}")
+        check(st.collectives == colls, f"{sent}; accounted {colls}")
+        check(st.rec.down_bits == 32 * n_params, f"{label}: {st.rec.down_bits} down")
+    check(any(0 < sum(m) < TRAIN_WORKERS for m in masks), f"{label}: masks {masks}")
+    flat = [g for gs in log["gathers"] for g in gs]
+    flat_ref = [g for gs in ref_log["gathers"] for g in gs]
+    flips, n_codes = _wire_flips(flat, flat_ref, label)
+    grad_rel, param_rel = _close_to_reference(
+        label, out, want, log, ref_log, 8, flips, init
+    )
+    split = _split_ms(log["steps"])
+    _print_steps("(i3)", log["steps"])
+    print(
+        f"  {label}: participation {masks}, contributions {contribs}, down "
+        f"{32 * n_params} bits/step, step ms {split}; vs reference mode: {flips} of "
+        f"{n_codes} codes flipped, synced grads rel {grad_rel:.2e}, params rel "
+        f"{param_rel:.2e}; {card}"
+    )
+    emit(
+        {
+            "train": "i3_server",
+            "card": card,
+            "participation_masks": masks,
+            "contributions": contribs,
+            "wire_bits": [st.wire_bits for st in log["steps"]],
+            "collectives_per_step": colls,
+            "down_bits_per_step": 32 * n_params,
+            "step_ms": split,
+            "losses": out.losses,
+            "launches": counts,
+            "code_flips": flips,
+            "synced_grad_rel_err": grad_rel,
+            "param_rel_err": param_rel,
+        }
+    )
+    return counts
+
+
 def _greedy(cfg, params, logits, caches, prompt, n):
     """``n`` greedy tokens from a prefill's last-position logits and caches
     (decoded from them in place), and the top-2 logit gap of each step."""
@@ -1663,7 +2119,7 @@ def main():
     t = time.perf_counter()
     launches = phase_serve(card, gen)
     seconds["serve"] = time.perf_counter() - t
-    for phase in (phase_train, phase_ssm, phase_gia):
+    for phase in (phase_train, phase_ssm, phase_gia, phase_composite):
         t = time.perf_counter()
         for name, c in phase(card).items():
             launches[name] += c

@@ -61,6 +61,7 @@ __all__ = [
     "make_codec",
     "available_codecs",
     "codec_phase",
+    "phase_collectives",
     "pack_nibbles",
     "unpack_nibbles",
     "packed_wire_bits",
@@ -381,6 +382,16 @@ def _encode_workers(
         rows = F.pad(rows, (0, 1))
     wire = codec.encode(rows.contiguous(), key=key)
     return wire.reshape(x.shape[0], -1)
+
+
+def phase_collectives(n: int, codec: WireCodec, *, wire: str, fuse: bool) -> int:
+    """The collectives one :func:`codec_phase` over ``n`` tensors issues:
+    the scale pmax (one fused, else one a tensor) and the payload (a psum a
+    tensor under ``psum_sim``, else one fused gather or one a tensor)."""
+    if n == 0:
+        return 0
+    scales = (1 if fuse else n) if codec.needs_scale else 0
+    return scales + (n if wire == "psum_sim" or not fuse else 1)
 
 
 def codec_phase(

@@ -11,7 +11,8 @@ reference's collective semantics on that layout:
   worker holds after the gather (one copy serves them all).
 
 Byte accounting is static (plain Python ints from shapes), as in the JAX
-package, so tables never need device work. A ``torch.distributed`` backend
+package, so tables never need device work; only a lazily aggregated
+group's payload is charged through a gate on the device. A ``torch.distributed`` backend
 of the same surface is the multi-GPU slice's work.
 """
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections.abc import Sequence
+from typing import Any
 
 import torch
 
@@ -29,26 +31,48 @@ __all__ = ["CommRecord", "SimComm"]
 class CommRecord:
     """Accumulated wire accounting for one sync call (per worker, bits).
 
-    ``add`` is the static tier every eager compressor uses; ``add_down``
-    charges the server's broadcast (the server wire). The JAX package's
-    gated tier (``add_gated``, lazy aggregation) is not ported yet."""
+    Three tiers:
 
-    bits_sent: int = 0  # payload each worker puts on the wire
+    * ``add``: the static tier (plain Python ints from shapes); the eager
+      compressors use only this.
+    * ``add_gated``: the gated tier of lazily aggregated groups
+      (:mod:`repro_torch.core.lazy`): a payload charged only where its gate
+      fired, so ``dyn_bits`` / ``dyn_collectives`` are 0-dim f32 tensors on
+      the gate's device (``0`` until something is charged). Nothing reads
+      them on the host inside a sync.
+    * ``add_down``: the server's broadcast (the server wire).
+
+    ``effective_bits`` / ``effective_collectives`` fold the static and
+    gated tiers; on an eager-only record they stay Python ints."""
+
+    bits_sent: int = 0  # payload each worker puts on the wire (static)
     n_collectives: int = 0
+    dyn_bits: Any = 0  # gate-weighted payload (0-dim f32 tensor, or 0)
+    dyn_collectives: Any = 0
     down_bits: int = 0  # server->worker broadcast payload (server wire)
 
     def add(self, bits: int, n: int = 1) -> None:
         self.bits_sent += int(bits)
         self.n_collectives += n
 
-    def add_gated(self, bits: int, n: int, gate) -> None:
-        raise NotImplementedError(
-            "gated accounting belongs to lazy aggregation, which is not ported "
-            "yet (ROADMAP Queue 1, item 11)"
-        )
+    def add_gated(
+        self, bits: int, n: int, gate: torch.Tensor | bool | float
+    ) -> None:
+        """Charge ``bits`` / ``n`` weighted by ``gate`` (a bool, or an f32
+        share such as a round's contribution rate)."""
+        g = torch.as_tensor(gate).to(torch.float32)
+        self.dyn_bits = self.dyn_bits + g * bits
+        self.dyn_collectives = self.dyn_collectives + g * n
 
     def add_down(self, bits: int) -> None:
         self.down_bits += int(bits)
+
+    def effective_bits(self) -> int | torch.Tensor:
+        """Static + gate-weighted payload bits."""
+        return self.bits_sent + self.dyn_bits
+
+    def effective_collectives(self) -> int | torch.Tensor:
+        return self.n_collectives + self.dyn_collectives
 
 
 class SimComm:

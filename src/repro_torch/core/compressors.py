@@ -18,18 +18,20 @@ rest take the method's path. Leaves are numbered in JAX flatten order
 (:mod:`repro_torch.core.tree`): the number names the state keys, seeds the
 warm-start Q and orders the fused buffers.
 
-The method math lives in :class:`LeafGroupHandler` subclasses; a compressor
-drives one handler over every leaf. The JAX package's composite routes
-(per-leaf policies, warm-up, lazy aggregation, the server wire, the
-randomized privacy codecs) are not ported yet: asking for one raises,
-naming the ROADMAP item that ports it.
+The method math lives in :class:`LeafGroupHandler` subclasses; a
+dedicated compressor drives one handler over every leaf, and
+:class:`~repro_torch.core.composite.CompositeCompressor` one handler per
+method group of a per-leaf policy. :func:`make_compressor` routes per-leaf
+policies, schedules, lazy aggregation and server drop-out to the composite,
+as the JAX package does. The randomized privacy codecs are not ported yet:
+asking for one raises, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from collections.abc import Callable, Iterable
+from collections.abc import Callable, Iterable, Sequence
 from typing import Any
 
 import numpy as np
@@ -44,7 +46,7 @@ from repro_torch.core.tree import (
     tree_map,
     tree_unflatten,
 )
-from repro_torch.core.wire import SymmetricWire, as_wire
+from repro_torch.core.wire import ServerWire, SymmetricWire, as_wire
 
 __all__ = [
     "CompressorConfig",
@@ -60,6 +62,8 @@ __all__ = [
     "make_compressor",
     "build_plans",
     "leaf_generator",
+    "per_worker",
+    "state_dtype",
     "POLICY_METHODS",
 ]
 
@@ -69,11 +73,12 @@ POLICY_METHODS = ("raw", "topk", "qsgd", "powersgd", "lq_sgd")
 
 @dataclasses.dataclass(frozen=True)
 class CompressorConfig:
-    """Config shared by all compressors.
+    """Config shared by all compressors (the JAX package's fields, without
+    its backend flag: the port dispatches by tensor device).
 
-    The last six fields select the JAX package's composite routes. Only
-    their defaults are ported: any other value makes :func:`make_compressor`
-    raise, naming the ROADMAP item that ports the route."""
+    ``codec`` and ``dp_epsilon`` select the randomized privacy codecs,
+    which are not ported yet: anything but their defaults makes
+    :func:`make_compressor` raise, naming the ROADMAP item that ports them."""
 
     name: str = "none"
     # low-rank options (powersgd / lq_sgd)
@@ -94,13 +99,48 @@ class CompressorConfig:
     avg_mode: str = "paper"
     # fuse all factor payloads of a phase into one flat collective
     fuse_collectives: bool = False
-    # ---- composite routes (not ported yet) -------------------------------
+    # error-feedback storage dtype, a torch dtype name ('float32', or
+    # 'bfloat16' to halve the dominant per-worker state)
+    state_dtype: str = "float32"
+    # ---- per-leaf policies (core/policy.py, core/composite.py) -----------
+    # None/'uniform': ``name`` everywhere; 'auto': the cost-model planner
+    # under ``error_budget``; else a spec 'pattern=method:knob=v,...'
     policy: str | None = None
+    error_budget: float = 0.3
+    # schedule: the exact f32 mean for the first ``warmup_steps`` steps
     warmup_steps: int = 0
+    # schedule: piecewise-constant caps ((start_step, rank_cap|None,
+    # bits_cap|None), ...), applied by rebuilding at phase boundaries
+    schedule_decay: tuple[tuple[int, int | None, int | None], ...] = ()
+    # ---- lazy aggregation (core/lazy.py) ---------------------------------
+    # > 0: a method group whose innovation is small skips its round and
+    # applies its cached aggregate; 0 = eager
     lazy_thresh: float = 0.0
+    # max consecutive skipped rounds before a fire is forced
+    max_stale: int = 4
+    # 'elide': a skipped round issues none of the group's kernels or
+    # gathers (one host read of the decision per group and step); 'gate':
+    # the group runs every round and the result is selected on the device
+    lazy_mode: str = "elide"
+    # adaptive LAQ: > 0 caps the drift-EMA threshold scaling; 0 = fixed
+    lazy_adaptive: float = 0.0
+    # ---- wire topology (core/wire.py) ------------------------------------
+    # 'symmetric' all-reduce among peers, or 'server': a parameter-server
+    # round with per-worker participation and per-worker lazy decisions
     topology: str = "symmetric"
+    # server wire: each worker's per-round upload probability
+    participation: float = 1.0
+    # server weighting: 'participation' or 'sparsity' (FedDropoutAvg)
+    agg: str = "participation"
+    participation_seed: int = 0
+    # ---- randomized privacy codecs (not ported yet) ----------------------
     codec: str | None = None
     dp_epsilon: float = 0.0
+    dp_delta: float = 1e-5
+
+    def __post_init__(self):
+        if self.dp_epsilon < 0:
+            raise ValueError(f"dp_epsilon must be >= 0, got {self.dp_epsilon}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,11 +153,41 @@ class LeafPolicy:
     bits: int = 8
     bits_q: int | None = None  # factor-Q wire bits; None -> same as bits
     topk_ratio: float = 0.01
+    # wire codec of the log-quant family: None or 'log' (the randomized
+    # 'dlog' / 'lrq' are not ported yet)
+    codec: str | None = None
+    dp_epsilon: float = 0.0  # per-use DP budget of a randomized codec
+    min_numel: int | None = None  # per-leaf routing-threshold override
+    # lazy aggregation: relative innovation threshold (0.0 = eager) and the
+    # max consecutive skips before a forced fire
+    lazy_thresh: float = 0.0
+    max_stale: int = 4
+    # adaptive LAQ: cap on the drift-EMA threshold scaling; 0.0 or >= 1
+    lazy_adaptive: float = 0.0
 
     def __post_init__(self):
         if self.method not in POLICY_METHODS:
             raise ValueError(
                 f"unknown policy method {self.method!r}; options: {POLICY_METHODS}"
+            )
+        if self.lazy_thresh < 0:
+            raise ValueError(f"lazy_thresh must be >= 0, got {self.lazy_thresh}")
+        if self.lazy_thresh > 0 and self.max_stale < 1:
+            raise ValueError(
+                f"lazy_thresh > 0 needs max_stale >= 1 (a staleness cap so "
+                f"no group silently freezes), got max_stale={self.max_stale}"
+            )
+        if self.lazy_adaptive != 0 and self.lazy_adaptive < 1:
+            raise ValueError(
+                f"lazy_adaptive is a scaling CAP: 0 (off) or >= 1, got "
+                f"{self.lazy_adaptive}"
+            )
+        if self.dp_epsilon < 0:
+            raise ValueError(f"dp_epsilon must be >= 0, got {self.dp_epsilon}")
+        if self.codec not in (None, "log") or self.dp_epsilon > 0:
+            raise NotImplementedError(
+                "randomized codecs (codec other than 'log', dp_epsilon > 0) are "
+                "not ported yet: ROADMAP Queue 1, item 13"
             )
 
     @property
@@ -147,6 +217,8 @@ def _leaf_plan(
     path: str, leaf: Any, policy: LeafPolicy, min_numel: int, stacked: bool
 ) -> LeafPlan:
     shape = tuple(leaf.shape)
+    if policy.min_numel is not None:
+        min_numel = policy.min_numel
     inst_shape = shape[1:] if stacked else shape
     route, mat, eff_rank = "raw", None, 0
     if policy.method != "raw" and len(inst_shape) >= 2 and _numel(shape) >= min_numel:
@@ -164,10 +236,11 @@ def build_plans(
     stacked: Tree | None = None,
     *,
     policy: LeafPolicy | None = None,
+    policies: Sequence[LeafPolicy] | None = None,
 ) -> tuple[LeafPlan, ...]:
     """One LeafPlan per leaf (anything with ``.shape`` and ``.dtype``), in
     JAX flatten order, under one uniform ``policy`` (by default powersgd at
-    ``rank``)."""
+    ``rank``) or a per-leaf list ``policies`` in flatten order."""
     flat = flatten_with_paths(abstract_grads)
     if stacked is None:
         stacked_leaves = [False] * len(flat)
@@ -175,10 +248,13 @@ def build_plans(
         stacked_leaves = tree_leaves(stacked)
         if len(stacked_leaves) != len(flat):
             raise ValueError("`stacked` tree does not match grads structure")
-    policy = policy or LeafPolicy(method="powersgd", rank=rank)
+    if policies is None:
+        policies = [policy or LeafPolicy(method="powersgd", rank=rank)] * len(flat)
+    if len(policies) != len(flat):
+        raise ValueError(f"{len(policies)} policies for {len(flat)} leaves")
     return tuple(
-        _leaf_plan(path, leaf, policy, min_numel, bool(st))
-        for (path, leaf), st in zip(flat, stacked_leaves)
+        _leaf_plan(path, leaf, pol, min_numel, bool(st))
+        for (path, leaf), pol, st in zip(flat, policies, stacked_leaves)
     )
 
 
@@ -193,6 +269,20 @@ def leaf_generator(
     seq = np.random.SeedSequence([seed, step, leaf], spawn_key=spawn_key)
     mixed = seq.generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(mixed[0]) >> 1)
+
+
+def state_dtype(cfg: CompressorConfig) -> torch.dtype:
+    """The torch dtype of ``cfg.state_dtype`` (error-feedback storage)."""
+    dtype = getattr(torch, cfg.state_dtype, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown state_dtype {cfg.state_dtype!r}")
+    return dtype
+
+
+def per_worker(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """An (N,) per-worker ``mask`` shaped to broadcast over ``like``'s
+    (N, ...) layout."""
+    return mask.reshape(mask.shape + (1,) * (like.dim() - 1))
 
 
 def _pmean_raw(
@@ -222,10 +312,16 @@ class LeafGroupHandler:
     global flattened-leaf index, each grad (N, *plan.shape)) and the
     compressor state, and returns ``(outs, updates)``: ``outs`` maps leaf
     index -> synced tensor, ``updates`` maps state namespace ->
-    {str(i): new per-worker leaf state}."""
+    {str(i): new per-worker leaf state}, each in the dtype of the state it
+    replaces. Namespaces in ``param_shaped`` hold each worker's own
+    param-shaped tensors (error feedback); the rest are the same on every
+    worker. ``needs_prng``: the group draws from the state's ``key`` seed
+    and ``step`` counter."""
 
     method = "raw"
     namespaces: tuple[str, ...] = ()
+    param_shaped: tuple[str, ...] = ()
+    needs_prng = False
 
     def __init__(self, cfg: CompressorConfig):
         self.cfg = cfg
@@ -265,6 +361,14 @@ class LeafGroupHandler:
         del delta
         return math.inf
 
+    def raw_collectives(self, pl: LeafPlan) -> int:
+        return 1
+
+    def group_collectives(self, plans: Sequence[LeafPlan]) -> int:
+        """The collectives ``sync_group`` over ``plans`` issues: static, as
+        its bits are (``leaf_wire_bits``)."""
+        return sum(self.raw_collectives(pl) for pl in plans if pl.route != "lowrank")
+
 
 class TopKHandler(LeafGroupHandler):
     """TopK-SGD with error feedback: keep each worker's top-k entries by
@@ -275,6 +379,7 @@ class TopKHandler(LeafGroupHandler):
 
     method = "topk"
     namespaces = ("err",)
+    param_shaped = ("err",)
 
     @staticmethod
     def _k(numel: int, ratio: float) -> int:
@@ -288,7 +393,8 @@ class TopKHandler(LeafGroupHandler):
     def init_leaf_state(self, seed, i, pl, n_workers, device):
         if pl.route != "lowrank":  # the routing says which leaves compress
             return {}
-        return {"err": torch.zeros((n_workers,) + pl.shape, device=device)}
+        sd = state_dtype(self.cfg)
+        return {"err": torch.zeros((n_workers,) + pl.shape, dtype=sd, device=device)}
 
     def sync_group(self, items, state, comm, rec):
         from repro_torch.core.codec import codec_phase, make_codec
@@ -304,7 +410,7 @@ class TopKHandler(LeafGroupHandler):
             k = self._k(flat.shape[1], pl.policy.topk_ratio)
             idx = torch.topk(flat.abs(), k, dim=1).indices
             kept = flat * torch.zeros_like(flat).scatter_(1, idx, 1.0)
-            new_err[str(i)] = (flat - kept).reshape(g.shape)
+            new_err[str(i)] = (flat - kept).reshape(g.shape).to(state_dtype(self.cfg))
             comp.append((i, g, pl))
             kepts.append(kept.reshape(g.shape))
             account.append(k * (32 + self.index_bits(flat.shape[1])))
@@ -336,6 +442,17 @@ class TopKHandler(LeafGroupHandler):
             return self.raw_wire_bits(pl, numel)
         return numel * 32  # the dense f32 simulation ships the whole tensor
 
+    def group_collectives(self, plans):
+        from repro_torch.core.codec import make_codec, phase_collectives
+
+        n_comp = sum(pl.route == "lowrank" for pl in plans)
+        return super().group_collectives(plans) + phase_collectives(
+            n_comp,
+            make_codec("float32"),
+            wire=self.cfg.wire_accounting,
+            fuse=self.cfg.fuse_collectives,
+        )
+
 
 class QSGDHandler(LeafGroupHandler):
     """QSGD (Alistarh et al. 2017): stochastic uniform quantization, with one
@@ -343,6 +460,7 @@ class QSGDHandler(LeafGroupHandler):
     ``step`` counter (:func:`leaf_generator`)."""
 
     method = "qsgd"
+    needs_prng = True
 
     def _codec(self, bits: int):
         from repro_torch.core.codec import make_codec
@@ -396,6 +514,20 @@ class QSGDHandler(LeafGroupHandler):
         n_scales = pl.shape[0] if pl.stacked else 1
         return _numel(pl.shape) * 32 + codec.scale_bits(n_scales)  # f32 codes
 
+    def group_collectives(self, plans):
+        from repro_torch.core.codec import phase_collectives
+
+        comp = [pl for pl in plans if pl.route == "lowrank"]
+        return super().group_collectives(plans) + sum(
+            phase_collectives(
+                len(sub),
+                self._codec(bits),
+                wire=self.cfg.wire_accounting,
+                fuse=self.cfg.fuse_collectives,
+            )
+            for bits, sub in _group_by(comp, lambda pl: pl.policy.bits)
+        )
+
 
 # --------------------------------------------------------------------------
 # compressors: one handler driven over the whole tree
@@ -442,26 +574,87 @@ class GradCompressor:
             new[ns] = {**state.get(ns, {}), **sub}
         return new
 
-    # ---- the sync op -----------------------------------------------------
-    def sync(
-        self, grads: Tree, state: dict[str, Any], comm: SimComm | SymmetricWire
-    ) -> tuple[Tree, dict[str, Any], CommRecord]:
-        """Per-worker grads (N, *shape) -> synced grads (*shape), new state
-        and the round's :class:`CommRecord`."""
-        rec = CommRecord()
-        wire = as_wire(comm)
-        wire.prepare(rec)
-        leaves = tree_leaves(grads)
+    # ---- the wire --------------------------------------------------------
+    def _make_wire(
+        self,
+        comm: SimComm | SymmetricWire,
+        state: dict[str, Any],
+        device: torch.device,
+        mask: torch.Tensor | None = None,
+    ) -> SymmetricWire:
+        """The configured wire over ``comm`` (a wire passes through). The
+        server wire draws its participation from the state's step counter,
+        so the drop-out pattern varies over the run, unless the caller
+        gives the round's (N,) ``mask``."""
+        return as_wire(
+            comm,
+            topology=self.cfg.topology,
+            participation=self.cfg.participation,
+            agg=self.cfg.agg,
+            seed=self.cfg.participation_seed,
+            step=state.get("step", 0),
+            mask=mask,
+            device=device,
+        )
+
+    def _param_shaped_namespaces(self) -> tuple[str, ...]:
+        return self.handler.param_shaped
+
+    def _freeze_inactive(
+        self, updates: dict, state: dict[str, Any], wire: SymmetricWire
+    ) -> dict:
+        """Server wire with drop-out: a worker that sat the round out never
+        uploaded, so its own error feedback must not advance. State that
+        came out of a collective (warm Q, counters) is the same on every
+        worker and advances for all."""
+        if not isinstance(wire, ServerWire) or wire.participation >= 1.0:
+            return updates
+        act = wire.active()
+        for ns in self._param_shaped_namespaces():
+            sub = updates.get(ns)
+            for k, v in (sub or {}).items():
+                old = state.get(ns, {}).get(k)
+                if old is not None:
+                    sub[k] = torch.where(per_worker(act, v), v, old.to(v.dtype))
+        return updates
+
+    def _charge_downlink(self, rec: CommRecord, wire: SymmetricWire) -> None:
+        """A server round ends with the server broadcasting the f32
+        aggregate: downlink bookkeeping, apart from the uplink headline."""
+        if wire.kind == "server":
+            rec.add_down(32 * sum(_numel(pl.shape) for pl in self.plans))
+
+    def _check_grads(self, leaves: list[torch.Tensor], n_workers: int) -> None:
         if len(leaves) != len(self.plans):
             raise ValueError(f"{len(leaves)} grad leaves for {len(self.plans)} plans")
         for g, pl in zip(leaves, self.plans):
-            if tuple(g.shape[1:]) != pl.shape or g.shape[0] != wire.size():
+            if tuple(g.shape[1:]) != pl.shape or g.shape[0] != n_workers:
                 raise ValueError(
-                    f"{pl.path}: want ({wire.size()}, *{pl.shape}) per-worker "
+                    f"{pl.path}: want ({n_workers}, *{pl.shape}) per-worker "
                     f"grads, got {tuple(g.shape)}"
                 )
+
+    # ---- the sync op -----------------------------------------------------
+    def sync(
+        self,
+        grads: Tree,
+        state: dict[str, Any],
+        comm: SimComm | SymmetricWire,
+        *,
+        participation_mask: torch.Tensor | None = None,
+    ) -> tuple[Tree, dict[str, Any], CommRecord]:
+        """Per-worker grads (N, *shape) -> synced grads (*shape), new state
+        and the round's :class:`CommRecord`. ``participation_mask``: the
+        server wire's (N,) bool flags for this round, in place of its draw."""
+        rec = CommRecord()
+        leaves = tree_leaves(grads)
+        wire = self._make_wire(comm, state, leaves[0].device, participation_mask)
+        wire.prepare(rec)
+        self._check_grads(leaves, wire.size())
         items = list(zip(range(len(leaves)), leaves, self.plans))
         outs, updates = self.handler.sync_group(items, state, wire, rec)
+        updates = self._freeze_inactive(updates, state, wire)
+        self._charge_downlink(rec, wire)
         out = [outs[i] for i in range(len(leaves))]
         return (
             tree_unflatten(self._structure, out),
@@ -536,18 +729,16 @@ class QSGDCompressor(GradCompressor):
     def init_state(self, seed: int, n_workers: int, device="cuda") -> dict[str, Any]:
         return {"key": int(seed), "step": 0}
 
-    def sync(self, grads, state, comm):
-        out, new_state, rec = super().sync(grads, state, comm)
+    def sync(self, grads, state, comm, *, participation_mask=None):
+        out, new_state, rec = super().sync(
+            grads, state, comm, participation_mask=participation_mask
+        )
         # advance the stream: without it every sync redraws the same rounding
         return out, {**new_state, "step": state["step"] + 1}, rec
 
 
-# composite route -> (config test, where the port of the route is planned)
+# route -> (config test, where the port of the route is planned)
 _NOT_PORTED = (
-    ("per-leaf policies", lambda c: c.policy not in (None, "uniform"), "item 10"),
-    ("warm-up", lambda c: c.warmup_steps > 0, "item 10"),
-    ("lazy aggregation", lambda c: c.lazy_thresh > 0, "item 11"),
-    ("the server wire", lambda c: c.topology != "symmetric", "item 12"),
     ("randomized codecs", lambda c: c.codec is not None or c.dp_epsilon > 0, "item 13"),
 )
 
@@ -562,9 +753,39 @@ def make_compressor(
     for what, asked, item in _NOT_PORTED:
         if asked(cfg):
             raise NotImplementedError(
-                f"{what} (the JAX package's composite compressor) is not ported "
-                f"yet: ROADMAP Queue 1, {item}"
+                f"{what} are not ported yet: ROADMAP Queue 1, {item}"
             )
+    if cfg.topology not in ("symmetric", "server"):
+        raise ValueError(
+            f"unknown topology {cfg.topology!r}; options: 'symmetric', 'server'"
+        )
+    # server drop-out needs the composite: it owns the step counter the
+    # participation draw folds in and the per-worker state freezing
+    server_dropout = cfg.topology == "server" and cfg.participation < 1.0
+    if (
+        cfg.policy not in (None, "uniform")
+        or cfg.warmup_steps
+        or cfg.schedule_decay
+        or cfg.lazy_thresh > 0
+        or server_dropout
+    ):
+        from repro_torch.core.composite import CompositeCompressor, PolicySchedule
+        from repro_torch.core.policy import plan_auto, resolve_policies
+
+        report = None
+        if cfg.policy == "auto":
+            # plan once; keep the report so a launcher prints the plan in force
+            policies, report = plan_auto(abstract_grads, stacked, cfg=cfg)
+        else:
+            policies = resolve_policies(cfg, abstract_grads, stacked)
+        schedule = PolicySchedule(
+            warmup_steps=cfg.warmup_steps, decay=cfg.schedule_decay
+        )
+        comp = CompositeCompressor(
+            cfg, abstract_grads, stacked, policies=policies, schedule=schedule
+        )
+        comp.plan_report = report
+        return comp
     registry: dict[str, type[GradCompressor]] = {
         "none": NoCompression,
         "sgd": NoCompression,

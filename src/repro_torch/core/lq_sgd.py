@@ -28,7 +28,12 @@ Only the deterministic ``log`` codec is ported; its randomized relatives
 
 from __future__ import annotations
 
-from repro_torch.core.codec import WireCodec, codec_phase, make_codec
+from repro_torch.core.codec import (
+    WireCodec,
+    codec_phase,
+    make_codec,
+    phase_collectives,
+)
 from repro_torch.core.compressors import GradCompressor, _numel
 from repro_torch.core.powersgd import PowerSGDHandler
 
@@ -64,6 +69,11 @@ class LQSGDHandler(PowerSGDHandler):
             fuse=False,
         )[0]
         return out.to(g.dtype)
+
+    def raw_collectives(self, pl) -> int:
+        return phase_collectives(
+            1, self._raw_codec(pl), wire=self.cfg.wire_accounting, fuse=False
+        )
 
     def raw_wire_bits(self, pl, numel: int) -> int:
         codec = self._raw_codec(pl)

@@ -30,6 +30,7 @@ from repro_torch.core.compressors import (
     _group_by,
     _numel,
     leaf_generator,
+    state_dtype,
 )
 from repro_torch.core.low_rank import (
     orthonormalize,
@@ -51,6 +52,7 @@ class PowerSGDHandler(LeafGroupHandler):
 
     method = "powersgd"
     namespaces = ("err", "q")
+    param_shaped = ("err",)
 
     # ---- the factor wire (overridden by LQ-SGD) --------------------------
     def _leaf_codec(self, pl: LeafPlan, bits: int) -> WireCodec:
@@ -79,8 +81,9 @@ class PowerSGDHandler(LeafGroupHandler):
         gen = leaf_generator(seed, 0, i, device)
         q_shape = _instance_shape(pl)[:-2] + (pl.mat_shape[1], pl.eff_rank)
         q = torch.randn(q_shape, generator=gen, device=device)
+        sd = state_dtype(self.cfg)
         return {
-            "err": torch.zeros((n_workers,) + pl.shape, device=device),
+            "err": torch.zeros((n_workers,) + pl.shape, dtype=sd, device=device),
             "q": q.expand((n_workers,) + q_shape),
         }
 
@@ -133,7 +136,8 @@ class PowerSGDHandler(LeafGroupHandler):
         # ---- reconstruct + error feedback ----
         for (i, g, pl), g_ef, p_hat, q_new in zip(comp, g_efs, p_hats, qs):
             g_hat = reconstruct(p_hat, q_new)  # Alg.1 l.19
-            new_err[str(i)] = (g_ef - g_hat).reshape(g.shape)  # Alg.1 l.20
+            g_res = (g_ef - g_hat).reshape(g.shape)
+            new_err[str(i)] = g_res.to(state_dtype(self.cfg))  # Alg.1 l.20
             new_q[str(i)] = q_new.expand((g.shape[0],) + q_new.shape)
             outs[i] = g_hat.reshape(pl.shape).to(g.dtype)
         return outs, {"err": new_err, "q": new_q}
@@ -152,6 +156,21 @@ class PowerSGDHandler(LeafGroupHandler):
             + cq.wire_bits(n_layers * m * r)
             + cq.scale_bits(n_layers)  # Q (+ scales)
         )
+
+    def group_collectives(self, plans):
+        from repro_torch.core.codec import phase_collectives
+
+        comp = [pl for pl in plans if pl.route == "lowrank"]
+        n = super().group_collectives(plans)
+        for codec_of in (self._codec_p, self._codec_q):  # the P and Q phases
+            for codec, sub in _group_by(comp, codec_of):
+                n += phase_collectives(
+                    len(sub),
+                    codec,
+                    wire=self.cfg.wire_accounting,
+                    fuse=self.cfg.fuse_collectives,
+                )
+        return n
 
     def leaf_epsilon(self, pl, delta: float = 1e-5) -> float:
         """Both factor phases spend (or the raw route does): a leaf ships in

@@ -5,8 +5,9 @@ K fixed class templates (standard normal images) plus Gaussian noise: a
 learnable stand-in for CIFAR-10/100/MNIST in the paper's tables. The draws
 come from ``torch.Generator`` s, so they are the port's own and cannot
 reproduce ``jax.random``; a run held to the JAX package feeds it that
-package's arrays. The federated label skew of the JAX package is not
-ported yet.
+package's arrays. Federated label skew: with ``noniid_alpha > 0`` a
+client's labels come from its own Dirichlet row over the classes
+(:func:`client_label_probs`, numpy, the JAX package's exactly).
 """
 
 from __future__ import annotations
@@ -16,7 +17,19 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["ImageDataConfig", "class_templates", "image_batch"]
+__all__ = ["ImageDataConfig", "class_templates", "client_label_probs", "image_batch"]
+
+
+def client_label_probs(
+    n_classes: int, n_clients: int, alpha: float, seed: int = 0
+) -> np.ndarray:
+    """Per-client class distributions for federated non-IID sampling: one
+    Dirichlet(alpha) draw a client over the class simplex (small alpha:
+    each client sees a few classes). Deterministic in ``seed``."""
+    if alpha <= 0:
+        raise ValueError(f"noniid alpha must be > 0, got {alpha}")
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 9917]))
+    return rng.dirichlet(np.full(n_classes, alpha), size=n_clients)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +40,9 @@ class ImageDataConfig:
     batch: int = 128
     noise: float = 0.35
     seed: int = 0
+    # federated non-IID: Dirichlet label skew across clients (0 = IID)
+    noniid_alpha: float = 0.0
+    n_clients: int = 0
 
 
 def _generator(device: torch.device, *ints: int) -> torch.Generator:
@@ -42,13 +58,28 @@ def class_templates(cfg: ImageDataConfig, device="cuda") -> torch.Tensor:
 
 
 def image_batch(
-    cfg: ImageDataConfig, step: int, device="cuda"
+    cfg: ImageDataConfig, step: int, device="cuda", *, client: int | None = None
 ) -> dict[str, torch.Tensor]:
     """One batch for ``step``, the same for every call with the same config:
-    images (batch, hw, hw, channels) f32, labels (batch,) int64."""
+    images (batch, hw, hw, channels) f32, labels (batch,) int64. With
+    ``client`` the batch is that client's own draw, and with
+    ``cfg.noniid_alpha > 0`` its labels follow the client's Dirichlet row
+    (inverse-CDF sampling on the device)."""
     dev = torch.device(device)
-    gen = _generator(dev, cfg.seed, step)
-    labels = torch.randint(0, cfg.n_classes, (cfg.batch,), generator=gen, device=dev)
+    ints = (cfg.seed, step) if client is None else (cfg.seed, step, client)
+    gen = _generator(dev, *ints)
+    if client is not None and cfg.noniid_alpha > 0:
+        n_clients = max(cfg.n_clients, client + 1)
+        probs = client_label_probs(
+            cfg.n_classes, n_clients, cfg.noniid_alpha, cfg.seed
+        )[client]
+        cdf = torch.as_tensor(np.cumsum(probs), device=dev)
+        u = torch.rand(cfg.batch, generator=gen, device=dev, dtype=torch.float64)
+        labels = torch.searchsorted(cdf, u, right=True).clamp_(max=cfg.n_classes - 1)
+    else:
+        labels = torch.randint(
+            0, cfg.n_classes, (cfg.batch,), generator=gen, device=dev
+        )
     mu = class_templates(cfg, dev)[labels]
     noise = torch.randn(mu.shape, generator=gen, device=dev)
     return {"images": mu + cfg.noise * noise, "labels": labels}

@@ -8,17 +8,32 @@ with a compressed gradient sync (the port's counterpart of
 The defaults are the paper's layout: 5 workers x 128 images, CIFAR-10
 shape (32x32x3, 10 classes), synthetic class-template images from a seed.
 Each step prints the loss (mean over workers), the step time split into
-gradients, sync and update, and the sync's wire accounting (bits sent per
-worker, collectives); the run ends with the paper's MB/epoch (50,000
-training images per epoch) and the accuracy on a fresh batch. Runs on the
-card unless ``--device cpu`` is given.
+gradients, sync and update, and the sync's wire accounting (effective bits
+sent per worker and collectives: static plus what lazy groups' gates let
+through); the run ends with the paper's MB/epoch (50,000 training images
+per epoch, at the static figure of a round where every group fires) and
+the accuracy on a fresh batch. Runs on the card unless ``--device cpu`` is
+given.
+
+The JAX launcher's compressor flags carry over: per-leaf policies
+(``--policy auto|SPEC``, ``--error-budget``), schedules (``--warmup``,
+``--decay``), lazy aggregation (``--lazy-thresh``, ``--max-stale``,
+``--lazy-adaptive``, ``--lazy-mode``), and the server wire (``--wire
+server``, ``--participation``, ``--agg``, ``--participation-seed``), with
+federated label skew (``--noniid-alpha``). The planner's report is printed
+when ``--policy auto`` ran it.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from repro_torch.core.compressors import CompressorConfig
+import torch
+
+from repro_torch.core.compressors import CompressorConfig, make_compressor
+from repro_torch.core.policy import format_plan_report, parse_decay_spec
+from repro_torch.core.tree import tree_map
+from repro_torch.models.resnet import init_resnet18
 from repro_torch.train.data_parallel import StepResult, mb_per_epoch, train_one
 
 __all__ = ["main"]
@@ -44,6 +59,60 @@ def _parser() -> argparse.ArgumentParser:
         choices=("allgather_codes", "psum_sim"),
     )
     ap.add_argument("--fuse", action="store_true", help="one collective per phase")
+    ap.add_argument(
+        "--policy",
+        default=None,
+        help="per-leaf policy: 'uniform' (default), 'auto' (the cost-model "
+        "planner) or a spec 'pattern=method:knob=v,...'",
+    )
+    ap.add_argument(
+        "--error-budget", type=float, default=0.3, help="planner: max error proxy"
+    )
+    ap.add_argument(
+        "--warmup", type=int, default=0, help="exact f32 sync for the first W steps"
+    )
+    ap.add_argument(
+        "--decay", default=None, help="rank/bit caps, e.g. '200:rank=1,500:bits=4'"
+    )
+    ap.add_argument(
+        "--lazy-thresh",
+        type=float,
+        default=0.0,
+        help="lazy aggregation: relative innovation threshold (0 = eager)",
+    )
+    ap.add_argument(
+        "--max-stale", type=int, default=4, help="max skipped rounds in a row"
+    )
+    ap.add_argument(
+        "--lazy-adaptive",
+        type=float,
+        default=0.0,
+        help="adaptive LAQ: cap on the threshold scaling (0 = fixed)",
+    )
+    ap.add_argument(
+        "--lazy-mode",
+        default="elide",
+        choices=("elide", "gate"),
+        help="elide: a skipped round issues no kernel or gather; gate: the "
+        "group runs every round and is selected on the device",
+    )
+    ap.add_argument("--wire", default="symmetric", choices=("symmetric", "server"))
+    ap.add_argument(
+        "--participation",
+        type=float,
+        default=1.0,
+        help="server wire: each worker's per-round upload probability",
+    )
+    ap.add_argument(
+        "--agg", default="participation", choices=("participation", "sparsity")
+    )
+    ap.add_argument("--participation-seed", type=int, default=0)
+    ap.add_argument(
+        "--noniid-alpha",
+        type=float,
+        default=0.0,
+        help="Dirichlet label skew across workers (0 = IID)",
+    )
     ap.add_argument("--workers", type=int, default=5)
     ap.add_argument("--batch", type=int, default=128, help="images per worker")
     ap.add_argument("--hw", type=int, default=32)
@@ -64,13 +133,30 @@ def main(argv: list[str] | None = None) -> dict:
         avg_mode=args.avg_mode,
         wire_accounting=args.wire_accounting,
         fuse_collectives=args.fuse,
+        policy=args.policy,
+        error_budget=args.error_budget,
+        warmup_steps=args.warmup,
+        schedule_decay=parse_decay_spec(args.decay) if args.decay else (),
+        lazy_thresh=args.lazy_thresh,
+        max_stale=args.max_stale,
+        lazy_adaptive=args.lazy_adaptive,
+        lazy_mode=args.lazy_mode,
+        topology=args.wire,
+        participation=args.participation,
+        agg=args.agg,
+        participation_seed=args.participation_seed,
     )
+    if args.policy == "auto":
+        # the planner reads shapes only: plan on a meta copy of the params
+        params = init_resnet18(args.classes, device="cpu")
+        abstract = tree_map(lambda t: torch.empty(t.shape, device="meta"), params)
+        print(format_plan_report(make_compressor(cfg, abstract).plan_report))
 
     def show(step: int, res: StepResult) -> None:
         print(
             f"step {step:4d}  loss {res.loss:.4f}  ms grad {res.grad_ms:.1f} "
             f"sync {res.sync_ms:.1f} update {res.update_ms:.1f}  "
-            f"wire {res.rec.bits_sent} bits, {res.rec.n_collectives} collectives",
+            f"wire {res.wire_bits:g} bits, {res.collectives:g} collectives",
             flush=True,
         )
 
@@ -84,6 +170,7 @@ def main(argv: list[str] | None = None) -> dict:
         lr=args.lr,
         seed=args.seed,
         device=args.device,
+        noniid_alpha=args.noniid_alpha,
         on_step=show,
     )
     mb = mb_per_epoch(out.comp, CIFAR_TRAIN_IMAGES, args.workers * args.batch)

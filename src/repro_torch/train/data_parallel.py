@@ -9,6 +9,11 @@ SGD steps the shared parameters with the synced gradient, which every
 worker holds alike. The loss reported is the mean over workers (the
 reference's pmean'd loss). Two models: ResNet-18 (the paper's) and the
 reference's 4-conv mini-CNN (its CPU-budget stand-in for the figures).
+
+A compressor with a schedule (warm-up, decay) is rebuilt at each of its
+boundaries (``at_step``) and its state carried across (``adapt_state``),
+with one history and one clock over the phases, as the JAX package's
+``train/runtime.py:run_schedule`` does.
 """
 
 from __future__ import annotations
@@ -122,6 +127,10 @@ class StepResult:
     grad_ms: float
     sync_ms: float
     update_ms: float
+    # the sync's effective wire bits and collectives (static + gated), read
+    # on the host once, after the sync
+    wire_bits: float = 0.0
+    collectives: float = 0.0
 
 
 def train_step(
@@ -153,6 +162,8 @@ def train_step(
         grad_ms=(t1 - t0) * 1e3,
         sync_ms=(t2 - t1) * 1e3,
         update_ms=(t3 - t2) * 1e3,
+        wire_bits=float(rec.effective_bits()),
+        collectives=float(rec.effective_collectives()),
     )
     return res, synced, opt_state, comp_state
 
@@ -199,15 +210,22 @@ def train_one(
     seed: int = 0,
     device="cuda",
     record_wire: bool = False,
+    noniid_alpha: float = 0.0,
+    comm: SimComm | None = None,
     on_step: Callable[[int, StepResult], None] | None = None,
+    on_sync: Callable[[int, Tree, dict[str, Any]], None] | None = None,
 ) -> TrainResult:
     """Train ``model`` for ``steps`` steps over ``n_workers`` simulated
     workers of ``batch`` images each, syncing through ``comp_cfg``'s
     compressor, with plain SGD as the reference steps. The defaults are the
     reference's (4 workers x 32, 16x16). The init and the data come from
     ``seed``, the compressor state from seed 7 (the reference's
-    ``PRNGKey(7)``). ``on_step(step, result)`` sees each step as it ends;
-    ``record_wire`` keeps every gathered wire array in the result's comm.
+    ``PRNGKey(7)``). With ``noniid_alpha > 0`` worker w draws its shard as
+    federated client w (Dirichlet label skew). ``on_step(step, result)``
+    sees each step as it ends, ``on_sync(step, synced_grads, comp_state)``
+    the step's synced gradients and new compressor state; ``record_wire``
+    keeps every gathered wire array in the result's comm, or ``comm``, a
+    ``SimComm(n_workers)`` of the caller's, is the workers' comm.
 
     The steps run with TF32 off for convolutions and matmuls, whatever the
     caller set: the reference computes in f32, and PyTorch's default
@@ -223,19 +241,36 @@ def train_one(
     params = tree_map(lambda t: t.requires_grad_(True), params)
     comp = make_compressor(comp_cfg, params)
     comp_state = comp.init_state(7, n_workers, dev)
-    comm = SimComm(n_workers, record=record_wire)
+    comm = comm if comm is not None else SimComm(n_workers, record=record_wire)
     opt = sgd(lr)
     opt_state = opt.init(params)
     data_cfg = ImageDataConfig(
         n_classes=n_classes, hw=hw, batch=n_workers * batch, seed=seed
     )
+    client_cfg = dataclasses.replace(
+        data_cfg, batch=batch, noniid_alpha=noniid_alpha, n_clients=n_workers
+    )
+    # schedule phases: rebuild at each boundary, carry the state across
+    sched = getattr(comp, "schedule", None)
+    bounds = {b for b in sched.boundaries() if 0 < b < steps} if sched else set()
 
     results, losses, synced = [], [], None
     t0 = _clock(dev)
     for step in range(steps):
-        b = image_batch(data_cfg, step, dev)
-        imgs = b["images"].reshape((n_workers, batch) + b["images"].shape[1:])
-        lbls = b["labels"].reshape(n_workers, batch)
+        if step in bounds:
+            comp_t = comp.at_step(step)
+            if comp_t is not comp:
+                comp_state, comp = comp_t.adapt_state(comp_state), comp_t
+        if noniid_alpha > 0:
+            shards = [
+                image_batch(client_cfg, step, dev, client=w) for w in range(n_workers)
+            ]
+            imgs = torch.stack([b["images"] for b in shards])
+            lbls = torch.stack([b["labels"] for b in shards])
+        else:
+            b = image_batch(data_cfg, step, dev)
+            imgs = b["images"].reshape((n_workers, batch) + b["images"].shape[1:])
+            lbls = b["labels"].reshape(n_workers, batch)
         res, synced, opt_state, comp_state = train_step(
             forward, params, opt, opt_state, comp, comp_state, comm, imgs, lbls
         )
@@ -243,6 +278,8 @@ def train_one(
         losses.append(res.loss)
         if on_step is not None:
             on_step(step, res)
+        if on_sync is not None:
+            on_sync(step, synced, comp_state)
     secs = (_clock(dev) - t0) / max(steps, 1)
     with torch.no_grad():
         b = image_batch(data_cfg, 10_000, dev)

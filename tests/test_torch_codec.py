@@ -197,8 +197,19 @@ def test_fused_pmax_is_f32_only_and_keeps_shapes():
 
 
 def test_gated_accounting_names_its_slice():
-    with pytest.raises(NotImplementedError, match="lazy aggregation"):
-        CommRecord().add_gated(8, 1, True)
+    """The gated tier: an eager record stays Python ints; a gate charges
+    its payload where it fired, as an f32 tensor, folded into the
+    effective counts."""
+    rec = CommRecord()
+    rec.add(100, 2)
+    assert (rec.effective_bits(), rec.effective_collectives()) == (100, 2)
+    assert isinstance(rec.effective_bits(), int)
+    rec.add_gated(8, 1, torch.tensor(True))
+    rec.add_gated(16, 3, torch.tensor(False))
+    rec.add_gated(40, 0, torch.tensor(0.25))
+    bits, colls = rec.effective_bits(), rec.effective_collectives()
+    assert bits.dtype == torch.float32 and float(bits) == 100 + 8 + 10
+    assert float(colls) == 3 and rec.bits_sent == 100
 
 
 # ------------------------------------------------ quantization with scales

@@ -675,3 +675,79 @@ def test_graphed_attack_equals_the_eager_loop(cuda, model):
     (gx, gl), (ex, el) = out
     assert bool(torch.isfinite(gl).all()) and not torch.equal(gx, x0)
     assert torch.equal(gx, ex) and torch.equal(gl, el)
+
+
+# ------------------------------------------------ the composite compressor
+_LAZY_SHAPES = {"w": (64, 32), "b": (32,), "scan": (3, 48, 16)}
+_LAZY_STACKED = {"w": False, "b": False, "scan": True}
+
+
+def _lazy_run(mode, seeds):
+    """A uniform lq_sgd r2 lazy composite, fused, on the card: identical
+    and fresh gradients in turn; per step the outputs, the effective counts,
+    the gathers and the launches, and the final state."""
+    from repro_torch.core.comm import SimComm
+    from repro_torch.core.composite import CompositeCompressor
+    from repro_torch.core.compressors import LeafPolicy
+
+    cfg = CompressorConfig(name="lq_sgd", rank=2, fuse_collectives=True, lazy_mode=mode)
+    abstract = {k: torch.empty(s, device="meta") for k, s in _LAZY_SHAPES.items()}
+    pol = LeafPolicy(rank=2, lazy_thresh=0.5, max_stale=2)
+    comp = CompositeCompressor(cfg, abstract, _LAZY_STACKED, policies=[pol] * 3)
+    st = comp.init_state(5, 4, "cuda")
+    steps = []
+    for seed in seeds:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        g = {
+            k: torch.randn((4,) + s, generator=gen, device="cuda")
+            for k, s in _LAZY_SHAPES.items()
+        }
+        comm = SimComm(4, record=True)
+        before = ops.launch_counts()
+        out, st, rec = comp.sync(g, st, comm)
+        after = ops.launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        counts = (rec.effective_bits(), rec.effective_collectives())
+        steps.append((out, counts, len(comm.gathered), launched))
+    return steps, st
+
+
+_LAZY_SEEDS = [1, 1, 1, 2, 2, 3, 3, 3]
+
+
+def test_lazy_elide_equals_gate_on_the_card(cuda):
+    elide, st_e = _lazy_run("elide", _LAZY_SEEDS)
+    gate, st_g = _lazy_run("gate", _LAZY_SEEDS)
+    for (oe, ce, _, _), (og, cg, _, _) in zip(elide, gate):
+        assert all(torch.equal(oe[k], og[k]) for k in oe)
+        assert all(torch.equal(a, b) for a, b in zip(ce, cg))
+    for ns, sub in st_e.items():
+        if ns == "step":
+            assert sub == st_g[ns]
+            continue
+        assert all(torch.equal(v, st_g[ns][k]) for k, v in sub.items()), ns
+    fired = [float(c[1]) > 1 for _, c, _, _ in elide]
+    assert fired[0] and any(fired[1:]) and not all(fired)
+
+
+def test_lazy_skip_issues_no_gather_and_no_launch(cuda):
+    steps, _ = _lazy_run("elide", _LAZY_SEEDS)
+    for out, (bits, colls), n_gathers, launched in steps:
+        if float(colls) > 1:  # fired: the group's kernels and gathers ran
+            assert n_gathers > 0 and launched.get("log_quantize", 0) > 0
+            assert launched.get("log_dequantize", 0) > 0
+        else:  # skipped: only the decision psum
+            assert float(colls) == 1 and n_gathers == 0 and launched == {}
+
+
+def test_server_participation_draw_on_the_card(cuda):
+    """2000 rounds of 5 workers at 0.5: the rate within 4 sd; the same
+    (seed, step) gives the same flags on the device."""
+    from repro_torch.core.wire import participation_draw
+
+    p, rounds, n = 0.5, 2000, 5
+    draws = torch.stack([participation_draw(3, t, n, p, "cuda") for t in range(rounds)])
+    assert draws.device.type == "cuda" and draws.dtype == torch.bool
+    rate = float(draws.float().mean())
+    assert abs(rate - p) < 4 * (p * (1 - p) / (rounds * n)) ** 0.5
+    assert torch.equal(participation_draw(3, 123, n, p, "cuda"), draws[123])
