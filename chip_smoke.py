@@ -51,7 +51,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    reference-mode run; the graphed decode must equal the eager one
    (tokens, caches, launches), as in phase 4; bytes/token must equal the
    accounting (48290.909 for (g1), the JAX package's figure);
-7. the gradient-inversion trust claim (paper §V-C), through
+7. the gradient-inversion trust claim (paper §V-C), before phases 8 and
+   9 (run after the composite, its (h2) graph = eager check fails: ROADMAP
+   Queue 3), through
    ``python -m repro_torch.bench.gia_ssim``'s ``bench``: (h1) the JAX
    benchmark's sweep as it stands (its 2-conv victim net, a 16x16x3 target,
    all 8 methods, 10 victim steps, attacks at steps 0 and 9, best of 8
@@ -71,6 +73,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    It prints the SSIM table, the seconds of that attack both ways, the ms
    of one batched attack step, its idle share and a torch.profiler split
    of (h2)'s;
+
 8. the composite compressor on ResNet-18 as in phase 5 (TF32 turned on
    first and found off in every step): (i1) the per-leaf policy
    ``fc=qsgd:bits=4,stage3=lq_sgd:rank=1:bits=4,*=lq_sgd:bits=8`` (a QSGD
@@ -91,7 +94,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    equal the accounting (the static sideband plus the payload of what
    fired or contributed) and, on the server wire, the downlink 32 bits a
    parameter. Every step's grad / sync / update ms is printed, (i2)'s sync
-   split by fired and skipped rounds.
+   split by fired and skipped rounds;
+9. LM training, the JAX package's main path (``train/step.py`` under the
+   runtime), gemma3-1b at full width (999,826,048 parameters, bf16, seeded
+   random weights) over 4 simulated workers of 2 rows x 512 tokens, with
+   deterministic algorithms on (warn only; ops without one are named):
+   (j1) LQ-SGD r1 b8, Adam lr 1e-3, the sync ``Trainer``, 3 steps, then
+   the same run in reference mode: every worker's tokens equal numpy's
+   ``lm_batch``, the step-0 gradients into the sync are equal bit for bit,
+   wire codes equal but for one-step flips, every step ships 9,236,960
+   bits (the JAX package's figure) in the plans' collectives, the step-0
+   synced gradients and the final parameters agree within the bounds
+   stated at ``BF16_ULP``; launches of #1 and #5 but not #3, #6 or #7; the
+   grad / sync / update ms of each step, tokens/s and peak memory printed.
+   (j2) LQ-SGD r1 b4 (4,624,864 bits), SGD lr 0.05, microbatch 2, 4 steps,
+   through ``AsyncRunner`` (prefetch 2, metrics every step) and through
+   ``Trainer``: equal bit for bit (parameters, compressor state, metrics);
+   #3 and #5 launch; the host-blocked fraction of both printed. (j3) at
+   gemma3-1b's smoke widths: a background checkpoint at step 2 restored
+   and run on to step 4 equals 4 steps at once bit for bit, and a failed
+   write raises on ``drain()``. The grad / sync / update split of an extra
+   profiled (j1) step and its device time by kernel are printed.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -188,6 +211,31 @@ SSD_REL_TOL = 1e-4
 # (conv window, SSM state): within 5% of each leaf's largest value.
 SSM_CACHE_REL_TOL = 5e-2
 
+
+# Phase 9, LM training (j): gemma3-1b at full width (26 layers, d 1152,
+# vocab 262144, bf16, seeded random weights) over 4 simulated workers of 2
+# rows x 512 tokens each (the launcher's --mesh 4x1 --batch 8 --seq 512)
+LM_ARCH = "gemma3-1b"
+LM_MESH = (4, 1)
+LM_BATCH, LM_SEQ = 8, 512
+J1_STEPS, J1_LR = 3, 1e-3  # LQ-SGD r1 b8, Adam, the sync Trainer
+J2_STEPS, J2_LR, J2_MICROBATCH = 4, 0.05, 2  # LQ-SGD r1 b4, SGD, k = 2
+J3_STEPS = 4  # checkpoint at 2, restore, continue (smoke widths)
+# the JAX package's make_model_compressor(get_config("gemma3-1b"), lq_sgd
+# rank 1, b8 / b4).wire_bits_per_step() (tests/test_torch_lm_layout.py)
+J1_BITS, J2_BITS = 9_236_960, 4_624_864
+# (j1) against reference mode. The sync returns the synced gradient in the
+# parameters' bf16, so a 2-ulp f32 difference of the wire dequant may round
+# it the other way: one bf16 ulp (2^-8) of the leaf's largest value on top
+# of train_tol. The parameters: Adam's step of a coordinate for t <= 3 is
+# at most 1.01 lr (Cauchy-Schwarz on its bias-corrected moving averages at
+# beta 0.9 / 0.999), and a gradient as close as one ulp gives the same
+# step but for its rounding: so without code flips the final parameters
+# differ by train_tol of how far they moved plus one bf16 ulp of the
+# leaf's largest value; with flips, a coordinate whose gradient changed
+# sign may move the other way, by up to 2 x 1.01 lr a step.
+BF16_ULP = 2.0**-8
+ADAM_STEP_MAX = 1.01
 
 # Phase 7, the GIA runs: (h1) the JAX benchmark's victim net, (h2) ResNet-18
 GIA_RUNS = {"h1": "cnn", "h2": "resnet18"}
@@ -570,6 +618,54 @@ def phase_kernels(gen):
     print(f"  pack_nibbles {shape}: bytes equal to the plain version")
     emit({"kernel": "pack_nibbles", "shape": list(shape), **res})
     results["pack_nibbles"] = res
+
+    print("kernels at the LM training path's shapes")
+    # ---- #1 (b8), #3 (b4) and #5 at (j)'s largest factors: each of 4
+    # workers' P of gemma3-1b's embedding (262144 x rank 1) and Q (1152),
+    # scaled by the pmax over workers as codec_phase scales them; the wire
+    # dequant of the mean b8 codes of that P
+    for where, numel in (("embedding P", 262144), ("embedding Q", 1152)):
+        x = torch.randn((LM_MESH[0], numel), generator=gen, device="cuda")
+        xn = x / x.abs().amax()
+        for name, bits, kernel, plain in encoders:
+            got, want = kernel(xn, 1.0, bits=bits), plain(xn, 1.0, bits, ALPHA)
+            if bits <= 4:
+                got, want = (unpack_nibbles(t, xn.numel()) for t in (got, want))
+            err = _code_flips(
+                got.reshape(-1),
+                want.reshape(-1),
+                _near_half(xn, bits).reshape(-1),
+                f"{name} b={bits} LM {where} {tuple(xn.shape)}",
+            )
+            n = xn.numel()
+            b_ms, b_by = bound_ms(n * 4 + n * bits // 8, n * QUANT_OPS, "f32")
+            res = dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: kernel(xn, 1.0, bits=bits), 50),
+                plain_ms=cuda_ms(lambda: plain(xn, 1.0, bits, ALPHA), 20),
+                bound_ms=b_ms,
+                bound_by=b_by,
+                library_ms=None,
+            )
+            emit({"kernel": name, "lm": where, "shape": list(xn.shape), **res})
+    c = codes((LM_MESH[0], 262144, 1)).mean(0)
+    got = log_dequantize_triton(c, 1.0, bits=8)
+    want = ref.log_dequantize_ref(c, 1.0, 8, ALPHA)
+    ulp = torch.nextafter(want.abs(), torch.full_like(want, math.inf)) - want.abs()
+    within = bool(((got - want).abs() <= 2 * ulp).all())
+    check(within, "dequant LM embedding P: > 2 ulp")
+    n = c.numel()
+    b_ms, b_by = bound_ms(n * 8, n * DEQUANT_OPS, "f32")
+    res = dict(
+        max_abs_err=float((got - want).abs().max()),
+        ms=cuda_ms(lambda: log_dequantize_triton(c, 1.0, bits=8), 50),
+        plain_ms=cuda_ms(lambda: ref.log_dequantize_ref(c, 1.0, 8, ALPHA), 20),
+        bound_ms=b_ms,
+        bound_by=b_by,
+        library_ms=None,
+    )
+    print(f"  log_dequantize LM embedding P {tuple(c.shape)}: within 2 ulp")
+    emit({"kernel": "log_dequantize", "lm": "embedding P", "shape": [n, 1], **res})
 
     print("kernels at the SSM serving path's shapes")
     # ---- #7 ssd_chunk, f32, max abs error <= SSD_REL_TOL of max |Y|: one
@@ -1544,6 +1640,393 @@ def _composite_server(card):
     return counts
 
 
+def phase_lm_train(card):
+    """(j) LM training: gemma3-1b at full width, the JAX package's main path.
+    Deterministic algorithms are on for the phase (warn only), so both
+    modes' gradients come out of the same reductions; any op that has no
+    deterministic version is named."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            total = {}
+            for part in (_lm_j1, _lm_j2, _lm_j3):
+                for name, c in part(card).items():
+                    total[name] = total.get(name, 0) + c
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted(
+        {str(w.message).splitlines()[0] for w in caught if "determin" in str(w.message)}
+    )
+    print(f"  (j) ops without a deterministic version: {nondet or 'none'}")
+    return total
+
+
+def _free_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_run(cfg, comp_cfg, opt, steps, *, runner="sync", microbatch=1, split=False):
+    """Train ``cfg`` over LM_MESH's workers through the LM training path
+    (``train/step.py`` under ``Trainer`` or ``AsyncRunner``). Returns the
+    final state, the runner, the compressor, its recorded comm, and a log:
+    every step's CommRecord, the first step's per-worker gradients into the
+    sync and its synced gradients (on the host), the tokens each worker's
+    loss read (on the device) and the wall seconds of the run."""
+    from repro_torch.core.comm import SimComm
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import LMDataConfig, lm_batch
+    from repro_torch.train.loss import lm_loss
+    from repro_torch.train.runtime import AsyncRunner, RuntimeConfig
+    from repro_torch.train.step import (
+        build_train_step,
+        init_train_state,
+        make_model_compressor,
+        n_dp_of,
+    )
+    from repro_torch.train.trainer import Trainer
+
+    n = n_dp_of(LM_MESH)
+    comp = make_model_compressor(cfg, comp_cfg)
+    comm = SimComm(n, record=True)
+    log = {"rec": [], "tokens": []}
+
+    def on_sync(grads, synced, comp_state, rec):
+        log["rec"].append(rec)
+        if len(log["rec"]) == 1:
+            log["grads0"] = [g.to("cpu") for g in tree_leaves(grads)]
+            log["synced0"] = [g.to("cpu") for g in tree_leaves(synced)]
+
+    def loss_fn(params, rows):
+        log["tokens"].append(rows["tokens"])
+        return lm_loss(params, rows, cfg)
+
+    step = build_train_step(
+        cfg,
+        LM_MESH,
+        comp,
+        opt,
+        accum_steps=microbatch,
+        loss_fn=loss_fn,
+        comm=comm,
+        on_sync=on_sync,
+        split_times=split,
+    )
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ, batch=LM_BATCH)
+    rcfg = RuntimeConfig(
+        steps=steps, log_every=1, verbose=False, microbatch=microbatch, prefetch=2
+    )
+    cls = AsyncRunner if runner == "async" else Trainer
+    loop = cls(step, lambda i: lm_batch(data, i), rcfg)
+    state = init_train_state(cfg, 0, opt, comp, n, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = loop.run(state)
+    torch.cuda.synchronize()
+    log["wall_s"] = time.perf_counter() - t0
+    return state, loop, comp, comm, log
+
+
+def _lm_tokens_checked(label, cfg, log, steps, microbatch=1):
+    """The tokens every worker's loss read, step by step, against numpy's
+    ``lm_batch``."""
+    from repro_torch.data.synthetic import LMDataConfig, lm_batch
+
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ, batch=LM_BATCH)
+    per_step = LM_MESH[0] * microbatch
+    check(len(log["tokens"]) == steps * per_step, f"{label}: {len(log['tokens'])}")
+    for t in range(steps):
+        got = torch.cat(log["tokens"][t * per_step : (t + 1) * per_step]).cpu()
+        want = torch.from_numpy(lm_batch(data, t)["tokens"])
+        check(torch.equal(got, want), f"{label}: step {t} tokens differ from lm_batch")
+
+
+def _lm_j1(card):
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import LMDataConfig, lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import adam
+    from repro_torch.train.step import init_train_params
+
+    cfg = get_config(LM_ARCH)
+    comp_cfg = CompressorConfig(name="lq_sgd", rank=1, bits=8)
+    label = (
+        f"(j1) {LM_ARCH} full width, {LM_MESH[0]} workers x "
+        f"{LM_BATCH // LM_MESH[0]} x {LM_SEQ}, LQ-SGD r1 b8, Adam, Trainer"
+    )
+    init = init_train_params(cfg, 0, "cuda")
+    init = [w.detach().to("cpu") for w in tree_leaves(init)]
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, loop, comp, comm, log = _lm_run(
+        cfg, comp_cfg, adam(J1_LR), J1_STEPS, split=True
+    )
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(w.numel() for w in tree_leaves(state["params"]))
+    print(f"{label}: {n_params} parameters, launches {counts}, peak {peak_gb:.1f} GB")
+    for name in ("log_quantize", "log_dequantize"):
+        check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    for name in ("log_quantize_pack", "flash_attention", "ssd_chunk"):
+        check(counts[name] == 0, f"{label}: kernel {name} launched")
+    check(n_params == 999_826_048, f"{label}: {n_params} parameters")
+    _lm_tokens_checked("(j1)", cfg, log, J1_STEPS)
+    params = [w.detach().to("cpu", copy=True) for w in tree_leaves(state["params"])]
+    gathered, history, kernel_log = list(comm.gathered), loop.history, log
+    kernel_recs = list(log["rec"])
+    # one more step (after the compared ones), profiled: device time by
+    # kernel, and the host time of the same step for the idle share
+    batch = lm_batch(
+        LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ, batch=LM_BATCH),
+        J1_STEPS,
+    )
+    h_ms = host_ms(lambda: loop.step_fn(state, batch), repeats=1)
+    by_name = device_ms_by_kernel(lambda: loop.step_fn(state, batch))
+    device = sum(ms for ms, _ in by_name.values())
+    print(
+        f"  (j1) one step on the host clock {h_ms:.1f} ms, device time "
+        f"{device:.1f} ms, idle {1 - device / h_ms:.1%}; {card}"
+    )
+    _kernel_split("lm_train_step_j1", card, by_name, {"loss": ("softmax", "nll")})
+    del state, loop, comm
+    _free_cuda()
+    with ops.reference_mode():
+        ref_state, ref_loop, _, ref_comm, ref_log = _lm_run(
+            cfg, comp_cfg, adam(J1_LR), J1_STEPS, split=True
+        )
+    ref_params = [w.detach().to("cpu") for w in tree_leaves(ref_state["params"])]
+    ref_gathered, ref_losses = ref_comm.gathered, [h["loss"] for h in ref_loop.history]
+    del ref_state, ref_loop
+    _free_cuda()
+
+    colls = comp.handler.group_collectives(comp.plans)
+    check(comp.wire_bits_per_step() == J1_BITS, f"{label}: {comp.wire_bits_per_step()}")
+    for rec in kernel_recs + ref_log["rec"]:
+        check(rec.effective_bits() == J1_BITS, f"{label}: {rec.effective_bits()} bits")
+        check(rec.effective_collectives() == colls, f"{label}: collectives")
+    for g, w in zip(kernel_log["grads0"], ref_log["grads0"], strict=True):
+        check(torch.equal(g, w), f"{label}: step-0 gradients into the sync differ")
+    flips, n_codes = _wire_flips(gathered, ref_gathered, label)
+    per_step = len(gathered) // J1_STEPS
+    flips0, _ = _wire_flips(gathered[:per_step], ref_gathered[:per_step], label)
+    tol0 = train_tol(8, flips0, workers=LM_MESH[0]) + BF16_ULP
+    grad_rel = 0.0
+    for g, w in zip(kernel_log["synced0"], ref_log["synced0"], strict=True):
+        err, top = float((g.float() - w.float()).abs().max()), float(w.abs().max())
+        check(err <= tol0 * top, f"{label}: step-0 synced grads differ by {err:.3e}")
+        grad_rel = max(grad_rel, err / max(top, 1e-30))
+    tol = train_tol(8, flips, workers=LM_MESH[0])
+    param_rel = 0.0
+    for p, w, p0 in zip(params, ref_params, init, strict=True):
+        p, w, p0 = p.float(), w.float(), p0.float()
+        err = float((p - w).abs().max())
+        moved, top = float((w - p0).abs().max()), float(w.abs().max())
+        if flips == 0:
+            bound = tol * moved + BF16_ULP * top
+        else:
+            bound = 2 * ADAM_STEP_MAX * J1_LR * J1_STEPS + BF16_ULP * top
+        check(err <= bound, f"{label}: params differ by {err:.3e} > {bound:.3e}")
+        param_rel = max(param_rel, err / max(moved, 1e-30))
+    losses = [h["loss"] for h in history]
+    check(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
+    step_ms = [[h["grad_ms"], h["sync_ms"], h["update_ms"]] for h in history]
+    for t, (g_ms, s_ms, u_ms) in enumerate(step_ms):
+        tok_s = LM_BATCH * LM_SEQ / ((g_ms + s_ms + u_ms) / 1e3)
+        print(
+            f"    (j1) step {t}: grad {g_ms:.1f} ms, sync {s_ms:.1f} ms, update "
+            f"{u_ms:.1f} ms, {tok_s:.0f} tokens/s, loss {losses[t]:.4f}"
+        )
+    steady = step_ms[1:]
+    split = {k: _median([m[i] for m in steady]) for i, k in enumerate(SPLIT_KEYS)}
+    tok_s = LM_BATCH * LM_SEQ / (sum(split.values()) / 1e3)
+    print(
+        f"  {label}: {J1_BITS} wire bits/step ({J1_BITS / 8e6:.3f} MB against "
+        f"{n_params * 4 / 1e6:.1f} MB uncompressed), {colls} collectives/step, "
+        f"step ms {split}, {tok_s:.0f} tokens/s, peak {peak_gb:.1f} GB; vs "
+        f"reference mode: step-0 gradients into the sync equal, {flips} of "
+        f"{n_codes} codes flipped ({flips0} at step 0), step-0 synced grads rel "
+        f"{grad_rel:.2e}, params rel {param_rel:.2e}; {card}"
+    )
+    emit(
+        {
+            "train": "j1_gemma3_1b_lq_sgd_r1_b8_adam",
+            "card": card,
+            "params": n_params,
+            "wire_bits_per_step": J1_BITS,
+            "collectives_per_step": colls,
+            "step_ms": split,
+            "per_step_ms": step_ms,
+            "tokens_per_s": tok_s,
+            "peak_memory_gb": peak_gb,
+            "losses": losses,
+            "reference_losses": ref_losses,
+            "launches": counts,
+            "code_flips": flips,
+            "step0_synced_grad_rel_err": grad_rel,
+            "param_rel_err": param_rel,
+        }
+    )
+    return counts
+
+
+SPLIT_KEYS = ("grad", "sync", "update")
+
+
+def _lm_j2(card):
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import sgd
+
+    cfg = get_config(LM_ARCH)
+    comp_cfg = CompressorConfig(name="lq_sgd", rank=1, bits=4)
+    label = (
+        f"(j2) {LM_ARCH} full width, LQ-SGD r1 b4, SGD, microbatch "
+        f"{J2_MICROBATCH}, AsyncRunner against Trainer"
+    )
+    out = {}
+    counts = None
+    for runner in ("sync", "async"):
+        if runner == "async":
+            ops.reset_launch_counts()
+        state, loop, comp, comm, log = _lm_run(
+            cfg,
+            comp_cfg,
+            sgd(J2_LR),
+            J2_STEPS,
+            runner=runner,
+            microbatch=J2_MICROBATCH,
+        )
+        if runner == "async":
+            counts = ops.launch_counts()
+        _lm_tokens_checked(f"(j2) {runner}", cfg, log, J2_STEPS, J2_MICROBATCH)
+        for rec in log["rec"]:
+            check(rec.effective_bits() == J2_BITS, f"{label}: {rec.effective_bits()}")
+        out[runner] = dict(
+            state=[
+                x.detach().to("cpu") if isinstance(x, torch.Tensor) else x
+                for x in tree_leaves(state)
+            ],
+            history=[
+                {k: v for k, v in h.items() if k != "wall_s"} for h in loop.history
+            ],
+            host_s=loop.host_s,
+            wall_s=log["wall_s"],
+        )
+        del state, loop, comm, log
+        _free_cuda()
+    print(f"{label}: launches {counts}")
+    for name in ("log_quantize_pack", "log_dequantize"):
+        check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    a, b = out["sync"], out["async"]
+    check(len(a["state"]) == len(b["state"]), f"{label}: states differ in leaves")
+    for x, y in zip(a["state"], b["state"]):
+        same = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        check(same, f"{label}: async state differs from the sync loop's")
+    check(a["history"] == b["history"], f"{label}: async metrics differ")
+    frac = {k: v["host_s"] / v["wall_s"] for k, v in out.items()}
+    tok_s = {k: J2_STEPS * LM_BATCH * LM_SEQ / v["wall_s"] for k, v in out.items()}
+    losses = [h["loss"] for h in b["history"]]
+    check(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
+    print(
+        f"  {label}: async = sync bit for bit (params, compressor state, "
+        f"metrics), {J2_BITS} wire bits/step; host-blocked fraction sync "
+        f"{frac['sync']:.3f} async {frac['async']:.3f}; tokens/s (whole run) sync "
+        f"{tok_s['sync']:.0f} async {tok_s['async']:.0f}; losses "
+        f"{[round(v, 4) for v in losses]}; {card}"
+    )
+    emit(
+        {
+            "train": "j2_gemma3_1b_lq_sgd_r1_b4_sgd_async",
+            "card": card,
+            "wire_bits_per_step": J2_BITS,
+            "host_blocked_fraction": frac,
+            "tokens_per_s": tok_s,
+            "wall_s": {k: v["wall_s"] for k, v in out.items()},
+            "losses": losses,
+            "launches": counts,
+        }
+    )
+    return counts
+
+
+def _lm_j3(card):
+    """Checkpoints at gemma3-1b's smoke widths on the card: a background
+    save at step 2, restored and run on to 4, equals 4 steps at once; a
+    write that fails raises on drain()."""
+    import tempfile
+
+    from repro_torch.checkpoint.io import peek_step, restore
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import LMDataConfig, lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import adam
+    from repro_torch.train.runtime import AsyncRunner, RuntimeConfig
+    from repro_torch.train.step import (
+        build_train_step,
+        init_train_state,
+        make_model_compressor,
+    )
+
+    cfg = get_config(LM_ARCH, smoke=True)
+    n = LM_MESH[0]
+    comp = make_model_compressor(cfg, CompressorConfig(name="lq_sgd", rank=1, bits=8))
+    opt = adam(J1_LR)
+    step = build_train_step(cfg, LM_MESH, comp, opt)
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch=LM_BATCH)
+
+    def run(state, steps, **kw):
+        rcfg = RuntimeConfig(steps=steps, verbose=False, **kw)
+        return AsyncRunner(step, lambda i: lm_batch(data, i), rcfg).run(state)
+
+    label = f"(j3) {cfg.name} checkpoint on the card"
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "state.ckpt")
+        whole = run(init_train_state(cfg, 0, opt, comp, n, "cuda"), J3_STEPS)
+        first = init_train_state(cfg, 0, opt, comp, n, "cuda")
+        run(first, 2, ckpt_every=1, ckpt_path=ck)
+        check(peek_step(ck) == 2, f"{label}: peek_step {peek_step(ck)}")
+        restored = restore(ck, init_train_state(cfg, 1, opt, comp, n, "cuda"))
+        resumed = run(restored, J3_STEPS)
+        for x, y in zip(tree_leaves(whole), tree_leaves(resumed), strict=True):
+            same = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+            check(same, f"{label}: the resumed run differs from the uninterrupted one")
+        blocker = Path(tmp) / "file"
+        blocker.write_text("x")
+        try:
+            run(
+                init_train_state(cfg, 0, opt, comp, n, "cuda"),
+                1,
+                ckpt_every=1,
+                ckpt_path=str(blocker / "state.ckpt"),
+            )
+            raised = False
+        except RuntimeError as e:
+            raised = "async checkpoint write" in str(e)
+        check(raised, f"{label}: a failed write did not raise on drain()")
+    counts = ops.launch_counts()
+    for name in ("log_quantize", "log_dequantize"):
+        check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    print(
+        f"{label}: save at step 2 in the background, restore, run on to "
+        f"{J3_STEPS}: equal to {J3_STEPS} steps at once bit for bit; a failed "
+        f"write raised on drain(); launches {counts}; {card}"
+    )
+    return counts
+
+
 def _greedy(cfg, params, logits, caches, prompt, n):
     """``n`` greedy tokens from a prefill's last-position logits and caches
     (decoded from them in place), and the top-2 logit gap of each step."""
@@ -2119,7 +2602,10 @@ def main():
     t = time.perf_counter()
     launches = phase_serve(card, gen)
     seconds["serve"] = time.perf_counter() - t
-    for phase in (phase_train, phase_ssm, phase_gia, phase_composite):
+    # (h) before (i) and (j): run after (i), its (h2) graph = eager check
+    # fails (ROADMAP Queue 3; tools/gia_order_probe.py rules out what it can)
+    phases = (phase_train, phase_ssm, phase_gia, phase_composite, phase_lm_train)
+    for phase in phases:
         t = time.perf_counter()
         for name, c in phase(card).items():
             launches[name] += c

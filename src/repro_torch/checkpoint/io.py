@@ -1,0 +1,195 @@
+"""Checkpoints of a tree of tensors: path-keyed leaves, zlib, restart-safe.
+
+The JAX package's ``checkpoint/io.py`` contract, in a byte format of the
+port's own (stdlib ``zlib`` and numpy bytes; no msgpack, no zstandard):
+
+    magic | header length (8 bytes, little endian) | zlib(JSON header) | blobs
+
+The header keys every leaf by its tree path (``['params']['embed']``, as
+``jax.tree_util.keystr`` names it) with its dtype, shape and the offset
+and length of its blob, one zlib stream per leaf. bfloat16 leaves are
+stored as their raw 16 bits with the tag ``bfloat16``; Python numbers in
+the tree (a compressor's step counter) keep their type. A write goes to
+``path + ".tmp"`` and is renamed over ``path``, so a crash mid-write
+leaves the previous checkpoint whole. :func:`peek_step` reads the header
+and the step's blob only. :func:`restore` checks every leaf against a
+like-tree and puts it on that tree's device (or the one given).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import struct
+import threading
+import zlib
+from collections.abc import Callable
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.tree import Tree, flatten_with_paths, tree_unflatten
+
+__all__ = ["save", "restore", "peek_step", "AsyncCheckpointer"]
+
+_MAGIC = b"REPROTORCHCKPT1\n"
+_LEVEL = 3  # zlib's compression level
+_PYTHON = {"int": int, "float": float, "bool": bool}
+
+
+def _leaf_bytes(leaf: Any) -> tuple[dict[str, Any], bytes]:
+    """(its header entry, its raw bytes)."""
+    if isinstance(leaf, bool | int | float):
+        kind = type(leaf).__name__
+        arr = np.asarray(leaf, dtype={"bool": np.bool_, "int": np.int64}.get(kind))
+        return {"dtype": arr.dtype.str, "shape": [], "python": kind}, arr.tobytes()
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            raw = t.view(torch.int16).numpy().tobytes()
+            return {"dtype": "bfloat16", "shape": list(t.shape)}, raw
+        leaf = t.numpy()
+    arr = np.asarray(leaf)  # tobytes() writes C order, 0-dim arrays too
+    return {"dtype": arr.dtype.str, "shape": list(arr.shape)}, arr.tobytes()
+
+
+def save(path: str, tree: Tree) -> int:
+    """Write ``tree`` (tensors on any device, numpy arrays, Python numbers)
+    to ``path``. Returns the bytes written."""
+    entries, blobs, offset = {}, [], 0
+    for key, leaf in flatten_with_paths(tree):
+        entry, raw = _leaf_bytes(leaf)
+        blob = zlib.compress(raw, _LEVEL)
+        entries[key] = {**entry, "offset": offset, "nbytes": len(blob)}
+        blobs.append(blob)
+        offset += len(blob)
+    header = zlib.compress(json.dumps({"version": 1, "entries": entries}).encode())
+    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(tmp, "wb") as f:
+        f.write(_MAGIC + struct.pack("<Q", len(header)) + header)
+        for blob in blobs:
+            f.write(blob)
+    os.replace(tmp, path)
+    return len(_MAGIC) + 8 + len(header) + offset
+
+
+def _read_header(f) -> tuple[dict[str, Any], int]:
+    """(the entries, the file offset of the first blob)."""
+    if f.read(len(_MAGIC)) != _MAGIC:
+        raise ValueError(f"{f.name!r} is not a checkpoint of this package")
+    (n,) = struct.unpack("<Q", f.read(8))
+    header = json.loads(zlib.decompress(f.read(n)))
+    return header["entries"], len(_MAGIC) + 8 + n
+
+
+def _read_leaf(f, start: int, entry: dict[str, Any]) -> np.ndarray:
+    f.seek(start + entry["offset"])
+    raw = zlib.decompress(f.read(entry["nbytes"]))
+    dtype = np.int16 if entry["dtype"] == "bfloat16" else np.dtype(entry["dtype"])
+    return np.frombuffer(raw, dtype).reshape(entry["shape"])
+
+
+def peek_step(path: str) -> int:
+    """The top-level ``['step']`` counter alone: the header and one blob are
+    read, no other leaf. Resume needs the step before it can build the
+    restore shapes (a schedule phase changes the compressor state)."""
+    with open(path, "rb") as f:
+        entries, start = _read_header(f)
+        if "['step']" not in entries:
+            raise KeyError(f"checkpoint {path!r} has no ['step'] entry")
+        return int(_read_leaf(f, start, entries["['step']"]).reshape(-1)[0])
+
+
+def _to_tensor(arr: np.ndarray, entry: dict[str, Any], device) -> torch.Tensor:
+    if entry["dtype"] == "bfloat16":
+        return torch.from_numpy(arr.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def restore(path: str, like: Tree, device: torch.device | str | None = None) -> Tree:
+    """The checkpoint at ``path`` in the structure of ``like`` (tensors,
+    meta tensors or Python numbers). Each tensor leaf must match its
+    like's shape and dtype, and lands on ``device``, by default its like's
+    (``cpu`` for a meta like). Raises on any mismatch: no partial restore."""
+    out = []
+    with open(path, "rb") as f:
+        entries, start = _read_header(f)
+        for key, ref in flatten_with_paths(like):
+            if key not in entries:
+                raise KeyError(f"checkpoint {path!r} misses leaf {key}")
+            entry = entries[key]
+            arr = _read_leaf(f, start, entry)
+            if "python" in entry:
+                out.append(_PYTHON[entry["python"]](arr.item()))
+                continue
+            if not isinstance(ref, torch.Tensor):
+                raise TypeError(f"{key}: a tensor in the checkpoint, {ref!r} in like")
+            dev = device if device is not None else ref.device
+            if torch.device(dev).type == "meta":
+                dev = "cpu"
+            val = _to_tensor(arr, entry, dev)
+            if tuple(val.shape) != tuple(ref.shape) or val.dtype != ref.dtype:
+                raise ValueError(
+                    f"{key}: {tuple(val.shape)} {val.dtype} in the checkpoint, "
+                    f"{tuple(ref.shape)} {ref.dtype} wanted"
+                )
+            out.append(val)
+    return tree_unflatten(like, out)
+
+
+class AsyncCheckpointer:
+    """A background writer: the train loop hands over a snapshot (a tree,
+    or a callable returning one, which the writer thread calls: the
+    runtime's device-side copy, read back here) and keeps dispatching; this
+    thread serializes and writes it with :func:`save`.
+
+    The queue is bounded (one write in flight and one waiting), so a disk
+    that cannot keep up with the interval applies backpressure instead of
+    hoarding snapshots. A write error is kept and raised by :meth:`drain`;
+    after one, the thread drains without writing."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._q: queue.Queue = queue.Queue(maxsize=2)
+        self._err: BaseException | None = None
+        self._thread = threading.Thread(
+            target=self._worker, name="async-ckpt", daemon=True
+        )
+        self._thread.start()
+
+    def _worker(self) -> None:
+        while True:
+            tree = self._q.get()
+            try:
+                if tree is None:
+                    return
+                if self._err is None:
+                    snap = tree() if callable(tree) else tree
+                    save(self.path, snap)
+            except Exception as e:  # raised again by drain()
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def submit(self, tree: Tree | Callable[[], Tree]) -> None:
+        """Enqueue a snapshot; blocks only while two are queued."""
+        self._q.put(tree)
+
+    def drain(self) -> None:
+        """Wait until every submitted snapshot is written; raise the first
+        write error."""
+        self._q.join()
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise RuntimeError(
+                f"async checkpoint write to {self.path!r} failed"
+            ) from err
+
+    def close(self) -> None:
+        """Stop the thread (raises nothing: call :meth:`drain` first)."""
+        if self._thread.is_alive():
+            self._q.put(None)
+            self._thread.join(timeout=60)

@@ -136,7 +136,9 @@ class PowerSGDHandler(LeafGroupHandler):
         # ---- reconstruct + error feedback ----
         for (i, g, pl), g_ef, p_hat, q_new in zip(comp, g_efs, p_hats, qs):
             g_hat = reconstruct(p_hat, q_new)  # Alg.1 l.19
-            g_res = (g_ef - g_hat).reshape(g.shape)
+            # in g_ef's own memory: the residual is the new error feedback,
+            # and a 1B-parameter model's per-worker f32 copies are 16 GB
+            g_res = g_ef.sub_(g_hat).reshape(g.shape)
             new_err[str(i)] = g_res.to(state_dtype(self.cfg))  # Alg.1 l.20
             new_q[str(i)] = q_new.expand((g.shape[0],) + q_new.shape)
             outs[i] = g_hat.reshape(pl.shape).to(g.dtype)

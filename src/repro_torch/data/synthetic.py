@@ -1,4 +1,12 @@
-"""Synthetic CIFAR-shaped images: the JAX package's ``ImageDataConfig`` /
+"""Deterministic synthetic data: LM tokens and CIFAR-shaped images.
+
+LM tokens (``LMDataConfig`` / ``lm_batch``) are the JAX package's noisy
+periodic copy process over a zipf unigram base, in numpy and step for step
+the same draws: a run of the port and of the JAX package see the same
+tokens. numpy by design: the async runtime's prefetch thread builds them
+while the device runs the step.
+
+Synthetic CIFAR-shaped images: the JAX package's ``ImageDataConfig`` /
 ``image_batch`` distribution, drawn on the device from a seed.
 
 K fixed class templates (standard normal images) plus Gaussian noise: a
@@ -17,7 +25,14 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["ImageDataConfig", "class_templates", "client_label_probs", "image_batch"]
+__all__ = [
+    "LMDataConfig",
+    "lm_batch",
+    "ImageDataConfig",
+    "class_templates",
+    "client_label_probs",
+    "image_batch",
+]
 
 
 def client_label_probs(
@@ -30,6 +45,49 @@ def client_label_probs(
         raise ValueError(f"noniid alpha must be > 0, got {alpha}")
     rng = np.random.default_rng(np.random.SeedSequence([seed, 9917]))
     return rng.dirichlet(np.full(n_classes, alpha), size=n_clients)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMDataConfig:
+    vocab_size: int
+    seq_len: int
+    batch: int
+    period: int = 16  # copy period (the learnable structure)
+    noise: float = 0.15  # fraction of corrupted positions
+    n_codebooks: int = 0
+    seed: int = 0
+    # federated non-IID: Dirichlet concentration reshaping each client's
+    # unigram prior (0 = IID, every client samples the shared zipf base)
+    noniid_alpha: float = 0.0
+
+
+def lm_batch(
+    cfg: LMDataConfig, step: int, *, client: int | None = None
+) -> dict[str, np.ndarray]:
+    """The batch of ``step``: {"tokens": (batch, seq_len) int32}, the same
+    for every call (restart-safe data order). ``client`` with
+    ``cfg.noniid_alpha > 0`` draws that federated client's shard: its
+    unigram prior is a Dirichlet(alpha * zipf) reshaping of the shared base,
+    fixed per client over the run. Multi-codebook tokens come with the
+    models that read them (ROADMAP Queue 1, item 14)."""
+    if cfg.n_codebooks:
+        raise NotImplementedError(
+            "multi-codebook tokens are not ported yet: ROADMAP Queue 1, item 14"
+        )
+    rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, step]))
+    shape = (cfg.batch, cfg.seq_len)
+    ranks = np.arange(1, cfg.vocab_size + 1, dtype=np.float64)
+    p = ranks**-1.1
+    if client is not None and cfg.noniid_alpha > 0:
+        crng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 9917, client]))
+        p = crng.dirichlet(cfg.noniid_alpha * cfg.vocab_size * p / p.sum())
+        p = np.maximum(p, 1e-12)
+    base = rng.choice(cfg.vocab_size, size=(cfg.batch, cfg.period), p=p / p.sum())
+    reps = -(-cfg.seq_len // cfg.period)
+    tok = np.tile(base, (1, reps))[:, : cfg.seq_len]
+    corrupt = rng.random(shape) < cfg.noise
+    rand_tok = rng.integers(0, cfg.vocab_size, shape)
+    return {"tokens": np.where(corrupt, rand_tok, tok).astype(np.int32)}
 
 
 @dataclasses.dataclass(frozen=True)

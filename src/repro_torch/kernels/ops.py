@@ -92,6 +92,14 @@ def _plain(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+def _refuse_autograd(name: str, why: str, *ts: torch.Tensor) -> None:
+    """The kernels have no backward: with grad mode on, an input that
+    requires grad would come back without a ``grad_fn``, and its gradient
+    would vanish silently. Raise instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(f"the {name} kernel has no backward: {why}")
+
+
 def launch_counts() -> dict[str, int]:
     """Each kernel's launches that ran on the card since the last reset."""
     return {name: fn.launches for name, fn in KERNELS.items()}
@@ -150,15 +158,27 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
     sm_scale: float | None = None,
+    plain: bool = False,
 ) -> torch.Tensor:
     """Prefill attention. The plain version goes by query chunks above
-    ``_CHUNK_THRESHOLD`` positions."""
-    if _plain(q):
+    ``_CHUNK_THRESHOLD`` positions; ``plain=True`` takes it on any device,
+    as a training forward does (the JAX package trains with its plain
+    attention, ``backend="xla"``). The kernel refuses inputs that require
+    grad."""
+    if plain or _plain(q):
         if q.shape[2] > _CHUNK_THRESHOLD:
             return ref.chunked_attention_ref(
                 q, k, v, causal=causal, window=window, scale=sm_scale
             )
         return ref.attention_ref(q, k, v, causal=causal, window=window, scale=sm_scale)
+    _refuse_autograd(
+        "flash_attention",
+        "the JAX package trains with the plain attention, and so does the "
+        "port's training forward (forward(..., plain_attention=True))",
+        q,
+        k,
+        v,
+    )
     return flash_attention_cuda(
         q.contiguous(),
         k.contiguous(),
@@ -175,10 +195,20 @@ def ssd_chunk(
     """Mamba-2's intra-chunk term: x (B, H, NC, Q, P), a_cum (B, H, NC, Q),
     bm/cm (B, G, NC, Q, N) with H % G == 0, head h reading group
     h // (H // G) -> float32 (B, H, NC, Q, P). The kernel reads the groups
-    in place; the plain version takes them broadcast to heads."""
+    in place; the plain version takes them broadcast to heads. The kernel
+    refuses inputs that require grad; the plain version keeps autograd."""
     if _plain(x):
         rep = x.shape[1] // bm.shape[1]
         if rep > 1:
             bm, cm = bm.repeat_interleave(rep, 1), cm.repeat_interleave(rep, 1)
         return ref.ssd_chunk_ref(x, a_cum, bm, cm)
+    _refuse_autograd(
+        "ssd_chunk",
+        "Mamba-2 training waits for a backward of its own (ROADMAP Queue 1, "
+        "item 14)",
+        x,
+        a_cum,
+        bm,
+        cm,
+    )
     return ssd_chunk_cuda(x, a_cum, bm, cm)

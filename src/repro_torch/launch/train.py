@@ -1,0 +1,295 @@
+"""LM training launcher: the JAX package's ``python -m repro.launch.train``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
+        --mesh 4x1 --batch 8 --seq 512 --compressor lq_sgd --rank 1 --bits 8 \\
+        --steps 3
+
+trains the LM at full width over N simulated data-parallel workers on one
+card (``--mesh Nx1``: worker w takes rows w*B/N .. (w+1)*B/N - 1 of each
+global batch), with the compressed gradient sync in every step, from a
+seeded init and the JAX package's synthetic tokens (``data/synthetic.py:
+lm_batch``). ``--smoke`` takes the reduced config; ``--device cpu`` runs on
+the CPU (the tests); by default it runs on the card, in f32 wherever the
+config is f32 (TF32 off, as the JAX package computes).
+
+The step runs under the async runtime by default (prefetched batches,
+deferred metric reads, background checkpoints: ``train/runtime.py``);
+``--runtime sync`` is the reference loop. The JAX launcher's flags carry
+over. Those of parts not ported raise, naming the ROADMAP item that ports
+them: a model axis above 1, ``--production-mesh`` and ``--multi-pod``
+(tensor and multi-card parallelism, item 15); ``--codec`` and
+``--dp-epsilon`` (the randomized codecs, item 13); the architectures the
+port lacks and mamba2-370m training (its ``ssd_chunk`` kernel has no
+backward; item 14).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from typing import Any
+
+import numpy as np
+
+from repro_torch.checkpoint.io import peek_step
+from repro_torch.checkpoint.io import restore as ckpt_restore
+from repro_torch.configs import ARCHS, LATER_SLICES, get_config
+from repro_torch.core.compressors import CompressorConfig
+from repro_torch.core.policy import format_plan_report, parse_decay_spec
+from repro_torch.data.synthetic import LMDataConfig, lm_batch
+from repro_torch.models.common import resolve_device
+from repro_torch.models.model import count_params
+from repro_torch.train.data_parallel import _tf32_off
+from repro_torch.train.optimizer import make_optimizer
+from repro_torch.train.runtime import AsyncRunner, RuntimeConfig, run_schedule
+from repro_torch.train.step import (
+    build_train_step,
+    init_train_state,
+    make_model_compressor,
+    n_dp_of,
+)
+from repro_torch.train.trainer import Trainer
+
+__all__ = ["main", "parse_mesh"]
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True, choices=sorted({*ARCHS, *LATER_SLICES}))
+    ap.add_argument("--smoke", action="store_true", help="the reduced config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8, help="global batch")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--optimizer", default="sgd", choices=("sgd", "adam"))
+    ap.add_argument(
+        "--compressor",
+        default="lq_sgd",
+        choices=("none", "topk", "qsgd", "powersgd", "lq_sgd"),
+    )
+    ap.add_argument(
+        "--policy",
+        default=None,
+        help="per-leaf policy: 'uniform' (default), 'auto' (the cost-model "
+        "planner) or a spec 'pattern=method:knob=v,...'; else the config's hint",
+    )
+    ap.add_argument("--error-budget", type=float, default=0.3)
+    ap.add_argument(
+        "--warmup", type=int, default=0, help="exact f32 sync for the first W steps"
+    )
+    ap.add_argument(
+        "--decay", default=None, help="rank/bit caps, e.g. '200:rank=1,500:bits=4'"
+    )
+    ap.add_argument("--lazy-thresh", type=float, default=0.0)
+    ap.add_argument("--max-stale", type=int, default=4)
+    ap.add_argument("--lazy-adaptive", type=float, default=0.0)
+    ap.add_argument("--lazy-mode", default="elide", choices=("elide", "gate"))
+    ap.add_argument("--rank", type=int, default=1)
+    ap.add_argument("--bits", type=int, default=8)
+    ap.add_argument("--alpha", type=float, default=10.0)
+    ap.add_argument("--wire", default="symmetric", choices=("symmetric", "server"))
+    ap.add_argument("--participation", type=float, default=1.0)
+    ap.add_argument(
+        "--agg", default="participation", choices=("participation", "sparsity")
+    )
+    ap.add_argument("--participation-seed", type=int, default=0)
+    ap.add_argument(
+        "--noniid-alpha",
+        type=float,
+        default=0.0,
+        help="federated non-IID tokens: worker w's rows are client w's (0 = IID)",
+    )
+    ap.add_argument(
+        "--wire-accounting",
+        "--wire-mode",
+        dest="wire_accounting",
+        default="allgather_codes",
+        choices=("allgather_codes", "psum_sim"),
+    )
+    ap.add_argument("--codec", default=None, help="not ported (item 13)")
+    ap.add_argument(
+        "--dp-epsilon", type=float, default=0.0, help="not ported (item 13)"
+    )
+    ap.add_argument("--dp-delta", type=float, default=1e-5)
+    ap.add_argument(
+        "--avg-mode", default="paper", choices=("paper", "dequant_then_mean")
+    )
+    ap.add_argument("--fuse", action="store_true", help="one collective per phase")
+    ap.add_argument("--comp-dtype", default="float32")
+    ap.add_argument(
+        "--mesh", default=None, help="'Nx1': N simulated workers (default 1x1)"
+    )
+    ap.add_argument("--production-mesh", action="store_true", help="not ported")
+    ap.add_argument("--multi-pod", action="store_true", help="not ported")
+    ap.add_argument("--runtime", default="async", choices=("async", "sync"))
+    ap.add_argument(
+        "--microbatch",
+        type=int,
+        default=1,
+        help="gradient accumulation: k sequential microbatches, one sync",
+    )
+    ap.add_argument("--prefetch", type=int, default=2)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--ckpt-path", default="checkpoints/state.ckpt")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def parse_mesh(spec: str | None) -> tuple[int, int]:
+    """'4x1' -> (4, 1), a (data, model) mesh; None -> (1, 1), the one card
+    on the data axis."""
+    if spec is None:
+        return (1, 1)
+    data, model = (int(x) for x in spec.split("x"))
+    return data, model
+
+
+def _check_ported(args: argparse.Namespace) -> None:
+    if args.production_mesh or args.multi_pod:
+        raise NotImplementedError(
+            "--production-mesh / --multi-pod: multi-card meshes are not ported "
+            "yet (ROADMAP Queue 1, item 15)"
+        )
+    if args.codec is not None or args.dp_epsilon > 0:
+        raise NotImplementedError(
+            "--codec / --dp-epsilon: the randomized privacy codecs are not "
+            "ported yet (ROADMAP Queue 1, item 13)"
+        )
+    if args.arch in LATER_SLICES:
+        raise NotImplementedError(
+            f"--arch {args.arch}: not ported yet (ROADMAP Queue 1, item 14)"
+        )
+    if args.arch == "mamba2-370m":
+        raise NotImplementedError(
+            "--arch mamba2-370m: Mamba-2 training needs a backward of the "
+            "ssd_chunk kernel, not ported yet (ROADMAP Queue 1, item 14)"
+        )
+
+
+def main(argv: list[str] | None = None) -> dict[str, Any]:
+    args = _parser().parse_args(argv)
+    _check_ported(args)
+    mesh = parse_mesh(args.mesh)
+    n_dp = n_dp_of(mesh)
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    comp_cfg = CompressorConfig(
+        name=args.compressor,
+        rank=args.rank,
+        bits=args.bits,
+        alpha=args.alpha,
+        wire_accounting=args.wire_accounting,
+        avg_mode=args.avg_mode,
+        dp_delta=args.dp_delta,
+        fuse_collectives=args.fuse,
+        state_dtype=args.comp_dtype,
+        policy=args.policy or cfg.compression_policy,
+        error_budget=args.error_budget,
+        warmup_steps=args.warmup,
+        schedule_decay=parse_decay_spec(args.decay) if args.decay else (),
+        lazy_thresh=args.lazy_thresh,
+        max_stale=args.max_stale,
+        lazy_adaptive=args.lazy_adaptive,
+        lazy_mode=args.lazy_mode,
+        topology=args.wire,
+        participation=args.participation,
+        agg=args.agg,
+        participation_seed=args.participation_seed,
+    )
+    compressor = make_model_compressor(cfg, comp_cfg)
+    if getattr(compressor, "plan_report", None):
+        print(format_plan_report(compressor.plan_report))
+    optimizer = make_optimizer(args.optimizer, args.lr)
+    data_cfg = LMDataConfig(
+        vocab_size=cfg.vocab_size,
+        seq_len=args.seq,
+        batch=args.batch,
+        noniid_alpha=args.noniid_alpha,
+    )
+
+    def batch_fn(step: int) -> dict[str, np.ndarray]:
+        if args.noniid_alpha <= 0:
+            return lm_batch(data_cfg, step)
+        # federated rows: worker c's rows come from client c's skewed prior
+        if args.batch % n_dp:
+            raise ValueError(
+                f"--noniid-alpha needs --batch divisible by the {n_dp} "
+                f"workers, got {args.batch}"
+            )
+        per = dataclasses.replace(data_cfg, batch=args.batch // n_dp)
+        chunks = [lm_batch(per, step, client=c) for c in range(n_dp)]
+        return {k: np.concatenate([ch[k] for ch in chunks]) for k in chunks[0]}
+
+    def build(comp):
+        return build_train_step(
+            cfg, mesh, comp, optimizer, accum_steps=args.microbatch
+        )
+
+    with _tf32_off():
+        comp0 = compressor
+        if args.resume:
+            if not os.path.exists(args.ckpt_path):
+                raise FileNotFoundError(
+                    f"--resume: no checkpoint at {args.ckpt_path!r}; refusing to "
+                    "restart from scratch"
+                )
+            # the saved compressor state is that of the phase of the last
+            # step run (step0 - 1); run_schedule adapts it on entering the
+            # next phase
+            step0 = peek_step(args.ckpt_path)
+            if hasattr(compressor, "at_step"):
+                comp0 = compressor.at_step(max(step0 - 1, 0))
+            like = init_train_state(cfg, 0, optimizer, comp0, n_dp, dev)
+            state = ckpt_restore(args.ckpt_path, like)
+            del like
+            print(f"# resumed at step {step0} from {args.ckpt_path}")
+        else:
+            state = init_train_state(cfg, 0, optimizer, comp0, n_dp, dev)
+        n_params = count_params(state["params"])
+        lazy_note = ""
+        if getattr(comp0, "lazy_groups", None):
+            lazy_mb = comp0.expected_wire_bits_per_step() / 8e6
+            lazy_note = f" expected(lazy)={lazy_mb:.3f}MB"
+        print(
+            f"arch={cfg.name} params={n_params / 1e6:.1f}M "
+            f"mesh={{'data': {mesh[0]}, 'model': {mesh[1]}}} "
+            f"compressor={args.compressor} policy={comp_cfg.policy or 'uniform'} "
+            f"runtime={args.runtime} microbatch={args.microbatch} "
+            f"wire/step={comp0.wire_bits_per_step() / 8e6:.3f}MB{lazy_note} "
+            f"(uncompressed={n_params * 4 / 1e6:.1f}MB) device={dev}",
+            flush=True,
+        )
+        rcfg = RuntimeConfig(
+            steps=args.steps,
+            log_every=args.log_every,
+            ckpt_every=args.ckpt_every,
+            ckpt_path=args.ckpt_path,
+            microbatch=args.microbatch,
+            prefetch=args.prefetch,
+        )
+        runner_cls = AsyncRunner if args.runtime == "async" else Trainer
+        runner = runner_cls(build(comp0), batch_fn, rcfg)
+
+        def rebuild(comp_t, seg_start):
+            mb = comp_t.wire_bits_per_step() / 8e6
+            print(f"# schedule phase @step {seg_start}: wire/step={mb:.3f}MB")
+            return build(comp_t)
+
+        # ONE runner threads through every schedule phase; phases a restored
+        # checkpoint has finished are skipped
+        state = run_schedule(
+            runner,
+            compressor,
+            state,
+            total_steps=args.steps,
+            rebuild=rebuild,
+            initial=comp0,
+        )
+    return {"history": runner.history, "state": state, "n_params": n_params}
+
+
+if __name__ == "__main__":
+    main()

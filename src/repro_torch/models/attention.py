@@ -1,10 +1,12 @@
 """GQA/MQA attention with RoPE, optional sliding window, QK-norm, KV cache.
 
 Layouts follow the JAX package: activations (B, S, D); heads as
-(B, H, S, hd) for the attention op. Train and prefill attention dispatch to
-the flash kernel through ``repro_torch.kernels.ops`` (the hand-written CUDA
-kernel on the card, ``attention_ref`` on the CPU); decode attends one query
-against the dequantized cache in plain torch, as the JAX package does.
+(B, H, S, hd) for the attention op. Prefill attention dispatches to the
+flash kernel through ``repro_torch.kernels.ops`` (the hand-written CUDA
+kernel on the card, ``attention_ref`` on the CPU); a training forward asks
+for the plain attention on any device (``plain=True``), as the JAX
+package's training step does; decode attends one query against the
+dequantized cache in plain torch, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -128,8 +130,10 @@ def attn_forward(
     positions: torch.Tensor,
     cache: Params | None = None,
     cache_index: int | torch.Tensor | None = None,
+    plain: bool = False,
 ) -> tuple[torch.Tensor, Params | None]:
-    """Returns (y, cache). cache=None: full sequence (train). cache given and
+    """Returns (y, cache). cache=None: full sequence (train; ``plain`` takes
+    the plain attention on any device). cache given and
     one token: decode, appending K/V in place. cache given and a longer x:
     prefill, writing the whole padded cache in place (rows past S are zero:
     raw zeros, or codes 0 with scale 0 in a QuantKV)."""
@@ -147,7 +151,9 @@ def attn_forward(
             q, kv_read(k_leaf), kv_read(v_leaf), cache_index, spec.window
         )
     else:
-        out = ops.flash_attention(q, k, v, causal=True, window=spec.window)
+        out = ops.flash_attention(
+            q, k, v, causal=True, window=spec.window, plain=plain
+        )
         if cache is not None:
             for name, new in (("k", k), ("v", v)):
                 leaf = cache[name]

@@ -24,9 +24,15 @@ Params = dict[str, Any]
 
 def _check_ported(spec: LayerSpec, cfg: ModelConfig) -> None:
     if spec.kind == "attn" and cfg.use_mla:
-        raise NotImplementedError("MLA attention comes with the LM training slice")
+        raise NotImplementedError(
+            "MLA attention comes with the rest of the LM training slice "
+            "(ROADMAP Queue 1, item 14)"
+        )
     if spec.moe:
-        raise NotImplementedError("MoE FFNs come with the LM training slice")
+        raise NotImplementedError(
+            "MoE FFNs come with the rest of the LM training slice "
+            "(ROADMAP Queue 1, item 14)"
+        )
 
 
 def has_ffn(spec: LayerSpec, cfg: ModelConfig) -> bool:
@@ -76,8 +82,10 @@ def layer_forward(
     positions: torch.Tensor,
     cache: Params | None = None,
     cache_index: int | torch.Tensor | None = None,
+    plain_attention: bool = False,
 ) -> tuple[torch.Tensor, Params | None]:
-    """Pre-norm residual block. Returns (x, cache)."""
+    """Pre-norm residual block. Returns (x, cache). ``plain_attention``: see
+    ``models.model.forward``."""
     _check_ported(spec, cfg)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.kind == "attn":
@@ -89,6 +97,7 @@ def layer_forward(
             positions=positions,
             cache=cache,
             cache_index=cache_index,
+            plain=plain_attention,
         )
     else:
         mix, cache = mamba_forward(p["mixer"], h, cfg, cache=cache)

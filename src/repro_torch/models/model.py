@@ -1,10 +1,19 @@
 """The LM: embed -> layers (attention or Mamba-2 mixers) -> final norm -> tied head.
 
 The layer stack is ``lead + pattern * repeats + tail`` (configs/base.py),
-run as one Python loop. Parameters are a dict ``{"embed", "layers",
-"final_norm"}`` with ``layers`` in execution order and every weight in the
-JAX layout (d_in, d_out), applied as ``x @ w``; ``repro_torch.weights``
-converts the JAX package's stacked pytree into it. Caches keep the JAX tree
+run as one Python loop. Parameters come in one of two trees, both with
+every weight in the JAX layout (d_in, d_out), applied as ``x @ w``:
+
+* the serving tree ``{"embed", "layers", "final_norm"}``, ``layers`` in
+  execution order (:func:`init_params`);
+* the training tree, the JAX package's own: ``{"embed", "lead", "scan",
+  "tail", "final_norm"}`` with the scan leaves stacked by repeat
+  (``repro_torch.weights.to_jax_layout``). The compressor plans, scales
+  and counts per leaf, so it must see this tree, with its
+  :func:`stacked_flags`; the forward reads each layer as views into it
+  (:func:`layer_params`), so the gradients land in the stacked leaves.
+
+Caches keep the JAX tree
 layout (``lead``/``scan``/``tail``, scan leaves stacked by repeat: K/V rows
 for an attention layer, the conv window and SSM state ``{"conv", "ssm"}``
 for a Mamba-2 layer); each layer works on views of its slice, so prefill
@@ -35,6 +44,8 @@ __all__ = [
     "apply_head",
     "count_params",
     "layer_caches",
+    "layer_params",
+    "stacked_flags",
 ]
 
 Params = dict[str, Any]
@@ -44,21 +55,25 @@ def _check_ported(cfg: ModelConfig) -> None:
     if cfg.n_codebooks or cfg.cond_len or cfg.mtp or not cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name}: untied, multi-codebook, conditioned or MTP heads "
-            "come with the LM training slice"
+            "come with the rest of the LM training slice (ROADMAP Queue 1, "
+            "item 14)"
         )
 
 
 def init_params(
     cfg: ModelConfig,
-    gen: torch.Generator | int = 0,
+    gen: torch.Generator | int | None = 0,
     device: torch.device | str = "cuda",
 ) -> Params:
     """Seeded init: dense 1/sqrt(fan_in), embeddings 0.02, norms 0, then a
-    cast to ``cfg.dtype``. ``gen`` is a generator on ``device`` or a seed."""
+    cast to ``cfg.dtype``. ``gen`` is a generator on ``device`` or a seed.
+    On the ``meta`` device the tree holds shapes and dtypes only."""
     cfg.validate()
     _check_ported(cfg)
     dev = resolve_device(device)
-    if isinstance(gen, int):
+    if dev.type == "meta":
+        gen = None
+    elif isinstance(gen, int):
         gen = torch.Generator(device=dev).manual_seed(gen)
     p: Params = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), device=dev)}
     p["layers"] = [init_layer(gen, spec, cfg, dev) for spec in cfg.layers]
@@ -124,12 +139,47 @@ def layer_caches(caches: Params, cfg: ModelConfig) -> Iterator[Params]:
     yield from caches["tail"]
 
 
+def layer_params(params: Params, cfg: ModelConfig) -> Iterator[Params]:
+    """Each layer's parameters in execution order: the serving tree's
+    ``layers``, or views into the training tree (lead layers, then for each
+    repeat r every pattern position's slice r, then tail)."""
+    if "layers" in params:
+        yield from params["layers"]
+        return
+    yield from params["lead"]
+    for r in range(cfg.repeats):
+        for pos in range(len(cfg.pattern)):
+            yield _tree_select(params["scan"][pos], r)
+    yield from params["tail"]
+
+
+def _tree_select(tree: Any, r: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_select(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def stacked_flags(params: Params) -> Params:
+    """The training tree's flags for the compressor: True on the scan
+    leaves (stacked by repeat, compressed per layer), False elsewhere."""
+
+    def flags(t: Any, value: bool) -> Any:
+        if isinstance(t, dict):
+            return {k: flags(v, value) for k, v in t.items()}
+        if isinstance(t, list):
+            return [flags(v, value) for v in t]
+        return value
+
+    out = flags(params, False)
+    out["scan"] = flags(params["scan"], True)
+    return out
+
+
 def apply_head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Tied LM head: x @ embed.T."""
     return x @ params["embed"].to(x.dtype).T
 
 
-@torch.no_grad()
 def forward(
     params: Params,
     tokens: torch.Tensor,
@@ -138,10 +188,19 @@ def forward(
     caches: Params | None = None,
     cache_index: int | torch.Tensor | None = None,
     return_hidden: bool = False,
+    plain_attention: bool = False,
 ) -> tuple[torch.Tensor, Params | None]:
     """Returns (logits, caches); with ``return_hidden`` the final-normed
     hidden state (B, S, D) instead of logits, for a caller that applies the
-    head to a few positions only.
+    head to a few positions only. ``params`` is the serving or the training
+    tree.
+
+    Autograd records the forward unless the caller turns it off: the
+    serving steps run under ``torch.no_grad()``. A training forward passes
+    ``plain_attention=True``, the plain attention on any device, as the
+    JAX package's training step runs its plain (``backend="xla"``)
+    attention; the attention and SSD kernels have no backward and refuse
+    inputs that require grad.
 
     tokens: (B, S) integer ids. Embeddings are not scaled by sqrt(d), as in
     the JAX package (unlike Hugging Face's Gemma)."""
@@ -156,10 +215,17 @@ def forward(
         positions = cache_index[:, None].expand(b, s)
 
     per_layer = layer_caches(caches, cfg) if caches is not None else None
-    for p, spec in zip(params["layers"], cfg.layers):
+    for p, spec in zip(layer_params(params, cfg), cfg.layers):
         c = next(per_layer) if per_layer is not None else None
         x, _ = layer_forward(
-            p, x, spec, cfg, positions=positions, cache=c, cache_index=cache_index
+            p,
+            x,
+            spec,
+            cfg,
+            positions=positions,
+            cache=c,
+            cache_index=cache_index,
+            plain_attention=plain_attention,
         )
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:

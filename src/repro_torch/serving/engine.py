@@ -65,6 +65,7 @@ def build_prefill_step(
     cache is filled in ``cache_dtype`` and then, with ``qcfg``, quantized as
     a whole (every ``max_seq`` row); prefill attention runs on the raw K/V."""
 
+    @torch.no_grad()
     def prefill(params: dict, tokens: torch.Tensor):
         caches = init_caches(cfg, tokens.shape[0], max_seq, cache_dtype, tokens.device)
         x, caches = forward(params, tokens, cfg, caches=caches, return_hidden=True)
@@ -84,6 +85,7 @@ def build_decode_step(cfg: ModelConfig):
     bake a position in). Within range both give the same logits and
     caches. The caches are appended in place and returned."""
 
+    @torch.no_grad()
     def decode(params: dict, caches: Any, tokens: torch.Tensor, index):
         return forward(params, tokens, cfg, caches=caches, cache_index=index)
 

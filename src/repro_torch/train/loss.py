@@ -1,0 +1,80 @@
+"""Causal-LM loss: next-token cross-entropy, the log-softmax in f32.
+
+The JAX package's ``train/loss.py``: the target of position t is token
+t + 1 (a roll by one), the last position is masked, and the loss is
+``sum(nll * mask) / (sum(mask) * B)``. ``head_chunk`` applies the tied head
+per sequence chunk and recomputes each chunk's logits in the backward, so
+the (B, S, V) logits of a 262k vocabulary never exist at once; the value is
+the same. The forward takes the plain attention on any device, as the JAX
+training step does (``backend="xla"``). The MTP and MoE terms and
+multi-codebook targets come with those models (ROADMAP Queue 1, item 14).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import apply_head, forward
+
+__all__ = ["lm_loss"]
+
+
+def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets[..., None].long())[..., 0]
+
+
+def _check_ported(cfg: ModelConfig, batch: dict[str, Any]) -> None:
+    if cfg.mtp or cfg.n_experts or cfg.n_codebooks or "cond" in batch:
+        raise NotImplementedError(
+            f"{cfg.name}: the MTP, MoE, multi-codebook and conditioned losses "
+            "are not ported yet: ROADMAP Queue 1, item 14"
+        )
+
+
+def _masked_mean(nll: torch.Tensor) -> torch.Tensor:
+    b, s = nll.shape
+    mask = (torch.arange(s, device=nll.device) < s - 1).float()[None, :]
+    return torch.sum(nll * mask) / (torch.sum(mask) * b)
+
+
+def lm_loss(
+    params: Any,
+    batch: dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    *,
+    head_chunk: int = 0,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """batch: {"tokens": (B, S) integer ids}. Returns (scalar loss,
+    {"ce", "loss"}), the loss of the training or the serving tree."""
+    _check_ported(cfg, batch)
+    tokens = batch["tokens"]
+    tgt = torch.roll(tokens, -1, dims=1)
+    if head_chunk:
+        hidden, _ = forward(
+            params, tokens, cfg, return_hidden=True, plain_attention=True
+        )
+        embed = params["embed"]
+
+        def chunk_nll(h: torch.Tensor, t: torch.Tensor, w: torch.Tensor):
+            return _ce(apply_head({"embed": w}, h, cfg), t)
+
+        # each chunk's logits are recomputed in the backward, not kept
+        chunks = zip(hidden.split(head_chunk, 1), tgt.split(head_chunk, 1))
+        nll = torch.cat(
+            [
+                checkpoint(chunk_nll, h, t, embed, use_reentrant=False)
+                for h, t in chunks
+            ],
+            dim=1,
+        )
+    else:
+        logits, _ = forward(params, tokens, cfg, plain_attention=True)
+        nll = _ce(logits, tgt)
+    loss = _masked_mean(nll)
+    return loss, {"ce": loss, "loss": loss}

@@ -1,0 +1,104 @@
+"""The synchronous training loop: metrics, checkpoints, deterministic data
+order; the JAX package's ``train/trainer.py``.
+
+This is the reference loop: every piece of host work (the batch, each
+metric's ``float()``, the checkpoint's copy to the host and its write) runs
+on the hot path, blocking device dispatch. ``train/runtime.py:AsyncRunner``
+overlaps all of it and equals this loop bit for bit.
+
+One ``Trainer`` may drive several ``run()`` calls (the schedule phases swap
+``step_fn`` between them): ``history`` accumulates and ``wall_s`` counts
+from the first run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections.abc import Callable
+from typing import Any
+
+from repro_torch.checkpoint.io import save as ckpt_save
+
+__all__ = [
+    "TrainerConfig",
+    "Trainer",
+    "start_step_of",
+    "checkpoint_due",
+    "format_metrics",
+]
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 100
+    log_every: int = 10
+    ckpt_every: int = 0  # 0 = disabled
+    ckpt_path: str = "checkpoints/state.ckpt"
+    verbose: bool = True  # False: record history, print nothing
+
+
+def start_step_of(state: Any) -> int:
+    """The completed steps a state carries (``state["step"]``), else 0."""
+    if isinstance(state, dict) and "step" in state:
+        return int(state["step"])
+    return 0
+
+
+def checkpoint_due(cfg: TrainerConfig, step: int) -> bool:
+    """Save on the interval AND at the final step: a run whose last step is
+    off the interval grid still leaves a checkpoint."""
+    if not cfg.ckpt_every:
+        return False
+    return step == cfg.steps - 1 or (step > 0 and step % cfg.ckpt_every == 0)
+
+
+def format_metrics(step: int, m: dict[str, float]) -> str:
+    msg = " ".join(
+        f"{k}={v:.4f}" for k, v in m.items() if k not in ("step", "wall_s")
+    )
+    return f"step {step:5d} | {msg} | t={m['wall_s']}s"
+
+
+class Trainer:
+    """Drives a step over a deterministic per-step data function."""
+
+    def __init__(
+        self, step_fn: Callable, batch_fn: Callable[[int], Any], cfg: TrainerConfig
+    ):
+        self.step_fn = step_fn
+        self.batch_fn = batch_fn
+        self.cfg = cfg
+        self.history: list[dict[str, float]] = []
+        # main-thread seconds blocked on host work (batch, metric reads,
+        # checkpoint IO): what the async runtime shrinks
+        self.host_s = 0.0
+        self._t0: float | None = None
+
+    def run(self, state: Any, start_step: int | None = None) -> Any:
+        """``start_step=None`` resumes from ``state["step"]`` (a restored
+        checkpoint's count of completed steps)."""
+        if start_step is None:
+            start_step = start_step_of(state)
+        if self._t0 is None:
+            self._t0 = time.time()
+        cfg = self.cfg
+        for step in range(start_step, cfg.steps):
+            th = time.time()
+            batch = self.batch_fn(step)
+            self.host_s += time.time() - th
+            state, metrics = self.step_fn(state, batch)
+            if step % cfg.log_every == 0 or step == cfg.steps - 1:
+                th = time.time()
+                m = {k: float(v) for k, v in metrics.items()}
+                m["step"] = step
+                m["wall_s"] = round(time.time() - self._t0, 2)
+                self.history.append(m)
+                if cfg.verbose:
+                    print(format_metrics(step, m))
+                self.host_s += time.time() - th
+            if checkpoint_due(cfg, step):
+                th = time.time()
+                ckpt_save(cfg.ckpt_path, state)
+                self.host_s += time.time() - th
+        return state

@@ -9,6 +9,13 @@ order the JAX forward runs them (lead layers, then for each repeat r every
 pattern position, then tail layers). Weights keep their (d_in, d_out)
 layout, because the port applies them as ``x @ w``.
 
+``to_jax_layout(params, cfg)`` is its inverse: the serving tree -> the
+training tree, the JAX package's own layout (``lead``/``scan``/``tail``,
+scan leaves stacked by repeat, as copies), which the compressor sees;
+``models.model.layer_params`` reads it back as per-layer views.
+``train_state_from_jax(state, cfg)`` carries a whole JAX training state
+(params, optimizer, per-worker compressor state, step) over as it is.
+
 ``resnet_params_from_jax(tree)`` returns the ResNet-18 (or mini-CNN) tree
 as it is: the same keys, HWIO conv kernels. ``compressor_state_from_jax``
 broadcasts a state from ``comp.init_state(key)`` over the workers, since
@@ -28,6 +35,8 @@ from repro_torch.models.common import resolve_device
 
 __all__ = [
     "params_from_jax",
+    "to_jax_layout",
+    "train_state_from_jax",
     "resnet_params_from_jax",
     "compressor_state_from_jax",
     "tensor_from_numpy",
@@ -68,6 +77,51 @@ def params_from_jax(
         "layers": layers,
         "final_norm": conv(tree["final_norm"]),
     }
+
+
+def to_jax_layout(params: dict[str, Any], cfg: ModelConfig) -> dict[str, Any]:
+    """The serving tree ``{"embed", "layers", "final_norm"}`` -> the
+    training tree ``{"embed", "lead", "scan", "tail", "final_norm"}``: the
+    lead and tail layers as they are, each pattern position's repeats
+    stacked (copies), in the order :func:`params_from_jax` unstacks them."""
+    layers = params["layers"]
+    n_lead, n_pat = len(cfg.lead), len(cfg.pattern)
+    if len(layers) != n_lead + n_pat * cfg.repeats + len(cfg.tail):
+        raise ValueError(f"{len(layers)} layers do not fit {cfg.name}'s stack")
+    scan = []
+    for pos in range(n_pat):
+        reps = [layers[n_lead + r * n_pat + pos] for r in range(cfg.repeats)]
+        scan.append(_stack(reps))
+    return {
+        "embed": params["embed"],
+        "lead": layers[:n_lead],
+        "scan": scan,
+        "tail": layers[n_lead + n_pat * cfg.repeats :],
+        "final_norm": params["final_norm"],
+    }
+
+
+def _stack(trees: list[Any]) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def train_state_from_jax(
+    state: dict[str, Any], cfg: ModelConfig, device: torch.device | str = "cuda"
+) -> dict[str, Any]:
+    """A JAX ``init_train_state`` (numpy leaves) -> the port's training
+    state: params in the training tree, the optimizer state, the
+    per-worker compressor state (its leading worker dim kept) and the
+    int32 step, every leaf as it is. A PRNG key cannot carry over."""
+    if "key" in state["comp"]:
+        raise ValueError("a PRNG key cannot carry over; seed the port's state")
+    if cfg.n_codebooks or cfg.mtp or not cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"{cfg.name}: untied, multi-codebook or MTP heads are not ported yet"
+        )
+    dev = resolve_device(device)
+    return tree_map(lambda a: tensor_from_numpy(a, dev), state)
 
 
 def resnet_params_from_jax(

@@ -751,3 +751,116 @@ def test_server_participation_draw_on_the_card(cuda):
     rate = float(draws.float().mean())
     assert abs(rate - p) < 4 * (p * (1 - p) / (rounds * n)) ** 0.5
     assert torch.equal(participation_draw(3, 123, n, p, "cuda"), draws[123])
+
+
+# ----------------------------------------------------- LM training (slice 10)
+@pytest.mark.parametrize("name", ["flash_attention", "ssd_chunk"])
+def test_attention_and_ssd_kernels_refuse_inputs_that_require_grad(cuda, name):
+    """They have no backward: a CUDA input that requires grad raises with
+    grad mode on, instead of coming back without a ``grad_fn``."""
+    dev = torch.device("cuda")
+    if name == "flash_attention":
+        shapes = ((1, 4, 64, 64), (1, 1, 64, 64), (1, 1, 64, 64))
+        args = [torch.randn(s, device=dev, dtype=torch.bfloat16) for s in shapes]
+        why = "plain attention"
+    else:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        args = list(_ssd_inputs(gen, 1, 2, 1, 2, 16, 8, 16))
+        why = "item 14"
+    args[0] = args[0].detach().requires_grad_(True)
+    with pytest.raises(RuntimeError, match=why):
+        getattr(ops, name)(*args)
+    with torch.no_grad():
+        out = getattr(ops, name)(*args)
+    assert out.grad_fn is None and torch.isfinite(out.float()).all()
+
+
+def test_full_width_lm_training_step_equals_reference_mode(cuda):
+    """One step of gemma3-1b at full width, bf16, over 4 workers of 2 x 512
+    tokens with LQ-SGD r1 b8 and Adam: the sync launches the encode (#1)
+    and the wire dequant (#5) and no attention kernel; with deterministic
+    algorithms on, the gradients into the sync equal reference mode's bit
+    for bit, the synced gradients agree within one bf16 ulp of each leaf's
+    largest value plus train_tol's f32 noise (1e-5), and the step ships
+    the JAX package's 9,236,960 bits."""
+    from repro_torch.data.synthetic import LMDataConfig, lm_batch
+    from repro_torch.train.optimizer import adam
+    from repro_torch.train.step import (
+        build_train_step,
+        init_train_state,
+        make_model_compressor,
+    )
+
+    cfg = get_config("gemma3-1b")
+    comp = make_model_compressor(cfg, CompressorConfig(name="lq_sgd", rank=1))
+    batch = lm_batch(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=512, batch=8), 0)
+    seen = {}
+
+    def run(mode):
+        def on_sync(grads, synced, state, rec):
+            seen[mode] = dict(
+                grads=[g.to("cpu") for g in tree_leaves(grads)],
+                synced=[g.to("cpu") for g in tree_leaves(synced)],
+                bits=rec.effective_bits(),
+            )
+
+        opt = adam(1e-3)
+        state = init_train_state(cfg, 0, opt, comp, 4, "cuda")
+        step = build_train_step(cfg, (4, 1), comp, opt, on_sync=on_sync)
+        _, m = step(state, batch)
+        assert math.isfinite(float(m["loss"]))
+        del state
+        torch.cuda.empty_cache()
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ops.reset_launch_counts()
+        run("kernel")
+        counts = ops.launch_counts()
+        with ops.reference_mode():
+            run("reference")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert counts["log_quantize"] > 0 and counts["log_dequantize"] > 0
+    assert counts["flash_attention"] == counts["log_quantize_pack"] == 0
+    k, r = seen["kernel"], seen["reference"]
+    assert k["bits"] == r["bits"] == 9_236_960
+    for g, w in zip(k["grads"], r["grads"], strict=True):
+        assert torch.equal(g, w)
+    for g, w in zip(k["synced"], r["synced"], strict=True):
+        top = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= (2**-8 + 1e-5) * top
+
+
+def test_graphed_attack_equals_eager_after_training(cuda):
+    """(h2)'s check after other work: two ResNet-18 training steps of 5
+    workers x 128 with LQ-SGD first, then the (sgd, cold start) attack on
+    the full-width ResNet-18, 40 steps of 8 restarts, graphed and with
+    ``graph=False``: x-hat and losses equal bit for bit."""
+    import dataclasses
+
+    from repro_torch.core.privacy.harness import _restart_keys
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    train_one(
+        CompressorConfig(name="lq_sgd", rank=1, bits=8),
+        n_workers=5,
+        batch=128,
+        hw=32,
+        steps=2,
+        device="cuda",
+    )
+    cfg = gia_ssim.harness_config(quick=False)
+    gia = dataclasses.replace(cfg.gia, steps=40)
+    victim = gia_ssim.setup("resnet18", "cuda")
+    params, x, y, grad_fn = (victim[k] for k in ("params", "x", "y", "grad_fn"))
+    g_obs = grad_fn(params, x, y)
+    out = {}
+    for graph in (None, False):
+        keys = _restart_keys(cfg.seed, 0, cfg.n_attack_seeds, "cuda")
+        out[graph] = invert_gradients_batched(
+            grad_fn, params, g_obs, tuple(x.shape), y, keys, gia, graph=graph
+        )
+    assert torch.equal(out[None][0], out[False][0])
+    assert torch.equal(out[None][1], out[False][1])

@@ -283,3 +283,66 @@ def test_attention_scale_override():
     want = _jax_attention(qj, qj, qj, causal=True, scale=0.5)
     got = ops.flash_attention(qt, qt, qt, sm_scale=0.5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+
+
+def _kernel_branch(monkeypatch):
+    """Route CPU tensors to the kernel branch of every wrapper, as CUDA
+    tensors outside ``reference_mode`` go."""
+    monkeypatch.setattr(ops, "_plain", lambda t: False)
+
+
+def _attention_inputs(requires_grad):
+    g = torch.Generator().manual_seed(0)
+    shapes = ((1, 4, 8, 32), (1, 1, 8, 32), (1, 1, 8, 32))
+    return [torch.randn(s, generator=g).requires_grad_(requires_grad) for s in shapes]
+
+
+def _ssd_inputs(requires_grad):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 2, 2, 4, 8), generator=g)
+    a_cum = torch.randn((1, 2, 2, 4), generator=g).cumsum(-1)
+    bm, cm = (torch.randn((1, 1, 2, 4, 16), generator=g) for _ in range(2))
+    return [t.requires_grad_(requires_grad) for t in (x, a_cum, bm, cm)]
+
+
+@pytest.mark.parametrize(
+    "name, args, why",
+    [
+        ("flash_attention", _attention_inputs, "trains with the plain attention"),
+        ("ssd_chunk", _ssd_inputs, "item 14"),
+    ],
+)
+def test_kernel_branch_refuses_inputs_that_require_grad(monkeypatch, name, args, why):
+    """The attention and SSD kernels have no backward: with grad mode on, an
+    input that requires grad raises instead of coming back without a
+    ``grad_fn``. Without grad the kernel branch goes on to launch (here it
+    then refuses the CPU tensor)."""
+    _kernel_branch(monkeypatch)
+    wrapper = getattr(ops, name)
+    with pytest.raises(RuntimeError, match=why):
+        wrapper(*args(True))
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
+        wrapper(*args(True))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wrapper(*args(False))
+
+
+@pytest.mark.parametrize(
+    "name, args", [("flash_attention", _attention_inputs), ("ssd_chunk", _ssd_inputs)]
+)
+def test_plain_branch_keeps_autograd(name, args):
+    inputs = args(True)
+    out = getattr(ops, name)(*inputs)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out.sum(), inputs)
+    assert all(g is not None and torch.isfinite(g).all() for g in grads)
+
+
+def test_training_attention_takes_the_plain_version_on_the_kernel_branch(monkeypatch):
+    """``plain=True`` (the training forward's) is the plain attention even
+    where a tensor would launch the kernel, and keeps autograd."""
+    _kernel_branch(monkeypatch)
+    q, k, v = _attention_inputs(True)
+    out = ops.flash_attention(q, k, v, plain=True)
+    assert out.grad_fn is not None
+    assert torch.equal(out, tref.attention_ref(q, k, v))
