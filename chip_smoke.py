@@ -32,14 +32,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    TF32 flags on, PyTorch's cuDNN default, and every step must find them
    off, as the training entry point sets them, and both back on after
    it), a few steps each of (d) LQ-SGD rank 1, b = 8, (e) LQ-SGD rank 1,
-   b = 4 and (f) QSGD b = 4. Each run starts with the launch counts at 0 and must
-   launch every kernel of its path; every step's wire bits must equal the
-   static accounting (370136 bits for (d), 3.655093 MB/epoch) and its
-   collectives the count from the plans; losses must be finite; and the
-   same run in reference mode, from the same init and batches, must ship
-   the same codes (but for one-step bin-edge flips; QSGD's bytes exactly,
-   from the same generator seeds) and end with the same synced gradients
-   and parameters, within the tolerance of :func:`train_tol`;
+   b = 4 and (f) QSGD b = 4, each step a CUDA-graph replay (the entry
+   point's default on the card: warm-up, capture, replays). Each run
+   starts with the launch counts at 0 and must launch every kernel of its
+   path; the same run with ``graph=False`` must equal it bit for bit
+   (losses, every step's bits, synced gradients and wire arrays, final
+   parameters, launch counts), with ms/step both ways; every step's wire
+   bits must equal the static accounting (370136 bits for (d), 3.655093
+   MB/epoch) and its collectives the count from the plans; losses must be
+   finite; and the same run in reference mode, from the same init and
+   batches, must ship the same codes (but for one-step bin-edge flips;
+   QSGD's bytes exactly, from the same per-leaf generators) and end with
+   the same synced gradients and parameters, within the tolerance of
+   :func:`train_tol`;
 6. serve mamba2-370m at full width and depth (48 Mamba-2 layers, bf16,
    seeded random weights; f32 matmuls with TF32 off, as phase 1 sets),
    fixed scheduler: (g1) batch 4, prompt 1024 (4 chunks), 32 new tokens,
@@ -51,9 +56,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    reference-mode run; the graphed decode must equal the eager one
    (tokens, caches, launches), as in phase 4; bytes/token must equal the
    accounting (48290.909 for (g1), the JAX package's figure);
-7. the gradient-inversion trust claim (paper §V-C), before phases 8 and
-   9 (run after the composite, its (h2) graph = eager check fails: ROADMAP
-   Queue 3), through
+7. the gradient-inversion trust claim (paper §V-C), run last, after
+   phases 8 and 9 (its (h2) graph = eager check failed in that order until
+   the attack step's backward ran on one thread:
+   ``core/privacy/gia.py``), through
    ``python -m repro_torch.bench.gia_ssim``'s ``bench``: (h1) the JAX
    benchmark's sweep as it stands (its 2-conv victim net, a 16x16x3 target,
    all 8 methods, 10 victim steps, attacks at steps 0 and 9, best of 8
@@ -97,24 +103,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    split by fired and skipped rounds;
 9. LM training, the JAX package's main path (``train/step.py`` under the
    runtime), gemma3-1b at full width (999,826,048 parameters, bf16, seeded
-   random weights) over 4 simulated workers of 2 rows x 512 tokens, with
+   random weights) over 4 simulated workers of 2 rows x 512 tokens, each
+   step one CUDA-graph replay with the state donated and the layer
+   pattern rematerialized (the launcher's jitted step), with
    deterministic algorithms on (warn only; ops without one are named):
-   (j1) LQ-SGD r1 b8, Adam lr 1e-3, the sync ``Trainer``, 3 steps, then
-   the same run in reference mode: every worker's tokens equal numpy's
-   ``lm_batch``, the step-0 gradients into the sync are equal bit for bit,
-   wire codes equal but for one-step flips, every step ships 9,236,960
-   bits (the JAX package's figure) in the plans' collectives, the step-0
-   synced gradients and the final parameters agree within the bounds
-   stated at ``BF16_ULP``; launches of #1 and #5 but not #3, #6 or #7; the
-   grad / sync / update ms of each step, tokens/s and peak memory printed.
-   (j2) LQ-SGD r1 b4 (4,624,864 bits), SGD lr 0.05, microbatch 2, 4 steps,
-   through ``AsyncRunner`` (prefetch 2, metrics every step) and through
-   ``Trainer``: equal bit for bit (parameters, compressor state, metrics);
-   #3 and #5 launch; the host-blocked fraction of both printed. (j3) at
-   gemma3-1b's smoke widths: a background checkpoint at step 2 restored
-   and run on to step 4 equals 4 steps at once bit for bit, and a failed
-   write raises on ``drain()``. The grad / sync / update split of an extra
-   profiled (j1) step and its device time by kernel are printed.
+   first one eager step at smoke widths under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the step);
+   (j1) LQ-SGD r1 b8, Adam lr 1e-3, the sync ``Trainer``, 3 steps graphed
+   and the same with ``graph=False``, equal bit for bit (the step-0
+   gradients into the sync, every step's synced gradients, wire arrays,
+   bits and losses, the final parameters, the launch counts), then the
+   graphed run in reference mode: every step's tokens (read from the
+   step's batch buffer) equal numpy's ``lm_batch``, the step-0 gradients
+   into the sync are equal bit for bit, wire codes equal but for one-step
+   flips, every step ships 9,236,960 bits (the JAX package's figure) in
+   the plans' collectives, the step-0 synced gradients and the final
+   parameters agree within the bounds stated at ``BF16_ULP``; launches of
+   #1 and #5 but not #3, #6 or #7; then, with deterministic algorithms
+   off, the graphed step, the eager step and the eager step without
+   rematerialization timed (tokens/s, peak memory, capture seconds, the
+   device idle share 1 - replay / eager host time) and a replay's device
+   time by kernel. (j2) LQ-SGD r1 b4 (4,624,864 bits), SGD lr 0.05,
+   microbatch 2, 4 steps, through ``AsyncRunner`` (prefetch 2, metrics
+   every step) and through ``Trainer``, both over the graphed step: equal
+   bit for bit (parameters, compressor state, metrics); #3 and #5 launch;
+   the host-blocked fraction of both printed. (j3) at gemma3-1b's smoke
+   widths: a background checkpoint at step 2 restored and run on to step
+   4 (the graphed step binding to the restored state) equals 4 steps at
+   once bit for bit, and a failed write raises on ``drain()``.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -219,6 +235,7 @@ LM_ARCH = "gemma3-1b"
 LM_MESH = (4, 1)
 LM_BATCH, LM_SEQ = 8, 512
 J1_STEPS, J1_LR = 3, 1e-3  # LQ-SGD r1 b8, Adam, the sync Trainer
+J1_TIMED_STEPS = 5  # the timed runs: warm-up, capture, 3 steps timed
 J2_STEPS, J2_LR, J2_MICROBATCH = 4, 0.05, 2  # LQ-SGD r1 b4, SGD, k = 2
 J3_STEPS = 4  # checkpoint at 2, restore, continue (smoke widths)
 # the JAX package's make_model_compressor(get_config("gemma3-1b"), lq_sgd
@@ -1070,12 +1087,73 @@ def phase_train(card):
         cudnn.allow_tf32, matmul.allow_tf32 = was
 
 
+def _train_run(cfg, graph=None):
+    """``train_one`` on (d)-(f)'s shape, recording each step's synced
+    gradients (clones: under a graph they are the replay's, overwritten by
+    the next), wire arrays and TF32 flags."""
+    from repro_torch.core.comm import SimComm
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.train.data_parallel import train_one
+
+    comm = SimComm(TRAIN_WORKERS, record=True)
+    log = {"grads": [], "wire": [], "tf32": []}
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+
+    def on_sync(step, synced, state):
+        if step == 0:  # the gathers of one step: the warm-up's, or eager's
+            log["per_step"] = len(comm.gathered)
+        log["grads"].append([g.clone() for g in tree_leaves(synced)])
+        log["wire"].append(comm.gathered[-log["per_step"] :])
+
+    out = train_one(
+        cfg,
+        n_workers=TRAIN_WORKERS,
+        batch=TRAIN_BATCH,
+        hw=TRAIN_HW,
+        n_classes=TRAIN_CLASSES,
+        steps=TRAIN_STEPS,
+        lr=TRAIN_LR,
+        seed=0,
+        device="cuda",
+        comm=comm,
+        graph=graph,
+        on_step=lambda step, res: log["tf32"].extend(f.allow_tf32 for f in flags),
+        on_sync=on_sync,
+    )
+    return out, log
+
+
+def _graph_equals_eager_train(label, out, log, eager, eager_log, counts, e_counts):
+    """(d)-(f): the graphed run against the same run with ``graph=False``,
+    bit for bit: every step's loss, bits, synced gradients and wire arrays,
+    the final parameters, and the launch counts."""
+    from repro_torch.core.tree import tree_leaves
+
+    check(counts == e_counts, f"{label}: launches {counts} graphed, {e_counts} eager")
+    check(out.losses == eager.losses, f"{label}: graphed losses differ from eager")
+    for st, est in zip(out.steps, eager.steps, strict=True):
+        same = (st.rec.bits_sent, st.rec.n_collectives) == (
+            est.rec.bits_sent,
+            est.rec.n_collectives,
+        )
+        check(same, f"{label}: graphed bits or collectives differ from eager")
+    for t, (gs, es) in enumerate(zip(log["grads"], eager_log["grads"], strict=True)):
+        for g, e in zip(gs, es, strict=True):
+            check(torch.equal(g, e), f"{label}: step {t} synced grads, graph != eager")
+    for t, (ws, es) in enumerate(zip(log["wire"], eager_log["wire"], strict=True)):
+        for w, e in zip(ws, es, strict=True):
+            check(torch.equal(w, e), f"{label}: step {t} wire, graph != eager")
+    pairs = zip(tree_leaves(out.params), tree_leaves(eager.params), strict=True)
+    for p, e in pairs:
+        check(torch.equal(p, e), f"{label}: final params, graph != eager")
+
+
 def _train_runs(card):
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.core.tree import tree_leaves
     from repro_torch.kernels import ops
     from repro_torch.models.resnet import init_resnet18
-    from repro_torch.train.data_parallel import mb_per_epoch, train_one
+    from repro_torch.train.data_parallel import mb_per_epoch
 
     runs = {
         "d": (
@@ -1090,46 +1168,29 @@ def _train_runs(card):
     }
     total = {name: 0 for name in ops.KERNELS}
     init = tree_leaves(init_resnet18(TRAIN_CLASSES, seed=0, device="cuda"))
-
     flags = torch.backends.cudnn, torch.backends.cuda.matmul
-    tf32_in_steps = []
-
-    def run(cfg):
-        return train_one(
-            cfg,
-            n_workers=TRAIN_WORKERS,
-            batch=TRAIN_BATCH,
-            hw=TRAIN_HW,
-            n_classes=TRAIN_CLASSES,
-            steps=TRAIN_STEPS,
-            lr=TRAIN_LR,
-            seed=0,
-            device="cuda",
-            record_wire=True,
-            on_step=lambda step, res: tf32_in_steps.extend(
-                f.allow_tf32 for f in flags
-            ),
-        )
 
     for variant, (cfg, need) in runs.items():
         tag = f"{cfg.name}_b{cfg.bits}" + ("_r1" if cfg.name == "lq_sgd" else "")
         label = f"({variant}) ResNet-18 {tag}, {TRAIN_WORKERS} workers x {TRAIN_BATCH}"
         with ops.reference_mode():
-            want = run(cfg)
+            want, ref_log = _train_run(cfg)
         ops.reset_launch_counts()
-        out = run(cfg)
+        out, log = _train_run(cfg)  # the main path: a CUDA-graph replay a step
         counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        eager, eager_log = _train_run(cfg, graph=False)
+        e_counts = ops.launch_counts()
         print(f"{label}: launches {counts}")
         for name in need:
             check(counts[name] > 0, f"{label}: kernel {name} never launched")
         for name, c in counts.items():
             total[name] += c
-        check(
-            tf32_in_steps and not any(tf32_in_steps),
-            f"{label}: a step ran with TF32 on",
-        )
+        for lg in (log, eager_log, ref_log):
+            tf32 = lg["tf32"]
+            check(tf32 and not any(tf32), f"{label}: a step ran with TF32 on")
         check(all(f.allow_tf32 for f in flags), f"{label}: TF32 flags not restored")
-        tf32_in_steps.clear()
+        _graph_equals_eager_train(label, out, log, eager, eager_log, counts, e_counts)
 
         comp = out.comp
         n_raw = sum(pl.route != "lowrank" for pl in comp.plans)
@@ -1148,7 +1209,8 @@ def _train_runs(card):
         check(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
 
         with torch.no_grad():
-            got_w, want_w = out.comm.gathered, want.comm.gathered
+            got_w = [w for ws in log["wire"] for w in ws]
+            want_w = [w for ws in ref_log["wire"] for w in ws]
             check(len(got_w) == len(want_w), f"{label}: gathers differ in number")
             flips = n_codes = 0
             for g, w in zip(got_w, want_w):
@@ -1173,12 +1235,16 @@ def _train_runs(card):
                 check(err <= tol * moved, f"{label}: params differ by {err:.3e}")
                 param_rel = max(param_rel, err / max(moved, 1e-30))
 
-        steady = out.steps[1:]
+        # eager: the phases of the steps after the first; graphed: the steps
+        # after the capture, pure replays
+        steady = eager.steps[1:]
         split = {
             "grad": _median([st.grad_ms for st in steady]),
             "sync": _median([st.sync_ms for st in steady]),
             "update": _median([st.update_ms for st in steady]),
         }
+        eager_ms = _median([st.step_ms for st in steady])
+        graph_ms = _median([st.step_ms for st in out.steps[2:]])
         mb = mb_per_epoch(comp, CIFAR_TRAIN_IMAGES, TRAIN_WORKERS * TRAIN_BATCH)
         flops = resnet18_train_flops(
             TRAIN_HW, TRAIN_CLASSES, TRAIN_WORKERS * TRAIN_BATCH
@@ -1186,12 +1252,14 @@ def _train_runs(card):
         grad_tflops = flops / (split["grad"] * 1e-3) / 1e12
         print(
             f"  {label}: {bits} wire bits/step = {mb:.6f} MB/epoch, {colls} "
-            f"collectives/step, step ms grad {split['grad']:.1f} "
-            f"({flops / 1e12:.3f} TFLOP, {grad_tflops:.1f} TFLOP/s) sync "
-            f"{split['sync']:.1f} update {split['update']:.1f}, losses "
-            f"{[round(v, 4) for v in out.losses]}; vs reference mode: {flips} of "
-            f"{n_codes} codes flipped, synced grads rel {grad_rel:.2e}, params rel "
-            f"{param_rel:.2e}; {card}"
+            f"collectives/step; ms/step graph {graph_ms:.1f} (a replay, CUDA "
+            f"events) vs eager {eager_ms:.1f} (grad {split['grad']:.1f}, "
+            f"{flops / 1e12:.3f} TFLOP, {grad_tflops:.1f} TFLOP/s; sync "
+            f"{split['sync']:.1f}; update {split['update']:.1f}); graph = eager "
+            f"bit for bit (losses, bits, synced grads and wire of every step, "
+            f"params, launches); losses {[round(v, 4) for v in out.losses]}; vs "
+            f"reference mode: {flips} of {n_codes} codes flipped, synced grads rel "
+            f"{grad_rel:.2e}, params rel {param_rel:.2e}; {card}"
         )
         emit(
             {
@@ -1200,7 +1268,9 @@ def _train_runs(card):
                 "mb_per_epoch": mb,
                 "wire_bits_per_step": bits,
                 "collectives_per_step": colls,
-                "step_ms": split,
+                "graph_step_ms": graph_ms,
+                "eager_step_ms": eager_ms,
+                "eager_split_ms": split,
                 "grad_tflop": flops / 1e12,
                 "grad_tflop_per_s": grad_tflops,
                 "losses": out.losses,
@@ -1671,17 +1741,20 @@ def _free_cuda():
     torch.cuda.empty_cache()
 
 
-def _lm_run(cfg, comp_cfg, opt, steps, *, runner="sync", microbatch=1, split=False):
+def _lm_run(
+    cfg, comp_cfg, opt, steps, *, runner="sync", microbatch=1, graph=None, every=False
+):
     """Train ``cfg`` over LM_MESH's workers through the LM training path
-    (``train/step.py`` under ``Trainer`` or ``AsyncRunner``). Returns the
-    final state, the runner, the compressor, its recorded comm, and a log:
-    every step's CommRecord, the first step's per-worker gradients into the
-    sync and its synced gradients (on the host), the tokens each worker's
-    loss read (on the device) and the wall seconds of the run."""
+    (``train/step.py`` under ``Trainer`` or ``AsyncRunner``; a CUDA-graph
+    replay a step unless ``graph=False``). Returns {state, loop, step, comp,
+    comm, log}: the log holds every step's CommRecord and wire arrays, the
+    batch each step read (its device batch, a graph's static buffer, read
+    after the step), the first step's per-worker gradients into the sync
+    and its synced gradients on the host (``every``: every step's synced
+    gradients), and the wall seconds of the run."""
     from repro_torch.core.comm import SimComm
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data.synthetic import LMDataConfig, lm_batch
-    from repro_torch.train.loss import lm_loss
     from repro_torch.train.runtime import AsyncRunner, RuntimeConfig
     from repro_torch.train.step import (
         build_train_step,
@@ -1694,17 +1767,16 @@ def _lm_run(cfg, comp_cfg, opt, steps, *, runner="sync", microbatch=1, split=Fal
     n = n_dp_of(LM_MESH)
     comp = make_model_compressor(cfg, comp_cfg)
     comm = SimComm(n, record=True)
-    log = {"rec": [], "tokens": []}
+    log = {"rec": [], "tokens": [], "synced": [], "wire": []}
 
     def on_sync(grads, synced, comp_state, rec):
         log["rec"].append(rec)
-        if len(log["rec"]) == 1:
+        if len(log["rec"]) == 1:  # the gathers of one step
+            log["per_step"] = len(comm.gathered)
             log["grads0"] = [g.to("cpu") for g in tree_leaves(grads)]
-            log["synced0"] = [g.to("cpu") for g in tree_leaves(synced)]
-
-    def loss_fn(params, rows):
-        log["tokens"].append(rows["tokens"])
-        return lm_loss(params, rows, cfg)
+        if every or len(log["rec"]) == 1:
+            log["synced"].append([g.to("cpu") for g in tree_leaves(synced)])
+        log["wire"].append(comm.gathered[-log["per_step"] :])
 
     step = build_train_step(
         cfg,
@@ -1712,45 +1784,107 @@ def _lm_run(cfg, comp_cfg, opt, steps, *, runner="sync", microbatch=1, split=Fal
         comp,
         opt,
         accum_steps=microbatch,
-        loss_fn=loss_fn,
         comm=comm,
         on_sync=on_sync,
-        split_times=split,
+        graph=graph,
     )
+
+    def stepped(state, batch):
+        state, metrics = step(state, batch)
+        log["tokens"].append(step.batch["tokens"].clone())
+        return state, metrics
+
     data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ, batch=LM_BATCH)
     rcfg = RuntimeConfig(
         steps=steps, log_every=1, verbose=False, microbatch=microbatch, prefetch=2
     )
     cls = AsyncRunner if runner == "async" else Trainer
-    loop = cls(step, lambda i: lm_batch(data, i), rcfg)
+    loop = cls(stepped, lambda i: lm_batch(data, i), rcfg)
     state = init_train_state(cfg, 0, opt, comp, n, "cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = loop.run(state)
     torch.cuda.synchronize()
     log["wall_s"] = time.perf_counter() - t0
-    return state, loop, comp, comm, log
+    return dict(state=state, loop=loop, step=step, comp=comp, comm=comm, log=log)
 
 
-def _lm_tokens_checked(label, cfg, log, steps, microbatch=1):
-    """The tokens every worker's loss read, step by step, against numpy's
-    ``lm_batch``."""
+def _lm_tokens_checked(label, cfg, log, steps):
+    """The tokens every step read against numpy's ``lm_batch``."""
     from repro_torch.data.synthetic import LMDataConfig, lm_batch
 
     data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ, batch=LM_BATCH)
-    per_step = LM_MESH[0] * microbatch
-    check(len(log["tokens"]) == steps * per_step, f"{label}: {len(log['tokens'])}")
-    for t in range(steps):
-        got = torch.cat(log["tokens"][t * per_step : (t + 1) * per_step]).cpu()
-        want = torch.from_numpy(lm_batch(data, t)["tokens"])
-        check(torch.equal(got, want), f"{label}: step {t} tokens differ from lm_batch")
+    check(len(log["tokens"]) == steps, f"{label}: {len(log['tokens'])} steps' tokens")
+    for t, got in enumerate(log["tokens"]):
+        want = torch.from_numpy(lm_batch(data, t)["tokens"]).to(got.dtype)
+        check(torch.equal(got.cpu(), want), f"{label}: step {t} tokens differ")
+
+
+def _lm_no_host_sync(card):
+    """One eager LM step at smoke widths (Adam, LQ-SGD, the deterministic
+    algorithms of the phase) under ``torch.cuda.set_sync_debug_mode("error")``:
+    any op that waits for the device (what a capture cannot hold) raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.data.synthetic import LMDataConfig, lm_batch
+    from repro_torch.train.optimizer import adam
+    from repro_torch.train.step import (
+        build_train_step,
+        init_train_state,
+        make_model_compressor,
+    )
+
+    cfg = get_config(LM_ARCH, smoke=True)
+    comp = make_model_compressor(cfg, CompressorConfig(name="lq_sgd", rank=1))
+    opt = adam(J1_LR)
+    state = init_train_state(cfg, 0, opt, comp, LM_MESH[0], "cuda")
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch=LM_BATCH)
+    batch = {"tokens": torch.from_numpy(lm_batch(data, 0)["tokens"]).cuda()}
+    step = build_train_step(cfg, LM_MESH, comp, opt, graph=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"  (j) an eager step under sync debug mode 'error': no host sync; {card}")
+
+
+def _host_params(state):
+    from repro_torch.core.tree import tree_leaves
+
+    return [w.detach().to("cpu", copy=True) for w in tree_leaves(state["params"])]
+
+
+def _lm_graph_equals_eager(label, g, e):
+    """(j1): the graphed run against the eager one, bit for bit."""
+    counts = f"{g['counts']} / {e['counts']}"
+    check(g["counts"] == e["counts"], f"{label}: launches {counts}")
+    gl, el = g["log"], e["log"]
+    for a, b in zip(gl["grads0"], el["grads0"], strict=True):
+        check(torch.equal(a, b), f"{label}: step-0 grads into the sync, graph != eager")
+    for t, (gs, es) in enumerate(zip(gl["synced"], el["synced"], strict=True)):
+        for a, b in zip(gs, es, strict=True):
+            check(torch.equal(a, b), f"{label}: step {t} synced grads, graph != eager")
+    for t, (gs, es) in enumerate(zip(gl["wire"], el["wire"], strict=True)):
+        for a, b in zip(gs, es, strict=True):
+            check(torch.equal(a, b), f"{label}: step {t} wire, graph != eager")
+    for a, b in zip(gl["rec"], el["rec"], strict=True):
+        same = (a.effective_bits(), a.effective_collectives()) == (
+            b.effective_bits(),
+            b.effective_collectives(),
+        )
+        check(same, f"{label}: bits or collectives, graph != eager")
+    for a, b in zip(g["params"], e["params"], strict=True):
+        check(torch.equal(a, b), f"{label}: final params, graph != eager")
+    check(g["losses"] == e["losses"], f"{label}: losses, graph != eager")
 
 
 def _lm_j1(card):
     from repro_torch.configs import get_config
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.core.tree import tree_leaves
-    from repro_torch.data.synthetic import LMDataConfig, lm_batch
     from repro_torch.kernels import ops
     from repro_torch.train.optimizer import adam
     from repro_torch.train.step import init_train_params
@@ -1762,70 +1896,74 @@ def _lm_j1(card):
         f"{LM_BATCH // LM_MESH[0]} x {LM_SEQ}, LQ-SGD r1 b8, Adam, Trainer"
     )
     init = init_train_params(cfg, 0, "cuda")
+    n_params = sum(w.numel() for w in tree_leaves(init))
     init = [w.detach().to("cpu") for w in tree_leaves(init)]
+    check(n_params == 999_826_048, f"{label}: {n_params} parameters")
     _free_cuda()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    state, loop, comp, comm, log = _lm_run(
-        cfg, comp_cfg, adam(J1_LR), J1_STEPS, split=True
+    _lm_no_host_sync(card)
+    runs = {}
+    for name, graph in (("graph", None), ("eager", False)):
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        r = _lm_run(cfg, comp_cfg, adam(J1_LR), J1_STEPS, graph=graph, every=True)
+        runs[name] = dict(
+            counts=ops.launch_counts(),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            params=_host_params(r["state"]),
+            log=r["log"],
+            losses=[h["loss"] for h in r["loop"].history],
+            capture_s=r["step"].capture_s,
+            gathered=[w.cpu() for ws in r["log"]["wire"] for w in ws],
+        )
+        _lm_tokens_checked(f"(j1) {name}", cfg, r["log"], J1_STEPS)
+        del r
+    _lm_graph_equals_eager(label, runs["graph"], runs["eager"])
+    got = runs["graph"]
+    counts = got["counts"]
+    print(
+        f"{label}: {n_params} parameters, launches {counts} (graph = eager), "
+        f"peak graph {got['peak_gb']:.1f} GB, eager {runs['eager']['peak_gb']:.1f} "
+        f"GB (deterministic algorithms on)"
     )
-    counts = ops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_params = sum(w.numel() for w in tree_leaves(state["params"]))
-    print(f"{label}: {n_params} parameters, launches {counts}, peak {peak_gb:.1f} GB")
     for name in ("log_quantize", "log_dequantize"):
         check(counts[name] > 0, f"{label}: kernel {name} never launched")
     for name in ("log_quantize_pack", "flash_attention", "ssd_chunk"):
         check(counts[name] == 0, f"{label}: kernel {name} launched")
-    check(n_params == 999_826_048, f"{label}: {n_params} parameters")
-    _lm_tokens_checked("(j1)", cfg, log, J1_STEPS)
-    params = [w.detach().to("cpu", copy=True) for w in tree_leaves(state["params"])]
-    gathered, history, kernel_log = list(comm.gathered), loop.history, log
-    kernel_recs = list(log["rec"])
-    # one more step (after the compared ones), profiled: device time by
-    # kernel, and the host time of the same step for the idle share
-    batch = lm_batch(
-        LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ, batch=LM_BATCH),
-        J1_STEPS,
-    )
-    h_ms = host_ms(lambda: loop.step_fn(state, batch), repeats=1)
-    by_name = device_ms_by_kernel(lambda: loop.step_fn(state, batch))
-    device = sum(ms for ms, _ in by_name.values())
-    print(
-        f"  (j1) one step on the host clock {h_ms:.1f} ms, device time "
-        f"{device:.1f} ms, idle {1 - device / h_ms:.1%}; {card}"
-    )
-    _kernel_split("lm_train_step_j1", card, by_name, {"loss": ("softmax", "nll")})
-    del state, loop, comm
     _free_cuda()
     with ops.reference_mode():
-        ref_state, ref_loop, _, ref_comm, ref_log = _lm_run(
-            cfg, comp_cfg, adam(J1_LR), J1_STEPS, split=True
-        )
-    ref_params = [w.detach().to("cpu") for w in tree_leaves(ref_state["params"])]
-    ref_gathered, ref_losses = ref_comm.gathered, [h["loss"] for h in ref_loop.history]
-    del ref_state, ref_loop
+        r = _lm_run(cfg, comp_cfg, adam(J1_LR), J1_STEPS)
+    ref = dict(
+        params=_host_params(r["state"]),
+        log=r["log"],
+        losses=[h["loss"] for h in r["loop"].history],
+        gathered=[w.cpu() for ws in r["log"]["wire"] for w in ws],
+    )
+    comp = r["comp"]
+    del r
     _free_cuda()
 
     colls = comp.handler.group_collectives(comp.plans)
     check(comp.wire_bits_per_step() == J1_BITS, f"{label}: {comp.wire_bits_per_step()}")
-    for rec in kernel_recs + ref_log["rec"]:
+    for rec in got["log"]["rec"] + ref["log"]["rec"]:
         check(rec.effective_bits() == J1_BITS, f"{label}: {rec.effective_bits()} bits")
         check(rec.effective_collectives() == colls, f"{label}: collectives")
-    for g, w in zip(kernel_log["grads0"], ref_log["grads0"], strict=True):
+    for g, w in zip(got["log"]["grads0"], ref["log"]["grads0"], strict=True):
         check(torch.equal(g, w), f"{label}: step-0 gradients into the sync differ")
+    gathered, ref_gathered = got["gathered"], ref["gathered"]
     flips, n_codes = _wire_flips(gathered, ref_gathered, label)
     per_step = len(gathered) // J1_STEPS
     flips0, _ = _wire_flips(gathered[:per_step], ref_gathered[:per_step], label)
     tol0 = train_tol(8, flips0, workers=LM_MESH[0]) + BF16_ULP
     grad_rel = 0.0
-    for g, w in zip(kernel_log["synced0"], ref_log["synced0"], strict=True):
+    pairs = zip(got["log"]["synced"][0], ref["log"]["synced"][0], strict=True)
+    for g, w in pairs:
         err, top = float((g.float() - w.float()).abs().max()), float(w.abs().max())
         check(err <= tol0 * top, f"{label}: step-0 synced grads differ by {err:.3e}")
         grad_rel = max(grad_rel, err / max(top, 1e-30))
     tol = train_tol(8, flips, workers=LM_MESH[0])
     param_rel = 0.0
-    for p, w, p0 in zip(params, ref_params, init, strict=True):
+    for p, w, p0 in zip(got["params"], ref["params"], init, strict=True):
         p, w, p0 = p.float(), w.float(), p0.float()
         err = float((p - w).abs().max())
         moved, top = float((w - p0).abs().max()), float(w.abs().max())
@@ -1835,26 +1973,23 @@ def _lm_j1(card):
             bound = 2 * ADAM_STEP_MAX * J1_LR * J1_STEPS + BF16_ULP * top
         check(err <= bound, f"{label}: params differ by {err:.3e} > {bound:.3e}")
         param_rel = max(param_rel, err / max(moved, 1e-30))
-    losses = [h["loss"] for h in history]
+    losses = got["losses"]
     check(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
-    step_ms = [[h["grad_ms"], h["sync_ms"], h["update_ms"]] for h in history]
-    for t, (g_ms, s_ms, u_ms) in enumerate(step_ms):
-        tok_s = LM_BATCH * LM_SEQ / ((g_ms + s_ms + u_ms) / 1e3)
-        print(
-            f"    (j1) step {t}: grad {g_ms:.1f} ms, sync {s_ms:.1f} ms, update "
-            f"{u_ms:.1f} ms, {tok_s:.0f} tokens/s, loss {losses[t]:.4f}"
-        )
-    steady = step_ms[1:]
-    split = {k: _median([m[i] for m in steady]) for i, k in enumerate(SPLIT_KEYS)}
-    tok_s = LM_BATCH * LM_SEQ / (sum(split.values()) / 1e3)
     print(
         f"  {label}: {J1_BITS} wire bits/step ({J1_BITS / 8e6:.3f} MB against "
-        f"{n_params * 4 / 1e6:.1f} MB uncompressed), {colls} collectives/step, "
-        f"step ms {split}, {tok_s:.0f} tokens/s, peak {peak_gb:.1f} GB; vs "
-        f"reference mode: step-0 gradients into the sync equal, {flips} of "
-        f"{n_codes} codes flipped ({flips0} at step 0), step-0 synced grads rel "
-        f"{grad_rel:.2e}, params rel {param_rel:.2e}; {card}"
+        f"{n_params * 4 / 1e6:.1f} MB uncompressed), {colls} collectives/step; "
+        f"graph = eager bit for bit over {J1_STEPS} steps (step-0 gradients into "
+        f"the sync, every step's synced grads, wire, bits, losses, final params, "
+        f"launches); vs reference mode: step-0 gradients into the sync equal, "
+        f"{flips} of {n_codes} codes flipped ({flips0} at step 0), step-0 synced "
+        f"grads rel {grad_rel:.2e}, params rel {param_rel:.2e}; losses "
+        f"{[round(v, 4) for v in losses]}; {card}"
     )
+    torch.use_deterministic_algorithms(False)
+    try:
+        timed = _lm_timed(cfg, comp_cfg, card)
+    finally:
+        torch.use_deterministic_algorithms(True, warn_only=True)
     emit(
         {
             "train": "j1_gemma3_1b_lq_sgd_r1_b8_adam",
@@ -1862,12 +1997,15 @@ def _lm_j1(card):
             "params": n_params,
             "wire_bits_per_step": J1_BITS,
             "collectives_per_step": colls,
-            "step_ms": split,
-            "per_step_ms": step_ms,
-            "tokens_per_s": tok_s,
-            "peak_memory_gb": peak_gb,
+            "graph_equals_eager": True,
+            "idle_share": timed["idle_share"],
+            "peak_memory_gb_deterministic": {
+                k: runs[k]["peak_gb"] for k in ("graph", "eager")
+            },
+            "capture_s": got["capture_s"],
+            "timed": timed,
             "losses": losses,
-            "reference_losses": ref_losses,
+            "reference_losses": ref["losses"],
             "launches": counts,
             "code_flips": flips,
             "step0_synced_grad_rel_err": grad_rel,
@@ -1875,6 +2013,85 @@ def _lm_j1(card):
         }
     )
     return counts
+
+
+def _lm_timed(cfg, comp_cfg, card):
+    """(j1)'s step timed as the launcher runs it, deterministic algorithms
+    off: the graphed and the eager step, each with and without
+    rematerialization (host ms a step ending in a device sync, and the
+    ms between CUDA events around it); peak memory and tokens/s of each, the
+    graphs' capture seconds, and the device idle share of the eager step
+    (1 - replay device ms / eager host ms, both with remat, the launcher's
+    setting). The kernels of a replay by device time (torch.profiler)."""
+    from repro_torch.data.synthetic import LMDataConfig, lm_batch
+    from repro_torch.train.optimizer import adam
+    from repro_torch.train.step import (
+        build_train_step,
+        init_train_state,
+        make_model_compressor,
+    )
+
+    comp = make_model_compressor(cfg, comp_cfg)
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ, batch=LM_BATCH)
+    batches = [lm_batch(data, i) for i in range(J1_TIMED_STEPS)]
+    tokens = LM_BATCH * LM_SEQ
+    _free_cuda()
+    opt = adam(J1_LR)
+    # one state for the four: only the times, tokens/s and memory are read
+    state = init_train_state(cfg, 0, opt, comp, LM_MESH[0], "cuda")
+    out = {}
+    for name, graph, remat in (
+        ("graph", None, True),
+        ("graph_no_remat", None, False),
+        ("eager", False, True),
+        ("eager_no_remat", False, False),
+    ):
+        torch.cuda.reset_peak_memory_stats()
+        step = build_train_step(cfg, LM_MESH, comp, opt, graph=graph, remat=remat)
+        host, device = [], []
+        for batch in batches:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            state, _ = step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            device.append(start.elapsed_time(end))
+        # the steps after the warm-up and the capture
+        host_ms, device_ms = _median(host[2:]), _median(device[2:])
+        out[name] = dict(
+            host_ms=host_ms,
+            device_ms=device_ms,
+            tokens_per_s=tokens / (host_ms / 1e3),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            capture_s=step.capture_s,
+            per_step_host_ms=host,
+        )
+        if name == "graph":
+            by_name = device_ms_by_kernel(lambda: step(state, batches[-1]))
+            loss = {"loss": ("softmax", "nll")}
+            _kernel_split("lm_train_step_j1_replay", card, by_name, loss)
+        step.release()
+        del step
+        _free_cuda()
+    del state
+    idle = 1 - out["graph"]["device_ms"] / out["eager"]["host_ms"]
+    for name, r in out.items():
+        print(
+            f"  (j1) timed, {name}: {r['host_ms']:.1f} ms a step on the host "
+            f"clock ({r['device_ms']:.1f} ms between CUDA events), "
+            f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gb']:.1f} GB"
+            + (f", capture {r['capture_s']:.2f} s" if r["capture_s"] else "")
+            + f"; {card}"
+        )
+    print(
+        f"  (j1) timed: the eager step's device idle share {idle:.1%} (1 - replay "
+        f"{out['graph']['device_ms']:.1f} ms / eager host "
+        f"{out['eager']['host_ms']:.1f} ms); deterministic algorithms off; {card}"
+    )
+    return {**out, "idle_share": idle}
 
 
 SPLIT_KEYS = ("grad", "sync", "update")
@@ -1891,14 +2108,15 @@ def _lm_j2(card):
     comp_cfg = CompressorConfig(name="lq_sgd", rank=1, bits=4)
     label = (
         f"(j2) {LM_ARCH} full width, LQ-SGD r1 b4, SGD, microbatch "
-        f"{J2_MICROBATCH}, AsyncRunner against Trainer"
+        f"{J2_MICROBATCH}, AsyncRunner against Trainer, both over the graphed "
+        "step"
     )
     out = {}
     counts = None
     for runner in ("sync", "async"):
         if runner == "async":
             ops.reset_launch_counts()
-        state, loop, comp, comm, log = _lm_run(
+        r = _lm_run(
             cfg,
             comp_cfg,
             sgd(J2_LR),
@@ -1906,9 +2124,10 @@ def _lm_j2(card):
             runner=runner,
             microbatch=J2_MICROBATCH,
         )
+        state, loop, log = r["state"], r["loop"], r["log"]
         if runner == "async":
             counts = ops.launch_counts()
-        _lm_tokens_checked(f"(j2) {runner}", cfg, log, J2_STEPS, J2_MICROBATCH)
+        _lm_tokens_checked(f"(j2) {runner}", cfg, log, J2_STEPS)
         for rec in log["rec"]:
             check(rec.effective_bits() == J2_BITS, f"{label}: {rec.effective_bits()}")
         out[runner] = dict(
@@ -1922,7 +2141,7 @@ def _lm_j2(card):
             host_s=loop.host_s,
             wall_s=log["wall_s"],
         )
-        del state, loop, comm, log
+        del r, state, loop, log
         _free_cuda()
     print(f"{label}: launches {counts}")
     for name in ("log_quantize_pack", "log_dequantize"):
@@ -1938,10 +2157,10 @@ def _lm_j2(card):
     losses = [h["loss"] for h in b["history"]]
     check(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
     print(
-        f"  {label}: async = sync bit for bit (params, compressor state, "
-        f"metrics), {J2_BITS} wire bits/step; host-blocked fraction sync "
-        f"{frac['sync']:.3f} async {frac['async']:.3f}; tokens/s (whole run) sync "
-        f"{tok_s['sync']:.0f} async {tok_s['async']:.0f}; losses "
+        f"  {label}: async = sync bit for bit over the graphed step (params, "
+        f"compressor state, metrics), {J2_BITS} wire bits/step; host-blocked "
+        f"fraction sync {frac['sync']:.3f} async {frac['async']:.3f}; tokens/s "
+        f"(whole run) sync {tok_s['sync']:.0f} async {tok_s['async']:.0f}; losses "
         f"{[round(v, 4) for v in losses]}; {card}"
     )
     emit(
@@ -2602,9 +2821,9 @@ def main():
     t = time.perf_counter()
     launches = phase_serve(card, gen)
     seconds["serve"] = time.perf_counter() - t
-    # (h) before (i) and (j): run after (i), its (h2) graph = eager check
-    # fails (ROADMAP Queue 3; tools/gia_order_probe.py rules out what it can)
-    phases = (phase_train, phase_ssm, phase_gia, phase_composite, phase_lm_train)
+    # (h) last: its (h2) graph = eager check holds after (i) and (j) since
+    # the attack's backward runs on one thread (core/privacy/gia.py)
+    phases = (phase_train, phase_ssm, phase_composite, phase_lm_train, phase_gia)
     for phase in phases:
         t = time.perf_counter()
         for name, c in phase(card).items():

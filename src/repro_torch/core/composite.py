@@ -262,6 +262,13 @@ class CompositeCompressor(GradCompressor):
             return False
         return pl.route == "lowrank" or pl.policy.method == "lq_sgd"
 
+    def graph_refusal(self) -> str | None:
+        return (
+            "the composite compressor's lazy groups, server participation "
+            "draw and schedules are not captured yet (ROADMAP Queue 1, item "
+            "20, the graphed composite)"
+        )
+
     def sync(
         self,
         grads: Tree,
@@ -269,7 +276,13 @@ class CompositeCompressor(GradCompressor):
         comm: SimComm | SymmetricWire,
         *,
         participation_mask: torch.Tensor | None = None,
+        donate: bool = False,
     ) -> tuple[Tree, dict[str, Any], CommRecord]:
+        """As :meth:`GradCompressor.sync`, but always functional: the lazy
+        and warm-up paths read the old error feedback after the groups'
+        syncs, so ``donate`` is taken for the step's interface and the
+        state is not donated yet (ROADMAP item 20, the graphed composite)."""
+        del donate
         rec = CommRecord()
         leaves = tree_leaves(grads)
         wire = self._make_wire(comm, state, leaves[0].device, participation_mask)

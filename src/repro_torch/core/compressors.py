@@ -62,7 +62,10 @@ __all__ = [
     "make_compressor",
     "build_plans",
     "leaf_generator",
+    "leaf_seed",
     "per_worker",
+    "donates",
+    "error_corrected",
     "state_dtype",
     "POLICY_METHODS",
 ]
@@ -258,17 +261,24 @@ def build_plans(
     )
 
 
+def leaf_seed(seed: int, step: int, leaf: int, *, stream: int = 0) -> int:
+    """The seed of one leaf's generator at one step, derived from the
+    state's seed (the counterpart of ``fold_in(fold_in(key, step), leaf)``:
+    the port's own stream, mixed by numpy's SeedSequence). Another
+    ``stream`` gives another, independent seed for the same (seed, step,
+    leaf)."""
+    spawn_key = (stream,) if stream else ()
+    seq = np.random.SeedSequence([seed, step, leaf], spawn_key=spawn_key)
+    return int(seq.generate_state(1, np.uint64)[0]) >> 1
+
+
 def leaf_generator(
     seed: int, step: int, leaf: int, device, *, stream: int = 0
 ) -> torch.Generator:
-    """The generator of one leaf at one step, derived from the state's seed
-    (the counterpart of ``fold_in(fold_in(key, step), leaf)``: the port's
-    own stream, mixed by numpy's SeedSequence). Another ``stream`` gives
-    another, independent generator for the same (seed, step, leaf)."""
-    spawn_key = (stream,) if stream else ()
-    seq = np.random.SeedSequence([seed, step, leaf], spawn_key=spawn_key)
-    mixed = seq.generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(mixed[0]) >> 1)
+    """A generator on ``device`` seeded with :func:`leaf_seed`."""
+    return torch.Generator(device=device).manual_seed(
+        leaf_seed(seed, step, leaf, stream=stream)
+    )
 
 
 def state_dtype(cfg: CompressorConfig) -> torch.dtype:
@@ -277,6 +287,25 @@ def state_dtype(cfg: CompressorConfig) -> torch.dtype:
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown state_dtype {cfg.state_dtype!r}")
     return dtype
+
+
+def donates(err: torch.Tensor, donate: bool) -> bool:
+    """Does a sync asked to ``donate`` write the new error feedback into
+    ``err``? Only an f32 one can hold ``g + err``: an error feedback stored
+    in another dtype (``state_dtype``) keeps the functional path."""
+    return donate and err.dtype == torch.float32
+
+
+def error_corrected(
+    g: torch.Tensor, err: torch.Tensor, shape: tuple[int, ...], in_place: bool
+) -> torch.Tensor:
+    """``g + err`` in f32, shaped ``shape``; ``in_place`` forms it in the
+    f32 ``err``'s own memory as ``err + g``, the same bits (IEEE addition
+    commutes, and a bf16 ``g`` widens to f32 exactly), so the residual the
+    caller writes into it is the new error feedback without a second copy."""
+    if in_place:
+        return err.view(shape).add_(g.reshape(shape))
+    return g.float().reshape(shape) + err.float().reshape(shape)
 
 
 def per_worker(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -316,7 +345,10 @@ class LeafGroupHandler:
     replaces. Namespaces in ``param_shaped`` hold each worker's own
     param-shaped tensors (error feedback); the rest are the same on every
     worker. ``needs_prng``: the group draws from the state's ``key`` seed
-    and ``step`` counter."""
+    and ``step`` counter. With ``donate=True`` a handler may write a new
+    state tensor into the memory of the one it replaces and return that
+    same tensor (the JAX step's donated state); the values are the same
+    bits either way."""
 
     method = "raw"
     namespaces: tuple[str, ...] = ()
@@ -338,7 +370,7 @@ class LeafGroupHandler:
     ) -> torch.Tensor:
         return _pmean_raw(g, comm, rec)
 
-    def sync_group(self, items, state, comm, rec):
+    def sync_group(self, items, state, comm, rec, *, donate=False):
         return {i: self.sync_raw(g, pl, comm, rec) for i, g, pl in items}, {}
 
     # ---- static accounting ------------------------------------------------
@@ -396,7 +428,7 @@ class TopKHandler(LeafGroupHandler):
         sd = state_dtype(self.cfg)
         return {"err": torch.zeros((n_workers,) + pl.shape, dtype=sd, device=device)}
 
-    def sync_group(self, items, state, comm, rec):
+    def sync_group(self, items, state, comm, rec, *, donate=False):
         from repro_torch.core.codec import codec_phase, make_codec
 
         outs: dict[int, torch.Tensor] = {}
@@ -406,11 +438,18 @@ class TopKHandler(LeafGroupHandler):
             if pl.route != "lowrank":
                 outs[i] = self.sync_raw(g, pl, comm, rec)
                 continue
-            flat = (g.float() + state["err"][str(i)].float()).reshape(g.shape[0], -1)
+            err = state["err"][str(i)]
+            in_place = donates(err, donate)
+            flat = error_corrected(g, err, (g.shape[0], -1), in_place)
             k = self._k(flat.shape[1], pl.policy.topk_ratio)
             idx = torch.topk(flat.abs(), k, dim=1).indices
             kept = flat * torch.zeros_like(flat).scatter_(1, idx, 1.0)
-            new_err[str(i)] = (flat - kept).reshape(g.shape).to(state_dtype(self.cfg))
+            if in_place:  # the residual in the old error feedback's memory
+                new_err[str(i)] = err
+                flat.sub_(kept)
+            else:
+                err_new = (flat - kept).reshape(g.shape)
+                new_err[str(i)] = err_new.to(state_dtype(self.cfg))
             comp.append((i, g, pl))
             kepts.append(kept.reshape(g.shape))
             account.append(k * (32 + self.index_bits(flat.shape[1])))
@@ -457,7 +496,11 @@ class TopKHandler(LeafGroupHandler):
 class QSGDHandler(LeafGroupHandler):
     """QSGD (Alistarh et al. 2017): stochastic uniform quantization, with one
     generator per leaf and step derived from the state's ``key`` seed and
-    ``step`` counter (:func:`leaf_generator`)."""
+    ``step`` counter (:func:`leaf_generator`). A state that carries
+    ``"gen"`` (leaf index -> generator, already seeded with this step's
+    :func:`leaf_seed`) draws from those instead, the same stream: a CUDA
+    graph registers them and reseeds them on the host before each replay
+    (:meth:`GradCompressor.prng_seeds`)."""
 
     method = "qsgd"
     needs_prng = True
@@ -467,7 +510,13 @@ class QSGDHandler(LeafGroupHandler):
 
         return make_codec("qsgd", bits=bits)
 
-    def sync_group(self, items, state, comm, rec):
+    @staticmethod
+    def _generator(state, i: int, device) -> torch.Generator:
+        if "gen" in state:
+            return state["gen"][str(i)]
+        return leaf_generator(state["key"], state["step"], i, device)
+
+    def sync_group(self, items, state, comm, rec, *, donate=False):
         from repro_torch.core.codec import codec_phase
 
         outs: dict[int, torch.Tensor] = {}
@@ -490,10 +539,7 @@ class QSGDHandler(LeafGroupHandler):
                 avg_mode="dequant_then_mean",
                 wire=self.cfg.wire_accounting,
                 fuse=self.cfg.fuse_collectives,
-                keys=[
-                    leaf_generator(state["key"], state["step"], i, g.device)
-                    for i, g, _ in sub
-                ],
+                keys=[self._generator(state, i, g.device) for i, g, _ in sub],
             )
             for (i, g, pl), s in zip(sub, synced):
                 outs[i] = s.to(g.dtype)
@@ -642,17 +688,25 @@ class GradCompressor:
         comm: SimComm | SymmetricWire,
         *,
         participation_mask: torch.Tensor | None = None,
+        donate: bool = False,
     ) -> tuple[Tree, dict[str, Any], CommRecord]:
         """Per-worker grads (N, *shape) -> synced grads (*shape), new state
         and the round's :class:`CommRecord`. ``participation_mask``: the
-        server wire's (N,) bool flags for this round, in place of its draw."""
+        server wire's (N,) bool flags for this round, in place of its draw.
+
+        Functional by default, as the JAX ``sync`` is: ``state`` is left as
+        it was. ``donate=True`` is the JAX step's ``donate_argnums``: the
+        new state is written into the old one's memory where it can be (an
+        f32 error feedback, the warm-start Q, counters) and holds the same
+        tensors, so ``state`` must not be used again; the values are the
+        functional sync's, bit for bit."""
         rec = CommRecord()
         leaves = tree_leaves(grads)
         wire = self._make_wire(comm, state, leaves[0].device, participation_mask)
         wire.prepare(rec)
         self._check_grads(leaves, wire.size())
         items = list(zip(range(len(leaves)), leaves, self.plans))
-        outs, updates = self.handler.sync_group(items, state, wire, rec)
+        outs, updates = self.handler.sync_group(items, state, wire, rec, donate=donate)
         updates = self._freeze_inactive(updates, state, wire)
         self._charge_downlink(rec, wire)
         out = [outs[i] for i in range(len(leaves))]
@@ -661,6 +715,36 @@ class GradCompressor:
             self._merge_state(state, updates),
             rec,
         )
+
+    # ---- host bookkeeping a CUDA graph leaves to the host ----------------
+    def graph_refusal(self) -> str | None:
+        """Why a training step over this compressor cannot be one CUDA
+        graph yet, naming the ROADMAP item that lifts it; None where it
+        can."""
+        if self.cfg.topology != "symmetric":
+            return (
+                "the server wire is not captured yet (ROADMAP Queue 1, item 20, "
+                "the graphed composite)"
+            )
+        if self.cfg.state_dtype != "float32":
+            return (
+                f"an error feedback stored in {self.cfg.state_dtype} is not "
+                "donated, so the step cannot update it in place (ROADMAP Queue "
+                "1, item 20, the graphed composite)"
+            )
+        return None
+
+    def prng_seeds(self, state: dict[str, Any]) -> dict[str, int]:
+        """The seeds of this step's per-leaf generators (leaf index ->
+        :func:`leaf_seed`), which a CUDA graph of the step registers and
+        reseeds before each replay; none for a deterministic compressor."""
+        return {}
+
+    def next_host_state(self, state: dict[str, Any]) -> dict[str, Any]:
+        """The state's host numbers (a seed, a step counter) after one sync:
+        what a CUDA graph, which replays only device work, leaves to the
+        host."""
+        return state
 
     def sync_once(
         self, grads: Tree, state: dict[str, Any], *, comm: SimComm | None = None
@@ -729,12 +813,22 @@ class QSGDCompressor(GradCompressor):
     def init_state(self, seed: int, n_workers: int, device="cuda") -> dict[str, Any]:
         return {"key": int(seed), "step": 0}
 
-    def sync(self, grads, state, comm, *, participation_mask=None):
+    def sync(self, grads, state, comm, *, participation_mask=None, donate=False):
         out, new_state, rec = super().sync(
-            grads, state, comm, participation_mask=participation_mask
+            grads, state, comm, participation_mask=participation_mask, donate=donate
         )
+        return out, self.next_host_state(new_state), rec
+
+    def prng_seeds(self, state: dict[str, Any]) -> dict[str, int]:
+        return {
+            str(i): leaf_seed(state["key"], state["step"], i)
+            for i, pl in enumerate(self.plans)
+            if pl.route == "lowrank"
+        }
+
+    def next_host_state(self, state: dict[str, Any]) -> dict[str, Any]:
         # advance the stream: without it every sync redraws the same rounding
-        return out, {**new_state, "step": state["step"] + 1}, rec
+        return {**state, "step": state["step"] + 1}
 
 
 # route -> (config test, where the port of the route is planned)

@@ -29,6 +29,8 @@ from repro_torch.core.compressors import (
     LeafPlan,
     _group_by,
     _numel,
+    donates,
+    error_corrected,
     leaf_generator,
     state_dtype,
 )
@@ -45,6 +47,18 @@ __all__ = ["PowerSGDCompressor", "PowerSGDHandler"]
 def _instance_shape(pl: LeafPlan) -> tuple[int, ...]:
     """A leaf's matricized shape, (L, n, m) for a stack of L layers."""
     return ((pl.shape[0],) if pl.stacked else ()) + pl.mat_shape
+
+
+def _donate_q(q_old: torch.Tensor, q_new: torch.Tensor) -> torch.Tensor:
+    """The new warm-start Q written into the old one, which holds every
+    worker's copy: the same memory expanded over the workers (as
+    ``init_leaf_state`` makes it) or one row a worker (as a restored
+    checkpoint holds it)."""
+    if q_old.stride(0) == 0:
+        q_old[0].copy_(q_new)
+    else:
+        q_old.copy_(q_new.expand_as(q_old))
+    return q_old
 
 
 class PowerSGDHandler(LeafGroupHandler):
@@ -108,7 +122,7 @@ class PowerSGDHandler(LeafGroupHandler):
         return out
 
     # ---- the group sync ---------------------------------------------------
-    def sync_group(self, items, state, comm, rec):
+    def sync_group(self, items, state, comm, rec, *, donate=False):
         outs: dict[int, torch.Tensor] = {}
         new_err: dict[str, torch.Tensor] = {}
         new_q: dict[str, torch.Tensor] = {}
@@ -123,9 +137,10 @@ class PowerSGDHandler(LeafGroupHandler):
         flags = [pl.stacked for _, _, pl in comp]
         # ---- P phase ----
         g_efs, ps = [], []
-        for i, g, pl in comp:
+        in_place = [donates(state["err"][str(i)], donate) for i, _, _ in comp]
+        for (i, g, pl), inp in zip(comp, in_place):
             shp = (g.shape[0],) + _instance_shape(pl)
-            g_ef = g.float().reshape(shp) + state["err"][str(i)].float().reshape(shp)
+            g_ef = error_corrected(g, state["err"][str(i)], shp, inp)
             g_efs.append(g_ef)  # Alg.1 l.4
             ps.append(power_iter_p(g_ef, state["q"][str(i)]))  # Alg.1 l.10
         ps = self._phase(ps, flags, [self._codec_p(pl) for _, _, pl in comp], comm, rec)
@@ -134,13 +149,19 @@ class PowerSGDHandler(LeafGroupHandler):
         qs = [power_iter_q(g_ef, p_hat) for g_ef, p_hat in zip(g_efs, p_hats)]
         qs = self._phase(qs, flags, [self._codec_q(pl) for _, _, pl in comp], comm, rec)
         # ---- reconstruct + error feedback ----
-        for (i, g, pl), g_ef, p_hat, q_new in zip(comp, g_efs, p_hats, qs):
+        for (i, g, pl), g_ef, p_hat, q_new, inp in zip(
+            comp, g_efs, p_hats, qs, in_place
+        ):
             g_hat = reconstruct(p_hat, q_new)  # Alg.1 l.19
             # in g_ef's own memory: the residual is the new error feedback,
             # and a 1B-parameter model's per-worker f32 copies are 16 GB
             g_res = g_ef.sub_(g_hat).reshape(g.shape)
-            new_err[str(i)] = g_res.to(state_dtype(self.cfg))  # Alg.1 l.20
-            new_q[str(i)] = q_new.expand((g.shape[0],) + q_new.shape)
+            if inp:  # g_ef was the old error feedback: donated, updated
+                new_err[str(i)] = state["err"][str(i)]
+                new_q[str(i)] = _donate_q(state["q"][str(i)], q_new)
+            else:
+                new_err[str(i)] = g_res.to(state_dtype(self.cfg))  # Alg.1 l.20
+                new_q[str(i)] = q_new.expand((g.shape[0],) + q_new.shape)
             outs[i] = g_hat.reshape(pl.shape).to(g.dtype)
         return outs, {"err": new_err, "q": new_q}
 

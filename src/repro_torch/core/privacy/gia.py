@@ -25,6 +25,16 @@ updates x̂ and the Adam moments in place and counts its steps in a 0-dim
 f32 tensor, so on CUDA :func:`invert_gradients_batched` runs step 0
 eagerly, captures one step into a CUDA graph and replays it for the rest
 (``repro_torch.graphs``); on the CPU every step runs eagerly.
+
+The step's backward runs on the calling thread
+(``torch.autograd.set_multithreading_enabled(False)``). By default the
+autograd engine runs a CUDA backward on a thread of its own, so the double
+backward's graph holds nodes made on two threads, and the engine orders
+ready nodes by per-thread sequence numbers: the order of the backward, and
+with it which gradients are summed in which order, then depended on how
+much autograd each thread had run before. A graph captured under one
+order and an eager loop under another gave other x̂ (``chip_smoke.py``
+(h2) after other work; ``tools/gia_capture_probe.py``).
 """
 
 from __future__ import annotations
@@ -139,7 +149,9 @@ def make_attack_step(
     grad_and_loss = torch.func.vmap(torch.func.grad_and_value(loss))
 
     def step(x, m, v, t):
-        g, losses = grad_and_loss(x)
+        # one thread's sequence numbers order the whole double backward
+        with torch.autograd.set_multithreading_enabled(False):
+            g, losses = grad_and_loss(x)
         # the sign trick (Geiping et al.) stabilizes cosine-loss inversion
         g = torch.sign(g)
         m.copy_(_B1 * m + (1 - _B1) * g)

@@ -224,8 +224,14 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         return {k: np.concatenate([ch[k] for ch in chunks]) for k in chunks[0]}
 
     def build(comp):
+        # the JAX launcher rematerializes at full width (remat_scan)
         return build_train_step(
-            cfg, mesh, comp, optimizer, accum_steps=args.microbatch
+            cfg,
+            mesh,
+            comp,
+            optimizer,
+            accum_steps=args.microbatch,
+            remat=not args.smoke,
         )
 
     with _tf32_off():

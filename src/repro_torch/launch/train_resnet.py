@@ -27,6 +27,7 @@ when ``--policy auto`` ran it.
 from __future__ import annotations
 
 import argparse
+import math
 
 import torch
 
@@ -153,9 +154,14 @@ def main(argv: list[str] | None = None) -> dict:
         print(format_plan_report(make_compressor(cfg, abstract).plan_report))
 
     def show(step: int, res: StepResult) -> None:
+        split = (
+            ""  # a graph replay has no phase boundaries to clock
+            if math.isnan(res.grad_ms)
+            else f" (grad {res.grad_ms:.1f} sync {res.sync_ms:.1f} update "
+            f"{res.update_ms:.1f})"
+        )
         print(
-            f"step {step:4d}  loss {res.loss:.4f}  ms grad {res.grad_ms:.1f} "
-            f"sync {res.sync_ms:.1f} update {res.update_ms:.1f}  "
+            f"step {step:4d}  loss {res.loss:.4f}  ms {res.step_ms:.1f}{split}  "
             f"wire {res.wire_bits:g} bits, {res.collectives:g} collectives",
             flush=True,
         )

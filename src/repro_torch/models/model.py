@@ -27,10 +27,12 @@ Modes (same function, driven by the cache arguments):
 
 from __future__ import annotations
 
+import functools
 from collections.abc import Iterator
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.blocks import init_layer, init_layer_cache, layer_forward
@@ -153,6 +155,34 @@ def layer_params(params: Params, cfg: ModelConfig) -> Iterator[Params]:
     yield from params["tail"]
 
 
+def _run_layers(
+    ps: list[Params],
+    specs: tuple[LayerSpec, ...],
+    x: torch.Tensor,
+    per_layer: Iterator[Params] | None,
+    *,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    cache_index: int | torch.Tensor | None,
+    plain_attention: bool,
+) -> torch.Tensor:
+    """``x`` through the layers of ``specs`` with parameters ``ps``, each
+    with its cache from ``per_layer`` (or none)."""
+    for p, spec in zip(ps, specs):
+        c = next(per_layer) if per_layer is not None else None
+        x, _ = layer_forward(
+            p,
+            x,
+            spec,
+            cfg,
+            positions=positions,
+            cache=c,
+            cache_index=cache_index,
+            plain_attention=plain_attention,
+        )
+    return x
+
+
 def _tree_select(tree: Any, r: int) -> Any:
     if isinstance(tree, dict):
         return {k: _tree_select(v, r) for k, v in tree.items()}
@@ -189,11 +219,20 @@ def forward(
     cache_index: int | torch.Tensor | None = None,
     return_hidden: bool = False,
     plain_attention: bool = False,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, Params | None]:
     """Returns (logits, caches); with ``return_hidden`` the final-normed
     hidden state (B, S, D) instead of logits, for a caller that applies the
     head to a few positions only. ``params`` is the serving or the training
     tree.
+
+    ``remat=True`` (a training forward: no caches) keeps only each repeat's
+    input of the scanned pattern for the backward and recomputes the
+    repeat's layers there, as the JAX package's ``jax.checkpoint(body)``
+    around its scan body does (``remat_scan``); the lead and tail layers
+    keep their activations, as in JAX. The values are the same bits. The
+    forward draws no random numbers, so no RNG state is saved (reading the
+    CUDA generator's state is refused inside a CUDA-graph capture).
 
     Autograd records the forward unless the caller turns it off: the
     serving steps run under ``torch.no_grad()``. A training forward passes
@@ -214,19 +253,30 @@ def forward(
     else:
         positions = cache_index[:, None].expand(b, s)
 
-    per_layer = layer_caches(caches, cfg) if caches is not None else None
-    for p, spec in zip(layer_params(params, cfg), cfg.layers):
-        c = next(per_layer) if per_layer is not None else None
-        x, _ = layer_forward(
-            p,
-            x,
-            spec,
-            cfg,
-            positions=positions,
-            cache=c,
-            cache_index=cache_index,
-            plain_attention=plain_attention,
-        )
+    run = functools.partial(
+        _run_layers,
+        cfg=cfg,
+        positions=positions,
+        cache_index=cache_index,
+        plain_attention=plain_attention,
+    )
+    if remat and caches is None and "scan" in params:
+        x = run(params["lead"], cfg.lead, x, None)
+        for r in range(cfg.repeats):
+            ps = [_tree_select(scan, r) for scan in params["scan"]]
+            x = checkpoint(
+                run,
+                ps,
+                cfg.pattern,
+                x,
+                None,
+                use_reentrant=False,
+                preserve_rng_state=False,
+            )
+        x = run(params["tail"], cfg.tail, x, None)
+    else:
+        per_layer = layer_caches(caches, cfg) if caches is not None else None
+        x = run(list(layer_params(params, cfg)), cfg.layers, x, per_layer)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x, caches

@@ -14,6 +14,11 @@ A compressor with a schedule (warm-up, decay) is rebuilt at each of its
 boundaries (``at_step``) and its state carried across (``adapt_state``),
 with one history and one clock over the phases, as the JAX package's
 ``train/runtime.py:run_schedule`` does.
+
+On CUDA a step of a uniform compressor is one CUDA-graph replay
+(``graphs.StepGraph``), the counterpart of the reference's jitted step:
+the images and labels are copied into static device buffers, and the
+parameters and the donated compressor state are updated in place.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import graphs
 from repro_torch.core.comm import CommRecord, SimComm
 from repro_torch.core.compressors import (
     CompressorConfig,
@@ -124,6 +130,8 @@ def _clock(device: torch.device) -> float:
 class StepResult:
     loss: float  # mean over workers
     rec: CommRecord  # the sync's accounting
+    # the phases on the host clock, each ending in a device sync (eager
+    # steps; NaN for a graph replay, which has no phase boundaries)
     grad_ms: float
     sync_ms: float
     update_ms: float
@@ -131,6 +139,8 @@ class StepResult:
     # on the host once, after the sync
     wire_bits: float = 0.0
     collectives: float = 0.0
+    # the whole step: the sum of the phases, or a replay's CUDA-event time
+    step_ms: float = 0.0
 
 
 def train_step(
@@ -146,13 +156,16 @@ def train_step(
 ) -> tuple[StepResult, Tree, Any, dict[str, Any]]:
     """One step of every worker: grads -> ``comp.sync`` -> SGD in place.
     Returns (result, synced grads, new optimizer state, new compressor
-    state). The times split the step on the host clock, each phase ending
-    in a device sync."""
+    state). The compressor state is donated, as the reference's jit
+    donates its state: the sync writes the new state into the old one's
+    memory where it can, so ``comp_state`` must not be used again (the
+    values are the functional sync's). The times split the step on the
+    host clock, each phase ending in a device sync."""
     dev = images.device
     t0 = _clock(dev)
     losses, grads = worker_grads(forward, params, images, labels)
     t1 = _clock(dev)
-    synced, comp_state, rec = comp.sync(grads, comp_state, comm)
+    synced, comp_state, rec = comp.sync(grads, comp_state, comm, donate=True)
     t2 = _clock(dev)
     opt_state = opt.update(synced, opt_state, params)
     t3 = _clock(dev)
@@ -164,8 +177,57 @@ def train_step(
         update_ms=(t3 - t2) * 1e3,
         wire_bits=float(rec.effective_bits()),
         collectives=float(rec.effective_collectives()),
+        step_ms=(t3 - t0) * 1e3,
     )
     return res, synced, opt_state, comp_state
+
+
+class _GraphedStep:
+    """:func:`train_step` as CUDA-graph replays over static image and label
+    buffers (``graphs.SyncStepGraph``): the first call runs eagerly (the
+    warm-up), the second is captured, the rest replay. After each call
+    ``out`` holds the synced gradients (the replay's, valid until the next
+    call), the new compressor state and the record."""
+
+    def __init__(self, forward, params, opt, opt_state, comp, comp_state, comm, x, y):
+        # the body holds these, not the step (no cycle to outlive it)
+        images, labels = torch.empty_like(x), torch.empty_like(y)
+        out: dict[str, Any] = {"comp_state": comp_state}
+
+        def body(gens):
+            losses, grads = worker_grads(forward, params, images, labels)
+            state = {**comp_state, "gen": gens} if gens else comp_state
+            synced, new_comp, rec = comp.sync(grads, state, comm, donate=True)
+            new_opt = opt.update(synced, opt_state, params)
+            out.update(loss=comm.pmean(losses), synced=synced, rec=rec)
+            return params, new_opt, {k: v for k, v in new_comp.items() if k != "gen"}
+
+        self.images, self.labels, self.out = images, labels, out
+        self.sync_graph = graphs.SyncStepGraph(
+            body, x.device, comp, (params, opt_state, comp_state), comp_state, comm
+        )
+
+    def __call__(self, images: torch.Tensor, labels: torch.Tensor) -> StepResult:
+        self.images.copy_(images)
+        self.labels.copy_(labels)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state = self.sync_graph.run(self.out["comp_state"])
+        end.record()
+        # the donated state holds the same tensors; its host numbers advance
+        self.out["comp_state"] = state
+        rec = self.out["rec"]
+        nan = math.nan
+        return StepResult(
+            loss=float(self.out["loss"]),  # waits for the replay
+            rec=rec,
+            grad_ms=nan,
+            sync_ms=nan,
+            update_ms=nan,
+            wire_bits=float(rec.effective_bits()),
+            collectives=float(rec.effective_collectives()),
+            step_ms=start.elapsed_time(end),
+        )
 
 
 @dataclasses.dataclass
@@ -178,7 +240,7 @@ class TrainResult:
     comp: GradCompressor
     comp_state: dict[str, Any]
     last_grads: Tree  # the last step's synced gradients
-    comm: SimComm  # with ``record_wire``, every gathered wire array
+    comm: SimComm  # the caller's ``comm=``, or a fresh one
 
 
 @contextlib.contextmanager
@@ -209,11 +271,11 @@ def train_one(
     lr: float = 0.05,
     seed: int = 0,
     device="cuda",
-    record_wire: bool = False,
     noniid_alpha: float = 0.0,
     comm: SimComm | None = None,
     on_step: Callable[[int, StepResult], None] | None = None,
     on_sync: Callable[[int, Tree, dict[str, Any]], None] | None = None,
+    graph: bool | None = None,
 ) -> TrainResult:
     """Train ``model`` for ``steps`` steps over ``n_workers`` simulated
     workers of ``batch`` images each, syncing through ``comp_cfg``'s
@@ -223,16 +285,25 @@ def train_one(
     ``PRNGKey(7)``). With ``noniid_alpha > 0`` worker w draws its shard as
     federated client w (Dirichlet label skew). ``on_step(step, result)``
     sees each step as it ends, ``on_sync(step, synced_grads, comp_state)``
-    the step's synced gradients and new compressor state; ``record_wire``
-    keeps every gathered wire array in the result's comm, or ``comm``, a
-    ``SimComm(n_workers)`` of the caller's, is the workers' comm.
+    the step's synced gradients and new compressor state; ``comm``, a
+    ``SimComm(n_workers)`` of the caller's (with ``record=True`` it keeps
+    every step's gathered wire arrays, graphed or eager), is the workers'
+    comm.
 
     The steps run with TF32 off for convolutions and matmuls, whatever the
     caller set: the reference computes in f32, and PyTorch's default
     ``torch.backends.cudnn.allow_tf32 = True`` would run every f32
     convolution on the card through cuDNN in TF32, which keeps about three
     decimal digits. The two flags are put back as the caller had them when
-    this returns or raises."""
+    this returns or raises.
+
+    ``graph`` follows ``graphs.use_graph``: on CUDA (None) each step of a
+    uniform compressor is a CUDA-graph replay, and ``on_sync`` then sees
+    the replay's static tensors (clone what you keep); ``graph=False``
+    steps eagerly, with the grad / sync / update split on the host clock;
+    ``graph=True`` off CUDA raises, and with a compressor whose step cannot
+    be one graph (the composite: schedules, lazy groups, the server wire)
+    raises, naming its ROADMAP item. Both donate the compressor state."""
     dev = resolve_device(device)
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r}; options: {sorted(MODELS)}")
@@ -241,7 +312,7 @@ def train_one(
     params = tree_map(lambda t: t.requires_grad_(True), params)
     comp = make_compressor(comp_cfg, params)
     comp_state = comp.init_state(7, n_workers, dev)
-    comm = comm if comm is not None else SimComm(n_workers, record=record_wire)
+    comm = comm if comm is not None else SimComm(n_workers)
     opt = sgd(lr)
     opt_state = opt.init(params)
     data_cfg = ImageDataConfig(
@@ -253,6 +324,15 @@ def train_one(
     # schedule phases: rebuild at each boundary, carry the state across
     sched = getattr(comp, "schedule", None)
     bounds = {b for b in sched.boundaries() if 0 < b < steps} if sched else set()
+
+    graphed = graphs.use_graph(graph, dev)
+    if graphed:
+        why = comp.graph_refusal()
+        if why is not None:
+            if graph:
+                raise NotImplementedError(f"a graphed step: {why}")
+            graphed = False
+    replay = None
 
     results, losses, synced = [], [], None
     t0 = _clock(dev)
@@ -271,9 +351,17 @@ def train_one(
             b = image_batch(data_cfg, step, dev)
             imgs = b["images"].reshape((n_workers, batch) + b["images"].shape[1:])
             lbls = b["labels"].reshape(n_workers, batch)
-        res, synced, opt_state, comp_state = train_step(
-            forward, params, opt, opt_state, comp, comp_state, comm, imgs, lbls
-        )
+        if graphed:
+            if replay is None:
+                replay = _GraphedStep(
+                    forward, params, opt, opt_state, comp, comp_state, comm, imgs, lbls
+                )
+            res = replay(imgs, lbls)
+            synced, comp_state = replay.out["synced"], replay.out["comp_state"]
+        else:
+            res, synced, opt_state, comp_state = train_step(
+                forward, params, opt, opt_state, comp, comp_state, comm, imgs, lbls
+            )
         results.append(res)
         losses.append(res.loss)
         if on_step is not None:

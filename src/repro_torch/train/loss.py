@@ -5,7 +5,9 @@ t + 1 (a roll by one), the last position is masked, and the loss is
 ``sum(nll * mask) / (sum(mask) * B)``. ``head_chunk`` applies the tied head
 per sequence chunk and recomputes each chunk's logits in the backward, so
 the (B, S, V) logits of a 262k vocabulary never exist at once; the value is
-the same. The forward takes the plain attention on any device, as the JAX
+the same. ``remat`` recomputes each repeat of the scanned layer pattern in
+the backward (``models.model.forward``), as the JAX step's ``remat_scan``
+does. The forward takes the plain attention on any device, as the JAX
 training step does (``backend="xla"``). The MTP and MoE terms and
 multi-codebook targets come with those models (ROADMAP Queue 1, item 14).
 """
@@ -49,6 +51,7 @@ def lm_loss(
     cfg: ModelConfig,
     *,
     head_chunk: int = 0,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """batch: {"tokens": (B, S) integer ids}. Returns (scalar loss,
     {"ce", "loss"}), the loss of the training or the serving tree."""
@@ -57,24 +60,38 @@ def lm_loss(
     tgt = torch.roll(tokens, -1, dims=1)
     if head_chunk:
         hidden, _ = forward(
-            params, tokens, cfg, return_hidden=True, plain_attention=True
+            params,
+            tokens,
+            cfg,
+            return_hidden=True,
+            plain_attention=True,
+            remat=remat,
         )
         embed = params["embed"]
 
         def chunk_nll(h: torch.Tensor, t: torch.Tensor, w: torch.Tensor):
             return _ce(apply_head({"embed": w}, h, cfg), t)
 
-        # each chunk's logits are recomputed in the backward, not kept
+        # each chunk's logits are recomputed in the backward, not kept; no
+        # RNG state is saved (nothing draws, and a CUDA-graph capture
+        # refuses reads of the generator's state)
         chunks = zip(hidden.split(head_chunk, 1), tgt.split(head_chunk, 1))
         nll = torch.cat(
             [
-                checkpoint(chunk_nll, h, t, embed, use_reentrant=False)
+                checkpoint(
+                    chunk_nll,
+                    h,
+                    t,
+                    embed,
+                    use_reentrant=False,
+                    preserve_rng_state=False,
+                )
                 for h, t in chunks
             ],
             dim=1,
         )
     else:
-        logits, _ = forward(params, tokens, cfg, plain_attention=True)
+        logits, _ = forward(params, tokens, cfg, plain_attention=True, remat=remat)
         nll = _ce(logits, tgt)
     loss = _masked_mean(nll)
     return loss, {"ce": loss, "loss": loss}

@@ -6,7 +6,9 @@ serves the LM runs. The compressor always runs before the optimizer (it
 replaces the all-reduce). Unlike the JAX functional update, the port writes
 each parameter in place (no second copy of the model), in the same f32
 arithmetic: ``w - lr * g`` with the product rounded first, cast back to the
-parameter's dtype.
+parameter's dtype. The optimizer state (momentum, moments, Adam's step
+count) is updated in place too and returned as the same tensors, so a
+CUDA graph of the step replays on fixed addresses.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.tree import Tree, tree_leaves, tree_map, tree_unflatten
+from repro_torch.core.tree import Tree, tree_leaves, tree_map
 
 __all__ = ["Optimizer", "sgd", "adam", "make_optimizer"]
 
@@ -46,10 +48,10 @@ def sgd(lr: float, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimize
             for w, g in zip(ws, gs):
                 w.copy_(w.float() - lr * g.float())
             return state
-        mus = [momentum * m + g.float() for m, g in zip(tree_leaves(state["mu"]), gs)]
-        for w, m in zip(ws, mus):
+        for w, m, g in zip(ws, tree_leaves(state["mu"]), gs):
+            m.mul_(momentum).add_(g.float())  # momentum * m + g, rounded as so
             w.copy_(w.float() - lr * m)
-        return {"mu": tree_unflatten(state["mu"], mus)}
+        return state
 
     return Optimizer(init, update)
 
@@ -65,7 +67,8 @@ def adam(
     the parameters: at 1B parameters a second copy is 8 GB), the step count
     ``t`` an int32 tensor on the parameters' device, and the bias
     corrections ``1 - b ** t`` computed in f32 from it, as JAX computes
-    them (not as Python floats, which would round once, in f64)."""
+    them (not as Python floats, which would round once, in f64). ``t``
+    advances in place."""
 
     def init(params: Tree) -> Any:
         leaves = tree_leaves(params)
@@ -81,7 +84,7 @@ def adam(
 
     @torch.no_grad()
     def update(grads: Tree, state: Any, params: Tree) -> Any:
-        t = state["t"] + 1
+        t = state["t"].add_(1)
         tf = t.float()
         bc1 = 1 - torch.pow(b1, tf)
         bc2 = 1 - torch.pow(b2, tf)

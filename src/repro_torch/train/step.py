@@ -21,12 +21,14 @@ parallelism) is not ported (ROADMAP Queue 1, item 15).
 from __future__ import annotations
 
 import functools
+import weakref
 from collections.abc import Callable
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.comm import CommRecord, SimComm
 from repro_torch.core.compressors import (
@@ -37,13 +39,13 @@ from repro_torch.core.compressors import (
 from repro_torch.core.tree import Tree, tree_leaves, tree_map, tree_unflatten
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import init_params, stacked_flags
-from repro_torch.train.data_parallel import _clock
 from repro_torch.train.loss import lm_loss
 from repro_torch.train.optimizer import Optimizer
 from repro_torch.weights import to_jax_layout
 
 __all__ = [
     "build_train_step",
+    "TrainStep",
     "init_train_state",
     "init_train_params",
     "make_model_compressor",
@@ -52,7 +54,8 @@ __all__ = [
 ]
 
 Mesh = tuple[int, int]  # (data, model)
-# called as on_sync(per-worker grads, synced grads, new compressor state, record)
+# called as on_sync(per-worker grads, synced grads, new compressor state,
+# record) after each step
 OnSync = Callable[[Tree, Tree, Any, CommRecord], None]
 
 
@@ -139,91 +142,258 @@ def build_train_step(
     *,
     accum_steps: int = 1,
     head_chunk: int = 0,
+    remat: bool = True,
     loss_fn: Callable | None = None,
     comm: SimComm | None = None,
     on_sync: OnSync | None = None,
-    split_times: bool = False,
-) -> Callable[[dict[str, Any], dict[str, Any]], tuple[dict[str, Any], dict]]:
-    """Returns ``step_fn(state, batch) -> (state, metrics)``.
+    graph: bool | None = None,
+) -> TrainStep:
+    """Returns ``step_fn(state, batch) -> (state, metrics)``, a
+    :class:`TrainStep`.
 
     ``batch`` is {"tokens": (B, S)}, numpy or a tensor, B divisible by the
-    mesh's data axis. The parameters and optimizer moments are updated in
-    place; the returned state holds them, the new compressor state and
-    ``step + 1``. ``metrics`` are 0-dim f32 tensors on the device, so a
-    caller reads them when it chooses: ``ce`` and ``loss`` (the mean over
-    workers), the sync's effective ``wire_mb_per_step`` and
-    ``collectives_per_step``, and ``down_mb_per_step``.
+    mesh's data axis. The whole state is donated, as the JAX launcher's
+    jit donates it (``donate_argnums=0``): the parameters, the optimizer
+    state, the compressor state (an f32 error feedback, the warm-start Q)
+    and ``step`` are updated in place and the returned state holds the same
+    tensors, so the state passed in is the state returned. ``metrics`` are
+    0-dim f32 tensors on the device, so a caller reads them when it chooses:
+    ``ce`` and ``loss`` (the mean over workers), the sync's effective
+    ``wire_mb_per_step`` and ``collectives_per_step``, and
+    ``down_mb_per_step``.
 
-    ``accum_steps=k`` splits each worker's rows into k sequential
-    microbatches, sums their gradients in f32 and divides by k, then syncs
-    once: error feedback and wire bits per step are unchanged; ``k=1`` is
-    the single pass. ``comm`` (a ``SimComm`` of the mesh's workers, e.g.
-    with ``record=True``) carries the sync; ``on_sync`` sees each step's
-    gradients going in and out of it; ``split_times`` ends each phase in a
-    device sync and adds host ``grad_ms``, ``sync_ms``, ``update_ms``."""
+    ``graph`` follows ``graphs.use_graph``: on CUDA (None) the step is one
+    CUDA-graph replay (the port's counterpart of the jitted step), bound to
+    the state it is first given; ``graph=False`` runs it eagerly, for
+    comparisons; ``graph=True`` off CUDA raises. A compressor whose step
+    cannot be one graph (``compressor.graph_refusal()``: the composite, the
+    server wire, an error feedback stored in another dtype than f32) runs
+    eagerly, and with ``graph=True`` raises, naming its ROADMAP item.
+
+    ``remat`` (the JAX step's ``remat_scan``, on by default as there)
+    recomputes each repeat of the layer pattern in the backward; it applies
+    to the default loss. ``accum_steps=k`` splits each worker's rows into k
+    sequential microbatches, sums their gradients in f32 and divides by k,
+    then syncs once: error feedback and wire bits per step are unchanged;
+    ``k=1`` is the single pass. ``comm`` (a ``SimComm`` of the mesh's
+    workers, e.g. with ``record=True``, which keeps every step's gathers,
+    graphed or eager) carries the sync; ``on_sync`` is called after each
+    step, outside any capture, with the step's per-worker gradients into
+    the sync, its synced gradients, the new compressor state and its
+    ``CommRecord``: the step's buffers, which the next step overwrites."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     n = n_dp_of(mesh)
     comm = comm if comm is not None else SimComm(n)
     if comm.size() != n:
         raise ValueError(f"a comm of {comm.size()} workers for a mesh of {n}")
-    loss_fn = loss_fn or functools.partial(lm_loss, cfg=cfg, head_chunk=head_chunk)
+    loss_fn = loss_fn or functools.partial(
+        lm_loss, cfg=cfg, head_chunk=head_chunk, remat=remat
+    )
+    return TrainStep(
+        n,
+        compressor,
+        optimizer,
+        loss_fn,
+        comm,
+        accum_steps=accum_steps,
+        on_sync=on_sync,
+        graph=graph,
+    )
 
-    def grad_of(params: Tree, leaves: list, rows: dict) -> tuple[list, dict]:
-        loss, metrics = loss_fn(params, rows)
+
+class TrainStep:
+    """One data-parallel training step over the mesh's workers (see
+    :func:`build_train_step`), eager or as a CUDA-graph replay.
+
+    Graphed, the first call binds the step to its state: the parameters,
+    optimizer and compressor state and step counter are the graph's static
+    buffers, updated in place by every replay, and the batch is copied into
+    a static device buffer before each. The first step runs eagerly (the
+    warm-up), the second is captured and replayed, the rest are replays
+    (``graphs.SyncStepGraph``, which also keeps what the compressor holds
+    on the host, QSGD's seed and step counter, in step with the replays).
+    A call with another state (a restored checkpoint, a fresh run)
+    drops the graph and binds anew. Attributes a caller may read after
+    a call: ``batch`` (the static batch of a graphed step), ``grads`` (the
+    per-worker gradient buffers), ``synced`` (the last step's synced
+    gradients), ``graph`` (the ``StepGraph``, or None) and ``capture_s``."""
+
+    def __init__(
+        self,
+        n: int,
+        compressor: GradCompressor,
+        optimizer: Optimizer,
+        loss_fn: Callable,
+        comm: SimComm,
+        *,
+        accum_steps: int = 1,
+        on_sync: OnSync | None = None,
+        graph: bool | None = None,
+    ):
+        self.n = n
+        self.compressor = compressor
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.comm = comm
+        self.accum_steps = accum_steps
+        self.on_sync = on_sync
+        self.graph_arg = graph
+        self.sync_graph: graphs.SyncStepGraph | None = None
+        self.batch: dict[str, torch.Tensor] | None = None
+        self.grads: Tree | None = None
+        self.synced: Tree | None = None
+        self._call_state: dict[str, Any] | None = None  # the call's state
+        self._out: tuple | None = None  # the graph body's (state, metrics, rec)
+
+    @property
+    def graph(self) -> graphs.StepGraph | None:
+        return self.sync_graph.graph if self.sync_graph is not None else None
+
+    @property
+    def capture_s(self) -> float:
+        return self.graph.capture_s if self.graph is not None else 0.0
+
+    def release(self) -> None:
+        """Drop the graph and the buffers bound to a state."""
+        self.sync_graph = self.batch = self.grads = self.synced = None
+        self._out = self._call_state = None
+
+    def __call__(self, state: dict[str, Any], batch: dict[str, Any]):
+        dev = tree_leaves(state["params"])[0].device
+        if not self._graphed(dev):
+            return self._eager(state, batch, dev)
+        if self.sync_graph is None or not self.sync_graph.binds(state):
+            self._bind(state, batch, dev)
+        for k, v in batch.items():
+            src = torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+            self.batch[k].copy_(src, non_blocking=True)
+        self._call_state = state
+        comp = self.sync_graph.run(state["comp"])
+        new_state, metrics, rec = self._out
+        new_state = {**new_state, "comp": comp}
+        self._call_on_sync(new_state, rec)
+        # a replay overwrites its outputs: each step's metrics in fresh
+        # tensors, copied on the stream before the next replay
+        return new_state, {k: v.clone() for k, v in metrics.items()}
+
+    def _graphed(self, dev: torch.device) -> bool:
+        if not graphs.use_graph(self.graph_arg, dev):
+            return False
+        why = self.compressor.graph_refusal()
+        if why is not None:
+            if self.graph_arg:
+                raise NotImplementedError(f"a graphed step: {why}")
+            return False
+        return True
+
+    def _eager(self, state, batch, dev):
+        self.synced = None  # the last step's, released before this one's
+        self.batch = _to_device(batch, dev)
+        new_state, metrics, rec = self._run(state, self.batch, dev)
+        self._call_on_sync(new_state, rec)
+        return new_state, metrics
+
+    def _bind(self, state, batch, dev) -> None:
+        self.release()
+        self.batch = {
+            k: torch.empty(v.shape, dtype=_dtype_of(v), device=dev)
+            for k, v in batch.items()
+        }
+        self._alloc_grads(state["params"])
+        me = weakref.ref(self)  # no cycle: the step frees its graph at once
+
+        def body(gens):
+            step = me()
+            new_state, metrics, rec = step._run(step._call_state, step.batch, dev, gens)
+            step._out = (new_state, metrics, rec)
+            return new_state
+
+        self.sync_graph = graphs.SyncStepGraph(
+            body, dev, self.compressor, state, state["comp"], self.comm
+        )
+
+    def _alloc_grads(self, params: Tree) -> None:
+        leaves = tree_leaves(params)
+        have = tree_leaves(self.grads) if self.grads is not None else []
+        if len(have) == len(leaves) and all(
+            g.shape[1:] == w.shape and g.dtype == w.dtype and g.device == w.device
+            for g, w in zip(have, leaves)
+        ):
+            return
+        self.grads = tree_unflatten(
+            params,
+            [
+                torch.empty((self.n,) + w.shape, dtype=w.dtype, device=w.device)
+                for w in leaves
+            ],
+        )
+
+    def _call_on_sync(self, new_state, rec) -> None:
+        if self.on_sync is not None:
+            self.on_sync(self.grads, self.synced, new_state["comp"], rec)
+
+    def _grad_of(self, params: Tree, leaves: list, rows: dict):
+        loss, metrics = self.loss_fn(params, rows)
         grads = torch.autograd.grad(loss, leaves)
         return list(grads), {k: v.detach() for k, v in metrics.items()}
 
-    def worker_grad(params: Tree, leaves: list, rows: dict) -> tuple[list, dict]:
-        if accum_steps == 1:
-            return grad_of(params, leaves, rows)
+    def _worker_grad(self, params: Tree, leaves: list, rows: dict):
+        k = self.accum_steps
+        if k == 1:
+            return self._grad_of(params, leaves, rows)
         b = next(iter(rows.values())).shape[0]
-        if b % accum_steps:
+        if b % k:
             raise ValueError(
-                f"per-worker batch {b} not divisible by accum_steps={accum_steps}"
+                f"per-worker batch {b} not divisible by accum_steps={k}"
             )
         acc = [torch.zeros_like(w, dtype=torch.float32) for w in leaves]
         ms = []
-        for mb in range(accum_steps):
-            sl = slice(mb * b // accum_steps, (mb + 1) * b // accum_steps)
-            gs, m = grad_of(params, leaves, {k: v[sl] for k, v in rows.items()})
+        for mb in range(k):
+            sl = slice(mb * b // k, (mb + 1) * b // k)
+            mb_rows = {name: v[sl] for name, v in rows.items()}
+            gs, m = self._grad_of(params, leaves, mb_rows)
             for a, g in zip(acc, gs):
                 a.add_(g.float())
             ms.append(m)
-        grads = [(a / accum_steps).to(w.dtype) for a, w in zip(acc, leaves)]
+        grads = [(a / k).to(w.dtype) for a, w in zip(acc, leaves)]
         # equal microbatches: the mean of their mean losses is the batch's
-        return grads, {k: torch.stack([m[k] for m in ms]).mean(0) for k in ms[0]}
+        return grads, {
+            name: torch.stack([m[name] for m in ms]).mean(0) for name in ms[0]
+        }
 
-    def step_fn(state: dict[str, Any], batch: dict[str, Any]):
+    def _run(self, state, batch, dev, gens=None):
+        """The step's work on a batch already on ``dev``: every worker's
+        gradients into ``grads``, the donated sync (drawing from ``gens``,
+        the graph's generators, where given), the update in place. Reads
+        nothing on the host."""
+        n, comm = self.n, self.comm
         params = state["params"]
         leaves = tree_leaves(params)
         for w in leaves:
             w.requires_grad_(True)
-        dev = leaves[0].device
-        t0 = _clock(dev) if split_times else 0.0
-        batch = _to_device(batch, dev)
         b = next(iter(batch.values())).shape[0]
         if b % n:
             raise ValueError(f"global batch {b} not divisible by {n} workers")
         per = {k: v.reshape((n, b // n) + v.shape[1:]) for k, v in batch.items()}
-        grads = [torch.empty((n,) + w.shape, dtype=w.dtype, device=dev) for w in leaves]
+        self._alloc_grads(params)
+        bufs = tree_leaves(self.grads)
         worker_metrics = []
         for wk in range(n):
-            gs, m = worker_grad(params, leaves, {k: v[wk] for k, v in per.items()})
-            for buf, g in zip(grads, gs):
+            rows = {k: v[wk] for k, v in per.items()}
+            gs, m = self._worker_grad(params, leaves, rows)
+            for buf, g in zip(bufs, gs):
                 buf[wk].copy_(g)
             del gs
             worker_metrics.append(m)
-        grads = tree_unflatten(params, grads)
-        t1 = _clock(dev) if split_times else 0.0
+        comp = state["comp"]
         with torch.no_grad():
-            synced, comp, rec = compressor.sync(grads, state["comp"], comm)
-        if on_sync is not None:
-            on_sync(grads, synced, comp, rec)
-        del grads
-        t2 = _clock(dev) if split_times else 0.0
-        opt = optimizer.update(synced, state["opt"], params)
-        t3 = _clock(dev) if split_times else 0.0
+            synced, comp, rec = self.compressor.sync(
+                self.grads, {**comp, "gen": gens} if gens else comp, comm, donate=True
+            )
+        comp = {k: v for k, v in comp.items() if k != "gen"}
+        self.synced = synced
+        opt = self.optimizer.update(synced, state["opt"], params)
         with torch.no_grad():
             metrics = {
                 k: comm.pmean(torch.stack([m[k] for m in worker_metrics]))
@@ -232,11 +402,12 @@ def build_train_step(
             metrics["wire_mb_per_step"] = _f32(rec.effective_bits() / 8e6, dev)
             metrics["collectives_per_step"] = _f32(rec.effective_collectives(), dev)
             metrics["down_mb_per_step"] = _f32(rec.down_bits / 8e6, dev)
-        if split_times:
-            metrics["grad_ms"] = (t1 - t0) * 1e3
-            metrics["sync_ms"] = (t2 - t1) * 1e3
-            metrics["update_ms"] = (t3 - t2) * 1e3
-        new_state = dict(params=params, opt=opt, comp=comp, step=state["step"] + 1)
-        return new_state, metrics
+            state["step"].add_(1)
+        new_state = dict(params=params, opt=opt, comp=comp, step=state["step"])
+        return new_state, metrics, rec
 
-    return step_fn
+
+def _dtype_of(v: Any) -> torch.dtype:
+    if isinstance(v, np.ndarray):
+        return torch.from_numpy(np.empty(0, v.dtype)).dtype
+    return v.dtype

@@ -864,3 +864,225 @@ def test_graphed_attack_equals_eager_after_training(cuda):
         )
     assert torch.equal(out[None][0], out[False][0])
     assert torch.equal(out[None][1], out[False][1])
+
+
+def _graph_vs_eager(run):
+    """``run(graph)`` twice, graphed and with ``graph=False``, launch counts
+    reset before each: (graphed result, eager result, their launch counts)."""
+    out = {}
+    for graph in (None, False):
+        ops.reset_launch_counts()
+        out[graph] = (run(graph), ops.launch_counts())
+    return out[None][0], out[False][0], out[None][1], out[False][1]
+
+
+@pytest.mark.parametrize(
+    "knobs", [dict(name="lq_sgd", rank=1, bits=8), dict(name="qsgd", bits=4)]
+)
+def test_graphed_lm_step_equals_eager(cuda, knobs):
+    """gemma3-1b at smoke widths, 4 workers, Adam, 4 steps (warm-up,
+    capture, two replays) with deterministic algorithms on: every step's
+    metrics, synced gradients and gathered wire arrays (a recording comm
+    keeps all four steps' under the graph too), the final state and the
+    launch counts of the graphed step equal the eager step's bit for bit."""
+    from repro_torch.core.comm import SimComm
+    from repro_torch.data.synthetic import LMDataConfig, lm_batch
+    from repro_torch.train.optimizer import adam
+    from repro_torch.train.step import (
+        build_train_step,
+        init_train_state,
+        make_model_compressor,
+    )
+
+    cfg = get_config("gemma3-1b", smoke=True)
+    comp = make_model_compressor(cfg, CompressorConfig(**knobs))
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch=8)
+
+    def run(graph):
+        opt = adam(1e-3)
+        state = init_train_state(cfg, 0, opt, comp, 4, "cuda")
+        comm = SimComm(4, record=True)
+        step = build_train_step(cfg, (4, 1), comp, opt, comm=comm, graph=graph)
+        seen = []
+        for i in range(4):
+            state, m = step(state, lm_batch(data, i))
+            synced = [g.clone() for g in tree_leaves(step.synced)]
+            seen.append(({k: float(v) for k, v in m.items()}, synced))
+        assert (step.graph is not None) == (graph is None)
+        tensors = [x for x in tree_leaves(state) if isinstance(x, torch.Tensor)]
+        return seen, tensors + comm.gathered
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (g_seen, g_state), (e_seen, e_state), g_counts, e_counts = _graph_vs_eager(run)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert g_counts == e_counts and sum(g_counts.values()) > 0
+    for (gm, gs), (em, es) in zip(g_seen, e_seen, strict=True):
+        assert gm == em
+        assert all(torch.equal(a, b) for a, b in zip(gs, es, strict=True))
+    assert all(torch.equal(a, b) for a, b in zip(g_state, e_state, strict=True))
+
+
+@pytest.mark.parametrize(
+    "knobs", [dict(name="lq_sgd", rank=1, bits=4), dict(name="qsgd", bits=4)]
+)
+def test_graphed_resnet_step_equals_eager(cuda, knobs):
+    """ResNet-18 at full width, 3 workers x 16 images at 32x32, 4 steps:
+    the graphed ``train_one`` equals ``graph=False`` bit for bit (losses,
+    every step's synced gradients, all four steps' gathered wire arrays in
+    a recording comm, final parameters and compressor state, launch
+    counts)."""
+    from repro_torch.core.comm import SimComm
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    def run(graph):
+        grads = []
+        comm = SimComm(3, record=True)
+        out = train_one(
+            CompressorConfig(**knobs),
+            n_workers=3,
+            batch=16,
+            hw=32,
+            steps=4,
+            device="cuda",
+            comm=comm,
+            graph=graph,
+            on_sync=lambda t, s, st: grads.append([g.clone() for g in tree_leaves(s)]),
+        )
+        state = [x for x in tree_leaves(out.comp_state) if isinstance(x, torch.Tensor)]
+        return out.losses, grads, tree_leaves(out.params), state + comm.gathered
+
+    got, want, g_counts, e_counts = _graph_vs_eager(run)
+    assert g_counts == e_counts and sum(g_counts.values()) > 0
+    assert got[0] == want[0]
+    for gs, ws in zip(got[1], want[1], strict=True):
+        assert all(torch.equal(a, b) for a, b in zip(gs, ws, strict=True))
+    for a, b in zip(got[2] + got[3], want[2] + want[3], strict=True):
+        assert torch.equal(a, b)
+
+
+def _sequence_number():
+    """This thread's autograd sequence counter (the next node made here
+    takes it; reading it makes one node)."""
+    with torch.enable_grad():
+        return (torch.zeros((), requires_grad=True) * 1.0).grad_fn._sequence_nr()
+
+
+def _advance(n):
+    """Move this thread's sequence counter on by ``n`` (``n`` CPU nodes)."""
+    x = torch.zeros((), requires_grad=True)
+    with torch.enable_grad():
+        for _ in range(max(n, 0)):
+            x * 1.0
+
+
+class _OnBackwardThread(torch.autograd.Function):
+    """The identity, whose backward calls ``fn`` on the thread the autograd
+    engine runs it on: the card's own thread for a CUDA tensor."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.fn()
+        return g, None
+
+
+def _on_device_thread(fn):
+    """``fn()`` run on the autograd engine's CUDA device thread."""
+    got = {}
+    x = torch.zeros(1, device="cuda", requires_grad=True)
+    _OnBackwardThread.apply(x, lambda: got.setdefault("out", fn())).sum().backward()
+    return got["out"]
+
+
+def _lead_device_counter(lead):
+    """Advance whichever autograd sequence counter is behind until the
+    device thread's stands ``lead`` above this thread's (give or take the
+    nodes that reading them makes)."""
+    here, device = _sequence_number(), _on_device_thread(_sequence_number)
+    gap = lead - (device - here)
+    if gap > 0:
+        _on_device_thread(lambda: _advance(gap))
+    else:
+        _advance(-gap)
+
+
+def test_graphed_attack_equals_eager_whatever_autograd_ran_before(cuda, monkeypatch):
+    """(h2)'s graph = eager check against what broke it after other work.
+    The autograd engine runs a CUDA backward on a thread of its own and
+    orders a backward's ready nodes by their sequence numbers, which each
+    thread counts on its own; the attack's double backward mixed nodes of
+    the calling thread and of that device thread, so its order, and the
+    order in which it summed gradients, turned on where the two counters
+    stood. A ResNet-18 training step first; then the (sgd, cold start)
+    attack step on the full-width ResNet-18 (8 restarts), its gradient
+    taken before the sign trick (which hides most rounding) with the
+    device thread's counter at 17 leads from -2 to +2 attack steps' nodes
+    over this thread's: bit-equal at every lead (the attack's backward runs
+    on the calling thread, ``core/privacy/gia.py``; on the engine's
+    threads some leads sum in another order: ``tools/gia_capture_probe.py
+    --only shift``). Then the attack (40 steps) graphed and, with the
+    device thread's counter far ahead, eagerly: x-hat and losses equal."""
+    import dataclasses
+
+    from repro_torch.core.privacy.gia import make_attack_step
+    from repro_torch.core.privacy.harness import _restart_keys
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    train_one(
+        CompressorConfig(name="lq_sgd", rank=1, bits=8),
+        n_workers=2,
+        batch=16,
+        hw=32,
+        steps=3,
+        device="cuda",
+    )
+    cfg = gia_ssim.harness_config(quick=False)
+    gia = dataclasses.replace(cfg.gia, steps=40)
+    victim = gia_ssim.setup("resnet18", "cuda")
+    params, x, y, grad_fn = (victim[k] for k in ("params", "x", "y", "grad_fn"))
+    g_obs = grad_fn(params, x, y)
+
+    step = make_attack_step(grad_fn, params, g_obs, y, gia)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x0 = torch.randn((8,) + tuple(x.shape), generator=gen, device="cuda")
+    sign = torch.sign
+
+    def raw_grad():
+        seen = []
+        monkeypatch.setattr(torch, "sign", lambda g: seen.append(g.clone()) or sign(g))
+        m, v = torch.zeros_like(x0), torch.zeros_like(x0)
+        step(x0.clone(), m, v, torch.zeros((), device="cuda"))
+        monkeypatch.setattr(torch, "sign", sign)
+        return seen[-1]
+
+    before = _sequence_number() + _on_device_thread(_sequence_number)
+    want = raw_grad()
+    per_step = _sequence_number() + _on_device_thread(_sequence_number) - before
+    differ = []
+    for k in range(-8, 9):
+        _lead_device_counter(k * per_step // 4)
+        if not torch.equal(raw_grad(), want):
+            differ.append(k)
+    assert not differ, f"the gradient differs at leads {differ} x {per_step // 4}"
+
+    def attack(graph):
+        keys = _restart_keys(cfg.seed, 0, cfg.n_attack_seeds, "cuda")
+        return invert_gradients_batched(
+            grad_fn, params, g_obs, tuple(x.shape), y, keys, gia, graph=graph
+        )
+
+    _lead_device_counter(-3 * per_step)
+    graphed = attack(None)
+    _lead_device_counter(3 * per_step)
+    eager = attack(False)
+    assert torch.equal(graphed[0], eager[0])
+    assert torch.equal(graphed[1], eager[1])
