@@ -57,8 +57,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (tokens, caches, launches), as in phase 4; bytes/token must equal the
    accounting (48290.909 for (g1), the JAX package's figure);
 7. the gradient-inversion trust claim (paper §V-C), run last, after
-   phases 8 and 9 (its (h2) graph = eager check failed in that order until
-   the attack step's backward ran on one thread:
+   phases 8, 9 and 10 (its (h2) graph = eager check failed after (i) and (j)
+   until the attack step's backward ran on one thread:
    ``core/privacy/gia.py``), through
    ``python -m repro_torch.bench.gia_ssim``'s ``bench``: (h1) the JAX
    benchmark's sweep as it stands (its 2-conv victim net, a 16x16x3 target,
@@ -130,7 +130,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    the host-blocked fraction of both printed. (j3) at gemma3-1b's smoke
    widths: a background checkpoint at step 2 restored and run on to step
    4 (the graphed step binding to the restored state) equals 4 steps at
-   once bit for bit, and a failed write raises on ``drain()``.
+   once bit for bit, and a failed write raises on ``drain()``;
+10. the randomized privacy codecs (``dlog``, ``lrq``: plain-torch draws and
+   rounding, the nibble pack #2 and the dequant #5 on the card), before
+   phase 7: (k1) (j1)'s run (gemma3-1b full width, 4 workers x 2 x 512,
+   LQ-SGD r1 b8, Adam, 3 steps, deterministic algorithms on) with
+   ``dp_epsilon`` 48, so every leaf is dlog and the step the composite's
+   eager one: every step ships (j1)'s 9,236,960 bits in the plans'
+   collectives, the per-step epsilon is the JAX package's 7056, the step-0
+   gradients into the sync equal (j1)'s bit for bit; against the same run
+   in reference mode, from the same generators, step 0's raw and P gathers
+   are equal, every later code equal but for one-step flips (#5's 2-ulp
+   difference reaches the Q phase, where a dither may round the other
+   way), the synced gradients and parameters within the bounds stated at
+   ``BF16_ULP``; #5 launches and #1, #2, #3 do not; ms a step, the sync's
+   ms split into the randomized codes and the rest (CUDA events), peak
+   memory. (k2) ResNet-18 as (d)/(e) (TF32 turned on first and found off in
+   every step): at each of its 62 leaf shapes the zero-noise dlog b8 and
+   lrq b4 ``codec_phase`` equal ``log``'s bit for bit (#1, #3, #5); dlog
+   b4 at 16 and lrq b4 with 2 layers, 3 steps each: (e)'s bits every step,
+   every nibble a b4 code, #2 and #5 launch, step 0's raw and P gathers
+   equal reference mode's and every later code but for one-step flips,
+   the synced gradients and parameters within ``train_tol``, one seed the
+   same bytes twice and another seed other bytes; at (j)'s largest factor
+   and ResNet-18's largest leaf, over 64 reseeded encodes: unbiasedness in
+   16 bins of x within 5 standard errors, dlog's noise std within 3% of
+   ``gaussian_sigma``, lrq's spread rising with its layers. (k3)
+   ``bench/gia_ssim.py``'s Pareto sweep (the 2-conv victim, 10 victim
+   steps, the steady-state attack, best of 8 restarts x 300 sign-Adam
+   steps, graphed): each row's wire bits (2056 / 49216) and per-step
+   epsilon (80.0, 240.0, 428.9773445944901) ``BENCH_privacy.json``'s,
+   ``_pareto_gate`` passed at the JAX tolerances; the table and the attack
+   seconds printed.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -253,6 +284,34 @@ J1_BITS, J2_BITS = 9_236_960, 4_624_864
 # sign may move the other way, by up to 2 x 1.01 lr a step.
 BF16_ULP = 2.0**-8
 ADAM_STEP_MAX = 1.01
+
+# Phase 10, the randomized privacy codecs (k). (k1): (j1)'s run with dlog at
+# a per-use budget of 48; the JAX package's per-step epsilon for it, 2 x 48
+# a low-rank leaf and 48 a raw one (tests/test_torch_privacy_codecs.py)
+K1_EPSILON, K1_STEPS = 48.0, 3
+K1_EPS_PER_STEP = 7056.0
+# (k2): dlog b4 at a budget of 16 and lrq b4 with 2 layers on (e)'s run
+K2_RUNS = {
+    "dlog_b4_eps16": dict(name="lq_sgd", rank=1, bits=4, dp_epsilon=16.0),
+    "lrq_b4_2_layers": dict(name="lq_sgd", rank=1, bits=4, codec="lrq", lrq_layers=2),
+}
+# (k2)'s statistics: 64 reseeded encodes; unbiasedness by the deviation of
+# the mean expand from x in 16 bins of x, each within 5 standard errors;
+# dlog's noise std at a budget of 48 (sigma 0.101: |x| <= 0.5 saturates
+# beyond 5 sigma) within 3% of sigma, its dither adding < 0.4%
+K2_DRAWS, K2_BINS, K2_Z_BOUND, K2_SEED = 64, 16, 5.0, 11
+K2_STD_EPSILON, K2_STD_TOL = 48.0, 0.03
+# (k3): BENCH_privacy.json's wire bits (the b4 wire; post-hoc's f32) and
+# per-step epsilons, by row
+K3_BITS = (2056, 49216)
+K3_EPS = {
+    "lq_det": None,
+    "lq_dlog_eps16": 80.0,
+    "posthoc_eps16": 80.0,
+    "lq_dlog_eps48": 240.0,
+    "posthoc_eps48": 240.0,
+    "lq_lrq": 428.9773445944901,
+}
 
 # Phase 7, the GIA runs: (h1) the JAX benchmark's victim net, (h2) ResNet-18
 GIA_RUNS = {"h1": "cnn", "h2": "resnet18"}
@@ -1742,7 +1801,16 @@ def _free_cuda():
 
 
 def _lm_run(
-    cfg, comp_cfg, opt, steps, *, runner="sync", microbatch=1, graph=None, every=False
+    cfg,
+    comp_cfg,
+    opt,
+    steps,
+    *,
+    runner="sync",
+    microbatch=1,
+    graph=None,
+    every=False,
+    timed=False,
 ):
     """Train ``cfg`` over LM_MESH's workers through the LM training path
     (``train/step.py`` under ``Trainer`` or ``AsyncRunner``; a CUDA-graph
@@ -1751,7 +1819,8 @@ def _lm_run(
     batch each step read (its device batch, a graph's static buffer, read
     after the step), the first step's per-worker gradients into the sync
     and its synced gradients on the host (``every``: every step's synced
-    gradients), and the wall seconds of the run."""
+    gradients), the wall seconds of the run and (``timed``) each step's
+    host ms between device syncs."""
     from repro_torch.core.comm import SimComm
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data.synthetic import LMDataConfig, lm_batch
@@ -1767,7 +1836,7 @@ def _lm_run(
     n = n_dp_of(LM_MESH)
     comp = make_model_compressor(cfg, comp_cfg)
     comm = SimComm(n, record=True)
-    log = {"rec": [], "tokens": [], "synced": [], "wire": []}
+    log = {"rec": [], "tokens": [], "synced": [], "wire": [], "step_ms": []}
 
     def on_sync(grads, synced, comp_state, rec):
         log["rec"].append(rec)
@@ -1790,7 +1859,13 @@ def _lm_run(
     )
 
     def stepped(state, batch):
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
         state, metrics = step(state, batch)
+        if timed:
+            torch.cuda.synchronize()
+            log["step_ms"].append((time.perf_counter() - t0) * 1e3)
         log["tokens"].append(step.batch["tokens"].clone())
         return state, metrics
 
@@ -1881,6 +1956,41 @@ def _lm_graph_equals_eager(label, g, e):
     check(g["losses"] == e["losses"], f"{label}: losses, graph != eager")
 
 
+_J1_GRADS0 = []  # (j1)'s per-worker gradients into its step-0 sync, on the host
+
+
+def _lm_close_to_reference(label, got, ref, init, steps, exact=()):
+    """An LM run against the same run in reference mode: wire codes equal
+    but for one-step flips (the gathers at the positions in ``exact``
+    equal), the step-0 synced gradients and the final parameters within the
+    bounds stated at ``BF16_ULP``. Returns (flips, codes, flips at step 0,
+    grads rel, params rel)."""
+    gathered, ref_gathered = got["gathered"], ref["gathered"]
+    flips, n_codes = _wire_flips(gathered, ref_gathered, label, exact)
+    per_step = len(gathered) // steps
+    flips0, _ = _wire_flips(gathered[:per_step], ref_gathered[:per_step], label)
+    tol0 = train_tol(8, flips0, workers=LM_MESH[0]) + BF16_ULP
+    grad_rel = 0.0
+    pairs = zip(got["log"]["synced"][0], ref["log"]["synced"][0], strict=True)
+    for g, w in pairs:
+        err, top = float((g.float() - w.float()).abs().max()), float(w.abs().max())
+        check(err <= tol0 * top, f"{label}: step-0 synced grads differ by {err:.3e}")
+        grad_rel = max(grad_rel, err / max(top, 1e-30))
+    tol = train_tol(8, flips, workers=LM_MESH[0])
+    param_rel = 0.0
+    for p, w, p0 in zip(got["params"], ref["params"], init, strict=True):
+        p, w, p0 = p.float(), w.float(), p0.float()
+        err = float((p - w).abs().max())
+        moved, top = float((w - p0).abs().max()), float(w.abs().max())
+        if flips == 0:
+            bound = tol * moved + BF16_ULP * top
+        else:
+            bound = 2 * ADAM_STEP_MAX * J1_LR * steps + BF16_ULP * top
+        check(err <= bound, f"{label}: params differ by {err:.3e} > {bound:.3e}")
+        param_rel = max(param_rel, err / max(moved, 1e-30))
+    return flips, n_codes, flips0, grad_rel, param_rel
+
+
 def _lm_j1(card):
     from repro_torch.configs import get_config
     from repro_torch.core.compressors import CompressorConfig
@@ -1950,29 +2060,11 @@ def _lm_j1(card):
         check(rec.effective_collectives() == colls, f"{label}: collectives")
     for g, w in zip(got["log"]["grads0"], ref["log"]["grads0"], strict=True):
         check(torch.equal(g, w), f"{label}: step-0 gradients into the sync differ")
-    gathered, ref_gathered = got["gathered"], ref["gathered"]
-    flips, n_codes = _wire_flips(gathered, ref_gathered, label)
-    per_step = len(gathered) // J1_STEPS
-    flips0, _ = _wire_flips(gathered[:per_step], ref_gathered[:per_step], label)
-    tol0 = train_tol(8, flips0, workers=LM_MESH[0]) + BF16_ULP
-    grad_rel = 0.0
-    pairs = zip(got["log"]["synced"][0], ref["log"]["synced"][0], strict=True)
-    for g, w in pairs:
-        err, top = float((g.float() - w.float()).abs().max()), float(w.abs().max())
-        check(err <= tol0 * top, f"{label}: step-0 synced grads differ by {err:.3e}")
-        grad_rel = max(grad_rel, err / max(top, 1e-30))
-    tol = train_tol(8, flips, workers=LM_MESH[0])
-    param_rel = 0.0
-    for p, w, p0 in zip(got["params"], ref["params"], init, strict=True):
-        p, w, p0 = p.float(), w.float(), p0.float()
-        err = float((p - w).abs().max())
-        moved, top = float((w - p0).abs().max()), float(w.abs().max())
-        if flips == 0:
-            bound = tol * moved + BF16_ULP * top
-        else:
-            bound = 2 * ADAM_STEP_MAX * J1_LR * J1_STEPS + BF16_ULP * top
-        check(err <= bound, f"{label}: params differ by {err:.3e} > {bound:.3e}")
-        param_rel = max(param_rel, err / max(moved, 1e-30))
+    # (k1) holds its own step-0 gradients into the sync to these
+    _J1_GRADS0[:] = got["log"]["grads0"]
+    flips, n_codes, flips0, grad_rel, param_rel = _lm_close_to_reference(
+        label, got, ref, init, J1_STEPS
+    )
     losses = got["losses"]
     check(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
     print(
@@ -2506,6 +2598,476 @@ def _recorded_victim(model, logs, flags):
     return {**victim, "grad_fn": grad_fn, "methods": methods}
 
 
+# ---------------------------------------------------------------- phase 10
+class _CudaSpans:
+    """CUDA events around every call of ``cls.name`` while in the block:
+    ``spans`` gets ``(tag(), start, end)`` a call, ``tag`` read when the
+    call returns (a step index)."""
+
+    def __init__(self, cls, name, spans, tag):
+        self.cls, self.name, self.spans, self.tag = cls, name, spans, tag
+
+    def __enter__(self):
+        fn = getattr(self.cls, self.name)
+        self.own = self.name in vars(self.cls)
+
+        def timed(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.spans.append((self.tag(), start, end))
+            return out
+
+        self.fn = fn
+        setattr(self.cls, self.name, timed)
+
+    def __exit__(self, *exc):
+        if self.own:
+            setattr(self.cls, self.name, self.fn)
+        else:
+            delattr(self.cls, self.name)
+
+
+def _span_ms(spans, steps):
+    """The ms of ``spans`` summed by tag (a step index), for ``steps`` steps."""
+    torch.cuda.synchronize()
+    out = [0.0] * steps
+    for tag, start, end in spans:
+        out[tag] += start.elapsed_time(end)
+    return out
+
+
+def phase_privacy(card):
+    """(k) the randomized privacy codecs (dlog, lrq): (k1) LM training with
+    a DP budget, (k2) Algorithm 1 on ResNet-18 and the codecs' statistics at
+    real shapes, (k3) the Pareto sweep of the JAX benchmark."""
+    total = {}
+    for part in (_privacy_k1, _privacy_k2, _privacy_k3):
+        for name, c in part(card).items():
+            total[name] = total.get(name, 0) + c
+    return total
+
+
+def _privacy_k1(card):
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec import DitheredLogQuantCodec
+    from repro_torch.core.composite import CompositeCompressor
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import adam
+    from repro_torch.train.step import init_train_params
+
+    cfg = get_config(LM_ARCH)
+    comp_cfg = CompressorConfig(name="lq_sgd", rank=1, bits=8, dp_epsilon=K1_EPSILON)
+    label = (
+        f"(k1) {LM_ARCH} full width, {LM_MESH[0]} workers x "
+        f"{LM_BATCH // LM_MESH[0]} x {LM_SEQ}, LQ-SGD r1 b8 dlog "
+        f"dp_epsilon {K1_EPSILON:g}, Adam, Trainer, eager (the composite)"
+    )
+    _free_cuda()
+    init = tree_leaves(init_train_params(cfg, 0, "cuda"))
+    init = [w.detach().to("cpu") for w in init]
+    _free_cuda()
+    # (j1)'s setting, so the step-0 gradients into the sync are (j1)'s
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        syncs, codes = [], []
+        with (
+            _CudaSpans(CompositeCompressor, "sync", syncs, lambda: len(syncs)),
+            _CudaSpans(DitheredLogQuantCodec, "codes", codes, lambda: len(syncs)),
+        ):
+            r = _lm_run(cfg, comp_cfg, adam(J1_LR), K1_STEPS, timed=True)
+        counts = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        sync_ms, codes_ms = _span_ms(syncs, K1_STEPS), _span_ms(codes, K1_STEPS)
+        got = dict(
+            params=_host_params(r["state"]),
+            log=r["log"],
+            losses=[h["loss"] for h in r["loop"].history],
+            gathered=[w.cpu() for ws in r["log"]["wire"] for w in ws],
+        )
+        comp, step_ms = r["comp"], r["log"]["step_ms"]
+        del r
+        _free_cuda()
+        with ops.reference_mode():
+            r = _lm_run(cfg, comp_cfg, adam(J1_LR), K1_STEPS)
+        ref = dict(
+            params=_host_params(r["state"]),
+            log=r["log"],
+            losses=[h["loss"] for h in r["loop"].history],
+            gathered=[w.cpu() for ws in r["log"]["wire"] for w in ws],
+        )
+        del r
+        _free_cuda()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    check(isinstance(comp, CompositeCompressor), f"{label}: {type(comp).__name__}")
+    check("dlog" in (comp.graph_refusal() or ""), f"{label}: {comp.graph_refusal()}")
+    eps = comp.privacy_epsilon_per_step(1e-5)
+    check(abs(eps - K1_EPS_PER_STEP) <= 1e-9, f"{label}: epsilon/step {eps}")
+    colls = _collectives_per_step(comp)
+    check(comp.wire_bits_per_step() == J1_BITS, f"{label}: {comp.wire_bits_per_step()}")
+    for rec in got["log"]["rec"] + ref["log"]["rec"]:
+        check(rec.effective_bits() == J1_BITS, f"{label}: {rec.effective_bits()} bits")
+        check(rec.effective_collectives() == colls, f"{label}: collectives")
+    check(len(_J1_GRADS0) == len(got["log"]["grads0"]), f"{label}: no (j1) grads")
+    for g, j, w in zip(got["log"]["grads0"], _J1_GRADS0, ref["log"]["grads0"]):
+        check(torch.equal(g, j), f"{label}: step-0 gradients into the sync != (j1)'s")
+        check(torch.equal(g, w), f"{label}: step-0 gradients into the sync differ")
+    _J1_GRADS0.clear()
+    # step 0's raw leaves and P phase come first and ship the same bytes: the
+    # same inputs and draws, and no kernel before them
+    n_raw = sum(pl.route != "lowrank" for pl in comp.plans)
+    n_low = len(comp.plans) - n_raw
+    flips, n_codes, flips0, grad_rel, param_rel = _lm_close_to_reference(
+        label, got, ref, init, K1_STEPS, exact=set(range(n_raw + n_low))
+    )
+    losses = got["losses"]
+    check(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
+    check(counts["log_dequantize"] > 0, f"{label}: log_dequantize never launched")
+    for name in ("log_quantize", "log_quantize_pack", "pack_nibbles"):
+        check(counts[name] == 0, f"{label}: {name} launched (every leaf is dlog)")
+    ms = _median(step_ms[1:])
+    sync, enc = _median(sync_ms[1:]), _median(codes_ms[1:])
+    print(
+        f"{label}: launches {counts}; {J1_BITS} wire bits/step ((j1)'s), {colls} "
+        f"collectives/step, epsilon/step {eps:g} (calibrated); vs reference mode: "
+        f"step-0 gradients into the sync equal (and equal (j1)'s), step 0's raw "
+        f"and P gathers equal, {flips} of {n_codes} codes flipped ({flips0} at "
+        f"step 0), step-0 synced grads rel {grad_rel:.2e}, params rel "
+        f"{param_rel:.2e}; losses {[round(v, 4) for v in losses]}"
+    )
+    print(
+        f"  (k1) {ms:.1f} ms a step (host clock, median of steps 1-{K1_STEPS - 1}; "
+        f"{[round(v, 1) for v in step_ms]}), the sync {sync:.1f} ms (CUDA events), "
+        f"of it the randomized codes (draws + transform, plain torch) {enc:.1f} "
+        f"ms and the rest {sync - enc:.1f} ms; peak {peak_gb:.1f} GB "
+        f"(deterministic algorithms on); {card}"
+    )
+    emit(
+        {
+            "train": "k1_gemma3_1b_lq_sgd_r1_b8_dlog_eps48_adam",
+            "card": card,
+            "wire_bits_per_step": J1_BITS,
+            "collectives_per_step": colls,
+            "epsilon_per_step": eps,
+            "step_ms": step_ms,
+            "sync_ms": sync_ms,
+            "randomized_codes_ms": codes_ms,
+            "peak_memory_gb": peak_gb,
+            "losses": losses,
+            "reference_losses": ref["losses"],
+            "launches": counts,
+            "code_flips": flips,
+            "step0_synced_grad_rel_err": grad_rel,
+            "param_rel_err": param_rel,
+        }
+    )
+    return counts
+
+
+def _resnet_shapes():
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.resnet import init_resnet18
+
+    params = init_resnet18(TRAIN_CLASSES, device="cuda")
+    return [tuple(w.shape) for w in tree_leaves(params)]
+
+
+def _zero_noise_phases(label):
+    """At each of ResNet-18's leaf shapes (5 workers), ``codec_phase`` with
+    the zero-noise dlog (b8) and lrq (b4) gathers log's bytes and returns
+    log's values, bit for bit."""
+    from repro_torch.core.codec import codec_phase, make_codec
+    from repro_torch.core.comm import CommRecord, SimComm
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xs = [
+        torch.randn((TRAIN_WORKERS,) + s, generator=gen, device="cuda")
+        for s in _resnet_shapes()
+    ]
+    pairs = (
+        ("dlog:bits=8,dither=False", "log:bits=8"),
+        ("lrq:bits=4,n_layers=1,dither=False", "log:bits=4"),
+    )
+    for zero, log in pairs:
+        runs = []
+        for spec in (zero, log):
+            comm = SimComm(TRAIN_WORKERS, record=True)
+            codec = make_codec(spec)
+            outs = codec_phase(xs, [False] * len(xs), codec, comm, CommRecord())
+            runs.append((outs, comm.gathered))
+        (o1, g1), (o2, g2) = runs
+        check(len(g1) == len(g2) == len(xs), f"{label}: {zero}: gathers")
+        for a, b in zip(g1 + o1, g2 + o2):
+            check(torch.equal(a, b), f"{label}: {zero} differs from {log}")
+    return len(xs)
+
+
+def _factor_shapes():
+    """(j)'s largest LQ-SGD r1 factor and ResNet-18's largest leaf, as 1-D
+    element counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.train.step import make_model_compressor
+
+    comp = make_model_compressor(
+        get_config(LM_ARCH), CompressorConfig(name="lq_sgd", rank=1)
+    )
+    factor = max(
+        (pl.shape[0] if pl.stacked else 1) * max(pl.mat_shape) * pl.eff_rank
+        for pl in comp.plans
+        if pl.route == "lowrank"
+    )
+    leaf = max(math.prod(s) for s in _resnet_shapes())
+    return {"j_factor": factor, "resnet_leaf": leaf}
+
+
+def _draw_stats(codec, x, draws=K2_DRAWS):
+    """Sum and sum of squares (f64) of expand(codes(x)) over ``draws``
+    encodes, with the generators a sync gives one leaf's P phase at steps
+    0 .. draws - 1. (Generators seeded 0, 1, 2, ... directly draw
+    correlated uniforms: |z| up to 14 in these bins at 262,144 values, on
+    the CPU and the card; ``leaf_seed`` hashes its seeds.)"""
+    from repro_torch.core.compressors import PHASE_STREAMS, leaf_generator
+
+    s = torch.zeros_like(x, dtype=torch.float64)
+    s2 = torch.zeros_like(s)
+    for step in range(draws):
+        key = leaf_generator(K2_SEED, step, 0, "cuda", stream=PHASE_STREAMS["p"])
+        v = codec.expand(codec.codes(x, key=key).float()).double()
+        s += v
+        s2 += v * v
+    return s, s2
+
+
+def _codec_statistics(label):
+    """The JAX package's statistical claims at real shapes on the card:
+    unbiasedness (dlog's dither, lrq's layers), dlog's noise std and lrq's
+    variance rising with its layers. Unbiasedness: the elements sorted by x
+    into K2_BINS bins, each bin's summed deviation of the mean expand from
+    x, over its standard error from the draws' own variance, within
+    K2_Z_BOUND (a normal tail of 6e-7 a bin)."""
+    from repro_torch.core.codec import make_codec
+    from repro_torch.core.privacy.accounting import gaussian_sigma
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for where, n in _factor_shapes().items():
+        x = torch.randn(n, generator=gen, device="cuda")
+        x = x / x.abs().max()
+        order = torch.argsort(x)
+        for spec in ("dlog:bits=8", "dlog:bits=4", "lrq:bits=4,n_layers=2"):
+            s, s2 = _draw_stats(make_codec(spec), x)
+            mean = s / K2_DRAWS
+            var = (s2 - s * mean) / (K2_DRAWS - 1)  # each element's draws
+            dev, se2 = (mean - x.double())[order], (var / K2_DRAWS)[order]
+            z = [
+                float(d.sum() / max(float(e.sum()), 1e-300) ** 0.5)
+                for d, e in zip(dev.chunk(K2_BINS), se2.chunk(K2_BINS))
+            ]
+            zmax = max(abs(v) for v in z)
+            check(zmax <= K2_Z_BOUND, f"{label}: {spec} at {where}: bin z {z}")
+            out[f"{where}/{spec}/max_bin_z"] = zmax
+        # dlog's noise: std sigma where the noised value cannot saturate
+        sigma = gaussian_sigma(K2_STD_EPSILON, 1e-5)
+        s, s2 = _draw_stats(make_codec(f"dlog:bits=8,dp_epsilon={K2_STD_EPSILON}"), x)
+        inner = x.abs() <= 0.5
+        xd = x.double()[inner]
+        mse = float(((s2[inner] - 2 * xd * s[inner]) / K2_DRAWS + xd * xd).mean())
+        ratio = mse**0.5 / sigma
+        check(abs(ratio - 1) <= K2_STD_TOL, f"{label}: dlog std / sigma {ratio}")
+        out[f"{where}/dlog_eps{K2_STD_EPSILON:g}/std_over_sigma"] = ratio
+        # lrq: more layers, a wider output distribution
+        spread = []
+        for layers in (1, 2, 3):
+            s, s2 = _draw_stats(make_codec(f"lrq:bits=4,n_layers={layers}"), x)
+            xd = x.double()
+            spread.append(float(((s2 - 2 * xd * s) / K2_DRAWS + xd * xd).mean()))
+        check(spread[0] < spread[1] < spread[2], f"{label}: lrq spread {spread}")
+        out[f"{where}/lrq_b4_mse_by_layers"] = spread
+    return out
+
+
+def _privacy_k2(card):
+    from repro_torch.core.comm import SimComm
+    from repro_torch.core.codec import unpack_nibbles
+    from repro_torch.core.compressors import CompressorConfig, make_compressor
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models.resnet import init_resnet18
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    was = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = True  # each step must find it off
+    total = {name: 0 for name in ops.KERNELS}
+    try:
+        label = f"(k2) ResNet-18, {TRAIN_WORKERS} workers x {TRAIN_BATCH}"
+        ops.reset_launch_counts()
+        n_shapes = _zero_noise_phases(label)
+        counts = ops.launch_counts()
+        for name in ("log_quantize", "log_quantize_pack", "log_dequantize"):
+            check(counts[name] > 0, f"{label}: zero noise: {name} never launched")
+        for name, c in counts.items():
+            total[name] += c
+        print(
+            f"{label}: the zero-noise dlog b8 and lrq b4 codec_phase = log's bit "
+            f"for bit (gathers, values) at {n_shapes} leaf shapes; launches {counts}"
+        )
+        init = tree_leaves(init_resnet18(TRAIN_CLASSES, seed=0, device="cuda"))
+        abstract = [torch.empty(w.shape, device="meta") for w in init]
+        want_bits = make_compressor(
+            CompressorConfig(name="lq_sgd", rank=1, bits=4), abstract
+        ).wire_bits_per_step()
+        for tag, knobs in K2_RUNS.items():
+            cfg, run = CompressorConfig(**knobs), f"{label} {tag}"
+            with ops.reference_mode():
+                want, ref_log = _train_run(cfg)
+            ops.reset_launch_counts()
+            out, log = _train_run(cfg)  # the composite: eager
+            counts = ops.launch_counts()
+            for name, c in counts.items():
+                total[name] += c
+            for lg in (log, ref_log):
+                check(lg["tf32"] and not any(lg["tf32"]), f"{run}: TF32 on in a step")
+            for name in ("pack_nibbles", "log_dequantize"):
+                check(counts[name] > 0, f"{run}: kernel {name} never launched")
+            for name in ("log_quantize", "log_quantize_pack"):
+                check(counts[name] == 0, f"{run}: kernel {name} launched")
+            comp = out.comp
+            n_raw = sum(pl.route != "lowrank" for pl in comp.plans)
+            n_comp = len(comp.plans) - n_raw
+            colls = 2 * 2 * n_comp + 2 * n_raw
+            bits = comp.wire_bits_per_step()
+            check(bits == want_bits, f"{run}: {bits} bits/step, (e)'s {want_bits}")
+            for st in out.steps + want.steps:
+                check(st.rec.bits_sent == bits, f"{run}: sent {st.rec.bits_sent}")
+                check(st.rec.n_collectives == colls, f"{run}: {st.rec.n_collectives}")
+            got_w = [w for ws in log["wire"] for w in ws]
+            want_w = [w for ws in ref_log["wire"] for w in ws]
+            for w in got_w:  # b4 codes lie in [-7, 7]: no nibble reads -8
+                codes = unpack_nibbles(w, 2 * w.shape[-1])
+                check(int(codes.min()) >= -7, f"{run}: a nibble outside the codes")
+            flips, n_codes = _wire_flips(
+                got_w, want_w, run, exact=set(range(n_raw + n_comp))
+            )
+            grad_rel, param_rel = _close_to_reference(
+                run, out, want, log, ref_log, 4, flips, init
+            )
+            # the same seed draws the same bytes, another seed others
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            grads = [
+                torch.randn(
+                    (TRAIN_WORKERS,) + tuple(w.shape), generator=gen, device="cuda"
+                )
+                for w in init
+            ]
+
+            def wire(seed):
+                comm = SimComm(TRAIN_WORKERS, record=True)
+                comp.sync(grads, comp.init_state(seed, TRAIN_WORKERS, "cuda"), comm)
+                return comm.gathered
+
+            ops.reset_launch_counts()
+            a, b, c = wire(0), wire(0), wire(1)
+            for name, n in ops.launch_counts().items():
+                total[name] += n
+            check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{run}: seed 0 twice")
+            differ = sum(not torch.equal(x, y) for x, y in zip(a, c))
+            check(differ > 0, f"{run}: seeds 0 and 1 ship the same bytes")
+            split = _split_ms(out.steps)
+            print(
+                f"  {run}: launches {counts}; {bits} wire bits/step ((e)'s), "
+                f"{colls} collectives/step, every nibble a b4 code; eager ms/step "
+                f"grad {split['grad']:.1f}, sync {split['sync']:.1f}, update "
+                f"{split['update']:.1f}; losses {[round(v, 4) for v in out.losses]}; "
+                f"vs reference mode: step 0's raw and P gathers equal, {flips} of "
+                f"{n_codes} codes flipped, synced grads rel {grad_rel:.2e}, params "
+                f"rel {param_rel:.2e}; seed 0 twice the same bytes, seed 1 other "
+                f"bytes in {differ} of {len(a)} gathers; {card}"
+            )
+            emit(
+                {
+                    "train": f"k2_resnet18_{tag}",
+                    "card": card,
+                    "wire_bits_per_step": bits,
+                    "collectives_per_step": colls,
+                    "epsilon_per_step": comp.privacy_epsilon_per_step(1e-5),
+                    "eager_split_ms": split,
+                    "losses": out.losses,
+                    "launches": counts,
+                    "code_flips": flips,
+                    "synced_grad_rel_err": grad_rel,
+                    "param_rel_err": param_rel,
+                }
+            )
+        t0 = time.perf_counter()
+        stats = _codec_statistics(label)
+        shown = ", ".join(f"{k} {v}" for k, v in stats.items())
+        print(
+            f"  {label}: the codecs' statistics at real shapes, {K2_DRAWS} draws "
+            f"each ({time.perf_counter() - t0:.1f} s): {shown}; {card}"
+        )
+        emit({"codec_statistics": stats, "draws": K2_DRAWS, "card": card})
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = was
+    return total
+
+
+def _privacy_k3(card):
+    from repro_torch.bench import gia_ssim
+    from repro_torch.kernels import ops
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    label = "(k3) the Pareto sweep (bench/gia_ssim.py --pareto, the 2-conv victim)"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pareto = gia_ssim._pareto_bench(device="cuda")
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for name in ("log_quantize_pack", "pack_nibbles", "log_dequantize"):
+        check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    rows = pareto["rows"]
+    check([r["method"] for r in rows] == list(K3_EPS), f"{label}: rows {rows}")
+    for r in rows:
+        want_bits = K3_BITS[1] if r["matched_to"] else K3_BITS[0]
+        check(r["wire_bits"] == want_bits, f"{label}: {r['method']} {r['wire_bits']}")
+        want_eps, eps = K3_EPS[r["method"]], r["epsilon"]
+        ok = eps is None if want_eps is None else abs(eps - want_eps) <= 1e-9
+        check(ok, f"{label}: {r['method']} epsilon {eps}, not {want_eps}")
+        check(math.isfinite(r["final_loss"]), f"{label}: {r['method']} loss")
+    gate = pareto["gate"]
+    print(f"{label}: launches {counts}, {secs:.1f} s; {card}")
+    for r in rows:
+        eps = "inf" if r["epsilon"] is None else f"{r['epsilon']:.4f}"
+        print(
+            f"    {r['method']:<15} {r['codec']:<12} eps/step {eps:>9} wire "
+            f"{r['wire_bits']:>6} bits  ssim best {r['ssim']:.4f} mean "
+            f"{r['ssim_mean']:.4f}  final loss {r['final_loss']:.4f}  attack "
+            f"{r['attack_seconds']:.3f} s"
+        )
+    for c in gate["checks"]:
+        print(
+            f"    gate {c['randomized']} vs {c['posthoc']}: wire {c['wire_ok']}, "
+            f"ssim {c['ssim_ok']}, loss {c['loss_ok']}"
+        )
+    print(
+        f"  (k3) _pareto_gate passed={gate['passed']} at the JAX tolerances (ssim "
+        f"{gate['ssim_tol']}, loss {gate['loss_tol']})"
+    )
+    emit({"pareto": pareto, "seconds": secs, "launches": counts, "card": card})
+    check(gate["passed"], f"{label}: the Pareto gate failed: {gate}")
+    return counts
+
+
 def phase_gia(card):
     # the same init, generators and cuDNN algorithms give the same attack
     torch.backends.cudnn.deterministic = True
@@ -2821,9 +3383,16 @@ def main():
     t = time.perf_counter()
     launches = phase_serve(card, gen)
     seconds["serve"] = time.perf_counter() - t
-    # (h) last: its (h2) graph = eager check holds after (i) and (j) since
-    # the attack's backward runs on one thread (core/privacy/gia.py)
-    phases = (phase_train, phase_ssm, phase_composite, phase_lm_train, phase_gia)
+    # (h) last: its (h2) graph = eager check holds after (i), (j) and (k)
+    # since the attack's backward runs on one thread (core/privacy/gia.py)
+    phases = (
+        phase_train,
+        phase_ssm,
+        phase_composite,
+        phase_lm_train,
+        phase_privacy,
+        phase_gia,
+    )
     for phase in phases:
         t = time.perf_counter()
         for name, c in phase(card).items():

@@ -17,19 +17,36 @@ dataclass fields. Registered here:
 * ``log`` :class:`LogQuantCodec`: the paper's Eq. 5/6 log-quantizer; its
   encode and expand go through the Triton kernels on a CUDA tensor;
 * ``qsgd`` :class:`QSGDCodec`: stochastic uniform quantization (Alistarh
-  et al. 2017); the b <= 4 pack goes through the Triton pack kernel.
+  et al. 2017); the b <= 4 pack goes through the Triton pack kernel;
+* ``dlog`` :class:`DitheredLogQuantCodec`: the log grid with stochastic
+  (dithered) rounding, unbiased in the value domain, and at
+  ``dp_epsilon > 0`` Gaussian noise calibrated to a per-use DP budget
+  (arXiv 2304.13545: the quantizer's randomness is the privacy mechanism);
+* ``lrq`` :class:`LayeredRandQuantCodec`: layered randomized quantization
+  (arXiv 2312.07060): each element is rounded on one of ``n_layers``
+  nested coarsenings of the log grid, drawn per use; the wire format and
+  bits are ``log``'s.
 
-The randomized privacy codecs (``dlog``, ``lrq``) are not ported yet.
+The randomized log codecs compute their codes in plain torch, as the JAX
+package computes them in jnp outside any Pallas kernel, in two parts: the
+draws from the generator (``draws``: the Gaussian noise, the uniform ``u``,
+lrq's layer index) and a deterministic transform of them
+(``noised_codes``), which a test can feed the JAX package's own draws.
+Their b <= 4 pack and their expand are the Triton kernels'. Their
+zero-noise configurations are ``log`` outright.
 
 PRNG contract: a codec declares ``requires_key``. A randomized codec needs
 the keyword-only ``key`` (a ``torch.Generator`` on the tensor's device) in
 ``codes``/``encode``; a deterministic one rejects it, since a key silently
 unused would make a run look reproducible when it is not.
 
-Privacy contract: ``epsilon_per_use(delta)`` is the per-message DP epsilon
-under the Gaussian-mechanism convention of
-:mod:`repro_torch.core.privacy.accounting`; ``inf`` for every codec ported
-so far, since none injects calibrated noise.
+Privacy contract: ``privacy_sigma()`` is the std of the injected noise in
+normalized units (0.0 when deterministic) and ``epsilon_per_use(delta)``
+the per-message DP epsilon under the Gaussian-mechanism convention of
+:mod:`repro_torch.core.privacy.accounting` (``inf`` without a guarantee).
+``epsilon_kind`` labels the claim: 'calibrated' (noise sized from a
+requested budget), 'gaussian_equiv' (a proxy from the noise variance) or
+None.
 
 :func:`codec_phase` is the one collective primitive the compressors share:
 it scales (pmax), encodes, ships (ONE fused flat gather with ``fuse=True``,
@@ -49,7 +66,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.comm import CommRecord, SimComm
-from repro_torch.core.quantization import LogQuantConfig, code_dtype, f32_div
+from repro_torch.core.quantization import (
+    LogQuantConfig,
+    code_dtype,
+    f32_div,
+    log_compress,
+    log_expand,
+)
 from repro_torch.core.wire import SymmetricWire, as_wire
 
 __all__ = [
@@ -57,6 +80,9 @@ __all__ = [
     "Float32Codec",
     "LogQuantCodec",
     "QSGDCodec",
+    "DitheredLogQuantCodec",
+    "LayeredRandQuantCodec",
+    "value_unbiased_round",
     "register_codec",
     "make_codec",
     "available_codecs",
@@ -192,6 +218,7 @@ class WireCodec:
     bits: int = 32
     needs_scale: bool = True
     requires_key: bool = False
+    epsilon_kind: str | None = None
     codec_name: str = ""
 
     def codes(
@@ -215,6 +242,10 @@ class WireCodec:
 
     def scale_bits(self, n_scales: int) -> int:
         return 32 * n_scales if self.needs_scale else 0
+
+    def privacy_sigma(self) -> float:
+        """Std of the injected noise in normalized units: none."""
+        return 0.0
 
     def epsilon_per_use(self, delta: float = 1e-5) -> float:
         """Per-message DP epsilon at ``delta``: ``inf``, no guarantee."""
@@ -357,6 +388,215 @@ class QSGDCodec(WireCodec):
         return packed_wire_bits(numel, self.bits)
 
 
+def value_unbiased_round(
+    q: torch.Tensor,
+    step: torch.Tensor | float,
+    levels: int,
+    alpha: float,
+    u: torch.Tensor,
+) -> torch.Tensor:
+    """Round continuous log-domain codes ``q`` onto the multiples of ``step``
+    (clipped at +-levels), up with probability ``p`` where ``u < p``: unbiased
+    in the VALUE domain, E[log_expand(c / L)] = log_expand(q / L).
+
+    Dithering in the log domain would be biased through the convex expand
+    map, so ``p`` is taken between the two candidate reconstruction values
+    v0, v1: p = (v - v0) / (v1 - v0). ``u`` holds uniform [0, 1) draws of
+    q's shape; the arithmetic is the JAX package's ``_value_unbiased_round``
+    op for op, so the same draws give the same codes."""
+    g0 = torch.floor(q / step) * step
+    g1 = torch.clamp(g0 + step, -levels, levels)
+    g0 = torch.clamp(g0, -levels, levels)
+    v0 = log_expand(f32_div(g0, levels), alpha)
+    v1 = log_expand(f32_div(g1, levels), alpha)
+    # == x up to f32 error; recomputed so noise added to x stays consistent
+    v = log_expand(f32_div(q, levels), alpha)
+    p = torch.clamp((v - v0) / torch.clamp(v1 - v0, min=1e-12), 0.0, 1.0)
+    return torch.where(u < p, g1, g0)
+
+
+class _RandomizedLogCodec(LogQuantCodec):
+    """The log grid with randomized rounding: ``codes`` is the deterministic
+    ``noised_codes`` of ``draws`` from the generator. Without a key (the
+    zero-noise configuration, which rejects one) it is ``log`` outright."""
+
+    def draws(
+        self, x: torch.Tensor, key: torch.Generator
+    ) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
+        """``(noise, u, layer)`` for ``x``, each of x's shape or None."""
+        raise NotImplementedError
+
+    def noised_codes(
+        self,
+        x: torch.Tensor,
+        noise: torch.Tensor | None,
+        u: torch.Tensor | None,
+        layer: torch.Tensor | None,
+    ) -> torch.Tensor:
+        """The codes of f32 ``x`` given the draws: deterministic."""
+        raise NotImplementedError
+
+    def codes(self, x, *, key=None):
+        self._check_key(key)
+        if key is None:  # zero noise: exactly the deterministic codec
+            return super().codes(x)
+        x = x.float()
+        return self.noised_codes(x, *self.draws(x, key))
+
+    def encode(self, x, *, key=None):
+        self._check_key(key)
+        if key is None:
+            return super().encode(x)
+        # the fused encode + pack kernel is deterministic: the randomized
+        # codes come from plain torch, their pack from the nibble kernel
+        c = self.codes(x, key=key)
+        if self.bits <= 4:
+            from repro_torch.kernels import ops
+
+            return ops.pack_nibbles(c)
+        return c.reshape(-1)
+
+
+@register_codec("dlog")
+@dataclasses.dataclass(frozen=True)
+class DitheredLogQuantCodec(_RandomizedLogCodec):
+    """Dithered log-quantizer with an optional per-use DP budget (arXiv
+    2304.13545: quantization randomness as the privacy mechanism).
+
+    ``log``'s wire format, packing and ``wire_bits``. With ``dither=True``
+    codes are stochastically rounded, unbiased in the value domain (over
+    generators, E[expand(codes(x))] = x). With ``dp_epsilon > 0``, Gaussian
+    noise of std ``accounting.gaussian_sigma(dp_epsilon, dp_delta)`` is added
+    to the normalized value before rounding; quantization is
+    post-processing, so the (dp_epsilon, dp_delta) guarantee survives it per
+    use. A noised ``|x| > 1`` saturates at +-levels.
+
+    The zero-noise configuration (``dither=False, dp_epsilon=0``) rejects a
+    key and is the ``log`` codec bit for bit."""
+
+    dither: bool = True
+    dp_epsilon: float = 0.0
+    dp_delta: float = 1e-5
+
+    def __post_init__(self):
+        if self.dp_epsilon < 0:
+            raise ValueError(f"dp_epsilon must be >= 0, got {self.dp_epsilon}")
+        if not 0.0 < self.dp_delta < 1.0:
+            raise ValueError(f"dp_delta must be in (0, 1), got {self.dp_delta}")
+
+    @property
+    def requires_key(self) -> bool:
+        return bool(self.dither or self.dp_epsilon > 0)
+
+    @property
+    def epsilon_kind(self) -> str | None:
+        return "calibrated" if self.dp_epsilon > 0 else None
+
+    def privacy_sigma(self) -> float:
+        if self.dp_epsilon <= 0:
+            return 0.0
+        # a late import: privacy/__init__ imports the harness, which imports
+        # the compressors, which import this module
+        from repro_torch.core.privacy.accounting import gaussian_sigma
+
+        return gaussian_sigma(self.dp_epsilon, self.dp_delta)
+
+    def epsilon_per_use(self, delta: float = 1e-5) -> float:
+        del delta  # calibrated against self.dp_delta, not the caller's
+        return self.dp_epsilon if self.dp_epsilon > 0 else math.inf
+
+    def draws(self, x, key):
+        noise = u = None
+        if self.dp_epsilon > 0:
+            noise = torch.randn(x.shape, generator=key, device=x.device)
+        if self.dither:
+            u = torch.rand(x.shape, generator=key, device=x.device)
+        return noise, u, None
+
+    def noised_codes(self, x, noise, u, layer=None):
+        lv = self._cfg.levels
+        if noise is not None:
+            x = x + self.privacy_sigma() * noise
+        q = log_compress(x, self.alpha) * lv
+        if self.dither:
+            c = value_unbiased_round(q, 1.0, lv, self.alpha, u)
+        else:  # noise only: the noised value rounded half to even
+            c = torch.round(q)
+        return torch.clamp(c, -lv, lv).to(code_dtype(self.bits))
+
+
+@register_codec("lrq")
+@dataclasses.dataclass(frozen=True)
+class LayeredRandQuantCodec(_RandomizedLogCodec):
+    """Layered randomized quantizer (arXiv 2312.07060).
+
+    Each element draws one of ``n_layers`` nested coarsenings of the log
+    grid (layer j keeps the codes that are multiples of 2^j) and is rounded
+    onto it, unbiased in the value domain. Coarser layers add more rounding
+    noise, so the mixture widens the output distribution, while every code
+    stays a valid b-bit code: ``log``'s wire format and bits, and the
+    receiver needs none of the sender's draws.
+
+    ``epsilon_per_use`` is a Gaussian-equivalent proxy from the mixture's
+    rounding-noise variance (``epsilon_kind='gaussian_equiv'``): the noise
+    has bounded support, so it is a comparison heuristic, not a calibrated
+    guarantee. The zero-noise configuration (``n_layers=1, dither=False``)
+    is the ``log`` codec bit for bit."""
+
+    n_layers: int = 2
+    dither: bool = True
+
+    def __post_init__(self):
+        if not 1 <= self.n_layers <= self.bits - 1:
+            raise ValueError(
+                f"n_layers must be in [1, bits-1] = [1, {self.bits - 1}], "
+                f"got {self.n_layers}"
+            )
+        if self.n_layers > 1 and not self.dither:
+            raise ValueError(
+                "n_layers > 1 requires dither=True: deterministic rounding "
+                "on a random layer is biased"
+            )
+
+    @property
+    def requires_key(self) -> bool:
+        return bool(self.n_layers > 1 or self.dither)
+
+    @property
+    def epsilon_kind(self) -> str | None:
+        return "gaussian_equiv" if self.requires_key else None
+
+    def privacy_sigma(self) -> float:
+        """Worst-case rounding-noise std in normalized log-domain units:
+        layer j contributes a Bernoulli variance <= (2^j / 2)^2 code units,
+        averaged over the uniform layer draw."""
+        if not self.requires_key:
+            return 0.0
+        var_codes = sum(4.0**j for j in range(self.n_layers)) / (4.0 * self.n_layers)
+        return math.sqrt(var_codes) / self._cfg.levels
+
+    def epsilon_per_use(self, delta: float = 1e-5) -> float:
+        from repro_torch.core.privacy.accounting import gaussian_epsilon
+
+        return gaussian_epsilon(self.privacy_sigma(), delta)
+
+    def draws(self, x, key):
+        layer = None
+        if self.n_layers > 1:
+            layer = torch.randint(
+                0, self.n_layers, x.shape, generator=key, device=x.device
+            )
+        u = torch.rand(x.shape, generator=key, device=x.device)
+        return None, u, layer
+
+    def noised_codes(self, x, noise, u, layer):
+        lv = self._cfg.levels
+        q = log_compress(x, self.alpha) * lv
+        step = 1.0 if layer is None else torch.exp2(layer.float())
+        c = value_unbiased_round(q, step, lv, self.alpha, u)
+        return torch.clamp(c, -lv, lv).to(code_dtype(self.bits))
+
+
 # --------------------------------------------------------------------------
 # the shared collective phase
 # --------------------------------------------------------------------------
@@ -376,9 +616,17 @@ def _encode_workers(
     """Each worker's wire array of a (N, ...) tensor, as (N, nbytes|numel),
     in one encode. Where two codes share a byte and a worker's count is odd,
     each worker's row gets a zero pad value first, so no byte straddles two
-    workers; it encodes as the zero pad code the per-worker encode adds."""
+    workers; it encodes as the zero pad code the per-worker encode adds (a
+    randomized codec's codes are padded instead)."""
     rows = x.reshape(x.shape[0], -1)
     if codec.bits <= 4 and rows.shape[1] % 2:
+        if codec.requires_key:
+            # a draw may give a zero pad value a nonzero code (dlog's noise):
+            # pad the codes with the zero code instead
+            from repro_torch.kernels import ops
+
+            codes = F.pad(codec.codes(rows, key=key), (0, 1))
+            return ops.pack_nibbles(codes.contiguous()).reshape(x.shape[0], -1)
         rows = F.pad(rows, (0, 1))
     wire = codec.encode(rows.contiguous(), key=key)
     return wire.reshape(x.shape[0], -1)

@@ -8,11 +8,13 @@ compressors drive: one (fused) codec phase set per method and wire dtype a
 step. A uniform-policy composite is therefore the dedicated compressor bit
 for bit.
 
-State: the handlers' namespaces (``err``, warm-start ``q``, QSGD's ``key``
-seed) merge into one dict keyed by the global leaf index, with the
-composite's own ``step`` counter (a Python int, as QSGD's is: it seeds the
-generators of QSGD and of the server wire's participation draw). Per-worker
-tensors lead with the worker dim N, as everywhere in the port.
+State: the handlers' namespaces (``err``, warm-start ``q``) merge into one
+dict keyed by the global leaf index, with the composite's own ``step``
+counter (a Python int, as QSGD's is: it seeds the generators of QSGD, of the
+randomized codecs and of the server wire's participation draw) and a
+``key`` seed where some group draws (``group_needs_prng``: QSGD, or an
+LQ-SGD group with a ``dlog`` / ``lrq`` leaf). Per-worker tensors lead with
+the worker dim N, as everywhere in the port.
 
 Schedules (:class:`PolicySchedule`):
 
@@ -194,10 +196,11 @@ class CompositeCompressor(GradCompressor):
     # ---- state -----------------------------------------------------------
     def init_state(self, seed: int, n_workers: int, device="cuda") -> dict[str, Any]:
         state: dict[str, Any] = {"step": 0}
-        for h in self.handlers.values():
+        for m, h in self.handlers.items():
             for ns in h.namespaces:
                 state.setdefault(ns, {})
-            if h.needs_prng:
+            # per group: a randomized codec may reach only some leaves
+            if h.group_needs_prng([self.plans[i] for i in self.groups[m]]):
                 state.setdefault("key", int(seed))
         for m, idxs in self.groups.items():
             h = self.handlers[m]
@@ -240,6 +243,12 @@ class CompositeCompressor(GradCompressor):
             for pl in self.plans
         )
 
+    def privacy_epsilon_kinds(self) -> tuple[str, ...]:
+        kinds = {
+            self.handlers[pl.policy.method].leaf_epsilon_kind(pl) for pl in self.plans
+        }
+        return tuple(sorted(k for k in kinds if k))
+
     def _has_err(self, i: int, state: dict[str, Any]) -> bool:
         """Does leaf ``i`` carry error feedback? (Its innovation variable is
         then the error-corrected update ``g + err``.)"""
@@ -263,6 +272,19 @@ class CompositeCompressor(GradCompressor):
         return pl.route == "lowrank" or pl.policy.method == "lq_sgd"
 
     def graph_refusal(self) -> str | None:
+        # groups that draw because of their leaves' codecs (not QSGD's own)
+        drawing = [
+            m
+            for m, h in self.handlers.items()
+            if not h.needs_prng
+            and h.group_needs_prng([self.plans[i] for i in self.groups[m]])
+        ]
+        if drawing:
+            return (
+                f"the randomized codecs (dlog, lrq) of the {', '.join(drawing)} "
+                "group draw from per-(leaf, phase) generators that no graph "
+                "registers yet (ROADMAP Queue 1, item 20, the graphed composite)"
+            )
         return (
             "the composite compressor's lazy groups, server participation "
             "draw and schedules are not captured yet (ROADMAP Queue 1, item "

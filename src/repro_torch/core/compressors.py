@@ -22,9 +22,18 @@ The method math lives in :class:`LeafGroupHandler` subclasses; a
 dedicated compressor drives one handler over every leaf, and
 :class:`~repro_torch.core.composite.CompositeCompressor` one handler per
 method group of a per-leaf policy. :func:`make_compressor` routes per-leaf
-policies, schedules, lazy aggregation and server drop-out to the composite,
-as the JAX package does. The randomized privacy codecs are not ported yet:
-asking for one raises, naming the ROADMAP item that ports them.
+policies, schedules, lazy aggregation, server drop-out and the randomized
+privacy codecs (``codec``, ``dp_epsilon``) to the composite, as the JAX
+package does.
+
+Generators: a randomized method draws from one ``torch.Generator`` per
+(leaf, step, stream), seeded from the state's ``key`` seed
+(:func:`leaf_generator`). One generator draws the whole (N, ...) tensor,
+so the workers' draws are independent, as JAX's ``fold_in`` of the worker
+index makes them. Streams: QSGD 0; the post-hoc noise and the attack
+restarts of :mod:`repro_torch.core.privacy.harness` 1 and 2; LQ-SGD's
+randomized codecs :data:`PHASE_STREAMS` (the JAX package's phase tags P, Q
+and raw), so no leaf's streams collide in a composite.
 """
 
 from __future__ import annotations
@@ -68,20 +77,20 @@ __all__ = [
     "error_corrected",
     "state_dtype",
     "POLICY_METHODS",
+    "PHASE_STREAMS",
 ]
 
 # every method a LeafPolicy may name; 'raw' is the uncompressed f32 pmean
 POLICY_METHODS = ("raw", "topk", "qsgd", "powersgd", "lq_sgd")
+# leaf_generator streams of a randomized factor codec's P, Q and raw phases
+# (the JAX package's phase tags 0 / 1 / 2); QSGD draws from stream 0
+PHASE_STREAMS = {"p": 3, "q": 4, "raw": 5}
 
 
 @dataclasses.dataclass(frozen=True)
 class CompressorConfig:
     """Config shared by all compressors (the JAX package's fields, without
-    its backend flag: the port dispatches by tensor device).
-
-    ``codec`` and ``dp_epsilon`` select the randomized privacy codecs,
-    which are not ported yet: anything but their defaults makes
-    :func:`make_compressor` raise, naming the ROADMAP item that ports them."""
+    its backend flag: the port dispatches by tensor device)."""
 
     name: str = "none"
     # low-rank options (powersgd / lq_sgd)
@@ -136,10 +145,16 @@ class CompressorConfig:
     # server weighting: 'participation' or 'sparsity' (FedDropoutAvg)
     agg: str = "participation"
     participation_seed: int = 0
-    # ---- randomized privacy codecs (not ported yet) ----------------------
+    # ---- randomized privacy codecs (core/codec.py) -----------------------
+    # the log-quant family's wire codec: None -> 'log' (or 'dlog' when
+    # dp_epsilon > 0); 'dlog' / 'lrq' the randomized ones
     codec: str | None = None
+    # per-use DP budget: > 0 calibrates dlog's Gaussian noise to
+    # (dp_epsilon, dp_delta) per transmitted message; 0 = no DP noise
     dp_epsilon: float = 0.0
     dp_delta: float = 1e-5
+    # layer count of the 'lrq' layered randomized quantizer
+    lrq_layers: int = 2
 
     def __post_init__(self):
         if self.dp_epsilon < 0:
@@ -156,10 +171,10 @@ class LeafPolicy:
     bits: int = 8
     bits_q: int | None = None  # factor-Q wire bits; None -> same as bits
     topk_ratio: float = 0.01
-    # wire codec of the log-quant family: None or 'log' (the randomized
-    # 'dlog' / 'lrq' are not ported yet)
+    # wire codec of the log-quant family: None -> the config's ('log', or
+    # 'dlog' when a DP budget is set); 'dlog' / 'lrq' the randomized ones
     codec: str | None = None
-    dp_epsilon: float = 0.0  # per-use DP budget of a randomized codec
+    dp_epsilon: float = 0.0  # per-use DP budget of this leaf; 0 -> the config's
     min_numel: int | None = None  # per-leaf routing-threshold override
     # lazy aggregation: relative innovation threshold (0.0 = eager) and the
     # max consecutive skips before a forced fire
@@ -187,11 +202,13 @@ class LeafPolicy:
             )
         if self.dp_epsilon < 0:
             raise ValueError(f"dp_epsilon must be >= 0, got {self.dp_epsilon}")
-        if self.codec not in (None, "log") or self.dp_epsilon > 0:
-            raise NotImplementedError(
-                "randomized codecs (codec other than 'log', dp_epsilon > 0) are "
-                "not ported yet: ROADMAP Queue 1, item 13"
-            )
+        if self.codec is not None:
+            from repro_torch.core.codec import available_codecs
+
+            if self.codec not in available_codecs():
+                raise ValueError(
+                    f"unknown codec {self.codec!r}; available: {available_codecs()}"
+                )
 
     @property
     def eff_bits_q(self) -> int:
@@ -345,10 +362,10 @@ class LeafGroupHandler:
     replaces. Namespaces in ``param_shaped`` hold each worker's own
     param-shaped tensors (error feedback); the rest are the same on every
     worker. ``needs_prng``: the group draws from the state's ``key`` seed
-    and ``step`` counter. With ``donate=True`` a handler may write a new
-    state tensor into the memory of the one it replaces and return that
-    same tensor (the JAX step's donated state); the values are the same
-    bits either way."""
+    and ``step`` counter (``group_needs_prng`` answers per group). With
+    ``donate=True`` a handler may write a new state tensor into the memory
+    of the one it replaces and return that same tensor (the JAX step's
+    donated state); the values are the same bits either way."""
 
     method = "raw"
     namespaces: tuple[str, ...] = ()
@@ -358,6 +375,13 @@ class LeafGroupHandler:
     def __init__(self, cfg: CompressorConfig):
         self.cfg = cfg
 
+    def group_needs_prng(self, plans: Sequence[LeafPlan]) -> bool:
+        """Does syncing these plans draw from the state's generators? The
+        class flag for a static handler; a codec-driven one (LQ-SGD) answers
+        per group, so a deterministic group keeps a state without ``key``."""
+        del plans
+        return self.needs_prng
+
     # ---- per-leaf state ---------------------------------------------------
     def init_leaf_state(
         self, seed: int, i: int, pl: LeafPlan, n_workers: int, device
@@ -366,8 +390,15 @@ class LeafGroupHandler:
 
     # ---- the group sync ---------------------------------------------------
     def sync_raw(
-        self, g: torch.Tensor, pl: LeafPlan, comm: SymmetricWire, rec: CommRecord
+        self,
+        g: torch.Tensor,
+        pl: LeafPlan,
+        comm: SymmetricWire,
+        rec: CommRecord,
+        *,
+        key: torch.Generator | None = None,
     ) -> torch.Tensor:
+        del key  # the f32 pmean is deterministic
         return _pmean_raw(g, comm, rec)
 
     def sync_group(self, items, state, comm, rec, *, donate=False):
@@ -392,6 +423,12 @@ class LeafGroupHandler:
         for any deterministic transmission, which has no DP guarantee)."""
         del delta
         return math.inf
+
+    def leaf_epsilon_kind(self, pl: LeafPlan) -> str | None:
+        """The kind of this leaf's epsilon claim (a codec's ``epsilon_kind``:
+        'calibrated', 'gaussian_equiv'), ``None`` where it ships no noise."""
+        del pl
+        return None
 
     def raw_collectives(self, pl: LeafPlan) -> int:
         return 1
@@ -778,6 +815,11 @@ class GradCompressor:
         Compose across steps with :mod:`repro_torch.core.privacy.accounting`."""
         return sum(self.handler.leaf_epsilon(pl, delta) for pl in self.plans)
 
+    def privacy_epsilon_kinds(self) -> tuple[str, ...]:
+        """The kinds of the leaves' epsilon claims, sorted, each once."""
+        kinds = {self.handler.leaf_epsilon_kind(pl) for pl in self.plans}
+        return tuple(sorted(k for k in kinds if k))
+
     def privacy_budget(
         self, steps: int, *, delta: float = 1e-5, sampling_rate: float = 1.0
     ):
@@ -831,12 +873,6 @@ class QSGDCompressor(GradCompressor):
         return {**state, "step": state["step"] + 1}
 
 
-# route -> (config test, where the port of the route is planned)
-_NOT_PORTED = (
-    ("randomized codecs", lambda c: c.codec is not None or c.dp_epsilon > 0, "item 13"),
-)
-
-
 def make_compressor(
     cfg: CompressorConfig, abstract_grads: Tree, stacked: Tree | None = None
 ) -> GradCompressor:
@@ -844,11 +880,6 @@ def make_compressor(
     from repro_torch.core.lq_sgd import LQSGDCompressor
     from repro_torch.core.powersgd import PowerSGDCompressor
 
-    for what, asked, item in _NOT_PORTED:
-        if asked(cfg):
-            raise NotImplementedError(
-                f"{what} are not ported yet: ROADMAP Queue 1, {item}"
-            )
     if cfg.topology not in ("symmetric", "server"):
         raise ValueError(
             f"unknown topology {cfg.topology!r}; options: 'symmetric', 'server'"
@@ -856,12 +887,16 @@ def make_compressor(
     # server drop-out needs the composite: it owns the step counter the
     # participation draw folds in and the per-worker state freezing
     server_dropout = cfg.topology == "server" and cfg.participation < 1.0
+    # randomized codecs need the composite too: it owns the state's key
+    # seed and step counter the per-(leaf, phase) generators derive from
+    randomized = cfg.dp_epsilon > 0 or cfg.codec is not None
     if (
         cfg.policy not in (None, "uniform")
         or cfg.warmup_steps
         or cfg.schedule_decay
         or cfg.lazy_thresh > 0
         or server_dropout
+        or randomized
     ):
         from repro_torch.core.composite import CompositeCompressor, PolicySchedule
         from repro_torch.core.policy import plan_auto, resolve_policies

@@ -22,8 +22,12 @@ their all-reduce: that is what reconciles the paper's Table-I LQ-SGD sizes
 over dequantized values: a mean of log-domain codes over a sign-mixed small
 tensor is badly biased (a quasi-geometric mean).
 
-Only the deterministic ``log`` codec is ported; its randomized relatives
-(``dlog``, ``lrq``) wait for the privacy-codec slice.
+Randomized wire: ``cfg.codec`` or a leaf's ``LeafPolicy.codec`` swaps
+``log`` for its randomized relatives (``dlog`` with a calibrated DP budget,
+``lrq`` layered; :mod:`repro_torch.core.codec`), and a DP budget without a
+codec picks ``dlog``. The wire format and bits stay ``log``'s; the rounding
+draws from per-(leaf, phase) generators
+(:class:`~repro_torch.core.powersgd.PowerSGDHandler`).
 """
 
 from __future__ import annotations
@@ -46,7 +50,17 @@ class LQSGDHandler(PowerSGDHandler):
     method = "lq_sgd"
 
     def _leaf_codec(self, pl, bits: int) -> WireCodec:
-        return make_codec("log", bits=bits, alpha=self.cfg.alpha)
+        """The log-quant family member of one leaf: ``pl.policy.codec``, else
+        ``cfg.codec``, else ``dlog`` where the leaf has a DP budget and
+        ``log`` where it has none; the privacy knobs from the same pair."""
+        eps = pl.policy.dp_epsilon or self.cfg.dp_epsilon
+        name = pl.policy.codec or self.cfg.codec or ("dlog" if eps > 0 else "log")
+        knobs: dict = dict(bits=bits, alpha=self.cfg.alpha)
+        if name == "dlog":
+            knobs.update(dp_epsilon=eps, dp_delta=self.cfg.dp_delta)
+        elif name == "lrq":
+            knobs.update(n_layers=min(self.cfg.lrq_layers, max(1, bits - 1)))
+        return make_codec(name, **knobs)
 
     def _leaf_bits_p(self, pl) -> int:
         return pl.policy.bits
@@ -57,16 +71,21 @@ class LQSGDHandler(PowerSGDHandler):
     def _raw_codec(self, pl) -> WireCodec:
         return self._leaf_codec(pl, pl.policy.bits)
 
-    def sync_raw(self, g, pl, comm, rec):
+    def _raw_needs_key(self, pl) -> bool:
+        return self._raw_codec(pl).requires_key
+
+    def sync_raw(self, g, pl, comm, rec, *, key=None):
+        codec = self._raw_codec(pl)
         out = codec_phase(
             [g.float()],
             [False],
-            self._raw_codec(pl),
+            codec,
             comm,
             rec,
             avg_mode="dequant_then_mean",
             wire=self.cfg.wire_accounting,
             fuse=False,
+            keys=[key] if codec.requires_key else None,
         )[0]
         return out.to(g.dtype)
 
@@ -83,6 +102,10 @@ class LQSGDHandler(PowerSGDHandler):
         if pl.route == "lowrank":
             return super().leaf_epsilon(pl, delta)
         return self._raw_codec(pl).epsilon_per_use(delta)
+
+    def leaf_epsilon_kind(self, pl) -> str | None:
+        # the P, Q and raw codecs differ only in bits, which no kind reads
+        return self._raw_codec(pl).epsilon_kind
 
     def leaf_physical_bits(self, pl):
         if pl.route == "lowrank" or self.cfg.wire_accounting != "psum_sim":

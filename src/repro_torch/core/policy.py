@@ -254,12 +254,27 @@ def _quant_err(bits: int) -> float:
     return 2.0 ** -(bits - 1)
 
 
-def _check_deterministic(codec: str | None, dp_epsilon: float) -> None:
-    if codec not in (None, "log") or dp_epsilon > 0:
-        raise NotImplementedError(
-            "planning with randomized codecs is not ported yet: ROADMAP "
-            "Queue 1, item 13"
-        )
+def _privacy_terms(
+    codec: str | None, dp_epsilon: float, dp_delta: float, lrq_layers: int, bits: int
+) -> tuple[str | None, float, float]:
+    """(effective codec name, dp_epsilon, extra error proxy) of the privacy
+    knobs. The extra error is the std of the codec's injected noise in
+    normalized units: the calibrated Gaussian sigma for ``dlog``, the layer
+    mixture's rounding std for ``lrq``. So a tighter dp_epsilon (more noise)
+    pushes the planner toward more bits and ranks."""
+    if dp_epsilon <= 0 and codec is None:
+        return None, 0.0, 0.0
+    eff = codec or "dlog"
+    extra = 0.0
+    if eff == "lrq":
+        # the layer mixture's extra rounding noise over plain b-bit codes
+        mix = (sum(4.0**j for j in range(lrq_layers)) / lrq_layers) ** 0.5
+        extra += _quant_err(bits) * mix
+    if dp_epsilon > 0 and eff == "dlog":
+        from repro_torch.core.privacy.accounting import gaussian_sigma
+
+        extra += gaussian_sigma(dp_epsilon, dp_delta)
+    return eff, dp_epsilon, extra
 
 
 def _candidates(
@@ -272,21 +287,31 @@ def _candidates(
     qsgd_bits,
     lazy_options: Sequence[tuple[float, int]] = (),
     lazy_adaptive: float = 0.0,
+    codec: str | None = None,
+    dp_epsilon: float = 0.0,
+    dp_delta: float = 1e-5,
+    lrq_layers: int = 2,
 ) -> list[tuple[LeafPolicy, float]]:
     """(policy, error proxy) candidates for one leaf. ``lazy_options``
     ((lazy_thresh, max_stale) pairs) add a skip-round variant of every
-    lossy candidate, its error grown by the staleness penalty."""
+    lossy candidate, its error grown by the staleness penalty. The privacy
+    knobs (:func:`_privacy_terms`) set every lq_sgd candidate's codec and
+    budget and add their noise to its error."""
     out: list[tuple[LeafPolicy, float]] = [(LeafPolicy(method="raw"), 0.0)]
     inst = pl.shape[1:] if pl.stacked else pl.shape
+
+    def lq(b: int, err: float, **kw) -> tuple[LeafPolicy, float]:
+        eff, eps, extra = _privacy_terms(codec, dp_epsilon, dp_delta, lrq_layers, b)
+        pol = LeafPolicy(method="lq_sgd", bits=b, codec=eff, dp_epsilon=eps, **kw)
+        return pol, err + _quant_err(b) + extra
+
     if pl.route == "lowrank":
         n, m = pl.mat_shape
         for r in ranks:
             lr = cm.ef_discount * _lowrank_err(min(r, n, m), n, m)
             out.append((LeafPolicy(method="powersgd", rank=r), lr))
             for b in bits_options:
-                out.append(
-                    (LeafPolicy(method="lq_sgd", bits=b, rank=r), lr + _quant_err(b))
-                )
+                out.append(lq(b, lr, rank=r))
         for rho in topk_ratios:
             out.append(
                 (
@@ -300,7 +325,7 @@ def _candidates(
         # raw-route leaves: lq_sgd still quantizes them on its raw path, the
         # only method that saves wire here (no error feedback)
         for b in bits_options:
-            out.append((LeafPolicy(method="lq_sgd", bits=b), _quant_err(b)))
+            out.append(lq(b, 0.0))
     variants = []
     for pol, err in out:
         if pol.method == "raw":
@@ -352,7 +377,6 @@ def plan_auto(
     from repro_torch.core.composite import handler_for
 
     cfg = cfg or CompressorConfig()
-    _check_deterministic(cfg.codec, cfg.dp_epsilon)
     budget = cfg.error_budget if error_budget is None else error_budget
     cm = cost_model or CostModel()
     if lazy_options is None:
@@ -391,6 +415,10 @@ def plan_auto(
             qsgd_bits=qsgd_bits,
             lazy_options=lazy_options,
             lazy_adaptive=cfg.lazy_adaptive,
+            codec=cfg.codec,
+            dp_epsilon=cfg.dp_epsilon,
+            dp_delta=cfg.dp_delta,
+            lrq_layers=cfg.lrq_layers,
         ):
             if err > budget:
                 continue
@@ -471,6 +499,10 @@ def format_plan_report(report: list[dict]) -> str:
             "topk": f"p{r['topk_ratio']}",
             "qsgd": f"b{r['bits']}",
         }.get(r["method"], "")
+        if r.get("codec"):
+            knobs += f"+{r['codec']}"
+            if r.get("epsilon"):
+                knobs += f"(eps={r['epsilon']:g})"
         if r.get("lazy_thresh", 0) > 0:
             knobs += f"~lazy(p={r['p_fire']:.2f})"
         lines.append(

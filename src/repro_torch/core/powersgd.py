@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.codec import WireCodec, codec_phase, make_codec
 from repro_torch.core.compressors import (
+    PHASE_STREAMS,
     GradCompressor,
     LeafGroupHandler,
     LeafPlan,
@@ -84,6 +85,29 @@ class PowerSGDHandler(LeafGroupHandler):
     def _codec_q(self, pl: LeafPlan) -> WireCodec:
         return self._leaf_codec(pl, self._leaf_bits_q(pl))
 
+    def _raw_needs_key(self, pl: LeafPlan) -> bool:
+        """Does this leaf's raw route draw? (LQ-SGD quantizes raw leaves
+        too, so a randomized codec reaches them.)"""
+        return False
+
+    def group_needs_prng(self, plans):
+        for pl in plans:
+            if pl.route == "lowrank":
+                if self._codec_p(pl).requires_key or self._codec_q(pl).requires_key:
+                    return True
+            elif self._raw_needs_key(pl):
+                return True
+        return False
+
+    @staticmethod
+    def _leaf_key(state, i: int, phase: str, device) -> torch.Generator:
+        """Leaf ``i``'s generator of one phase ('p', 'q' or 'raw') at the
+        state's step: the JAX package's ``fold_in(fold_in(base, i), phase)``,
+        each on a stream of its own (``PHASE_STREAMS``)."""
+        return leaf_generator(
+            state["key"], state["step"], i, device, stream=PHASE_STREAMS[phase]
+        )
+
     # ---- state -----------------------------------------------------------
     def init_leaf_state(self, seed, i, pl, n_workers, device):
         """Zero E per worker and a warm-start Q from the seed and the leaf
@@ -102,11 +126,14 @@ class PowerSGDHandler(LeafGroupHandler):
         }
 
     # ---- one collective phase, sub-grouped by wire codec ------------------
-    def _phase(self, xs, flags, codecs, comm, rec):
+    def _phase(self, xs, flags, codecs, comm, rec, keys=None):
         """Ship one factor phase; leaves sub-group by codec (equal knobs
-        compare equal, so a uniform group stays ONE fused collective)."""
+        compare equal, so a uniform group stays ONE fused collective).
+        ``keys(j)`` gives the generator of the j-th tensor, for the codecs
+        that draw."""
         out: list = [None] * len(xs)
         for codec, idxs in _group_by(range(len(xs)), lambda j: codecs[j]):
+            ks = [keys(j) for j in idxs] if codec.requires_key else None
             res = codec_phase(
                 [xs[j] for j in idxs],
                 [flags[j] for j in idxs],
@@ -116,12 +143,18 @@ class PowerSGDHandler(LeafGroupHandler):
                 avg_mode=self.cfg.avg_mode,
                 wire=self.cfg.wire_accounting,
                 fuse=self.cfg.fuse_collectives,
+                keys=ks,
             )
             for j, r in zip(idxs, res):
                 out[j] = r
         return out
 
     # ---- the group sync ---------------------------------------------------
+    def _keys(self, comp, state, phase: str):
+        """The j-th compressed leaf's generator of ``phase``, made when a
+        codec that draws asks for it."""
+        return lambda j: self._leaf_key(state, comp[j][0], phase, comp[j][1].device)
+
     def sync_group(self, items, state, comm, rec, *, donate=False):
         outs: dict[int, torch.Tensor] = {}
         new_err: dict[str, torch.Tensor] = {}
@@ -130,6 +163,9 @@ class PowerSGDHandler(LeafGroupHandler):
         for i, g, pl in items:
             if pl.route == "lowrank":
                 comp.append((i, g, pl))
+            elif self._raw_needs_key(pl):
+                key = self._leaf_key(state, i, "raw", g.device)
+                outs[i] = self.sync_raw(g, pl, comm, rec, key=key)
             else:
                 outs[i] = self.sync_raw(g, pl, comm, rec)
         if not comp:
@@ -143,11 +179,13 @@ class PowerSGDHandler(LeafGroupHandler):
             g_ef = error_corrected(g, state["err"][str(i)], shp, inp)
             g_efs.append(g_ef)  # Alg.1 l.4
             ps.append(power_iter_p(g_ef, state["q"][str(i)]))  # Alg.1 l.10
-        ps = self._phase(ps, flags, [self._codec_p(pl) for _, _, pl in comp], comm, rec)
+        codecs_p = [self._codec_p(pl) for _, _, pl in comp]
+        ps = self._phase(ps, flags, codecs_p, comm, rec, self._keys(comp, state, "p"))
         # ---- orthonormalize + Q phase ----
         p_hats = [orthonormalize(p) for p in ps]  # Alg.1 l.11
         qs = [power_iter_q(g_ef, p_hat) for g_ef, p_hat in zip(g_efs, p_hats)]
-        qs = self._phase(qs, flags, [self._codec_q(pl) for _, _, pl in comp], comm, rec)
+        codecs_q = [self._codec_q(pl) for _, _, pl in comp]
+        qs = self._phase(qs, flags, codecs_q, comm, rec, self._keys(comp, state, "q"))
         # ---- reconstruct + error feedback ----
         for (i, g, pl), g_ef, p_hat, q_new, inp in zip(
             comp, g_efs, p_hats, qs, in_place

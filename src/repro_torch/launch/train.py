@@ -15,12 +15,13 @@ config is f32 (TF32 off, as the JAX package computes).
 The step runs under the async runtime by default (prefetched batches,
 deferred metric reads, background checkpoints: ``train/runtime.py``);
 ``--runtime sync`` is the reference loop. The JAX launcher's flags carry
-over. Those of parts not ported raise, naming the ROADMAP item that ports
-them: a model axis above 1, ``--production-mesh`` and ``--multi-pod``
-(tensor and multi-card parallelism, item 15); ``--codec`` and
-``--dp-epsilon`` (the randomized codecs, item 13); the architectures the
-port lacks and mamba2-370m training (its ``ssd_chunk`` kernel has no
-backward; item 14).
+over. ``--codec dlog|lrq`` and ``--dp-epsilon`` put the randomized privacy
+codecs on the LQ-SGD wire (through the composite compressor); the run's
+line then also prints the per-step DP epsilon and its kind. Those of parts
+not ported raise, naming the ROADMAP item that ports them: a model axis
+above 1, ``--production-mesh`` and ``--multi-pod`` (tensor and multi-card
+parallelism, item 15); the architectures the port lacks and mamba2-370m
+training (its ``ssd_chunk`` kernel has no backward; item 14).
 """
 
 from __future__ import annotations
@@ -107,9 +108,18 @@ def _parser() -> argparse.ArgumentParser:
         default="allgather_codes",
         choices=("allgather_codes", "psum_sim"),
     )
-    ap.add_argument("--codec", default=None, help="not ported (item 13)")
     ap.add_argument(
-        "--dp-epsilon", type=float, default=0.0, help="not ported (item 13)"
+        "--codec",
+        default=None,
+        help="the lq_sgd leaves' wire codec: 'log' (deterministic), 'dlog' "
+        "(dithered, DP), 'lrq' (layered randomized); default by --dp-epsilon",
+    )
+    ap.add_argument(
+        "--dp-epsilon",
+        type=float,
+        default=0.0,
+        help="per-use DP budget of each transmitted tensor; > 0 calibrates "
+        "dlog's noise",
     )
     ap.add_argument("--dp-delta", type=float, default=1e-5)
     ap.add_argument(
@@ -153,11 +163,6 @@ def _check_ported(args: argparse.Namespace) -> None:
             "--production-mesh / --multi-pod: multi-card meshes are not ported "
             "yet (ROADMAP Queue 1, item 15)"
         )
-    if args.codec is not None or args.dp_epsilon > 0:
-        raise NotImplementedError(
-            "--codec / --dp-epsilon: the randomized privacy codecs are not "
-            "ported yet (ROADMAP Queue 1, item 13)"
-        )
     if args.arch in LATER_SLICES:
         raise NotImplementedError(
             f"--arch {args.arch}: not ported yet (ROADMAP Queue 1, item 14)"
@@ -183,6 +188,8 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         alpha=args.alpha,
         wire_accounting=args.wire_accounting,
         avg_mode=args.avg_mode,
+        codec=args.codec,
+        dp_epsilon=args.dp_epsilon,
         dp_delta=args.dp_delta,
         fuse_collectives=args.fuse,
         state_dtype=args.comp_dtype,
@@ -259,12 +266,18 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         if getattr(comp0, "lazy_groups", None):
             lazy_mb = comp0.expected_wire_bits_per_step() / 8e6
             lazy_note = f" expected(lazy)={lazy_mb:.3f}MB"
+        privacy_note = ""
+        if args.codec is not None or args.dp_epsilon > 0:
+            eps = comp0.privacy_epsilon_per_step(args.dp_delta)
+            kinds = "+".join(comp0.privacy_epsilon_kinds()) or "none"
+            privacy_note = f" epsilon/step={eps:g} ({kinds})"
         print(
             f"arch={cfg.name} params={n_params / 1e6:.1f}M "
             f"mesh={{'data': {mesh[0]}, 'model': {mesh[1]}}} "
             f"compressor={args.compressor} policy={comp_cfg.policy or 'uniform'} "
             f"runtime={args.runtime} microbatch={args.microbatch} "
-            f"wire/step={comp0.wire_bits_per_step() / 8e6:.3f}MB{lazy_note} "
+            f"wire/step={comp0.wire_bits_per_step() / 8e6:.3f}MB{lazy_note}"
+            f"{privacy_note} "
             f"(uncompressed={n_params * 4 / 1e6:.1f}MB) device={dev}",
             flush=True,
         )

@@ -121,7 +121,8 @@ def test_float32_phase_and_sparse_accounting_match_jax(fuse):
 
 # ------------------------------------------------------------- the registry
 def test_registry_lists_the_ported_codecs():
-    assert tcodec.available_codecs() == ("float32", "log", "qsgd")
+    want = ("dlog", "float32", "log", "lrq", "qsgd")
+    assert tcodec.available_codecs() == jcodec.available_codecs() == want
 
 
 def test_make_codec_parses_inline_knobs_and_keywords_win():

@@ -1086,3 +1086,41 @@ def test_graphed_attack_equals_eager_whatever_autograd_ran_before(cuda, monkeypa
     eager = attack(False)
     assert torch.equal(graphed[0], eager[0])
     assert torch.equal(graphed[1], eager[1])
+
+
+@pytest.mark.parametrize(
+    "spec",
+    ["dlog:bits=4,dp_epsilon=16", "dlog:bits=8,dp_epsilon=16", "lrq:bits=4", "lrq"],
+)
+@pytest.mark.parametrize("n", [4608, 1001])
+def test_randomized_encode_on_the_card_equals_its_plain_version(cuda, spec, n):
+    """dlog / lrq on the card: the codes come from plain torch on the card's
+    generator, the b <= 4 pack from the nibble kernel, the expand from the
+    dequant kernel; the same seed gives the same bytes as reference mode and
+    as a second run, another seed other bytes, every code a valid b-bit one."""
+    from repro_torch.core.codec import make_codec
+
+    codec = make_codec(spec)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(n, generator=gen, device="cuda") * 0.3).clamp(-1, 1)
+
+    def enc(seed):
+        return codec.encode(x, key=torch.Generator(device="cuda").manual_seed(seed))
+
+    ops.reset_launch_counts()
+    got = enc(5)
+    launched = ops.launch_counts()
+    assert launched["pack_nibbles"] == (1 if codec.bits <= 4 else 0)
+    assert launched["log_quantize"] == launched["log_quantize_pack"] == 0
+    with ops.reference_mode():
+        want = enc(5)
+    assert torch.equal(got, want) and torch.equal(got, enc(5))
+    assert not torch.equal(got, enc(6))
+    assert got.numel() * 8 == codec.wire_bits(n)
+    codes = codec.decode(got, n)
+    assert int(codes.abs().max()) <= (1 << (codec.bits - 1)) - 1
+    out = codec.expand(codes)
+    with ops.reference_mode():
+        ref_out = codec.expand(codes)
+    # the dequant kernel against its plain version: within 2 ulp, as above
+    assert bool(((out - ref_out).abs() <= 2 * _ulp(ref_out)).all())

@@ -10,12 +10,18 @@
   propagates; checkpoints round-trip bf16 leaves and Python numbers;
 * ``run_schedule`` resumes mid-decay and from a save on a decay boundary,
   as ``tests/test_runtime.py`` holds the JAX package's;
-* ``python -m repro_torch.launch.train --smoke --device cpu`` runs, and the
-  flags of parts not ported raise, naming their ROADMAP items.
+* ``python -m repro_torch.launch.train --smoke --device cpu`` runs, with
+  the randomized codecs too (the deterministic run's wire, the per-step
+  epsilon printed), and the flags of parts not ported raise, naming their
+  ROADMAP items.
 
 The model is ``_torch_lm.lm_configs``' gemma3-1b at smoke widths, in f32.
 """
 
+import contextlib
+import functools
+import io
+import math
 import os
 import pathlib
 import subprocess
@@ -329,16 +335,53 @@ def test_launcher_trains_at_smoke_widths_on_the_cpu():
 @pytest.mark.parametrize(
     "argv, item",
     [
-        (["--codec", "dlog"], "item 13"),
-        (["--dp-epsilon", "1.0"], "item 13"),
         (["--mesh", "2x2"], "item 15"),
         (["--production-mesh"], "item 15"),
         (["--arch", "mamba2-370m"], "item 14"),
         (["--arch", "mixtral-8x7b"], "item 14"),
     ],
-    ids=["codec", "dp-epsilon", "mesh-2x2", "production-mesh", "mamba2", "mixtral"],
+    ids=["mesh-2x2", "production-mesh", "mamba2", "mixtral"],
 )
 def test_launcher_refuses_what_is_not_ported(argv, item):
     base = ["--arch", "gemma3-1b", "--smoke", "--device", "cpu", "--steps", "1"]
     with pytest.raises(NotImplementedError, match=item):
         launch_train.main(base + argv)
+
+
+SMOKE_STEP = ["--arch", "gemma3-1b", "--smoke", "--device", "cpu", "--steps", "1"]
+SMOKE_STEP += ["--mesh", "2x1", "--batch", "4", "--seq", "32", "--log-every", "1"]
+
+
+@functools.cache
+def _run_line(*argv):
+    """The launcher's ``arch=...`` line of one smoke step with ``argv``."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_train.main(SMOKE_STEP + list(argv))
+    return next(ln for ln in out.getvalue().splitlines() if ln.startswith("arch="))
+
+
+def _field(line, name):
+    return next(w for w in line.split() if w.startswith(name + "="))
+
+
+@pytest.mark.parametrize(
+    "argv, kind",
+    [
+        (["--codec", "dlog"], "none"),
+        (["--codec", "lrq"], "gaussian_equiv"),
+        (["--dp-epsilon", "8"], "calibrated"),
+    ],
+    ids=["codec-dlog", "codec-lrq", "dp-epsilon"],
+)
+def test_launcher_runs_the_randomized_codecs(argv, kind):
+    """One smoke step each: the deterministic run's wire/step, and the
+    per-step epsilon and its kind printed beside it (dlog without a budget
+    dithers only: no guarantee, an infinite epsilon)."""
+    det = _run_line()
+    line = _run_line(*argv)
+    assert _field(line, "wire/step") == _field(det, "wire/step")
+    assert "epsilon/step" not in det
+    eps = float(_field(line, "epsilon/step").split("=")[1])
+    assert math.isinf(eps) == (kind == "none")
+    assert f"({kind})" in line
