@@ -161,12 +161,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps, graphed): each row's wire bits (2056 / 49216) and per-step
    epsilon (80.0, 240.0, 428.9773445944901) ``BENCH_privacy.json``'s,
    ``_pareto_gate`` passed at the JAX tolerances; the table and the attack
-   seconds printed.
+   seconds printed;
+11. the model zoo (the untied head and the MoE layers), right after phase
+   4, each model freed before the next is built: (l1) mistral-nemo-12b at
+   full width and depth (40 layers, 12,247,782,400 parameters), batch 4,
+   prompt 1024, 32 new tokens, q8 then q4; (l2) granite-20b (52 layers,
+   MQA), q8; (l3) mixtral-8x7b at full width cut to 16 of its 32 layers,
+   batch 2, prompt 5120 (past its window of 4096), q8; (l4) jamba-v0.1-52b,
+   one period of its 8 layers (7 Mamba-2, 4 with MoE, 1 attention), batch
+   4, prompt 1024, q8 (the attention cache only). Each as phase 4's (a):
+   prefill logits against reference mode, the routing held to the kernel
+   run's (``models/moe.py:routing``), with the flips reference mode would
+   make counted per MoE layer, each at a margin below MOE_FLIP_MARGIN, and
+   the assignments dropped at capacity printed; (l4)'s prefill caches as
+   (g1)'s; the graphed decode equal to the eager one; decode from the same
+   caches in reference mode with the same tokens and caches; bytes/token
+   the accounting; #1 or #3, #4 and #6 launched, #7 once a Mamba-2 layer
+   a prefill; peak memory. (l5) MoE training: mixtral-8x7b's widths with
+   one MoE layer (1,713,418,240 parameters), 2 workers x 2 x 512, LQ-SGD
+   r1 b8, Adam, 3 steps, deterministic algorithms on: graphed = eager bit
+   for bit (losses, moe_aux, bits, synced gradients, parameters,
+   launches), every step 2,626,336 bits (the JAX package's), against
+   reference mode with the routing held as (j1); ms a step both ways.
+   Phase 3 holds #6 at head_dim 128 (4-way GQA, 48-way MQA, the 4096
+   window at 5120), #4 on 128- and 64-byte rows and #7 at jamba's 128
+   heads of state 16 to their plain versions, with times and bounds.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
 """
 
+import contextlib
 import json
 import math
 import subprocess
@@ -786,6 +811,118 @@ def phase_kernels(gen):
         emit({"kernel": "ssd_chunk", "run": run, "shape": shape, **res})
         if run == "g1":
             results["ssd_chunk"] = res
+
+    print("kernels at the model zoo's shapes (phase 11)")
+    # ---- #6 at head_dim 128, bf16, atol 2e-2 against the f32 plain version:
+    # (l1)'s 4-way GQA, (l2)'s 48-way MQA and (l3)'s window of 4096 at a
+    # prompt past it; SDPA with enable_gqa, the window as an explicit mask
+    # (SDPA's slow path)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for where, b, hq, hkv, s, window in (
+        ("l1 gqa4", 4, 32, 8, 1024, None),
+        ("l2 mqa48", 4, 48, 1, 1024, None),
+        ("l3 window4096", 2, 32, 8, 5120, 4096),
+    ):
+        q = torch.randn((b, hq, s, 128), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((b, hkv, s, 128), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((b, hkv, s, 128), generator=gen, device="cuda").bfloat16()
+        plain = ref.chunked_attention_ref if s > 2048 else ref.attention_ref
+        got = flash_attention_cuda(q, k, v, window=window)
+        want = plain(q.float(), k.float(), v.float(), window=window)
+        e = float((got.float() - want).abs().max())
+        check(e <= 2e-2, f"flash_attention {where}: max err {e}")
+        del want
+        i = torch.arange(s, device="cuda")
+        mask = i[None, :] <= i[:, None]
+        if window is not None:
+            mask &= i[None, :] > i[:, None] - window
+        if window is None:
+            lib = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            lib = lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+        pairs = int(mask.sum()) * b * hq
+        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound_ms(n_bytes, 4 * 128 * pairs, "bf16")
+        res = dict(
+            max_abs_err=e,
+            ms=cuda_ms(lambda: flash_attention_cuda(q, k, v, window=window), 10),
+            plain_ms=cuda_ms(lambda: plain(q, k, v, window=window), 3),
+            bound_ms=b_ms,
+            bound_by=b_by,
+            library_ms=cuda_ms(lib, 10),
+        )
+        print(
+            f"  flash_attention {where} q {list(q.shape)} k/v {list(k.shape)}: max "
+            f"abs err {e:.2e}; {res['ms']:.4f} ms, bound {b_ms:.4f}, plain "
+            f"{res['plain_ms']:.4f}, SDPA {res['library_ms']:.4f}"
+        )
+        emit({"kernel": "flash_attention", "zoo": where, "shape": list(q.shape), **res})
+        del q, k, v, mask
+
+    # ---- #4 on 128-code rows: (l1)'s K of one layer at decode, 4 x 8 heads x
+    # 1056 positions, q8 (128 B a row) and q4 (64 B); relative error <= 1e-6
+    r, d = BATCH * 8 * (PROMPT + GEN), 128
+    x = torch.randn((r, d), generator=gen, device="cuda")
+    scale = x.abs().amax(-1, keepdim=True)
+    xn = x / scale
+    for bits, c in (
+        (8, ref.log_quantize_ref(xn, 1.0, 8, 10.0)),
+        (4, ref.log_quantize_pack_ref(xn, 1.0, 4, 10.0).reshape(r, d // 2)),
+    ):
+        got = log_dequantize_rows_cuda(c, scale, bits=bits)
+        want = ref.log_dequantize_rows_ref(c, scale, bits, 10.0)
+        rel = (got - want).abs() / want.abs().clamp_min(1e-30)
+        rel = rel.masked_fill(want == 0, 0)
+        check(float(rel.max()) <= 1e-6, f"dequant q{bits} 128: rel {float(rel.max())}")
+        nb = c.shape[1]
+        b_ms, b_by = bound_ms(r * nb + r * 4 + r * d * 4, r * d * DEQUANT_OPS, "f32")
+        res = dict(
+            max_abs_err=float((got - want).abs().max()),
+            ms=cuda_ms(lambda: log_dequantize_rows_cuda(c, scale, bits=bits), 50),
+            plain_ms=cuda_ms(
+                lambda: ref.log_dequantize_rows_ref(c, scale, bits, 10.0), 20
+            ),
+            bound_ms=b_ms,
+            bound_by=b_by,
+            library_ms=None,
+        )
+        print(
+            f"  log_dequantize_rows q{bits}, {r} rows of {nb} B: max rel err "
+            f"{float(rel.max()):.2e}; {res['ms']:.5f} ms, bound {b_ms:.5f}"
+        )
+        emit({"kernel": "log_dequantize_rows", "zoo": f"q{bits} {nb} B rows", **res})
+
+    # ---- #7 at jamba-v0.1-52b's prefill layer: B 4, H 128, NC 4, Q 256, P 64,
+    # N 16, one group
+    jcfg = get_config("jamba-v0.1-52b")
+    h, q = jcfg.ssm_heads, jcfg.ssm_chunk
+    x, a_cum, bm, cm = _ssd_inputs(gen, jcfg, 4, 4)
+    got = ssd_chunk_cuda(x, a_cum, bm, cm)
+    bh, ch = (t.expand(-1, h, -1, -1, -1) for t in (bm, cm))
+    want = ref.ssd_chunk_ref(x, a_cum, bh, ch)
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    check(err <= SSD_REL_TOL * top, f"ssd_chunk (l4): max err {err} of {top}")
+    pairs = q * (q + 1) // 2
+    groups = x.shape[0] * bm.shape[1] * x.shape[2]
+    cells = x.shape[0] * h * x.shape[2]
+    n_ops = pairs * (groups * 2 * jcfg.ssm_state + cells * 2 * jcfg.ssm_head_dim)
+    n_bytes = 4 * (2 * x.numel() + bm.numel() + cm.numel() + a_cum.numel())
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "f32")
+    res = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ssd_chunk_cuda(x, a_cum, bm, cm), 10),
+        plain_ms=cuda_ms(lambda: ref.ssd_chunk_ref(x, a_cum, bh, ch), 3),
+        bound_ms=b_ms,
+        bound_by=b_by,
+        library_ms=None,
+    )
+    print(
+        f"  ssd_chunk (l4) x {list(x.shape)}, N {jcfg.ssm_state}: max abs err "
+        f"{err:.2e}, {err / top:.2e} of max |Y|; {res['ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms, plain {res['plain_ms']:.4f}"
+    )
+    emit({"kernel": "ssd_chunk", "run": "l4", "shape": list(x.shape), **res})
+    del x, a_cum, bm, cm, got, want
     return results
 
 
@@ -1811,8 +1948,10 @@ def _lm_run(
     graph=None,
     every=False,
     timed=False,
+    shape=(LM_MESH, LM_BATCH, LM_SEQ),
 ):
-    """Train ``cfg`` over LM_MESH's workers through the LM training path
+    """Train ``cfg`` over ``shape``'s workers (mesh, global batch, sequence;
+    by default LM_MESH, LM_BATCH, LM_SEQ) through the LM training path
     (``train/step.py`` under ``Trainer`` or ``AsyncRunner``; a CUDA-graph
     replay a step unless ``graph=False``). Returns {state, loop, step, comp,
     comm, log}: the log holds every step's CommRecord and wire arrays, the
@@ -1833,7 +1972,8 @@ def _lm_run(
     )
     from repro_torch.train.trainer import Trainer
 
-    n = n_dp_of(LM_MESH)
+    mesh, batch, seq = shape
+    n = n_dp_of(mesh)
     comp = make_model_compressor(cfg, comp_cfg)
     comm = SimComm(n, record=True)
     log = {"rec": [], "tokens": [], "synced": [], "wire": [], "step_ms": []}
@@ -1849,7 +1989,7 @@ def _lm_run(
 
     step = build_train_step(
         cfg,
-        LM_MESH,
+        mesh,
         comp,
         opt,
         accum_steps=microbatch,
@@ -1869,7 +2009,7 @@ def _lm_run(
         log["tokens"].append(step.batch["tokens"].clone())
         return state, metrics
 
-    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ, batch=LM_BATCH)
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch=batch)
     rcfg = RuntimeConfig(
         steps=steps, log_every=1, verbose=False, microbatch=microbatch, prefetch=2
     )
@@ -1884,11 +2024,11 @@ def _lm_run(
     return dict(state=state, loop=loop, step=step, comp=comp, comm=comm, log=log)
 
 
-def _lm_tokens_checked(label, cfg, log, steps):
+def _lm_tokens_checked(label, cfg, log, steps, batch=LM_BATCH, seq=LM_SEQ):
     """The tokens every step read against numpy's ``lm_batch``."""
     from repro_torch.data.synthetic import LMDataConfig, lm_batch
 
-    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ, batch=LM_BATCH)
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch=batch)
     check(len(log["tokens"]) == steps, f"{label}: {len(log['tokens'])} steps' tokens")
     for t, got in enumerate(log["tokens"]):
         want = torch.from_numpy(lm_batch(data, t)["tokens"]).to(got.dtype)
@@ -1959,7 +2099,9 @@ def _lm_graph_equals_eager(label, g, e):
 _J1_GRADS0 = []  # (j1)'s per-worker gradients into its step-0 sync, on the host
 
 
-def _lm_close_to_reference(label, got, ref, init, steps, exact=()):
+def _lm_close_to_reference(
+    label, got, ref, init, steps, exact=(), workers=LM_MESH[0], lr=J1_LR
+):
     """An LM run against the same run in reference mode: wire codes equal
     but for one-step flips (the gathers at the positions in ``exact``
     equal), the step-0 synced gradients and the final parameters within the
@@ -1969,14 +2111,14 @@ def _lm_close_to_reference(label, got, ref, init, steps, exact=()):
     flips, n_codes = _wire_flips(gathered, ref_gathered, label, exact)
     per_step = len(gathered) // steps
     flips0, _ = _wire_flips(gathered[:per_step], ref_gathered[:per_step], label)
-    tol0 = train_tol(8, flips0, workers=LM_MESH[0]) + BF16_ULP
+    tol0 = train_tol(8, flips0, workers=workers) + BF16_ULP
     grad_rel = 0.0
     pairs = zip(got["log"]["synced"][0], ref["log"]["synced"][0], strict=True)
     for g, w in pairs:
         err, top = float((g.float() - w.float()).abs().max()), float(w.abs().max())
         check(err <= tol0 * top, f"{label}: step-0 synced grads differ by {err:.3e}")
         grad_rel = max(grad_rel, err / max(top, 1e-30))
-    tol = train_tol(8, flips, workers=LM_MESH[0])
+    tol = train_tol(8, flips, workers=workers)
     param_rel = 0.0
     for p, w, p0 in zip(got["params"], ref["params"], init, strict=True):
         p, w, p0 = p.float(), w.float(), p0.float()
@@ -1985,7 +2127,7 @@ def _lm_close_to_reference(label, got, ref, init, steps, exact=()):
         if flips == 0:
             bound = tol * moved + BF16_ULP * top
         else:
-            bound = 2 * ADAM_STEP_MAX * J1_LR * steps + BF16_ULP * top
+            bound = 2 * ADAM_STEP_MAX * lr * steps + BF16_ULP * top
         check(err <= bound, f"{label}: params differ by {err:.3e} > {bound:.3e}")
         param_rel = max(param_rel, err / max(moved, 1e-30))
     return flips, n_codes, flips0, grad_rel, param_rel
@@ -2107,14 +2249,17 @@ def _lm_j1(card):
     return counts
 
 
-def _lm_timed(cfg, comp_cfg, card):
-    """(j1)'s step timed as the launcher runs it, deterministic algorithms
-    off: the graphed and the eager step, each with and without
-    rematerialization (host ms a step ending in a device sync, and the
-    ms between CUDA events around it); peak memory and tokens/s of each, the
-    graphs' capture seconds, and the device idle share of the eager step
-    (1 - replay device ms / eager host ms, both with remat, the launcher's
-    setting). The kernels of a replay by device time (torch.profiler)."""
+def _lm_timed(
+    cfg, comp_cfg, card, shape=(LM_MESH, LM_BATCH, LM_SEQ), lr=J1_LR, tag="j1"
+):
+    """(j1)'s step (or ``tag``'s, at ``shape`` and ``lr``) timed as the
+    launcher runs it, deterministic algorithms off: the graphed and the
+    eager step, each with and without rematerialization (host ms a step
+    ending in a device sync, and the ms between CUDA events around it);
+    peak memory and tokens/s of each, the graphs' capture seconds, and the
+    device idle share of the eager step (1 - replay device ms / eager host
+    ms, both with remat, the launcher's setting). The kernels of a replay
+    by device time (torch.profiler)."""
     from repro_torch.data.synthetic import LMDataConfig, lm_batch
     from repro_torch.train.optimizer import adam
     from repro_torch.train.step import (
@@ -2123,14 +2268,15 @@ def _lm_timed(cfg, comp_cfg, card):
         make_model_compressor,
     )
 
+    mesh, batch, seq = shape
     comp = make_model_compressor(cfg, comp_cfg)
-    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ, batch=LM_BATCH)
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch=batch)
     batches = [lm_batch(data, i) for i in range(J1_TIMED_STEPS)]
-    tokens = LM_BATCH * LM_SEQ
+    tokens = batch * seq
     _free_cuda()
-    opt = adam(J1_LR)
+    opt = adam(lr)
     # one state for the four: only the times, tokens/s and memory are read
-    state = init_train_state(cfg, 0, opt, comp, LM_MESH[0], "cuda")
+    state = init_train_state(cfg, 0, opt, comp, mesh[0], "cuda")
     out = {}
     for name, graph, remat in (
         ("graph", None, True),
@@ -2139,7 +2285,7 @@ def _lm_timed(cfg, comp_cfg, card):
         ("eager_no_remat", False, False),
     ):
         torch.cuda.reset_peak_memory_stats()
-        step = build_train_step(cfg, LM_MESH, comp, opt, graph=graph, remat=remat)
+        step = build_train_step(cfg, mesh, comp, opt, graph=graph, remat=remat)
         host, device = [], []
         for batch in batches:
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -2164,7 +2310,7 @@ def _lm_timed(cfg, comp_cfg, card):
         if name == "graph":
             by_name = device_ms_by_kernel(lambda: step(state, batches[-1]))
             loss = {"loss": ("softmax", "nll")}
-            _kernel_split("lm_train_step_j1_replay", card, by_name, loss)
+            _kernel_split(f"lm_train_step_{tag}_replay", card, by_name, loss)
         step.release()
         del step
         _free_cuda()
@@ -2172,14 +2318,14 @@ def _lm_timed(cfg, comp_cfg, card):
     idle = 1 - out["graph"]["device_ms"] / out["eager"]["host_ms"]
     for name, r in out.items():
         print(
-            f"  (j1) timed, {name}: {r['host_ms']:.1f} ms a step on the host "
+            f"  ({tag}) timed, {name}: {r['host_ms']:.1f} ms a step on the host "
             f"clock ({r['device_ms']:.1f} ms between CUDA events), "
             f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gb']:.1f} GB"
             + (f", capture {r['capture_s']:.2f} s" if r["capture_s"] else "")
             + f"; {card}"
         )
     print(
-        f"  (j1) timed: the eager step's device idle share {idle:.1%} (1 - replay "
+        f"  ({tag}) timed: the eager step's device idle share {idle:.1%} (1 - replay "
         f"{out['graph']['device_ms']:.1f} ms / eager host "
         f"{out['eager']['host_ms']:.1f} ms); deterministic algorithms off; {card}"
     )
@@ -3334,6 +3480,481 @@ def _gia_runs(card):
     return total
 
 
+# Phase 11, the model zoo (l): the untied head and the MoE layers at full
+# width, seeded bf16. (l1)-(l4) serve, (l5) trains: run -> (arch, the cut of
+# its depth, batch, prompt, cache bits). mixtral-8x7b keeps 16 of its 32
+# layers and jamba-v0.1-52b one period of its 8 (of 4) to fit one card with
+# room for the reference-mode runs; the rest is at full depth.
+ZOO_SERVE = {
+    "l1": ("mistral-nemo-12b", {}, 4, 1024, (8, 4)),
+    "l2": ("granite-20b", {}, 4, 1024, (8,)),
+    "l3": ("mixtral-8x7b", {"repeats": 16}, 2, 5120, (8,)),
+    "l4": ("jamba-v0.1-52b", {"repeats": 1}, 4, 1024, (8,)),
+}
+ZOO_GEN = 32
+# the JAX package's parameter counts of these cuts (tests/test_torch_zoo.py)
+ZOO_PARAMS = {
+    "l1": 12_247_782_400,
+    "l2": 28_167_493_632,
+    "l3": 23_482_470_400,
+    "l4": 13_267_656_416,
+    "l5": 1_713_418_240,
+}
+# the accounting: layers x (K, V) x KV heads x (head_dim codes + a 4-byte
+# scale) at q8, (head_dim / 2 + 4) at q4
+ZOO_BYTES_PER_TOKEN = {
+    ("l1", 8): 40 * 2 * 8 * (128 + 4),
+    ("l1", 4): 40 * 2 * 8 * (64 + 4),
+    ("l2", 8): 52 * 2 * 1 * (128 + 4),
+    ("l3", 8): 16 * 2 * 8 * (128 + 4),
+}
+# The MoE layers against reference mode. At seeded init the router's top-2
+# margins are small, and the kernel path (#6) and the plain attention round
+# their bf16 outputs apart, so reference mode would now and then route a
+# token to another expert, which replaces that token's whole FFN output:
+# the logits check would then measure routing, not kernels. So reference
+# mode is held to the kernel run's choices (moe.routing) and the logits are
+# held to LOGITS_REL_TOL as for the dense models. Separately, at every MoE
+# layer the choices reference mode would make from its own router logits
+# (with the layers before held) are counted against the kernel run's; a
+# flip needs the two runs' logits to cross between the k-th and the
+# (k+1)-th expert, so reference mode's margin there must be small: at most
+# MOE_FLIP_MARGIN, in logits, which are ~N(0, 1) at this init (the bf16
+# residual streams of the two runs differ by ~1-2% after 16 layers, and the
+# largest logit difference of 10240 tokens by ~4 sigma of that).
+MOE_FLIP_MARGIN = 0.25
+# (l5): mixtral-8x7b's widths, one MoE layer, 2 workers x 2 rows x 512
+# tokens, LQ-SGD r1 b8, Adam, 3 steps; the JAX package's wire bits a step
+# for this cut (tests/test_torch_zoo.py). Adam at (j1)'s 1e-3 moves every
+# weight of the untied 4096 x 32000 head by 1e-3 at its first step, which
+# moves a logit by up to ~3 and raises the loss at the second step; 1e-4
+# moves it by ~0.3.
+L5_SHAPE = ((2, 1), 4, 512)
+L5_STEPS, L5_BITS, L5_LR = 3, 2_626_336, 1e-4
+
+
+def phase_zoo(card):
+    """(l) the model zoo: four architectures served at full width, MoE
+    training through the LQ-SGD sync. Each model is freed before the next
+    is built."""
+    total = {}
+    for run in ZOO_SERVE:
+        for name, c in _zoo_serve(card, run).items():
+            total[name] = total.get(name, 0) + c
+        _free_cuda()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, c in _zoo_train(card).items():
+            total[name] = total.get(name, 0) + c
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _free_cuda()
+    return total
+
+
+def _zoo_cfg(arch, cut):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), **cut)
+
+
+def _moe_flips(label, cfg, kernel_calls, held_calls):
+    """Per MoE layer, the assignments reference mode would route otherwise
+    (from its own router logits, the layers before held to the kernel
+    run's choices), each at a reference margin <= MOE_FLIP_MARGIN. Returns
+    the flips per layer."""
+    k = cfg.experts_per_token
+    per_layer, worst = [], 0.0
+    for (chosen, _), (_, logits) in zip(kernel_calls, held_calls, strict=True):
+        probs = torch.softmax(logits, dim=-1)
+        own = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
+        overlap = (own[..., :, None] == chosen[..., None, :]).any(-1).sum(-1)
+        moved = k - overlap  # assignments of each token routed otherwise
+        top = logits.topk(k + 1, dim=-1).values
+        margin = top[..., k - 1] - top[..., k]
+        flipped = moved > 0
+        if bool(flipped.any()):
+            m = float(margin[flipped].max())
+            check(
+                m <= MOE_FLIP_MARGIN,
+                f"{label}: a routing flip at a reference margin of {m:.3g}",
+            )
+            worst = max(worst, m)
+        per_layer.append(int(moved.sum()))
+    n = kernel_calls[0][0].numel()
+    print(
+        f"  {label}: reference-mode routing flips per MoE layer {per_layer} of "
+        f"{n} assignments each, largest reference margin {worst:.3g} "
+        f"(bound {MOE_FLIP_MARGIN})"
+    )
+    return per_layer
+
+
+def _dropped(cfg, calls):
+    """Assignments past each MoE layer's capacity, per layer."""
+    from repro_torch.models import moe
+
+    out = []
+    for chosen, _ in calls:
+        t = chosen.shape[1]
+        cap = moe.moe_capacity(t, cfg)
+        hits = chosen.reshape(-1, 1) == torch.arange(cfg.n_experts, device="cuda")
+        out.append(int((hits.sum(0) - cap).clamp_min(0).sum()))
+    return out
+
+
+def _zoo_prefill_checks(label, cfg, params, tokens, prefill):
+    """The prefill, kernel path against reference mode (the routing held to
+    the kernel run's): logits by LOGITS_REL_TOL and the argmax rule; with
+    Mamba-2 layers, every cache leaf (dequantized K/V, raw conv window and
+    SSM state) within SSM_CACHE_REL_TOL of its largest value, as (g1)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.serving.kv_cache import QuantKV, dequantize_kv, tree_leaves
+
+    with moe.routing() as rec:
+        logits, caches = prefill(params, tokens)
+    held = rec.choices if cfg.n_experts else None
+    with ops.reference_mode(), moe.routing(held) as ref_rec:
+        ref_logits, ref_caches = prefill(params, tokens)
+    _logits_close(logits, ref_logits, label)
+    if any(spec.kind == "mamba" for spec in cfg.layers):
+        worst = {}
+        pairs = zip(tree_leaves(caches), tree_leaves(ref_caches), strict=True)
+        for (path, g), (_, w) in pairs:
+            if isinstance(g, QuantKV):
+                g, w = dequantize_kv(g), dequantize_kv(w)
+            g, w = g.float(), w.float()
+            check(bool(torch.isfinite(g).all()), f"{label}: non-finite {path}")
+            rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            check(rel <= SSM_CACHE_REL_TOL, f"{label}: cache {path} rel {rel:.3e}")
+            worst[path[-1]] = max(worst.get(path[-1], 0.0), rel)
+        print(f"  {label}: prefill caches vs reference mode, max rel {worst}")
+    out = {"logits": logits}
+    if cfg.n_experts:
+        out["flips"] = _moe_flips(label, cfg, rec.calls, ref_rec.calls)
+        out["dropped"] = _dropped(cfg, rec.calls)
+        cap = moe.moe_capacity(rec.calls[0][0].shape[1], cfg)
+        print(
+            f"  {label}: capacity {cap} a expert at prefill, dropped assignments "
+            f"per MoE layer {out['dropped']}"
+        )
+    return out
+
+
+def _zoo_serve(card, run):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import count_params, init_params
+    from repro_torch.models.multimodal import vq_tokens_stub
+    from repro_torch.serving.engine import (
+        build_decode_step,
+        build_generate_fn,
+        build_prefill_step,
+        greedy_sample,
+    )
+    from repro_torch.serving.kv_cache import CacheQuantConfig, tree_leaves
+
+    arch, cut, batch, prompt, bits_list = ZOO_SERVE[run]
+    cfg = _zoo_cfg(arch, cut)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 1, "cuda")
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    cut_note = f", cut to {cfg.n_layers} layers" if cut else ""
+    print(
+        f"({run}) serve {arch}: {cfg.n_layers} layers{cut_note}, d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+        f"{n_params} params in {cfg.dtype} "
+        f"({torch.cuda.memory_allocated() / 1e9:.1f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s"
+    )
+    check(n_params == ZOO_PARAMS[run], f"({run}) {arch}: {n_params} params")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    if cfg.arch_type == "vlm":
+        tokens = vq_tokens_stub(gen, batch, prompt, cfg)
+    else:
+        tokens = torch.randint(
+            0, cfg.vocab_size, (batch, prompt), generator=gen, device="cuda"
+        )
+    n_mamba = sum(spec.kind == "mamba" for spec in cfg.layers)
+    max_seq = prompt + ZOO_GEN
+    total = {name: 0 for name in ops.KERNELS}
+    for bits in bits_list:
+        label = f"({run}) {arch} batch {batch} x prompt {prompt} + {ZOO_GEN}, q{bits}"
+        qcfg = CacheQuantConfig(bits=bits)
+        prefill = build_prefill_step(cfg, max_seq, qcfg=qcfg)
+        pre = _zoo_prefill_checks(label, cfg, params, tokens, prefill)
+
+        # the main path: prefill + graphed decode through the launcher's
+        # run_fixed, then the same with the decode steps one by one
+        ops.reset_launch_counts()
+        out = serve.run_fixed(cfg, params, tokens, gen=ZOO_GEN, qcfg=qcfg)
+        counts = ops.launch_counts()
+        print(f"{label}: launches {counts}")
+        encode = "log_quantize" if bits == 8 else "log_quantize_pack"
+        for name in (encode, "log_dequantize_rows", "flash_attention"):
+            check(counts[name] > 0, f"{label}: kernel {name} never launched")
+        # one prefill: ssd_chunk once a Mamba-2 layer; a decode step none
+        check(counts["ssd_chunk"] == n_mamba, f"{label}: ssd_chunk {counts}")
+        for name, c in counts.items():
+            total[name] += c
+        same = torch.equal(out["logits"], pre["logits"])
+        check(same, f"{label}: the prefill is not repeatable")
+        ops.reset_launch_counts()
+        eager = serve.run_fixed(
+            cfg, params, tokens, gen=ZOO_GEN, qcfg=qcfg, graph=False
+        )
+        _graph_equals_eager(label, card, out, eager, counts, ops.launch_counts())
+        del eager
+        toks = out["tokens"]
+        check(tuple(toks.shape) == (batch, ZOO_GEN), f"{label}: tokens {toks.shape}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{label}: bad ids")
+
+        # decode vs reference mode from the same caches (the kernel path's
+        # prefill again): every step must pick the main run's token and
+        # leave the main run's caches
+        logits, caches = prefill(params, tokens)
+        check(torch.equal(greedy_sample(logits), toks[:, :1]), f"{label}: first token")
+        with ops.reference_mode():
+            caches, _, _, sampled = build_generate_fn(cfg)(
+                params, caches, toks[:, :1], prompt, None, ZOO_GEN - 1
+            )
+        same = sampled == toks[:, 1:]
+        check(
+            bool(same.all()),
+            f"{label}: {int((~same).sum())} of {same.numel()} decode tokens "
+            "differ from reference mode",
+        )
+        flips = _caches_match(out["caches"], caches, label)
+        del caches
+        print(
+            f"  {label}: {same.numel()} decode tokens equal to reference mode, "
+            f"caches equal but {flips} one-step code flip(s)"
+        )
+        bpt, acc = out["bytes_per_token"], out["bytes_per_token_accounted"]
+        leaves = list(tree_leaves(out["caches"]))
+        n_bytes = 0
+        for _, t in leaves:
+            for part in (t.codes, t.scale) if hasattr(t, "codes") else (t,):
+                n_bytes += part.numel() * part.element_size()
+        check(bpt == acc == n_bytes / (batch * max_seq), f"{label}: {bpt} vs {acc}")
+        want_bpt = ZOO_BYTES_PER_TOKEN.get((run, bits))
+        if want_bpt is not None:
+            check(bpt == want_bpt, f"{label}: bytes/token {bpt} != {want_bpt}")
+        # where the time goes: each step eager (host clock) against the same
+        # step replayed from a CUDA graph (device time); one more decode
+        # step at the last cache position
+        caches, last = out["caches"], toks[:, -1:].contiguous()
+        decode = build_decode_step(cfg)
+        steps = {
+            "prefill": lambda: prefill(params, tokens),
+            "decode_step": lambda: decode(params, caches, last, max_seq - 1),
+        }
+        split = {}
+        for step, fn in steps.items():
+            h_ms, g_ms = host_ms(fn), cuda_ms(fn, 1)
+            split[step] = {"host_ms": h_ms, "graph_ms": g_ms}
+            emit({"split": f"{run}_{step}_q{bits}", "card": card, **split[step]})
+        if bits == 8:
+            by_name = device_ms_by_kernel(steps["decode_step"])
+            _kernel_split(f"{run}_decode_step_q8", card, by_name, GEMMA_KERNELS)
+        print(
+            f"  {label}: prefill {split['prefill']['host_ms']:.1f} ms eager, "
+            f"{split['prefill']['graph_ms']:.1f} ms a replay; a decode step "
+            f"{split['decode_step']['host_ms']:.2f} ms eager, "
+            f"{split['decode_step']['graph_ms']:.2f} ms a replay"
+        )
+        del caches, steps
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        decode_tps = batch * (ZOO_GEN - 1) / out["decode_s"]
+        print(
+            f"  {label}: {bpt:.3f} bytes/token measured = accounted; prefill "
+            f"{out['prefill_s'] * 1e3:.1f} ms, decode {decode_tps:.1f} tokens/s, "
+            f"peak {peak:.1f} GB; {card}"
+        )
+        emit(
+            {
+                "serve": f"{run}_{arch}_q{bits}",
+                "card": card,
+                "params": n_params,
+                "layers": cfg.n_layers,
+                "prefill_ms": out["prefill_s"] * 1e3,
+                "decode_tokens_per_s": decode_tps,
+                "capture_s": out["capture_s"],
+                "bytes_per_token": bpt,
+                "bytes_per_token_accounted": acc,
+                "peak_memory_gb": peak,
+                "split": split,
+                "launches": counts,
+                "moe_flips_per_layer": pre.get("flips"),
+                "moe_dropped_per_layer": pre.get("dropped"),
+            }
+        )
+        del out, pre
+        _free_cuda()
+    if cfg.n_experts:
+        # decode: one token a row, T = batch, capacity 8
+        cap = moe.moe_capacity(batch, cfg)
+        check(cap == 8, f"({run}): decode capacity {cap}")
+        print(f"  ({run}) {arch}: capacity {cap} a expert at decode")
+    del params
+    return total
+
+
+def _zoo_train(card):
+    """(l5): MoE training through the LQ-SGD sync, mixtral-8x7b's widths with
+    one MoE layer: the graphed step against graph=False bit for bit, then
+    reference mode (the routing held to the eager kernel run's) as (j1)."""
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.train.optimizer import adam
+    from repro_torch.train.step import init_train_params
+
+    cfg = _zoo_cfg("mixtral-8x7b", {"repeats": 1})
+    mesh, batch, seq = L5_SHAPE
+    comp_cfg = CompressorConfig(name="lq_sgd", rank=1, bits=8)
+    label = (
+        f"(l5) mixtral-8x7b widths, 1 MoE layer, {mesh[0]} workers x "
+        f"{batch // mesh[0]} x {seq}, LQ-SGD r1 b8, Adam lr {L5_LR:g}, Trainer"
+    )
+    init = init_train_params(cfg, 0, "cuda")
+    n_params = sum(w.numel() for w in tree_leaves(init))
+    init = [w.detach().to("cpu") for w in tree_leaves(init)]
+    check(n_params == ZOO_PARAMS["l5"], f"{label}: {n_params} parameters")
+    runs = {}
+    for name, graph in (("graph", None), ("eager", False)):
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        # the eager run's routing is recorded, for reference mode to hold
+        with moe.routing() if graph is False else contextlib.nullcontext() as rec:
+            r = _lm_run(
+                cfg,
+                comp_cfg,
+                adam(L5_LR),
+                L5_STEPS,
+                graph=graph,
+                every=True,
+                timed=True,
+                shape=L5_SHAPE,
+            )
+        step_ms = r["log"]["step_ms"]
+        runs[name] = dict(
+            counts=ops.launch_counts(),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            params=_host_params(r["state"]),
+            log=r["log"],
+            losses=[h["loss"] for h in r["loop"].history],
+            moe_aux=[h["moe_aux"] for h in r["loop"].history],
+            capture_s=r["step"].capture_s,
+            gathered=[w.cpu() for ws in r["log"]["wire"] for w in ws],
+            choices=rec.choices if rec is not None else None,
+            # graphed: step 0 is the warm-up, 1 the capture, 2 a replay
+            step_ms=step_ms,
+            ms_per_step=step_ms[-1] if graph is None else _median(step_ms),
+        )
+        _lm_tokens_checked(f"(l5) {name}", cfg, r["log"], L5_STEPS, batch, seq)
+        del r
+    g, e = runs["graph"], runs["eager"]
+    _lm_graph_equals_eager(label, g, e)
+    check(g["moe_aux"] == e["moe_aux"], f"{label}: moe_aux, graph != eager")
+    counts = g["counts"]
+    for name in ("log_quantize", "log_dequantize"):
+        check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    for name in ("log_quantize_pack", "flash_attention", "ssd_chunk"):
+        check(counts[name] == 0, f"{label}: kernel {name} launched")
+    # the eager run's MoE calls: each MoE layer's forward and remat's
+    # recompute, a worker a step
+    n_moe = sum(spec.moe for spec in cfg.layers)
+    n_calls = 2 * n_moe * mesh[0] * L5_STEPS
+    check(len(e["choices"]) == n_calls, f"{label}: {len(e['choices'])} MoE calls")
+    _free_cuda()
+    with ops.reference_mode(), moe.routing(e["choices"]):
+        r = _lm_run(
+            cfg,
+            comp_cfg,
+            adam(L5_LR),
+            L5_STEPS,
+            graph=False,
+            every=True,
+            shape=L5_SHAPE,
+        )
+    ref = dict(
+        params=_host_params(r["state"]),
+        log=r["log"],
+        losses=[h["loss"] for h in r["loop"].history],
+        gathered=[w.cpu() for ws in r["log"]["wire"] for w in ws],
+    )
+    comp = r["comp"]
+    del r
+    _free_cuda()
+    colls = comp.handler.group_collectives(comp.plans)
+    check(comp.wire_bits_per_step() == L5_BITS, f"{label}: {comp.wire_bits_per_step()}")
+    for rec in g["log"]["rec"] + e["log"]["rec"] + ref["log"]["rec"]:
+        check(rec.effective_bits() == L5_BITS, f"{label}: {rec.effective_bits()} bits")
+        check(rec.effective_collectives() == colls, f"{label}: collectives")
+    for a, b in zip(g["log"]["grads0"], ref["log"]["grads0"], strict=True):
+        check(torch.equal(a, b), f"{label}: step-0 gradients into the sync differ")
+    flips, n_codes, flips0, grad_rel, param_rel = _lm_close_to_reference(
+        label, g, ref, init, L5_STEPS, workers=mesh[0], lr=L5_LR
+    )
+    losses = g["losses"]
+    check(all(math.isfinite(v) for v in losses + g["moe_aux"]), f"{label}: {losses}")
+    torch.use_deterministic_algorithms(False)
+    try:
+        timed = _lm_timed(cfg, comp_cfg, card, shape=L5_SHAPE, lr=L5_LR, tag="l5")
+    finally:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    print(
+        f"  {label}: {n_params} parameters, {L5_BITS} wire bits/step in {colls} "
+        f"collectives; graph = eager bit for bit over {L5_STEPS} steps (losses, "
+        f"moe_aux, step-0 gradients into the sync, every step's synced grads, "
+        f"wire, bits, final params, launches {counts}); vs reference mode with "
+        f"the routing held: step-0 gradients into the sync equal, {flips} of "
+        f"{n_codes} codes flipped ({flips0} at step 0), step-0 synced grads rel "
+        f"{grad_rel:.2e}, params rel {param_rel:.2e}; losses "
+        f"{[round(v, 4) for v in losses]}, moe_aux "
+        f"{[round(v, 4) for v in g['moe_aux']]}; ms a step (host clock to a "
+        f"device sync) graphed {g['ms_per_step']:.1f} (a replay; warm-up and "
+        f"capture {g['step_ms'][0]:.1f}, {g['step_ms'][1]:.1f}; capture "
+        f"{g['capture_s']:.2f} s), eager {e['ms_per_step']:.1f} (median); peak "
+        f"{g['peak_gb']:.1f} / {e['peak_gb']:.1f} GB "
+        f"(deterministic algorithms on); {card}"
+    )
+    emit(
+        {
+            "train": "l5_mixtral_1_layer_lq_sgd_r1_b8_adam",
+            "card": card,
+            "params": n_params,
+            "wire_bits_per_step": L5_BITS,
+            "collectives_per_step": colls,
+            "graph_equals_eager": True,
+            "ms_per_step_deterministic": {k: runs[k]["ms_per_step"] for k in runs},
+            "step_ms_deterministic": {k: runs[k]["step_ms"] for k in runs},
+            "timed": timed,
+            "idle_share": timed["idle_share"],
+            "lr": L5_LR,
+            "peak_memory_gb": {k: runs[k]["peak_gb"] for k in runs},
+            "capture_s": g["capture_s"],
+            "losses": losses,
+            "moe_aux": g["moe_aux"],
+            "reference_losses": ref["losses"],
+            "launches": counts,
+            "code_flips": flips,
+            "step0_synced_grad_rel_err": grad_rel,
+            "param_rel_err": param_rel,
+        }
+    )
+    return counts
+
+
 KERNEL_INFO = {
     "log_quantize": (
         "triton",
@@ -3386,6 +4007,7 @@ def main():
     # (h) last: its (h2) graph = eager check holds after (i), (j) and (k)
     # since the attack's backward runs on one thread (core/privacy/gia.py)
     phases = (
+        phase_zoo,
         phase_train,
         phase_ssm,
         phase_composite,

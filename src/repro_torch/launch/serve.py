@@ -10,7 +10,10 @@ cache as log-quant codes + per-row scales; 0 keeps the raw
 ``--cache-dtype``. ``--arch mamba2-370m`` serves with the fixed scheduler
 only (the continuous one refuses SSM stacks, as the JAX package's does),
 and its cache, a conv window and an SSM state per layer, stays raw
-whatever ``--cache-bits``. Runs on the card unless ``--device cpu`` is given;
+whatever ``--cache-bits``; so does jamba-v0.1-52b's Mamba-2 layers', while
+its attention layer's K/V are quantized. A VLM's fixed-batch prompts
+(chameleon-34b) are the mixed image and text ids of
+``models.multimodal.vq_tokens_stub``. Runs on the card unless ``--device cpu`` is given;
 weights come from a seeded init. On the card both schedulers decode by
 replaying a CUDA graph of the decode step (``repro_torch.graphs``); on the
 CPU the steps run eagerly. :func:`run_fixed` and :func:`run_continuous` are
@@ -32,6 +35,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import DTYPES, resolve_device
 from repro_torch.models.model import init_params
+from repro_torch.models.multimodal import vq_tokens_stub
 from repro_torch.serving.engine import (
     build_generate_fn,
     build_prefill_step,
@@ -220,9 +224,13 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         return out
 
     tok_gen = torch.Generator().manual_seed(0)
-    tokens = torch.randint(
-        0, cfg.vocab_size, (args.batch, args.prompt_len), generator=tok_gen
-    ).to(device)
+    if cfg.arch_type == "vlm":
+        tokens = vq_tokens_stub(tok_gen, args.batch, args.prompt_len, cfg)
+    else:
+        tokens = torch.randint(
+            0, cfg.vocab_size, (args.batch, args.prompt_len), generator=tok_gen
+        )
+    tokens = tokens.to(device)
     out = run_fixed(
         cfg,
         params,

@@ -20,8 +20,10 @@ codecs on the LQ-SGD wire (through the composite compressor); the run's
 line then also prints the per-step DP epsilon and its kind. Those of parts
 not ported raise, naming the ROADMAP item that ports them: a model axis
 above 1, ``--production-mesh`` and ``--multi-pod`` (tensor and multi-card
-parallelism, item 15); the architectures the port lacks and mamba2-370m
-training (its ``ssd_chunk`` kernel has no backward; item 14).
+parallelism, item 15); the architectures the port lacks (deepseek-v3-671b,
+musicgen-medium) and the training of a model with Mamba-2 layers
+(mamba2-370m, jamba-v0.1-52b: the ``ssd_chunk`` kernel has no backward;
+item 14).
 """
 
 from __future__ import annotations
@@ -167,9 +169,10 @@ def _check_ported(args: argparse.Namespace) -> None:
         raise NotImplementedError(
             f"--arch {args.arch}: not ported yet (ROADMAP Queue 1, item 14)"
         )
-    if args.arch == "mamba2-370m":
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if any(spec.kind == "mamba" for spec in cfg.layers):
         raise NotImplementedError(
-            "--arch mamba2-370m: Mamba-2 training needs a backward of the "
+            f"--arch {args.arch}: Mamba-2 training needs a backward of the "
             "ssd_chunk kernel, not ported yet (ROADMAP Queue 1, item 14)"
         )
 

@@ -1,7 +1,7 @@
-"""Decoder layers: (attention | Mamba-2) mixer + optional dense FFN, pre-norm
-residual.
+"""Decoder layers: (attention | Mamba-2) mixer + optional (dense | MoE) FFN,
+pre-norm residual.
 
-MLA attention and MoE FFNs are not ported yet; asking for one raises
+MLA attention is not ported yet; asking for it raises
 ``NotImplementedError`` naming the slice that brings it.
 """
 
@@ -15,6 +15,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.attention import attn_forward, init_attn, init_attn_cache
 from repro_torch.models.common import rms_norm
 from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.moe import init_moe, moe_forward
 from repro_torch.models.ssm import init_mamba, init_mamba_cache, mamba_forward
 
 __all__ = ["init_layer", "init_layer_cache", "layer_forward", "has_ffn"]
@@ -26,11 +27,6 @@ def _check_ported(spec: LayerSpec, cfg: ModelConfig) -> None:
     if spec.kind == "attn" and cfg.use_mla:
         raise NotImplementedError(
             "MLA attention comes with the rest of the LM training slice "
-            "(ROADMAP Queue 1, item 14)"
-        )
-    if spec.moe:
-        raise NotImplementedError(
-            "MoE FFNs come with the rest of the LM training slice "
             "(ROADMAP Queue 1, item 14)"
         )
 
@@ -51,7 +47,10 @@ def init_layer(
         p["mixer"] = init_mamba(gen, cfg, device)
     if has_ffn(spec, cfg):
         p["ln2"] = torch.zeros(d, device=device)
-        p["ffn"] = init_mlp(gen, d, cfg.d_ff, device)
+        if spec.moe:
+            p["ffn"] = init_moe(gen, cfg, device)
+        else:
+            p["ffn"] = init_mlp(gen, d, cfg.d_ff, device)
     return p
 
 
@@ -83,9 +82,10 @@ def layer_forward(
     cache: Params | None = None,
     cache_index: int | torch.Tensor | None = None,
     plain_attention: bool = False,
-) -> tuple[torch.Tensor, Params | None]:
-    """Pre-norm residual block. Returns (x, cache). ``plain_attention``: see
-    ``models.model.forward``."""
+) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
+    """Pre-norm residual block. Returns (x, cache, the MoE FFN's
+    load-balance loss, or None for a layer without one).
+    ``plain_attention``: see ``models.model.forward``."""
     _check_ported(spec, cfg)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.kind == "attn":
@@ -102,6 +102,12 @@ def layer_forward(
     else:
         mix, cache = mamba_forward(p["mixer"], h, cfg, cache=cache)
     x = x + mix
+    aux = None
     if has_ffn(spec, cfg):
-        x = x + mlp_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.mlp_act)
-    return x, cache
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if spec.moe:
+            y, aux = moe_forward(p["ffn"], h2, cfg, cfg.mlp_act)
+        else:
+            y = mlp_forward(p["ffn"], h2, cfg.mlp_act)
+        x = x + y
+    return x, cache, aux

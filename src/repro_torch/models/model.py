@@ -1,14 +1,16 @@
-"""The LM: embed -> layers (attention or Mamba-2 mixers) -> final norm -> tied head.
+"""The LM: embed -> layers (attention or Mamba-2 mixers, dense or MoE FFNs) ->
+final norm -> head (tied to the embedding, or its own (d, V) ``head``).
 
 The layer stack is ``lead + pattern * repeats + tail`` (configs/base.py),
 run as one Python loop. Parameters come in one of two trees, both with
 every weight in the JAX layout (d_in, d_out), applied as ``x @ w``:
 
-* the serving tree ``{"embed", "layers", "final_norm"}``, ``layers`` in
-  execution order (:func:`init_params`);
+* the serving tree ``{"embed", "layers", "final_norm"}`` (and ``"head"``
+  when the head is untied), ``layers`` in execution order
+  (:func:`init_params`);
 * the training tree, the JAX package's own: ``{"embed", "lead", "scan",
-  "tail", "final_norm"}`` with the scan leaves stacked by repeat
-  (``repro_torch.weights.to_jax_layout``). The compressor plans, scales
+  "tail", "final_norm"}`` (and ``"head"``) with the scan leaves stacked by
+  repeat (``repro_torch.weights.to_jax_layout``). The compressor plans, scales
   and counts per leaf, so it must see this tree, with its
   :func:`stacked_flags`; the forward reads each layer as views into it
   (:func:`layer_params`), so the gradients land in the stacked leaves.
@@ -36,7 +38,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.blocks import init_layer, init_layer_cache, layer_forward
-from repro_torch.models.common import DTYPES, embed_init, resolve_device, rms_norm
+from repro_torch.models.common import (
+    DTYPES,
+    dense_init,
+    embed_init,
+    resolve_device,
+    rms_norm,
+)
 from repro_torch.serving.kv_cache import QuantKV
 
 __all__ = [
@@ -54,11 +62,10 @@ Params = dict[str, Any]
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.n_codebooks or cfg.cond_len or cfg.mtp or not cfg.tie_embeddings:
+    if cfg.n_codebooks or cfg.cond_len or cfg.mtp:
         raise NotImplementedError(
-            f"{cfg.name}: untied, multi-codebook, conditioned or MTP heads "
-            "come with the rest of the LM training slice (ROADMAP Queue 1, "
-            "item 14)"
+            f"{cfg.name}: multi-codebook, conditioned or MTP heads come with "
+            "the rest of the LM training slice (ROADMAP Queue 1, item 14)"
         )
 
 
@@ -67,9 +74,10 @@ def init_params(
     gen: torch.Generator | int | None = 0,
     device: torch.device | str = "cuda",
 ) -> Params:
-    """Seeded init: dense 1/sqrt(fan_in), embeddings 0.02, norms 0, then a
-    cast to ``cfg.dtype``. ``gen`` is a generator on ``device`` or a seed.
-    On the ``meta`` device the tree holds shapes and dtypes only."""
+    """Seeded init: dense 1/sqrt(fan_in) (an untied head's fan-in is d),
+    embeddings 0.02, norms 0, then a cast to ``cfg.dtype``. ``gen`` is a
+    generator on ``device`` or a seed. On the ``meta`` device the tree
+    holds shapes and dtypes only."""
     cfg.validate()
     _check_ported(cfg)
     dev = resolve_device(device)
@@ -77,10 +85,20 @@ def init_params(
         gen = None
     elif isinstance(gen, int):
         gen = torch.Generator(device=dev).manual_seed(gen)
-    p: Params = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), device=dev)}
-    p["layers"] = [init_layer(gen, spec, cfg, dev) for spec in cfg.layers]
-    p["final_norm"] = torch.zeros(cfg.d_model, device=dev)
-    return cast_params(p, DTYPES[cfg.dtype])
+    # each part is cast as soon as it is drawn, so at most one layer is held
+    # in f32 at a time (a 28B-parameter model would not fit in f32)
+    dtype = DTYPES[cfg.dtype]
+    embed = embed_init(gen, (cfg.vocab_size, cfg.d_model), device=dev)
+    p: Params = {"embed": cast_params(embed, dtype)}
+    del embed
+    p["layers"] = [
+        cast_params(init_layer(gen, spec, cfg, dev), dtype) for spec in cfg.layers
+    ]
+    p["final_norm"] = torch.zeros(cfg.d_model, device=dev, dtype=dtype)
+    if not cfg.tie_embeddings:
+        head = dense_init(gen, (cfg.d_model, cfg.vocab_size), device=dev)
+        p["head"] = cast_params(head, dtype)
+    return p
 
 
 def cast_params(tree: Any, dtype: torch.dtype) -> Any:
@@ -160,17 +178,20 @@ def _run_layers(
     specs: tuple[LayerSpec, ...],
     x: torch.Tensor,
     per_layer: Iterator[Params] | None,
+    aux_total: torch.Tensor | None = None,
     *,
     cfg: ModelConfig,
     positions: torch.Tensor,
     cache_index: int | torch.Tensor | None,
     plain_attention: bool,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor | None]:
     """``x`` through the layers of ``specs`` with parameters ``ps``, each
-    with its cache from ``per_layer`` (or none)."""
+    with its cache from ``per_layer`` (or none). Returns (x, ``aux_total``
+    plus the MoE layers' load-balance losses, summed in layer order in f32
+    as the JAX scan carries them; None while no MoE layer has run)."""
     for p, spec in zip(ps, specs):
         c = next(per_layer) if per_layer is not None else None
-        x, _ = layer_forward(
+        x, _, aux = layer_forward(
             p,
             x,
             spec,
@@ -180,7 +201,9 @@ def _run_layers(
             cache_index=cache_index,
             plain_attention=plain_attention,
         )
-    return x
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, aux_total
 
 
 def _tree_select(tree: Any, r: int) -> Any:
@@ -206,8 +229,10 @@ def stacked_flags(params: Params) -> Params:
 
 
 def apply_head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Tied LM head: x @ embed.T."""
-    return x @ params["embed"].to(x.dtype).T
+    """The LM head: x @ embed.T when tied, else x @ head."""
+    if cfg.tie_embeddings:
+        return x @ params["embed"].to(x.dtype).T
+    return x @ params["head"].to(x.dtype)
 
 
 def forward(
@@ -220,11 +245,14 @@ def forward(
     return_hidden: bool = False,
     plain_attention: bool = False,
     remat: bool = False,
-) -> tuple[torch.Tensor, Params | None]:
+    return_aux: bool = False,
+) -> tuple[torch.Tensor, Params | None] | tuple[torch.Tensor, Params | None, Any]:
     """Returns (logits, caches); with ``return_hidden`` the final-normed
     hidden state (B, S, D) instead of logits, for a caller that applies the
     head to a few positions only. ``params`` is the serving or the training
-    tree.
+    tree. ``return_aux`` adds a third item, ``{"moe_aux": ...}``: the MoE
+    layers' load-balance losses summed in layer order in f32 (0 without MoE
+    layers), the JAX forward's ``aux``.
 
     ``remat=True`` (a training forward: no caches) keeps only each repeat's
     input of the scanned pattern for the backward and recomputes the
@@ -261,23 +289,27 @@ def forward(
         plain_attention=plain_attention,
     )
     if remat and caches is None and "scan" in params:
-        x = run(params["lead"], cfg.lead, x, None)
+        x, aux = run(params["lead"], cfg.lead, x, None)
         for r in range(cfg.repeats):
             ps = [_tree_select(scan, r) for scan in params["scan"]]
-            x = checkpoint(
+            x, aux = checkpoint(
                 run,
                 ps,
                 cfg.pattern,
                 x,
                 None,
+                aux,
                 use_reentrant=False,
                 preserve_rng_state=False,
             )
-        x = run(params["tail"], cfg.tail, x, None)
+        x, aux = run(params["tail"], cfg.tail, x, None, aux)
     else:
         per_layer = layer_caches(caches, cfg) if caches is not None else None
-        x = run(list(layer_params(params, cfg)), cfg.layers, x, per_layer)
+        x, aux = run(list(layer_params(params, cfg)), cfg.layers, x, per_layer)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if return_hidden:
-        return x, caches
-    return apply_head(params, x, cfg), caches
+    out = x if return_hidden else apply_head(params, x, cfg)
+    if not return_aux:
+        return out, caches
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return out, caches, {"moe_aux": aux}

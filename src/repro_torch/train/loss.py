@@ -2,14 +2,16 @@
 
 The JAX package's ``train/loss.py``: the target of position t is token
 t + 1 (a roll by one), the last position is masked, and the loss is
-``sum(nll * mask) / (sum(mask) * B)``. ``head_chunk`` applies the tied head
-per sequence chunk and recomputes each chunk's logits in the backward, so
-the (B, S, V) logits of a 262k vocabulary never exist at once; the value is
-the same. ``remat`` recomputes each repeat of the scanned layer pattern in
-the backward (``models.model.forward``), as the JAX step's ``remat_scan``
-does. The forward takes the plain attention on any device, as the JAX
-training step does (``backend="xla"``). The MTP and MoE terms and
-multi-codebook targets come with those models (ROADMAP Queue 1, item 14).
+``sum(nll * mask) / (sum(mask) * B)``, plus ``router_aux_coef`` times the
+MoE layers' load-balance loss where the model has experts. ``head_chunk``
+applies the head (tied or untied) per sequence chunk and recomputes each
+chunk's logits in the backward, so the (B, S, V) logits of a 262k
+vocabulary never exist at once; the value is the same. ``remat``
+recomputes each repeat of the scanned layer pattern in the backward
+(``models.model.forward``), as the JAX step's ``remat_scan`` does. The
+forward takes the plain attention on any device, as the JAX training step
+does (``backend="xla"``). The MTP term and multi-codebook targets come with
+those models (ROADMAP Queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def _check_ported(cfg: ModelConfig, batch: dict[str, Any]) -> None:
-    if cfg.mtp or cfg.n_experts or cfg.n_codebooks or "cond" in batch:
+    if cfg.mtp or cfg.n_codebooks or "cond" in batch:
         raise NotImplementedError(
-            f"{cfg.name}: the MTP, MoE, multi-codebook and conditioned losses "
+            f"{cfg.name}: the MTP, multi-codebook and conditioned losses "
             "are not ported yet: ROADMAP Queue 1, item 14"
         )
 
@@ -54,23 +56,25 @@ def lm_loss(
     remat: bool = False,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """batch: {"tokens": (B, S) integer ids}. Returns (scalar loss,
-    {"ce", "loss"}), the loss of the training or the serving tree."""
+    {"ce", "loss"} and, with experts, "moe_aux"), the loss of the training
+    or the serving tree."""
     _check_ported(cfg, batch)
     tokens = batch["tokens"]
     tgt = torch.roll(tokens, -1, dims=1)
     if head_chunk:
-        hidden, _ = forward(
+        hidden, _, aux = forward(
             params,
             tokens,
             cfg,
             return_hidden=True,
             plain_attention=True,
             remat=remat,
+            return_aux=True,
         )
-        embed = params["embed"]
+        key = "embed" if cfg.tie_embeddings else "head"
 
         def chunk_nll(h: torch.Tensor, t: torch.Tensor, w: torch.Tensor):
-            return _ce(apply_head({"embed": w}, h, cfg), t)
+            return _ce(apply_head({key: w}, h, cfg), t)
 
         # each chunk's logits are recomputed in the backward, not kept; no
         # RNG state is saved (nothing draws, and a CUDA-graph capture
@@ -82,7 +86,7 @@ def lm_loss(
                     chunk_nll,
                     h,
                     t,
-                    embed,
+                    params[key],
                     use_reentrant=False,
                     preserve_rng_state=False,
                 )
@@ -91,7 +95,15 @@ def lm_loss(
             dim=1,
         )
     else:
-        logits, _ = forward(params, tokens, cfg, plain_attention=True, remat=remat)
+        logits, _, aux = forward(
+            params, tokens, cfg, plain_attention=True, remat=remat, return_aux=True
+        )
         nll = _ce(logits, tgt)
-    loss = _masked_mean(nll)
-    return loss, {"ce": loss, "loss": loss}
+    ce = _masked_mean(nll)
+    metrics = {"ce": ce}
+    loss = ce
+    if cfg.n_experts:
+        loss = loss + cfg.router_aux_coef * aux["moe_aux"]
+        metrics["moe_aux"] = aux["moe_aux"]
+    metrics["loss"] = loss
+    return loss, metrics

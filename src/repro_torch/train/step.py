@@ -158,7 +158,8 @@ def build_train_step(
     and ``step`` are updated in place and the returned state holds the same
     tensors, so the state passed in is the state returned. ``metrics`` are
     0-dim f32 tensors on the device, so a caller reads them when it chooses:
-    ``ce`` and ``loss`` (the mean over workers), the sync's effective
+    ``ce`` and ``loss`` (the mean over workers; ``moe_aux`` too for a model
+    with MoE layers), the sync's effective
     ``wire_mb_per_step`` and ``collectives_per_step``, and
     ``down_mb_per_step``.
 

@@ -3,10 +3,11 @@
 Each function takes a JAX pytree as numpy arrays (``jax.tree.map(np.asarray,
 tree)``: nested dicts and lists) and returns tensors on the port's device.
 
-``params_from_jax(tree, cfg)`` returns the LM's model state. The JAX
-``scan`` leaves carry a leading ``repeats`` dim; they are unstacked in the
-order the JAX forward runs them (lead layers, then for each repeat r every
-pattern position, then tail layers). Weights keep their (d_in, d_out)
+``params_from_jax(tree, cfg)`` returns the LM's model state (an untied
+``head`` and the MoE leaves included). The JAX ``scan`` leaves carry a
+leading ``repeats`` dim; they are unstacked in the order the JAX forward
+runs them (lead layers, then for each repeat r every pattern position, then
+tail layers). Weights keep their (d_in, d_out)
 layout, because the port applies them as ``x @ w``.
 
 ``to_jax_layout(params, cfg)`` is its inverse: the serving tree -> the
@@ -64,19 +65,27 @@ def params_from_jax(
             return [conv(v, r) for v in t]
         return tensor_from_numpy(t if r is None else np.asarray(t)[r], dev)
 
-    if cfg.n_codebooks or cfg.mtp or not cfg.tie_embeddings:
-        raise NotImplementedError(
-            f"{cfg.name}: untied, multi-codebook or MTP heads are not ported yet"
-        )
+    _check_ported(cfg)
     layers = [conv(p) for p in tree["lead"]]
     for r in range(cfg.repeats):
         layers += [conv(tree["scan"][pos], r) for pos in range(len(cfg.pattern))]
     layers += [conv(p) for p in tree["tail"]]
-    return {
+    out = {
         "embed": conv(tree["embed"]),
         "layers": layers,
         "final_norm": conv(tree["final_norm"]),
     }
+    if "head" in tree:
+        out["head"] = conv(tree["head"])
+    return out
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.n_codebooks or cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-codebook or MTP heads are not ported yet "
+            "(ROADMAP Queue 1, item 14)"
+        )
 
 
 def to_jax_layout(params: dict[str, Any], cfg: ModelConfig) -> dict[str, Any]:
@@ -92,13 +101,16 @@ def to_jax_layout(params: dict[str, Any], cfg: ModelConfig) -> dict[str, Any]:
     for pos in range(n_pat):
         reps = [layers[n_lead + r * n_pat + pos] for r in range(cfg.repeats)]
         scan.append(_stack(reps))
-    return {
+    out = {
         "embed": params["embed"],
         "lead": layers[:n_lead],
         "scan": scan,
         "tail": layers[n_lead + n_pat * cfg.repeats :],
         "final_norm": params["final_norm"],
     }
+    if "head" in params:
+        out["head"] = params["head"]
+    return out
 
 
 def _stack(trees: list[Any]) -> Any:
@@ -116,10 +128,7 @@ def train_state_from_jax(
     int32 step, every leaf as it is. A PRNG key cannot carry over."""
     if "key" in state["comp"]:
         raise ValueError("a PRNG key cannot carry over; seed the port's state")
-    if cfg.n_codebooks or cfg.mtp or not cfg.tie_embeddings:
-        raise NotImplementedError(
-            f"{cfg.name}: untied, multi-codebook or MTP heads are not ported yet"
-        )
+    _check_ported(cfg)
     dev = resolve_device(device)
     return tree_map(lambda a: tensor_from_numpy(a, dev), state)
 

@@ -1124,3 +1124,76 @@ def test_randomized_encode_on_the_card_equals_its_plain_version(cuda, spec, n):
         ref_out = codec.expand(codes)
     # the dequant kernel against its plain version: within 2 ulp, as above
     assert bool(((out - ref_out).abs() <= 2 * _ulp(ref_out)).all())
+
+
+# ---------------------------------------------------------------- model zoo
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,window",
+    [
+        (4, 32, 8, 1024, None),  # mistral-nemo-12b, qwen2, chameleon: 4-way GQA
+        (4, 48, 1, 1024, None),  # granite-20b: 48-way MQA
+        (2, 32, 8, 5120, 4096),  # mixtral-8x7b: a window of 4096, prompt past it
+    ],
+)
+def test_flash_attention_kernel_at_the_zoo_shapes(cuda, b, hq, hkv, s, window):
+    """head_dim 128 at the served zoo's prefill shapes, bf16, against the
+    f32 plain version (by query chunks, as reference mode takes it past
+    2048 positions): atol 2e-2, as at gemma3-1b's shapes."""
+    q, k, v = (
+        torch.randn((b, h, s, 128), generator=cuda, device="cuda").bfloat16()
+        for h in (hq, hkv, hkv)
+    )
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, window=window)
+    assert flash_attention_cuda.launches == before + 1
+    want = ref.chunked_attention_ref(q.float(), k.float(), v.float(), window=window)
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=0)
+
+
+def test_ssd_chunk_kernel_at_jamba_shape(cuda):
+    """jamba-v0.1-52b's prefill layer: B 4, H 128 in one group, NC 4, Q 256,
+    P 64, N 16; max abs error <= 1e-4 of max |Y|."""
+    x, a_cum, bm, cm = _ssd_inputs(cuda, 4, 128, 1, 4, 256, 64, 16)
+    got = ssd_chunk_cuda(x, a_cum, bm, cm)
+    rep = lambda t: t.repeat_interleave(128, 1)
+    want = ref.ssd_chunk_ref(x, a_cum, rep(bm), rep(cm))
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("impl", ["global", "batched"])
+def test_moe_forward_graph_equals_eager_without_host_sync(cuda, impl):
+    """The MoE FFN at mixtral-8x7b's smoke widths in bf16 runs under
+    ``set_sync_debug_mode("error")`` (nothing read on the host), and a CUDA
+    graph of it, replayed on new inputs, equals the eager forward bit for
+    bit (output and load-balance loss)."""
+    import dataclasses
+
+    from repro_torch.models.moe import init_moe, moe_forward
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b", smoke=True), moe_impl=impl)
+    p = tree_map(lambda t: t.bfloat16(), init_moe(cuda, cfg, "cuda"))
+    xs = [
+        torch.randn((2, 64, cfg.d_model), generator=cuda, device="cuda").bfloat16()
+        for _ in range(2)
+    ]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = [moe_forward(p, x, cfg) for x in xs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    static = xs[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe_forward(p, static, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, aux = moe_forward(p, static, cfg)
+    for x, (want_y, want_aux) in zip(xs, eager):
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want_y) and torch.equal(aux, want_aux)

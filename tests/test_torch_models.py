@@ -293,7 +293,15 @@ def test_swa_caches_are_not_capped_at_the_window():
         # this case asked for a Mamba-2 layer until the SSM slice ported it;
         # it keeps its id and now asks for MLA attention, which still raises
         pytest.param({}, dict(use_mla=True), "LM training slice", id="kw0-SSM slice"),
-        pytest.param(dict(moe=True), {}, "LM training slice", id="kw1-LM training slice"),
+        # this case asked for an MoE FFN until the model-zoo slice ported it;
+        # it keeps its id and now asks for deepseek-v3's layer, an MoE FFN
+        # after MLA attention, which still raises for the MLA
+        pytest.param(
+            dict(moe=True),
+            dict(use_mla=True, n_experts=4, experts_per_token=2),
+            "LM training slice",
+            id="kw1-LM training slice",
+        ),
     ],
 )
 def test_unported_layers_raise_naming_their_slice(spec_kw, cfg_kw, slice_name):

@@ -338,7 +338,10 @@ def test_launcher_trains_at_smoke_widths_on_the_cpu():
         (["--mesh", "2x2"], "item 15"),
         (["--production-mesh"], "item 15"),
         (["--arch", "mamba2-370m"], "item 14"),
-        (["--arch", "mixtral-8x7b"], "item 14"),
+        # mixtral-8x7b trains since the model-zoo slice; the case keeps its
+        # id and now asks for jamba-v0.1-52b, whose Mamba-2 layers have no
+        # backward yet
+        (["--arch", "jamba-v0.1-52b"], "item 14"),
     ],
     ids=["mesh-2x2", "production-mesh", "mamba2", "mixtral"],
 )

@@ -291,11 +291,14 @@ def test_serve_launcher_on_cpu():
 
 
 def test_unported_archs_raise_naming_the_slice():
-    """jamba-v0.1-52b waits for the MoE layers (mamba2-370m, which this test
-    once named, is served since)."""
-    with pytest.raises(NotImplementedError, match="MoE"):
-        get_config("jamba-v0.1-52b")
+    """deepseek-v3-671b waits for MLA and the MTP head, musicgen-medium for
+    the multi-codebook head and the conditioning stub (mamba2-370m and
+    jamba-v0.1-52b, which this test once named, are served since)."""
+    with pytest.raises(NotImplementedError, match="MLA, MTP; ROADMAP item 14"):
+        get_config("deepseek-v3-671b")
     with pytest.raises(NotImplementedError, match="LM training-stack slice"):
-        get_config("jamba-v0.1-52b")
+        get_config("musicgen-medium", smoke=True)
+    with pytest.raises(NotImplementedError, match="multi-codebook"):
+        get_config("musicgen-medium")
     with pytest.raises(KeyError):
         get_config("no-such-model")
