@@ -192,6 +192,7 @@ The second-to-last line is ``{"kernels": [...]}``; the last line is
 """
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -923,7 +924,100 @@ def phase_kernels(gen):
     )
     emit({"kernel": "ssd_chunk", "run": "l4", "shape": list(x.shape), **res})
     del x, a_cum, bm, cm, got, want
+    _kernels_zoo_rest(gen)
     return results
+
+
+def _kernels_zoo_rest(gen):
+    """Phase 12's kernel shapes: #6 at MLA's head_dim 192 (128 nope + 64
+    rope) at (m1)'s prefill, bf16, no GQA, V zero-padded from 128 as the
+    model pads it, and a small f32 case; #4 on (m1)'s latent rows (ckv 512
+    codes: 512 B at q8, 256 B at q4; krope 64: 64 and 32 B) and (m2)'s K
+    rows (64 codes: 64 and 32 B)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.log_dequant_rows import log_dequantize_rows_cuda
+
+    print("kernels at the zoo's last shapes (phase 12)")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for where, b, h, s, dtype, atol in (
+        ("m1 mla192", 4, 128, 1024, torch.bfloat16, 2e-2),
+        ("f32 mla192", 1, 4, 300, torch.float32, 1e-4),
+    ):
+        q = torch.randn((b, h, s, 192), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((b, h, s, 192), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((b, h, s, 128), generator=gen, device="cuda").to(dtype)
+        v = torch.nn.functional.pad(v, (0, 64))
+        got = flash_attention_cuda(q, k, v)
+        want = ref.attention_ref(q.float(), k.float(), v.float())
+        e = float((got.float() - want).abs().max())
+        check(e <= atol, f"flash_attention {where}: max err {e}")
+        check(bool((got[..., 128:] == 0).all()), f"flash_attention {where}: pad")
+        del want
+        pairs = s * (s + 1) // 2 * b * h
+        n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        b_ms, b_by = bound_ms(n_bytes, 4 * 192 * pairs, kind)
+        res = dict(
+            max_abs_err=e,
+            ms=cuda_ms(lambda: flash_attention_cuda(q, k, v), 10),
+            plain_ms=cuda_ms(lambda: ref.attention_ref(q, k, v), 3),
+            bound_ms=b_ms,
+            bound_by=b_by,
+            library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=True), 10),
+        )
+        print(
+            f"  flash_attention {where} q/k/v {list(q.shape)} ({dtype}): max abs "
+            f"err {e:.2e}; {res['ms']:.4f} ms, bound {b_ms:.4f}, plain "
+            f"{res['plain_ms']:.4f}, SDPA {res['library_ms']:.4f}"
+        )
+        emit({"kernel": "flash_attention", "zoo": where, "shape": list(q.shape), **res})
+        del q, k, v
+
+    # rows of one layer's leaf: (m1) 4 x 1056 positions, (m2) 4 x 24 heads
+    # x 1120 positions
+    for where, r, d in (
+        ("m1 ckv", 4 * (1024 + 32), 512),
+        ("m1 krope", 4 * (1024 + 32), 64),
+        ("m2 k", 4 * 24 * (64 + 1024 + 32), 64),
+    ):
+        x = torch.randn((r, d), generator=gen, device="cuda")
+        scale = x.abs().amax(-1, keepdim=True)
+        xn = x / scale
+        for bits, c in (
+            (8, ref.log_quantize_ref(xn, 1.0, 8, 10.0)),
+            (4, ref.log_quantize_pack_ref(xn, 1.0, 4, 10.0).reshape(r, d // 2)),
+        ):
+            got = log_dequantize_rows_cuda(c, scale, bits=bits)
+            want = ref.log_dequantize_rows_ref(c, scale, bits, 10.0)
+            rel = (got - want).abs() / want.abs().clamp_min(1e-30)
+            rel = float(rel.masked_fill(want == 0, 0).max())
+            nb = c.shape[1]
+            check(rel <= 1e-6, f"dequant {where} q{bits} {nb} B: rel {rel}")
+            n_bytes = r * nb + r * 4 + r * d * 4
+            b_ms, b_by = bound_ms(n_bytes, r * d * DEQUANT_OPS, "f32")
+            res = dict(
+                max_abs_err=float((got - want).abs().max()),
+                ms=cuda_ms(lambda: log_dequantize_rows_cuda(c, scale, bits=bits), 50),
+                plain_ms=cuda_ms(
+                    lambda: ref.log_dequantize_rows_ref(c, scale, bits, 10.0), 20
+                ),
+                bound_ms=b_ms,
+                bound_by=b_by,
+                library_ms=None,
+            )
+            print(
+                f"  log_dequantize_rows {where} q{bits}, {r} rows of {nb} B: max rel "
+                f"err {rel:.2e}; {res['ms']:.5f} ms, bound {b_ms:.5f}, plain "
+                f"{res['plain_ms']:.5f}"
+            )
+            emit(
+                {
+                    "kernel": "log_dequantize_rows",
+                    "zoo": f"{where} q{bits} {nb} B rows",
+                    **res,
+                }
+            )
 
 
 def _ssd_inputs(gen, cfg, batch, nc):
@@ -1006,7 +1100,7 @@ def _graph_equals_eager(label, card, graphed, eager, counts, eager_counts):
         same = torch.equal(graphed["tokens"], eager["tokens"])
         check(same, f"{label}: graph tokens differ from the eager decode")
         caches = graphed["caches"], eager["caches"]
-        b, n = graphed["tokens"].shape
+        b, n = graphed["tokens"].shape[:2]  # (B, gen[, codebooks])
         n_tokens = b * (n - 1)
         secs = graphed["decode_s"], eager["decode_s"]
         what = "decode tokens"
@@ -1937,6 +2031,29 @@ def _free_cuda():
     torch.cuda.empty_cache()
 
 
+def _lm_data(cfg, batch, seq):
+    """The LM training data of ``cfg`` (codebook grids for musicgen)."""
+    from repro_torch.data.synthetic import LMDataConfig
+
+    return LMDataConfig(
+        vocab_size=cfg.vocab_size,
+        seq_len=seq,
+        batch=batch,
+        n_codebooks=cfg.n_codebooks,
+    )
+
+
+def _lm_batch(cfg, data, step):
+    """``step``'s batch as the training launcher draws it: the tokens and,
+    for a conditioned model, its conditioning prefix."""
+    from repro_torch.data.synthetic import cond_batch, lm_batch
+
+    b = lm_batch(data, step)
+    if cfg.cond_len:
+        b["cond"] = cond_batch(data, step, cfg.cond_len, cfg.d_model)
+    return b
+
+
 def _lm_run(
     cfg,
     comp_cfg,
@@ -1962,7 +2079,6 @@ def _lm_run(
     host ms between device syncs."""
     from repro_torch.core.comm import SimComm
     from repro_torch.core.tree import tree_leaves
-    from repro_torch.data.synthetic import LMDataConfig, lm_batch
     from repro_torch.train.runtime import AsyncRunner, RuntimeConfig
     from repro_torch.train.step import (
         build_train_step,
@@ -2009,12 +2125,12 @@ def _lm_run(
         log["tokens"].append(step.batch["tokens"].clone())
         return state, metrics
 
-    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch=batch)
+    data = _lm_data(cfg, batch, seq)
     rcfg = RuntimeConfig(
         steps=steps, log_every=1, verbose=False, microbatch=microbatch, prefetch=2
     )
     cls = AsyncRunner if runner == "async" else Trainer
-    loop = cls(stepped, lambda i: lm_batch(data, i), rcfg)
+    loop = cls(stepped, lambda i: _lm_batch(cfg, data, i), rcfg)
     state = init_train_state(cfg, 0, opt, comp, n, "cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2026,9 +2142,9 @@ def _lm_run(
 
 def _lm_tokens_checked(label, cfg, log, steps, batch=LM_BATCH, seq=LM_SEQ):
     """The tokens every step read against numpy's ``lm_batch``."""
-    from repro_torch.data.synthetic import LMDataConfig, lm_batch
+    from repro_torch.data.synthetic import lm_batch
 
-    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch=batch)
+    data = _lm_data(cfg, batch, seq)
     check(len(log["tokens"]) == steps, f"{label}: {len(log['tokens'])} steps' tokens")
     for t, got in enumerate(log["tokens"]):
         want = torch.from_numpy(lm_batch(data, t)["tokens"]).to(got.dtype)
@@ -2260,7 +2376,6 @@ def _lm_timed(
     device idle share of the eager step (1 - replay device ms / eager host
     ms, both with remat, the launcher's setting). The kernels of a replay
     by device time (torch.profiler)."""
-    from repro_torch.data.synthetic import LMDataConfig, lm_batch
     from repro_torch.train.optimizer import adam
     from repro_torch.train.step import (
         build_train_step,
@@ -2270,8 +2385,8 @@ def _lm_timed(
 
     mesh, batch, seq = shape
     comp = make_model_compressor(cfg, comp_cfg)
-    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch=batch)
-    batches = [lm_batch(data, i) for i in range(J1_TIMED_STEPS)]
+    data = _lm_data(cfg, batch, seq)
+    batches = [_lm_batch(cfg, data, i) for i in range(J1_TIMED_STEPS)]
     tokens = batch * seq
     _free_cuda()
     opt = adam(lr)
@@ -3490,6 +3605,11 @@ ZOO_SERVE = {
     "l2": ("granite-20b", {}, 4, 1024, (8,)),
     "l3": ("mixtral-8x7b", {"repeats": 16}, 2, 5120, (8,)),
     "l4": ("jamba-v0.1-52b", {"repeats": 1}, 4, 1024, (8,)),
+    # phase 12 (m): deepseek-v3-671b cut to its 3 dense lead layers and 1
+    # MoE layer (4 of 61, about 31.6 GB in bf16), MTP in the tree;
+    # musicgen-medium at full depth, prompts after its 64-step prefix
+    "m1": ("deepseek-v3-671b", {"repeats": 1}, 4, 1024, (8,)),
+    "m2": ("musicgen-medium", {}, 4, 1024, (8, 4)),
 }
 ZOO_GEN = 32
 # the JAX package's parameter counts of these cuts (tests/test_torch_zoo.py)
@@ -3499,6 +3619,13 @@ ZOO_PARAMS = {
     "l3": 23_482_470_400,
     "l4": 13_267_656_416,
     "l5": 1_713_418_240,
+    # tests/test_torch_zoo_rest.py
+    "m1": 15_797_366_784,
+    "m2": 1_837_254_144,
+    "m3": 368_338_432,
+    "m4": 1_837_254_144,
+    "m5a": 793_408,
+    "m5b": 1_480_872,
 }
 # the accounting: layers x (K, V) x KV heads x (head_dim codes + a 4-byte
 # scale) at q8, (head_dim / 2 + 4) at q4
@@ -3507,6 +3634,10 @@ ZOO_BYTES_PER_TOKEN = {
     ("l1", 4): 40 * 2 * 8 * (64 + 4),
     ("l2", 8): 52 * 2 * 1 * (128 + 4),
     ("l3", 8): 16 * 2 * 8 * (128 + 4),
+    # MLA: layers x (ckv 512 + krope 64 codes, two 4-byte scales)
+    ("m1", 8): 4 * (512 + 64 + 2 * 4),
+    ("m2", 8): 48 * 2 * 24 * (64 + 4),
+    ("m2", 4): 48 * 2 * 24 * (32 + 4),
 }
 # The MoE layers against reference mode. At seeded init the router's top-2
 # margins are small, and the kernel path (#6) and the plain attention round
@@ -3523,14 +3654,32 @@ ZOO_BYTES_PER_TOKEN = {
 # residual streams of the two runs differ by ~1-2% after 16 layers, and the
 # largest logit difference of 10240 tokens by ~4 sigma of that).
 MOE_FLIP_MARGIN = 0.25
-# (l5): mixtral-8x7b's widths, one MoE layer, 2 workers x 2 rows x 512
-# tokens, LQ-SGD r1 b8, Adam, 3 steps; the JAX package's wire bits a step
-# for this cut (tests/test_torch_zoo.py). Adam at (j1)'s 1e-3 moves every
-# weight of the untied 4096 x 32000 head by 1e-3 at its first step, which
-# moves a logit by up to ~3 and raises the loss at the second step; 1e-4
-# moves it by ~0.3.
-L5_SHAPE = ((2, 1), 4, 512)
-L5_STEPS, L5_BITS, L5_LR = 3, 2_626_336, 1e-4
+# Training runs, LQ-SGD r1 b8 and Adam, 3 steps: run -> (arch, the cut of
+# its depth, smoke widths?, (mesh, global batch, sequence), learning rate,
+# the JAX package's wire bits a step for this tree (tests/test_torch_zoo.py,
+# tests/test_torch_zoo_rest.py), against reference mode and timed (1/0)).
+# (l5): mixtral-8x7b's widths, one MoE layer. Adam at (j1)'s 1e-3 moves
+# every weight of the untied 4096 x 32000 head by 1e-3 at its first step,
+# which moves a logit by up to ~3 and raises the loss at the second step;
+# 1e-4 moves it by ~0.3, and the full-width runs of phase 12 take it too.
+# (m3) mamba2-370m and (m4) musicgen-medium (with its conditioning prefix)
+# at full width and depth; (m5a) deepseek-v3-671b and (m5b) jamba-v0.1-52b
+# at smoke widths: one MLA layer with deepseek's 129,280-token embedding,
+# head and MTP head is ~3.1 B parameters, ~93 GB to train at (l5)'s ~30
+# bytes a parameter, and jamba's smallest full-width unit (a period) 13.3 B.
+ZOO_TRAIN = {
+    "l5": ("mixtral-8x7b", {"repeats": 1}, False, ((2, 1), 4, 512), 1e-4, 2_626_336, 1),
+    "m3": ("mamba2-370m", {}, False, ((4, 1), 8, 512), 1e-4, 6_671_968, 1),
+    "m4": ("musicgen-medium", {}, False, ((2, 1), 4, 512), 1e-4, 14_922_976, 1),
+    "m5a": ("deepseek-v3-671b", {}, True, ((2, 1), 4, 64), 1e-3, 122_112, 0),
+    "m5b": ("jamba-v0.1-52b", {}, True, ((2, 1), 4, 64), 1e-3, 144_992, 0),
+}
+ZOO_TRAIN_STEPS = 3
+# the runs whose step-0 wire codes must equal reference mode's exactly (the
+# step-0 gradients into the sync are equal bit for bit)
+ZERO_FLIPS_AT_STEP0 = ("m3",)
+# the step metrics besides ce and loss that a zoo model may log
+ZOO_AUX = ("moe_aux", "mtp_ce")
 
 
 def phase_zoo(card):
@@ -3538,13 +3687,13 @@ def phase_zoo(card):
     training through the LQ-SGD sync. Each model is freed before the next
     is built."""
     total = {}
-    for run in ZOO_SERVE:
+    for run in ("l1", "l2", "l3", "l4"):
         for name, c in _zoo_serve(card, run).items():
             total[name] = total.get(name, 0) + c
         _free_cuda()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        for name, c in _zoo_train(card).items():
+        for name, c in _zoo_train(card, "l5").items():
             total[name] = total.get(name, 0) + c
     finally:
         torch.use_deterministic_algorithms(False)
@@ -3552,12 +3701,37 @@ def phase_zoo(card):
     return total
 
 
-def _zoo_cfg(arch, cut):
+def phase_zoo_rest(card):
+    """(m) the zoo's last two architectures and Mamba-2 training: (m1)
+    deepseek-v3-671b (MLA with its latent cache, 256 experts) and (m2)
+    musicgen-medium (codebook heads after the conditioning prefix) served
+    at full width; (m3) mamba2-370m and (m4) musicgen-medium trained at
+    full width, (m5) deepseek-v3-671b and jamba-v0.1-52b at smoke widths,
+    through the LQ-SGD sync. Deterministic algorithms are on for the
+    training comparisons, as in (l5). Each model is freed before the next
+    is built."""
+    total = {}
+    for run in ("m1", "m2"):
+        for name, c in _zoo_serve(card, run).items():
+            total[name] = total.get(name, 0) + c
+        _free_cuda()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for run in ("m3", "m4", "m5a", "m5b"):
+            for name, c in _zoo_train(card, run).items():
+                total[name] = total.get(name, 0) + c
+            _free_cuda()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return total
+
+
+def _zoo_cfg(arch, cut, smoke=False):
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(arch), **cut)
+    return dataclasses.replace(get_config(arch, smoke=smoke), **cut)
 
 
 def _moe_flips(label, cfg, kernel_calls, held_calls):
@@ -3649,7 +3823,11 @@ def _zoo_serve(card, run):
     from repro_torch.launch import serve
     from repro_torch.models import moe
     from repro_torch.models.model import count_params, init_params
-    from repro_torch.models.multimodal import vq_tokens_stub
+    from repro_torch.models.multimodal import (
+        codec_tokens_stub,
+        conditioning_stub,
+        vq_tokens_stub,
+    )
     from repro_torch.serving.engine import (
         build_decode_step,
         build_generate_fn,
@@ -3666,34 +3844,48 @@ def _zoo_serve(card, run):
     torch.cuda.synchronize()
     n_params = count_params(params)
     cut_note = f", cut to {cfg.n_layers} layers" if cut else ""
+    if cfg.use_mla:
+        heads = (
+            f"MLA, {cfg.n_heads} heads of {cfg.qk_nope_dim} + {cfg.qk_rope_dim}, "
+            f"latent {cfg.kv_lora_rank} + {cfg.qk_rope_dim}"
+        )
+    else:
+        heads = f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}"
     print(
         f"({run}) serve {arch}: {cfg.n_layers} layers{cut_note}, d={cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
-        f"{n_params} params in {cfg.dtype} "
+        f"{heads}, {n_params} params in {cfg.dtype} "
         f"({torch.cuda.memory_allocated() / 1e9:.1f} GB), init "
         f"{time.perf_counter() - t0:.1f} s"
     )
     check(n_params == ZOO_PARAMS[run], f"({run}) {arch}: {n_params} params")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    if cfg.arch_type == "vlm":
+    if cfg.n_codebooks:
+        tokens = codec_tokens_stub(gen, batch, prompt, cfg)
+    elif cfg.arch_type == "vlm":
         tokens = vq_tokens_stub(gen, batch, prompt, cfg)
     else:
         tokens = torch.randint(
             0, cfg.vocab_size, (batch, prompt), generator=gen, device="cuda"
         )
+    cond = conditioning_stub(gen, batch, cfg) if cfg.cond_len else None
     n_mamba = sum(spec.kind == "mamba" for spec in cfg.layers)
-    max_seq = prompt + ZOO_GEN
+    # decode goes on after the conditioning prefix and the prompt
+    start = prompt + cfg.cond_len
+    max_seq = start + ZOO_GEN
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     total = {name: 0 for name in ops.KERNELS}
     for bits in bits_list:
         label = f"({run}) {arch} batch {batch} x prompt {prompt} + {ZOO_GEN}, q{bits}"
         qcfg = CacheQuantConfig(bits=bits)
-        prefill = build_prefill_step(cfg, max_seq, qcfg=qcfg)
+        prefill = functools.partial(
+            build_prefill_step(cfg, max_seq, qcfg=qcfg), cond=cond
+        )
         pre = _zoo_prefill_checks(label, cfg, params, tokens, prefill)
 
         # the main path: prefill + graphed decode through the launcher's
         # run_fixed, then the same with the decode steps one by one
         ops.reset_launch_counts()
-        out = serve.run_fixed(cfg, params, tokens, gen=ZOO_GEN, qcfg=qcfg)
+        out = serve.run_fixed(cfg, params, tokens, gen=ZOO_GEN, qcfg=qcfg, cond=cond)
         counts = ops.launch_counts()
         print(f"{label}: launches {counts}")
         encode = "log_quantize" if bits == 8 else "log_quantize_pack"
@@ -3707,12 +3899,13 @@ def _zoo_serve(card, run):
         check(same, f"{label}: the prefill is not repeatable")
         ops.reset_launch_counts()
         eager = serve.run_fixed(
-            cfg, params, tokens, gen=ZOO_GEN, qcfg=qcfg, graph=False
+            cfg, params, tokens, gen=ZOO_GEN, qcfg=qcfg, graph=False, cond=cond
         )
         _graph_equals_eager(label, card, out, eager, counts, ops.launch_counts())
         del eager
         toks = out["tokens"]
-        check(tuple(toks.shape) == (batch, ZOO_GEN), f"{label}: tokens {toks.shape}")
+        want_shape = (batch, ZOO_GEN) + cb
+        check(tuple(toks.shape) == want_shape, f"{label}: tokens {toks.shape}")
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{label}: bad ids")
 
         # decode vs reference mode from the same caches (the kernel path's
@@ -3722,7 +3915,7 @@ def _zoo_serve(card, run):
         check(torch.equal(greedy_sample(logits), toks[:, :1]), f"{label}: first token")
         with ops.reference_mode():
             caches, _, _, sampled = build_generate_fn(cfg)(
-                params, caches, toks[:, :1], prompt, None, ZOO_GEN - 1
+                params, caches, toks[:, :1], start, None, ZOO_GEN - 1
             )
         same = sampled == toks[:, 1:]
         check(
@@ -3806,10 +3999,14 @@ def _zoo_serve(card, run):
     return total
 
 
-def _zoo_train(card):
-    """(l5): MoE training through the LQ-SGD sync, mixtral-8x7b's widths with
-    one MoE layer: the graphed step against graph=False bit for bit, then
-    reference mode (the routing held to the eager kernel run's) as (j1)."""
+def _zoo_train(card, run):
+    """A zoo training run of ``ZOO_TRAIN`` through the LQ-SGD sync (the
+    launcher's Trainer, Adam): the graphed step against graph=False bit for
+    bit (losses, the aux metrics, step-0 gradients into the sync, every
+    step's synced gradients and wire, bits, final params, launches), the
+    wire bits a step against the JAX package's accounting; where the table
+    asks, then reference mode (an MoE model's routing held to the eager
+    kernel run's) as (j1), and the step timed as the launcher runs it."""
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.core.tree import tree_leaves
     from repro_torch.kernels import ops
@@ -3817,42 +4014,47 @@ def _zoo_train(card):
     from repro_torch.train.optimizer import adam
     from repro_torch.train.step import init_train_params
 
-    cfg = _zoo_cfg("mixtral-8x7b", {"repeats": 1})
-    mesh, batch, seq = L5_SHAPE
+    arch, cut, smoke, shape, lr, bits, vs_reference = ZOO_TRAIN[run]
+    cfg = _zoo_cfg(arch, cut, smoke)
+    mesh, batch, seq = shape
+    steps = ZOO_TRAIN_STEPS
     comp_cfg = CompressorConfig(name="lq_sgd", rank=1, bits=8)
+    widths = "smoke widths" if smoke else "full width"
     label = (
-        f"(l5) mixtral-8x7b widths, 1 MoE layer, {mesh[0]} workers x "
-        f"{batch // mesh[0]} x {seq}, LQ-SGD r1 b8, Adam lr {L5_LR:g}, Trainer"
+        f"({run}) {cfg.name} {widths}, {cfg.n_layers} layers, {mesh[0]} workers "
+        f"x {batch // mesh[0]} x {seq}, LQ-SGD r1 b8, Adam lr {lr:g}, Trainer"
     )
     init = init_train_params(cfg, 0, "cuda")
     n_params = sum(w.numel() for w in tree_leaves(init))
     init = [w.detach().to("cpu") for w in tree_leaves(init)]
-    check(n_params == ZOO_PARAMS["l5"], f"{label}: {n_params} parameters")
+    check(n_params == ZOO_PARAMS[run], f"{label}: {n_params} parameters")
     runs = {}
     for name, graph in (("graph", None), ("eager", False)):
         _free_cuda()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         # the eager run's routing is recorded, for reference mode to hold
-        with moe.routing() if graph is False else contextlib.nullcontext() as rec:
+        record = graph is False and cfg.n_experts
+        with moe.routing() if record else contextlib.nullcontext() as rec:
             r = _lm_run(
                 cfg,
                 comp_cfg,
-                adam(L5_LR),
-                L5_STEPS,
+                adam(lr),
+                steps,
                 graph=graph,
                 every=True,
                 timed=True,
-                shape=L5_SHAPE,
+                shape=shape,
             )
         step_ms = r["log"]["step_ms"]
+        history = r["loop"].history
         runs[name] = dict(
             counts=ops.launch_counts(),
             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
             params=_host_params(r["state"]),
             log=r["log"],
-            losses=[h["loss"] for h in r["loop"].history],
-            moe_aux=[h["moe_aux"] for h in r["loop"].history],
+            losses=[h["loss"] for h in history],
+            aux={k: [h[k] for h in history] for k in ZOO_AUX if k in history[0]},
             capture_s=r["step"].capture_s,
             gathered=[w.cpu() for ws in r["log"]["wire"] for w in ws],
             choices=rec.choices if rec is not None else None,
@@ -3860,98 +4062,114 @@ def _zoo_train(card):
             step_ms=step_ms,
             ms_per_step=step_ms[-1] if graph is None else _median(step_ms),
         )
-        _lm_tokens_checked(f"(l5) {name}", cfg, r["log"], L5_STEPS, batch, seq)
+        _lm_tokens_checked(f"({run}) {name}", cfg, r["log"], steps, batch, seq)
         del r
     g, e = runs["graph"], runs["eager"]
     _lm_graph_equals_eager(label, g, e)
-    check(g["moe_aux"] == e["moe_aux"], f"{label}: moe_aux, graph != eager")
+    check(g["aux"] == e["aux"], f"{label}: {sorted(g['aux'])}, graph != eager")
+    want_aux = {"moe_aux"} if cfg.n_experts else set()
+    want_aux |= {"mtp_ce"} if cfg.mtp else set()
+    check(set(g["aux"]) == want_aux, f"{label}: metrics {sorted(g['aux'])}")
     counts = g["counts"]
     for name in ("log_quantize", "log_dequantize"):
         check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    # the training forward takes the plain attention and the plain SSD
     for name in ("log_quantize_pack", "flash_attention", "ssd_chunk"):
         check(counts[name] == 0, f"{label}: kernel {name} launched")
-    # the eager run's MoE calls: each MoE layer's forward and remat's
-    # recompute, a worker a step
-    n_moe = sum(spec.moe for spec in cfg.layers)
-    n_calls = 2 * n_moe * mesh[0] * L5_STEPS
-    check(len(e["choices"]) == n_calls, f"{label}: {len(e['choices'])} MoE calls")
-    _free_cuda()
-    with ops.reference_mode(), moe.routing(e["choices"]):
-        r = _lm_run(
-            cfg,
-            comp_cfg,
-            adam(L5_LR),
-            L5_STEPS,
-            graph=False,
-            every=True,
-            shape=L5_SHAPE,
+    if cfg.n_experts:
+        # each MoE layer's forward a worker a step, and remat's recompute of
+        # the scanned ones
+        n_scan = sum(spec.moe for spec in cfg.pattern) * cfg.repeats
+        n_moe = sum(spec.moe for spec in cfg.layers)
+        n_calls = (n_moe + n_scan) * mesh[0] * steps
+        check(len(e["choices"]) == n_calls, f"{label}: {len(e['choices'])} MoE calls")
+    comp, colls = None, None
+    for rec in g["log"]["rec"] + e["log"]["rec"]:
+        check(rec.effective_bits() == bits, f"{label}: {rec.effective_bits()} bits")
+    summary = (
+        f"  {label}: {n_params} parameters, {bits} wire bits/step (the JAX "
+        f"package's accounting); graph = eager bit for bit over {steps} steps "
+        f"(losses, {sorted(g['aux'])}, step-0 gradients into the sync, every "
+        f"step's synced grads, wire, bits, final params, launches {counts}); "
+        f"losses {[round(v, 4) for v in g['losses']]}, "
+        f"{ {k: [round(x, 4) for x in v] for k, v in g['aux'].items()} }"
+    )
+    out = {
+        "train": f"{run}_{cfg.name}_lq_sgd_r1_b8_adam",
+        "card": card,
+        "params": n_params,
+        "wire_bits_per_step": bits,
+        "graph_equals_eager": True,
+        "ms_per_step_deterministic": {k: runs[k]["ms_per_step"] for k in runs},
+        "step_ms_deterministic": {k: runs[k]["step_ms"] for k in runs},
+        "lr": lr,
+        "peak_memory_gb": {k: runs[k]["peak_gb"] for k in runs},
+        "capture_s": g["capture_s"],
+        "losses": g["losses"],
+        "aux": g["aux"],
+        "launches": counts,
+    }
+    check(all(math.isfinite(v) for v in g["losses"]), f"{label}: {g['losses']}")
+    if vs_reference:
+        _free_cuda()
+        held = moe.routing(e["choices"]) if cfg.n_experts else contextlib.nullcontext()
+        with ops.reference_mode(), held:
+            r = _lm_run(
+                cfg, comp_cfg, adam(lr), steps, graph=False, every=True, shape=shape
+            )
+        ref = dict(
+            params=_host_params(r["state"]),
+            log=r["log"],
+            losses=[h["loss"] for h in r["loop"].history],
+            gathered=[w.cpu() for ws in r["log"]["wire"] for w in ws],
         )
-    ref = dict(
-        params=_host_params(r["state"]),
-        log=r["log"],
-        losses=[h["loss"] for h in r["loop"].history],
-        gathered=[w.cpu() for ws in r["log"]["wire"] for w in ws],
-    )
-    comp = r["comp"]
-    del r
-    _free_cuda()
-    colls = comp.handler.group_collectives(comp.plans)
-    check(comp.wire_bits_per_step() == L5_BITS, f"{label}: {comp.wire_bits_per_step()}")
-    for rec in g["log"]["rec"] + e["log"]["rec"] + ref["log"]["rec"]:
-        check(rec.effective_bits() == L5_BITS, f"{label}: {rec.effective_bits()} bits")
-        check(rec.effective_collectives() == colls, f"{label}: collectives")
-    for a, b in zip(g["log"]["grads0"], ref["log"]["grads0"], strict=True):
-        check(torch.equal(a, b), f"{label}: step-0 gradients into the sync differ")
-    flips, n_codes, flips0, grad_rel, param_rel = _lm_close_to_reference(
-        label, g, ref, init, L5_STEPS, workers=mesh[0], lr=L5_LR
-    )
-    losses = g["losses"]
-    check(all(math.isfinite(v) for v in losses + g["moe_aux"]), f"{label}: {losses}")
-    torch.use_deterministic_algorithms(False)
-    try:
-        timed = _lm_timed(cfg, comp_cfg, card, shape=L5_SHAPE, lr=L5_LR, tag="l5")
-    finally:
-        torch.use_deterministic_algorithms(True, warn_only=True)
+        comp = r["comp"]
+        del r
+        _free_cuda()
+        colls = comp.handler.group_collectives(comp.plans)
+        planned = comp.wire_bits_per_step()
+        check(planned == bits, f"{label}: {planned} bits planned")
+        for rec in g["log"]["rec"] + e["log"]["rec"] + ref["log"]["rec"]:
+            check(rec.effective_bits() == bits, f"{label}: {rec.effective_bits()} bits")
+            check(rec.effective_collectives() == colls, f"{label}: collectives")
+        for a, b in zip(g["log"]["grads0"], ref["log"]["grads0"], strict=True):
+            check(torch.equal(a, b), f"{label}: step-0 gradients into the sync differ")
+        flips, n_codes, flips0, grad_rel, param_rel = _lm_close_to_reference(
+            label, g, ref, init, steps, workers=mesh[0], lr=lr
+        )
+        if run in ZERO_FLIPS_AT_STEP0:
+            check(flips0 == 0, f"{label}: {flips0} code flips at step 0")
+        torch.use_deterministic_algorithms(False)
+        try:
+            timed = _lm_timed(cfg, comp_cfg, card, shape=shape, lr=lr, tag=run)
+        finally:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        held_note = ", the routing held" if cfg.n_experts else ""
+        summary += (
+            f"; {colls} collectives a step; vs reference mode{held_note}: step-0 "
+            f"gradients into the sync equal, {flips} of {n_codes} codes flipped "
+            f"({flips0} at step 0), step-0 synced grads rel {grad_rel:.2e}, params "
+            f"rel {param_rel:.2e}"
+        )
+        out.update(
+            collectives_per_step=colls,
+            timed=timed,
+            idle_share=timed["idle_share"],
+            reference_losses=ref["losses"],
+            code_flips=flips,
+            code_flips_step0=flips0,
+            step0_synced_grad_rel_err=grad_rel,
+            param_rel_err=param_rel,
+        )
     print(
-        f"  {label}: {n_params} parameters, {L5_BITS} wire bits/step in {colls} "
-        f"collectives; graph = eager bit for bit over {L5_STEPS} steps (losses, "
-        f"moe_aux, step-0 gradients into the sync, every step's synced grads, "
-        f"wire, bits, final params, launches {counts}); vs reference mode with "
-        f"the routing held: step-0 gradients into the sync equal, {flips} of "
-        f"{n_codes} codes flipped ({flips0} at step 0), step-0 synced grads rel "
-        f"{grad_rel:.2e}, params rel {param_rel:.2e}; losses "
-        f"{[round(v, 4) for v in losses]}, moe_aux "
-        f"{[round(v, 4) for v in g['moe_aux']]}; ms a step (host clock to a "
-        f"device sync) graphed {g['ms_per_step']:.1f} (a replay; warm-up and "
-        f"capture {g['step_ms'][0]:.1f}, {g['step_ms'][1]:.1f}; capture "
+        summary + f"; ms a step (host clock to a device sync) graphed "
+        f"{g['ms_per_step']:.1f} (a replay; warm-up and capture "
+        f"{g['step_ms'][0]:.1f}, {g['step_ms'][1]:.1f}; capture "
         f"{g['capture_s']:.2f} s), eager {e['ms_per_step']:.1f} (median); peak "
-        f"{g['peak_gb']:.1f} / {e['peak_gb']:.1f} GB "
-        f"(deterministic algorithms on); {card}"
+        f"{g['peak_gb']:.1f} / {e['peak_gb']:.1f} GB (deterministic algorithms "
+        f"on); {card}"
     )
-    emit(
-        {
-            "train": "l5_mixtral_1_layer_lq_sgd_r1_b8_adam",
-            "card": card,
-            "params": n_params,
-            "wire_bits_per_step": L5_BITS,
-            "collectives_per_step": colls,
-            "graph_equals_eager": True,
-            "ms_per_step_deterministic": {k: runs[k]["ms_per_step"] for k in runs},
-            "step_ms_deterministic": {k: runs[k]["step_ms"] for k in runs},
-            "timed": timed,
-            "idle_share": timed["idle_share"],
-            "lr": L5_LR,
-            "peak_memory_gb": {k: runs[k]["peak_gb"] for k in runs},
-            "capture_s": g["capture_s"],
-            "losses": losses,
-            "moe_aux": g["moe_aux"],
-            "reference_losses": ref["losses"],
-            "launches": counts,
-            "code_flips": flips,
-            "step0_synced_grad_rel_err": grad_rel,
-            "param_rel_err": param_rel,
-        }
-    )
+    emit(out)
     return counts
 
 
@@ -4008,6 +4226,7 @@ def main():
     # since the attack's backward runs on one thread (core/privacy/gia.py)
     phases = (
         phase_zoo,
+        phase_zoo_rest,
         phase_train,
         phase_ssm,
         phase_composite,

@@ -1,23 +1,24 @@
 """Config registry of the port.
 
 ``get_config("gemma3-1b")`` is the full model, ``smoke=True`` its reduced
-variant for CPU tests. The port knows eight of the JAX package's ten
-architectures: the dense ones (tied or untied head), the MoE ones and the
-Mamba-2 ones. The other two need layers (MLA and the MTP head; the
-multi-codebook head and the conditioning stub) that a later slice ports, so
-asking for one raises ``NotImplementedError`` naming ROADMAP item 14.
+variant for CPU tests. The port knows all ten of the JAX package's
+architectures: the dense ones (tied or untied head), the MoE ones, the
+Mamba-2 ones, deepseek-v3-671b (MLA, the MTP head) and musicgen-medium
+(multi-codebook embeddings and heads, the conditioning prefix).
 """
 
 from __future__ import annotations
 
 from repro_torch.configs import (
     chameleon_34b,
+    deepseek_v3_671b,
     gemma3_1b,
     granite_20b,
     jamba_v01_52b,
     mamba2_370m,
     mistral_nemo_12b,
     mixtral_8x7b,
+    musicgen_medium,
     qwen2_72b,
 )
 from repro_torch.configs.base import (
@@ -38,15 +39,8 @@ ARCHS = {
     "chameleon-34b": chameleon_34b,
     "mixtral-8x7b": mixtral_8x7b,
     "jamba-v0.1-52b": jamba_v01_52b,
-}
-
-# architectures of the JAX package and the port slice that brings each one
-LATER_SLICES = {
-    "deepseek-v3-671b": "the LM training-stack slice (MLA, MTP; ROADMAP item 14)",
-    "musicgen-medium": (
-        "the LM training-stack slice (multi-codebook heads, conditioning; "
-        "ROADMAP item 14)"
-    ),
+    "deepseek-v3-671b": deepseek_v3_671b,
+    "musicgen-medium": musicgen_medium,
 }
 
 __all__ = [
@@ -63,10 +57,6 @@ __all__ = [
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
-    if name in LATER_SLICES:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet; it comes with {LATER_SLICES[name]}"
-        )
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; options: {sorted(ARCHS)}")
     mod = ARCHS[name]

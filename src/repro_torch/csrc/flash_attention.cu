@@ -28,7 +28,9 @@
 // gives the same numbers). Key tiles are 64 rows at every head_dim: at
 // head_dim 256 a warp holds 128 f32 of O and 32 of S a thread, and the ~165
 // KB of shared memory (Q, two K and two V stages) is dynamic, raised with
-// cudaFuncSetAttribute. The last query tiles, which walk the most key
+// cudaFuncSetAttribute. MLA's prefill (deepseek-v3) runs at head_dim 192 =
+// 12 x 16 (128 nope + 64 rope, V zero-padded to it): 96 f32 of O a thread
+// and ~125 KB of shared memory. The last query tiles, which walk the most key
 // tiles, are launched first, so the causal tail does not run alone in the
 // last wave. GQA maps query head h to kv head h / (Hq / Hkv). The ragged edge
 // (S not a multiple of 64) is zero-filled by cp.async and masked; nothing is
@@ -37,7 +39,9 @@
 //
 // The f32 instantiation, which no serving path runs, keeps the first
 // version's scalar design: one block of 128 threads per 32-row query tile,
-// Q, K and V in f32 shared memory, scores and P V by scalar FMA.
+// Q, K and V in f32 shared memory, scores and P V by scalar FMA. Its P V
+// step spreads head_dim over at most 128 threads, a split that divides it:
+// all of it up to 128, 128 columns at 256, 64 at 192 (3 a thread).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // Interface: plain C, returns cudaGetLastError() after the launch.
@@ -323,7 +327,8 @@ struct Layout {
   static constexpr int kPitchQK = D + 1;
   static constexpr int kPitchP = kBlockK + 1;
   // P @ V: kColThreads threads across head_dim, kRowThreads groups down rows
-  static constexpr int kColThreads = D < kThreads ? D : kThreads;
+  static constexpr int kColThreads =
+      D <= kThreads ? D : (D % kThreads == 0 ? kThreads : kThreads / 2);
   static constexpr int kRowThreads = kThreads / kColThreads;
   static constexpr int kCols = D / kColThreads;        // columns per thread
   static constexpr int kRows = kBlockQ / kRowThreads;  // rows per thread
@@ -536,6 +541,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 64: return (int)launch<64>(q, k, v, o, b, hq, hkv, s, window, sm_scale, is_bf16, st);
     case 128:
       return (int)launch<128>(q, k, v, o, b, hq, hkv, s, window, sm_scale, is_bf16, st);
+    case 192:
+      return (int)launch<192>(q, k, v, o, b, hq, hkv, s, window, sm_scale, is_bf16, st);
     case 256:
       return (int)launch<256>(q, k, v, o, b, hq, hkv, s, window, sm_scale, is_bf16, st);
     default: return (int)cudaErrorInvalidValue;

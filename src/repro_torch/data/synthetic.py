@@ -28,6 +28,7 @@ import torch
 __all__ = [
     "LMDataConfig",
     "lm_batch",
+    "cond_batch",
     "ImageDataConfig",
     "class_templates",
     "client_label_probs",
@@ -64,30 +65,36 @@ class LMDataConfig:
 def lm_batch(
     cfg: LMDataConfig, step: int, *, client: int | None = None
 ) -> dict[str, np.ndarray]:
-    """The batch of ``step``: {"tokens": (batch, seq_len) int32}, the same
-    for every call (restart-safe data order). ``client`` with
-    ``cfg.noniid_alpha > 0`` draws that federated client's shard: its
-    unigram prior is a Dirichlet(alpha * zipf) reshaping of the shared base,
-    fixed per client over the run. Multi-codebook tokens come with the
-    models that read them (ROADMAP Queue 1, item 14)."""
-    if cfg.n_codebooks:
-        raise NotImplementedError(
-            "multi-codebook tokens are not ported yet: ROADMAP Queue 1, item 14"
-        )
+    """The batch of ``step``: {"tokens": (batch, seq_len) int32, or (batch,
+    seq_len, n_codebooks) with codebooks}, the same for every call
+    (restart-safe data order). ``client`` with ``cfg.noniid_alpha > 0``
+    draws that federated client's shard: its unigram prior is a
+    Dirichlet(alpha * zipf) reshaping of the shared base, fixed per client
+    over the run."""
     rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, step]))
-    shape = (cfg.batch, cfg.seq_len)
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    shape = (cfg.batch, cfg.seq_len) + cb
     ranks = np.arange(1, cfg.vocab_size + 1, dtype=np.float64)
     p = ranks**-1.1
     if client is not None and cfg.noniid_alpha > 0:
         crng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 9917, client]))
         p = crng.dirichlet(cfg.noniid_alpha * cfg.vocab_size * p / p.sum())
         p = np.maximum(p, 1e-12)
-    base = rng.choice(cfg.vocab_size, size=(cfg.batch, cfg.period), p=p / p.sum())
+    base = rng.choice(cfg.vocab_size, size=(cfg.batch, cfg.period) + cb, p=p / p.sum())
     reps = -(-cfg.seq_len // cfg.period)
-    tok = np.tile(base, (1, reps))[:, : cfg.seq_len]
+    tok = np.tile(base, (1, reps) + (1,) * len(cb))[:, : cfg.seq_len]
     corrupt = rng.random(shape) < cfg.noise
     rand_tok = rng.integers(0, cfg.vocab_size, shape)
     return {"tokens": np.where(corrupt, rand_tok, tok).astype(np.int32)}
+
+
+def cond_batch(cfg: LMDataConfig, step: int, cond_len: int, d_model: int) -> np.ndarray:
+    """The conditioning prefix of ``step``'s batch, (batch, cond_len,
+    d_model) f32 ~ N(0, 0.02^2): the JAX launcher's numpy draw, which that
+    launcher then casts to the model's dtype (the forward casts here)."""
+    rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, step, 1]))
+    draw = rng.standard_normal((cfg.batch, cond_len, d_model)) * 0.02
+    return draw.astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)

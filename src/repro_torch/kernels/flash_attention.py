@@ -23,7 +23,7 @@ from repro_torch.kernels import build, launches
 
 __all__ = ["flash_attention_cuda", "SUPPORTED_HEAD_DIMS"]
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+SUPPORTED_HEAD_DIMS = (32, 64, 128, 192, 256)  # 192: MLA (128 nope + 64 rope)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -190,22 +190,29 @@ def flash_attention(
 
 
 def ssd_chunk(
-    x: torch.Tensor, a_cum: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor
+    x: torch.Tensor,
+    a_cum: torch.Tensor,
+    bm: torch.Tensor,
+    cm: torch.Tensor,
+    *,
+    plain: bool = False,
 ) -> torch.Tensor:
     """Mamba-2's intra-chunk term: x (B, H, NC, Q, P), a_cum (B, H, NC, Q),
     bm/cm (B, G, NC, Q, N) with H % G == 0, head h reading group
     h // (H // G) -> float32 (B, H, NC, Q, P). The kernel reads the groups
-    in place; the plain version takes them broadcast to heads. The kernel
+    in place; the plain version takes them broadcast to heads. ``plain=True``
+    takes the plain version on any device, as a training forward does (the
+    JAX package differentiates its plain ``ssd_chunked``). The kernel
     refuses inputs that require grad; the plain version keeps autograd."""
-    if _plain(x):
+    if plain or _plain(x):
         rep = x.shape[1] // bm.shape[1]
         if rep > 1:
             bm, cm = bm.repeat_interleave(rep, 1), cm.repeat_interleave(rep, 1)
         return ref.ssd_chunk_ref(x, a_cum, bm, cm)
     _refuse_autograd(
         "ssd_chunk",
-        "Mamba-2 training waits for a backward of its own (ROADMAP Queue 1, "
-        "item 14)",
+        "Mamba-2 trains through the plain SSD, as the JAX package does "
+        "(forward(..., plain_attention=True))",
         x,
         a_cum,
         bm,

@@ -13,7 +13,12 @@ and its cache, a conv window and an SSM state per layer, stays raw
 whatever ``--cache-bits``; so does jamba-v0.1-52b's Mamba-2 layers', while
 its attention layer's K/V are quantized. A VLM's fixed-batch prompts
 (chameleon-34b) are the mixed image and text ids of
-``models.multimodal.vq_tokens_stub``. Runs on the card unless ``--device cpu`` is given;
+``models.multimodal.vq_tokens_stub``. deepseek-v3-671b caches MLA's latent
+rows (``ckv``, ``krope``; quantized like K/V). musicgen-medium (fixed
+scheduler only, as in the JAX package) prefills the (B, L, 4) codebook
+grid of ``codec_tokens_stub`` after the conditioning prefix of
+``conditioning_stub``, and decodes one greedy token a codebook from
+position L + cond_len. Runs on the card unless ``--device cpu`` is given;
 weights come from a seeded init. On the card both schedulers decode by
 replaying a CUDA graph of the decode step (``repro_torch.graphs``); on the
 CPU the steps run eagerly. :func:`run_fixed` and :func:`run_continuous` are
@@ -35,7 +40,11 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import DTYPES, resolve_device
 from repro_torch.models.model import init_params
-from repro_torch.models.multimodal import vq_tokens_stub
+from repro_torch.models.multimodal import (
+    codec_tokens_stub,
+    conditioning_stub,
+    vq_tokens_stub,
+)
 from repro_torch.serving.engine import (
     build_generate_fn,
     build_prefill_step,
@@ -67,9 +76,12 @@ def run_fixed(
     cache_dtype: torch.dtype = torch.bfloat16,
     temperature: float = 0.0,
     graph: bool | None = None,
+    cond: torch.Tensor | None = None,
 ) -> dict[str, Any]:
-    """Batched prefill of ``tokens`` (B, L), then ``gen - 1`` decode steps,
-    replayed from a CUDA graph on the card unless ``graph=False``.
+    """Batched prefill of ``tokens`` (B, L), or (B, L, cb) with codebooks,
+    after the conditioning prefix ``cond`` (B, cond_len, d) where given,
+    then ``gen - 1`` decode steps from position L + cond_len, replayed from
+    a CUDA graph on the card unless ``graph=False``.
 
     Returns the prefill's last-position logits, the caches, the ``gen``
     tokens of each row, bytes/token (measured and accounted) and the host
@@ -77,20 +89,19 @@ def run_fixed(
     ``decode_s`` includes the graph's capture, whose host seconds
     ``capture_s`` also gives on their own."""
     device = tokens.device
-    b, prompt_len = tokens.shape
-    max_seq = prompt_len + gen
+    b, prompt_len = tokens.shape[:2]
+    start = prompt_len + (cond.shape[1] if cond is not None else 0)
+    max_seq = start + gen
     prefill = build_prefill_step(cfg, max_seq, cache_dtype=cache_dtype, qcfg=qcfg)
     generate = build_generate_fn(cfg, temperature=temperature, graph=graph)
     t0 = time.perf_counter()
-    logits, caches = prefill(params, tokens)
+    logits, caches = prefill(params, tokens, cond)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     first = greedy_sample(logits)
     sample_gen = torch.Generator(device=device).manual_seed(2)
     t0 = time.perf_counter()
-    caches, _, _, sampled = generate(
-        params, caches, first, prompt_len, sample_gen, gen - 1
-    )
+    caches, _, _, sampled = generate(params, caches, first, start, sample_gen, gen - 1)
     toks = torch.cat([first, sampled], dim=1)
     _sync(device)
     t_decode = time.perf_counter() - t0
@@ -224,12 +235,17 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         return out
 
     tok_gen = torch.Generator().manual_seed(0)
-    if cfg.arch_type == "vlm":
+    if cfg.n_codebooks:
+        tokens = codec_tokens_stub(tok_gen, args.batch, args.prompt_len, cfg)
+    elif cfg.arch_type == "vlm":
         tokens = vq_tokens_stub(tok_gen, args.batch, args.prompt_len, cfg)
     else:
         tokens = torch.randint(
             0, cfg.vocab_size, (args.batch, args.prompt_len), generator=tok_gen
         )
+    cond = None
+    if cfg.cond_len:
+        cond = conditioning_stub(tok_gen, args.batch, cfg).to(device)
     tokens = tokens.to(device)
     out = run_fixed(
         cfg,
@@ -239,6 +255,7 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         qcfg=qcfg,
         cache_dtype=cache_dtype,
         temperature=args.temperature,
+        cond=cond,
     )
     print(
         f"prefill {tuple(tokens.shape)} in {out['prefill_s']:.3f}s (cache quantized="

@@ -8,9 +8,13 @@ trains the LM at full width over N simulated data-parallel workers on one
 card (``--mesh Nx1``: worker w takes rows w*B/N .. (w+1)*B/N - 1 of each
 global batch), with the compressed gradient sync in every step, from a
 seeded init and the JAX package's synthetic tokens (``data/synthetic.py:
-lm_batch``). ``--smoke`` takes the reduced config; ``--device cpu`` runs on
-the CPU (the tests); by default it runs on the card, in f32 wherever the
-config is f32 (TF32 off, as the JAX package computes).
+lm_batch``; codebook grids for musicgen, with the conditioning prefix
+drawn in numpy as the JAX launcher draws it, ``cond_batch``). All ten
+architectures train; a model with Mamba-2 layers trains through the SSD's
+plain version, as the JAX package does. ``--smoke`` takes the reduced
+config; ``--device cpu`` runs on the CPU (the tests); by default it runs
+on the card, in f32 wherever the config is f32 (TF32 off, as the JAX
+package computes).
 
 The step runs under the async runtime by default (prefetched batches,
 deferred metric reads, background checkpoints: ``train/runtime.py``);
@@ -20,10 +24,7 @@ codecs on the LQ-SGD wire (through the composite compressor); the run's
 line then also prints the per-step DP epsilon and its kind. Those of parts
 not ported raise, naming the ROADMAP item that ports them: a model axis
 above 1, ``--production-mesh`` and ``--multi-pod`` (tensor and multi-card
-parallelism, item 15); the architectures the port lacks (deepseek-v3-671b,
-musicgen-medium) and the training of a model with Mamba-2 layers
-(mamba2-370m, jamba-v0.1-52b: the ``ssd_chunk`` kernel has no backward;
-item 14).
+parallelism, item 15).
 """
 
 from __future__ import annotations
@@ -37,10 +38,10 @@ import numpy as np
 
 from repro_torch.checkpoint.io import peek_step
 from repro_torch.checkpoint.io import restore as ckpt_restore
-from repro_torch.configs import ARCHS, LATER_SLICES, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.compressors import CompressorConfig
 from repro_torch.core.policy import format_plan_report, parse_decay_spec
-from repro_torch.data.synthetic import LMDataConfig, lm_batch
+from repro_torch.data.synthetic import LMDataConfig, cond_batch, lm_batch
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import count_params
 from repro_torch.train.data_parallel import _tf32_off
@@ -59,7 +60,7 @@ __all__ = ["main", "parse_mesh"]
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True, choices=sorted({*ARCHS, *LATER_SLICES}))
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true", help="the reduced config")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8, help="global batch")
@@ -165,16 +166,6 @@ def _check_ported(args: argparse.Namespace) -> None:
             "--production-mesh / --multi-pod: multi-card meshes are not ported "
             "yet (ROADMAP Queue 1, item 15)"
         )
-    if args.arch in LATER_SLICES:
-        raise NotImplementedError(
-            f"--arch {args.arch}: not ported yet (ROADMAP Queue 1, item 14)"
-        )
-    cfg = get_config(args.arch, smoke=args.smoke)
-    if any(spec.kind == "mamba" for spec in cfg.layers):
-        raise NotImplementedError(
-            f"--arch {args.arch}: Mamba-2 training needs a backward of the "
-            "ssd_chunk kernel, not ported yet (ROADMAP Queue 1, item 14)"
-        )
 
 
 def main(argv: list[str] | None = None) -> dict[str, Any]:
@@ -217,21 +208,26 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         vocab_size=cfg.vocab_size,
         seq_len=args.seq,
         batch=args.batch,
+        n_codebooks=cfg.n_codebooks,
         noniid_alpha=args.noniid_alpha,
     )
 
     def batch_fn(step: int) -> dict[str, np.ndarray]:
         if args.noniid_alpha <= 0:
-            return lm_batch(data_cfg, step)
-        # federated rows: worker c's rows come from client c's skewed prior
-        if args.batch % n_dp:
-            raise ValueError(
-                f"--noniid-alpha needs --batch divisible by the {n_dp} "
-                f"workers, got {args.batch}"
-            )
-        per = dataclasses.replace(data_cfg, batch=args.batch // n_dp)
-        chunks = [lm_batch(per, step, client=c) for c in range(n_dp)]
-        return {k: np.concatenate([ch[k] for ch in chunks]) for k in chunks[0]}
+            b = lm_batch(data_cfg, step)
+        else:
+            # federated rows: worker c's rows come from client c's skewed prior
+            if args.batch % n_dp:
+                raise ValueError(
+                    f"--noniid-alpha needs --batch divisible by the {n_dp} "
+                    f"workers, got {args.batch}"
+                )
+            per = dataclasses.replace(data_cfg, batch=args.batch // n_dp)
+            chunks = [lm_batch(per, step, client=c) for c in range(n_dp)]
+            b = {k: np.concatenate([ch[k] for ch in chunks]) for k in chunks[0]}
+        if cfg.cond_len:
+            b["cond"] = cond_batch(data_cfg, step, cfg.cond_len, cfg.d_model)
+        return b
 
     def build(comp):
         # the JAX launcher rematerializes at full width (remat_scan)

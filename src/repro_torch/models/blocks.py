@@ -1,8 +1,6 @@
-"""Decoder layers: (attention | Mamba-2) mixer + optional (dense | MoE) FFN,
-pre-norm residual.
-
-MLA attention is not ported yet; asking for it raises
-``NotImplementedError`` naming the slice that brings it.
+"""Decoder layers: (attention | MLA | Mamba-2) mixer + optional (dense |
+MoE) FFN, pre-norm residual. An attention layer is MLA where
+``cfg.use_mla`` (deepseek-v3), with either FFN.
 """
 
 from __future__ import annotations
@@ -14,6 +12,7 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.attention import attn_forward, init_attn, init_attn_cache
 from repro_torch.models.common import rms_norm
+from repro_torch.models.mla import init_mla, init_mla_cache, mla_forward
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import init_moe, moe_forward
 from repro_torch.models.ssm import init_mamba, init_mamba_cache, mamba_forward
@@ -23,32 +22,31 @@ __all__ = ["init_layer", "init_layer_cache", "layer_forward", "has_ffn"]
 Params = dict[str, Any]
 
 
-def _check_ported(spec: LayerSpec, cfg: ModelConfig) -> None:
-    if spec.kind == "attn" and cfg.use_mla:
-        raise NotImplementedError(
-            "MLA attention comes with the rest of the LM training slice "
-            "(ROADMAP Queue 1, item 14)"
-        )
-
-
 def has_ffn(spec: LayerSpec, cfg: ModelConfig) -> bool:
     return spec.moe or cfg.d_ff > 0
 
 
 def init_layer(
-    gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig, device
+    gen: torch.Generator,
+    spec: LayerSpec,
+    cfg: ModelConfig,
+    device,
+    dtype: torch.dtype = torch.float32,
 ) -> Params:
-    _check_ported(spec, cfg)
+    """f32 leaves, but an MoE FFN's expert stacks, which are cast to
+    ``dtype`` as each is drawn (see ``models.moe.init_moe``)."""
     d = cfg.d_model
     p: Params = {"ln1": torch.zeros(d, device=device)}
-    if spec.kind == "attn":
+    if spec.kind == "attn" and cfg.use_mla:
+        p["mixer"] = init_mla(gen, cfg, device)
+    elif spec.kind == "attn":
         p["mixer"] = init_attn(gen, cfg, device)
     else:
         p["mixer"] = init_mamba(gen, cfg, device)
     if has_ffn(spec, cfg):
         p["ln2"] = torch.zeros(d, device=device)
         if spec.moe:
-            p["ffn"] = init_moe(gen, cfg, device)
+            p["ffn"] = init_moe(gen, cfg, device, dtype)
         else:
             p["ffn"] = init_mlp(gen, d, cfg.d_ff, device)
     return p
@@ -65,10 +63,12 @@ def init_layer_cache(
     """A full ``max_seq`` buffer for every attention layer, sliding-window
     ones included: the JAX package does not cap SWA caches at the window,
     and bytes/token are compared with it. A Mamba-2 layer's cache is its
-    conv window and SSM state, whatever ``max_seq``."""
-    _check_ported(spec, cfg)
+    conv window and SSM state, whatever ``max_seq``; an MLA layer's its
+    latent rows ``ckv`` and ``krope``, (B, max_seq, r)."""
     if spec.kind == "mamba":
         return init_mamba_cache(cfg, batch, dtype, device)
+    if cfg.use_mla:
+        return init_mla_cache(cfg, batch, max_seq, dtype, device)
     return init_attn_cache(cfg, batch, max_seq, dtype, device)
 
 
@@ -86,10 +86,10 @@ def layer_forward(
     """Pre-norm residual block. Returns (x, cache, the MoE FFN's
     load-balance loss, or None for a layer without one).
     ``plain_attention``: see ``models.model.forward``."""
-    _check_ported(spec, cfg)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.kind == "attn":
-        mix, cache = attn_forward(
+        fwd = mla_forward if cfg.use_mla else attn_forward
+        mix, cache = fwd(
             p["mixer"],
             h,
             spec,
@@ -100,7 +100,9 @@ def layer_forward(
             plain=plain_attention,
         )
     else:
-        mix, cache = mamba_forward(p["mixer"], h, cfg, cache=cache)
+        mix, cache = mamba_forward(
+            p["mixer"], h, cfg, cache=cache, plain=plain_attention
+        )
     x = x + mix
     aux = None
     if has_ffn(spec, cfg):

@@ -1,25 +1,35 @@
-"""The LM: embed -> layers (attention or Mamba-2 mixers, dense or MoE FFNs) ->
-final norm -> head (tied to the embedding, or its own (d, V) ``head``).
+"""The LM: embed -> layers (attention, MLA or Mamba-2 mixers, dense or MoE
+FFNs) -> final norm -> head (tied to the embedding, or its own (d, V)
+``head``).
+
+Multi-codebook models (musicgen) embed (B, S, cb) tokens as the sum of
+their codebooks' (cb, V, d) embeddings and give (B, S, cb, V) logits from
+a head per codebook. A conditioning prefix ``cond`` (B, L, d) is prepended
+at train and prefill (positions count it) and sliced off after the final
+norm. DeepSeek's multi-token-prediction head (``mtp``: a projection, an MLA
+layer with the dense FFN, a norm, the shared head) predicts t + 2 in a
+forward with no caches.
 
 The layer stack is ``lead + pattern * repeats + tail`` (configs/base.py),
 run as one Python loop. Parameters come in one of two trees, both with
 every weight in the JAX layout (d_in, d_out), applied as ``x @ w``:
 
 * the serving tree ``{"embed", "layers", "final_norm"}`` (and ``"head"``
-  when the head is untied), ``layers`` in execution order
-  (:func:`init_params`);
+  when the head is untied, ``"mtp"`` with an MTP head), ``layers`` in
+  execution order (:func:`init_params`);
 * the training tree, the JAX package's own: ``{"embed", "lead", "scan",
-  "tail", "final_norm"}`` (and ``"head"``) with the scan leaves stacked by
-  repeat (``repro_torch.weights.to_jax_layout``). The compressor plans, scales
-  and counts per leaf, so it must see this tree, with its
+  "tail", "final_norm"}`` (and ``"head"``, ``"mtp"``) with the scan leaves
+  stacked by repeat (``repro_torch.weights.to_jax_layout``). The compressor
+  plans, scales and counts per leaf, so it must see this tree, with its
   :func:`stacked_flags`; the forward reads each layer as views into it
   (:func:`layer_params`), so the gradients land in the stacked leaves.
 
 Caches keep the JAX tree
 layout (``lead``/``scan``/``tail``, scan leaves stacked by repeat: K/V rows
-for an attention layer, the conv window and SSM state ``{"conv", "ssm"}``
-for a Mamba-2 layer); each layer works on views of its slice, so prefill
-and decode fill the cache in place.
+for an attention layer, the latent rows ``{"ckv", "krope"}`` for an MLA
+layer, the conv window and SSM state ``{"conv", "ssm"}`` for a Mamba-2
+layer); each layer works on views of its slice, so prefill and decode fill
+the cache in place.
 
 Modes (same function, driven by the cache arguments):
   * train:   caches=None                      -> logits
@@ -61,14 +71,6 @@ __all__ = [
 Params = dict[str, Any]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.n_codebooks or cfg.cond_len or cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-codebook, conditioned or MTP heads come with "
-            "the rest of the LM training slice (ROADMAP Queue 1, item 14)"
-        )
-
-
 def init_params(
     cfg: ModelConfig,
     gen: torch.Generator | int | None = 0,
@@ -79,7 +81,6 @@ def init_params(
     generator on ``device`` or a seed. On the ``meta`` device the tree
     holds shapes and dtypes only."""
     cfg.validate()
-    _check_ported(cfg)
     dev = resolve_device(device)
     if dev.type == "meta":
         gen = None
@@ -88,16 +89,27 @@ def init_params(
     # each part is cast as soon as it is drawn, so at most one layer is held
     # in f32 at a time (a 28B-parameter model would not fit in f32)
     dtype = DTYPES[cfg.dtype]
-    embed = embed_init(gen, (cfg.vocab_size, cfg.d_model), device=dev)
+    d, v, cb = cfg.d_model, cfg.vocab_size, cfg.n_codebooks
+    embed = embed_init(gen, (cb, v, d) if cb else (v, d), device=dev)
     p: Params = {"embed": cast_params(embed, dtype)}
     del embed
     p["layers"] = [
-        cast_params(init_layer(gen, spec, cfg, dev), dtype) for spec in cfg.layers
+        cast_params(init_layer(gen, spec, cfg, dev, dtype), dtype)
+        for spec in cfg.layers
     ]
-    p["final_norm"] = torch.zeros(cfg.d_model, device=dev, dtype=dtype)
+    p["final_norm"] = torch.zeros(d, device=dev, dtype=dtype)
     if not cfg.tie_embeddings:
-        head = dense_init(gen, (cfg.d_model, cfg.vocab_size), device=dev)
+        head = dense_init(gen, (cb, d, v) if cb else (d, v), in_dim=d, device=dev)
         p["head"] = cast_params(head, dtype)
+    if cfg.mtp:
+        mtp = {
+            "proj": dense_init(gen, (2 * d, d), device=dev),
+            "norm_h": torch.zeros(d, device=dev),
+            "norm_e": torch.zeros(d, device=dev),
+            "layer": init_layer(gen, LayerSpec("attn"), cfg, dev, dtype),
+            "final_norm": torch.zeros(d, device=dev),
+        }
+        p["mtp"] = cast_params(mtp, dtype)
     return p
 
 
@@ -228,11 +240,58 @@ def stacked_flags(params: Params) -> Params:
     return out
 
 
+def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(B, S) ids -> (B, S, d); (B, S, cb) codebook ids -> the sum of their
+    codebooks' embeddings, added in codebook order as the JAX package does."""
+    if not cfg.n_codebooks:
+        return params["embed"][tokens]
+    x = params["embed"][0][tokens[..., 0]]
+    for c in range(1, cfg.n_codebooks):
+        x = x + params["embed"][c][tokens[..., c]]
+    return x
+
+
 def apply_head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The LM head: x @ embed.T when tied, else x @ head."""
+    """The LM head: x @ embed.T when tied, else x @ head; with codebooks a
+    head per codebook, (B, S, d) -> (B, S, cb, V)."""
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return x @ params["head"].to(x.dtype)
+        w = params["embed"].to(x.dtype)
+        if cfg.n_codebooks:
+            return torch.einsum("bsd,cvd->bscv", x, w)
+        return x @ w.T
+    w = params["head"].to(x.dtype)
+    if cfg.n_codebooks:
+        return torch.einsum("bsd,cdv->bscv", x, w)
+    return x @ w
+
+
+def _mtp_logits(
+    params: Params,
+    x: torch.Tensor,
+    tokens: torch.Tensor,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    plain_attention: bool,
+) -> torch.Tensor:
+    """DeepSeek's MTP head on the final-normed hidden state ``x``: h_t joined
+    with the embedding of token t + 1 (a roll by one, the wrapped last
+    position masked by the loss), projected, one MLA layer, a norm and the
+    shared head."""
+    mp = params["mtp"]
+    h_norm = rms_norm(x, mp["norm_h"], cfg.norm_eps)
+    e_next = rms_norm(_embed(params, tokens, cfg), mp["norm_e"], cfg.norm_eps)
+    e_shift = torch.roll(e_next, -1, dims=1)
+    h = torch.cat([h_norm, e_shift], dim=-1) @ mp["proj"].to(x.dtype)
+    h, _, _ = layer_forward(
+        mp["layer"],
+        h,
+        LayerSpec("attn"),
+        cfg,
+        positions=positions,
+        plain_attention=plain_attention,
+    )
+    h = rms_norm(h, mp["final_norm"], cfg.norm_eps)
+    return apply_head(params, h, cfg)
 
 
 def forward(
@@ -242,6 +301,7 @@ def forward(
     *,
     caches: Params | None = None,
     cache_index: int | torch.Tensor | None = None,
+    cond: torch.Tensor | None = None,
     return_hidden: bool = False,
     plain_attention: bool = False,
     remat: bool = False,
@@ -252,7 +312,14 @@ def forward(
     head to a few positions only. ``params`` is the serving or the training
     tree. ``return_aux`` adds a third item, ``{"moe_aux": ...}``: the MoE
     layers' load-balance losses summed in layer order in f32 (0 without MoE
-    layers), the JAX forward's ``aux``.
+    layers), the JAX forward's ``aux``; with an MTP head, a forward with no
+    caches over (B, S > 1) tokens adds ``"mtp_logits"`` (only when
+    ``return_aux``: nothing else reads them).
+
+    ``cond`` (B, L, D), train and prefill only: prepended to the embedded
+    tokens, positions 0 .. L + S - 1, and sliced off after the final norm,
+    so logits and the hidden state cover the S tokens; a prefill's caches
+    hold all L + S positions, and decode goes on at index L + S.
 
     ``remat=True`` (a training forward: no caches) keeps only each repeat's
     input of the scanned pattern for the backward and recomputes the
@@ -267,13 +334,20 @@ def forward(
     ``plain_attention=True``, the plain attention on any device, as the
     JAX package's training step runs its plain (``backend="xla"``)
     attention; the attention and SSD kernels have no backward and refuse
-    inputs that require grad.
+    inputs that require grad. The switch covers the Mamba-2 mixer's SSD
+    intra-chunk term too (``models.ssm.mamba_forward``): a training forward
+    takes its plain version, which keeps autograd, as the JAX package's
+    ``jax.grad`` goes through its plain ``ssd_chunked``.
 
-    tokens: (B, S) integer ids. Embeddings are not scaled by sqrt(d), as in
-    the JAX package (unlike Hugging Face's Gemma)."""
-    _check_ported(cfg)
-    x = params["embed"][tokens]
+    tokens: (B, S) integer ids, or (B, S, cb) with codebooks. Embeddings are
+    not scaled by sqrt(d), as in the JAX package (unlike Hugging Face's
+    Gemma)."""
+    x = _embed(params, tokens, cfg)
     b, s = x.shape[0], x.shape[1]
+    offset = 0
+    if cond is not None and s > 1:
+        x = torch.cat([cond.to(x.dtype), x], dim=1)
+        offset, s = cond.shape[1], x.shape[1]
     if cache_index is None:
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     elif isinstance(cache_index, int):
@@ -307,9 +381,17 @@ def forward(
         per_layer = layer_caches(caches, cfg) if caches is not None else None
         x, aux = run(list(layer_params(params, cfg)), cfg.layers, x, per_layer)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if offset:
+        x = x[:, offset:]
     out = x if return_hidden else apply_head(params, x, cfg)
     if not return_aux:
         return out, caches
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return out, caches, {"moe_aux": aux}
+    aux_out = {"moe_aux": aux}
+    mtp = cfg.mtp and caches is None and tokens.dim() == 2 and tokens.shape[1] > 1
+    if mtp and not return_hidden:
+        aux_out["mtp_logits"] = _mtp_logits(
+            params, x, tokens, cfg, positions, plain_attention
+        )
+    return out, caches, aux_out

@@ -68,13 +68,22 @@ def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def init_moe(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def init_moe(
+    gen: torch.Generator,
+    cfg: ModelConfig,
+    device,
+    dtype: torch.dtype = torch.float32,
+) -> Params:
+    """The router and shared expert in f32; each (E, ., .) expert stack
+    cast to ``dtype`` as soon as it is drawn, the same values as a cast
+    after the init: at deepseek-v3's 256 experts a stack is 15 GB in f32,
+    and three at once would not leave room on one card."""
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
     p: Params = {
         "router": dense_init(gen, (d, e), device=device),
-        "w_gate": dense_init(gen, (e, d, f), in_dim=d, device=device),
-        "w_up": dense_init(gen, (e, d, f), in_dim=d, device=device),
-        "w_down": dense_init(gen, (e, f, d), in_dim=f, device=device),
+        "w_gate": dense_init(gen, (e, d, f), in_dim=d, device=device).to(dtype),
+        "w_up": dense_init(gen, (e, d, f), in_dim=d, device=device).to(dtype),
+        "w_down": dense_init(gen, (e, f, d), in_dim=f, device=device).to(dtype),
     }
     if cfg.n_shared_experts:
         p["shared"] = init_mlp(gen, d, f * cfg.n_shared_experts, device)

@@ -67,8 +67,10 @@ def ssd_naive(x, a, bm, cm, h0=None):
     return torch.stack(ys, dim=1), hstate  # (B, S, H, P), (B, H, P, N)
 
 
-def ssd_chunked(x, a, bm, cm, chunk: int, h0=None):
+def ssd_chunked(x, a, bm, cm, chunk: int, h0=None, *, plain: bool = False):
     """Chunked SSD; matches ``ssd_naive`` up to f32 association error.
+    ``plain=True`` takes the intra-chunk term's plain version on any device
+    (``ops.ssd_chunk``), which keeps autograd: a training forward.
 
     Returns (y (B, S, H, P), final_state (B, H, P, N)), both float32. A
     sequence that is not a multiple of ``chunk`` is padded at the end with
@@ -95,6 +97,7 @@ def ssd_chunked(x, a, bm, cm, chunk: int, h0=None):
         a_cum,
         bc.permute(heads_first),
         cc.permute(heads_first),
+        plain=plain,
     ).permute(0, 2, 3, 1, 4)  # (B, nc, Q, H, P)
     # ---- per-chunk summary states
     # (B, nc, Q, H)
@@ -198,10 +201,17 @@ def _ssm_inputs(xbc_conv, dt_raw, p: Params, cfg: ModelConfig):
 
 
 def mamba_forward(
-    p: Params, x: torch.Tensor, cfg: ModelConfig, *, cache: Params | None = None
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    cache: Params | None = None,
+    plain: bool = False,
 ) -> tuple[torch.Tensor, Params | None]:
     """Full-sequence (train/prefill) or single-token (decode) Mamba-2 block.
-    With a cache, a one-token input is decode, as in the JAX package."""
+    With a cache, a one-token input is decode, as in the JAX package.
+    ``plain=True`` (a training forward) takes the SSD's plain version on any
+    device, so autograd runs through it."""
     b, s, _ = x.shape
     di = cfg.d_inner
     proj = x @ p["in_proj"].to(x.dtype)
@@ -212,7 +222,9 @@ def mamba_forward(
 
     xbc_conv = _causal_conv(xbc.float(), p["conv_w"], p["conv_b"])
     xs, bm, cm, dt, a = _ssm_inputs(xbc_conv, dt_raw, p, cfg)
-    y, h_last = ssd_chunked(xs * dt[..., None], dt * a, bm, cm, cfg.ssm_chunk)
+    y, h_last = ssd_chunked(
+        xs * dt[..., None], dt * a, bm, cm, cfg.ssm_chunk, plain=plain
+    )
     y = y + xs * p["D"].float()[:, None]
     y = y.reshape(b, s, di).to(x.dtype)
     y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)

@@ -57,18 +57,24 @@ def build_prefill_step(
     qcfg: CacheQuantConfig | None = None,
     full_logits: bool = False,
 ):
-    """prefill(params, tokens) -> (logits, caches).
+    """prefill(params, tokens[, cond]) -> (logits, caches).
 
-    Logits are last-position (B, 1, V) by default; ``full_logits=True``
-    returns every position, so a scheduler can prefill right-padded prompt
-    buckets and read position L-1 per request. As in the JAX package the
+    ``tokens`` is (B, S), or (B, S, cb) with codebooks (logits (B, ., cb,
+    V)); ``cond`` (B, L, d) is a conditioning prefix: the caches hold its L
+    positions before the prompt's (``max_seq`` must count them), and the
+    logits cover the prompt only. Logits are last-position (B, 1, V) by
+    default; ``full_logits=True`` returns every position, so a scheduler
+    can prefill right-padded prompt buckets and read position L-1 per
+    request. As in the JAX package the
     cache is filled in ``cache_dtype`` and then, with ``qcfg``, quantized as
     a whole (every ``max_seq`` row); prefill attention runs on the raw K/V."""
 
     @torch.no_grad()
-    def prefill(params: dict, tokens: torch.Tensor):
+    def prefill(params: dict, tokens: torch.Tensor, cond: torch.Tensor | None = None):
         caches = init_caches(cfg, tokens.shape[0], max_seq, cache_dtype, tokens.device)
-        x, caches = forward(params, tokens, cfg, caches=caches, return_hidden=True)
+        x, caches = forward(
+            params, tokens, cfg, caches=caches, cond=cond, return_hidden=True
+        )
         if qcfg is not None and qcfg.bits:
             caches = quantize_tree(caches, qcfg)
         # last-position logits apply the head to one row only
@@ -79,7 +85,7 @@ def build_prefill_step(
 
 
 def build_decode_step(cfg: ModelConfig):
-    """decode(params, caches, tokens (B, 1), index) -> (logits, caches);
+    """decode(params, caches, tokens (B, 1[, cb]), index) -> (logits, caches);
     ``index`` is an int or a (B,) long tensor of per-request positions on
     the device (continuous batching, and any graphed step, which must not
     bake a position in). Within range both give the same logits and
@@ -96,8 +102,9 @@ class DecodeLoop:
     """``n_steps`` decode steps of a batch of ``batch`` rows over ``caches``
     (appended in place), each step decoding ``tok`` at ``idx``, sampling
     the next token into ``tok`` and column ``i`` of ``sampled`` (B,
-    n_steps), and advancing ``idx``. On CUDA (unless ``graph=False``) the
-    step is a :class:`~repro_torch.graphs.StepGraph`: ``tok``, the (B,)
+    n_steps), and advancing ``idx``. With codebooks a row's token is one id
+    a codebook, sampled per codebook: ``tok`` (B, 1, cb), ``sampled`` (B,
+    n_steps, cb). On CUDA (unless ``graph=False``) the step is a :class:`~repro_torch.graphs.StepGraph`: ``tok``, the (B,)
     positions, the column counter and ``sampled`` are static buffers, and a
     loop that runs again (the continuous scheduler's chunks) replays the
     graph it captured the first time. ``graph=True`` on the CPU raises.
@@ -120,11 +127,14 @@ class DecodeLoop:
         self.params, self.caches = params, caches
         self.temperature, self.gen = temperature, gen
         self.n_steps = n_steps
-        self.tok = torch.zeros((batch, 1), dtype=torch.long, device=device)
+        cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+        self.tok = torch.zeros((batch, 1) + cb, dtype=torch.long, device=device)
         self._index = torch.zeros((batch,), dtype=torch.long, device=device)
         self.idx: int | torch.Tensor = self._index
         self._col = torch.zeros((1,), dtype=torch.long, device=device)
-        self.sampled = torch.zeros((batch, n_steps), dtype=torch.long, device=device)
+        self.sampled = torch.zeros(
+            (batch, n_steps) + cb, dtype=torch.long, device=device
+        )
         self._graph = None
         if graphs.use_graph(graph, device):
             draws = gen is not None and temperature > 0
@@ -149,7 +159,7 @@ class DecodeLoop:
             self.idx.add_(1)
 
     def run(self, tokens: torch.Tensor, index: int | torch.Tensor) -> torch.Tensor:
-        """Decode ``n_steps`` tokens from ``tokens`` (B, 1) at ``index``, an
+        """Decode ``n_steps`` tokens from ``tokens`` (B, 1[, cb]) at ``index``, an
         int or a (B,) tensor of positions; returns ``sampled``. Eagerly an
         int index takes the int path; a graph takes it as a (B,) tensor."""
         self.tok.copy_(tokens)
@@ -171,9 +181,9 @@ def build_generate_fn(
     cfg: ModelConfig, *, temperature: float = 0.0, graph: bool | None = None
 ):
     """generate(params, caches, tokens, index, gen, n_steps) ->
-    (caches, next_tokens, new_index, sampled (B, n_steps)).
+    (caches, next_tokens, new_index, sampled (B, n_steps[, cb])).
 
-    ``tokens`` is the (B, 1) token each row decodes first, at ``index`` (an
+    ``tokens`` is the (B, 1[, cb]) token each row decodes first, at ``index`` (an
     int or a (B,) tensor); ``gen`` is the ``torch.Generator`` that
     temperature sampling draws from (on the device of the logits; unused
     when greedy). Each call runs a :class:`DecodeLoop`: on CUDA a graph

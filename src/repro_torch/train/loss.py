@@ -9,9 +9,14 @@ chunk's logits in the backward, so the (B, S, V) logits of a 262k
 vocabulary never exist at once; the value is the same. ``remat``
 recomputes each repeat of the scanned layer pattern in the backward
 (``models.model.forward``), as the JAX step's ``remat_scan`` does. The
-forward takes the plain attention on any device, as the JAX training step
-does (``backend="xla"``). The MTP term and multi-codebook targets come with
-those models (ROADMAP Queue 1, item 14).
+forward takes the plain attention (and the plain SSD) on any device, as
+the JAX training step does (``backend="xla"``).
+
+With codebooks the per-position CE is the mean over the codebooks. With an
+MTP head the loss adds 0.3 x the CE against token t + 2 (a roll by two,
+the last two positions masked), reported as ``mtp_ce``. A batch's ``cond``
+(B, L, d) is the conditioning prefix. The chunked-head path is taken only
+without MTP and codebooks, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,17 +38,10 @@ def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, targets[..., None].long())[..., 0]
 
 
-def _check_ported(cfg: ModelConfig, batch: dict[str, Any]) -> None:
-    if cfg.mtp or cfg.n_codebooks or "cond" in batch:
-        raise NotImplementedError(
-            f"{cfg.name}: the MTP, multi-codebook and conditioned losses "
-            "are not ported yet: ROADMAP Queue 1, item 14"
-        )
-
-
-def _masked_mean(nll: torch.Tensor) -> torch.Tensor:
+def _masked_mean(nll: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """The mean over the positions whose target ``shift`` ahead exists."""
     b, s = nll.shape
-    mask = (torch.arange(s, device=nll.device) < s - 1).float()[None, :]
+    mask = (torch.arange(s, device=nll.device) < s - shift).float()[None, :]
     return torch.sum(nll * mask) / (torch.sum(mask) * b)
 
 
@@ -55,17 +53,18 @@ def lm_loss(
     head_chunk: int = 0,
     remat: bool = False,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """batch: {"tokens": (B, S) integer ids}. Returns (scalar loss,
-    {"ce", "loss"} and, with experts, "moe_aux"), the loss of the training
-    or the serving tree."""
-    _check_ported(cfg, batch)
-    tokens = batch["tokens"]
+    """batch: {"tokens": (B, S) or (B, S, cb) integer ids, optionally
+    "cond": (B, L, d)}. Returns (scalar loss, {"ce", "loss"} and, with
+    experts, "moe_aux", with an MTP head, "mtp_ce"), the loss of the
+    training or the serving tree."""
+    tokens, cond = batch["tokens"], batch.get("cond")
     tgt = torch.roll(tokens, -1, dims=1)
-    if head_chunk:
+    if head_chunk and not cfg.mtp and not cfg.n_codebooks:
         hidden, _, aux = forward(
             params,
             tokens,
             cfg,
+            cond=cond,
             return_hidden=True,
             plain_attention=True,
             remat=remat,
@@ -96,12 +95,24 @@ def lm_loss(
         )
     else:
         logits, _, aux = forward(
-            params, tokens, cfg, plain_attention=True, remat=remat, return_aux=True
+            params,
+            tokens,
+            cfg,
+            cond=cond,
+            plain_attention=True,
+            remat=remat,
+            return_aux=True,
         )
         nll = _ce(logits, tgt)
+        if cfg.n_codebooks:
+            nll = nll.mean(dim=-1)
     ce = _masked_mean(nll)
     metrics = {"ce": ce}
     loss = ce
+    if "mtp_logits" in aux:
+        mtp = _masked_mean(_ce(aux["mtp_logits"], torch.roll(tokens, -2, dims=1)), 2)
+        loss = loss + 0.3 * mtp
+        metrics["mtp_ce"] = mtp
     if cfg.n_experts:
         loss = loss + cfg.router_aux_coef * aux["moe_aux"]
         metrics["moe_aux"] = aux["moe_aux"]

@@ -4,17 +4,18 @@ Each function takes a JAX pytree as numpy arrays (``jax.tree.map(np.asarray,
 tree)``: nested dicts and lists) and returns tensors on the port's device.
 
 ``params_from_jax(tree, cfg)`` returns the LM's model state (an untied
-``head`` and the MoE leaves included). The JAX ``scan`` leaves carry a
-leading ``repeats`` dim; they are unstacked in the order the JAX forward
-runs them (lead layers, then for each repeat r every pattern position, then
-tail layers). Weights keep their (d_in, d_out)
+``head``, the MoE and MLA leaves, the (cb, V, d) codebook embedding and
+(cb, d, V) head, and the unstacked ``mtp`` subtree included). The JAX
+``scan`` leaves carry a leading ``repeats`` dim; they are unstacked in the
+order the JAX forward runs them (lead layers, then for each repeat r every
+pattern position, then tail layers). Weights keep their (d_in, d_out)
 layout, because the port applies them as ``x @ w``.
 
 ``to_jax_layout(params, cfg)`` is its inverse: the serving tree -> the
 training tree, the JAX package's own layout (``lead``/``scan``/``tail``,
 scan leaves stacked by repeat, as copies), which the compressor sees;
 ``models.model.layer_params`` reads it back as per-layer views.
-``train_state_from_jax(state, cfg)`` carries a whole JAX training state
+``train_state_from_jax(state)`` carries a whole JAX training state
 (params, optimizer, per-worker compressor state, step) over as it is.
 
 ``resnet_params_from_jax(tree)`` returns the ResNet-18 (or mini-CNN) tree
@@ -43,6 +44,10 @@ __all__ = [
     "tensor_from_numpy",
 ]
 
+# top-level subtrees besides the embedding, the layers and the final norm:
+# carried as they are, both ways
+_UNSTACKED = ("head", "mtp")
+
 
 def tensor_from_numpy(a: np.ndarray, device: torch.device | str) -> torch.Tensor:
     """numpy -> torch, including ml_dtypes' bfloat16 (bit-reinterpreted)."""
@@ -65,7 +70,6 @@ def params_from_jax(
             return [conv(v, r) for v in t]
         return tensor_from_numpy(t if r is None else np.asarray(t)[r], dev)
 
-    _check_ported(cfg)
     layers = [conv(p) for p in tree["lead"]]
     for r in range(cfg.repeats):
         layers += [conv(tree["scan"][pos], r) for pos in range(len(cfg.pattern))]
@@ -75,17 +79,10 @@ def params_from_jax(
         "layers": layers,
         "final_norm": conv(tree["final_norm"]),
     }
-    if "head" in tree:
-        out["head"] = conv(tree["head"])
+    for key in _UNSTACKED:
+        if key in tree:
+            out[key] = conv(tree[key])
     return out
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.n_codebooks or cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-codebook or MTP heads are not ported yet "
-            "(ROADMAP Queue 1, item 14)"
-        )
 
 
 def to_jax_layout(params: dict[str, Any], cfg: ModelConfig) -> dict[str, Any]:
@@ -108,8 +105,9 @@ def to_jax_layout(params: dict[str, Any], cfg: ModelConfig) -> dict[str, Any]:
         "tail": layers[n_lead + n_pat * cfg.repeats :],
         "final_norm": params["final_norm"],
     }
-    if "head" in params:
-        out["head"] = params["head"]
+    for key in _UNSTACKED:
+        if key in params:
+            out[key] = params[key]
     return out
 
 
@@ -120,7 +118,7 @@ def _stack(trees: list[Any]) -> Any:
 
 
 def train_state_from_jax(
-    state: dict[str, Any], cfg: ModelConfig, device: torch.device | str = "cuda"
+    state: dict[str, Any], device: torch.device | str = "cuda"
 ) -> dict[str, Any]:
     """A JAX ``init_train_state`` (numpy leaves) -> the port's training
     state: params in the training tree, the optimizer state, the
@@ -128,7 +126,6 @@ def train_state_from_jax(
     int32 step, every leaf as it is. A PRNG key cannot carry over."""
     if "key" in state["comp"]:
         raise ValueError("a PRNG key cannot carry over; seed the port's state")
-    _check_ported(cfg)
     dev = resolve_device(device)
     return tree_map(lambda a: tensor_from_numpy(a, dev), state)
 

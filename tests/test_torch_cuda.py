@@ -766,7 +766,7 @@ def test_attention_and_ssd_kernels_refuse_inputs_that_require_grad(cuda, name):
     else:
         gen = torch.Generator(device=dev).manual_seed(0)
         args = list(_ssd_inputs(gen, 1, 2, 1, 2, 16, 8, 16))
-        why = "item 14"
+        why = "Mamba-2 trains through the plain SSD"
     args[0] = args[0].detach().requires_grad_(True)
     with pytest.raises(RuntimeError, match=why):
         getattr(ops, name)(*args)
@@ -1197,3 +1197,127 @@ def test_moe_forward_graph_equals_eager_without_host_sync(cuda, impl):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(y, want_y) and torch.equal(aux, want_aux)
+
+
+# ------------------------------------- MLA, codebooks, Mamba-2 training (slice 14)
+@pytest.mark.parametrize(
+    "b,hq,s,dtype",
+    [
+        (1, 4, 300, torch.float32),  # ends inside a 32-row tile
+        (2, 4, 129, torch.bfloat16),  # just past two 64-row tiles
+        (4, 128, 1024, torch.bfloat16),  # deepseek-v3-671b's prefill (m1)
+    ],
+)
+def test_flash_attention_kernel_at_head_dim_192(cuda, b, hq, s, dtype):
+    """MLA's prefill head dim (128 nope + 64 rope), no GQA, V zero-padded
+    from 128 to 192 as the model pads it, scale 1/sqrt(192): against the
+    f32 plain version, atol 1e-4 in f32 and 2e-2 in bf16, and the padded
+    columns of the output exactly 0."""
+    q, k = (
+        torch.randn((b, hq, s, 192), generator=cuda, device="cuda").to(dtype)
+        for _ in range(2)
+    )
+    v = torch.randn((b, hq, s, 128), generator=cuda, device="cuda").to(dtype)
+    v = torch.nn.functional.pad(v, (0, 64))
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v)
+    assert flash_attention_cuda.launches == before + 1
+    want = ref.attention_ref(q.float(), k.float(), v.float())
+    atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=0)
+    assert bool((got[..., 128:] == 0).all())
+
+
+@pytest.mark.parametrize("bits,nb", [(4, 32), (8, 32), (4, 256), (8, 512)])
+def test_log_dequantize_rows_kernel_on_latent_and_codebook_rows(cuda, bits, nb):
+    """The rows of this slice's caches: 32 bytes (MLA's krope of 64 at q4,
+    musicgen's K/V of 64 at q4, krope at q8 of a head of 32), 256 and 512
+    bytes (ckv of 512 at q4 and q8). Relative error <= 1e-6."""
+    r = 4 * 1056
+    c = torch.randint(-127, 128, (r, nb), generator=cuda, device="cuda").to(torch.int8)
+    s = torch.rand((r, 1), generator=cuda, device="cuda") * 3
+    before = log_dequantize_rows_cuda.launches
+    got = log_dequantize_rows_cuda(c, s, bits=bits)
+    assert log_dequantize_rows_cuda.launches == before + 1
+    want = ref.log_dequantize_rows_ref(c, s, bits, 10.0)
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= 1e-6 * want.abs()).all())
+
+
+def _mla_server():
+    """deepseek-v3-671b at smoke widths but for a QK head dim of 192 (176
+    nope + 16 rope), which the attention kernel takes."""
+    import dataclasses
+
+    cfg = dataclasses.replace(
+        get_config("deepseek-v3-671b", smoke=True), qk_nope_dim=176
+    )
+    params = init_params(cfg, 0, "cuda")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 20))).cuda()
+    return cfg, params, tokens
+
+
+@pytest.mark.parametrize("bits", [0, 8])
+def test_graphed_mla_decode_equals_eager(cuda, bits):
+    """MLA's absorbed decode over the latent cache (raw, and q8 rows of 32
+    and 16), replayed from a CUDA graph at a (B,) position tensor, against
+    ``graph=False`` at the int position: the same tokens, every cache tensor
+    equal, the same launch counts."""
+    cfg, params, tokens = _mla_server()
+    qcfg = CacheQuantConfig(bits=bits) if bits else None
+    runs, counts = [], []
+    for graph in (None, False):
+        ops.reset_launch_counts()
+        runs.append(run_fixed(cfg, params, tokens, gen=10, qcfg=qcfg, graph=graph))
+        counts.append(ops.launch_counts())
+    graphed, eager = runs
+    assert graphed["capture_s"] > 0 and eager["capture_s"] == 0
+    assert torch.equal(graphed["tokens"], eager["tokens"])
+    assert _caches_equal(graphed["caches"], eager["caches"])
+    assert counts[0] == counts[1] and counts[0]["flash_attention"] == 3
+    if bits:
+        # 9 decode steps x 3 layers x a ckv and a krope read
+        assert counts[0]["log_dequantize_rows"] == 9 * 6
+
+
+def test_graphed_mamba2_training_step_equals_eager(cuda):
+    """mamba2-370m at smoke widths, 2 workers, LQ-SGD r1 b8, Adam, 3 steps
+    (warm-up, capture, a replay) with deterministic algorithms on: the
+    training forward takes the plain SSD (no ``ssd_chunk`` launch); every
+    step's metrics and synced gradients and the final state of the graphed
+    step equal the eager step's bit for bit."""
+    from repro_torch.data.synthetic import LMDataConfig, lm_batch
+    from repro_torch.train.optimizer import adam
+    from repro_torch.train.step import (
+        build_train_step,
+        init_train_state,
+        make_model_compressor,
+    )
+
+    cfg = get_config("mamba2-370m", smoke=True)
+    comp = make_model_compressor(cfg, CompressorConfig(name="lq_sgd", rank=1))
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch=4)
+
+    def run(graph):
+        opt = adam(1e-3)
+        state = init_train_state(cfg, 0, opt, comp, 2, "cuda")
+        step = build_train_step(cfg, (2, 1), comp, opt, graph=graph)
+        seen = []
+        for i in range(3):
+            state, m = step(state, lm_batch(data, i))
+            synced = [g.clone() for g in tree_leaves(step.synced)]
+            seen.append(({k: float(v) for k, v in m.items()}, synced))
+        return seen, [x for x in tree_leaves(state) if isinstance(x, torch.Tensor)]
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (g_seen, g_state), (e_seen, e_state), g_counts, e_counts = _graph_vs_eager(run)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert g_counts == e_counts and g_counts["ssd_chunk"] == 0
+    assert g_counts["log_quantize"] > 0
+    for (gm, gs), (em, es) in zip(g_seen, e_seen, strict=True):
+        assert gm == em and math.isfinite(gm["loss"])
+        assert all(torch.equal(a, b) for a, b in zip(gs, es, strict=True))
+    assert all(torch.equal(a, b) for a, b in zip(g_state, e_state, strict=True))

@@ -309,7 +309,15 @@ def _ssd_inputs(requires_grad):
     "name, args, why",
     [
         ("flash_attention", _attention_inputs, "trains with the plain attention"),
-        ("ssd_chunk", _ssd_inputs, "item 14"),
+        # the SSD kernel once refused naming the slice that would train
+        # Mamba-2; that slice trains through the plain SSD, as this says now
+        # (the case keeps its id)
+        pytest.param(
+            "ssd_chunk",
+            _ssd_inputs,
+            "Mamba-2 trains through the plain SSD",
+            id="ssd_chunk-_ssd_inputs-item 14",
+        ),
     ],
 )
 def test_kernel_branch_refuses_inputs_that_require_grad(monkeypatch, name, args, why):

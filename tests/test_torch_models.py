@@ -290,26 +290,48 @@ def test_swa_caches_are_not_capped_at_the_window():
 @pytest.mark.parametrize(
     "spec_kw,cfg_kw,slice_name",
     [
-        # this case asked for a Mamba-2 layer until the SSM slice ported it;
-        # it keeps its id and now asks for MLA attention, which still raises
-        pytest.param({}, dict(use_mla=True), "LM training slice", id="kw0-SSM slice"),
-        # this case asked for an MoE FFN until the model-zoo slice ported it;
-        # it keeps its id and now asks for deepseek-v3's layer, an MoE FFN
-        # after MLA attention, which still raises for the MLA
+        # this case asked for a Mamba-2 layer until the SSM slice ported it,
+        # then for MLA attention, which raised until the zoo's last slice;
+        # it keeps its id and now checks that the MLA layer builds and runs
+        pytest.param({}, dict(use_mla=True), "mlp", id="kw0-SSM slice"),
+        # this case asked for an MoE FFN until the model-zoo slice ported it,
+        # then for deepseek-v3's layer (an MoE FFN after MLA attention); it
+        # keeps its id and now checks that layer builds and runs
         pytest.param(
             dict(moe=True),
             dict(use_mla=True, n_experts=4, experts_per_token=2),
-            "LM training slice",
+            "moe",
             id="kw1-LM training slice",
         ),
     ],
 )
 def test_unported_layers_raise_naming_their_slice(spec_kw, cfg_kw, slice_name):
+    """Every layer kind of the JAX package builds: an MLA mixer (deepseek's
+    smoke widths) with a dense or an MoE FFN (``slice_name`` names the
+    FFN now), with the JAX package's ``init_layer`` leaves and shapes, and
+    runs forward to finite values of the input's shape."""
     import dataclasses
 
+    from repro.models.blocks import init_layer as jax_init_layer
+    from repro.models.common import KeyGen
     from repro_torch.configs.base import LayerSpec
-    from repro_torch.models.blocks import init_layer
+    from repro_torch.core.tree import flatten_with_paths
+    from repro_torch.models.blocks import init_layer, layer_forward
 
-    cfg = dataclasses.replace(get_config("gemma3-1b", smoke=True), **cfg_kw)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        init_layer(torch.Generator(), LayerSpec(**spec_kw), cfg, "cpu")
+    arch = "deepseek-v3-671b"
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **cfg_kw)
+    jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), **cfg_kw)
+    spec = LayerSpec(**spec_kw)
+    p = init_layer(torch.Generator().manual_seed(0), spec, cfg, "cpu")
+    jspec = type(jcfg.pattern[0])(**spec_kw)
+    jp = jax_init_layer(KeyGen(jax.random.PRNGKey(0)), jspec, jcfg)
+    want = jax.tree_util.tree_flatten_with_path(jp)[0]
+    got = flatten_with_paths(p)
+    assert [path for path, _ in got] == [jax.tree_util.keystr(k) for k, _ in want]
+    assert [tuple(t.shape) for _, t in got] == [w.shape for _, w in want]
+    assert ("w_up" in p["ffn"]) == (slice_name == "moe")
+    x = torch.randn((2, 6, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(6)[None].expand(2, 6)
+    y, _, aux = layer_forward(p, x, spec, cfg, positions=pos)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    assert (aux is not None) == spec.moe

@@ -291,14 +291,20 @@ def test_serve_launcher_on_cpu():
 
 
 def test_unported_archs_raise_naming_the_slice():
-    """deepseek-v3-671b waits for MLA and the MTP head, musicgen-medium for
-    the multi-codebook head and the conditioning stub (mamba2-370m and
-    jamba-v0.1-52b, which this test once named, are served since)."""
-    with pytest.raises(NotImplementedError, match="MLA, MTP; ROADMAP item 14"):
-        get_config("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="LM training-stack slice"):
-        get_config("musicgen-medium", smoke=True)
-    with pytest.raises(NotImplementedError, match="multi-codebook"):
-        get_config("musicgen-medium")
+    """Every architecture of the JAX package is ported: deepseek-v3-671b
+    (MLA and the MTP head) and musicgen-medium (codebook heads and the
+    conditioning prefix), which this test once named as refused, now come
+    back full and smoke with the JAX package's widths; only an unknown name
+    raises."""
+    import dataclasses
+
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro_torch.configs import list_archs
+
+    assert list_archs() == sorted(JAX_ARCHS)
+    for name in ("deepseek-v3-671b", "musicgen-medium"):
+        for smoke in (False, True):
+            got = dataclasses.asdict(get_config(name, smoke))
+            assert got == dataclasses.asdict(jax_get_config(name, smoke))
     with pytest.raises(KeyError):
         get_config("no-such-model")

@@ -36,7 +36,16 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 import numpy as np
-from _torch_lm import assert_leaves_close, flip_tol, to_numpy, to_port
+from _torch_lm import (
+    assert_leaves_close,
+    cache_close,
+    flip_tol,
+    jax_collectives,
+    jit_o0,
+    to_numpy,
+    to_port,
+    zoo_models,
+)
 from conftest import broadcast_state, simulate_workers
 
 from repro.configs import get_config as jax_get_config
@@ -44,14 +53,12 @@ from repro.core import AxisComm
 from repro.core import CompressorConfig as JaxCompressorConfig
 from repro.core.compressors import build_plans as jax_build_plans
 from repro.core.compressors import make_compressor as jax_make_compressor
-from repro.models import model as jmodel
 from repro.serving import engine as jengine
 from repro.serving import kv_cache as jkv
 from repro.train import optimizer as jax_opt
 from repro.train import step as jax_step
 from repro.train.loss import lm_loss as jax_lm_loss
 from repro_torch.configs import get_config
-from repro_torch.core.codec import unpack_nibbles
 from repro_torch.core.compressors import CompressorConfig, build_plans
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.launch import serve as launch_serve
@@ -67,7 +74,7 @@ from repro_torch.train.step import (
     build_train_step,
     make_model_compressor,
 )
-from repro_torch.weights import compressor_state_from_jax, params_from_jax
+from repro_torch.weights import compressor_state_from_jax
 
 ZOO = [
     "qwen2-72b",
@@ -94,30 +101,6 @@ FULL_WIDTH_PARAMS = {
 MIXTRAL_BITS = {32: 65_116_384, 1: 2_626_336}
 B, S, MAX_SEQ = 2, 20, 24
 FLIP_LOGITS = 2e-2
-# The JAX references are compiled with LLVM's optimizations off: a quarter
-# less compile time for the same arithmetic (the tolerances above hold).
-_jit = functools.partial(
-    jax.jit,
-    compiler_options={
-        "xla_backend_optimization_level": 0,
-        "xla_llvm_disable_expensive_passes": True,
-    },
-)
-
-
-@functools.cache
-def _models(arch):
-    """(jcfg, cfg, JAX params moved off their init (numpy), the port's
-    serving tree of them)."""
-    jcfg, cfg = jax_get_config(arch, smoke=True), get_config(arch, smoke=True)
-    p = to_numpy(jmodel.init_params(jcfg, jax.random.PRNGKey(0)))
-    leaves, tree = jax.tree.flatten(p)
-    rng = np.random.default_rng(1)
-    leaves = [a + (rng.standard_normal(a.shape) * 0.05).astype(a.dtype) for a in leaves]
-    pj = jax.tree.unflatten(tree, leaves)
-    return jcfg, cfg, pj, params_from_jax(pj, cfg, device="cpu")
-
-
 def _tokens(cfg, seed=2, s=S):
     if cfg.arch_type == "vlm":
         return vq_tokens_stub(torch.Generator().manual_seed(seed), B, s, cfg).numpy()
@@ -133,7 +116,7 @@ def _jax_serving(arch):
     pre = jengine.build_prefill_step(
         jcfg, MAX_SEQ, cache_dtype=jnp.float32, qcfg=qcfg, full_logits=True
     )
-    return _jit(pre), _jit(jengine.build_decode_step(jcfg))
+    return jit_o0(pre), jit_o0(jengine.build_decode_step(jcfg))
 
 
 @pytest.mark.parametrize("arch", ZOO)
@@ -142,7 +125,7 @@ def test_forward_logits_and_moe_aux_match_jax(arch):
     (its prefill's, every position), and the MoE layers' summed
     load-balance loss against the JAX loss's ``moe_aux`` (0 for a dense
     model)."""
-    jcfg, cfg, pj, pt = _models(arch)
+    jcfg, cfg, pj, pt = zoo_models(arch)
     tok = _tokens(cfg)
     want, _ = _jax_serving(arch)[0](pj, jnp.asarray(tok, jnp.int32))
     got, _, got_aux = tmodel.forward(pt, torch.from_numpy(tok), cfg, return_aux=True)
@@ -157,32 +140,12 @@ def test_forward_logits_and_moe_aux_match_jax(arch):
     assert (want_aux > 0) == bool(cfg.n_experts)
 
 
-def _cache_close(got, want, label):
-    leaves_j = jax.tree.leaves(want, is_leaf=lambda x: isinstance(x, jkv.QuantKV))
-    leaves_t = [leaf for _, leaf in tkv.tree_leaves(got)]
-    assert len(leaves_j) == len(leaves_t), label
-    flips = 0
-    for lj, lt in zip(leaves_j, leaves_t):
-        if isinstance(lt, tkv.QuantKV):
-            a, b = lt.codes, torch.from_numpy(np.array(lj.codes))
-            if lt.bits <= 4:
-                a, b = (unpack_nibbles(c, 2 * c.shape[-1]) for c in (a, b))
-            diff = (a.int() - b.int()).abs()
-            assert int(diff.max()) <= 1, label
-            flips += int((diff > 0).sum())
-            lj, lt = lj.scale, lt.scale
-        w = np.asarray(lj, np.float32)
-        atol = 1e-5 * max(float(np.abs(w).max()), 1e-30)
-        np.testing.assert_allclose(lt.numpy(), w, rtol=1e-4, atol=atol, err_msg=label)
-    assert flips <= 8, f"{label}: {flips} code flips"
-
-
 @pytest.mark.parametrize("arch", ZOO)
 def test_prefill_and_three_decode_steps_at_q8_match_jax(arch):
     """Prefill at q8 then 3 decode steps, each fed JAX's greedy token: the
     same greedy tokens, logits and caches (attention K/V log-quantized,
     Mamba-2 conv window and state raw) within the stated allowances."""
-    jcfg, cfg, pj, pt = _models(arch)
+    jcfg, cfg, pj, pt = zoo_models(arch)
     tok = _tokens(cfg, seed=3)
     jpre, jdec = _jax_serving(arch)
     want, cj = jpre(pj, jnp.asarray(tok, jnp.int32))
@@ -200,7 +163,7 @@ def test_prefill_and_three_decode_steps_at_q8_match_jax(arch):
         np.testing.assert_allclose(got[:, -1].numpy(), w, atol=atol, rtol=1e-4)
         nxt = np.asarray(jengine.greedy_sample(want))
         np.testing.assert_array_equal(tengine.greedy_sample(got).numpy(), nxt)
-        _cache_close(ct, cj, label)
+        cache_close(ct, cj, label)
         if i == 3:
             break
         want, cj = jdec(pj, cj, jnp.asarray(nxt), jnp.int32(S + i))
@@ -214,7 +177,7 @@ def _jax_loss_grad(arch):
     def f(p, tokens):
         return jax_lm_loss(p, {"tokens": tokens}, jcfg)
 
-    return _jit(jax.value_and_grad(f, has_aux=True))
+    return jit_o0(jax.value_and_grad(f, has_aux=True))
 
 
 @pytest.mark.parametrize("head_chunk", [0, 8])
@@ -224,7 +187,7 @@ def test_lm_loss_and_grads_match_jax(arch, head_chunk):
     and its gradients in the training tree (the JAX tree itself), whole and
     by head chunks of 8 positions (an untied head's chunks read ``head``),
     against the JAX package's whole loss."""
-    jcfg, cfg, pj, _ = _models(arch)
+    jcfg, cfg, pj, _ = zoo_models(arch)
     tok = _tokens(cfg, seed=4)
     (want, wm), want_grads = _jax_loss_grad(arch)(pj, jnp.asarray(tok, jnp.int32))
     params = tree_map(lambda t: t.requires_grad_(True), to_port(pj))
@@ -261,25 +224,6 @@ def test_full_width_parameter_counts_match_jax(name):
     assert tmodel.count_params(tmodel.init_params(cfg, device="meta")) == want
 
 
-def _jax_collectives(jcomp, abstract):
-    """The collectives of one JAX sync, counted while it is traced on
-    abstract shapes under a vmap'd worker axis."""
-    counts = []
-
-    def one(g, st):
-        out, _, rec = jcomp.sync(g, st, AxisComm(("data",)))
-        counts.append(rec.effective_collectives())
-        return out
-
-    def per_worker(x):
-        return jax.ShapeDtypeStruct((1,) + x.shape, x.dtype)
-
-    grads = jax.tree.map(per_worker, abstract)
-    state = jax.eval_shape(jcomp.init_state, jax.random.PRNGKey(0))
-    jax.eval_shape(jax.vmap(one, axis_name="data"), grads, jax.tree.map(per_worker, state))
-    return counts[0]
-
-
 @pytest.mark.parametrize("layers", sorted(MIXTRAL_BITS))
 def test_full_width_mixtral_lq_sgd_plans_bits_and_collectives_match_jax(layers):
     """Full-width mixtral (32 layers, and chip_smoke's 1): the training tree
@@ -312,7 +256,7 @@ def test_full_width_mixtral_lq_sgd_plans_bits_and_collectives_match_jax(layers):
     comp = make_model_compressor(cfg, CompressorConfig(**ccfg))
     bits = MIXTRAL_BITS[layers]
     assert comp.wire_bits_per_step() == jcomp.wire_bits_per_step() == bits
-    assert comp.handler.group_collectives(comp.plans) == _jax_collectives(jcomp, jabs)
+    assert comp.handler.group_collectives(comp.plans) == jax_collectives(jcomp, jabs)
 
 
 @functools.cache
@@ -326,7 +270,7 @@ def _jax_sync(n):
         acct = (rec.effective_bits(), rec.effective_collectives())
         return out, st2, jnp.asarray(acct, jnp.float32)
 
-    return jcomp, _jit(lambda g, st: simulate_workers(sync, n, g, st))
+    return jcomp, jit_o0(lambda g, st: simulate_workers(sync, n, g, st))
 
 
 def test_two_worker_lq_sgd_step_on_mixtral_matches_the_composed_jax_step():
@@ -338,7 +282,7 @@ def test_two_worker_lq_sgd_step_on_mixtral_matches_the_composed_jax_step():
     collectives exactly."""
     n, lr = 2, 0.05
     arch = "mixtral-8x7b"
-    jcfg, cfg, pj, _ = _models(arch)
+    jcfg, cfg, pj, _ = zoo_models(arch)
     jcomp, jsync = _jax_sync(n)
     comp = make_model_compressor(cfg, CompressorConfig(name="lq_sgd", rank=1, bits=8))
     # the port's warm-start Q, carried into the JAX state's tree
