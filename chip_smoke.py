@@ -186,6 +186,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    Phase 3 holds #6 at head_dim 128 (4-way GQA, 48-way MQA, the 4096
    window at 5120), #4 on 128- and 64-byte rows and #7 at jamba's 128
    heads of state 16 to their plain versions, with times and bounds.
+12. the model zoo's last two and Mamba-2 training, right after phase 11
+   (``phase_zoo_rest``: (m1)-(m5), see ``_zoo_serve`` / ``_zoo_train``);
+13. data parallelism across processes, right after phase 9: (n1) (j1)'s
+   run (gemma3-1b full width, 4 workers x 2 x 512, LQ-SGD r1 b8, Adam, 3
+   steps, deterministic algorithms on) through an NCCL ``DistComm`` of
+   world 1 holding the 4 workers, in this process: each step one
+   CUDA-graph replay with its collectives captured, bit for bit (j1)'s
+   ``SimComm`` run (step-0 gradients into the sync, every step's synced
+   gradients, gathered wire arrays, bits, losses, final parameters,
+   launches), then ms a step graphed and eager against (j1)'s; (n2)
+   ResNet-18 as (d) over 4 gloo ranks sharing the card, 1 worker x 128
+   each, 2 eager steps, spawned through ``python -m
+   torch.distributed.run`` and ``launch/train_resnet.py``: every rank's
+   gathers byte for byte, synced gradients, losses and parameters equal
+   to ``SimComm(4)``'s in this process, the gathered bits plus the scales
+   the accounting, the ranks' launches of #1 and #5 counted, ms a step and
+   its share in the collectives; (n3) ``launch.train`` at gemma3-1b's
+   smoke widths over 2 gloo ranks on the card, a checkpoint at step 2
+   resumed in this process equal to 4 steps at once.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -195,15 +214,19 @@ import contextlib
 import functools
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bound of a
 # kernel is the larger of its bytes over the memory rate and its operations
@@ -2066,6 +2089,7 @@ def _lm_run(
     every=False,
     timed=False,
     shape=(LM_MESH, LM_BATCH, LM_SEQ),
+    comm=None,
 ):
     """Train ``cfg`` over ``shape``'s workers (mesh, global batch, sequence;
     by default LM_MESH, LM_BATCH, LM_SEQ) through the LM training path
@@ -2076,7 +2100,8 @@ def _lm_run(
     after the step), the first step's per-worker gradients into the sync
     and its synced gradients on the host (``every``: every step's synced
     gradients), the wall seconds of the run and (``timed``) each step's
-    host ms between device syncs."""
+    host ms between device syncs. ``comm`` (one that records its gathers)
+    carries the sync in place of a ``SimComm`` of the mesh's workers."""
     from repro_torch.core.comm import SimComm
     from repro_torch.core.tree import tree_leaves
     from repro_torch.train.runtime import AsyncRunner, RuntimeConfig
@@ -2091,7 +2116,7 @@ def _lm_run(
     mesh, batch, seq = shape
     n = n_dp_of(mesh)
     comp = make_model_compressor(cfg, comp_cfg)
-    comm = SimComm(n, record=True)
+    comm = comm if comm is not None else SimComm(n, record=True)
     log = {"rec": [], "tokens": [], "synced": [], "wire": [], "step_ms": []}
 
     def on_sync(grads, synced, comp_state, rec):
@@ -2188,31 +2213,34 @@ def _host_params(state):
     return [w.detach().to("cpu", copy=True) for w in tree_leaves(state["params"])]
 
 
-def _lm_graph_equals_eager(label, g, e):
-    """(j1): the graphed run against the eager one, bit for bit."""
+def _lm_graph_equals_eager(label, g, e, names=("graph", "eager")):
+    """(j1): the graphed run against the eager one (or the runs ``names``
+    names), bit for bit."""
+    ne = "{} != {}".format(*names)
     counts = f"{g['counts']} / {e['counts']}"
     check(g["counts"] == e["counts"], f"{label}: launches {counts}")
     gl, el = g["log"], e["log"]
     for a, b in zip(gl["grads0"], el["grads0"], strict=True):
-        check(torch.equal(a, b), f"{label}: step-0 grads into the sync, graph != eager")
+        check(torch.equal(a, b), f"{label}: step-0 grads into the sync, {ne}")
     for t, (gs, es) in enumerate(zip(gl["synced"], el["synced"], strict=True)):
         for a, b in zip(gs, es, strict=True):
-            check(torch.equal(a, b), f"{label}: step {t} synced grads, graph != eager")
+            check(torch.equal(a, b), f"{label}: step {t} synced grads, {ne}")
     for t, (gs, es) in enumerate(zip(gl["wire"], el["wire"], strict=True)):
         for a, b in zip(gs, es, strict=True):
-            check(torch.equal(a, b), f"{label}: step {t} wire, graph != eager")
+            check(torch.equal(a.cpu(), b.cpu()), f"{label}: step {t} wire, {ne}")
     for a, b in zip(gl["rec"], el["rec"], strict=True):
         same = (a.effective_bits(), a.effective_collectives()) == (
             b.effective_bits(),
             b.effective_collectives(),
         )
-        check(same, f"{label}: bits or collectives, graph != eager")
+        check(same, f"{label}: bits or collectives, {ne}")
     for a, b in zip(g["params"], e["params"], strict=True):
-        check(torch.equal(a, b), f"{label}: final params, graph != eager")
-    check(g["losses"] == e["losses"], f"{label}: losses, graph != eager")
+        check(torch.equal(a, b), f"{label}: final params, {ne}")
+    check(g["losses"] == e["losses"], f"{label}: losses, {ne}")
 
 
 _J1_GRADS0 = []  # (j1)'s per-worker gradients into its step-0 sync, on the host
+_J1_GRAPH = {}  # (j1)'s graphed run (on the host) and its timed steps, for (n1)
 
 
 def _lm_close_to_reference(
@@ -2320,6 +2348,8 @@ def _lm_j1(card):
         check(torch.equal(g, w), f"{label}: step-0 gradients into the sync differ")
     # (k1) holds its own step-0 gradients into the sync to these
     _J1_GRADS0[:] = got["log"]["grads0"]
+    # (n1) holds its NCCL run to the graphed run bit for bit
+    _J1_GRAPH.update(got)
     flips, n_codes, flips0, grad_rel, param_rel = _lm_close_to_reference(
         label, got, ref, init, J1_STEPS
     )
@@ -2340,6 +2370,7 @@ def _lm_j1(card):
         timed = _lm_timed(cfg, comp_cfg, card)
     finally:
         torch.use_deterministic_algorithms(True, warn_only=True)
+    _J1_GRAPH["timed"] = timed
     emit(
         {
             "train": "j1_gemma3_1b_lq_sgd_r1_b8_adam",
@@ -2366,16 +2397,24 @@ def _lm_j1(card):
 
 
 def _lm_timed(
-    cfg, comp_cfg, card, shape=(LM_MESH, LM_BATCH, LM_SEQ), lr=J1_LR, tag="j1"
+    cfg,
+    comp_cfg,
+    card,
+    shape=(LM_MESH, LM_BATCH, LM_SEQ),
+    lr=J1_LR,
+    tag="j1",
+    comm=None,
+    variants=("graph", "graph_no_remat", "eager", "eager_no_remat"),
 ):
     """(j1)'s step (or ``tag``'s, at ``shape`` and ``lr``) timed as the
     launcher runs it, deterministic algorithms off: the graphed and the
-    eager step, each with and without rematerialization (host ms a step
-    ending in a device sync, and the ms between CUDA events around it);
-    peak memory and tokens/s of each, the graphs' capture seconds, and the
-    device idle share of the eager step (1 - replay device ms / eager host
-    ms, both with remat, the launcher's setting). The kernels of a replay
-    by device time (torch.profiler)."""
+    eager step, each with and without rematerialization, or the
+    ``variants`` named (host ms a step ending in a device sync, and the ms
+    between CUDA events around it); peak memory and tokens/s of each, the
+    graphs' capture seconds, and the device idle share of the eager step
+    (1 - replay device ms / eager host ms, both with remat, the launcher's
+    setting). The kernels of a replay by device time (torch.profiler).
+    ``comm`` carries the sync in place of a ``SimComm``."""
     from repro_torch.train.optimizer import adam
     from repro_torch.train.step import (
         build_train_step,
@@ -2390,7 +2429,7 @@ def _lm_timed(
     tokens = batch * seq
     _free_cuda()
     opt = adam(lr)
-    # one state for the four: only the times, tokens/s and memory are read
+    # one state for them all: only the times, tokens/s and memory are read
     state = init_train_state(cfg, 0, opt, comp, mesh[0], "cuda")
     out = {}
     for name, graph, remat in (
@@ -2399,8 +2438,12 @@ def _lm_timed(
         ("eager", False, True),
         ("eager_no_remat", False, False),
     ):
+        if name not in variants:
+            continue
         torch.cuda.reset_peak_memory_stats()
-        step = build_train_step(cfg, mesh, comp, opt, graph=graph, remat=remat)
+        step = build_train_step(
+            cfg, mesh, comp, opt, graph=graph, remat=remat, comm=comm
+        )
         host, device = [], []
         for batch in batches:
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -2430,7 +2473,6 @@ def _lm_timed(
         del step
         _free_cuda()
     del state
-    idle = 1 - out["graph"]["device_ms"] / out["eager"]["host_ms"]
     for name, r in out.items():
         print(
             f"  ({tag}) timed, {name}: {r['host_ms']:.1f} ms a step on the host "
@@ -2439,6 +2481,7 @@ def _lm_timed(
             + (f", capture {r['capture_s']:.2f} s" if r["capture_s"] else "")
             + f"; {card}"
         )
+    idle = 1 - out["graph"]["device_ms"] / out["eager"]["host_ms"]
     print(
         f"  ({tag}) timed: the eager step's device idle share {idle:.1%} (1 - replay "
         f"{out['graph']['device_ms']:.1f} ms / eager host "
@@ -3622,8 +3665,8 @@ ZOO_PARAMS = {
     # tests/test_torch_zoo_rest.py
     "m1": 15_797_366_784,
     "m2": 1_837_254_144,
-    "m3": 368_338_432,
-    "m4": 1_837_254_144,
+    "m3": 209_913_088,
+    "m4": 931_210_752,
     "m5a": 793_408,
     "m5b": 1_480_872,
 }
@@ -3663,14 +3706,18 @@ MOE_FLIP_MARGIN = 0.25
 # which moves a logit by up to ~3 and raises the loss at the second step;
 # 1e-4 moves it by ~0.3, and the full-width runs of phase 12 take it too.
 # (m3) mamba2-370m and (m4) musicgen-medium (with its conditioning prefix)
-# at full width and depth; (m5a) deepseek-v3-671b and (m5b) jamba-v0.1-52b
+# at full width, cut to 24 of their 48 layers so that the script keeps
+# within its time with phase 13 added (PR 24 trained all 48: the checks
+# are the same, their bits and parameters the JAX package's for the cut,
+# tests/test_torch_zoo_rest.py); (m5a) deepseek-v3-671b and (m5b) jamba-v0.1-52b
 # at smoke widths: one MLA layer with deepseek's 129,280-token embedding,
 # head and MTP head is ~3.1 B parameters, ~93 GB to train at (l5)'s ~30
 # bytes a parameter, and jamba's smallest full-width unit (a period) 13.3 B.
+ZOO_CUT24 = {"repeats": 24}
 ZOO_TRAIN = {
     "l5": ("mixtral-8x7b", {"repeats": 1}, False, ((2, 1), 4, 512), 1e-4, 2_626_336, 1),
-    "m3": ("mamba2-370m", {}, False, ((4, 1), 8, 512), 1e-4, 6_671_968, 1),
-    "m4": ("musicgen-medium", {}, False, ((2, 1), 4, 512), 1e-4, 14_922_976, 1),
+    "m3": ("mamba2-370m", ZOO_CUT24, False, ((4, 1), 8, 512), 1e-4, 3_545_440, 1),
+    "m4": ("musicgen-medium", ZOO_CUT24, False, ((2, 1), 4, 512), 1e-4, 7_539_424, 1),
     "m5a": ("deepseek-v3-671b", {}, True, ((2, 1), 4, 64), 1e-3, 122_112, 0),
     "m5b": ("jamba-v0.1-52b", {}, True, ((2, 1), 4, 64), 1e-3, 144_992, 0),
 }
@@ -3706,21 +3753,25 @@ def phase_zoo_rest(card):
     deepseek-v3-671b (MLA with its latent cache, 256 experts) and (m2)
     musicgen-medium (codebook heads after the conditioning prefix) served
     at full width; (m3) mamba2-370m and (m4) musicgen-medium trained at
-    full width, (m5) deepseek-v3-671b and jamba-v0.1-52b at smoke widths,
-    through the LQ-SGD sync. Deterministic algorithms are on for the
-    training comparisons, as in (l5). Each model is freed before the next
-    is built."""
+    full width on 24 of their 48 layers, (m5) deepseek-v3-671b and
+    jamba-v0.1-52b at smoke widths, through the LQ-SGD sync. Deterministic
+    algorithms are on for the training comparisons, as in (l5). Each model
+    is freed before the next is built."""
     total = {}
     for run in ("m1", "m2"):
+        t0 = time.perf_counter()
         for name, c in _zoo_serve(card, run).items():
             total[name] = total.get(name, 0) + c
         _free_cuda()
+        print(f"({run}) {time.perf_counter() - t0:.1f} s")
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for run in ("m3", "m4", "m5a", "m5b"):
+            t0 = time.perf_counter()
             for name, c in _zoo_train(card, run).items():
                 total[name] = total.get(name, 0) + c
             _free_cuda()
+            print(f"({run}) {time.perf_counter() - t0:.1f} s")
     finally:
         torch.use_deterministic_algorithms(False)
     return total
@@ -4173,6 +4224,305 @@ def _zoo_train(card, run):
     return counts
 
 
+# Phase 13, data parallelism across processes (n). (n1): (j1)'s run through
+# an NCCL DistComm of world 1 holding the 4 workers, in this process; (n2):
+# ResNet-18 as (d) over 4 gloo ranks sharing the card, 1 worker x 128 each,
+# spawned through torchrun and launch/train_resnet.py; (n3): launch.train at
+# smoke widths over 2 gloo ranks, checkpoint at step 2, resumed here
+N2_RANKS, N2_STEPS = 4, 2
+N3_RANKS, N3_CKPT, N3_STEPS = 2, 2, 4
+N3_ARGS = [
+    "--arch", LM_ARCH, "--smoke", "--mesh", "2x1", "--batch", "4", "--seq",
+    "32", "--compressor", "lq_sgd", "--rank", "1", "--bits", "8",
+    "--log-every", "1", "--deterministic",
+]  # fmt: skip
+TORCHRUN_TIMEOUT_S = 300  # a spawn that has not ended by then fails (n)
+
+
+def phase_dist(card):
+    """(n) the LQ-SGD sync's collectives as torch.distributed ones."""
+    total = {}
+    for part in (_dist_n1, _dist_n2, _dist_n3):
+        for name, c in part(card).items():
+            total[name] = total.get(name, 0) + c
+    return total
+
+
+def _torchrun(label, ranks, module_args):
+    """``python -m torch.distributed.run`` of ``ranks`` processes on this
+    host (a rendezvous on a free local port), in a process group of its
+    own that is killed whole on the deadline. Returns (stdout, seconds)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
+    cmd += [f"--nproc-per-node={ranks}", "-m", *module_args]
+    paths = (str(ROOT / "src"), os.environ.get("PYTHONPATH"))
+    path = os.pathsep.join(p for p in paths if p)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        cmd,
+        cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=path),
+        stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE,
+        text=True,
+        start_new_session=True,
+    )
+    try:
+        out, err = proc.communicate(timeout=TORCHRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"{label}: torchrun not done in {TORCHRUN_TIMEOUT_S} s")
+    secs = time.perf_counter() - t0
+    for line in out.splitlines()[-8:]:
+        print(f"    {label} | {line}")
+    rc = proc.returncode
+    check(rc == 0, f"{label}: torchrun exited {rc}: {err[-3000:]}")
+    return out, secs
+
+
+def _dist_n1(card):
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import DistComm
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import adam
+
+    j1 = _J1_GRAPH
+    check("params" in j1 and "timed" in j1, "(n1): no (j1) run to hold it to")
+    cfg = get_config(LM_ARCH)
+    comp_cfg = CompressorConfig(name="lq_sgd", rank=1, bits=8)
+    label = (
+        f"(n1) {LM_ARCH} full width, NCCL DistComm of world 1 x {LM_MESH[0]} "
+        f"local workers x {LM_BATCH // LM_MESH[0]} x {LM_SEQ}, LQ-SGD r1 b8, Adam"
+    )
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            comm = DistComm(LM_MESH[0], record=True)
+            _free_cuda()
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                ops.reset_launch_counts()
+                r = _lm_run(
+                    cfg, comp_cfg, adam(J1_LR), J1_STEPS, every=True, comm=comm
+                )
+                counts = ops.launch_counts()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            step = r["step"]
+            replays = step.graph is not None and step.graph.captured
+            check(replays, f"{label}: the step is not one CUDA-graph replay")
+            got = dict(
+                counts=counts,
+                params=_host_params(r["state"]),
+                log=r["log"],
+                losses=[h["loss"] for h in r["loop"].history],
+                gathered=[w.cpu() for ws in r["log"]["wire"] for w in ws],
+            )
+            _lm_tokens_checked("(n1)", cfg, r["log"], J1_STEPS)
+            del r, step
+            _free_cuda()
+            for name in ("log_quantize", "log_dequantize"):
+                check(counts[name] > 0, f"{label}: kernel {name} never launched")
+            _lm_graph_equals_eager(label, got, j1, names=("NCCL", "(j1) SimComm"))
+            n_gathers = len(got["gathered"])
+            print(
+                f"{label}: {comm!r}; each step one CUDA-graph replay with its "
+                f"NCCL collectives captured; bit for bit (j1)'s SimComm run over "
+                f"{J1_STEPS} steps (step-0 gradients into the sync, every step's "
+                f"synced grads, {n_gathers} gathered wire arrays, bits, losses, "
+                f"final params, launches {counts}); {card}"
+            )
+            del got
+            timed = _lm_timed(
+                cfg, comp_cfg, card, tag="n1", comm=comm, variants=("graph", "eager")
+            )
+        finally:
+            dist.destroy_process_group()
+    ref = j1["timed"]
+    for name in ("graph", "eager"):
+        print(
+            f"  (n1) {name}: {timed[name]['host_ms']:.1f} ms a step over NCCL "
+            f"({timed[name]['device_ms']:.1f} between CUDA events) against (j1)'s "
+            f"SimComm {ref[name]['host_ms']:.1f} ({ref[name]['device_ms']:.1f}); "
+            f"{card}"
+        )
+    emit(
+        {
+            "dist": "n1_gemma3_1b_nccl_world1_x4",
+            "card": card,
+            "bit_equal_to_j1": True,
+            "timed": timed,
+            "j1_timed": {k: ref[k] for k in ("graph", "eager")},
+            "launches": counts,
+        }
+    )
+    _J1_GRAPH.clear()
+    return counts
+
+
+def _dist_n2(card):
+    from repro_torch.core.comm import SimComm
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.train.data_parallel import train_one
+
+    cfg = CompressorConfig(name="lq_sgd", rank=1, bits=8)
+    label = (
+        f"(n2) ResNet-18 over {N2_RANKS} gloo ranks on one card x 1 worker x "
+        f"{TRAIN_BATCH}, LQ-SGD r1 b8, {N2_STEPS} eager steps"
+    )
+    # the same algorithms in every process: the ranks' --deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        _, spawn_s = _torchrun(
+            "(n2)",
+            N2_RANKS,
+            [
+                "repro_torch.launch.train_resnet",
+                "--workers", str(N2_RANKS), "--batch", str(TRAIN_BATCH),
+                "--hw", str(TRAIN_HW), "--classes", str(TRAIN_CLASSES),
+                "--steps", str(N2_STEPS), "--lr", str(TRAIN_LR),
+                "--dist-backend", "gloo", "--device", "cuda:0",
+                "--deterministic", "--dump", tmp,
+            ],  # fmt: skip
+        )
+        ranks = [
+            torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(N2_RANKS)
+        ]
+    comm = SimComm(N2_RANKS, record=True)
+    synced = []
+    ops.reset_launch_counts()
+    want = train_one(
+        cfg,
+        n_workers=N2_RANKS,
+        batch=TRAIN_BATCH,
+        hw=TRAIN_HW,
+        n_classes=TRAIN_CLASSES,
+        steps=N2_STEPS,
+        lr=TRAIN_LR,
+        seed=0,
+        device="cuda",
+        comm=comm,
+        graph=False,
+        on_sync=lambda step, g, st: synced.append([x.cpu() for x in tree_leaves(g)]),
+    )
+    counts = ops.launch_counts()
+    gathered = [g.cpu() for g in comm.gathered]
+    params = [p.detach().cpu() for p in tree_leaves(want.params)]
+    bits = want.comp.wire_bits_per_step()
+    per_step = len(gathered) // N2_STEPS
+    payload = sum(g[0].numel() * g.element_size() * 8 for g in gathered[:per_step])
+    launches = {name: 0 for name in ops.KERNELS}
+    for r, res in enumerate(ranks):
+        who = f"{label}, rank {r}"
+        check(len(res["gathered"]) == len(gathered), f"{who}: gathers in number")
+        for i, (g, w) in enumerate(zip(res["gathered"], gathered)):
+            check(
+                g.dtype == w.dtype and torch.equal(g, w),
+                f"{who}: gather {i} differs from SimComm({N2_RANKS})'s bytes",
+            )
+        for t, (gs, ws) in enumerate(zip(res["synced"], synced, strict=True)):
+            for g, w in zip(gs, ws, strict=True):
+                check(torch.equal(g, w), f"{who}: step {t} synced grads differ")
+        for p, w in zip(res["params"], params, strict=True):
+            check(torch.equal(p, w), f"{who}: final params differ")
+        check(res["losses"] == want.losses, f"{who}: losses differ")
+        check(res["bits"] == [bits] * N2_STEPS, f"{who}: bits {res['bits']} != {bits}")
+        for name in ("log_quantize", "log_dequantize"):
+            check(res["launches"][name] > 0, f"{who}: kernel {name} never launched")
+        for name, c in res["launches"].items():
+            launches[name] += c
+    # the accounting: each gathered code byte, plus one f32 scale per tensor
+    check(bits == payload + 32 * per_step, f"{label}: {payload} bits gathered")
+    # the last step's: step 0 also connects gloo's pairs and warms up cuDNN
+    r0 = ranks[0]
+    coll_ms = 1e3 * (r0["collective_s"][-1] - r0["collective_s"][-2])
+    share = coll_ms / r0["step_ms"][-1]
+    print(
+        f"{label}: {r0['comm']}; every rank's {len(gathered)} gathers byte for "
+        f"byte, synced grads, losses and params equal to SimComm({N2_RANKS}) in "
+        f"one process; {payload} bits gathered a step a worker + 32 x {per_step} "
+        f"scale bits = {bits} (the accounting); ranks' launches {launches}"
+    )
+    print(
+        f"  (n2) ms a step (rank 0, eager, host clock): {r0['step_ms']} (sync "
+        f"{r0['sync_ms']}); the last step's collectives {coll_ms:.1f} ms of its "
+        f"{r0['step_ms'][-1]:.1f} ({share:.1%}, host clock, gloo's host staging "
+        f"included); SimComm({N2_RANKS}) in one process "
+        f"{[round(st.step_ms, 1) for st in want.steps]} (sync "
+        f"{[round(st.sync_ms, 1) for st in want.steps]}); spawn {spawn_s:.1f} s; "
+        f"{card}"
+    )
+    emit(
+        {
+            "dist": "n2_resnet18_gloo_4_ranks_one_card",
+            "card": card,
+            "bit_equal_to_simcomm": True,
+            "wire_bits_per_step": bits,
+            "gathered_bits_per_step": payload,
+            "rank0_step_ms": r0["step_ms"],
+            "rank0_sync_ms": r0["sync_ms"],
+            "rank0_collective_s_at_step_end": r0["collective_s"],
+            "collective_share": share,
+            "simcomm_step_ms": [st.step_ms for st in want.steps],
+            "spawn_s": spawn_s,
+            "launches": launches,
+        }
+    )
+    return {name: launches[name] + counts[name] for name in launches}
+
+
+def _dist_n3(card):
+    import io
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    label = (
+        f"(n3) {LM_ARCH} smoke, launch.train over {N3_RANKS} gloo ranks on one "
+        f"card, checkpoint at step {N3_CKPT} resumed in one process"
+    )
+
+    def here(argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = launch_train.main(N3_ARGS + ["--device", "cuda"] + argv)
+        return [w.detach().cpu() for w in tree_leaves(out["state"]["params"])], out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "state.ckpt")
+        out, spawn_s = _torchrun(
+            "(n3)",
+            N3_RANKS,
+            ["repro_torch.launch.train", *N3_ARGS]
+            + ["--device", "cuda:0", "--dist-backend", "gloo"]
+            + ["--steps", str(N3_CKPT), "--ckpt-every", str(N3_CKPT)]
+            + ["--ckpt-path", ck],
+        )
+        check(f"world={N3_RANKS}" in out, f"{label}: no process group of {N3_RANKS}")
+        ops.reset_launch_counts()
+        resumed, r = here(["--steps", str(N3_STEPS), "--resume", "--ckpt-path", ck])
+        whole, w = here(["--steps", str(N3_STEPS)])
+        counts = ops.launch_counts()
+    for a, b in zip(resumed, whole, strict=True):
+        check(torch.equal(a, b), f"{label}: params differ from one {N3_STEPS}-step run")
+    tail = [m["loss"] for m in w["history"][N3_CKPT:]]
+    check([m["loss"] for m in r["history"]] == tail, f"{label}: losses differ")
+    print(
+        f"{label}: the {N3_RANKS} ranks' checkpoint (all 2 workers' rows, "
+        f"written by rank 0) resumed here equals {N3_STEPS} steps at once bit "
+        f"for bit (params, losses); spawn {spawn_s:.1f} s; {card}"
+    )
+    return counts
+
+
 KERNEL_INFO = {
     "log_quantize": (
         "triton",
@@ -4231,6 +4581,7 @@ def main():
         phase_ssm,
         phase_composite,
         phase_lm_train,
+        phase_dist,
         phase_privacy,
         phase_gia,
     )

@@ -14,6 +14,19 @@ the tree (a compressor's step counter) keep their type. A write goes to
 leaves the previous checkpoint whole. :func:`peek_step` reads the header
 and the step's blob only. :func:`restore` checks every leaf against a
 like-tree and puts it on that tree's device (or the one given).
+
+One file holds a run whatever its world size. The caller names the
+per-worker leaves (``per_worker``, a tree-path prefix: the train state's
+is ``['comp']``, the compressor's error feedback and warm-start Q), whose
+leading dim is the workers; over a process group (a ``DistComm`` of world
+above 1) every rank holds only its own workers' rows, so :func:`save` and
+:meth:`AsyncCheckpointer.submit` gather them on every rank and rank 0
+alone writes all N, and :func:`restore` checks that the file holds N and
+gives each rank its rows (``comm.workers()``). Everything else is the
+same on every rank. A barrier after the write (in :func:`save`, in
+:meth:`AsyncCheckpointer.drain`) keeps any rank from reading a file still
+being written. A checkpoint written by R ranks resumes under any other
+split of the same N workers, one process included.
 """
 
 from __future__ import annotations
@@ -39,6 +52,29 @@ _LEVEL = 3  # zlib's compression level
 _PYTHON = {"int": int, "float": float, "bool": bool}
 
 
+def _spans_ranks(comm: Any) -> bool:
+    return comm is not None and comm.world > 1
+
+
+def _is_rows(per_worker: str | None, key: str, leaf: Any) -> bool:
+    """Whether the leaf at ``key`` carries the workers on its leading dim."""
+    return (
+        per_worker is not None
+        and key.startswith(per_worker)
+        and isinstance(leaf, torch.Tensor)
+    )
+
+
+def _gather_rows(tree: Tree, comm: Any, per_worker: str | None) -> Tree:
+    """``tree`` with every rank's rows gathered into each per-worker leaf
+    (a collective: every rank calls it)."""
+    keyed = flatten_with_paths(tree)
+    return tree_unflatten(
+        tree,
+        [comm.gather(x) if _is_rows(per_worker, k, x) else x for k, x in keyed],
+    )
+
+
 def _leaf_bytes(leaf: Any) -> tuple[dict[str, Any], bytes]:
     """(its header entry, its raw bytes)."""
     if isinstance(leaf, bool | int | float):
@@ -55,9 +91,24 @@ def _leaf_bytes(leaf: Any) -> tuple[dict[str, Any], bytes]:
     return {"dtype": arr.dtype.str, "shape": list(arr.shape)}, arr.tobytes()
 
 
-def save(path: str, tree: Tree) -> int:
+def save(
+    path: str, tree: Tree, *, comm: Any = None, per_worker: str | None = None
+) -> int:
     """Write ``tree`` (tensors on any device, numpy arrays, Python numbers)
-    to ``path``. Returns the bytes written."""
+    to ``path``. Returns the bytes written. Over several ranks (``comm``)
+    every rank calls it: the rows of the ``per_worker`` leaves are
+    gathered, rank 0 writes, and all wait for the write (other ranks
+    return 0)."""
+    if _spans_ranks(comm):
+        tree = _gather_rows(tree, comm, per_worker)
+        try:
+            return _write(path, tree) if comm.rank == 0 else 0
+        finally:
+            comm.barrier()
+    return _write(path, tree)
+
+
+def _write(path: str, tree: Tree) -> int:
     entries, blobs, offset = {}, [], 0
     for key, leaf in flatten_with_paths(tree):
         entry, raw = _leaf_bytes(leaf)
@@ -109,11 +160,23 @@ def _to_tensor(arr: np.ndarray, entry: dict[str, Any], device) -> torch.Tensor:
     return torch.from_numpy(arr.copy()).to(device)
 
 
-def restore(path: str, like: Tree, device: torch.device | str | None = None) -> Tree:
+def restore(
+    path: str,
+    like: Tree,
+    device: torch.device | str | None = None,
+    *,
+    comm: Any = None,
+    per_worker: str | None = None,
+) -> Tree:
     """The checkpoint at ``path`` in the structure of ``like`` (tensors,
     meta tensors or Python numbers). Each tensor leaf must match its
     like's shape and dtype, and lands on ``device``, by default its like's
-    (``cpu`` for a meta like). Raises on any mismatch: no partial restore."""
+    (``cpu`` for a meta like). Raises on any mismatch: no partial restore.
+    Over several ranks (``comm``) each ``per_worker`` leaf of the file
+    must hold ``comm.size()`` workers, and is cut to this rank's rows
+    (``comm.workers()``); every rank reads the same header, so every rank
+    raises alike."""
+    cut = _spans_ranks(comm)
     out = []
     with open(path, "rb") as f:
         entries, start = _read_header(f)
@@ -122,6 +185,13 @@ def restore(path: str, like: Tree, device: torch.device | str | None = None) -> 
                 raise KeyError(f"checkpoint {path!r} misses leaf {key}")
             entry = entries[key]
             arr = _read_leaf(f, start, entry)
+            if cut and _is_rows(per_worker, key, ref) and "python" not in entry:
+                if not entry["shape"] or entry["shape"][0] != comm.size():
+                    raise ValueError(
+                        f"{key}: {entry['shape'][:1]} workers in the checkpoint, "
+                        f"{comm.size()} wanted"
+                    )
+                arr = arr[comm.workers()]
             if "python" in entry:
                 out.append(_PYTHON[entry["python"]](arr.item()))
                 continue
@@ -149,10 +219,16 @@ class AsyncCheckpointer:
     The queue is bounded (one write in flight and one waiting), so a disk
     that cannot keep up with the interval applies backpressure instead of
     hoarding snapshots. A write error is kept and raised by :meth:`drain`;
-    after one, the thread drains without writing."""
+    after one, the thread drains without writing.
 
-    def __init__(self, path: str):
+    Over several ranks (``comm``) every rank submits: :meth:`submit`
+    gathers the rows of the ``per_worker`` leaves, rank 0 alone queues the
+    write, and :meth:`drain` ends in a barrier on every rank."""
+
+    def __init__(self, path: str, comm: Any = None, per_worker: str | None = None):
         self.path = path
+        self.comm = comm
+        self.per_worker = per_worker
         self._q: queue.Queue = queue.Queue(maxsize=2)
         self._err: BaseException | None = None
         self._thread = threading.Thread(
@@ -174,14 +250,24 @@ class AsyncCheckpointer:
             finally:
                 self._q.task_done()
 
-    def submit(self, tree: Tree | Callable[[], Tree]) -> None:
-        """Enqueue a snapshot; blocks only while two are queued."""
-        self._q.put(tree)
+    def submit(
+        self, tree: Tree, prepare: Callable[[Tree], Any] | None = None
+    ) -> None:
+        """Enqueue a snapshot of ``tree``: ``prepare(tree)`` where given (a
+        tree, or a callable the writer thread calls), run on this thread
+        after the rows are gathered. Blocks only while two are queued."""
+        if _spans_ranks(self.comm):
+            tree = _gather_rows(tree, self.comm, self.per_worker)
+            if self.comm.rank != 0:
+                return
+        self._q.put(prepare(tree) if prepare is not None else tree)
 
     def drain(self) -> None:
-        """Wait until every submitted snapshot is written; raise the first
-        write error."""
+        """Wait until every submitted snapshot is written (on every rank:
+        until rank 0's is); raise the first write error."""
         self._q.join()
+        if _spans_ranks(self.comm):
+            self.comm.barrier()
         if self._err is not None:
             err, self._err = self._err, None
             raise RuntimeError(

@@ -738,7 +738,8 @@ def codec_phase(
 
     outs = []
     for g, x, safe in zip(gathered, xs, safes):
-        codes = codec.decode(g, x[0].numel()).reshape(x.shape)
+        # the gather holds all N workers; x, this process's k of them
+        codes = codec.decode(g, x[0].numel()).reshape(g.shape[:1] + x.shape[1:])
         if avg_mode == "paper":
             val = codec.expand(wt.average(codes))
         else:

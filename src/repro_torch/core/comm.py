@@ -1,30 +1,42 @@
-"""Collectives over simulated workers + wire-byte accounting.
+"""Collectives over data-parallel workers + wire-byte accounting.
 
-One card runs all N data-parallel workers: every per-worker tensor carries
-the workers as its leading dimension, as ``jax.vmap(..., axis_name=...)``
-does for the JAX package's collectives. :class:`SimComm` gives the
-reference's collective semantics on that layout:
+Every per-worker tensor carries the workers a process holds as its leading
+dimension, as ``jax.vmap(..., axis_name=...)`` does for the JAX package's
+collectives. Two comms give the reference's collective semantics
+(``src/repro/core/comm.py:AxisComm``) on that layout:
 
-* ``pmax`` / ``psum`` / ``pmean`` reduce over dim 0 and return ONE tensor
-  without the worker dim: the value every worker holds after the collective;
-* ``all_gather`` returns the stacked (N, ...) tensor, which is what every
-  worker holds after the gather (one copy serves them all).
+* :class:`SimComm`: one process holds all N workers (one card simulates
+  the mesh's data axis);
+* :class:`DistComm`: a ``torch.distributed`` process group of ``world``
+  ranks, each holding ``local_workers = k`` of them, so N = world * k, and
+  rank r's local worker j is global worker r * k + j (NCCL between cards,
+  gloo on the CPU or for several ranks sharing one card).
+
+Both reduce and gather the same way:
+
+* ``pmax`` / ``psum`` / ``pmean`` reduce over the workers and return ONE
+  tensor without the worker dim: the value every worker holds after the
+  collective;
+* ``all_gather`` returns the stacked (N, ...) tensor in global worker
+  order, which is what every worker holds after the gather.
 
 Byte accounting is static (plain Python ints from shapes), as in the JAX
 package, so tables never need device work; only a lazily aggregated
-group's payload is charged through a gate on the device. A ``torch.distributed`` backend
-of the same surface is the multi-GPU slice's work.
+group's payload is charged through a gate on the device. The accounting is
+per worker, whichever comm carries it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections.abc import Sequence
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["CommRecord", "SimComm"]
+__all__ = ["CommRecord", "SimComm", "DistComm"]
 
 
 @dataclasses.dataclass
@@ -75,7 +87,92 @@ class CommRecord:
         return self.n_collectives + self.dyn_collectives
 
 
-class SimComm:
+class _Comm:
+    """The surface both comms share: the fused collectives over the
+    workers this process holds (``local_size()``), and the worker and row
+    ranges of this process."""
+
+    world = 1  # processes
+    rank = 0
+    gathered: list[torch.Tensor] | None = None
+
+    def size(self) -> int:
+        """N, the data-parallel workers of the mesh."""
+        raise NotImplementedError
+
+    def local_size(self) -> int:
+        """The workers this process holds on the leading dim."""
+        raise NotImplementedError
+
+    def workers(self) -> slice:
+        """This process's global worker indices."""
+        k = self.local_size()
+        return slice(self.rank * k, (self.rank + 1) * k)
+
+    def rows(self, batch: int) -> slice:
+        """This process's rows of a global batch of ``batch`` rows: worker w
+        takes rows w*B/N .. (w+1)*B/N - 1, as ``P("data")`` shards them."""
+        n = self.size()
+        if batch % n:
+            raise ValueError(f"global batch {batch} not divisible by {n} workers")
+        w = self.workers()
+        return slice(w.start * (batch // n), w.stop * (batch // n))
+
+    def graph_refusal(self) -> str | None:
+        """Why a step over this comm cannot be one CUDA graph; None where
+        it can."""
+        return None
+
+    def metric_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of a per-worker metric over the workers (bookkeeping,
+        off the accounted wire)."""
+        return self.pmean(x)
+
+    def _check(self, x: torch.Tensor) -> None:
+        k = self.local_size()
+        if x.dim() == 0 or x.shape[0] != k:
+            raise ValueError(f"want a leading worker dim of {k}, got {tuple(x.shape)}")
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def fused_all_gather(self, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """ONE gather of every (k, ...) payload in ``xs``, concatenated flat
+        per worker; returns per-input (N, numel) slices. All inputs share a
+        dtype (one wire phase = one code dtype)."""
+        if not xs:
+            return []
+        if len({x.dtype for x in xs}) != 1:
+            raise ValueError(
+                "fused_all_gather requires a single dtype; got "
+                f"{[str(x.dtype) for x in xs]}"
+            )
+        k = self.local_size()
+        g = self.all_gather(torch.cat([x.reshape(k, -1) for x in xs], dim=1))
+        sizes = [x[0].numel() for x in xs]
+        return list(torch.split(g, sizes, dim=1))
+
+    def fused_pmax(self, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """ONE pmax over every (k, ...) tensor in ``xs``; per-input shapes
+        without the worker dim. Scale reductions are f32 by contract."""
+        if not xs:
+            return []
+        bad = [str(x.dtype) for x in xs if x.dtype != torch.float32]
+        if bad:
+            raise ValueError(
+                "fused_pmax requires float32 inputs (scale reductions are f32 "
+                f"by contract); got {bad}"
+            )
+        k = self.local_size()
+        m = self.pmax(torch.cat([x.reshape(k, -1) for x in xs], dim=1))
+        parts = torch.split(m, [x[0].numel() for x in xs])
+        return [p.reshape(x.shape[1:]) for p, x in zip(parts, xs)]
+
+
+class SimComm(_Comm):
     """N simulated workers on a leading dimension of every per-worker tensor.
 
     With ``record=True`` every gathered tensor is kept in ``gathered``, in
@@ -86,16 +183,13 @@ class SimComm:
         if n_workers < 1:
             raise ValueError(f"n_workers must be >= 1, got {n_workers}")
         self.n_workers = n_workers
-        self.gathered: list[torch.Tensor] | None = [] if record else None
+        self.gathered = [] if record else None
 
     def size(self) -> int:
         return self.n_workers
 
-    def _check(self, x: torch.Tensor) -> None:
-        if x.dim() == 0 or x.shape[0] != self.n_workers:
-            raise ValueError(
-                f"want a leading worker dim of {self.n_workers}, got {tuple(x.shape)}"
-            )
+    def local_size(self) -> int:
+        return self.n_workers
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x)
@@ -116,34 +210,111 @@ class SimComm:
             self.gathered.append(x)
         return x
 
-    def fused_all_gather(self, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-        """ONE gather of every (N, ...) payload in ``xs``, concatenated flat
-        per worker; returns per-input (N, numel) slices. All inputs share a
-        dtype (one wire phase = one code dtype)."""
-        if not xs:
-            return []
-        if len({x.dtype for x in xs}) != 1:
-            raise ValueError(
-                "fused_all_gather requires a single dtype; got "
-                f"{[str(x.dtype) for x in xs]}"
-            )
-        n = self.n_workers
-        g = self.all_gather(torch.cat([x.reshape(n, -1) for x in xs], dim=1))
-        sizes = [x[0].numel() for x in xs]
-        return list(torch.split(g, sizes, dim=1))
 
-    def fused_pmax(self, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-        """ONE pmax over every (N, ...) tensor in ``xs``; per-input shapes
-        without the worker dim. Scale reductions are f32 by contract."""
-        if not xs:
-            return []
-        bad = [str(x.dtype) for x in xs if x.dtype != torch.float32]
-        if bad:
-            raise ValueError(
-                "fused_pmax requires float32 inputs (scale reductions are f32 "
-                f"by contract); got {bad}"
+
+class DistComm(_Comm):
+    """The workers of the default ``torch.distributed`` process group: each
+    of its ``world`` ranks holds ``local_workers`` of them on the leading dim of
+    every per-worker tensor (see the module doc).
+
+    ``psum`` / ``pmax`` reduce the local dim first, then ``all_reduce``
+    (SUM, MAX) across the ranks; ``pmean`` is ``psum / N``. A sum's order
+    across ranks is the backend's (a ring), so an f32 ``psum`` may differ
+    from :class:`SimComm`'s ``x.sum(0)`` in the last bits; ``pmax`` and
+    the gathers are exact, and a mean taken locally over a gather (the
+    LQ-SGD wire) is the same on every rank and the same as SimComm's.
+    ``metric_mean`` (the step's loss and the like) takes that route too, so
+    a run's history does not depend on how the workers are spread. With
+    ``record=True`` every gathered (N, ...) tensor is kept in ``gathered``.
+
+    NCCL's collectives run on the card and may be captured into a CUDA
+    graph once the communicator exists (after the first collective). Gloo
+    runs its collectives from the host, copying a CUDA tensor's bytes
+    through host memory inside each collective; a step over it cannot be
+    captured (:meth:`graph_refusal`). The collectives used are the ones
+    both PyTorch 2.11 and 2.13 offer without a warning (``all_reduce`` and
+    the list ``all_gather`` into views of one output buffer). ``host_s``
+    sums the host seconds spent inside the collectives' calls: the whole
+    collective over gloo, which blocks the host (with the wait for the
+    device work queued before it), only the enqueue over NCCL."""
+
+    def __init__(self, local_workers: int = 1, *, record: bool = False):
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "DistComm needs an initialised torch.distributed process group "
+                "(repro_torch.launch.mesh.init_distributed)"
             )
-        n = self.n_workers
-        m = self.pmax(torch.cat([x.reshape(n, -1) for x in xs], dim=1))
-        parts = torch.split(m, [x[0].numel() for x in xs])
-        return [p.reshape(x.shape[1:]) for p, x in zip(parts, xs)]
+        if local_workers < 1:
+            raise ValueError(f"local_workers must be >= 1, got {local_workers}")
+        self.world = dist.get_world_size()
+        self.rank = dist.get_rank()
+        self.local = local_workers
+        self.backend = str(dist.get_backend())
+        self.gathered = [] if record else None
+        self.host_s = 0.0
+
+    def _call(self, collective, *args, **kwargs) -> None:
+        t0 = time.perf_counter()
+        collective(*args, **kwargs)
+        self.host_s += time.perf_counter() - t0
+
+    def __repr__(self) -> str:
+        staged = ", host collectives: a CUDA tensor is staged through host memory" * (
+            self.backend == "gloo"
+        )
+        return (
+            f"DistComm(backend={self.backend}, world={self.world}, "
+            f"rank={self.rank}, local_workers={self.local}{staged})"
+        )
+
+    def size(self) -> int:
+        return self.world * self.local
+
+    def local_size(self) -> int:
+        return self.local
+
+    def graph_refusal(self) -> str | None:
+        if self.backend == "gloo":
+            return (
+                "gloo runs its collectives from the host, which a CUDA graph "
+                "cannot capture (use NCCL, one rank a card)"
+            )
+        return None
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x)
+        s = x.sum(0)
+        self._call(dist.all_reduce, s, op=dist.ReduceOp.SUM)
+        return s
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        return self.psum(x) / self.size()
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x)
+        m = x.amax(0)
+        self._call(dist.all_reduce, m, op=dist.ReduceOp.MAX)
+        return m
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's (k, ...) ``x`` -> the (N, ...) stack in global worker
+        order, unrecorded (the checkpoint's rows, a metric)."""
+        self._check(x)
+        out = torch.empty((self.size(),) + x.shape[1:], dtype=x.dtype, device=x.device)
+        self._call(dist.all_gather, list(out.chunk(self.world)), x.contiguous())
+        return out
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every worker's ``x[w]`` -> the stacked (N, ...) tensor."""
+        out = self.gather(x)
+        if self.gathered is not None:
+            self.gathered.append(out)
+        return out
+
+    def metric_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of a per-worker metric over all N workers, taken locally
+        over a gather: SimComm's ``x.mean(0)`` bit for bit."""
+        return self.gather(x).mean(0)
+
+    def barrier(self) -> None:
+        self._call(dist.barrier)

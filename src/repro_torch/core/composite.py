@@ -72,6 +72,7 @@ from repro_torch.core.compressors import (
     TopKHandler,
     _numel,
     build_plans,
+    check_across_ranks,
     per_worker,
     state_dtype,
 )
@@ -291,6 +292,14 @@ class CompositeCompressor(GradCompressor):
             "20, the graphed composite)"
         )
 
+    def dist_refusal(self) -> str | None:
+        return (
+            "the composite compressor (per-leaf policies, schedules, lazy "
+            "groups, the server wire, the randomized codecs dlog and lrq) "
+            "draws and keeps its per-worker state on one device (ROADMAP "
+            "Queue 1, item 15)"
+        )
+
     def sync(
         self,
         grads: Tree,
@@ -309,8 +318,9 @@ class CompositeCompressor(GradCompressor):
         leaves = tree_leaves(grads)
         wire = self._make_wire(comm, state, leaves[0].device, participation_mask)
         # the participation sideband is gathered (and charged) once a round
+        check_across_ranks(self, wire)
         wire.prepare(rec)
-        self._check_grads(leaves, wire.size())
+        self._check_grads(leaves, wire.local_size())
         server = wire.kind == "server"
         outs: dict[int, torch.Tensor] = {}
         updates: dict[str, dict] = {}

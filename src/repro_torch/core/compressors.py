@@ -4,10 +4,12 @@ A compressor replaces the data-parallel gradient all-reduce:
 
     comp  = make_compressor(cfg, abstract_grads, stacked=...)
     state = comp.init_state(seed, n_workers, device)    # E, warm Q, counters
-    g_bar, state, rec = comp.sync(grads, state, comm)   # comm: SimComm
+    g_bar, state, rec = comp.sync(grads, state, comm)   # SimComm or DistComm
 
 Every per-worker tensor carries the workers as its leading dim: the grads
-and the error feedback E are (N, *shape), the warm-start Q (N, m, r). The
+and the error feedback E are (N, *shape), the warm-start Q (N, m, r), with
+N the workers this process holds (all of them on a ``SimComm``, a rank's
+``local_workers`` on a ``DistComm``). The
 synced gradients come back without it, since every worker holds the same
 values after a sync, as the JAX package's vmap'd workers do.
 
@@ -76,6 +78,7 @@ __all__ = [
     "donates",
     "error_corrected",
     "state_dtype",
+    "check_across_ranks",
     "POLICY_METHODS",
     "PHASE_STREAMS",
 ]
@@ -336,6 +339,17 @@ def _pmean_raw(
 ) -> torch.Tensor:
     rec.add(g[0].numel() * 32, 1)  # f32 wire, ring all-reduce payload ~ numel
     return comm.pmean(g.float()).to(g.dtype)
+
+
+def check_across_ranks(compressor: Any, comm: Any) -> None:
+    """Raise where ``comm`` spans several ranks (a ``DistComm`` of world
+    above 1) and ``compressor`` cannot sync across them yet
+    (``compressor.dist_refusal()``)."""
+    world = getattr(comm, "world", 1)
+    if world > 1:
+        why = compressor.dist_refusal()
+        if why is not None:
+            raise NotImplementedError(f"a sync across {world} ranks: {why}")
 
 
 def _group_by(items: Iterable[Any], keyf: Callable[[Any], Any]):
@@ -642,7 +656,8 @@ class GradCompressor:
 
     # ---- state -----------------------------------------------------------
     def init_state(self, seed: int, n_workers: int, device="cuda") -> dict[str, Any]:
-        """Per-worker state: every tensor has the leading worker dim."""
+        """Per-worker state: every tensor has the leading worker dim, of the
+        ``n_workers`` this process holds (a ``DistComm`` rank's local ones)."""
         state: dict[str, Any] = {ns: {} for ns in self.handler.namespaces}
         for i, pl in enumerate(self.plans):
             leaf = self.handler.init_leaf_state(seed, i, pl, n_workers, device)
@@ -741,7 +756,8 @@ class GradCompressor:
         leaves = tree_leaves(grads)
         wire = self._make_wire(comm, state, leaves[0].device, participation_mask)
         wire.prepare(rec)
-        self._check_grads(leaves, wire.size())
+        check_across_ranks(self, wire)
+        self._check_grads(leaves, wire.local_size())
         items = list(zip(range(len(leaves)), leaves, self.plans))
         outs, updates = self.handler.sync_group(items, state, wire, rec, donate=donate)
         updates = self._freeze_inactive(updates, state, wire)
@@ -768,6 +784,23 @@ class GradCompressor:
                 f"an error feedback stored in {self.cfg.state_dtype} is not "
                 "donated, so the step cannot update it in place (ROADMAP Queue "
                 "1, item 20, the graphed composite)"
+            )
+        return None
+
+    def dist_refusal(self) -> str | None:
+        """Why a sync over this compressor cannot run across ranks yet (a
+        ``DistComm`` of world above 1), naming the ROADMAP item that lifts
+        it; None where it can."""
+        if self.cfg.topology != "symmetric":
+            return (
+                "the server wire draws one (N,) participation mask on one "
+                "device (ROADMAP Queue 1, item 15)"
+            )
+        if self.handler.group_needs_prng(self.plans):
+            return (
+                f"{self.method} draws each leaf's whole (N, ...) tensor from one "
+                "generator, and a per-rank draw that keeps those draws is not "
+                "designed yet (ROADMAP Queue 1, item 15)"
             )
         return None
 

@@ -48,13 +48,19 @@ def matricize_shape(shape: tuple[int, ...]) -> tuple[int, int]:
 
 
 def power_iter_p(g2d: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """P = G' Q (before orthonormalization / all-reduce)."""
-    return g2d @ q
+    """P = G' Q (before orthonormalization / all-reduce), for each worker:
+    ``g2d`` (k, ..., n, m) and ``q`` (k, ..., m, r) carry the workers first.
+    Each worker's product is taken on its own, so its bits do not depend on
+    how many workers share the call (a product batched over k workers may
+    round otherwise, and a rank of a process group holds fewer of them than
+    one process simulating all)."""
+    return torch.stack([g @ qw for g, qw in zip(g2d, q)])
 
 
 def power_iter_q(g2d: torch.Tensor, p_hat: torch.Tensor) -> torch.Tensor:
-    """Q = G'^T P_hat."""
-    return g2d.transpose(-1, -2) @ p_hat
+    """Q = G'^T P_hat for each worker of ``g2d`` (k, ..., n, m), P_hat the
+    same for all of them; one product a worker, as in :func:`power_iter_p`."""
+    return torch.stack([g.transpose(-1, -2) @ p_hat for g in g2d])
 
 
 def reconstruct(p_hat: torch.Tensor, q_hat: torch.Tensor) -> torch.Tensor:

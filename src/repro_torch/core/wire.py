@@ -58,8 +58,15 @@ class SymmetricWire:
     def __init__(self, comm: SimComm):
         self.comm = comm
 
+    @property
+    def world(self) -> int:
+        return self.comm.world
+
     def size(self) -> int:
         return self.comm.size()
+
+    def local_size(self) -> int:
+        return self.comm.local_size()
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return self.comm.psum(x)

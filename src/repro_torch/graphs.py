@@ -170,7 +170,9 @@ class SyncStepGraph:
     draws from in place of its per-step ones; they are registered with the
     graph, and :meth:`run` reseeds them on the host before each step
     (``compressor.prng_seeds``), so a replay draws what the eager step
-    draws. Where ``comm`` records its gathers (``SimComm(record=True)``),
+    draws. Where ``comm`` records its gathers (``SimComm`` or ``DistComm``
+    with ``record=True``; an NCCL ``DistComm``'s collectives are captured
+    with the step, after the warm-up has created its communicator),
     each step's gathers are kept as the eager step's are: the capture's
     are the graph's static outputs, which every replay overwrites, so
     after each replay ``comm.gathered`` gets copies of them."""

@@ -1,0 +1,173 @@
+"""The data-parallel mesh across processes: the port's counterpart of the
+JAX package's ``launch/mesh.py``.
+
+The JAX launcher builds a ``(data, model)`` device mesh and runs its step
+under ``shard_map`` over the data axis. The port's mesh is a
+``torch.distributed`` process group: one rank a card over NCCL, or several
+ranks over gloo (on the CPU, or sharing one card when the caller names it).
+Each rank holds ``data / world`` of the data axis's workers on the leading
+dim of its per-worker tensors (``core/comm.py:DistComm``); rank r's local
+worker j is global worker ``r * local + j``. Without a process group one
+process holds all of them (``SimComm``), as before.
+
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.train --mesh 4x1 ...
+
+Tensor parallelism (a model axis above 1), the production mesh and the
+multi-pod mesh are not ported (ROADMAP Queue 1, item 15, its later steps).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.comm import DistComm, SimComm
+from repro_torch.models.common import resolve_device
+
+__all__ = [
+    "DataMesh",
+    "init_distributed",
+    "make_mesh",
+    "make_comm",
+    "make_production_mesh",
+]
+
+LATER_STEPS = "ROADMAP Queue 1, item 15, its later steps"
+
+
+@dataclasses.dataclass(frozen=True)
+class DataMesh:
+    """A ``(data, model)`` mesh over ``world`` processes: this rank, the
+    workers it holds (``local``), its device and the process group's
+    backend (None without a group)."""
+
+    data: int
+    model: int
+    world: int
+    rank: int
+    local: int
+    device: torch.device
+    backend: str | None
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.data, self.model)
+
+    @property
+    def distributed(self) -> bool:
+        return self.backend is not None
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, default))
+
+
+def _rank_device(device: torch.device | str, backend: str | None) -> torch.device:
+    """This rank's device: the CPU, the card the caller names (``cuda:i``,
+    every rank on it: gloo only, where ranks share a host), or the card of
+    its ``LOCAL_RANK`` (``cuda``). Never a card picked by a modulo."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or backend is None:
+        return resolve_device(dev)
+    resolve_device(dev)
+    if dev.index is not None:
+        if backend == "nccl" and _env_int("LOCAL_WORLD_SIZE", 1) > 1:
+            raise ValueError(
+                f"--device {dev} puts every rank of this host on one card, "
+                "which NCCL refuses; give each rank its card (--device cuda) "
+                "or share the card over --dist-backend gloo"
+            )
+        return dev
+    local_rank, cards = _env_int("LOCAL_RANK", 0), torch.cuda.device_count()
+    if local_rank >= cards:
+        raise ValueError(
+            f"LOCAL_RANK {local_rank} on a host with {cards} card(s): run one "
+            "rank a card, or share one card with --dist-backend gloo "
+            "--device cuda:0"
+        )
+    return torch.device("cuda", local_rank)
+
+
+def init_distributed(
+    backend: str | None = None, device: torch.device | str = "cuda"
+) -> bool:
+    """Join the process group torchrun describes (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``), with ``backend``
+    (default NCCL for CUDA, gloo for the CPU), and print it. Returns True
+    where this call created the group (the caller destroys it when done);
+    False where a group exists already (it is used as it is) or where
+    there is no torchrun variable (one process: the caller runs without a
+    group)."""
+    if dist.is_initialized():
+        return False
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return False
+    rank, world = _env_int("RANK", 0), _env_int("WORLD_SIZE", 1)
+    kind = torch.device(device).type
+    backend = backend or ("nccl" if kind == "cuda" else "gloo")
+    if backend == "nccl" and kind != "cuda":
+        raise ValueError(f"NCCL needs CUDA tensors, not --device {device}")
+    dev = _rank_device(device, backend)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world)
+    print(
+        f"# torch.distributed: backend={backend} world={world} rank={rank} "
+        f"local_rank={_env_int('LOCAL_RANK', 0)} device={dev}",
+        flush=True,
+    )
+    return True
+
+
+def make_mesh(
+    shape: tuple[int, int], device: torch.device | str = "cuda"
+) -> DataMesh:
+    """The ``(data, model)`` mesh over the process group (one process where
+    there is none). Raises unless ``data`` divides over the ranks and
+    ``model`` is 1."""
+    data, model = shape
+    if model != 1:
+        raise NotImplementedError(
+            f"a model axis of {model}: tensor parallelism is not ported yet "
+            f"({LATER_STEPS})"
+        )
+    if dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        backend = str(dist.get_backend())
+    else:
+        world, rank, backend = 1, 0, None
+    if data < 1 or data % world:
+        raise ValueError(
+            f"a data axis of {data} over {world} ranks: each rank holds "
+            "data / world workers"
+        )
+    return DataMesh(
+        data=data,
+        model=model,
+        world=world,
+        rank=rank,
+        local=data // world,
+        device=_rank_device(device, backend),
+        backend=backend,
+    )
+
+
+def make_comm(mesh: DataMesh, *, record: bool = False) -> SimComm | DistComm:
+    """The workers' comm: a ``DistComm`` of the rank's workers over the
+    process group, or a ``SimComm`` of all of them without one."""
+    if mesh.distributed:
+        return DistComm(mesh.local, record=record)
+    return SimComm(mesh.data, record=record)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DataMesh:
+    """The JAX package's TPU production mesh (16 x 16 data x model, x 2
+    pods): not ported."""
+    raise NotImplementedError(
+        f"the production{' multi-pod' * multi_pod} mesh (data x model, "
+        f"tensor-parallel sharding) is not ported yet ({LATER_STEPS})"
+    )

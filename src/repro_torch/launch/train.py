@@ -4,10 +4,10 @@
         --mesh 4x1 --batch 8 --seq 512 --compressor lq_sgd --rank 1 --bits 8 \\
         --steps 3
 
-trains the LM at full width over N simulated data-parallel workers on one
-card (``--mesh Nx1``: worker w takes rows w*B/N .. (w+1)*B/N - 1 of each
-global batch), with the compressed gradient sync in every step, from a
-seeded init and the JAX package's synthetic tokens (``data/synthetic.py:
+trains the LM at full width over the mesh's N data-parallel workers
+(``--mesh Nx1``: worker w takes rows w*B/N .. (w+1)*B/N - 1 of each global
+batch), with the compressed gradient sync in every step, from a seeded
+init and the JAX package's synthetic tokens (``data/synthetic.py:
 lm_batch``; codebook grids for musicgen, with the conditioning prefix
 drawn in numpy as the JAX launcher draws it, ``cond_batch``). All ten
 architectures train; a model with Mamba-2 layers trains through the SSD's
@@ -16,6 +16,22 @@ config; ``--device cpu`` runs on the CPU (the tests); by default it runs
 on the card, in f32 wherever the config is f32 (TF32 off, as the JAX
 package computes).
 
+Run as it is, one process holds all N workers on one device. Under
+torchrun the mesh spans the ranks (``launch/mesh.py``), each holding
+N / world workers and their rows, and the sync's collectives are
+``torch.distributed`` ones (``core/comm.py:DistComm``):
+
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.train --mesh 4x1 ...
+
+``--dist-backend`` is NCCL on CUDA by default (one rank a card; the step
+is one CUDA-graph replay) and gloo on the CPU; ``--dist-backend gloo
+--device cuda:0`` puts every rank on one card (eager steps). Each rank
+builds the global batch and keeps its rows; rank 0 alone prints and
+writes the checkpoints, which hold all N workers' rows whatever the world
+size. ``--deterministic`` turns PyTorch's deterministic algorithms on
+(warn only), for runs compared bit for bit.
+
 The step runs under the async runtime by default (prefetched batches,
 deferred metric reads, background checkpoints: ``train/runtime.py``);
 ``--runtime sync`` is the reference loop. The JAX launcher's flags carry
@@ -23,18 +39,22 @@ over. ``--codec dlog|lrq`` and ``--dp-epsilon`` put the randomized privacy
 codecs on the LQ-SGD wire (through the composite compressor); the run's
 line then also prints the per-step DP epsilon and its kind. Those of parts
 not ported raise, naming the ROADMAP item that ports them: a model axis
-above 1, ``--production-mesh`` and ``--multi-pod`` (tensor and multi-card
-parallelism, item 15).
+above 1, ``--production-mesh`` and ``--multi-pod`` (item 15), and over
+several ranks QSGD, the randomized codecs and the composite (item 15).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
+from collections.abc import Iterator
 from typing import Any
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.io import peek_step
 from repro_torch.checkpoint.io import restore as ckpt_restore
@@ -42,7 +62,12 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.compressors import CompressorConfig
 from repro_torch.core.policy import format_plan_report, parse_decay_spec
 from repro_torch.data.synthetic import LMDataConfig, cond_batch, lm_batch
-from repro_torch.models.common import resolve_device
+from repro_torch.launch.mesh import (
+    init_distributed,
+    make_comm,
+    make_mesh,
+    make_production_mesh,
+)
 from repro_torch.models.model import count_params
 from repro_torch.train.data_parallel import _tf32_off
 from repro_torch.train.optimizer import make_optimizer
@@ -51,9 +76,8 @@ from repro_torch.train.step import (
     build_train_step,
     init_train_state,
     make_model_compressor,
-    n_dp_of,
 )
-from repro_torch.train.trainer import Trainer
+from repro_torch.train.trainer import WORKER_ROWS, Trainer, is_rank0
 
 __all__ = ["main", "parse_mesh"]
 
@@ -131,7 +155,23 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--fuse", action="store_true", help="one collective per phase")
     ap.add_argument("--comp-dtype", default="float32")
     ap.add_argument(
-        "--mesh", default=None, help="'Nx1': N simulated workers (default 1x1)"
+        "--mesh",
+        default=None,
+        help="'Nx1': N data-parallel workers over this process or, under "
+        "torchrun, over its ranks (default 1x1)",
+    )
+    ap.add_argument(
+        "--dist-backend",
+        default=None,
+        choices=("nccl", "gloo"),
+        help="under torchrun: the process group's backend (default nccl on "
+        "CUDA, gloo on the CPU)",
+    )
+    ap.add_argument(
+        "--deterministic",
+        action="store_true",
+        help="PyTorch's deterministic algorithms (warn only), for bit-for-bit "
+        "comparisons",
     )
     ap.add_argument("--production-mesh", action="store_true", help="not ported")
     ap.add_argument("--multi-pod", action="store_true", help="not ported")
@@ -162,18 +202,50 @@ def parse_mesh(spec: str | None) -> tuple[int, int]:
 
 def _check_ported(args: argparse.Namespace) -> None:
     if args.production_mesh or args.multi_pod:
-        raise NotImplementedError(
-            "--production-mesh / --multi-pod: multi-card meshes are not ported "
-            "yet (ROADMAP Queue 1, item 15)"
-        )
+        make_production_mesh(multi_pod=args.multi_pod)
+
+
+@contextlib.contextmanager
+def _deterministic(on: bool) -> Iterator[None]:
+    """PyTorch's deterministic algorithms (warn only) inside the block when
+    ``on``; the setting as it was after."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    if on:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
 
 
 def main(argv: list[str] | None = None) -> dict[str, Any]:
     args = _parser().parse_args(argv)
     _check_ported(args)
-    mesh = parse_mesh(args.mesh)
-    n_dp = n_dp_of(mesh)
-    dev = resolve_device(args.device)
+    created = init_distributed(args.dist_backend, args.device)
+    try:
+        if args.dist_backend and not dist.is_initialized():
+            raise ValueError(
+                "--dist-backend needs a process group: run under torchrun "
+                "(python -m torch.distributed.run)"
+            )
+        if args.dist_backend and dist.get_backend() != args.dist_backend:
+            raise ValueError(
+                f"--dist-backend {args.dist_backend} in a {dist.get_backend()} "
+                "process group"
+            )
+        with _deterministic(args.deterministic):
+            return _train(args)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace) -> dict[str, Any]:
+    mesh = make_mesh(parse_mesh(args.mesh), args.device)
+    n_dp, dev = mesh.data, mesh.device
+    comm = make_comm(mesh)
+    say = print if is_rank0(comm) else lambda *a, **k: None
     cfg = get_config(args.arch, smoke=args.smoke)
     comp_cfg = CompressorConfig(
         name=args.compressor,
@@ -202,7 +274,7 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
     )
     compressor = make_model_compressor(cfg, comp_cfg)
     if getattr(compressor, "plan_report", None):
-        print(format_plan_report(compressor.plan_report))
+        say(format_plan_report(compressor.plan_report))
     optimizer = make_optimizer(args.optimizer, args.lr)
     data_cfg = LMDataConfig(
         vocab_size=cfg.vocab_size,
@@ -233,11 +305,12 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         # the JAX launcher rematerializes at full width (remat_scan)
         return build_train_step(
             cfg,
-            mesh,
+            mesh.shape,
             comp,
             optimizer,
             accum_steps=args.microbatch,
             remat=not args.smoke,
+            comm=comm,
         )
 
     with _tf32_off():
@@ -254,12 +327,14 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
             step0 = peek_step(args.ckpt_path)
             if hasattr(compressor, "at_step"):
                 comp0 = compressor.at_step(max(step0 - 1, 0))
-            like = init_train_state(cfg, 0, optimizer, comp0, n_dp, dev)
-            state = ckpt_restore(args.ckpt_path, like)
+            like = init_train_state(cfg, 0, optimizer, comp0, mesh.local, dev)
+            state = ckpt_restore(
+                args.ckpt_path, like, comm=comm, per_worker=WORKER_ROWS
+            )
             del like
-            print(f"# resumed at step {step0} from {args.ckpt_path}")
+            say(f"# resumed at step {step0} from {args.ckpt_path}")
         else:
-            state = init_train_state(cfg, 0, optimizer, comp0, n_dp, dev)
+            state = init_train_state(cfg, 0, optimizer, comp0, mesh.local, dev)
         n_params = count_params(state["params"])
         lazy_note = ""
         if getattr(comp0, "lazy_groups", None):
@@ -270,9 +345,11 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
             eps = comp0.privacy_epsilon_per_step(args.dp_delta)
             kinds = "+".join(comp0.privacy_epsilon_kinds()) or "none"
             privacy_note = f" epsilon/step={eps:g} ({kinds})"
-        print(
+        if mesh.distributed:
+            say(f"# comm: {comm!r}")
+        say(
             f"arch={cfg.name} params={n_params / 1e6:.1f}M "
-            f"mesh={{'data': {mesh[0]}, 'model': {mesh[1]}}} "
+            f"mesh={{'data': {mesh.data}, 'model': {mesh.model}}} "
             f"compressor={args.compressor} policy={comp_cfg.policy or 'uniform'} "
             f"runtime={args.runtime} microbatch={args.microbatch} "
             f"wire/step={comp0.wire_bits_per_step() / 8e6:.3f}MB{lazy_note}"
@@ -289,11 +366,11 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
             prefetch=args.prefetch,
         )
         runner_cls = AsyncRunner if args.runtime == "async" else Trainer
-        runner = runner_cls(build(comp0), batch_fn, rcfg)
+        runner = runner_cls(build(comp0), batch_fn, rcfg, comm=comm)
 
         def rebuild(comp_t, seg_start):
             mb = comp_t.wire_bits_per_step() / 8e6
-            print(f"# schedule phase @step {seg_start}: wire/step={mb:.3f}MB")
+            say(f"# schedule phase @step {seg_start}: wire/step={mb:.3f}MB")
             return build(comp_t)
 
         # ONE runner threads through every schedule phase; phases a restored

@@ -22,18 +22,38 @@ The JAX launcher's compressor flags carry over: per-leaf policies
 server``, ``--participation``, ``--agg``, ``--participation-seed``), with
 federated label skew (``--noniid-alpha``). The planner's report is printed
 when ``--policy auto`` ran it.
+
+Under torchrun the ``--workers`` spread over the ranks (``launch/mesh.py``),
+each computing its workers' gradients on their shards, with the sync's
+collectives across the ranks (``core/comm.py:DistComm``; NCCL on CUDA by
+default, gloo on the CPU; ``--dist-backend gloo --device cuda:0`` shares
+one card, stepping eagerly):
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train_resnet --workers 4 --steps 2
+
+Rank 0 prints. ``--deterministic`` selects cuDNN's deterministic
+algorithms, for runs compared bit for bit; ``--dump DIR`` has each rank
+write ``DIR/rank<r>.pt`` (its gathered wire arrays, every step's synced
+gradients, bits and times, the final parameters, its kernel launch
+counts and its comm's collective seconds at each step's end), which a
+comparison reads.
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.compressors import CompressorConfig, make_compressor
 from repro_torch.core.policy import format_plan_report, parse_decay_spec
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import init_distributed, make_comm, make_mesh
 from repro_torch.models.resnet import init_resnet18
 from repro_torch.train.data_parallel import StepResult, mb_per_epoch, train_one
 
@@ -122,11 +142,41 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument(
+        "--dist-backend",
+        default=None,
+        choices=("nccl", "gloo"),
+        help="under torchrun: the process group's backend (default nccl on "
+        "CUDA, gloo on the CPU)",
+    )
+    ap.add_argument(
+        "--deterministic",
+        action="store_true",
+        help="cuDNN's deterministic algorithms, for bit-for-bit comparisons",
+    )
+    ap.add_argument("--dump", default=None, help="write DIR/rank<r>.pt")
     return ap
 
 
 def main(argv: list[str] | None = None) -> dict:
     args = _parser().parse_args(argv)
+    created = init_distributed(args.dist_backend, args.device)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = was or args.deterministic
+    try:
+        return _train(args)
+    finally:
+        torch.backends.cudnn.deterministic = was
+        if created:
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace) -> dict:
+    mesh = make_mesh((args.workers, 1), args.device)
+    comm = make_comm(mesh, record=args.dump is not None)
+    say = print if mesh.rank == 0 else lambda *a, **k: None
+    if mesh.distributed:
+        say(f"# comm: {comm!r}", flush=True)
     cfg = CompressorConfig(
         name=args.compressor,
         rank=args.rank,
@@ -151,16 +201,24 @@ def main(argv: list[str] | None = None) -> dict:
         # the planner reads shapes only: plan on a meta copy of the params
         params = init_resnet18(args.classes, device="cpu")
         abstract = tree_map(lambda t: torch.empty(t.shape, device="meta"), params)
-        print(format_plan_report(make_compressor(cfg, abstract).plan_report))
+        say(format_plan_report(make_compressor(cfg, abstract).plan_report))
+
+    synced = []  # every step's synced gradients, on the host, for --dump
+
+    def keep_synced(step: int, grads, state) -> None:
+        synced.append([g.cpu() for g in tree_leaves(grads)])
+
+    collective_s = []  # the comm's collective seconds at each step's end
 
     def show(step: int, res: StepResult) -> None:
+        collective_s.append(getattr(comm, "host_s", 0.0))
         split = (
             ""  # a graph replay has no phase boundaries to clock
             if math.isnan(res.grad_ms)
             else f" (grad {res.grad_ms:.1f} sync {res.sync_ms:.1f} update "
             f"{res.update_ms:.1f})"
         )
-        print(
+        say(
             f"step {step:4d}  loss {res.loss:.4f}  ms {res.step_ms:.1f}{split}  "
             f"wire {res.wire_bits:g} bits, {res.collectives:g} collectives",
             flush=True,
@@ -175,12 +233,31 @@ def main(argv: list[str] | None = None) -> dict:
         steps=args.steps,
         lr=args.lr,
         seed=args.seed,
-        device=args.device,
+        device=mesh.device,
         noniid_alpha=args.noniid_alpha,
+        comm=comm,
         on_step=show,
+        on_sync=None if args.dump is None else keep_synced,
     )
     mb = mb_per_epoch(out.comp, CIFAR_TRAIN_IMAGES, args.workers * args.batch)
-    print(
+    if args.dump is not None:
+        os.makedirs(args.dump, exist_ok=True)
+        dump = {
+            "gathered": [g.cpu() for g in comm.gathered],
+            "synced": synced,
+            "params": [p.detach().cpu() for p in tree_leaves(out.params)],
+            "losses": out.losses,
+            "bits": [st.rec.bits_sent for st in out.steps],
+            "collectives": [st.rec.n_collectives for st in out.steps],
+            "wire_bits_per_step": out.comp.wire_bits_per_step(),
+            "step_ms": [st.step_ms for st in out.steps],
+            "sync_ms": [st.sync_ms for st in out.steps],
+            "collective_s": collective_s,
+            "launches": ops.launch_counts(),
+            "comm": repr(comm),
+        }
+        torch.save(dump, os.path.join(args.dump, f"rank{mesh.rank}.pt"))
+    say(
         f"{args.compressor}: {out.comp.wire_bits_per_step()} wire bits/step, "
         f"{mb:.6f} MB/epoch, accuracy {out.acc:.4f}, "
         f"{out.secs_per_step * 1e3:.1f} ms/step"

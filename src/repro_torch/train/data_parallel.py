@@ -1,6 +1,10 @@
 """The data-parallel training step of the paper's Algorithm 1, over N
-simulated workers on one device: the worker loop of the JAX package's
-``benchmarks/convergence.py::train_one``.
+workers: the worker loop of the JAX package's
+``benchmarks/convergence.py::train_one``. One process holds all N on one
+device (``SimComm``), or each rank of a ``torch.distributed`` process
+group holds its share of them (``DistComm``: the rank computes only its
+workers' gradients, on their shards of the global batch, and the sync's
+collectives cross the ranks).
 
 Each step, every worker takes the gradient of its own loss on its own
 shard (a loop over workers, so BatchNorm statistics are per worker, as in
@@ -34,10 +38,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import graphs
-from repro_torch.core.comm import CommRecord, SimComm
+from repro_torch.core.comm import CommRecord, DistComm, SimComm
 from repro_torch.core.compressors import (
     CompressorConfig,
     GradCompressor,
+    check_across_ranks,
     make_compressor,
 )
 from repro_torch.core.tree import Tree, tree_leaves, tree_map, tree_unflatten
@@ -150,7 +155,7 @@ def train_step(
     opt_state: Any,
     comp: GradCompressor,
     comp_state: dict[str, Any],
-    comm: SimComm,
+    comm: SimComm | DistComm,
     images: torch.Tensor,
     labels: torch.Tensor,
 ) -> tuple[StepResult, Tree, Any, dict[str, Any]]:
@@ -170,7 +175,7 @@ def train_step(
     opt_state = opt.update(synced, opt_state, params)
     t3 = _clock(dev)
     res = StepResult(
-        loss=float(comm.pmean(losses)),
+        loss=float(comm.metric_mean(losses)),
         rec=rec,
         grad_ms=(t1 - t0) * 1e3,
         sync_ms=(t2 - t1) * 1e3,
@@ -199,7 +204,7 @@ class _GraphedStep:
             state = {**comp_state, "gen": gens} if gens else comp_state
             synced, new_comp, rec = comp.sync(grads, state, comm, donate=True)
             new_opt = opt.update(synced, opt_state, params)
-            out.update(loss=comm.pmean(losses), synced=synced, rec=rec)
+            out.update(loss=comm.metric_mean(losses), synced=synced, rec=rec)
             return params, new_opt, {k: v for k, v in new_comp.items() if k != "gen"}
 
         self.images, self.labels, self.out = images, labels, out
@@ -240,7 +245,7 @@ class TrainResult:
     comp: GradCompressor
     comp_state: dict[str, Any]
     last_grads: Tree  # the last step's synced gradients
-    comm: SimComm  # the caller's ``comm=``, or a fresh one
+    comm: SimComm | DistComm  # the caller's ``comm=``, or a fresh SimComm
 
 
 @contextlib.contextmanager
@@ -272,7 +277,7 @@ def train_one(
     seed: int = 0,
     device="cuda",
     noniid_alpha: float = 0.0,
-    comm: SimComm | None = None,
+    comm: SimComm | DistComm | None = None,
     on_step: Callable[[int, StepResult], None] | None = None,
     on_sync: Callable[[int, Tree, dict[str, Any]], None] | None = None,
     graph: bool | None = None,
@@ -288,7 +293,12 @@ def train_one(
     the step's synced gradients and new compressor state; ``comm``, a
     ``SimComm(n_workers)`` of the caller's (with ``record=True`` it keeps
     every step's gathered wire arrays, graphed or eager), is the workers'
-    comm.
+    comm. A ``DistComm`` of ``n_workers`` workers in all runs this rank's
+    share of them: its workers' shards of each global batch, their
+    compressor state (``comp_state`` holds their rows), the sync across the
+    ranks; the parameters, losses and accuracy are the same on every rank.
+    Over several ranks QSGD and the composite raise (ROADMAP item 15), and
+    over gloo the steps run eagerly (``graph=True`` raises).
 
     The steps run with TF32 off for convolutions and matmuls, whatever the
     caller set: the reference computes in f32, and PyTorch's default
@@ -311,8 +321,12 @@ def train_one(
     params = init(n_classes, seed=seed, device=dev)
     params = tree_map(lambda t: t.requires_grad_(True), params)
     comp = make_compressor(comp_cfg, params)
-    comp_state = comp.init_state(7, n_workers, dev)
     comm = comm if comm is not None else SimComm(n_workers)
+    if comm.size() != n_workers:
+        raise ValueError(f"a comm of {comm.size()} workers for {n_workers}")
+    check_across_ranks(comp, comm)
+    mine = comm.workers()  # this process's global workers
+    comp_state = comp.init_state(7, comm.local_size(), dev)
     opt = sgd(lr)
     opt_state = opt.init(params)
     data_cfg = ImageDataConfig(
@@ -327,7 +341,7 @@ def train_one(
 
     graphed = graphs.use_graph(graph, dev)
     if graphed:
-        why = comp.graph_refusal()
+        why = comp.graph_refusal() or comm.graph_refusal()
         if why is not None:
             if graph:
                 raise NotImplementedError(f"a graphed step: {why}")
@@ -343,14 +357,15 @@ def train_one(
                 comp_state, comp = comp_t.adapt_state(comp_state), comp_t
         if noniid_alpha > 0:
             shards = [
-                image_batch(client_cfg, step, dev, client=w) for w in range(n_workers)
+                image_batch(client_cfg, step, dev, client=w)
+                for w in range(mine.start, mine.stop)
             ]
             imgs = torch.stack([b["images"] for b in shards])
             lbls = torch.stack([b["labels"] for b in shards])
         else:
             b = image_batch(data_cfg, step, dev)
             imgs = b["images"].reshape((n_workers, batch) + b["images"].shape[1:])
-            lbls = b["labels"].reshape(n_workers, batch)
+            imgs, lbls = imgs[mine], b["labels"].reshape(n_workers, batch)[mine]
         if graphed:
             if replay is None:
                 replay = _GraphedStep(

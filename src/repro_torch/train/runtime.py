@@ -18,6 +18,11 @@ bit for bit):
 * **Gradient accumulation** is the step's ``accum_steps``
   (``RuntimeConfig.microbatch``).
 
+Over several ranks (``comm=``, a ``DistComm``) the prefetch thread keeps
+the rank's rows of each global batch, every rank submits a checkpoint
+(``AsyncCheckpointer.submit`` gathers the per-worker rows on the main
+thread) and rank 0 alone writes it and prints, as in ``Trainer``.
+
 :func:`run_schedule` threads ONE runner through the compression schedule's
 phases (end of warm-up, each decay boundary): history and clock carry over,
 and a restored checkpoint skips the phases it has finished, so a warm-Q
@@ -41,9 +46,12 @@ import torch
 from repro_torch.checkpoint.io import AsyncCheckpointer
 from repro_torch.core.tree import Tree, tree_leaves, tree_unflatten
 from repro_torch.train.trainer import (
+    WORKER_ROWS,
     TrainerConfig,
     checkpoint_due,
     format_metrics,
+    is_rank0,
+    local_rows,
     start_step_of,
 )
 
@@ -57,12 +65,18 @@ class RuntimeConfig(TrainerConfig):
 
 
 class _Prefetcher:
-    """``batch_fn(i)`` for the coming steps on a daemon thread, each array
-    pinned when there is a card (so the step's copy need not block); a
-    bounded queue bounds the staged batches."""
+    """``batch_fn(i)`` for the coming steps on a daemon thread, cut to this
+    process's rows (``comm``), each array pinned when there is a card (so
+    the step's copy need not block); a bounded queue bounds the staged
+    batches."""
 
     def __init__(
-        self, batch_fn: Callable[[int], Any], start: int, stop: int, depth: int = 2
+        self,
+        batch_fn: Callable[[int], Any],
+        start: int,
+        stop: int,
+        depth: int = 2,
+        comm: Any = None,
     ):
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
@@ -81,7 +95,7 @@ class _Prefetcher:
                 for i in range(start, stop):
                     if self._stop.is_set():
                         return
-                    b = stage(batch_fn(i))
+                    b = stage(local_rows(batch_fn(i), comm))
                     while not self._stop.is_set():
                         try:
                             self._q.put(b, timeout=0.1)
@@ -171,11 +185,17 @@ class AsyncRunner:
     resume from ``state["step"]`` and checkpoint grid."""
 
     def __init__(
-        self, step_fn: Callable, batch_fn: Callable[[int], Any], cfg: RuntimeConfig
+        self,
+        step_fn: Callable,
+        batch_fn: Callable[[int], Any],
+        cfg: RuntimeConfig,
+        *,
+        comm: Any = None,
     ):
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.cfg = cfg
+        self.comm = comm
         self.history: list[dict[str, float]] = []
         self.host_s = 0.0  # main-thread seconds blocked (cf. Trainer.host_s)
         self._t0: float | None = None
@@ -190,7 +210,7 @@ class AsyncRunner:
         m["step"] = step
         m["wall_s"] = round(t_log - self._t0, 2)
         self.history.append(m)
-        if self.cfg.verbose:
+        if self.cfg.verbose and is_rank0(self.comm):
             print(format_metrics(step, m))
         self.host_s += time.time() - th
 
@@ -200,8 +220,15 @@ class AsyncRunner:
         if self._t0 is None:
             self._t0 = time.time()
         cfg = self.cfg
-        saver = AsyncCheckpointer(cfg.ckpt_path) if cfg.ckpt_every else None
-        pf = _Prefetcher(self.batch_fn, start_step, cfg.steps, depth=cfg.prefetch)
+        comm = self.comm
+        saver = (
+            AsyncCheckpointer(cfg.ckpt_path, comm, WORKER_ROWS)
+            if cfg.ckpt_every
+            else None
+        )
+        pf = _Prefetcher(
+            self.batch_fn, start_step, cfg.steps, depth=cfg.prefetch, comm=comm
+        )
         pending: list[tuple[int, Any, float]] = []
         # the prefetch and writer threads take the interpreter lock from the
         # main thread's dispatch; shrink the switch interval for the run so
@@ -222,7 +249,7 @@ class AsyncRunner:
                     self._emit(*pending.pop(0))
                 if saver is not None and checkpoint_due(cfg, step):
                     th = time.time()
-                    saver.submit(snapshot(state))
+                    saver.submit(state, snapshot)  # on every rank
                     self.host_s += time.time() - th
             while pending:
                 self._emit(*pending.pop(0))

@@ -1,15 +1,19 @@
 """The data-parallel LM training step: loss -> grad -> COMPRESSED sync ->
-optimizer, the JAX package's ``train/step.py`` over N simulated workers.
+optimizer, the JAX package's ``train/step.py``.
 
 The JAX step runs under ``shard_map`` with the data-parallel mesh axes
 manual, so the compressor's quantized collectives are the only cross-worker
-traffic (the paper's Algorithm 1). One card holds all N workers here: the
-mesh's data axis becomes the leading worker dim of every per-worker tensor
-over ``SimComm(N)``, the reference's vmap semantics. Worker w takes its own
-contiguous rows of the global batch, as ``P("data")`` shards them, and its
-gradient of its own mean loss; the compressor syncs the (N, ...) gradients
-and keeps per-worker state (error feedback E, warm-start Q) with that
-leading dim; the optimizer steps the shared parameters in place.
+traffic (the paper's Algorithm 1). Here the mesh's data axis is a leading
+worker dim of every per-worker tensor, over a comm of the reference's
+collective semantics: ``SimComm(N)`` where one process (one card) holds
+all N workers, or a ``DistComm`` over a ``torch.distributed`` process group
+whose every rank holds ``k = N / world`` of them (``launch/mesh.py``; NCCL
+a card, gloo on the CPU). Global worker w takes its own contiguous rows of
+the global batch, as ``P("data")`` shards them (a rank is given the rows
+of its k workers), and its gradient of its own mean loss; the compressor
+syncs the (k, ...) gradients across all N workers and keeps per-worker
+state (error feedback E, warm-start Q) for the rank's workers; the
+optimizer steps the parameters in place, the same on every rank.
 
 The parameters are the training tree, the JAX package's layout (scan
 leaves stacked by repeat, ``models.model.stacked_flags``), so the
@@ -30,10 +34,11 @@ import torch
 
 from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.comm import CommRecord, SimComm
+from repro_torch.core.comm import CommRecord, DistComm, SimComm
 from repro_torch.core.compressors import (
     CompressorConfig,
     GradCompressor,
+    check_across_ranks,
     make_compressor,
 )
 from repro_torch.core.tree import Tree, tree_leaves, tree_map, tree_unflatten
@@ -60,7 +65,7 @@ OnSync = Callable[[Tree, Tree, Any, CommRecord], None]
 
 
 def n_dp_of(mesh: Mesh) -> int:
-    """The data-parallel workers of a (data, model) mesh."""
+    """The data-parallel workers of a (data, model) mesh (all ranks')."""
     data, model = mesh
     if model != 1:
         raise NotImplementedError(
@@ -104,7 +109,8 @@ def init_train_state(
     n_dp: int,
     device: torch.device | str = "cuda",
 ) -> dict[str, Any]:
-    """{params, opt, comp (per-worker, leading dim ``n_dp``), step (int32)}."""
+    """{params, opt, comp (per-worker, leading dim ``n_dp``: the workers
+    this process holds), step (int32)}."""
     dev = resolve_device(device)
     params = init_train_params(cfg, seed, dev)
     return dict(
@@ -151,9 +157,11 @@ def build_train_step(
     """Returns ``step_fn(state, batch) -> (state, metrics)``, a
     :class:`TrainStep`.
 
-    ``batch`` is {"tokens": (B, S)}, numpy or a tensor, B divisible by the
-    mesh's data axis. The whole state is donated, as the JAX launcher's
-    jit donates it (``donate_argnums=0``): the parameters, the optimizer
+    ``batch`` is {"tokens": (B, S)}, numpy or a tensor: the rows of the
+    workers this process holds (the global batch with one process, the
+    rank's ``comm.rows`` of it over several), B divisible by them. The
+    whole state is donated, as the JAX launcher's jit donates it
+    (``donate_argnums=0``): the parameters, the optimizer
     state, the compressor state (an f32 error feedback, the warm-start Q)
     and ``step`` are updated in place and the returned state holds the same
     tensors, so the state passed in is the state returned. ``metrics`` are
@@ -176,9 +184,15 @@ def build_train_step(
     to the default loss. ``accum_steps=k`` splits each worker's rows into k
     sequential microbatches, sums their gradients in f32 and divides by k,
     then syncs once: error feedback and wire bits per step are unchanged;
-    ``k=1`` is the single pass. ``comm`` (a ``SimComm`` of the mesh's
-    workers, e.g. with ``record=True``, which keeps every step's gathers,
-    graphed or eager) carries the sync; ``on_sync`` is called after each
+    ``k=1`` is the single pass. ``comm`` carries the sync: a ``SimComm``
+    of the mesh's workers, or a ``DistComm`` whose ranks hold them (either
+    with ``record=True`` keeps every step's gathers, graphed or eager); by
+    default a ``SimComm`` (``launch/mesh.py:make_comm`` picks one for a
+    mesh over ranks). Over several ranks each is given the rows of its
+    own workers (``comm.rows``), metrics are the mean over all workers on
+    every rank, and a compressor that cannot sync across ranks yet raises
+    (``compressor.dist_refusal()``); over gloo the step runs eagerly and
+    ``graph=True`` raises (``comm.graph_refusal()``). ``on_sync`` is called after each
     step, outside any capture, with the step's per-worker gradients into
     the sync, its synced gradients, the new compressor state and its
     ``CommRecord``: the step's buffers, which the next step overwrites."""
@@ -188,6 +202,7 @@ def build_train_step(
     comm = comm if comm is not None else SimComm(n)
     if comm.size() != n:
         raise ValueError(f"a comm of {comm.size()} workers for a mesh of {n}")
+    check_across_ranks(compressor, comm)
     loss_fn = loss_fn or functools.partial(
         lm_loss, cfg=cfg, head_chunk=head_chunk, remat=remat
     )
@@ -226,13 +241,14 @@ class TrainStep:
         compressor: GradCompressor,
         optimizer: Optimizer,
         loss_fn: Callable,
-        comm: SimComm,
+        comm: SimComm | DistComm,
         *,
         accum_steps: int = 1,
         on_sync: OnSync | None = None,
         graph: bool | None = None,
     ):
         self.n = n
+        self.k = comm.local_size()  # the workers this process holds
         self.compressor = compressor
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -281,7 +297,7 @@ class TrainStep:
     def _graphed(self, dev: torch.device) -> bool:
         if not graphs.use_graph(self.graph_arg, dev):
             return False
-        why = self.compressor.graph_refusal()
+        why = self.compressor.graph_refusal() or self.comm.graph_refusal()
         if why is not None:
             if self.graph_arg:
                 raise NotImplementedError(f"a graphed step: {why}")
@@ -325,7 +341,7 @@ class TrainStep:
         self.grads = tree_unflatten(
             params,
             [
-                torch.empty((self.n,) + w.shape, dtype=w.dtype, device=w.device)
+                torch.empty((self.k,) + w.shape, dtype=w.dtype, device=w.device)
                 for w in leaves
             ],
         )
@@ -368,14 +384,14 @@ class TrainStep:
         gradients into ``grads``, the donated sync (drawing from ``gens``,
         the graph's generators, where given), the update in place. Reads
         nothing on the host."""
-        n, comm = self.n, self.comm
+        n, comm = self.k, self.comm
         params = state["params"]
         leaves = tree_leaves(params)
         for w in leaves:
             w.requires_grad_(True)
         b = next(iter(batch.values())).shape[0]
         if b % n:
-            raise ValueError(f"global batch {b} not divisible by {n} workers")
+            raise ValueError(f"batch of {b} rows not divisible by {n} workers")
         per = {k: v.reshape((n, b // n) + v.shape[1:]) for k, v in batch.items()}
         self._alloc_grads(params)
         bufs = tree_leaves(self.grads)
@@ -397,7 +413,7 @@ class TrainStep:
         opt = self.optimizer.update(synced, state["opt"], params)
         with torch.no_grad():
             metrics = {
-                k: comm.pmean(torch.stack([m[k] for m in worker_metrics]))
+                k: comm.metric_mean(torch.stack([m[k] for m in worker_metrics]))
                 for k in worker_metrics[0]
             }
             metrics["wire_mb_per_step"] = _f32(rec.effective_bits() / 8e6, dev)

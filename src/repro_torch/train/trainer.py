@@ -9,6 +9,11 @@ overlaps all of it and equals this loop bit for bit.
 One ``Trainer`` may drive several ``run()`` calls (the schedule phases swap
 ``step_fn`` between them): ``history`` accumulates and ``wall_s`` counts
 from the first run.
+
+Over several ranks (a ``DistComm``, ``comm=``) every rank builds the global
+batch from the step and keeps its workers' rows (``comm.rows``); the
+history is the same on every rank, and rank 0 alone prints it and writes
+the checkpoints (``checkpoint/io.py``).
 """
 
 from __future__ import annotations
@@ -21,12 +26,20 @@ from typing import Any
 from repro_torch.checkpoint.io import save as ckpt_save
 
 __all__ = [
+    "WORKER_ROWS",
     "TrainerConfig",
     "Trainer",
+    "local_rows",
+    "is_rank0",
     "start_step_of",
     "checkpoint_due",
     "format_metrics",
 ]
+
+
+# the train state's per-worker leaves (``train/step.py:init_train_state``:
+# the compressor's error feedback and warm-start Q), workers leading
+WORKER_ROWS = "['comp']"
 
 
 @dataclasses.dataclass
@@ -53,6 +66,20 @@ def checkpoint_due(cfg: TrainerConfig, step: int) -> bool:
     return step == cfg.steps - 1 or (step > 0 and step % cfg.ckpt_every == 0)
 
 
+def is_rank0(comm: Any = None) -> bool:
+    """Whether this process prints and writes: rank 0, or the one process."""
+    return comm is None or comm.rank == 0
+
+
+def local_rows(batch: dict[str, Any], comm: Any = None) -> dict[str, Any]:
+    """The rows of ``batch`` (a global batch) that this process's workers
+    take; the whole batch with one process."""
+    if comm is None or comm.world == 1:
+        return batch
+    rows = comm.rows(next(iter(batch.values())).shape[0])
+    return {k: v[rows] for k, v in batch.items()}
+
+
 def format_metrics(step: int, m: dict[str, float]) -> str:
     msg = " ".join(
         f"{k}={v:.4f}" for k, v in m.items() if k not in ("step", "wall_s")
@@ -64,11 +91,17 @@ class Trainer:
     """Drives a step over a deterministic per-step data function."""
 
     def __init__(
-        self, step_fn: Callable, batch_fn: Callable[[int], Any], cfg: TrainerConfig
+        self,
+        step_fn: Callable,
+        batch_fn: Callable[[int], Any],
+        cfg: TrainerConfig,
+        *,
+        comm: Any = None,
     ):
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.cfg = cfg
+        self.comm = comm
         self.history: list[dict[str, float]] = []
         # main-thread seconds blocked on host work (batch, metric reads,
         # checkpoint IO): what the async runtime shrinks
@@ -85,7 +118,7 @@ class Trainer:
         cfg = self.cfg
         for step in range(start_step, cfg.steps):
             th = time.time()
-            batch = self.batch_fn(step)
+            batch = local_rows(self.batch_fn(step), self.comm)
             self.host_s += time.time() - th
             state, metrics = self.step_fn(state, batch)
             if step % cfg.log_every == 0 or step == cfg.steps - 1:
@@ -94,11 +127,13 @@ class Trainer:
                 m["step"] = step
                 m["wall_s"] = round(time.time() - self._t0, 2)
                 self.history.append(m)
-                if cfg.verbose:
+                if cfg.verbose and is_rank0(self.comm):
                     print(format_metrics(step, m))
                 self.host_s += time.time() - th
             if checkpoint_due(cfg, step):
                 th = time.time()
-                ckpt_save(cfg.ckpt_path, state)
+                ckpt_save(
+                    cfg.ckpt_path, state, comm=self.comm, per_worker=WORKER_ROWS
+                )
                 self.host_s += time.time() - th
         return state

@@ -1321,3 +1321,74 @@ def test_graphed_mamba2_training_step_equals_eager(cuda):
         assert gm == em and math.isfinite(gm["loss"])
         assert all(torch.equal(a, b) for a, b in zip(gs, es, strict=True))
     assert all(torch.equal(a, b) for a, b in zip(g_state, e_state, strict=True))
+
+
+def _process_group(backend, path):
+    import torch.distributed as dist
+
+    store = dist.FileStore(str(path / "store"), 1)
+    dist.init_process_group(backend, store=store, rank=0, world_size=1)
+
+
+def test_nccl_distcomm_world1_graphed_lm_step_equals_simcomm(cuda, tmp_path):
+    """An NCCL ``DistComm`` of world 1 holding the 4 workers: a graphed LM
+    step at smoke widths (the collectives captured) equals ``SimComm(4)``'s
+    bit for bit (metrics, parameters, every gather)."""
+    import _torch_dist as td
+    import torch.distributed as dist
+
+    from repro_torch.core.comm import DistComm, SimComm
+
+    want = td.lm_smoke_steps(SimComm(4, record=True), "cuda")
+    _process_group("nccl", tmp_path)
+    try:
+        got = td.lm_smoke_steps(DistComm(4, record=True), "cuda")
+    finally:
+        dist.destroy_process_group()
+    assert got[3] and want[3]  # both graph replays
+    assert got[0] == want[0]
+    for a, b in zip(got[1] + got[2], want[1] + want[2], strict=True):
+        assert torch.equal(a, b)
+
+
+def test_gloo_step_on_the_card_refuses_a_graph(cuda, tmp_path):
+    """Gloo's collectives run from the host: the step runs eagerly, and
+    ``graph=True`` raises, naming gloo."""
+    import _torch_dist as td
+    import torch.distributed as dist
+
+    from repro_torch.core.comm import DistComm, SimComm
+
+    want = td.lm_smoke_steps(SimComm(4, record=True), "cuda", graph=False, steps=2)
+    _process_group("gloo", tmp_path)
+    try:
+        got = td.lm_smoke_steps(DistComm(4, record=True), "cuda", steps=2)
+        with pytest.raises(NotImplementedError, match="gloo"):
+            td.lm_smoke_steps(DistComm(4), "cuda", graph=True, steps=1)
+    finally:
+        dist.destroy_process_group()
+    assert not got[3]
+    assert got[0] == want[0]
+    for a, b in zip(got[1] + got[2], want[1] + want[2], strict=True):
+        assert torch.equal(a, b)
+
+
+def test_nccl_two_ranks_lm_step_equals_simcomm(cuda, tmp_path):
+    """Two NCCL ranks, one card each, 2 workers each: the graphed LM step
+    equals ``SimComm(4)``'s in one process bit for bit, on every rank."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(
+            "needs 2 CUDA devices: NCCL refuses two ranks on one card, so "
+            "NCCL at world 2 stays unverified until run on such a machine"
+        )
+    import _torch_dist as td
+
+    from repro_torch.core.comm import SimComm
+
+    want = td.lm_smoke_steps(SimComm(4, record=True), "cuda:0")
+    join = td.spawn(None, str(tmp_path), world=2, target=td.nccl_lm_rank)
+    for got in join():
+        assert got[3]
+        assert got[0] == want[0]
+        for a, b in zip(got[1] + got[2], want[1] + want[2], strict=True):
+            assert torch.equal(a, b)
