@@ -204,7 +204,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    the accounting, the ranks' launches of #1 and #5 counted, ms a step and
    its share in the collectives; (n3) ``launch.train`` at gemma3-1b's
    smoke widths over 2 gloo ranks on the card, a checkpoint at step 2
-   resumed in this process equal to 4 steps at once.
+   resumed in this process equal to 4 steps at once;
+14. the compressors that raised across ranks before, right after phase
+   3, while this process holds little device memory: ONE torchrun of 2
+   gloo ranks x 2 workers sharing the card runs this script with
+   ``--ranks DIR`` (``rank_main``), which drives (o1)
+   (f)'s QSGD b4, (o2) a dlog / log / lrq b4 policy with a warm-up step
+   and lazy groups (elide), (o3) (i3)'s server wire (gate) and (o4)
+   (k1)'s gemma3-1b at full width (its error feedback in bf16) through
+   the launchers with ``--deterministic --dump``; then each launcher and
+   its arguments here over ``SimComm(4)``: every gather, the accounting,
+   the lazy counters and participation flags, synced gradients, losses,
+   parameters and the compressor state's rows bit for bit ((o1) from step
+   0 only: QSGD's raw leaves psum in the ring's order), the kernels
+   launched on each rank, ms a step and its share in the collectives, the
+   draws' ms a step (all N workers' values, and a rank's rows alone)
+   against the sync's, and (o4)'s peak memory a rank.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -4248,12 +4263,14 @@ def phase_dist(card):
     return total
 
 
-def _torchrun(label, ranks, module_args):
+def _torchrun(label, ranks, module_args, script=False):
     """``python -m torch.distributed.run`` of ``ranks`` processes on this
-    host (a rendezvous on a free local port), in a process group of its
-    own that is killed whole on the deadline. Returns (stdout, seconds)."""
+    host (a rendezvous on a free local port) running a module (or, with
+    ``script``, the script ``module_args`` begins with), in a process
+    group of its own that is killed whole on the deadline. Returns
+    (stdout, seconds)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
-    cmd += [f"--nproc-per-node={ranks}", "-m", *module_args]
+    cmd += [f"--nproc-per-node={ranks}", *([] if script else ["-m"]), *module_args]
     paths = (str(ROOT / "src"), os.environ.get("PYTHONPATH"))
     path = os.pathsep.join(p for p in paths if p)
     t0 = time.perf_counter()
@@ -4523,6 +4540,402 @@ def _dist_n3(card):
     return counts
 
 
+# Phase 14, the compressors that raised across ranks before slice 16 (o):
+# each run through its launcher in ONE torchrun of 2 gloo ranks sharing
+# the card, 2 workers a rank (k = 2, where (n2) has k = 1), with
+# --deterministic --dump, then the same launcher and arguments in this
+# process over SimComm(4), and the dumps compared. (o1) (f)'s QSGD b4;
+# (o2) a per-leaf policy of (k2)'s knobs, dlog b4 at a budget of 16 on
+# stage3 and lrq b4 with 2 layers on the rest, and the log b4 codec on fc,
+# with a warm-up step and symmetric lazy groups at (i2)'s knobs (elide);
+# (o3) (i3)'s server wire in gate mode; (o4) (k1)'s run, gemma3-1b at full
+# width with dlog at a budget of 48 and Adam, its error feedback stored in
+# bf16: the composite's sync is functional, so a rank holds the old and the
+# new error feedback of its 2 workers, and two ranks of (k1)'s f32 state
+# (38.5 GB a rank at the Adam update) do not fit one 80 GB card.
+O_RANKS, O_WORKERS = 2, 4
+O_LAZY = f"lazy_thresh={I2_THRESH}:max_stale={I2_MAX_STALE}"
+O2_SPEC = ",".join(
+    [
+        f"stage3=lq_sgd:rank=1:bits=4:codec=dlog:dp_epsilon=16.0:{O_LAZY}",
+        f"fc=lq_sgd:rank=1:bits=4:{O_LAZY}",
+        f"*=lq_sgd:rank=1:bits=4:codec=lrq:{O_LAZY}",
+    ]
+)
+O4_STEPS = 2
+_O_RESNET = [
+    "--workers", str(O_WORKERS), "--batch", str(TRAIN_BATCH), "--hw",
+    str(TRAIN_HW), "--classes", str(TRAIN_CLASSES), "--lr", str(TRAIN_LR),
+]  # fmt: skip
+# run -> (launcher, its arguments, steps, the kernels each rank must launch)
+O_RUNS = {
+    "o1": (
+        "train_resnet",
+        _O_RESNET + ["--compressor", "qsgd", "--bits", "4", "--steps", "2"],
+        2,
+        ("pack_nibbles",),
+    ),
+    "o2": (
+        "train_resnet",
+        _O_RESNET
+        + ["--policy", O2_SPEC, "--warmup", "1", "--lazy-thresh", str(I2_THRESH)]
+        + ["--max-stale", str(I2_MAX_STALE), "--lazy-mode", "elide", "--steps", "4"],
+        4,
+        ("pack_nibbles", "log_quantize_pack", "log_dequantize"),
+    ),
+    "o3": (
+        "train_resnet",
+        _O_RESNET
+        + ["--rank", "1", "--bits", "8", "--fuse", "--wire", "server"]
+        + ["--participation", "0.5", "--lazy-thresh", "1.5", "--max-stale", "4"]
+        + ["--lazy-mode", "gate", "--noniid-alpha", str(I3_ALPHA), "--steps", "4"],
+        4,
+        ("log_quantize", "log_dequantize"),
+    ),
+    "o4": (
+        "train",
+        ["--arch", LM_ARCH, "--mesh", f"{LM_MESH[0]}x1", "--batch", str(LM_BATCH)]
+        + ["--seq", str(LM_SEQ), "--compressor", "lq_sgd", "--rank", "1"]
+        + ["--bits", "8", "--dp-epsilon", str(K1_EPSILON), "--optimizer", "adam"]
+        + ["--lr", str(J1_LR), "--runtime", "sync", "--log-every", "1"]
+        + ["--comp-dtype", "bfloat16", "--steps", str(O4_STEPS)],
+        O4_STEPS,
+        ("log_dequantize",),
+    ),
+}
+O_RANK_ARGS = ["--dist-backend", "gloo", "--device", "cuda:0", "--deterministic"]
+
+
+def _launcher(name):
+    from repro_torch.launch import train, train_resnet
+
+    return {"train": train, "train_resnet": train_resnet}[name]
+
+
+def rank_main(out_dir):
+    """One rank of phase (o)'s torchrun: every run of ``O_RUNS`` through its
+    launcher's ``main`` in this process group, each with the launch counts
+    and the peak memory at 0 first, dumping to ``out_dir/<run>/``; rank 0
+    writes each run's seconds to ``out_dir/seconds.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed
+
+    init_distributed("gloo", "cuda:0")
+    try:
+        seconds = {}
+        for run, (name, argv, _, _) in O_RUNS.items():
+            ops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            dump = ["--dump", os.path.join(out_dir, run)]
+            _launcher(name).main(argv + O_RANK_ARGS + dump)
+            seconds[run] = time.perf_counter() - t0
+            _free_cuda()
+        if dist.get_rank() == 0:
+            Path(out_dir, "seconds.json").write_text(json.dumps(seconds))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist_codecs(card):
+    """(o) QSGD, the randomized codecs, a policy with schedules, lazy groups
+    and the server wire across processes, each equal to SimComm(4)."""
+    _free_cuda()
+    held_gb = torch.cuda.memory_reserved() / 1e9
+    with tempfile.TemporaryDirectory() as tmp:
+        args = [str(ROOT / "chip_smoke.py"), "--ranks", tmp]
+        _, spawn_s = _torchrun("(o)", O_RANKS, args, script=True)
+        seconds = json.loads(Path(tmp, "seconds.json").read_text())
+        dumps = {
+            run: [
+                torch.load(Path(tmp, run, f"rank{r}.pt"), weights_only=False)
+                for r in range(O_RANKS)
+            ]
+            for run in O_RUNS
+        }
+    by_run = {run: round(s, 1) for run, s in seconds.items()}
+    print(
+        f"(o) one torchrun of {O_RANKS} gloo ranks on one card x "
+        f"{O_WORKERS // O_RANKS} workers: {spawn_s:.1f} s, of it by run "
+        f"{by_run}, beside this process's {held_gb:.2f} GB; {card}"
+    )
+    total = {}
+    for run in O_RUNS:
+        counts = _dist_codecs_run(card, run, dumps.pop(run), seconds[run], spawn_s)
+        for name, c in counts.items():
+            total[name] = total.get(name, 0) + c
+    return total
+
+
+@contextlib.contextmanager
+def _recorded_draws():
+    """Within the block every randomized codec's draw (``core/codec.py:
+    draw``) appends ``(kind, shape, high)`` to the yielded list: the shape
+    of all N workers' values, which each rank draws."""
+    from repro_torch.core import codec
+
+    draws, draw = [], codec.draw
+
+    def recorded(kind, x, key, high=0):
+        n = key.n if isinstance(key, codec.WorkerRows) else x.shape[0]
+        draws.append((kind, (n,) + tuple(x.shape[1:]), high))
+        return draw(kind, x, key, high)
+
+    codec.draw = recorded
+    try:
+        yield draws
+    finally:
+        codec.draw = draw
+
+
+def _here(run):
+    """``run``'s launcher and arguments in this process over SimComm(4),
+    with its draws recorded and, for the LM step (eager: the composite),
+    its syncs timed between CUDA events. Returns (its dump, the sync's ms
+    by step or None, the draws, its launches)."""
+    from repro_torch.core.composite import CompositeCompressor
+    from repro_torch.kernels import ops
+
+    name, argv, steps, _ = O_RUNS[run]
+    syncs = []
+    timed = (
+        _CudaSpans(CompositeCompressor, "sync", syncs, lambda: len(syncs))
+        if name == "train"
+        else contextlib.nullcontext()
+    )
+    _free_cuda()
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        with timed, _recorded_draws() as draws:
+            here = ["--device", "cuda", "--deterministic", "--dump", tmp]
+            _launcher(name).main(argv + here)
+        dump = torch.load(Path(tmp, "rank0.pt"), weights_only=False)
+    counts = ops.launch_counts()
+    _free_cuda()
+    return dump, _span_ms(syncs, steps) if syncs else None, draws, counts
+
+
+def _draws_ms(draws, steps, k):
+    """The recorded draws replayed on the card (the default generator), in
+    ms a step between CUDA events: whole, as each rank draws them (all N
+    workers' values), and at a rank's k rows alone."""
+    from repro_torch.core.codec import draw_values
+
+    def replay(rows):
+        for kind, shape, high in draws:
+            shp = shape if rows is None else (rows,) + tuple(shape[1:])
+            draw_values(kind, shp, None, "cuda", high)
+
+    out = []
+    for rows in (None, k):
+        replay(rows)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        replay(rows)
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / steps)
+    return out
+
+
+def _strip_wall(history):
+    return [{k: v for k, v in m.items() if k != "wall_s"} for m in history]
+
+
+def _rel(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+# (o1): QSGD's bias and norm leaves psum in f32 in the ring's order, so
+# step 0 holds as stated (every other leaf's bytes and synced grads equal,
+# those within O1_PSUM_RTOL); from step 1 the two runs train from params
+# that differ in those last bits, which a ResNet-18 step amplifies (on an
+# H100 ~1e-3 of step 1's codes moved, some by 2 levels; PERF.md §6), so
+# step 1 is held to its loss, taken before its sync, and its codes, synced
+# grads and the final params are reported
+O1_PSUM_RTOL, O1_LOSS_RTOL = 1e-6, 1e-6
+
+
+def _o1_close(who, got, want):
+    """(o1)'s step 0 (module comment); returns step 1's synced grads' and
+    the final params' largest difference relative to their leaf's largest
+    value."""
+    from repro_torch.core.compressors import CompressorConfig, make_compressor
+    from repro_torch.models.resnet import init_resnet18
+
+    comp = make_compressor(
+        CompressorConfig(name="qsgd", bits=4),
+        init_resnet18(TRAIN_CLASSES, device="cpu"),
+    )
+    zipped = enumerate(zip(got["synced"][0], want["synced"][0], strict=True))
+    for i, (g, w) in zipped:
+        if comp.plans[i].route == "lowrank":
+            check(torch.equal(g, w), f"{who}: step 0 leaf {i} synced differs")
+        else:
+            err = _rel(g, w)
+            check(err <= O1_PSUM_RTOL, f"{who}: step 0 leaf {i} rel {err:.2e}")
+    (l0, l1), (w0, w1) = got["losses"], want["losses"]
+    check(l0 == w0, f"{who}: step-0 loss differs")
+    check(abs(l1 - w1) <= O1_LOSS_RTOL * abs(w1), f"{who}: step-1 loss {l1} {w1}")
+    synced1 = max(_rel(g, w) for g, w in zip(got["synced"][1], want["synced"][1]))
+    params = max(_rel(p, w) for p, w in zip(got["params"], want["params"]))
+    return synced1, params
+
+
+def _code_moves(got, want):
+    """Gathered b4 code arrays of two runs: (codes that differ, of them
+    those that moved by more than one level, codes)."""
+    moved = far = n = 0
+    for g, w in zip(got, want, strict=True):
+        d = (_wire_codes(g, 4) - _wire_codes(w, 4)).abs()
+        moved += int((d > 0).sum())
+        far += int((d > 1).sum())
+        n += d.numel()
+    return moved, far, n
+
+
+def _resnet_equal(who, run, got, want, rank, k):
+    """A rank's dump of train_resnet against this process's: accounting and
+    lazy counters equal; synced grads, params and losses bit-equal ((o1):
+    :func:`_o1_close`, which returns what it reports)."""
+    check(got["bits"] == want["bits"], f"{who}: bits {got['bits']}")
+    check(got["effective"] == want["effective"], f"{who}: effective bits differ")
+    for t, (gs, ws) in enumerate(zip(got["stale"], want["stale"], strict=True)):
+        for m, c in ws.items():
+            mine = c[rank * k : (rank + 1) * k] if c.dim() else c
+            check(torch.equal(gs[m], mine), f"{who}: step {t} lazy counter differs")
+    if run == "o1":
+        return _o1_close(who, got, want)
+    for t, (gs, ws) in enumerate(zip(got["synced"], want["synced"], strict=True)):
+        same = all(torch.equal(g, w) for g, w in zip(gs, ws, strict=True))
+        check(same, f"{who}: step {t} synced grads differ")
+    same = all(torch.equal(p, w) for p, w in zip(got["params"], want["params"]))
+    check(same, f"{who}: final params differ")
+    check(got["losses"] == want["losses"], f"{who}: losses differ")
+    return None
+
+
+def _fingerprints_equal(who, got, want, rank, k):
+    """A rank's fingerprints of the compressor state against this
+    process's: its rows of a per-worker leaf, the whole of a shared one."""
+    check(got.keys() == want.keys(), f"{who}: compressor state leaves differ")
+    for key, w in want.items():
+        mine = w[rank * k : (rank + 1) * k] if isinstance(w, list) else w
+        check(got[key] == mine, f"{who}: compressor state {key} differs")
+
+
+def _dist_codecs_run(card, run, ranks, run_s, spawn_s):
+    name, argv, steps, kernels = O_RUNS[run]
+    k = O_WORKERS // O_RANKS
+    label = f"({run}) {name} over {O_RANKS} gloo ranks x {k} workers"
+    want, sync_ms, draws, launches = _here(run)
+    draw_ms, draw_k_ms = _draws_ms(draws, steps, k)
+    per_step = len(want["gathered"]) // steps
+    # every gather equal; (o1)'s from step 0 only (O1_PSUM_RTOL's comment)
+    n_exact = per_step if run == "o1" else len(want["gathered"])
+    drift = moves = None
+    for r, got in enumerate(ranks):
+        who = f"{label}, rank {r}"
+        for kname in kernels:
+            check(got["launches"][kname] > 0, f"{who}: kernel {kname} never launched")
+        for kname, c in got["launches"].items():
+            launches[kname] += c
+        check(len(got["gathered"]) == len(want["gathered"]), f"{who}: gathers")
+        for j, (g, w) in enumerate(zip(got["gathered"][:n_exact], want["gathered"])):
+            same = g.dtype == w.dtype and torch.equal(g, w)
+            check(same, f"{who}: gather {j} differs")
+        _fingerprints_equal(who, got["comp"], want["comp"], r, k)
+        if name == "train":
+            check(_strip_wall(got["history"]) == _strip_wall(want["history"]), who)
+            check(got["params"] == want["params"], f"{who}: final params differ")
+        else:
+            drift = _resnet_equal(who, run, got, want, r, k)
+        if run == "o1":
+            moves = _code_moves(got["gathered"][n_exact:], want["gathered"][n_exact:])
+    r0 = ranks[0]
+    if name == "train":
+        step_ms = [1e3 * s for s in r0["step_s"]]
+        coll_ms = [1e3 * s for s in r0["collective_s"]]
+        wire = [m["wire_mb_per_step"] for m in want["history"]]
+        check(all(abs(w - J1_BITS / 8e6) <= 1e-6 for w in wire), f"{label}: {wire}")
+        peaks = [round(d["peak_bytes"] / 1e9, 2) for d in ranks]
+        history = _strip_wall(want["history"])
+        extra = f"peak memory by rank {peaks} GB; history {history}"
+    else:
+        step_ms = r0["step_ms"]
+        ends = [0.0] + r0["collective_s"]
+        coll_ms = [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
+        fired = [c > 1 for _, c in want["effective"]]
+        extra = f"losses {want['losses']}"
+        if run == "o2":
+            check(fired[0] and not all(fired), f"{label}: fire pattern {fired}")
+            for (b, _), f_ in zip(want["effective"], fired):
+                want_b = want["wire_bits_per_step"] if f_ else b
+                check(b == want_b, f"{label}: a fired round sent {b} bits")
+            extra += f"; fire pattern {''.join('F' if f_ else 's' for f_ in fired)}"
+        if run == "o3":
+            masks = [want["gathered"][t * per_step] for t in range(steps)]
+            check(any(float(m.min()) == 0 for m in masks), f"{label}: no drop-out")
+            extra += f"; participation {[m.int().tolist() for m in masks]}"
+    # the sync: SimComm(4)'s between CUDA events (the LM step), else rank
+    # 0's on the host clock (train_resnet's eager split; this process's
+    # QSGD run replays a CUDA graph, which has no split)
+    where = f"SimComm({O_WORKERS})'s" if sync_ms else "rank 0's"
+    sync_ms = sync_ms or r0["sync_ms"]
+    sync = _median(sync_ms[1:]) if steps > 1 else sync_ms[0]
+    share = coll_ms[-1] / step_ms[-1]
+    if run == "o1":
+        equal = (
+            f"step 0's {n_exact} gathers, the accounting and both losses "
+            f"equal SimComm({O_WORKERS})'s on both ranks, step 0's synced "
+            f"grads too (its bias and norm leaves within {O1_PSUM_RTOL:g}); "
+            f"step 1 from params that differ in their last bits: {moves[0]} "
+            f"of {moves[2]} codes moved ({moves[1]} by 2 or more levels), "
+            f"synced grads rel {drift[0]:.3e}, final params rel {drift[1]:.3e}"
+        )
+    else:
+        equal = (
+            f"every gather ({len(want['gathered'])}), the accounting, the lazy "
+            f"counters, synced grads, losses and params equal SimComm"
+            f"({O_WORKERS})'s in this process bit for bit on both ranks"
+        )
+    print(
+        f"{label}: {equal}; compressor state rows equal; launches "
+        f"{ {n: c for n, c in launches.items() if c} }; {extra}"
+    )
+    print(
+        f"  ({run}) {run_s:.1f} s in the spawn of {spawn_s:.1f}; rank 0 ms a "
+        f"step {[round(v, 1) for v in step_ms]} (host clock), the last step's "
+        f"collectives {coll_ms[-1]:.1f} ms ({share:.1%}, gloo's host staging "
+        f"included); the draws {draw_ms:.3f} ms a step on each rank (all "
+        f"{O_WORKERS} workers' values; {draw_k_ms:.3f} for its {k} rows alone) "
+        f"against {where} sync {sync:.1f} ms ({draw_ms / sync:.2%}); {card}"
+    )
+    emit(
+        {
+            "dist_codecs": run,
+            "card": card,
+            "equal_to_simcomm": run != "o1",
+            "step1_code_moves": moves,
+            "step1_synced_and_param_rel": drift,
+            "spawn_s": spawn_s,
+            "run_s": run_s,
+            "rank0_step_ms": step_ms,
+            "rank0_collective_ms": coll_ms,
+            "collective_share": share,
+            "draw_ms_per_step": draw_ms,
+            "draw_ms_per_step_k_rows": draw_k_ms,
+            "sync_ms": sync_ms,
+            "sync_of": where,
+            "peak_bytes_by_rank": [d.get("peak_bytes") for d in ranks],
+            "launches": launches,
+        }
+    )
+    return launches
+
+
 KERNEL_INFO = {
     "log_quantize": (
         "triton",
@@ -4569,9 +4982,17 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = phase_kernels(gen)
     seconds = {"device_build_kernels": time.perf_counter() - t0}
+    # (o) first of the runs: its two ranks share the card with this process
+    # while it holds little device memory ((o4) takes 36 GB a rank; after
+    # the other phases this process held ~7 GB more, and a rank ran out)
+    t = time.perf_counter()
+    codec_launches = phase_dist_codecs(card)
+    seconds["dist_codecs"] = time.perf_counter() - t
     t = time.perf_counter()
     launches = phase_serve(card, gen)
     seconds["serve"] = time.perf_counter() - t
+    for name, c in codec_launches.items():
+        launches[name] += c
     # (h) last: its (h2) graph = eager check holds after (i), (j) and (k)
     # since the attack's backward runs on one thread (core/privacy/gia.py)
     phases = (
@@ -4619,4 +5040,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ranks"]:  # one rank of phase (o)'s torchrun
+        rank_main(sys.argv[2])
+    else:
+        main()

@@ -16,9 +16,11 @@ and the step's blob only. :func:`restore` checks every leaf against a
 like-tree and puts it on that tree's device (or the one given).
 
 One file holds a run whatever its world size. The caller names the
-per-worker leaves (``per_worker``, a tree-path prefix: the train state's
-is ``['comp']``, the compressor's error feedback and warm-start Q), whose
-leading dim is the workers; over a process group (a ``DistComm`` of world
+per-worker leaves (``per_worker``, tree-path prefixes: the train state's
+are ``train/trainer.py:WORKER_ROWS``, the compressor's error feedback,
+warm-start Q and lazy references), whose leading dim is the workers; a
+0-dim leaf under a prefix is shared (the symmetric wire's lazy counter).
+Over a process group (a ``DistComm`` of world
 above 1) every rank holds only its own workers' rows, so :func:`save` and
 :meth:`AsyncCheckpointer.submit` gather them on every rank and rank 0
 alone writes all N, and :func:`restore` checks that the file holds N and
@@ -45,7 +47,13 @@ import torch
 
 from repro_torch.core.tree import Tree, flatten_with_paths, tree_unflatten
 
-__all__ = ["save", "restore", "peek_step", "AsyncCheckpointer"]
+__all__ = [
+    "save",
+    "restore",
+    "peek_step",
+    "leaf_fingerprints",
+    "AsyncCheckpointer",
+]
 
 _MAGIC = b"REPROTORCHCKPT1\n"
 _LEVEL = 3  # zlib's compression level
@@ -56,16 +64,20 @@ def _spans_ranks(comm: Any) -> bool:
     return comm is not None and comm.world > 1
 
 
-def _is_rows(per_worker: str | None, key: str, leaf: Any) -> bool:
-    """Whether the leaf at ``key`` carries the workers on its leading dim."""
+def _is_rows(per_worker: str | tuple[str, ...] | None, key: str, leaf: Any) -> bool:
+    """Whether the leaf at ``key`` carries the workers on its leading dim:
+    a tensor of at least one dim under one of the ``per_worker`` prefixes."""
     return (
         per_worker is not None
         and key.startswith(per_worker)
         and isinstance(leaf, torch.Tensor)
+        and leaf.dim() > 0
     )
 
 
-def _gather_rows(tree: Tree, comm: Any, per_worker: str | None) -> Tree:
+def _gather_rows(
+    tree: Tree, comm: Any, per_worker: str | tuple[str, ...] | None
+) -> Tree:
     """``tree`` with every rank's rows gathered into each per-worker leaf
     (a collective: every rank calls it)."""
     keyed = flatten_with_paths(tree)
@@ -91,8 +103,50 @@ def _leaf_bytes(leaf: Any) -> tuple[dict[str, Any], bytes]:
     return {"dtype": arr.dtype.str, "shape": list(arr.shape)}, arr.tobytes()
 
 
+_FINGERPRINT_CHUNK = 1 << 24  # 32-bit words a pass
+
+
+def _fingerprint(leaf: Any) -> tuple:
+    """(dtype, shape, two 64-bit sums of the leaf's bytes read as 32-bit
+    words, the second weighted by a hash of each word's position), taken
+    where the leaf lies, in chunks: equal leaves give equal fingerprints,
+    and two that differ in any bit differ in them but with a chance of
+    about 2^-64. Not a cryptographic hash."""
+    if not isinstance(leaf, torch.Tensor):
+        return (type(leaf).__name__, leaf)
+    b = leaf.detach().contiguous().reshape(-1).view(torch.uint8)
+    b = torch.nn.functional.pad(b, (0, -b.numel() % 4))
+    words = b.view(torch.int32)
+    s0 = s1 = torch.zeros((), dtype=torch.int64, device=b.device)
+    for start in range(0, words.numel(), _FINGERPRINT_CHUNK):
+        w = words[start : start + _FINGERPRINT_CHUNK].to(torch.int64)
+        pos = torch.arange(start, start + w.numel(), device=b.device)
+        s0 = s0 + w.sum()
+        s1 = s1 + (w * (pos * 2654435761 % 2147483647 + 1)).sum()
+    return (str(leaf.dtype), tuple(leaf.shape), int(s0), int(s1))
+
+
+def leaf_fingerprints(
+    tree: Tree, per_worker: str | tuple[str, ...] | None = None
+) -> dict[str, Any]:
+    """Each leaf's :func:`_fingerprint` by tree path, a list of one a
+    worker for a leaf under ``per_worker`` (its rows), so that two runs'
+    leaves can be compared bit for bit where they lie, and a rank's rows
+    against another split's."""
+    return {
+        key: [_fingerprint(row) for row in leaf]
+        if _is_rows(per_worker, key, leaf)
+        else _fingerprint(leaf)
+        for key, leaf in flatten_with_paths(tree)
+    }
+
+
 def save(
-    path: str, tree: Tree, *, comm: Any = None, per_worker: str | None = None
+    path: str,
+    tree: Tree,
+    *,
+    comm: Any = None,
+    per_worker: str | tuple[str, ...] | None = None,
 ) -> int:
     """Write ``tree`` (tensors on any device, numpy arrays, Python numbers)
     to ``path``. Returns the bytes written. Over several ranks (``comm``)
@@ -166,7 +220,7 @@ def restore(
     device: torch.device | str | None = None,
     *,
     comm: Any = None,
-    per_worker: str | None = None,
+    per_worker: str | tuple[str, ...] | None = None,
 ) -> Tree:
     """The checkpoint at ``path`` in the structure of ``like`` (tensors,
     meta tensors or Python numbers). Each tensor leaf must match its
@@ -225,7 +279,12 @@ class AsyncCheckpointer:
     gathers the rows of the ``per_worker`` leaves, rank 0 alone queues the
     write, and :meth:`drain` ends in a barrier on every rank."""
 
-    def __init__(self, path: str, comm: Any = None, per_worker: str | None = None):
+    def __init__(
+        self,
+        path: str,
+        comm: Any = None,
+        per_worker: str | tuple[str, ...] | None = None,
+    ):
         self.path = path
         self.comm = comm
         self.per_worker = per_worker

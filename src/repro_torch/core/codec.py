@@ -36,9 +36,14 @@ Their b <= 4 pack and their expand are the Triton kernels'. Their
 zero-noise configurations are ``log`` outright.
 
 PRNG contract: a codec declares ``requires_key``. A randomized codec needs
-the keyword-only ``key`` (a ``torch.Generator`` on the tensor's device) in
-``codes``/``encode``; a deterministic one rejects it, since a key silently
-unused would make a run look reproducible when it is not.
+the keyword-only ``key`` (a ``torch.Generator`` on the tensor's device, or
+a :class:`WorkerRows`) in ``codes``/``encode``; a deterministic one rejects
+it, since a key silently unused would make a run look reproducible when it
+is not. Every draw goes through :func:`draw`: a plain generator draws
+values of the tensor's shape; a :class:`WorkerRows` draws every worker's
+values of the (N, ...) tensor and keeps this process's rows, so a worker's
+bits depend on the seed, step, leaf, phase and its global index, never on
+how many workers share its process.
 
 Privacy contract: ``privacy_sigma()`` is the std of the injected noise in
 normalized units (0.0 when deterministic) and ``epsilon_per_use(delta)``
@@ -83,6 +88,9 @@ __all__ = [
     "DitheredLogQuantCodec",
     "LayeredRandQuantCodec",
     "value_unbiased_round",
+    "WorkerRows",
+    "draw",
+    "draw_values",
     "register_codec",
     "make_codec",
     "available_codecs",
@@ -196,6 +204,51 @@ def packed_wire_bits(numel: int, bits: int) -> int:
     if bits <= 8:
         return numel * 8
     return numel * 16
+
+
+# --------------------------------------------------------------------------
+# the draws of the randomized codecs
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkerRows:
+    """A codec key over a process's share of the workers: ``gen`` draws the
+    values of all ``n`` workers of a (N, ...) tensor, as one process
+    holding every worker draws them, and the process keeps ``rows``."""
+
+    gen: torch.Generator
+    rows: slice
+    n: int
+
+
+def worker_key(key: torch.Generator | None, comm) -> Any:
+    """``key`` over ``comm``'s workers: as it is where the process holds all
+    of them, else a :class:`WorkerRows` of its rows."""
+    if key is None or comm.local_size() == comm.size():
+        return key
+    return WorkerRows(key, comm.workers(), comm.size())
+
+
+def draw_values(kind: str, shape, gen: torch.Generator, device, high: int = 0):
+    """One draw from ``gen``: 'rand' (uniform [0, 1)), 'randn' or 'randint'
+    (in [0, high))."""
+    if kind == "rand":
+        return torch.rand(shape, generator=gen, device=device)
+    if kind == "randn":
+        return torch.randn(shape, generator=gen, device=device)
+    return torch.randint(0, high, shape, generator=gen, device=device)
+
+
+def draw(kind: str, x: torch.Tensor, key, high: int = 0) -> torch.Tensor:
+    """A :func:`draw_values` of ``x``'s shape from ``key``; over a
+    :class:`WorkerRows` ``x`` leads with this process's workers, and the
+    draw covers all N of them (the one-process stream) before keeping the
+    rows."""
+    rows = isinstance(key, WorkerRows)
+    shape = (key.n,) + tuple(x.shape[1:]) if rows else tuple(x.shape)
+    out = draw_values(kind, shape, key.gen if rows else key, x.device, high)
+    return out[key.rows] if rows else out
 
 
 # --------------------------------------------------------------------------
@@ -343,12 +396,12 @@ class LogQuantCodec(WireCodec):
 class QSGDCodec(WireCodec):
     """QSGD stochastic uniform quantization: E[expand(codes(x))] = x.
 
-    Needs a generator per call (per tensor, per step; one draw covers every
-    worker of a (N, ...) tensor). The draws are the port's own: they cannot
-    reproduce ``jax.random``, so the codec is held to the reference
-    statistically, and its wire bits exactly. Its rounding noise has bounded
-    support, so ``epsilon_per_use`` stays ``inf``: no (epsilon, delta) claim
-    under the Gaussian accountant."""
+    Needs a key per call (per tensor, per step; one draw covers every
+    worker of a (N, ...) tensor, :func:`draw`). The draws are the port's
+    own: they cannot reproduce ``jax.random``, so the codec is held to the
+    reference statistically, and its wire bits exactly. Its rounding noise
+    has bounded support, so ``epsilon_per_use`` stays ``inf``: no (epsilon,
+    delta) claim under the Gaussian accountant."""
 
     bits: int = 8
     needs_scale: bool = True
@@ -363,7 +416,7 @@ class QSGDCodec(WireCodec):
         x = x.float()
         y = x.abs() * self.levels
         lo = torch.floor(y)
-        rnd = torch.rand(x.shape, generator=key, device=x.device)
+        rnd = draw("rand", x, key)
         q = (lo + (rnd < (y - lo)).float()) * torch.sign(x)
         q = torch.clamp(q, -self.levels, self.levels)
         return q.to(code_dtype(self.bits))
@@ -421,9 +474,10 @@ class _RandomizedLogCodec(LogQuantCodec):
     zero-noise configuration, which rejects one) it is ``log`` outright."""
 
     def draws(
-        self, x: torch.Tensor, key: torch.Generator
+        self, x: torch.Tensor, key: torch.Generator | WorkerRows
     ) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
-        """``(noise, u, layer)`` for ``x``, each of x's shape or None."""
+        """``(noise, u, layer)`` for ``x``, each of x's shape or None, in
+        that order from ``key`` (:func:`draw`)."""
         raise NotImplementedError
 
     def noised_codes(
@@ -508,9 +562,9 @@ class DitheredLogQuantCodec(_RandomizedLogCodec):
     def draws(self, x, key):
         noise = u = None
         if self.dp_epsilon > 0:
-            noise = torch.randn(x.shape, generator=key, device=x.device)
+            noise = draw("randn", x, key)
         if self.dither:
-            u = torch.rand(x.shape, generator=key, device=x.device)
+            u = draw("rand", x, key)
         return noise, u, None
 
     def noised_codes(self, x, noise, u, layer=None):
@@ -583,10 +637,8 @@ class LayeredRandQuantCodec(_RandomizedLogCodec):
     def draws(self, x, key):
         layer = None
         if self.n_layers > 1:
-            layer = torch.randint(
-                0, self.n_layers, x.shape, generator=key, device=x.device
-            )
-        u = torch.rand(x.shape, generator=key, device=x.device)
+            layer = draw("randint", x, key, high=self.n_layers)
+        u = draw("rand", x, key)
         return None, u, layer
 
     def noised_codes(self, x, noise, u, layer):
@@ -668,6 +720,10 @@ def codec_phase(
     ``wire='psum_sim'`` simulates the ring all-reduce with a pmean over
     float codes instead of gathering wire bytes.
 
+    ``keys`` are the tensors' generators, for a codec that draws; over a
+    comm whose process holds k < N workers each draws all N workers' values
+    and keeps the process's rows (:func:`worker_key`).
+
     ``rec`` is charged each worker's actual bits of every encoded array plus
     32 per scale, unless ``account_bits`` overrides the payload (TopK's
     sparse accounting over a dense simulation). Collective counts include
@@ -678,9 +734,10 @@ def codec_phase(
     n = len(xs)
     if n == 0:
         return []
-    keys = list(keys) if keys is not None else [None] * n
-    xs = [x.float() for x in xs]
     wt = as_wire(comm)
+    # a process of k < N workers draws all N workers' values, keeps its rows
+    keys = [worker_key(k, wt) for k in keys] if keys is not None else [None] * n
+    xs = [x.float() for x in xs]
 
     # ---- shared quantization grid: per-instance global max ---------------
     if codec.needs_scale:

@@ -124,9 +124,17 @@ class _Comm:
         return None
 
     def metric_mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean of a per-worker metric over the workers (bookkeeping,
-        off the accounted wire)."""
-        return self.pmean(x)
+        """The mean of a per-worker metric over all N workers (bookkeeping,
+        off the accounted wire), taken locally over a gather: SimComm's
+        ``x.mean(0)`` bit for bit on every rank."""
+        return self.gather(x).mean(0)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every worker's (k, ...) ``x`` -> the (N, ...) stack in global
+        worker order, unrecorded: what a caller reduces locally so that the
+        result does not depend on how the workers are spread (the lazy
+        decision, the warm-up mean, the checkpoint's rows)."""
+        raise NotImplementedError
 
     def _check(self, x: torch.Tensor) -> None:
         k = self.local_size()
@@ -203,13 +211,16 @@ class SimComm(_Comm):
         self._check(x)
         return x.amax(0)
 
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x)
+        return x
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every worker's ``x[w]`` -> the stacked (N, ...) tensor."""
         self._check(x)
         if self.gathered is not None:
             self.gathered.append(x)
         return x
-
 
 
 class DistComm(_Comm):
@@ -298,7 +309,7 @@ class DistComm(_Comm):
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's (k, ...) ``x`` -> the (N, ...) stack in global worker
-        order, unrecorded (the checkpoint's rows, a metric)."""
+        order, unrecorded."""
         self._check(x)
         out = torch.empty((self.size(),) + x.shape[1:], dtype=x.dtype, device=x.device)
         self._call(dist.all_gather, list(out.chunk(self.world)), x.contiguous())
@@ -310,11 +321,6 @@ class DistComm(_Comm):
         if self.gathered is not None:
             self.gathered.append(out)
         return out
-
-    def metric_mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean of a per-worker metric over all N workers, taken locally
-        over a gather: SimComm's ``x.mean(0)`` bit for bit."""
-        return self.gather(x).mean(0)
 
     def barrier(self) -> None:
         self._call(dist.barrier)

@@ -14,12 +14,17 @@ counter (a Python int, as QSGD's is: it seeds the generators of QSGD, of the
 randomized codecs and of the server wire's participation draw) and a
 ``key`` seed where some group draws (``group_needs_prng``: QSGD, or an
 LQ-SGD group with a ``dlog`` / ``lrq`` leaf). Per-worker tensors lead with
-the worker dim N, as everywhere in the port.
+the worker dim, as everywhere in the port: the k workers a process holds
+(all N with one process). Every process builds the same groups, plans and
+schedule phases and makes the same draws, so the composite syncs across
+ranks as one process does.
 
 Schedules (:class:`PolicySchedule`):
 
 * ``warmup_steps W``: while ``state['step'] < W`` every lossy leaf's output
-  is the exact f32 mean and its error feedback is held at zero. The
+  is the exact f32 mean (taken locally over a gather, off the accounted
+  wire: the same bits at any world size) and its error feedback is held at
+  zero. The
   compressed path still runs, so warm-start Q advances as in the JAX
   package. ``boundaries()`` includes W; the training loop rebuilds there
   with ``at_step(W)``, which drops the warm-up machinery.
@@ -292,14 +297,6 @@ class CompositeCompressor(GradCompressor):
             "20, the graphed composite)"
         )
 
-    def dist_refusal(self) -> str | None:
-        return (
-            "the composite compressor (per-leaf policies, schedules, lazy "
-            "groups, the server wire, the randomized codecs dlog and lrq) "
-            "draws and keeps its per-worker state on one device (ROADMAP "
-            "Queue 1, item 15)"
-        )
-
     def sync(
         self,
         grads: Tree,
@@ -346,7 +343,7 @@ class CompositeCompressor(GradCompressor):
             for i, pl in enumerate(self.plans):
                 if self._lossy(pl):
                     g = leaves[i]
-                    outs[i] = wire.pmean(g.float()).to(g.dtype)
+                    outs[i] = wire.exact_mean(g.float()).to(g.dtype)
             # hold error feedback at zero while warm: the compressed path's
             # residual was never applied, so recycling it would inject a
             # phantom correction at step W

@@ -32,10 +32,13 @@ Generators: a randomized method draws from one ``torch.Generator`` per
 (leaf, step, stream), seeded from the state's ``key`` seed
 (:func:`leaf_generator`). One generator draws the whole (N, ...) tensor,
 so the workers' draws are independent, as JAX's ``fold_in`` of the worker
-index makes them. Streams: QSGD 0; the post-hoc noise and the attack
-restarts of :mod:`repro_torch.core.privacy.harness` 1 and 2; LQ-SGD's
-randomized codecs :data:`PHASE_STREAMS` (the JAX package's phase tags P, Q
-and raw), so no leaf's streams collide in a composite.
+index makes them; a process holding k < N of the workers draws the whole
+tensor too and keeps its rows (``codec.WorkerRows``), so a worker's bits
+do not depend on how the workers are spread over processes. Streams: QSGD
+0; the post-hoc noise and the attack restarts of
+:mod:`repro_torch.core.privacy.harness` 1 and 2; LQ-SGD's randomized
+codecs :data:`PHASE_STREAMS` (the JAX package's phase tags P, Q and raw),
+so no leaf's streams collide in a composite.
 """
 
 from __future__ import annotations
@@ -329,8 +332,8 @@ def error_corrected(
 
 
 def per_worker(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """An (N,) per-worker ``mask`` shaped to broadcast over ``like``'s
-    (N, ...) layout."""
+    """A (k,) per-worker ``mask`` shaped to broadcast over ``like``'s
+    (k, ...) layout (k the workers this process holds)."""
     return mask.reshape(mask.shape + (1,) * (like.dim() - 1))
 
 
@@ -702,9 +705,10 @@ class GradCompressor:
         self, updates: dict, state: dict[str, Any], wire: SymmetricWire
     ) -> dict:
         """Server wire with drop-out: a worker that sat the round out never
-        uploaded, so its own error feedback must not advance. State that
-        came out of a collective (warm Q, counters) is the same on every
-        worker and advances for all."""
+        uploaded, so its own error feedback must not advance (by this
+        process's rows of the round's flags). State that came out of a
+        collective (warm Q, counters) is the same on every worker and
+        advances for all."""
         if not isinstance(wire, ServerWire) or wire.participation >= 1.0:
             return updates
         act = wire.active()
@@ -788,20 +792,10 @@ class GradCompressor:
         return None
 
     def dist_refusal(self) -> str | None:
-        """Why a sync over this compressor cannot run across ranks yet (a
+        """Why a sync over this compressor cannot run across ranks (a
         ``DistComm`` of world above 1), naming the ROADMAP item that lifts
-        it; None where it can."""
-        if self.cfg.topology != "symmetric":
-            return (
-                "the server wire draws one (N,) participation mask on one "
-                "device (ROADMAP Queue 1, item 15)"
-            )
-        if self.handler.group_needs_prng(self.plans):
-            return (
-                f"{self.method} draws each leaf's whole (N, ...) tensor from one "
-                "generator, and a per-rank draw that keeps those draws is not "
-                "designed yet (ROADMAP Queue 1, item 15)"
-            )
+        it; None where it can: every compressor the port builds syncs
+        across ranks."""
         return None
 
     def prng_seeds(self, state: dict[str, Any]) -> dict[str, int]:

@@ -19,7 +19,10 @@ fires when any leaf votes, when ``stale >= max_stale`` or during warm-up.
 All statistics ship in ONE psum of a (2n + 1,) f32 vector a worker, the
 last slot carrying the force votes (64 bits a leaf + 32 a group, one
 collective, charged statically every round), so ``fire`` is a function of
-one all-reduced vector: the same on every worker by construction.
+one reduced vector: the same on every worker by construction. The psum is
+taken as a gather and a local sum in global worker order, so the vector,
+and with it ``fire``, is the same bits however the workers are spread over
+processes (an f32 all-reduce would sum in the ring's order).
 
 On a skipped round nothing advances but the staleness counter: every
 worker applies the cached aggregate, and the round's gradient is neither
@@ -38,10 +41,13 @@ gathered.
 State the composite adds (port layout: per-worker tensors lead with N):
 
     lazy_out[i]   cached synced aggregate, (*shape), the same on every worker
-    lazy_ref[i]   x at the last fired round, (N, *shape)
+    lazy_ref[i]   x at the last fired round, (k, *shape)
     lazy_stale[m] skips in a row per method group: 0-dim int32 on the
-                  symmetric wire, (N,) on the server wire; born AT the cap
+                  symmetric wire, (k,) on the server wire; born AT the cap
     lazy_ema[m]   the adaptive drift tracker [ema, peak], (2,) f32
+
+(k the workers a process holds: N with one process.) ``lazy_ref`` and the
+server wire's ``lazy_stale`` are per-worker rows; the rest is shared.
 """
 
 from __future__ import annotations
@@ -173,19 +179,21 @@ def group_decision(
 ) -> LazyDecision:
     """The collective skip test of one leaf group.
 
-    ``xs`` are the (N, ...) error-corrected updates compression would see,
+    ``xs`` are the (k, ...) error-corrected updates compression would see,
     ``refs`` the per-worker references of the last fired round, ``stale``
     the group's 0-dim counter. The staleness-cap and warm-up (``force``)
     votes ride the same psum as the statistics, so ``fire`` (a 0-dim bool
-    tensor) is one value for all workers. Charges the psum (64 bits a leaf
-    + 32, one collective) to ``rec``'s static tier. ``tau_scale2`` scales
-    every squared threshold (adaptive LAQ)."""
+    tensor) is one value for all workers. The psum is a gather of every
+    worker's statistics and a local sum over them in worker order (module
+    doc). Charges the psum (64 bits a leaf + 32, one collective) to
+    ``rec``'s static tier. ``tau_scale2`` scales every squared threshold
+    (adaptive LAQ)."""
     n, n_workers = len(xs), xs[0].shape[0]
     innov = [_sq_per_worker(x - r.float()) for x, r in zip(xs, refs)]
     norms = [_sq_per_worker(x) for x in xs]
     forced = _forced(stale, max_stale, force)
     votes_in = forced.float().expand(n_workers)
-    stats = comm.psum(torch.stack(innov + norms + [votes_in], dim=1))
+    stats = comm.gather(torch.stack(innov + norms + [votes_in], dim=1)).sum(0)
     rec.add(DECISION_BITS_PER_LEAF * n + DECISION_BITS_PER_GROUP, 1)
     taus = _taus(threshs, tau_scale2, stats.device)
     votes = stats[:n] > taus * stats[n : 2 * n]
@@ -206,8 +214,8 @@ def worker_decision(
 ) -> LazyDecision:
     """The per-worker skip test of one leaf group on the server wire: each
     worker compares its own innovation with its own norm, with no
-    collective. ``stale`` is the (N,) per-worker counter; ``fire`` an (N,)
-    bool tensor, which may differ between workers."""
+    collective. ``stale`` is the (k,) counter of this process's workers;
+    ``fire`` a (k,) bool tensor, which may differ between workers."""
     innov = torch.stack([_sq_per_worker(x - r.float()) for x, r in zip(xs, refs)], 1)
     norms = torch.stack([_sq_per_worker(x) for x in xs], 1)
     taus = _taus(threshs, tau_scale2, innov.device)

@@ -19,10 +19,12 @@ quantization grid must not move when a worker sits a round out.
 
 The participation draw is the port's own: one ``torch.Generator`` a round,
 on the device, seeded from ``(seed, step)``, gives the (N,) flags of every
-simulated worker (the JAX package folds the step and each worker's index
-into a PRNG key, which the port cannot reproduce). A caller may give the
-round's flags instead (``mask``), as the parity tests do with the JAX
-package's draws.
+worker (the JAX package folds the step and each worker's index into a PRNG
+key, which the port cannot reproduce). Every process makes the whole draw,
+with no collective, and its workers act on their rows of it
+(``ServerWire.active``), so a round's flags do not depend on how the
+workers are spread over ranks. A caller may give the round's (N,) flags
+instead (``mask``), as the parity tests do with the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -68,6 +70,12 @@ class SymmetricWire:
     def local_size(self) -> int:
         return self.comm.local_size()
 
+    def workers(self) -> slice:
+        return self.comm.workers()
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return self.comm.gather(x)
+
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return self.comm.psum(x)
 
@@ -93,6 +101,12 @@ class SymmetricWire:
     def average(self, stacked: torch.Tensor) -> torch.Tensor:
         """Aggregate gathered per-worker payloads (leading worker dim)."""
         return stacked.mean(0)
+
+    def exact_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`pmean`'s value taken locally over a gather, so it is
+        SimComm's bit for bit at any world size (the warm-up's exact mean,
+        off the accounted wire)."""
+        return self.gather(x).mean(0)
 
 
 def participation_draw(
@@ -120,7 +134,9 @@ class ServerWire(SymmetricWire):
     nonzero contributions, so sparse uploads (TopK) do not dilute each
     other. ``seed`` and ``step`` seed the round's draw; ``mask``, an (N,)
     bool tensor, gives the round's flags instead. ``device`` is where the
-    draw is made."""
+    draw is made. Over a comm whose process holds k of the N workers,
+    :meth:`active` gives their k rows of the (N,) flags, and
+    :meth:`prepare` gathers those into the (N,) weights."""
 
     kind = "server"
 
@@ -151,28 +167,30 @@ class ServerWire(SymmetricWire):
         self.seed = int(seed)
         self.step = int(step)
         self.device = torch.device(device) if mask is None else mask.device
-        self._active = None if mask is None else mask.to(torch.bool)
+        self._flags = None if mask is None else mask.to(torch.bool)
         self._weights: torch.Tensor | None = None
 
     def _masking(self) -> bool:
         return self.participation < 1.0
 
     def active(self) -> torch.Tensor:
-        """Every worker's participation flag for the round, (N,) bool (each
-        worker can derive everyone's flag: the draw needs no collective)."""
-        if self._active is None:
+        """This process's workers' participation flags for the round, (k,)
+        bool: their rows of every worker's (N,) flags, which each process
+        derives whole (the draw needs no collective)."""
+        if self._flags is None:
             n = self.size()
             if self._masking():
-                self._active = participation_draw(
+                self._flags = participation_draw(
                     self.seed, self.step, n, self.participation, self.device
                 )
             else:
-                self._active = torch.ones(n, dtype=torch.bool, device=self.device)
-        return self._active
+                self._flags = torch.ones(n, dtype=torch.bool, device=self.device)
+        return self._flags[self.workers()]
 
     def prepare(self, rec: CommRecord) -> None:
         """Gather the round's participation flags (the server must learn who
-        showed up) and charge the 32-bit sideband, once per sync."""
+        showed up: each worker ships its own) and charge the 32-bit
+        sideband, once per sync."""
         if not self._masking() or self._weights is not None:
             return
         self._weights = self.all_gather(self.active().float())
@@ -212,6 +230,14 @@ class ServerWire(SymmetricWire):
             return self.comm.pmean(x)
         mine = _per_worker(self.active().to(x.dtype), x)
         return self.psum(x * mine) / torch.clamp(w.sum(), min=1.0).to(x.dtype)
+
+    def exact_mean(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weights()
+        if w is None:
+            return super().exact_mean(x)
+        g = self.gather(x)
+        weighted = g * _per_worker(w.to(x.dtype), g)
+        return weighted.sum(0) / torch.clamp(w.sum(), min=1.0).to(x.dtype)
 
 
 def as_wire(

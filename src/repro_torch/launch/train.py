@@ -37,10 +37,15 @@ deferred metric reads, background checkpoints: ``train/runtime.py``);
 ``--runtime sync`` is the reference loop. The JAX launcher's flags carry
 over. ``--codec dlog|lrq`` and ``--dp-epsilon`` put the randomized privacy
 codecs on the LQ-SGD wire (through the composite compressor); the run's
-line then also prints the per-step DP epsilon and its kind. Those of parts
-not ported raise, naming the ROADMAP item that ports them: a model axis
-above 1, ``--production-mesh`` and ``--multi-pod`` (item 15), and over
-several ranks QSGD, the randomized codecs and the composite (item 15).
+line then also prints the per-step DP epsilon and its kind. Every
+compressor, codec, policy, schedule, lazy group and wire runs over the
+ranks as in one process. Those of parts not ported raise, naming the
+ROADMAP item that ports them: a model axis above 1, ``--production-mesh``
+and ``--multi-pod`` (item 15). ``--dump DIR`` has each rank write
+``DIR/rank<r>.pt`` (the history, every gathered wire array, the
+fingerprints of the final parameters and of this rank's rows of the
+compressor state, its kernel launches, each step's seconds and collective
+seconds, its peak device memory), which a comparison reads.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import argparse
 import contextlib
 import dataclasses
 import os
+import time
 from collections.abc import Iterator
 from typing import Any
 
@@ -56,12 +62,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.checkpoint.io import peek_step
+from repro_torch.checkpoint.io import leaf_fingerprints, peek_step
 from repro_torch.checkpoint.io import restore as ckpt_restore
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.compressors import CompressorConfig
 from repro_torch.core.policy import format_plan_report, parse_decay_spec
 from repro_torch.data.synthetic import LMDataConfig, cond_batch, lm_batch
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import (
     init_distributed,
     make_comm,
@@ -188,6 +195,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-path", default="checkpoints/state.ckpt")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dump", default=None, help="write DIR/rank<r>.pt")
     return ap
 
 
@@ -244,7 +252,7 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
 def _train(args: argparse.Namespace) -> dict[str, Any]:
     mesh = make_mesh(parse_mesh(args.mesh), args.device)
     n_dp, dev = mesh.data, mesh.device
-    comm = make_comm(mesh)
+    comm = make_comm(mesh, record=args.dump is not None)
     say = print if is_rank0(comm) else lambda *a, **k: None
     cfg = get_config(args.arch, smoke=args.smoke)
     comp_cfg = CompressorConfig(
@@ -301,6 +309,13 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             b["cond"] = cond_batch(data_cfg, step, cfg.cond_len, cfg.d_model)
         return b
 
+    step_ends = []  # for --dump: (seconds, collective seconds) at each step's end
+
+    def mark(grads, synced, comp_state, rec) -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        step_ends.append((time.perf_counter(), getattr(comm, "host_s", 0.0)))
+
     def build(comp):
         # the JAX launcher rematerializes at full width (remat_scan)
         return build_train_step(
@@ -311,6 +326,7 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             accum_steps=args.microbatch,
             remat=not args.smoke,
             comm=comm,
+            on_sync=None if args.dump is None else mark,
         )
 
     with _tf32_off():
@@ -375,6 +391,7 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
 
         # ONE runner threads through every schedule phase; phases a restored
         # checkpoint has finished are skipped
+        step_ends.append((time.perf_counter(), getattr(comm, "host_s", 0.0)))
         state = run_schedule(
             runner,
             compressor,
@@ -383,7 +400,32 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             rebuild=rebuild,
             initial=comp0,
         )
+    if args.dump is not None:
+        _dump(args.dump, mesh, comm, runner.history, state, step_ends)
     return {"history": runner.history, "state": state, "n_params": n_params}
+
+
+def _dump(out_dir, mesh, comm, history, state, step_ends) -> None:
+    """This rank's ``out_dir/rank<r>.pt``: the history, every gathered wire
+    array, the leaves' fingerprints (the parameters; the compressor state,
+    by worker row where it has them), launches, each step's seconds and
+    collective seconds (host clock, the device synced at each step's end)
+    and peak memory."""
+    (t, c) = zip(*step_ends)
+    dev = mesh.device
+    os.makedirs(out_dir, exist_ok=True)
+    dump = {
+        "history": history,
+        "gathered": [g.cpu() for g in comm.gathered],
+        "params": leaf_fingerprints(state["params"]),
+        "comp": leaf_fingerprints({"comp": state["comp"]}, WORKER_ROWS),
+        "launches": ops.launch_counts(),
+        "step_s": [b - a for a, b in zip(t, t[1:])],
+        "collective_s": [b - a for a, b in zip(c, c[1:])],
+        "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
+        "comm": repr(comm),
+    }
+    torch.save(dump, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
 
 
 if __name__ == "__main__":

@@ -32,12 +32,14 @@ one card, stepping eagerly):
     python -m torch.distributed.run --nproc-per-node 4 \\
         -m repro_torch.launch.train_resnet --workers 4 --steps 2
 
-Rank 0 prints. ``--deterministic`` selects cuDNN's deterministic
-algorithms, for runs compared bit for bit; ``--dump DIR`` has each rank
-write ``DIR/rank<r>.pt`` (its gathered wire arrays, every step's synced
-gradients, bits and times, the final parameters, its kernel launch
-counts and its comm's collective seconds at each step's end), which a
-comparison reads.
+Every compressor, policy, schedule, lazy group and wire runs over the
+ranks as in one process. Rank 0 prints. ``--deterministic`` selects
+cuDNN's deterministic algorithms, for runs compared bit for bit; ``--dump
+DIR`` has each rank write ``DIR/rank<r>.pt`` (its gathered wire arrays,
+every step's synced gradients, bits, effective bits and collectives,
+lazy counters and times, the final parameters, the fingerprints of its
+final compressor state by worker row, its kernel launch counts and its comm's collective
+seconds at each step's end), which a comparison reads.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ import os
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint.io import leaf_fingerprints
 from repro_torch.core.compressors import CompressorConfig, make_compressor
 from repro_torch.core.policy import format_plan_report, parse_decay_spec
 from repro_torch.core.tree import tree_leaves, tree_map
@@ -56,6 +59,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import init_distributed, make_comm, make_mesh
 from repro_torch.models.resnet import init_resnet18
 from repro_torch.train.data_parallel import StepResult, mb_per_epoch, train_one
+from repro_torch.train.trainer import WORKER_ROWS
 
 __all__ = ["main"]
 
@@ -204,9 +208,11 @@ def _train(args: argparse.Namespace) -> dict:
         say(format_plan_report(make_compressor(cfg, abstract).plan_report))
 
     synced = []  # every step's synced gradients, on the host, for --dump
+    stale = []  # every step's lazy counters, on the host, for --dump
 
     def keep_synced(step: int, grads, state) -> None:
         synced.append([g.cpu() for g in tree_leaves(grads)])
+        stale.append({m: c.cpu() for m, c in state.get("lazy_stale", {}).items()})
 
     collective_s = []  # the comm's collective seconds at each step's end
 
@@ -249,6 +255,9 @@ def _train(args: argparse.Namespace) -> dict:
             "losses": out.losses,
             "bits": [st.rec.bits_sent for st in out.steps],
             "collectives": [st.rec.n_collectives for st in out.steps],
+            "effective": [(st.wire_bits, st.collectives) for st in out.steps],
+            "stale": stale,
+            "comp": leaf_fingerprints({"comp": out.comp_state}, WORKER_ROWS),
             "wire_bits_per_step": out.comp.wire_bits_per_step(),
             "step_ms": [st.step_ms for st in out.steps],
             "sync_ms": [st.sync_ms for st in out.steps],

@@ -42,7 +42,6 @@ from repro_torch.core.comm import CommRecord, DistComm, SimComm
 from repro_torch.core.compressors import (
     CompressorConfig,
     GradCompressor,
-    check_across_ranks,
     make_compressor,
 )
 from repro_torch.core.tree import Tree, tree_leaves, tree_map, tree_unflatten
@@ -296,9 +295,9 @@ def train_one(
     comm. A ``DistComm`` of ``n_workers`` workers in all runs this rank's
     share of them: its workers' shards of each global batch, their
     compressor state (``comp_state`` holds their rows), the sync across the
-    ranks; the parameters, losses and accuracy are the same on every rank.
-    Over several ranks QSGD and the composite raise (ROADMAP item 15), and
-    over gloo the steps run eagerly (``graph=True`` raises).
+    ranks; the parameters, losses and accuracy are the same on every rank,
+    for every compressor; over gloo the steps run eagerly (``graph=True``
+    raises).
 
     The steps run with TF32 off for convolutions and matmuls, whatever the
     caller set: the reference computes in f32, and PyTorch's default
@@ -324,7 +323,6 @@ def train_one(
     comm = comm if comm is not None else SimComm(n_workers)
     if comm.size() != n_workers:
         raise ValueError(f"a comm of {comm.size()} workers for {n_workers}")
-    check_across_ranks(comp, comm)
     mine = comm.workers()  # this process's global workers
     comp_state = comp.init_state(7, comm.local_size(), dev)
     opt = sgd(lr)

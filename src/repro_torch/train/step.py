@@ -38,7 +38,6 @@ from repro_torch.core.comm import CommRecord, DistComm, SimComm
 from repro_torch.core.compressors import (
     CompressorConfig,
     GradCompressor,
-    check_across_ranks,
     make_compressor,
 )
 from repro_torch.core.tree import Tree, tree_leaves, tree_map, tree_unflatten
@@ -190,9 +189,9 @@ def build_train_step(
     default a ``SimComm`` (``launch/mesh.py:make_comm`` picks one for a
     mesh over ranks). Over several ranks each is given the rows of its
     own workers (``comm.rows``), metrics are the mean over all workers on
-    every rank, and a compressor that cannot sync across ranks yet raises
-    (``compressor.dist_refusal()``); over gloo the step runs eagerly and
-    ``graph=True`` raises (``comm.graph_refusal()``). ``on_sync`` is called after each
+    every rank, and every compressor syncs across the ranks; over gloo the
+    step runs eagerly and ``graph=True`` raises (``comm.graph_refusal()``).
+    ``on_sync`` is called after each
     step, outside any capture, with the step's per-worker gradients into
     the sync, its synced gradients, the new compressor state and its
     ``CommRecord``: the step's buffers, which the next step overwrites."""
@@ -202,7 +201,6 @@ def build_train_step(
     comm = comm if comm is not None else SimComm(n)
     if comm.size() != n:
         raise ValueError(f"a comm of {comm.size()} workers for a mesh of {n}")
-    check_across_ranks(compressor, comm)
     loss_fn = loss_fn or functools.partial(
         lm_loss, cfg=cfg, head_chunk=head_chunk, remat=remat
     )

@@ -37,9 +37,17 @@ __all__ = [
 ]
 
 
-# the train state's per-worker leaves (``train/step.py:init_train_state``:
-# the compressor's error feedback and warm-start Q), workers leading
-WORKER_ROWS = "['comp']"
+# the train state's per-worker leaves, workers leading: the compressor's
+# error feedback and warm-start Q, the lazy groups' references and the
+# server wire's per-worker staleness counters. The rest of ['comp'] (a lazy
+# group's cached aggregate, its 0-dim counter on the symmetric wire, the
+# drift tracker, seeds and step counters) is the same on every worker.
+WORKER_ROWS = (
+    "['comp']['err']",
+    "['comp']['q']",
+    "['comp']['lazy_ref']",
+    "['comp']['lazy_stale']",
+)
 
 
 @dataclasses.dataclass

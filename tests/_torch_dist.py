@@ -38,17 +38,28 @@ SYNC_CFGS = {
     "powersgd": dict(name="powersgd", rank=1),
     "topk": dict(name="topk", topk_ratio=0.25),
     "none": dict(name="none"),
-}
-SYNC_STEPS = 2
-# the compressors over several ranks that raise, naming ROADMAP item 15
-REFUSED_CFGS = {
+    # the randomized codecs, per-leaf policies with a warm-up, lazy groups
+    # (a fired round, then a skipped one) and the server wire with drop-out
+    # and per-worker lazy decisions
     "qsgd": dict(name="qsgd", bits=4),
     "dlog": dict(name="lq_sgd", rank=1, codec="dlog", dp_epsilon=8.0),
     "lrq": dict(name="lq_sgd", rank=1, bits=4, codec="lrq"),
-    "policy": dict(name="lq_sgd", policy="w=powersgd,*=lq_sgd:bits=8"),
+    "policy": dict(
+        name="lq_sgd", policy="w=powersgd,*=lq_sgd:bits=8", warmup_steps=1
+    ),
     "lazy": dict(name="lq_sgd", rank=1, lazy_thresh=2.0),
-    "server": dict(name="lq_sgd", rank=1, topology="server"),
+    "lazy_gate": dict(name="lq_sgd", rank=1, lazy_thresh=2.0, lazy_mode="gate"),
+    "server": dict(
+        name="lq_sgd",
+        rank=1,
+        topology="server",
+        participation=0.5,
+        lazy_thresh=1.5,
+    ),
 }
+SYNC_STEPS = 2
+# the configs that raised across ranks before they were ported
+FORMER_REFUSALS = ("qsgd", "dlog", "lrq", "policy", "lazy", "lazy_gate", "server")
 
 # launch.train over the ranks (every rank's argv; the one-process runs in
 # the parent take the same)
@@ -58,6 +69,12 @@ LM_ARGS = [
     "--bits", "8", "--log-every", "1",
 ]  # fmt: skip
 LM_STEPS, CKPT_STEP, RESUME_STEPS = 3, 2, 4
+# the same over a lazy composite whose ffn leaves ship by dlog: a fired
+# round, skips, a forced fire (max_stale 2) across the checkpoint at step 2
+LAZY_LM_ARGS = LM_ARGS + [
+    "--lazy-thresh", "2.0", "--max-stale", "2", "--policy",
+    "ffn=lq_sgd:codec=dlog:dp_epsilon=8:lazy_thresh=2.0:max_stale=2",
+]  # fmt: skip
 
 # train_one on a small ResNet (the launcher's tiny CPU run)
 RESNET = dict(model="resnet18", n_workers=2, batch=2, hw=8, steps=2, device="cpu")
@@ -87,14 +104,38 @@ def make_sync(cfg_kw):
 def run_syncs(comp, grads, comm, steps=SYNC_STEPS):
     """``steps`` donated syncs of the per-worker ``grads`` (one tree a step,
     this process's rows) over ``comm``; returns each step's synced tree,
-    the final state and each step's (bits, collectives), with the gathers
-    in ``comm.gathered``."""
+    the final state and each step's accounting (bits, collectives, then
+    the effective ones, then the lazy counters), with the gathers in
+    ``comm.gathered``."""
     state = comp.init_state(SEED, comm.local_size(), "cpu")
     out = []
     for g in grads[:steps]:
         synced, state, rec = comp.sync(g, state, comm, donate=True)
-        out.append((synced, (rec.bits_sent, rec.n_collectives)))
+        stale = {m: c.clone() for m, c in state.get("lazy_stale", {}).items()}
+        acct = (
+            rec.bits_sent,
+            rec.n_collectives,
+            float(rec.effective_bits()),
+            float(rec.effective_collectives()),
+            stale,
+        )
+        out.append((synced, acct))
     return out, state
+
+
+def planned(comp):
+    """A sync's static accounting: ((bits, collectives) of a round where
+    every group fires, (bits, collectives) of the lazy decisions alone)."""
+    if not hasattr(comp, "groups"):
+        colls = comp.handler.group_collectives(comp.plans)
+        return (comp.wire_bits_per_step(), colls), (0, 0)
+    colls = sum(
+        comp.handlers[m].group_collectives([comp.plans[i] for i in idxs])
+        for m, idxs in comp.groups.items()
+    )
+    n_lazy = len(comp.lazy_groups)
+    fired = (comp.wire_bits_per_step(), colls + n_lazy)
+    return fired, (comp.decision_bits_per_step(), n_lazy)
 
 
 def rows_of(tree, comm):
@@ -120,17 +161,7 @@ def _refusals(res):
     from repro_torch.core.comm import DistComm
     from repro_torch.launch.mesh import make_mesh
 
-    comm = DistComm(1)
-    grads = {k: torch.zeros((1,) + s) for k, s in small_tree()[0].items()}
-    for name, kw in REFUSED_CFGS.items():
-        comp = make_sync(kw)
-        state = comp.init_state(SEED, 1, "cpu")
-        try:
-            comp.sync(grads, state, comm)
-            res[f"refusal_{name}"] = None
-        except NotImplementedError as e:
-            res[f"refusal_{name}"] = str(e)
-    res["graph_refusal"] = comm.graph_refusal()
+    res["graph_refusal"] = DistComm(1).graph_refusal()
     try:
         make_mesh((3, 1), "cpu")
         res["mesh_3"] = None
@@ -171,8 +202,8 @@ def _syncs(res, inputs):
                 recs=[r for _, r in steps],
                 state=state,
                 gathered=[g.clone() for g in comm.gathered],
-                bits=comp.wire_bits_per_step(),
-                collectives=comp.handler.group_collectives(comp.plans),
+                planned=planned(comp),
+                refusal=comp.dist_refusal(),
             )
 
 
@@ -198,6 +229,24 @@ def _launcher(res, out_dir, ckpt_parent):
         res["lm_resume_2x1"] = None
     except ValueError as e:
         res["lm_resume_2x1"] = str(e)
+
+
+def _lazy_launcher(res, out_dir, ckpt_parent):
+    """The lazy composite with a dlog group through ``launch.train``: 2
+    steps with a checkpoint at step 2, and the one-process checkpoint
+    ``ckpt_parent`` resumed here to step 4."""
+    from repro_torch.launch import train as launch_train
+
+    argv = LAZY_LM_ARGS + ["--dist-backend", "gloo"]
+    ck = os.path.join(out_dir, "ranks_lazy.ckpt")
+    more = ["--steps", str(CKPT_STEP), "--ckpt-every", str(CKPT_STEP)]
+    run, _ = quiet_call(launch_train.main, argv + more + ["--ckpt-path", ck])
+    res["lazy_lm_history"] = run["history"]
+    res["lazy_lm_params"] = _host(run["state"]["params"])
+    resume = ["--steps", str(RESUME_STEPS), "--resume", "--ckpt-path", ckpt_parent]
+    run, _ = quiet_call(launch_train.main, argv + resume)
+    res["lazy_lm_resumed_params"] = _host(run["state"]["params"])
+    res["lazy_lm_resumed_history"] = run["history"]
 
 
 def _resnet(res):
@@ -240,18 +289,27 @@ def run_rank(rank, world, store, inputs_path, out_dir):
         _refusals(res)
         _resnet(res)
         _launcher(res, out_dir, inputs["ckpt_parent"])
+        _lazy_launcher(res, out_dir, inputs["lazy_ckpt_parent"])
         res["seconds"] = time.time() - res["t0"]
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def lm_smoke_steps(comm, device, graph=None, steps=3):
+# the card tests' compressors (CompressorConfig fields)
+CARD_CFGS = {
+    "lq_sgd": dict(name="lq_sgd", rank=1),
+    "qsgd": dict(name="qsgd", bits=4),
+    "dlog": dict(name="lq_sgd", rank=1, codec="dlog", dp_epsilon=8.0),
+}
+
+
+def lm_smoke_steps(comm, device, graph=None, steps=3, name="lq_sgd"):
     """gemma3-1b at smoke widths over ``comm``'s 4 workers (2 rows x 64
-    tokens each, this process's rows of each global batch), LQ-SGD r1 b8,
-    Adam, with deterministic algorithms on: (every step's metrics, the
-    final parameters and every gather on the host, whether the step was a
-    graph replay)."""
+    tokens each, this process's rows of each global batch), the compressor
+    ``CARD_CFGS[name]`` (LQ-SGD r1 b8), Adam, with deterministic algorithms
+    on: (every step's metrics, the final parameters and every gather on
+    the host, whether the step was a graph replay)."""
     from repro_torch.configs import get_config
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.data.synthetic import LMDataConfig, lm_batch
@@ -264,7 +322,7 @@ def lm_smoke_steps(comm, device, graph=None, steps=3):
     from repro_torch.train.trainer import local_rows
 
     cfg = get_config("gemma3-1b", smoke=True)
-    comp = make_model_compressor(cfg, CompressorConfig(name="lq_sgd", rank=1))
+    comp = make_model_compressor(cfg, CompressorConfig(**CARD_CFGS[name]))
     data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch=8)
     opt = adam(1e-3)
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -281,26 +339,30 @@ def lm_smoke_steps(comm, device, graph=None, steps=3):
     return metrics, _host(state["params"]), _host(comm.gathered), step.graph is not None
 
 
-def nccl_lm_rank(rank, world, store, out_dir):
-    """One rank of the card test's NCCL process group (one card a rank):
-    :func:`lm_smoke_steps` graphed, written to ``<out_dir>/nccl<rank>.pt``."""
+def card_lm_rank(rank, world, store, out_dir, backend, name):
+    """One rank of a card test's process group: NCCL with one card a rank,
+    or gloo with every rank on card 0; :func:`lm_smoke_steps` of the
+    compressor ``name`` (graphed where the comm allows), written to
+    ``<out_dir>/card<rank>.pt``."""
     from repro_torch.core.comm import DistComm
 
-    torch.cuda.set_device(rank)
+    device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    torch.cuda.set_device(device)
     dist.init_process_group(
-        "nccl", store=dist.FileStore(store, world), rank=rank, world_size=world
+        backend, store=dist.FileStore(store, world), rank=rank, world_size=world
     )
     try:
         comm = DistComm(4 // world, record=True)
-        out = lm_smoke_steps(comm, f"cuda:{rank}")
-        torch.save(out, os.path.join(out_dir, f"nccl{rank}.pt"))
+        out = lm_smoke_steps(comm, device, name=name)
+        torch.save(out, os.path.join(out_dir, f"card{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def spawn(inputs_path, out_dir, world=WORLD, target=None):
+def spawn(inputs_path, out_dir, world=WORLD, target=None, extra=()):
     """Start ``world`` ranks on :func:`run_rank` (or ``target``, e.g.
-    :func:`nccl_lm_rank`); returns ``join()``, which waits for each up to
+    :func:`card_lm_rank`, called with ``extra`` after its rank, world,
+    store and directory); returns ``join()``, which waits for each up to
     its deadline, kills what is left, raises unless every rank exited with
     0, and returns what each rank wrote."""
     ctx = mp.get_context("spawn")
@@ -309,7 +371,7 @@ def spawn(inputs_path, out_dir, world=WORLD, target=None):
         args = [(r, world, store, inputs_path, out_dir) for r in range(world)]
         target = run_rank
     else:
-        args = [(r, world, store, out_dir) for r in range(world)]
+        args = [(r, world, store, out_dir, *extra) for r in range(world)]
     procs = [ctx.Process(target=target, args=a) for a in args]
     for p in procs:
         p.start()
@@ -326,7 +388,7 @@ def spawn(inputs_path, out_dir, world=WORLD, target=None):
         codes = [p.exitcode for p in procs]
         if hung or any(c != 0 for c in codes):
             raise RuntimeError(f"ranks hung {hung}, exit codes {codes}")
-        name = "rank" if target is run_rank else "nccl"
+        name = "rank" if target is run_rank else "card"
         return [
             torch.load(os.path.join(out_dir, f"{name}{r}.pt"), weights_only=False)
             for r in range(world)

@@ -1373,9 +1373,12 @@ def test_gloo_step_on_the_card_refuses_a_graph(cuda, tmp_path):
         assert torch.equal(a, b)
 
 
-def test_nccl_two_ranks_lm_step_equals_simcomm(cuda, tmp_path):
-    """Two NCCL ranks, one card each, 2 workers each: the graphed LM step
-    equals ``SimComm(4)``'s in one process bit for bit, on every rank."""
+@pytest.mark.parametrize("name", ["lq_sgd", "qsgd", "dlog"])
+def test_nccl_two_ranks_lm_step_equals_simcomm(cuda, tmp_path, name):
+    """Two NCCL ranks, one card each, 2 workers each: the LM step (graphed
+    for LQ-SGD and QSGD, whose draws the graph registers; eager for dlog,
+    the composite) equals ``SimComm(4)``'s in one process bit for bit, on
+    every rank: each rank draws all 4 workers' values and keeps its rows."""
     if torch.cuda.device_count() < 2:
         pytest.skip(
             "needs 2 CUDA devices: NCCL refuses two ranks on one card, so "
@@ -1385,10 +1388,47 @@ def test_nccl_two_ranks_lm_step_equals_simcomm(cuda, tmp_path):
 
     from repro_torch.core.comm import SimComm
 
-    want = td.lm_smoke_steps(SimComm(4, record=True), "cuda:0")
-    join = td.spawn(None, str(tmp_path), world=2, target=td.nccl_lm_rank)
+    want = td.lm_smoke_steps(SimComm(4, record=True), "cuda:0", name=name)
+    join = td.spawn(
+        None, str(tmp_path), world=2, target=td.card_lm_rank, extra=("nccl", name)
+    )
     for got in join():
-        assert got[3]
+        assert got[3] == want[3] == (name != "dlog")
+        _ranks_equal_simcomm(got, want, name)
+
+
+def _ranks_equal_simcomm(got, want, name):
+    """A rank's :func:`lm_smoke_steps` against ``SimComm(4)``'s: bit for
+    bit, but for QSGD, whose raw leaves psum in f32 in the ring's order:
+    then step 0 ships the same bytes and reads the same loss, and the rest
+    may differ in the last bits."""
+    if name != "qsgd":
         assert got[0] == want[0]
         for a, b in zip(got[1] + got[2], want[1] + want[2], strict=True):
             assert torch.equal(a, b)
+        return
+    assert got[0][0] == want[0][0]
+    per_step = len(want[2]) // len(want[0])
+    assert len(got[2]) == len(want[2])
+    for a, b in zip(got[2][:per_step], want[2][:per_step], strict=True):
+        assert torch.equal(a, b)
+    for g, w in zip(got[0][1:], want[0][1:], strict=True):
+        assert abs(g["loss"] - w["loss"]) <= 1e-3 * abs(w["loss"])
+
+
+def test_gloo_two_ranks_qsgd_step_on_the_card_equals_simcomm(cuda, tmp_path):
+    """Two gloo ranks sharing the card, 2 workers each (QSGD b4): each rank
+    draws all 4 workers' rounding values from the one CUDA generator and
+    keeps its rows, so step 0 ships ``SimComm(4)``'s bytes; the step runs
+    eagerly (gloo)."""
+    import _torch_dist as td
+
+    from repro_torch.core.comm import SimComm
+
+    want = td.lm_smoke_steps(SimComm(4, record=True), "cuda", graph=False, name="qsgd")
+    join = td.spawn(
+        None, str(tmp_path), world=2, target=td.card_lm_rank, extra=("gloo", "qsgd")
+    )
+    for got in join():
+        assert not got[3]
+        _ranks_equal_simcomm(got, want, "qsgd")

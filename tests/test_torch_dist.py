@@ -10,24 +10,30 @@ one part of what they found:
   ``fused_pmax`` exact, ``psum`` / ``pmean`` exact on integer-valued f32
   and within 1e-6 relative otherwise; and against ``SimComm(4)`` for
   worker order;
-* two syncs of a small tree (LQ-SGD r1 b8, b8 with ``bits_q`` 4, b4 fused
-  with ``dequant_then_mean``, PowerSGD, TopK, none) over 2 x 1 and 2 x 2
-  ranks against ``SimComm(N)``: gathered arrays, synced gradients and the
-  ranks' state rows bit-equal for LQ-SGD; PowerSGD, TopK and none (whose
-  raw leaves ``psum`` in the ring's order) gathers exact, synced gradients
-  within 1e-6 relative;
-  every rank's synced gradients the same; bits and collectives the
-  static accounting;
+* two syncs of a small tree over 2 x 1 and 2 x 2 ranks against
+  ``SimComm(N)``: LQ-SGD r1 b8, b8 with ``bits_q`` 4, b4 fused with
+  ``dequant_then_mean``, PowerSGD, TopK, none, QSGD b4, dlog at a budget
+  of 8, lrq b4, a per-leaf policy with a warm-up step, lazy groups (elide
+  and gate: a fired round, then a skip) and the server wire at
+  participation 0.5 with per-worker lazy decisions. Gathered arrays
+  (codes, participation and contribution flags) bit-equal, and so are the
+  synced gradients and the ranks' state rows where every leaf comes
+  through a gather; PowerSGD, TopK, none and QSGD (whose raw leaves
+  ``psum`` in the ring's order) within 1e-6 relative; every rank's synced
+  gradients the same; lazy counters equal; bits and collectives the
+  static accounting, and what a lazy group or the server wire lets
+  through the planned figure;
 * ``launch.train.main`` (gemma3-1b smoke, ``--mesh 4x1``, LQ-SGD r1 b8, 3
   steps) over the 2 ranks against the one-process run: history and
   parameters bit-equal, the replicas equal, rank 0 alone printing;
 * a checkpoint written by the 2 ranks at step 2 resumed here to step 4,
-  and one written here resumed by the ranks, each equal to 4 steps at once;
+  and one written here resumed by the ranks, each equal to 4 steps at
+  once; the same for a lazy composite with a dlog group, whose shared
+  leaves (the cached aggregate, the 0-dim counter) are written once;
 * ``train_one`` on ResNet-18 (8x8, 2 workers x 2) over the ranks against
   ``SimComm(2)``;
-* the refusals: QSGD, dlog, lrq, a policy, lazy groups and the server wire
-  across ranks (naming ROADMAP item 15), a step over gloo in a CUDA graph,
-  a data axis the ranks do not divide, ``DistComm`` without a group.
+* the refusals: a step over gloo in a CUDA graph, a data axis the ranks do
+  not divide, ``DistComm`` without a group.
 
 The references run on one thread, as the ranks do.
 """
@@ -45,17 +51,32 @@ import numpy as np
 from conftest import simulate_workers
 
 from repro.core import AxisComm
+from repro_torch.checkpoint.io import _is_rows
 from repro_torch.core.comm import DistComm, SimComm
 from repro_torch.core.compressors import CompressorConfig
+from repro_torch.core.lazy import SERVER_DECISION_BITS_PER_GROUP
 from repro_torch.core.tree import tree_leaves
+from repro_torch.core.wire import PARTICIPATION_FLAG_BITS
 from repro_torch.launch import train as launch_train
 from repro_torch.train.data_parallel import train_one
+from repro_torch.train.trainer import WORKER_ROWS
 
 N_PRIM = 4  # 2 ranks x 2 local workers
 PRIM_OPS = ("psum", "pmean", "pmax", "all_gather")
-# LQ-SGD quantizes its raw leaves and gathers them: exact. PowerSGD, TopK
-# and none psum their raw leaves in f32, in the ring's order across ranks
-EXACT_SYNCS = ("lq_sgd_b8", "lq_sgd_b8_q4", "lq_sgd_b4_fused_dtm")
+# LQ-SGD quantizes its raw leaves and gathers them, the lazy decision and
+# the warm-up mean are taken locally over gathers: exact. PowerSGD, TopK,
+# none and QSGD psum their raw leaves in f32, in the ring's order
+EXACT_SYNCS = (
+    "lq_sgd_b8",
+    "lq_sgd_b8_q4",
+    "lq_sgd_b4_fused_dtm",
+    "dlog",
+    "lrq",
+    "policy",
+    "lazy",
+    "lazy_gate",
+    "server",
+)
 PSUM_RTOL = 1e-6
 
 
@@ -69,7 +90,7 @@ def _one_thread():
         torch.set_num_threads(n)
 
 
-def _inputs(rng, ckpt_parent):
+def _inputs(rng, ckpt_parent, lazy_ckpt_parent):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -93,11 +114,17 @@ def _inputs(rng, ckpt_parent):
         ]
         for n in (td.WORLD, 2 * td.WORLD)
     }
-    return dict(prims=prims, fused=fused, grads=grads, ckpt_parent=ckpt_parent)
+    return dict(
+        prims=prims,
+        fused=fused,
+        grads=grads,
+        ckpt_parent=ckpt_parent,
+        lazy_ckpt_parent=lazy_ckpt_parent,
+    )
 
 
-def _lm(argv):
-    run, _ = td.quiet_call(launch_train.main, td.LM_ARGS + argv)
+def _lm(argv, args=td.LM_ARGS):
+    run, _ = td.quiet_call(launch_train.main, args + argv)
     return run
 
 
@@ -159,6 +186,7 @@ def _sim_syncs(grads):
                 recs=[r for _, r in steps],
                 state=state,
                 gathered=[g.clone() for g in comm.gathered],
+                planned=td.planned(comp),
             )
     return out
 
@@ -169,10 +197,14 @@ def dist_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dist")
     rng = np.random.default_rng(0)
     ckpt_parent = str(tmp / "parent.ckpt")
+    lazy_ckpt_parent = str(tmp / "parent_lazy.ckpt")
     with _one_thread():
         more = ["--ckpt-every", str(td.CKPT_STEP), "--ckpt-path", ckpt_parent]
         _lm(["--steps", str(td.CKPT_STEP)] + more)
-        inputs = _inputs(rng, ckpt_parent)
+        more = ["--ckpt-every", str(td.CKPT_STEP), "--ckpt-path", lazy_ckpt_parent]
+        run = _lm(["--steps", str(td.CKPT_STEP)] + more, td.LAZY_LM_ARGS)
+        lazy2 = dict(history=run["history"], params=_params(run))
+        inputs = _inputs(rng, ckpt_parent, lazy_ckpt_parent)
         inputs_path = str(tmp / "inputs.pt")
         torch.save(inputs, inputs_path)
         join = td.spawn(inputs_path, str(tmp))
@@ -206,9 +238,15 @@ def dist_run(tmp_path_factory):
             bits=out.comp.wire_bits_per_step(),
             collectives=out.comp.handler.group_collectives(out.comp.plans),
         )
+        run = _lm(["--steps", str(td.RESUME_STEPS)], td.LAZY_LM_ARGS)
+        ref["lazy2"] = lazy2
+        ref["lazy4"] = dict(history=run["history"], params=_params(run))
         ranks = join()
         resume = ["--resume", "--ckpt-path", str(tmp / "ranks.ckpt")]
         ref["lm_from_ranks"] = _params(_lm(["--steps", str(td.RESUME_STEPS)] + resume))
+        resume = ["--resume", "--ckpt-path", str(tmp / "ranks_lazy.ckpt")]
+        run = _lm(["--steps", str(td.RESUME_STEPS)] + resume, td.LAZY_LM_ARGS)
+        ref["lazy_from_ranks"] = dict(history=run["history"], params=_params(run))
     ref["ckpt_parent"] = ckpt_parent
     return ranks, ref
 
@@ -276,12 +314,26 @@ def test_comm_rows_and_repr(dist_run):
 SYNC_CASES = [f"{n}_{td.WORLD}x{k}" for k in (1, 2) for n in td.SYNC_CFGS]
 
 
+def _rows_of(ns, key, v, rows):
+    """This rank's part of SimComm's state leaf ``ns/key``: its workers'
+    rows of a per-worker leaf, the whole of a shared one."""
+    per_worker = _is_rows(WORKER_ROWS, f"['comp']['{ns}']['{key}']", v)
+    return v[rows] if per_worker else v
+
+
+def _accounts(recs):
+    """The comparable part of ``run_syncs``' accounting: everything but the
+    lazy counters, which are tensors."""
+    return [acct[:4] for acct in recs]
+
+
 @pytest.mark.parametrize("case", SYNC_CASES)
 def test_sync_over_ranks_matches_simcomm(dist_run, case):
     ranks, ref = dist_run
     want = ref["syncs"][case]
     name = case.rsplit("_", 1)[0]
     k = int(case.rsplit("x", 1)[1])
+    rows = [slice(r * k, (r + 1) * k) for r in range(td.WORLD)]
     for r, res in enumerate(ranks):
         got = res[f"sync_{case}"]
         # every gather on the wire: the (N, ...) stack in global order
@@ -292,23 +344,62 @@ def test_sync_over_ranks_matches_simcomm(dist_run, case):
                 assert _equal(g, w), f"rank {r} step {t}: synced"
             else:
                 assert _close(g, w, PSUM_RTOL), f"rank {r} step {t}: synced"
-        # this rank's state rows: its workers' of SimComm's
-        rows = slice(r * k, (r + 1) * k)
+        # this rank's state rows: its workers' of SimComm's; shared leaves whole
+        assert got["state"].keys() == want["state"].keys()
         for ns, sub in want["state"].items():
             if not isinstance(sub, dict):
+                assert got["state"][ns] == sub, f"rank {r}: {ns}"
                 continue
             for key, v in sub.items():
-                mine = got["state"][ns][key]
+                mine, v = got["state"][ns][key], _rows_of(ns, key, v, rows[r])
                 if name in EXACT_SYNCS:
-                    assert torch.equal(mine, v[rows]), f"rank {r}: state {ns}/{key}"
+                    assert torch.equal(mine, v), f"rank {r}: state {ns}/{key}"
                 else:
-                    assert _close([mine], [v[rows]], PSUM_RTOL)
-        # the static accounting, every step
-        assert got["recs"] == want["recs"]
-        assert got["recs"] == [(got["bits"], got["collectives"])] * td.SYNC_STEPS
+                    assert _close([mine], [v], PSUM_RTOL)
+        # the lazy counters after each step, and the accounting
+        for t, (g, w) in enumerate(zip(got["recs"], want["recs"], strict=True)):
+            assert g[4].keys() == w[4].keys()
+            for m, c in w[4].items():
+                want_c = c[rows[r]] if c.dim() else c
+                assert torch.equal(g[4][m], want_c), f"rank {r} step {t}: stale"
+        assert _accounts(got["recs"]) == _accounts(want["recs"])
+        assert got["planned"] == want["planned"]
+        if name not in td.FORMER_REFUSALS:
+            fired, _ = got["planned"]
+            assert _accounts(got["recs"]) == [fired + fired] * td.SYNC_STEPS
     # the replicas: every rank holds the same synced gradients
     a, b = (r[f"sync_{case}"]["synced"] for r in ranks)
     assert all(_equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+@pytest.mark.parametrize("name", td.FORMER_REFUSALS)
+def test_former_refusals_sync_with_the_planned_accounting(dist_run, name):
+    """Each compressor that raised across ranks before it was ported: no
+    refusal, and each step's bits and collectives the static accounting.
+    A lazy group fires at round 0 (its counter is born at the cap) and
+    then skips, sending its decision alone; the server wire sends its two
+    flags every round and the payload at the share of workers whose fresh
+    upload reached the server (the step's second gather)."""
+    ranks, _ = dist_run
+    for k in (1, 2):
+        for res in ranks:
+            got = res[f"sync_{name}_{td.WORLD}x{k}"]
+            assert got["refusal"] is None
+            (bits, colls), (side, n_side) = got["planned"]
+            per_step = len(got["gathered"]) // td.SYNC_STEPS
+            for t, (b, c, eff_b, eff_c, stale) in enumerate(got["recs"]):
+                if name == "server":
+                    flags = got["gathered"][t * per_step + 1]
+                    static = PARTICIPATION_FLAG_BITS + SERVER_DECISION_BITS_PER_GROUP
+                    assert (b, c) == (static, colls + 1)
+                    assert eff_b == static + float(flags.mean()) * (bits - side)
+                    assert eff_c == c
+                elif name.startswith("lazy"):
+                    fired = (bits, colls) if t == 0 else (side, n_side)
+                    assert (eff_b, eff_c) == fired, f"step {t}"
+                    assert [int(x) for x in stale.values()] == [t]
+                else:
+                    assert (b, c, eff_b, eff_c) == (bits, colls, bits, colls)
 
 
 # ------------------------------------------------------------- the launcher
@@ -401,15 +492,52 @@ def test_train_one_over_ranks_matches_simcomm(dist_run, what):
             assert got["collectives"] == [want["collectives"]] * td.RESNET["steps"]
 
 
-# ------------------------------------------------------------ the refusals
-@pytest.mark.parametrize("name", list(td.REFUSED_CFGS))
-def test_compressors_not_ported_across_ranks_raise(dist_run, name):
-    ranks, _ = dist_run
+# ------------------------------------------------- the lazy composite's run
+@pytest.mark.parametrize("what", ["history", "params"])
+def test_lazy_launcher_over_ranks_equals_one_process(dist_run, what):
+    """``launch.train`` with a lazy composite and a dlog group: 2 steps
+    over the ranks equal 2 in one process, bit for bit."""
+    ranks, ref = dist_run
     for res in ranks:
-        msg = res[f"refusal_{name}"]
-        assert msg is not None and "ROADMAP Queue 1, item 15" in msg
+        if what == "history":
+            got, want = res["lazy_lm_history"], ref["lazy2"]["history"]
+            assert [strip_wall(m) for m in got] == [strip_wall(m) for m in want]
+        else:
+            assert _equal(res["lazy_lm_params"], ref["lazy2"]["params"])
 
 
+@pytest.mark.parametrize("direction", ["ranks_to_one", "one_to_ranks"])
+def test_lazy_checkpoint_crosses_world_sizes(dist_run, direction):
+    """The lazy composite's checkpoint at step 2 (its cached aggregate and
+    symmetric counter written once, its references by worker) resumed to
+    step 4 across world sizes equals 4 steps at once, a skipped round and
+    the forced fire after it included."""
+    ranks, ref = dist_run
+    want = ref["lazy4"]
+    tail = [strip_wall(m) for m in want["history"][td.CKPT_STEP :]]
+    if direction == "ranks_to_one":
+        got = [ref["lazy_from_ranks"]]
+    else:
+        got = [
+            dict(
+                history=r["lazy_lm_resumed_history"],
+                params=r["lazy_lm_resumed_params"],
+            )
+            for r in ranks
+        ]
+    for g in got:
+        assert _equal(g["params"], want["params"])
+        assert [strip_wall(m) for m in g["history"]] == tail
+    # the run fired, skipped and was forced to fire again
+    fired = [m["collectives_per_step"] > 1 for m in want["history"]]
+    assert fired[0] and not all(fired) and any(fired[1:])
+
+
+def strip_wall(m):
+    return {k: v for k, v in m.items() if k != "wall_s"}
+
+
+# ------------------------------------------------------------ the refusals
 def test_gloo_refuses_a_cuda_graph(dist_run):
     ranks, _ = dist_run
     assert "gloo" in ranks[0]["graph_refusal"]

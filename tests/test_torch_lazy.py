@@ -310,3 +310,48 @@ def test_schedule_decay_preserves_lazy_knobs():
     out, _, _, _ = port_step(c10, grads(1), st10)
     assert all(bool(torch.isfinite(v).all()) for v in out.values())
     np.testing.assert_equal(int(st10[lazy.STALE_NS]["lq_sgd"]), 0)
+
+
+# ----------------------------------------- the decision over a rank's rows
+class _RankRows(SimComm):
+    """Rank ``rank`` of a process group whose ranks hold ``k`` of the N
+    workers each; its gather returns every worker's statistics, as a
+    gather across the ranks would (``full``, in global worker order)."""
+
+    def __init__(self, full, k, rank):
+        super().__init__(full.shape[0])
+        self.full, self.k, self.rank = full, k, rank
+
+    def local_size(self):
+        return self.k
+
+    def gather(self, x):
+        assert torch.equal(x, self.full[self.workers()])
+        return self.full
+
+
+def test_group_decision_is_the_same_over_any_split_of_the_workers():
+    """One leaf over 4 workers whose innovations sum to 1 in worker order
+    but to 1 + 2^-23 as two ranks' partial sums (an f32 all-reduce of 2
+    ranks x 2): with the threshold at 1 the two orders would disagree, and
+    the decision, summed in worker order over a gather, is SimComm's on
+    every rank of any split."""
+    x = torch.tensor([[1.0], [0.0], [0.0], [0.0]])
+    ref = torch.tensor([[0.0], [2.0**-12], [2.0**-12], [2.0**-12]])
+    stale = torch.zeros((), dtype=torch.int32)
+
+    def decide(comm, rows):
+        rec = CommRecord()
+        dec = lazy.group_decision([x[rows]], [ref[rows]], [1.0], stale, 4, comm, rec)
+        return bool(dec.fire), int(dec.new_stale), (rec.bits_sent, rec.n_collectives)
+
+    innov = (x - ref).square()
+    assert float(innov.sum(0)) == 1.0  # the order SimComm sums in
+    assert float(innov[:2].sum(0) + innov[2:].sum(0)) > 1.0  # two ranks' partials
+    want = decide(SimComm(4), slice(None))
+    assert want == (False, 1, (lazy.DECISION_BITS_PER_LEAF + 32, 1))
+    stats = torch.cat([innov, x.square(), torch.zeros(4, 1)], dim=1)
+    for k in (1, 2):
+        for rank in range(4 // k):
+            comm = _RankRows(stats, k, rank)
+            assert decide(comm, comm.workers()) == want, (k, rank)

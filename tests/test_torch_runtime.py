@@ -47,7 +47,14 @@ from repro.core import CompressorConfig as JaxCompressorConfig
 from repro.launch.mesh import make_mesh, use_mesh
 from repro.train import optimizer as jax_opt
 from repro.train import step as jax_step
-from repro_torch.checkpoint.io import AsyncCheckpointer, peek_step, restore, save
+from repro_torch.checkpoint.io import (
+    AsyncCheckpointer,
+    _is_rows,
+    leaf_fingerprints,
+    peek_step,
+    restore,
+    save,
+)
 from repro_torch.core.compressors import CompressorConfig
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data.synthetic import LMDataConfig, lm_batch
@@ -59,7 +66,7 @@ from repro_torch.train.step import (
     init_train_state,
     make_model_compressor,
 )
-from repro_torch.train.trainer import Trainer, TrainerConfig
+from repro_torch.train.trainer import WORKER_ROWS, Trainer, TrainerConfig
 from repro_torch.weights import train_state_from_jax
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -389,3 +396,77 @@ def test_launcher_runs_the_randomized_codecs(argv, kind):
     eps = float(_field(line, "epsilon/step").split("=")[1])
     assert math.isinf(eps) == (kind == "none")
     assert f"({kind})" in line
+
+
+@pytest.mark.parametrize("wire", ["symmetric", "server"])
+def test_checkpoint_rows_are_the_per_worker_leaves(wire):
+    """The leaves a checkpoint gathers and cuts by worker are the lazy
+    composite's per-worker ones (error feedback, warm-start Q, references,
+    the server wire's counters); its cached aggregate, drift tracker and
+    the symmetric wire's 0-dim counter are shared, written once."""
+    from repro_torch.core.compressors import make_compressor
+
+    abstract = {"b": torch.empty(6), "w": torch.empty(12, 10)}
+    kw = dict(topology="server", participation=0.5) if wire == "server" else {}
+    cfg = CompressorConfig(
+        name="lq_sgd",
+        min_compress_numel=16,
+        lazy_thresh=2.0,
+        lazy_adaptive=2.0 if wire == "symmetric" else 0.0,
+        **kw,
+    )
+    state = make_compressor(cfg, abstract).init_state(0, 3, "cpu")
+    rows = {
+        ns: {
+            k: _is_rows(WORKER_ROWS, f"['comp']['{ns}']['{k}']", v)
+            for k, v in sub.items()
+        }
+        for ns, sub in state.items()
+        if isinstance(sub, dict)
+    }
+    want_rows = {"err", "q", "lazy_ref"}
+    if wire == "server":
+        want_rows.add("lazy_stale")
+    for ns, sub in rows.items():
+        assert set(sub.values()) == {ns in want_rows}, ns
+        if ns in want_rows:
+            assert all(state[ns][k].shape[0] == 3 for k in sub)
+    shared = {"lazy_ema", "lazy_stale"} if wire == "symmetric" else set()
+    assert shared <= rows.keys()
+    if wire == "symmetric":
+        assert "lazy_out" in rows and not any(rows["lazy_out"].values())
+        assert state["lazy_stale"]["lq_sgd"].dim() == 0
+    assert not _is_rows(WORKER_ROWS, "['params']['w']", torch.empty(3, 2))
+
+
+def test_fingerprints_tell_any_bit_apart_and_split_rows():
+    x = torch.randn(3, 5, generator=torch.Generator().manual_seed(0))
+    y = x.clone()
+    y.view(torch.int32)[2, 4] ^= 1  # one bit of one value
+    tree = {"comp": {"err": {"0": x}}, "step": 4, "w": x[0].bfloat16()}
+    got = leaf_fingerprints(tree, WORKER_ROWS)
+    same = {**tree, "comp": {"err": {"0": x.clone()}}}
+    assert got == leaf_fingerprints(same, WORKER_ROWS)
+    rows = got["['comp']['err']['0']"]
+    assert len(rows) == 3 and rows == [leaf_fingerprints({"r": r})["['r']"] for r in x]
+    other = leaf_fingerprints({"comp": {"err": {"0": y}}}, WORKER_ROWS)
+    assert other["['comp']['err']['0']"][:2] == rows[:2]
+    assert other["['comp']['err']['0']"][2] != rows[2]
+    assert got["['step']"] == ("int", 4)
+    assert got["['w']"][:2] == ("torch.bfloat16", (5,))
+
+
+def test_launcher_dump_holds_the_run(tmp_path):
+    """``--dump``: the history, the gathers, the final parameters'
+    fingerprints and the compressor state's by worker row, a time a step."""
+    argv = ["--arch", "gemma3-1b", "--smoke", "--device", "cpu", "--mesh", "2x1"]
+    argv += ["--batch", "4", "--seq", "32", "--steps", "2", "--log-every", "1"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = launch_train.main(argv + ["--dump", str(tmp_path)])
+    dump = torch.load(tmp_path / "rank0.pt", weights_only=False)
+    assert dump["history"] == run["history"] and len(dump["step_s"]) == 2
+    assert dump["params"] == leaf_fingerprints(run["state"]["params"])
+    comp = leaf_fingerprints({"comp": run["state"]["comp"]}, WORKER_ROWS)
+    assert dump["comp"] == comp
+    assert all(len(v) == 2 for k, v in comp.items() if "['err']" in k)
+    assert dump["gathered"] and dump["collective_s"] == [0.0, 0.0]

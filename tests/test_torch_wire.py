@@ -306,3 +306,32 @@ def test_train_one_federated_on_the_cpu():
     assert all(np.isfinite(out.losses))
     assert all(st.rec.down_bits == 32 * 24122 for st in out.steps)
     assert out.comp_state[lazy.STALE_NS]["lq_sgd"].shape == (3,)
+
+
+# ------------------------------------------------- one rank's rows of a round
+class _RankRows(SimComm):
+    """Rank ``rank`` of a process group whose ranks hold ``k`` of the
+    ``n`` workers each (no collective is called)."""
+
+    def __init__(self, n, k, rank):
+        super().__init__(n)
+        self.k, self.rank = k, rank
+
+    def local_size(self):
+        return self.k
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_server_wire_active_is_this_ranks_rows_of_the_draw(rank):
+    """A rank holding k of N workers acts on its rows of the round's (N,)
+    draw (and of an (N,) mask passed in), which every rank makes whole."""
+    comm = _RankRows(N, 2, rank)
+    rows = slice(2 * rank, 2 * rank + 2)
+    draw = participation_draw(3, 17, N, 0.5, "cpu")
+    w = ServerWire(comm, participation=0.5, seed=3, step=17, device="cpu")
+    assert torch.equal(w.active(), draw[rows])
+    mask = torch.tensor([True, False, False, True])
+    w = ServerWire(comm, participation=0.5, mask=mask)
+    assert torch.equal(w.active(), mask[rows])
+    with pytest.raises(ValueError, match="participation mask"):
+        ServerWire(comm, participation=0.5, mask=mask[rows])
