@@ -220,6 +220,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    launched on each rank, ms a step and its share in the collectives, the
    draws' ms a step (all N workers' values, and a rank's rows alone)
    against the sync's, and (o4)'s peak memory a rank.
+15. tensor-parallel serving, right after phase 14 (this process again
+   holds little device memory; (p3)'s ranks hold 12 B parameters between
+   them): #1, #3, #4 and #6 at the ranks' shapes against their plain
+   versions, then for each of (p1) gemma3-1b at a 1x2 mesh, q8 (the cache
+   split by sequence), (p2) gemma3-1b at 2x2, q4 (the batch over data too)
+   and (p3) mistral-nemo-12b at 1x2, q8 (the cache split by KV heads), all
+   full width and depth, batch 4, prompt 1024, 32 new tokens: the
+   launcher in this process (graphed decode), then ONE torchrun of data x
+   model gloo ranks sharing the card (``chip_smoke.py --tp-rank DIR RUN``,
+   ``tp_rank_main``: ``launch/serve.py``'s ``main`` with ``--mesh``, eager
+   decode, then a teacher-forced decode on this process's tokens). Each
+   rank's prefill and teacher-forced logits within LOGITS_REL_TOL of the
+   one-process run's, its free-running greedy tokens equal but where the
+   one-process margin is below P_TOKEN_MARGIN, its cache shard against
+   the block of the one-process cache its spec cuts (``_p_caches``), the
+   ranks' bytes/token shares summing to the one-process figure; each
+   rank's launches of #1 or #3, #4 and #6, prefill ms, decode ms a token,
+   share of host time in collectives and peak memory.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -3680,8 +3698,8 @@ ZOO_PARAMS = {
     # tests/test_torch_zoo_rest.py
     "m1": 15_797_366_784,
     "m2": 1_837_254_144,
-    "m3": 209_913_088,
-    "m4": 931_210_752,
+    "m3": 130_700_416,
+    "m4": 478_189_056,
     "m5a": 793_408,
     "m5b": 1_480_872,
 }
@@ -3721,18 +3739,18 @@ MOE_FLIP_MARGIN = 0.25
 # which moves a logit by up to ~3 and raises the loss at the second step;
 # 1e-4 moves it by ~0.3, and the full-width runs of phase 12 take it too.
 # (m3) mamba2-370m and (m4) musicgen-medium (with its conditioning prefix)
-# at full width, cut to 24 of their 48 layers so that the script keeps
-# within its time with phase 13 added (PR 24 trained all 48: the checks
-# are the same, their bits and parameters the JAX package's for the cut,
-# tests/test_torch_zoo_rest.py); (m5a) deepseek-v3-671b and (m5b) jamba-v0.1-52b
+# at full width, cut to 12 of their 48 layers so that the script keeps
+# within its time with phases 13 and 15 added (PR 24 trained all 48, PRs
+# 25-26 24: the checks are the same, their bits and parameters the JAX
+# package's for the cut, tests/test_torch_zoo_rest.py); (m5a) deepseek-v3-671b and (m5b) jamba-v0.1-52b
 # at smoke widths: one MLA layer with deepseek's 129,280-token embedding,
 # head and MTP head is ~3.1 B parameters, ~93 GB to train at (l5)'s ~30
 # bytes a parameter, and jamba's smallest full-width unit (a period) 13.3 B.
-ZOO_CUT24 = {"repeats": 24}
+ZOO_CUT12 = {"repeats": 12}
 ZOO_TRAIN = {
     "l5": ("mixtral-8x7b", {"repeats": 1}, False, ((2, 1), 4, 512), 1e-4, 2_626_336, 1),
-    "m3": ("mamba2-370m", ZOO_CUT24, False, ((4, 1), 8, 512), 1e-4, 3_545_440, 1),
-    "m4": ("musicgen-medium", ZOO_CUT24, False, ((2, 1), 4, 512), 1e-4, 7_539_424, 1),
+    "m3": ("mamba2-370m", ZOO_CUT12, False, ((4, 1), 8, 512), 1e-4, 1_982_176, 1),
+    "m4": ("musicgen-medium", ZOO_CUT12, False, ((2, 1), 4, 512), 1e-4, 3_847_648, 1),
     "m5a": ("deepseek-v3-671b", {}, True, ((2, 1), 4, 64), 1e-3, 122_112, 0),
     "m5b": ("jamba-v0.1-52b", {}, True, ((2, 1), 4, 64), 1e-3, 144_992, 0),
 }
@@ -3768,7 +3786,7 @@ def phase_zoo_rest(card):
     deepseek-v3-671b (MLA with its latent cache, 256 experts) and (m2)
     musicgen-medium (codebook heads after the conditioning prefix) served
     at full width; (m3) mamba2-370m and (m4) musicgen-medium trained at
-    full width on 24 of their 48 layers, (m5) deepseek-v3-671b and
+    full width on 12 of their 48 layers, (m5) deepseek-v3-671b and
     jamba-v0.1-52b at smoke widths, through the LQ-SGD sync. Deterministic
     algorithms are on for the training comparisons, as in (l5). Each model
     is freed before the next is built."""
@@ -4936,6 +4954,457 @@ def _dist_codecs_run(card, run, ranks, run_s, spawn_s):
     return launches
 
 
+# ------------------------------------------------ phase 15 (p): tensor parallel
+# run -> (arch, mesh, cache bits): each one torchrun of data x model gloo
+# ranks sharing the card, launch/serve.py at full width, batch 4, prompt
+# 1024, 32 new tokens, against the one-process launcher in this process
+P_RUNS = {
+    "p1": ("gemma3-1b", "1x2", 8),  # the sequence-sharded cache
+    "p2": ("gemma3-1b", "2x2", 4),  # the batch over data
+    "p3": ("mistral-nemo-12b", "1x2", 8),  # the head-sharded cache
+}
+P_ARGS = ["--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN)]
+P_RANK_ARGS = ["--dist-backend", "gloo", "--device", "cuda:0"]
+# Tensor-parallel vs one process, both bf16: a row-parallel product's ranks
+# each round their partial to bf16 before the f32 sum, where one process
+# rounds the whole sum once, so every layer's output moves by ~2^-8 and the
+# difference is carried through the later layers. Prefill and
+# teacher-forced decode logits are held to LOGITS_REL_TOL, as phase 4 holds
+# the kernel path to reference mode; a free-running greedy token may then
+# differ only where the one-process top-2 margin is below what that bound
+# allows, P_TOKEN_MARGIN of the row's largest |logit| (twice the bound);
+# the row is compared no further after its first such difference.
+P_TOKEN_MARGIN = 2 * LOGITS_REL_TOL
+
+
+def _p_world(mesh):
+    data, model = (int(x) for x in mesh.split("x"))
+    return data * model
+
+
+def _p_teacher(cfg, params, prompt, bits, tokens, shard=None):
+    """A fresh prefill of ``prompt``, then ``GEN`` decode steps fed
+    ``tokens`` (B, GEN), eager: the logits of every step, (B, GEN, V), and
+    the caches on the host (:func:`_p_cache`), which the one-process run
+    and the ranks fill from the same tokens, so they compare even where
+    the free-running tokens part."""
+    from repro_torch.serving.engine import build_decode_step, build_prefill_step
+    from repro_torch.serving.kv_cache import CacheQuantConfig
+
+    qcfg = CacheQuantConfig(bits=bits)
+    pre = build_prefill_step(cfg, PROMPT + GEN, qcfg=qcfg, shard=shard)
+    dec = build_decode_step(cfg, shard)
+    _, caches = pre(params, prompt)
+    steps = [
+        dec(params, caches, tokens[:, i : i + 1], PROMPT + i)[0] for i in range(GEN)
+    ]
+    return torch.cat(steps, dim=1), _p_cache(caches)
+
+
+def _p_cache(caches):
+    from repro_torch.serving.kv_cache import QuantKV, tree_leaves
+
+    return [
+        (path, leaf.codes.cpu(), leaf.scale.cpu())
+        for path, leaf in tree_leaves(caches)
+        if isinstance(leaf, QuantKV)
+    ]
+
+
+def tp_rank_main(out_dir, run):
+    """One rank of a phase (p) torchrun: ``launch/serve.py``'s ``main`` over
+    the mesh of ``run`` with the launch counts and the peak memory at 0
+    first, then the teacher-forced decode on the one-process tokens
+    (``out_dir/tokens.pt``); writes ``out_dir/rank<r>.pt``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import init_distributed
+
+    arch, mesh, bits = P_RUNS[run]
+    init_distributed("gloo", "cuda:0")
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        argv = ["--arch", arch, "--cache-bits", str(bits), *P_ARGS, "--mesh", mesh]
+        out = serve.main(argv + P_RANK_ARGS)
+        launches = ops.launch_counts()
+        shard = out["shard"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = shard.rows()
+        tokens = torch.load(Path(out_dir, "tokens.pt"))[rows].cuda()
+        cfg = get_config(arch)
+        teacher, caches = _p_teacher(
+            cfg, out["params"], out["prompt"], bits, tokens, shard
+        )
+        res = dict(
+            rows=(rows.start, rows.stop),
+            sizes=shard.mesh.sizes,
+            coords=shard.mesh.coords,
+            cache_specs=shard.cache_specs,
+            seq_shards=shard.seq_shards(),
+            logits=out["logits"].cpu(),
+            tokens=out["tokens"].cpu(),
+            teacher=teacher.cpu(),
+            caches=caches,
+            bytes=out["bytes_per_token"],
+            bytes_accounted=out["bytes_per_token_accounted"],
+            prefill_s=out["prefill_s"],
+            decode_s=out["decode_s"],
+            collective_s=out["collective_s"],
+            collectives=shard.axis.comm.stats(),
+            seq_collectives=(
+                shard.axis.seq.stats()["calls"]
+                if shard.axis.seq is not shard.axis.comm
+                else "the model group's"
+            ),
+            launches=launches,
+            peak_gb=peak_gb,
+        )
+        rank = shard.mesh.rank
+        torch.save(res, Path(out_dir, f"rank{rank}.pt"))
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _p_kernels(gen):
+    """#1, #3, #4 and #6 at the ranks' shapes against their plain versions,
+    with times (graph replays), bounds and SDPA's time for #6."""
+    from repro_torch.core.codec import unpack_nibbles
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.log_dequant_rows import log_dequantize_rows_cuda
+    from repro_torch.kernels.log_quant import (
+        log_quantize_pack_triton,
+        log_quantize_triton,
+    )
+
+    half = (PROMPT + GEN) // 2
+    print("kernels at the tensor-parallel ranks' shapes")
+    encodes = (
+        ("log_quantize", 8, log_quantize_triton, ref.log_quantize_ref, (4,)),
+        ("log_quantize_pack", 4, log_quantize_pack_triton, ref.log_quantize_pack_ref, (2,)),
+    )  # fmt: skip
+    for name, bits, kernel, plain, batches in encodes:
+        for b in batches:
+            for where, shape in (
+                (f"p scan leaf b{b}", (REPEATS, b, 1, half, 256)),
+                (f"p decode append b{b}", (b, 1, 1, 256)),
+            ):
+                xn, _ = _rows(gen, shape)
+                n = xn.numel()
+                got, want = kernel(xn, 1.0, bits=bits), plain(xn, 1.0, bits, 10.0)
+                if bits <= 4:
+                    got, want = unpack_nibbles(got, n), unpack_nibbles(want, n)
+                _code_flips(
+                    got.reshape(-1),
+                    want.reshape(-1),
+                    _near_half(xn, bits).reshape(-1),
+                    f"{name} b={bits} {where} {shape}",
+                )
+                b_ms, b_by = bound_ms(n * 4 + n * bits // 8, n * QUANT_OPS, "f32")
+                ms = cuda_ms(lambda: kernel(xn, 1.0, bits=bits), 50)
+                pl = cuda_ms(lambda: plain(xn, 1.0, bits, 10.0), 20)
+                print(f"    {ms:.5f} ms, bound {b_ms:.5f} ({b_by}), plain {pl:.5f}")
+                emit({"kernel": name, "tp": where, "shape": list(shape), "ms": ms,
+                      "bound_ms": b_ms, "plain_ms": pl})  # fmt: skip
+    # #4 over a rank's K or V of one layer: (p1) 4 x 528 rows of 256 B,
+    # (p2) 2 x 528 of 128 B (q4), (p3) 4 x 4 heads x 1056 of 128 B
+    for where, rows, d, bits in (
+        ("p1", 4 * half, 256, 8),
+        ("p2", 2 * half, 256, 4),
+        ("p3", 4 * 4 * (PROMPT + GEN), 128, 8),
+    ):
+        nb = d * bits // 8
+        c = torch.randint(-128, 128, (rows, nb), generator=gen, device="cuda")
+        c = c.to(torch.int8)
+        sc = torch.rand((rows, 1), generator=gen, device="cuda")
+        got = log_dequantize_rows_cuda(c, sc, bits=bits)
+        want = ref.log_dequantize_rows_ref(c, sc, bits, 10.0)
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).masked_fill(
+            want == 0, 0
+        )
+        check(float(rel.max()) <= 1e-6, f"dequant {where}: rel {float(rel.max())}")
+        b_ms, b_by = bound_ms(rows * (nb + 4 + d * 4), rows * d * DEQUANT_OPS, "f32")
+        ms = cuda_ms(lambda: log_dequantize_rows_cuda(c, sc, bits=bits), 50)
+        pl = cuda_ms(lambda: ref.log_dequantize_rows_ref(c, sc, bits, 10.0), 20)
+        print(
+            f"  log_dequantize_rows {where} ({rows} rows of {nb} B): max rel "
+            f"{float(rel.max()):.2e}; {ms:.5f} ms, bound {b_ms:.5f} ({b_by}), "
+            f"plain {pl:.5f}"
+        )
+        emit({"kernel": "log_dequantize_rows", "tp": where, "rows": rows, "ms": ms,
+              "bound_ms": b_ms, "plain_ms": pl})  # fmt: skip
+    # #6 on a rank's heads: (p1) 2 of gemma3-1b's 4 Q heads over its 1 KV
+    # head, window None and 512; (p2) the same at 2 rows; (p3) 16 of
+    # mistral-nemo-12b's 32 over 4 of its 8 KV heads
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for where, b, hq, hkv, hd, window in (
+        ("p1", 4, 2, 1, 256, None),
+        ("p1 window", 4, 2, 1, 256, 512),
+        ("p2", 2, 2, 1, 256, None),
+        ("p3", 4, 16, 4, 128, None),
+    ):
+        q, k, v = (
+            torch.randn((b, h, PROMPT, hd), generator=gen, device="cuda").bfloat16()
+            for h in (hq, hkv, hkv)
+        )
+        got = flash_attention_cuda(q, k, v, window=window)
+        want = ref.attention_ref(q.float(), k.float(), v.float(), window=window)
+        e = float((got.float() - want).abs().max())
+        check(e <= 2e-2, f"flash_attention {where}: max err {e}")
+        i = torch.arange(PROMPT, device="cuda")
+        mask = i[None, :] <= i[:, None]
+        if window is not None:
+            mask &= i[None, :] > i[:, None] - window
+        pairs = int(mask.sum()) * b * hq
+        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound_ms(n_bytes, 4 * hd * pairs, "bf16")
+        ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, window=window), 10)
+        pl = cuda_ms(lambda: ref.attention_ref(q, k, v, window=window), 5)
+        lib = cuda_ms(
+            lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), 10
+        )
+        print(
+            f"  flash_attention {where} q {list(q.shape)} k/v {list(k.shape)}: max "
+            f"abs err {e:.2e}; {ms:.4f} ms, bound {b_ms:.4f} ({b_by}), plain "
+            f"{pl:.4f}, SDPA {lib:.4f}"
+        )
+        emit({"kernel": "flash_attention", "tp": where, "shape": list(q.shape),
+              "ms": ms, "bound_ms": b_ms, "plain_ms": pl, "library_ms": lib})  # fmt: skip
+        del q, k, v, want, got
+
+
+def phase_tp(card):
+    """(p) tensor-parallel serving: launch/serve.py over gloo ranks sharing
+    the card against the one-process launcher, run by run."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    _p_kernels(gen)
+    del gen
+    total = {}
+    for run in P_RUNS:
+        for name, c in _p_run(card, run).items():
+            total[name] = total.get(name, 0) + c
+    return total
+
+
+def _p_one_process(run, out_dir):
+    """``run``'s launcher in this process (graphed decode), then the
+    teacher-forced decode on its own tokens: everything on the host, the
+    tokens written to ``out_dir/tokens.pt`` for the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    arch, _, bits = P_RUNS[run]
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", arch, "--cache-bits", str(bits), *P_ARGS, "--device", "cuda"]
+    out = serve.main(argv)
+    cfg = get_config(arch)
+    teacher, caches = _p_teacher(
+        cfg, out["params"], out["prompt"], bits, out["tokens"]
+    )
+    one = dict(
+        logits=out["logits"].cpu(),
+        tokens=out["tokens"].cpu(),
+        teacher=teacher.cpu(),
+        caches=caches,
+        bytes=out["bytes_per_token"],
+        bytes_accounted=out["bytes_per_token_accounted"],
+        prefill_s=out["prefill_s"],
+        decode_s=out["decode_s"],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    torch.save(one["tokens"], Path(out_dir, "tokens.pt"))
+    del out, teacher
+    _free_cuda()
+    return one
+
+
+def _p_logits(label, got, want):
+    """``got`` within LOGITS_REL_TOL of the largest |logit| of ``want``,
+    and the same argmax in every row whose margin exceeds twice the row's
+    difference; returns the relative difference."""
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{label}: non-finite logits")
+    diff = (g - w).abs()
+    rel = float(diff.max()) / float(w.abs().max())
+    check(rel <= LOGITS_REL_TOL, f"{label}: logits vs one process rel {rel:.3e}")
+    top2 = w.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * diff.amax(-1)
+    agree = g.argmax(-1) == w.argmax(-1)
+    check(bool((agree | ~decided).all()), f"{label}: argmax differs past its margin")
+    return rel, int(agree.sum()), agree.numel()
+
+
+def _p_tokens(label, got, want, prefill, teacher):
+    """Free-running greedy tokens: equal, but a row may differ where the
+    one-process top-2 margin (of its prefill logits for token 0, of its
+    teacher-forced logits for the rest: the logits that chose ``want``) is
+    below P_TOKEN_MARGIN of the row's largest |logit|; such a row is
+    compared no further. Returns the differences (row, step, margin)."""
+    w = torch.cat([prefill, teacher[:, : want.shape[1] - 1]], dim=1).float()
+    top2 = w.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]) / w.abs().amax(-1)
+    found = []
+    for r in range(want.shape[0]):
+        for i in range(want.shape[1]):
+            if int(got[r, i]) != int(want[r, i]):
+                m = float(margin[r, i])
+                check(m < P_TOKEN_MARGIN, f"{label}: row {r} step {i} at margin {m}")
+                found.append((r, i, m))
+                break
+    return found
+
+
+def _p_caches(who, res, one, bits):
+    """A rank's teacher-forced cache shard against the block its spec cuts
+    from the one-process run's (both fed the same tokens). Deep layers
+    drift: a bf16 model at seeded init carries a last-bit difference of
+    one layer's sum through every later layer, as the kernel path against
+    reference mode does (~2% of the logits at 26 layers, phase 4), and a
+    log-quant code near 0 is ~500 steps per unit of the row's scale, so a
+    small value moves by several codes. So: the first layer's codes, whose
+    inputs differ by the embedding's exact sum at most, equal but for
+    one-step flips; every layer's dequantized values within LOGITS_REL_TOL
+    of its largest |value|, as the logits, plus one code step there (the
+    two runs' values may round to neighbouring codes: (1 + alpha)^(1/L) - 1
+    of a value, L = 2^(b-1) - 1 levels; 1.9% at b = 8, 41% at b = 4).
+    Prints each layer's share of codes moved. Returns (codes moved by one,
+    by two or more)."""
+    from repro_torch.core.codec import unpack_nibbles
+    from repro_torch.launch.sharding import cut
+    from repro_torch.serving.kv_cache import QuantKV, dequantize_kv, tree_leaves
+
+    specs = {path: s for path, s in tree_leaves(res["cache_specs"])}
+    flips = moved2 = 0
+    shares, worst = [], 0.0
+    bound = LOGITS_REL_TOL + (1 + ALPHA) ** (1 / ((1 << (bits - 1)) - 1)) - 1
+    for (path, codes, scale), (p2, w_codes, w_scale) in zip(
+        res["caches"], one["caches"], strict=True
+    ):
+        check(path == p2, f"{who}: cache leaves {path} / {p2}")
+        spec = specs[path]
+        w_codes = cut(w_codes, spec, res["sizes"], res["coords"])
+        w_scale = cut(w_scale, spec, res["sizes"], res["coords"])
+        check(codes.shape == w_codes.shape, f"{who}: cache shape at {path}")
+        stacked = path[0] == "scan"
+        for r in range(codes.shape[0] if stacked else 1):
+            pick = (lambda t: t[r]) if stacked else (lambda t: t)
+            a, b = pick(codes), pick(w_codes)
+            d = a.shape[-1] * (2 if bits <= 4 else 1)
+            deq = [
+                dequantize_kv(QuantKV(c.cuda(), sc.cuda(), bits, ALPHA, d))
+                for c, sc in ((a, pick(scale)), (b, pick(w_scale)))
+            ]
+            rel = float((deq[0] - deq[1]).abs().max() / deq[1].abs().max())
+            worst = max(worst, rel)
+            check(rel <= bound, f"{who}: cache {path}[{r}] values rel {rel}")
+            if bits <= 4:
+                a, b = unpack_nibbles(a, d), unpack_nibbles(b, d)
+            diff = (a.int() - b.int()).abs()
+            one_step, more = int((diff == 1).sum()), int((diff > 1).sum())
+            if path[:-1] == res["caches"][0][0][:-1] and r == 0:
+                check(more == 0, f"{who}: the first layer's {path} moved {more} by 2+")
+            flips, moved2 = flips + one_step, moved2 + more
+            where = "/".join(str(x) for x in path) + (f"[{r}]" if stacked else "")
+            shares.append(f"{where} {(one_step + more) / diff.numel():.3f}")
+    print(
+        f"  {who}: teacher-forced caches: dequantized values rel <= {worst:.3e} "
+        f"(bound {bound:.3e}); "
+        f"share of codes moved by leaf {' '.join(shares)}"
+    )
+    return flips, moved2
+
+
+def _p_run(card, run):
+    arch, mesh, bits = P_RUNS[run]
+    world = _p_world(mesh)
+    label = f"({run}) {arch} {mesh} q{bits}"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        one = _p_one_process(run, tmp)
+        one_s = time.perf_counter() - t0
+        args = [str(ROOT / "chip_smoke.py"), "--tp-rank", tmp, run]
+        _, spawn_s = _torchrun(f"({run})", world, args, script=True)
+        ranks = [
+            torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)
+        ]
+    print(
+        f"{label}: one process {one_s:.1f} s (prefill {one['prefill_s'] * 1e3:.1f} "
+        f"ms, decode {one['decode_s'] * 1e3 / (GEN - 1):.2f} ms/token graphed, peak "
+        f"{one['peak_gb']:.2f} GB); torchrun of {world} gloo ranks {spawn_s:.1f} s"
+    )
+    flips_total, moved_total, diffs = 0, 0, []
+    for res in ranks:
+        r = res["coords"]
+        rows = slice(*res["rows"])
+        who = f"{label} rank (d{r['data']}, m{r['model']})"
+        rel, agree, n = _p_logits(f"{who} prefill", res["logits"], one["logits"][rows])
+        t_rel = max(
+            _p_logits(f"{who} teacher step {i}", res["teacher"][:, i],
+                      one["teacher"][rows, i])[0]
+            for i in range(GEN)
+        )  # fmt: skip
+        diffs += [
+            (r, *d)
+            for d in _p_tokens(
+                who,
+                res["tokens"],
+                one["tokens"][rows],
+                one["logits"][rows],
+                one["teacher"][rows],
+            )
+        ]
+        flips, moved2 = _p_caches(who, res, one, bits)
+        flips_total += flips
+        moved_total += moved2
+        total_s = res["prefill_s"] + res["decode_s"]
+        print(
+            f"  {who}: prefill logits rel {rel:.3e} (argmax {agree}/{n}), teacher-"
+            f"forced {GEN} steps rel <= {t_rel:.3e}, cache codes {flips} one-step "
+            f"flip(s) and {moved2} by 2+; prefill {res['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{res['decode_s'] * 1e3 / (GEN - 1):.2f} ms/token eager, collectives "
+            f"{res['collective_s']:.3f} s = {res['collective_s'] / total_s:.1%} "
+            f"(host clock), peak {res['peak_gb']:.2f} GB; {card}"
+        )
+        calls = res["collectives"]["calls"]
+        print(
+            f"    collectives by tag: model group {calls}, sequence group "
+            f"{res['seq_collectives']}"
+        )
+    for key in ("bytes", "bytes_accounted"):
+        total = sum(res[key] for res in ranks)
+        check(
+            abs(total - one[key]) <= 1e-9 * one[key],
+            f"{label}: summed {key} {total} vs one process {one[key]}",
+        )
+    print(
+        f"  {label}: bytes/token summed over ranks {sum(r['bytes'] for r in ranks)} "
+        f"= one process {one['bytes']}; cache codes moved by one {flips_total}, "
+        f"by 2+ {moved_total}; greedy "
+        f"differences (rank, row, step, one-process margin) {diffs}"
+    )
+    emit({"phase": "p", "run": run, "card": card, "cache_flips": flips_total,
+          "cache_moved_2": moved_total,
+          "token_differences": diffs, "spawn_s": spawn_s, "one_s": one_s,
+          "ranks": [{k: res[k] for k in ("coords", "prefill_s", "decode_s",
+                     "collective_s", "peak_gb", "bytes")} for res in ranks]})  # fmt: skip
+    counts = {}
+    for res in ranks:
+        for name, c in res["launches"].items():
+            counts[name] = counts.get(name, 0) + c
+    encode = "log_quantize" if bits == 8 else "log_quantize_pack"
+    for name in (encode, "log_dequantize_rows", "flash_attention"):
+        for res in ranks:
+            check(res["launches"].get(name, 0) > 0, f"{label}: {name} not launched")
+    print(f"  {label}: the ranks' launches {counts}")
+    return counts
+
+
 KERNEL_INFO = {
     "log_quantize": (
         "triton",
@@ -4988,6 +5457,11 @@ def main():
     t = time.perf_counter()
     codec_launches = phase_dist_codecs(card)
     seconds["dist_codecs"] = time.perf_counter() - t
+    # (p) next, for the same reason: (p3)'s ranks hold 12 B parameters
+    t = time.perf_counter()
+    for name, c in phase_tp(card).items():
+        codec_launches[name] = codec_launches.get(name, 0) + c
+    seconds["tp"] = time.perf_counter() - t
     t = time.perf_counter()
     launches = phase_serve(card, gen)
     seconds["serve"] = time.perf_counter() - t
@@ -5042,5 +5516,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ranks"]:  # one rank of phase (o)'s torchrun
         rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--tp-rank"]:  # one rank of a phase (p) torchrun
+        tp_rank_main(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -20,6 +20,11 @@ Both reduce and gather the same way:
 * ``all_gather`` returns the stacked (N, ...) tensor in global worker
   order, which is what every worker holds after the gather.
 
+A tensor-parallel forward's collectives go over :class:`ModelComm`: the
+row-parallel products' all-reduce and the gathers of heads, vocab and
+attention partials within one axis group of a ``(data, model)`` mesh;
+:class:`ModelAxis` is what the sharded forward threads through its layers.
+
 Byte accounting is static (plain Python ints from shapes), as in the JAX
 package, so tables never need device work; only a lazily aggregated
 group's payload is charged through a gate on the device. The accounting is
@@ -36,7 +41,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-__all__ = ["CommRecord", "SimComm", "DistComm"]
+__all__ = ["CommRecord", "SimComm", "DistComm", "ModelComm", "ModelAxis"]
 
 
 @dataclasses.dataclass
@@ -324,3 +329,114 @@ class DistComm(_Comm):
 
     def barrier(self) -> None:
         self._call(dist.barrier)
+
+
+class ModelComm:
+    """The collectives of a tensor-parallel forward over one process group
+    of ``size`` ranks (this rank ``rank`` within it): the model axis, or the
+    group a KV cache's sequence is split over. Over a group of one every
+    operation is the identity and nothing is recorded.
+
+    * ``all_reduce(x, tag)``: the sum of the ranks' ``x``, cast to f32,
+      summed, cast back once (so gloo never sees bf16);
+    * ``row_parallel(x, w, tag)``: a product whose weight is split by rows,
+      its partial kept in f32 through the all-reduce;
+    * ``all_gather(x, dim, tag)``: the ranks' blocks concatenated along
+      ``dim`` in rank order.
+
+    Only ``all_reduce`` and the list ``all_gather`` are used: what gloo
+    takes on CUDA tensors in PyTorch 2.11 and 2.13. Over NCCL they can be
+    captured into a CUDA graph once the group's communicator exists (after
+    its first collective, which a step graph's eager warm-up makes). Each
+    call adds its bytes to ``bytes_by_tag`` and its count to
+    ``calls_by_tag`` under its tag (``tp.attn.wo``, ``tp.mlp.down``,
+    ``tp.embed``, ``tp.head``, ...), on the host as it is made: a graph's
+    capture counts once and its replays do not; ``host_s`` sums the host
+    seconds inside the calls (the whole collective over gloo, the enqueue
+    over NCCL)."""
+
+    def __init__(self, group: Any = None, size: int = 1, rank: int = 0):
+        if size > 1 and not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("a ModelComm of several ranks needs a process group")
+        self.group, self.size, self.rank = group, size, rank
+        self.backend = str(dist.get_backend(group)) if size > 1 else None
+        self.bytes_by_tag: dict[str, int] = {}
+        self.calls_by_tag: dict[str, int] = {}
+        self.host_s = 0.0
+
+    def __repr__(self) -> str:
+        return f"ModelComm(backend={self.backend}, size={self.size}, rank={self.rank})"
+
+    def _note(self, tag: str, x: torch.Tensor, t0: float) -> None:
+        self.host_s += time.perf_counter() - t0
+        self.bytes_by_tag[tag] = self.bytes_by_tag.get(tag, 0) + (
+            x.numel() * x.element_size()
+        )
+        self.calls_by_tag[tag] = self.calls_by_tag.get(tag, 0) + 1
+
+    def all_reduce(self, x: torch.Tensor, tag: str) -> torch.Tensor:
+        """The sum over the group of every rank's ``x``, in f32, returned in
+        ``x``'s dtype (``x`` itself is left as it was)."""
+        if self.size == 1:
+            return x
+        y = x.to(torch.float32, copy=True).contiguous()
+        t0 = time.perf_counter()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.group)
+        self._note(tag, y, t0)
+        return y.to(x.dtype)
+
+    def row_parallel(self, x: torch.Tensor, w: torch.Tensor, tag: str) -> torch.Tensor:
+        """``x @ w`` for a ``w`` split by rows over the group (``x`` split by
+        its last dim alike): this rank's partial product kept in f32 (on the
+        card a bf16 product's f32 accumulator, ``out_dtype``), summed over
+        the group in f32 and rounded to ``x``'s dtype once, as one process
+        rounds the whole product once."""
+        if x.dtype == torch.float32:
+            partial = x @ w
+        elif x.is_cuda:
+            flat = x.reshape(-1, x.shape[-1])
+            partial = torch.mm(flat, w, out_dtype=torch.float32)
+            partial = partial.reshape(x.shape[:-1] + (w.shape[-1],))
+        else:
+            partial = x.float() @ w.float()
+        return self.all_reduce(partial, tag).to(x.dtype)
+
+    def all_gather(self, x: torch.Tensor, dim: int, tag: str) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+        if self.size == 1:
+            return x
+        out = torch.empty((self.size,) + x.shape, dtype=x.dtype, device=x.device)
+        t0 = time.perf_counter()
+        dist.all_gather(list(out.unbind(0)), x.contiguous(), group=self.group)
+        self._note(tag, out, t0)
+        return torch.cat(out.unbind(0), dim=dim)
+
+    def stats(self) -> dict[str, Any]:
+        """Calls, bytes and host seconds so far (every tag's)."""
+        return {
+            "calls": dict(self.calls_by_tag),
+            "bytes": dict(self.bytes_by_tag),
+            "host_s": self.host_s,
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """What a tensor-parallel forward threads through its layers: the
+    model-axis comm, the comm of the group the KV cache's sequence is split
+    over (a group of one where the cache splits by heads or not at all), and
+    the serving tree's parameter specs (``launch/sharding.py``), from which
+    each layer reads which of its products split by rows and so end in an
+    all-reduce. ``gloo``: the collectives run from the host, so a decode
+    over them cannot be one CUDA graph."""
+
+    comm: ModelComm
+    seq: ModelComm
+    specs: Any
+
+    @property
+    def gloo(self) -> bool:
+        return "gloo" in (self.comm.backend, self.seq.backend)
+
+    def collective_host_s(self) -> float:
+        return self.comm.host_s + (self.seq.host_s if self.seq is not self.comm else 0)

@@ -13,14 +13,21 @@ process holds all of them (``SimComm``), as before.
     python -m torch.distributed.run --nproc-per-node 2 \\
         -m repro_torch.launch.train --mesh 4x1 ...
 
-Tensor parallelism (a model axis above 1), the production mesh and the
-multi-pod mesh are not ported (ROADMAP Queue 1, item 15, its later steps).
+A model axis above 1 spans ``data x model`` ranks, rank ``d * model + m``
+holding coordinate (d, m): the model axis is minor, as ``jax.make_mesh``
+orders devices. Every rank makes the model-axis groups (the ranks of one
+d) and the data-axis groups (those of one m) in one fixed order, and the
+mesh keeps its own two. Serving takes such a mesh (the dense attention +
+MLP architectures, the fixed scheduler: ``launch/serve.py``); the rest of
+serving at a model axis above 1 is :data:`LATER_STEPS`, tensor-parallel
+training :data:`TP_TRAINING`, and the production mesh item 17.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -34,9 +41,16 @@ __all__ = [
     "make_mesh",
     "make_comm",
     "make_production_mesh",
+    "LATER_STEPS",
+    "TP_TRAINING",
 ]
 
-LATER_STEPS = "ROADMAP Queue 1, item 15, its later steps"
+# what a model axis above 1 does not run yet: MoE, MLA, Mamba-2, codebooks
+# and the conditioning prefix, and the continuous scheduler (serving), and
+# training
+LATER_STEPS = "ROADMAP Queue 1, item 15 B, step 2"
+TP_TRAINING = "ROADMAP Queue 1, item 15 B, step 3"
+PRODUCTION_MESH = "ROADMAP Queue 1, item 17"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,10 +66,25 @@ class DataMesh:
     local: int
     device: torch.device
     backend: str | None
+    # this rank's (data, model) coordinates (at a model axis of 1 its index
+    # among the ranks) and, above 1, the process groups of its model-axis
+    # and data-axis neighbours
+    data_index: int = 0
+    model_index: int = 0
+    model_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    data_group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> tuple[int, int]:
         return (self.data, self.model)
+
+    @property
+    def sizes(self) -> dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def coords(self) -> dict[str, int]:
+        return {"data": self.data_index, "model": self.model_index}
 
     @property
     def distributed(self) -> bool:
@@ -127,19 +156,47 @@ def make_mesh(
     shape: tuple[int, int], device: torch.device | str = "cuda"
 ) -> DataMesh:
     """The ``(data, model)`` mesh over the process group (one process where
-    there is none). Raises unless ``data`` divides over the ranks and
-    ``model`` is 1."""
+    there is none). At a model axis of 1 each rank holds ``data / world``
+    of the data axis's workers, which ``world`` must divide. Above 1 the
+    mesh must cover the world exactly (``data * model`` ranks, one worker
+    a rank), and every rank makes the model-axis and data-axis groups."""
     data, model = shape
-    if model != 1:
-        raise NotImplementedError(
-            f"a model axis of {model}: tensor parallelism is not ported yet "
-            f"({LATER_STEPS})"
-        )
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
         backend = str(dist.get_backend())
     else:
         world, rank, backend = 1, 0, None
+    if model < 1:
+        raise ValueError(f"a model axis of {model}")
+    if model > 1:
+        if data < 1 or data * model != world:
+            raise ValueError(
+                f"a {data}x{model} mesh over {world} rank(s): a model axis "
+                "above 1 takes data x model ranks, one a coordinate"
+            )
+        model_group = data_group = None
+        # every rank creates every group, in this order
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            if d == rank // model:
+                model_group = g
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)])
+            if m == rank % model:
+                data_group = g
+        return DataMesh(
+            data=data,
+            model=model,
+            world=world,
+            rank=rank,
+            local=1,
+            device=_rank_device(device, backend),
+            backend=backend,
+            data_index=rank // model,
+            model_index=rank % model,
+            model_group=model_group,
+            data_group=data_group,
+        )
     if data < 1 or data % world:
         raise ValueError(
             f"a data axis of {data} over {world} ranks: each rank holds "
@@ -153,6 +210,7 @@ def make_mesh(
         local=data // world,
         device=_rank_device(device, backend),
         backend=backend,
+        data_index=rank,
     )
 
 
@@ -166,8 +224,8 @@ def make_comm(mesh: DataMesh, *, record: bool = False) -> SimComm | DistComm:
 
 def make_production_mesh(*, multi_pod: bool = False) -> DataMesh:
     """The JAX package's TPU production mesh (16 x 16 data x model, x 2
-    pods): not ported."""
+    pods), which it builds for its dry run: not ported."""
     raise NotImplementedError(
-        f"the production{' multi-pod' * multi_pod} mesh (data x model, "
-        f"tensor-parallel sharding) is not ported yet ({LATER_STEPS})"
+        f"the production{' multi-pod' * multi_pod} mesh is not ported yet "
+        f"({PRODUCTION_MESH}: the dry run's H100 mesh)"
     )

@@ -25,19 +25,46 @@ CPU the steps run eagerly. :func:`run_fixed` and :func:`run_continuous` are
 the two paths as functions, for callers that bring their own weights and
 prompts; their ``graph=False`` gives the eager decode on the card, for
 comparisons.
+
+Tensor-parallel serving over a ``(data, model)`` mesh of processes:
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.serve --arch gemma3-1b --mesh 1x2 ...
+
+``--mesh DxM`` spans D x M ranks (rank d * M + m); under torchrun without
+``--mesh`` the mesh is (1, world), every rank on the model axis, the JAX
+launcher's default. Each rank draws the seeded init and keeps its shards
+(``weights.init_sharded_params``), takes its data group's rows of the
+batch (``launch/sharding.py:batch_spec``) and holds its shard of the cache
+(``serving/engine.py:cache_specs``); rank 0 prints, the bytes/token its
+share (the ranks' shares sum to the one-process figure). Over gloo (ranks
+sharing a card, or the CPU) the decode runs eagerly, which the launcher
+asks for and prints; over NCCL it replays a graph with the collectives
+captured. The dense attention + MLP architectures and the fixed scheduler
+serve at a model axis above 1; the rest raises (``launch/mesh.py``:
+``LATER_STEPS``), and so does ``--production-mesh`` (item 17).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import time
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import (
+    LATER_STEPS,
+    init_distributed,
+    make_mesh,
+    make_production_mesh,
+)
+from repro_torch.launch.train import parse_mesh
 from repro_torch.models.common import DTYPES, resolve_device
 from repro_torch.models.model import init_params
 from repro_torch.models.multimodal import (
@@ -46,9 +73,11 @@ from repro_torch.models.multimodal import (
     vq_tokens_stub,
 )
 from repro_torch.serving.engine import (
+    ServeShard,
     build_generate_fn,
     build_prefill_step,
     greedy_sample,
+    serve_shard,
 )
 from repro_torch.serving.kv_cache import (
     CacheQuantConfig,
@@ -57,6 +86,7 @@ from repro_torch.serving.kv_cache import (
     tree_is_quantized,
 )
 from repro_torch.serving.scheduler import ContinuousScheduler, Request
+from repro_torch.weights import init_sharded_params
 
 __all__ = ["run_fixed", "run_continuous", "main"]
 
@@ -77,6 +107,7 @@ def run_fixed(
     temperature: float = 0.0,
     graph: bool | None = None,
     cond: torch.Tensor | None = None,
+    shard: ServeShard | None = None,
 ) -> dict[str, Any]:
     """Batched prefill of ``tokens`` (B, L), or (B, L, cb) with codebooks,
     after the conditioning prefix ``cond`` (B, cond_len, d) where given,
@@ -87,13 +118,25 @@ def run_fixed(
     tokens of each row, bytes/token (measured and accounted) and the host
     seconds of prefill and of decode, each ending in a device sync;
     ``decode_s`` includes the graph's capture, whose host seconds
-    ``capture_s`` also gives on their own."""
+    ``capture_s`` also gives on their own.
+
+    ``shard`` (``serving.engine.serve_shard``): this rank's part of a
+    tensor-parallel run, ``params`` its shards and ``tokens`` its rows
+    (``shard.rows()``); the caches are its shard, bytes/token its share,
+    and ``collective_s`` the host seconds inside the model-axis
+    collectives (in prefill and decode together)."""
     device = tokens.device
-    b, prompt_len = tokens.shape[:2]
+    prompt_len = tokens.shape[1]
+    b = shard.batch if shard is not None else tokens.shape[0]
+    copies = shard.copies() if shard is not None else 1
     start = prompt_len + (cond.shape[1] if cond is not None else 0)
     max_seq = start + gen
-    prefill = build_prefill_step(cfg, max_seq, cache_dtype=cache_dtype, qcfg=qcfg)
-    generate = build_generate_fn(cfg, temperature=temperature, graph=graph)
+    prefill = build_prefill_step(
+        cfg, max_seq, cache_dtype=cache_dtype, qcfg=qcfg, shard=shard
+    )
+    generate = build_generate_fn(
+        cfg, temperature=temperature, graph=graph, shard=shard
+    )
     t0 = time.perf_counter()
     logits, caches = prefill(params, tokens, cond)
     _sync(device)
@@ -109,13 +152,16 @@ def run_fixed(
         "logits": logits,
         "caches": caches,
         "tokens": toks,
-        "bytes_per_token": cache_bytes_per_token(caches, b, max_seq),
+        "bytes_per_token": cache_bytes_per_token(caches, b, max_seq, copies),
         "bytes_per_token_accounted": cache_bytes_per_token_accounting(
-            caches, b, max_seq
+            caches, b, max_seq, copies
         ),
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "capture_s": generate.capture_s,
+        "collective_s": (
+            shard.axis.collective_host_s() if shard is not None else 0.0
+        ),
     }
 
 
@@ -195,13 +241,71 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
     ap.add_argument("--scheduler", default="fixed", choices=("fixed", "continuous"))
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument(
+        "--mesh",
+        default=None,
+        help="'DxM': data x model ranks under torchrun (default 1xworld "
+        "there, one process without it)",
+    )
+    ap.add_argument(
+        "--dist-backend",
+        default=None,
+        choices=("nccl", "gloo"),
+        help="under torchrun: the process group's backend (default nccl on "
+        "CUDA, gloo on the CPU)",
+    )
+    ap.add_argument("--production-mesh", action="store_true", help="not ported")
     args = ap.parse_args(argv)
+    if args.production_mesh:
+        make_production_mesh()
+    created = init_distributed(args.dist_backend, args.device)
+    try:
+        if args.dist_backend and not dist.is_initialized():
+            raise ValueError(
+                "--dist-backend needs a process group: run under torchrun "
+                "(python -m torch.distributed.run)"
+            )
+        return _serve(args)
+    finally:
+        if created:
+            # a decode graph that captured NCCL collectives holds its
+            # communicator, whose destruction waits for the graph: free the
+            # graphs (reference cycles) first
+            gc.collect()
+            dist.destroy_process_group()
 
-    device = resolve_device(args.device)
+
+def _serve(args: argparse.Namespace) -> dict[str, Any]:
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    shape = parse_mesh(args.mesh) if args.mesh else (1, world)
+    mesh = make_mesh(shape, args.device)
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    device = resolve_device(mesh.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     cache_dtype = DTYPES[args.cache_dtype]
     qcfg = CacheQuantConfig(bits=args.cache_bits) if args.cache_bits else None
-    params = init_params(cfg, 1, device)
+    shard = graph = None
+    if mesh.distributed or mesh.model > 1:
+        if args.scheduler == "continuous":
+            raise NotImplementedError(
+                "the continuous scheduler across ranks (a model axis above 1 "
+                f"included) is not ported yet ({LATER_STEPS})"
+            )
+        shard = serve_shard(cfg, mesh, args.batch, cache_dtype=cache_dtype)
+        say(
+            f"# mesh: {{'data': {mesh.data}, 'model': {mesh.model}}} over "
+            f"{mesh.world} ranks ({mesh.backend}); {shard.axis.comm!r}, "
+            f"sequence {shard.axis.seq!r}"
+        )
+        if mesh.backend == "gloo":
+            graph = False
+            say(
+                "# decode: eager (graph=False): gloo runs the collectives "
+                "from the host, which a CUDA graph cannot capture"
+            )
+        params = init_sharded_params(cfg, 1, device, shard.param_specs, mesh)
+    else:
+        params = init_params(cfg, 1, device)
 
     if args.scheduler == "continuous":
         n_req = args.requests or 2 * args.batch
@@ -246,6 +350,10 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
     cond = None
     if cfg.cond_len:
         cond = conditioning_stub(tok_gen, args.batch, cfg).to(device)
+    full_shape = tuple(tokens.shape)
+    if shard is not None:
+        tokens = tokens[shard.rows()]
+        cond = cond[shard.rows()] if cond is not None else None
     tokens = tokens.to(device)
     out = run_fixed(
         cfg,
@@ -255,20 +363,32 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         qcfg=qcfg,
         cache_dtype=cache_dtype,
         temperature=args.temperature,
+        graph=graph,
         cond=cond,
+        shard=shard,
     )
-    print(
-        f"prefill {tuple(tokens.shape)} in {out['prefill_s']:.3f}s (cache quantized="
+    share = " (this rank's share)" if shard is not None else ""
+    say(
+        f"prefill {full_shape} in {out['prefill_s']:.3f}s (cache quantized="
         f"{tree_is_quantized(out['caches'])}, {out['bytes_per_token']:.1f} "
-        f"bytes/token) on {device}"
+        f"bytes/token{share}) on {device}"
     )
     dt = out["decode_s"]
-    print(
+    say(
         f"decoded {args.gen} tokens/seq x {args.batch} seqs in {dt:.3f}s "
         f"({args.gen * args.batch / max(dt, 1e-9):.1f} tok/s, capture "
         f"{out['capture_s']:.3f}s)"
     )
-    print("sample token ids:", out["tokens"][0, :16].tolist())
+    if shard is not None:
+        total = out["prefill_s"] + out["decode_s"]
+        say(
+            f"collectives: {out['collective_s']:.3f}s of {total:.3f}s on the "
+            f"host ({out['collective_s'] / max(total, 1e-9):.1%})"
+        )
+    say("sample token ids:", out["tokens"][0, :16].tolist())
+    # for a caller that goes on from this run (a comparison's teacher-forced
+    # decode): the weights, this rank's prompt rows and its shard
+    out.update(params=params, prompt=tokens, shard=shard)
     return out
 
 

@@ -40,8 +40,9 @@ codecs on the LQ-SGD wire (through the composite compressor); the run's
 line then also prints the per-step DP epsilon and its kind. Every
 compressor, codec, policy, schedule, lazy group and wire runs over the
 ranks as in one process. Those of parts not ported raise, naming the
-ROADMAP item that ports them: a model axis above 1, ``--production-mesh``
-and ``--multi-pod`` (item 15). ``--dump DIR`` has each rank write
+ROADMAP item that ports them: a model axis above 1 (item 15 B, step 3,
+tensor-parallel training; ``launch/serve.py`` serves over one), and
+``--production-mesh`` and ``--multi-pod`` (item 17). ``--dump DIR`` has each rank write
 ``DIR/rank<r>.pt`` (the history, every gathered wire array, the
 fingerprints of the final parameters and of this rank's rows of the
 compressor state, its kernel launches, each step's seconds and collective
@@ -70,6 +71,7 @@ from repro_torch.core.policy import format_plan_report, parse_decay_spec
 from repro_torch.data.synthetic import LMDataConfig, cond_batch, lm_batch
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import (
+    TP_TRAINING,
     init_distributed,
     make_comm,
     make_mesh,
@@ -250,7 +252,14 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
 
 
 def _train(args: argparse.Namespace) -> dict[str, Any]:
-    mesh = make_mesh(parse_mesh(args.mesh), args.device)
+    shape = parse_mesh(args.mesh)
+    if shape[1] != 1:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: a model axis above 1 trains only once "
+            f"tensor-parallel training is ported ({TP_TRAINING}); "
+            "launch/serve.py serves over one"
+        )
+    mesh = make_mesh(shape, args.device)
     n_dp, dev = mesh.data, mesh.device
     comm = make_comm(mesh, record=args.dump is not None)
     say = print if is_rank0(comm) else lambda *a, **k: None

@@ -82,14 +82,32 @@ def layer_forward(
     cache: Params | None = None,
     cache_index: int | torch.Tensor | None = None,
     plain_attention: bool = False,
+    tp: Any = None,
+    pspec: Params | None = None,
 ) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
     """Pre-norm residual block. Returns (x, cache, the MoE FFN's
     load-balance loss, or None for a layer without one).
-    ``plain_attention``: see ``models.model.forward``."""
+    ``plain_attention``: see ``models.model.forward``. ``tp`` (a
+    ``core.comm.ModelAxis``) and ``pspec`` (this layer's parameter specs):
+    a rank's part of a tensor-parallel layer, whose products split by rows
+    in ``pspec`` end in the model-axis all-reduce (dense attention + MLP
+    layers only)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if spec.kind == "attn":
-        fwd = mla_forward if cfg.use_mla else attn_forward
-        mix, cache = fwd(
+    if spec.kind == "attn" and not cfg.use_mla:
+        mix, cache = attn_forward(
+            p["mixer"],
+            h,
+            spec,
+            cfg,
+            positions=positions,
+            cache=cache,
+            cache_index=cache_index,
+            plain=plain_attention,
+            tp=tp,
+            pspec=None if pspec is None else pspec["mixer"],
+        )
+    elif spec.kind == "attn":
+        mix, cache = mla_forward(
             p["mixer"],
             h,
             spec,
@@ -110,6 +128,12 @@ def layer_forward(
         if spec.moe:
             y, aux = moe_forward(p["ffn"], h2, cfg, cfg.mlp_act)
         else:
-            y = mlp_forward(p["ffn"], h2, cfg.mlp_act)
+            y = mlp_forward(
+                p["ffn"],
+                h2,
+                cfg.mlp_act,
+                tp=tp,
+                pspec=None if pspec is None else pspec["ffn"],
+            )
         x = x + y
     return x, cache, aux

@@ -1,5 +1,8 @@
 """Dense gated MLP (SwiGLU / GeGLU). Weights keep the JAX layout
-(d_in, d_out) and are applied as ``x @ w``."""
+(d_in, d_out) and are applied as ``x @ w``. Tensor-parallel, a rank holds
+the ``gate`` / ``up`` columns and ``down`` rows its specs give it; a
+``down`` split by rows ends in the model-axis all-reduce of its f32
+partials (``core.comm.ModelComm.row_parallel``)."""
 
 from __future__ import annotations
 
@@ -22,7 +25,16 @@ def init_mlp(gen: torch.Generator, d_in: int, d_ff: int, device) -> Params:
     }
 
 
-def mlp_forward(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp_forward(
+    p: Params,
+    x: torch.Tensor,
+    act: str = "silu",
+    *,
+    tp: Any = None,
+    pspec: Params | None = None,
+) -> torch.Tensor:
     g = act_fn(act)(x @ p["gate"].to(x.dtype))
     u = x @ p["up"].to(x.dtype)
+    if pspec is not None and pspec["down"][0] is not None:
+        return tp.comm.row_parallel(g * u, p["down"].to(x.dtype), "tp.mlp.down")
     return (g * u) @ p["down"].to(x.dtype)

@@ -31,6 +31,14 @@ layer, the conv window and SSM state ``{"conv", "ssm"}`` for a Mamba-2
 layer); each layer works on views of its slice, so prefill and decode fill
 the cache in place.
 
+Tensor-parallel serving (``forward(..., tp=...)``, a ``core.comm.ModelAxis``):
+each rank holds its shard of every leaf the specs ``tp.specs`` split
+(``launch/sharding.py``); the embedding is vocab-parallel (a rank looks up
+the ids of its vocab rows, zeros elsewhere, and the model-axis all-reduce
+sums the one nonzero term, exact), the head gives logits over the rank's
+vocab rows, gathered over the model axis before sampling, and each layer
+reads its own specs (``models.blocks.layer_forward``).
+
 Modes (same function, driven by the cache arguments):
   * train:   caches=None                      -> logits
   * prefill: caches=zeros, tokens = prompt    -> logits, filled caches
@@ -40,7 +48,7 @@ Modes (same function, driven by the cache arguments):
 from __future__ import annotations
 
 import functools
-from collections.abc import Iterator
+from collections.abc import Callable, Iterator
 from typing import Any
 
 import torch
@@ -75,11 +83,21 @@ def init_params(
     cfg: ModelConfig,
     gen: torch.Generator | int | None = 0,
     device: torch.device | str = "cuda",
+    shard: Callable[[tuple, Any], Any] | None = None,
 ) -> Params:
     """Seeded init: dense 1/sqrt(fan_in) (an untied head's fan-in is d),
     embeddings 0.02, norms 0, then a cast to ``cfg.dtype``. ``gen`` is a
     generator on ``device`` or a seed. On the ``meta`` device the tree
-    holds shapes and dtypes only."""
+    holds shapes and dtypes only. ``shard(path, subtree)`` (a rank's cut,
+    ``weights.init_sharded_params``) takes each part as soon as it is cast
+    (``("embed",)``, ``("layers", i)``, ``("final_norm",)``, ``("head",)``,
+    ``("mtp",)``), so a rank holds its shards plus one part at a time; the
+    draws are the same whatever it keeps."""
+    if shard is None:
+
+        def shard(path, tree):
+            return tree
+
     cfg.validate()
     dev = resolve_device(device)
     if dev.type == "meta":
@@ -91,16 +109,18 @@ def init_params(
     dtype = DTYPES[cfg.dtype]
     d, v, cb = cfg.d_model, cfg.vocab_size, cfg.n_codebooks
     embed = embed_init(gen, (cb, v, d) if cb else (v, d), device=dev)
-    p: Params = {"embed": cast_params(embed, dtype)}
+    p: Params = {"embed": shard(("embed",), cast_params(embed, dtype))}
     del embed
     p["layers"] = [
-        cast_params(init_layer(gen, spec, cfg, dev, dtype), dtype)
-        for spec in cfg.layers
+        shard(("layers", i), cast_params(init_layer(gen, spec, cfg, dev, dtype), dtype))
+        for i, spec in enumerate(cfg.layers)
     ]
-    p["final_norm"] = torch.zeros(d, device=dev, dtype=dtype)
+    p["final_norm"] = shard(
+        ("final_norm",), torch.zeros(d, device=dev, dtype=dtype)
+    )
     if not cfg.tie_embeddings:
         head = dense_init(gen, (cb, d, v) if cb else (d, v), in_dim=d, device=dev)
-        p["head"] = cast_params(head, dtype)
+        p["head"] = shard(("head",), cast_params(head, dtype))
     if cfg.mtp:
         mtp = {
             "proj": dense_init(gen, (2 * d, d), device=dev),
@@ -109,7 +129,7 @@ def init_params(
             "layer": init_layer(gen, LayerSpec("attn"), cfg, dev, dtype),
             "final_norm": torch.zeros(d, device=dev),
         }
-        p["mtp"] = cast_params(mtp, dtype)
+        p["mtp"] = shard(("mtp",), cast_params(mtp, dtype))
     return p
 
 
@@ -196,12 +216,15 @@ def _run_layers(
     positions: torch.Tensor,
     cache_index: int | torch.Tensor | None,
     plain_attention: bool,
+    tp: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """``x`` through the layers of ``specs`` with parameters ``ps``, each
     with its cache from ``per_layer`` (or none). Returns (x, ``aux_total``
     plus the MoE layers' load-balance losses, summed in layer order in f32
-    as the JAX scan carries them; None while no MoE layer has run)."""
-    for p, spec in zip(ps, specs):
+    as the JAX scan carries them; None while no MoE layer has run). With
+    ``tp`` the layers are the serving tree's, read with their specs."""
+    pspecs = tp.specs["layers"] if tp is not None else [None] * len(ps)
+    for p, spec, pspec in zip(ps, specs, pspecs):
         c = next(per_layer) if per_layer is not None else None
         x, _, aux = layer_forward(
             p,
@@ -212,6 +235,8 @@ def _run_layers(
             cache=c,
             cache_index=cache_index,
             plain_attention=plain_attention,
+            tp=tp,
+            pspec=pspec,
         )
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
@@ -240,9 +265,20 @@ def stacked_flags(params: Params) -> Params:
     return out
 
 
-def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _embed(
+    params: Params, tokens: torch.Tensor, cfg: ModelConfig, tp: Any = None
+) -> torch.Tensor:
     """(B, S) ids -> (B, S, d); (B, S, cb) codebook ids -> the sum of their
-    codebooks' embeddings, added in codebook order as the JAX package does."""
+    codebooks' embeddings, added in codebook order as the JAX package does.
+    A vocab-parallel embedding (``tp``): this rank's rows, zeros for ids
+    outside them, summed over the model axis."""
+    if tp is not None and tp.specs["embed"][0] is not None:
+        w = params["embed"]
+        n = w.shape[0]
+        ids = tokens - tp.comm.rank * n
+        mine = (ids >= 0) & (ids < n)
+        x = torch.where(mine[..., None], w[ids.clamp(0, n - 1)], 0)
+        return tp.comm.all_reduce(x, "tp.embed")
     if not cfg.n_codebooks:
         return params["embed"][tokens]
     x = params["embed"][0][tokens[..., 0]]
@@ -251,9 +287,21 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     return x
 
 
-def apply_head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_head(
+    params: Params, x: torch.Tensor, cfg: ModelConfig, tp: Any = None
+) -> torch.Tensor:
     """The LM head: x @ embed.T when tied, else x @ head; with codebooks a
-    head per codebook, (B, S, d) -> (B, S, cb, V)."""
+    head per codebook, (B, S, d) -> (B, S, cb, V). A vocab-parallel head
+    (``tp``): this rank's vocab columns, gathered over the model axis in
+    rank order, so every rank holds the whole (B, S, V)."""
+    if tp is not None:
+        tied = cfg.tie_embeddings
+        split = tp.specs["embed"][0] if tied else tp.specs["head"][-1]
+        w = params["embed"].to(x.dtype).T if tied else params["head"].to(x.dtype)
+        logits = x @ w
+        if split is not None:
+            logits = tp.comm.all_gather(logits, -1, "tp.head")
+        return logits
     if cfg.tie_embeddings:
         w = params["embed"].to(x.dtype)
         if cfg.n_codebooks:
@@ -306,6 +354,7 @@ def forward(
     plain_attention: bool = False,
     remat: bool = False,
     return_aux: bool = False,
+    tp: Any = None,
 ) -> tuple[torch.Tensor, Params | None] | tuple[torch.Tensor, Params | None, Any]:
     """Returns (logits, caches); with ``return_hidden`` the final-normed
     hidden state (B, S, D) instead of logits, for a caller that applies the
@@ -341,8 +390,12 @@ def forward(
 
     tokens: (B, S) integer ids, or (B, S, cb) with codebooks. Embeddings are
     not scaled by sqrt(d), as in the JAX package (unlike Hugging Face's
-    Gemma)."""
-    x = _embed(params, tokens, cfg)
+    Gemma).
+
+    ``tp`` (a ``core.comm.ModelAxis``): this rank's part of a
+    tensor-parallel serving forward over the serving tree's shards (the
+    dense attention + MLP architectures, without ``cond``)."""
+    x = _embed(params, tokens, cfg, tp)
     b, s = x.shape[0], x.shape[1]
     offset = 0
     if cond is not None and s > 1:
@@ -361,6 +414,7 @@ def forward(
         positions=positions,
         cache_index=cache_index,
         plain_attention=plain_attention,
+        tp=tp,
     )
     if remat and caches is None and "scan" in params:
         x, aux = run(params["lead"], cfg.lead, x, None)
@@ -383,7 +437,7 @@ def forward(
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if offset:
         x = x[:, offset:]
-    out = x if return_hidden else apply_head(params, x, cfg)
+    out = x if return_hidden else apply_head(params, x, cfg, tp)
     if not return_aux:
         return out, caches
     if aux is None:

@@ -7,22 +7,55 @@ captured into a CUDA graph (``repro_torch.graphs``) and replayed once per
 token, over buffers the loop owns; on the CPU the same step runs eagerly.
 Every tensor stays on the device; the host reads tokens only when the
 caller asks for them. Prefill stays eager: a fixed batch prefills once.
-Sharding of caches over a TPU mesh (``cache_specs``/``serve_shardings`` in
-the JAX package) waits for multi-GPU serving.
+
+Tensor-parallel serving over a ``(data, model)`` mesh of processes
+(``launch/mesh.py``) follows the JAX package's layout: :func:`cache_specs`
+and :func:`serve_shardings` are its rules (parameters by
+``launch/sharding.py``; the K/V cache's batch over data where it divides,
+its KV heads over ``model`` where they divide, else its sequence over
+``model``, or over data + model where the batch does not split). A
+:class:`ServeShard` (:func:`serve_shard`) is one rank's part: its batch
+rows, the zero caches of its shard, and the ``core.comm.ModelAxis`` the
+steps thread through the forward. The dense attention + MLP architectures
+and the fixed scheduler run so; everything else at a model axis above 1
+raises (``launch/mesh.py:LATER_STEPS``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.comm import ModelAxis, ModelComm
+from repro_torch.launch.sharding import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Spec,
+    cut,
+    serving_param_specs,
+    shard_count,
+    shard_index,
+)
 from repro_torch.models.model import apply_head, forward, init_caches
-from repro_torch.serving.kv_cache import CacheQuantConfig, quantize_tree
+from repro_torch.serving.kv_cache import (
+    QUANT_CACHE_LEAVES,
+    CacheQuantConfig,
+    QuantKV,
+    map_cache_tree,
+    quantize_tree,
+    tree_leaves,
+)
 
 __all__ = [
+    "cache_specs",
+    "serve_shardings",
+    "ServeShard",
+    "serve_shard",
     "init_serving_caches",
     "build_prefill_step",
     "build_decode_step",
@@ -33,6 +66,215 @@ __all__ = [
 ]
 
 
+def _mesh_shape(mesh: Any) -> tuple[int, int]:
+    return tuple(mesh.shape) if hasattr(mesh, "shape") else tuple(mesh)
+
+
+def _batch_axis(batch: int, n_data: int) -> Any:
+    """The batch's spec entry: the data axis where it splits the batch."""
+    return (DATA_AXIS,) if batch % max(n_data, 1) == 0 and batch >= n_data else None
+
+
+def cache_specs(
+    cfg: ModelConfig,
+    mesh: Any,
+    batch: int,
+    *,
+    cache_dtype: torch.dtype = torch.bfloat16,
+    qcfg: CacheQuantConfig | None = None,
+) -> Any:
+    """The JAX package's ``cache_specs`` over a ``(data, model)`` mesh (a
+    ``launch.mesh.DataMesh`` or the shape): a tree of
+    ``launch.sharding.Spec`` matching :func:`init_serving_caches`, a
+    ``QuantKV`` leaf's codes and scale each with the raw leaf's spec (their
+    named dims are the same; the last dim is never split).
+
+    * attention K/V (B, Hkv, S, hd): the batch over data where it splits;
+      the KV heads over ``model`` where they divide it, else the sequence
+      over ``model`` (over data + model where the batch does not split);
+    * MLA latent rows (B, S, r): the sequence as above;
+    * Mamba-2 conv window (B, K, C) and state (B, H, P, N): channels and
+      heads over ``model`` where they divide it."""
+    n_data, msize = _mesh_shape(mesh)
+    batch_ax = _batch_axis(batch, n_data)
+    seq_axes = (MODEL_AXIS,) if batch_ax is not None else (DATA_AXIS, MODEL_AXIS)
+
+    def leaf_spec(path: tuple, x: torch.Tensor) -> Any:
+        stacked = path[0] == "scan"  # a leading stacked-layer dim (repeats)
+        shape = x.shape[1:] if stacked else x.shape
+        name = path[-1]
+        if name in ("ckv", "krope"):  # (B, S, r)
+            spec = Spec(batch_ax, seq_axes, None)
+        elif name in ("k", "v"):  # (B, Hkv, S, hd)
+            if shape[1] % msize == 0:
+                spec = Spec(batch_ax, MODEL_AXIS, None, None)
+            else:
+                spec = Spec(batch_ax, None, seq_axes, None)
+        elif name == "conv":  # (B, K, C)
+            spec = Spec(batch_ax, None, MODEL_AXIS if shape[2] % msize == 0 else None)
+        elif name == "ssm":  # (B, H, P, N)
+            heads = MODEL_AXIS if shape[1] % msize == 0 else None
+            spec = Spec(batch_ax, heads, None, None)
+        else:
+            spec = Spec(*([None] * len(shape)))
+        spec = Spec(None, *spec) if stacked else spec
+        if qcfg is not None and qcfg.bits and name in QUANT_CACHE_LEAVES:
+            return QuantKV(spec, spec, qcfg.bits, qcfg.alpha, x.shape[-1])
+        return spec
+
+    abstract = init_caches(cfg, batch, 8, cache_dtype, "meta")
+    return map_cache_tree(abstract, leaf_spec)
+
+
+def serve_shardings(
+    cfg: ModelConfig,
+    mesh: Any,
+    batch: int,
+    *,
+    cache_dtype: torch.dtype = torch.bfloat16,
+    qcfg: CacheQuantConfig | None = None,
+) -> tuple[Any, Any, Spec]:
+    """(parameter specs of the serving tree, cache specs, token spec): the
+    JAX package's ``serve_shardings`` as specs, since the port's mesh is a
+    process group and each rank holds its shards itself (:class:`ServeShard`)."""
+    n_data, msize = _mesh_shape(mesh)
+    p_specs = serving_param_specs(cfg, msize)
+    c_specs = cache_specs(cfg, mesh, batch, cache_dtype=cache_dtype, qcfg=qcfg)
+    extra = 2 if cfg.n_codebooks else 1
+    t_spec = Spec(_batch_axis(batch, n_data), *([None] * extra))
+    return p_specs, c_specs, t_spec
+
+
+def _tp_refusal(cfg: ModelConfig) -> str | None:
+    """What of ``cfg`` a model axis above 1 does not serve yet, or None."""
+    kinds = {spec.kind for spec in cfg.layers}
+    parts = [
+        ("MoE layers (expert parallelism)", any(spec.moe for spec in cfg.layers)),
+        ("MLA and its latent cache", cfg.use_mla),
+        ("Mamba-2 layers", "mamba" in kinds),
+        ("codebooks", bool(cfg.n_codebooks)),
+        ("the conditioning prefix", bool(cfg.cond_len)),
+        ("the MTP head", bool(cfg.mtp)),
+    ]
+    found = [name for name, has in parts if has]
+    return ", ".join(found) or None
+
+
+def _kv_spec(c_specs: Any) -> Spec:
+    """The (B, Hkv, S, hd) spec every K/V leaf of a cache spec tree takes (a
+    stacked scan leaf's without its leading None)."""
+    specs = {
+        tuple(s)[-4:] for path, s in tree_leaves(c_specs) if path[-1] in ("k", "v")
+    }
+    if len(specs) != 1:
+        raise ValueError(f"the K/V leaves take {len(specs)} layouts: {specs}")
+    return Spec(*specs.pop())
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeShard:
+    """One rank's part of serving ``batch`` rows over ``mesh`` (a
+    ``launch.mesh.DataMesh``): the serving tree's parameter specs, the raw
+    cache specs and the token spec of :func:`serve_shardings`, and the
+    ``ModelAxis`` the steps thread through the forward."""
+
+    mesh: Any
+    batch: int
+    param_specs: Any
+    cache_specs: Any
+    token_spec: Spec
+    axis: ModelAxis
+
+    def rows(self) -> slice:
+        """This rank's rows of the global batch (all of them where the
+        batch does not split)."""
+        n = shard_count(self.token_spec[0], self.mesh.sizes)
+        i = shard_index(self.token_spec[0], self.mesh.sizes, self.mesh.coords)
+        per = self.batch // n
+        return slice(i * per, (i + 1) * per)
+
+    def seq_shards(self) -> int:
+        """How many shards the caches' sequence dim is cut into."""
+        return shard_count(_kv_spec(self.cache_specs)[-2], self.mesh.sizes)
+
+    def copies(self) -> int:
+        """How many ranks hold each shard of the caches (the ranks over
+        which the cache spec replicates)."""
+        n = 1
+        for e in _kv_spec(self.cache_specs):
+            n *= shard_count(e, self.mesh.sizes)
+        return self.mesh.world // n
+
+    def zero_caches(
+        self, cfg: ModelConfig, max_seq: int, dtype: torch.dtype, device: Any
+    ) -> Any:
+        """This rank's shard of ``init_caches(cfg, batch, max_seq, ...)``:
+        zeros of each leaf's cut shape, raw."""
+        if max_seq % self.seq_shards():
+            raise ValueError(
+                f"a cache of {max_seq} positions does not split into "
+                f"{self.seq_shards()} sequence shards"
+            )
+        abstract = init_caches(cfg, self.batch, max_seq, dtype, "meta")
+        sizes, coords = self.mesh.sizes, self.mesh.coords
+
+        def zeros(path: tuple, x: torch.Tensor) -> torch.Tensor:
+            spec = self._spec_at(path)
+            shape = cut(x, spec, sizes, coords).shape
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return map_cache_tree(abstract, zeros)
+
+    def _spec_at(self, path: tuple) -> Spec:
+        sub = self.cache_specs
+        for k in path:
+            sub = sub[k]
+        return sub
+
+
+def serve_shard(
+    cfg: ModelConfig,
+    mesh: Any,
+    batch: int,
+    *,
+    cache_dtype: torch.dtype = torch.bfloat16,
+) -> ServeShard:
+    """This rank's :class:`ServeShard` of ``batch`` rows over ``mesh``: the
+    specs, the model-axis comm over the mesh's model group and the comm of
+    the group the caches' sequence is cut over (the model group, or every
+    rank where the sequence is cut over data + model). Raises at a model
+    axis above 1 for what is not ported (``launch/mesh.py:LATER_STEPS``)."""
+    from repro_torch.launch.mesh import LATER_STEPS
+
+    if mesh.model > 1:
+        refusal = _tp_refusal(cfg)
+        if refusal:
+            raise NotImplementedError(
+                f"{cfg.name} at a model axis of {mesh.model}: {refusal} are not "
+                f"tensor-parallel yet ({LATER_STEPS})"
+            )
+    if mesh.distributed and mesh.world != mesh.data * mesh.model:
+        raise ValueError(
+            f"serving over a {mesh.data}x{mesh.model} mesh takes "
+            f"{mesh.data * mesh.model} ranks, not {mesh.world}"
+        )
+    p_specs, c_specs, t_spec = serve_shardings(
+        cfg, mesh, batch, cache_dtype=cache_dtype
+    )
+    comm = ModelComm(mesh.model_group, mesh.model, mesh.model_index)
+    seq_entry = _kv_spec(c_specs)[-2]
+    n_seq = shard_count(seq_entry, mesh.sizes)
+    if n_seq == 1:
+        seq = ModelComm()
+    elif seq_entry == MODEL_AXIS:
+        seq = comm
+    else:  # data + model: every rank, in global rank order
+        rank = shard_index(seq_entry, mesh.sizes, mesh.coords)
+        seq = ModelComm(dist.group.WORLD, n_seq, rank)
+    axis = ModelAxis(comm=comm, seq=seq, specs=p_specs)
+    return ServeShard(mesh, batch, p_specs, c_specs, t_spec, axis)
+
+
 def init_serving_caches(
     cfg: ModelConfig,
     batch: int,
@@ -40,10 +282,15 @@ def init_serving_caches(
     cache_dtype: torch.dtype = torch.bfloat16,
     qcfg: CacheQuantConfig | None = None,
     device: torch.device | str = "cuda",
+    shard: ServeShard | None = None,
 ) -> Any:
     """Zero caches in the serving container format: raw ``cache_dtype``
-    tensors, or ``QuantKV`` leaves when ``qcfg.bits`` is 4 or 8."""
-    caches = init_caches(cfg, batch, max_seq, cache_dtype, device)
+    tensors, or ``QuantKV`` leaves when ``qcfg.bits`` is 4 or 8; with
+    ``shard``, this rank's shard of them (``batch`` is the global batch)."""
+    if shard is not None:
+        caches = shard.zero_caches(cfg, max_seq, cache_dtype, device)
+    else:
+        caches = init_caches(cfg, batch, max_seq, cache_dtype, device)
     if qcfg is not None and qcfg.bits:
         caches = quantize_tree(caches, qcfg)
     return caches
@@ -56,8 +303,14 @@ def build_prefill_step(
     cache_dtype: torch.dtype = torch.bfloat16,
     qcfg: CacheQuantConfig | None = None,
     full_logits: bool = False,
+    shard: ServeShard | None = None,
 ):
     """prefill(params, tokens[, cond]) -> (logits, caches).
+
+    With ``shard`` the step is a rank's part of a tensor-parallel prefill:
+    ``params`` are its shards, ``tokens`` its rows of the batch, the caches
+    its shard, and the logits the whole vocab (gathered over the model
+    axis).
 
     ``tokens`` is (B, S), or (B, S, cb) with codebooks (logits (B, ., cb,
     V)); ``cond`` (B, L, d) is a conditioning prefix: the caches hold its L
@@ -71,29 +324,35 @@ def build_prefill_step(
 
     @torch.no_grad()
     def prefill(params: dict, tokens: torch.Tensor, cond: torch.Tensor | None = None):
-        caches = init_caches(cfg, tokens.shape[0], max_seq, cache_dtype, tokens.device)
+        b = tokens.shape[0]
+        dev = tokens.device
+        caches = init_serving_caches(cfg, b, max_seq, cache_dtype, None, dev, shard)
+        tp = shard.axis if shard is not None else None
         x, caches = forward(
-            params, tokens, cfg, caches=caches, cond=cond, return_hidden=True
+            params, tokens, cfg, caches=caches, cond=cond, return_hidden=True, tp=tp
         )
         if qcfg is not None and qcfg.bits:
             caches = quantize_tree(caches, qcfg)
         # last-position logits apply the head to one row only
-        logits = apply_head(params, x if full_logits else x[:, -1:], cfg)
+        logits = apply_head(params, x if full_logits else x[:, -1:], cfg, tp)
         return logits, caches
 
     return prefill
 
 
-def build_decode_step(cfg: ModelConfig):
+def build_decode_step(cfg: ModelConfig, shard: ServeShard | None = None):
     """decode(params, caches, tokens (B, 1[, cb]), index) -> (logits, caches);
     ``index`` is an int or a (B,) long tensor of per-request positions on
     the device (continuous batching, and any graphed step, which must not
     bake a position in). Within range both give the same logits and
-    caches. The caches are appended in place and returned."""
+    caches. The caches are appended in place and returned. With ``shard``
+    a rank's part of a tensor-parallel decode (see
+    :func:`build_prefill_step`)."""
+    tp = shard.axis if shard is not None else None
 
     @torch.no_grad()
     def decode(params: dict, caches: Any, tokens: torch.Tensor, index):
-        return forward(params, tokens, cfg, caches=caches, cache_index=index)
+        return forward(params, tokens, cfg, caches=caches, cache_index=index, tp=tp)
 
     return decode
 
@@ -108,7 +367,12 @@ class DecodeLoop:
     positions, the column counter and ``sampled`` are static buffers, and a
     loop that runs again (the continuous scheduler's chunks) replays the
     graph it captured the first time. ``graph=True`` on the CPU raises.
-    ``gen`` is the generator temperature sampling draws from."""
+    ``gen`` is the generator temperature sampling draws from (every rank of
+    a tensor-parallel ``shard`` draws from the same gathered logits with a
+    generator seeded alike, so the ranks agree). Over a ``shard`` whose
+    collectives run on gloo the caller asks for the eager steps
+    (``graph=False``): a capture there raises, since gloo runs them from
+    the host; over NCCL the graph captures them."""
 
     def __init__(
         self,
@@ -121,9 +385,10 @@ class DecodeLoop:
         temperature: float = 0.0,
         gen: torch.Generator | None = None,
         graph: bool | None = None,
+        shard: ServeShard | None = None,
     ):
         device = params["embed"].device
-        self._decode = build_decode_step(cfg)
+        self._decode = build_decode_step(cfg, shard)
         self.params, self.caches = params, caches
         self.temperature, self.gen = temperature, gen
         self.n_steps = n_steps
@@ -136,6 +401,12 @@ class DecodeLoop:
             (batch, n_steps) + cb, dtype=torch.long, device=device
         )
         self._graph = None
+        capture = graph or (graph is None and device.type == "cuda")
+        if capture and shard is not None and shard.axis.gloo:
+            raise ValueError(
+                "a CUDA graph cannot capture gloo's collectives, which run "
+                "from the host: decode with graph=False, or over NCCL"
+            )
         if graphs.use_graph(graph, device):
             draws = gen is not None and temperature > 0
             self._graph = graphs.StepGraph(
@@ -178,7 +449,11 @@ class DecodeLoop:
 
 
 def build_generate_fn(
-    cfg: ModelConfig, *, temperature: float = 0.0, graph: bool | None = None
+    cfg: ModelConfig,
+    *,
+    temperature: float = 0.0,
+    graph: bool | None = None,
+    shard: ServeShard | None = None,
 ):
     """generate(params, caches, tokens, index, gen, n_steps) ->
     (caches, next_tokens, new_index, sampled (B, n_steps[, cb])).
@@ -201,6 +476,7 @@ def build_generate_fn(
             temperature=temperature,
             gen=gen,
             graph=graph,
+            shard=shard,
         )
         sampled = loop.run(tokens, index)
         generate.capture_s = loop.capture_s

@@ -18,7 +18,10 @@ Layout of a quantized leaf (:class:`QuantKV`), as in the JAX package:
 so cache bytes/token equal the wire's ``packed_wire_bits`` plus 32 bits of
 scale per block. Cache trees keep the JAX layout ``{"lead": [...], "scan":
 [...], "tail": [...]}`` with scan leaves stacked by repeat, so trees, byte
-counts and the scheduler's slot insert compare leaf by leaf.
+counts and the scheduler's slot insert compare leaf by leaf. Every
+function here works on whatever shape it is given, so a rank of a
+tensor-parallel server runs them on its shard (its batch rows, its KV
+heads or its positions).
 
 Unlike the JAX package, whose arrays are immutable, decode appends and slot
 inserts write into the cache tensors in place: the cache is the largest
@@ -226,21 +229,30 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def cache_bytes_per_token(caches: Any, batch: int, max_seq: int) -> float:
+def cache_bytes_per_token(
+    caches: Any, batch: int, max_seq: int, copies: int = 1
+) -> float:
     """MEASURED bytes per (request, position): the bytes of every cache
-    tensor (codes and scales included) / (batch * max_seq)."""
+    tensor (codes and scales included) / (batch * max_seq). A rank of a
+    tensor-parallel server passes the global ``batch`` and ``max_seq`` with
+    its shard of the caches and ``copies``, the ranks that hold each shard
+    (``serving.engine.ServeShard.copies``): its share, and the ranks' shares
+    sum to the one-process figure."""
     total = 0
     for _, leaf in tree_leaves(caches):
         if isinstance(leaf, QuantKV):
             total += _nbytes(leaf.codes) + _nbytes(leaf.scale)
         else:
             total += _nbytes(leaf)
-    return total / float(batch * max_seq)
+    return total / float(batch * max_seq * copies)
 
 
-def cache_bytes_per_token_accounting(caches: Any, batch: int, max_seq: int) -> float:
+def cache_bytes_per_token_accounting(
+    caches: Any, batch: int, max_seq: int, copies: int = 1
+) -> float:
     """ACCOUNTED bytes per token: ``packed_wire_bits`` + a 32-bit scale per
-    block for quantized leaves, itemsize for raw ones."""
+    block for quantized leaves, itemsize for raw ones (a rank's share as in
+    :func:`cache_bytes_per_token`)."""
     total = 0.0
     for _, leaf in tree_leaves(caches):
         if isinstance(leaf, QuantKV):
@@ -248,7 +260,7 @@ def cache_bytes_per_token_accounting(caches: Any, batch: int, max_seq: int) -> f
             total += blocks * (packed_wire_bits(leaf.d, leaf.bits) + 32) / 8.0
         else:
             total += _nbytes(leaf)
-    return total / float(batch * max_seq)
+    return total / float(batch * max_seq * copies)
 
 
 # ------------------------------------------------------------ block pool

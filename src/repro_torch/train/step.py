@@ -18,8 +18,9 @@ optimizer steps the parameters in place, the same on every rank.
 The parameters are the training tree, the JAX package's layout (scan
 leaves stacked by repeat, ``models.model.stacked_flags``), so the
 compressor's plans, per-layer scales, bits and collective counts are the
-JAX package's. A mesh is ``(data, model)``; a model axis above 1 (tensor
-parallelism) is not ported (ROADMAP Queue 1, item 15).
+JAX package's. A mesh is ``(data, model)``; serving takes a model axis
+above 1 (``serving/engine.py``), training does not yet (ROADMAP Queue 1,
+item 15 B, step 3: tensor-parallel training).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from repro_torch.core.compressors import (
     make_compressor,
 )
 from repro_torch.core.tree import Tree, tree_leaves, tree_map, tree_unflatten
+from repro_torch.launch.mesh import TP_TRAINING
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import init_params, stacked_flags
 from repro_torch.train.loss import lm_loss
@@ -68,8 +70,8 @@ def n_dp_of(mesh: Mesh) -> int:
     data, model = mesh
     if model != 1:
         raise NotImplementedError(
-            f"a model axis of {model}: tensor parallelism is not ported yet "
-            "(ROADMAP Queue 1, item 15)"
+            f"a model axis of {model}: tensor-parallel training is not ported "
+            f"yet ({TP_TRAINING}; serving takes a model axis)"
         )
     if data < 1:
         raise ValueError(f"a data axis of {data}")

@@ -18,6 +18,11 @@ scan leaves stacked by repeat, as copies), which the compressor sees;
 ``train_state_from_jax(state)`` carries a whole JAX training state
 (params, optimizer, per-worker compressor state, step) over as it is.
 
+``shard_params(params, specs, mesh)`` cuts a rank's shard of each leaf
+along the dims its spec names (``launch/sharding.py``), and
+``init_sharded_params`` does so leaf by leaf as the seeded init draws
+them, so a rank never holds the whole model.
+
 ``resnet_params_from_jax(tree)`` returns the ResNet-18 (or mini-CNN) tree
 as it is: the same keys, HWIO conv kernels. ``compressor_state_from_jax``
 broadcasts a state from ``comp.init_state(key)`` over the workers, since
@@ -33,7 +38,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
+from repro_torch.launch.sharding import cut
 from repro_torch.models.common import resolve_device
+from repro_torch.models.model import init_params
 
 __all__ = [
     "params_from_jax",
@@ -42,6 +49,8 @@ __all__ = [
     "resnet_params_from_jax",
     "compressor_state_from_jax",
     "tensor_from_numpy",
+    "shard_params",
+    "init_sharded_params",
 ]
 
 # top-level subtrees besides the embedding, the layers and the final norm:
@@ -109,6 +118,39 @@ def to_jax_layout(params: dict[str, Any], cfg: ModelConfig) -> dict[str, Any]:
         if key in params:
             out[key] = params[key]
     return out
+
+
+def shard_params(params: Any, specs: Any, mesh: Any) -> Any:
+    """This rank's shard of every leaf of ``params`` (a dict / list tree:
+    the serving tree, or any subtree of it with the matching subtree of
+    ``specs``), cut along the dims its spec names over ``mesh`` (a
+    ``launch.mesh.DataMesh``: its ``sizes`` and this rank's ``coords``).
+    A cut leaf is a copy, so the whole one can be freed; a replicated leaf
+    is kept as it is."""
+    if isinstance(params, dict):
+        return {k: shard_params(v, specs[k], mesh) for k, v in params.items()}
+    if isinstance(params, list):
+        return [shard_params(v, s, mesh) for v, s in zip(params, specs, strict=True)]
+    if all(e is None for e in specs):
+        return params
+    return cut(params, specs, mesh.sizes, mesh.coords).clone()
+
+
+def init_sharded_params(
+    cfg: ModelConfig, seed: int, device: torch.device | str, specs: Any, mesh: Any
+) -> dict[str, Any]:
+    """``models.model.init_params(cfg, seed, device)`` cut to this rank's
+    shards as it goes: each part (the embedding, a layer, the head) is
+    drawn whole, cast and cut before the next is drawn, so the draws, and
+    so the shards, are those of the one-process init."""
+
+    def shard(path: tuple, tree: Any) -> Any:
+        sub = specs
+        for k in path:
+            sub = sub[k]
+        return shard_params(tree, sub, mesh)
+
+    return init_params(cfg, seed, device, shard=shard)
 
 
 def _stack(trees: list[Any]) -> Any:

@@ -1397,6 +1397,46 @@ def test_nccl_two_ranks_lm_step_equals_simcomm(cuda, tmp_path, name):
         _ranks_equal_simcomm(got, want, name)
 
 
+def test_nccl_two_ranks_tp_serve_equals_one_process(cuda, tmp_path):
+    """gemma3-1b smoke (f32, q8 cache) at a 1x2 mesh over NCCL, one card a
+    rank: the graphed decode, its model-axis collectives captured, equals
+    the eager tensor-parallel decode bit for bit (tokens, logits, cache
+    shards), and both equal the one-process run on card 0: tokens equal,
+    prefill logits atol / rtol 1e-4, cache codes within one step of the
+    block the rank's spec cuts, bytes/token shares summing to its figure."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(
+            "needs 2 CUDA devices: NCCL refuses two ranks on one card, so "
+            "tensor-parallel serving over NCCL stays unverified until run on "
+            "such a machine"
+        )
+    import _torch_dist as td
+    import _torch_tp as tt
+
+    from repro_torch.launch.sharding import cut
+
+    want = tt.card_serve("cuda:0")
+    join = td.spawn(None, str(tmp_path), world=2, target=tt.card_tp_rank)
+    ranks = join()
+    for got in ranks:
+        g, e, rows = got["graphed"], got["eager"], got["rows"]
+        assert torch.equal(g["tokens"], e["tokens"])
+        assert torch.equal(g["logits"], e["logits"])
+        for (_, gc, gs), (_, ec, es) in zip(g["caches"], e["caches"], strict=True):
+            assert torch.equal(gc, ec) and torch.equal(gs, es)
+        assert torch.equal(g["tokens"], want["tokens"][rows])
+        torch.testing.assert_close(
+            g["logits"], want["logits"][rows], atol=1e-4, rtol=1e-4
+        )
+        specs = [s for _, s in kv_tree_leaves(got["cache_specs"])]
+        for (_, c, _), (_, wc, _), spec in zip(
+            g["caches"], want["caches"], specs, strict=True
+        ):
+            block = cut(wc, spec, got["sizes"], got["coords"])
+            assert int((c.int() - block.int()).abs().max()) <= 1
+    assert sum(r["graphed"]["bytes"] for r in ranks) == want["bytes"]
+
+
 def _ranks_equal_simcomm(got, want, name):
     """A rank's :func:`lm_smoke_steps` against ``SimComm(4)``'s: bit for
     bit, but for QSGD, whose raw leaves psum in f32 in the ring's order:
