@@ -164,9 +164,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    seconds printed;
 11. the model zoo (the untied head and the MoE layers), right after phase
    4, each model freed before the next is built: (l1) mistral-nemo-12b at
-   full width and depth (40 layers, 12,247,782,400 parameters), batch 4,
-   prompt 1024, 32 new tokens, q8 then q4; (l2) granite-20b (52 layers,
-   MQA), q8; (l3) mixtral-8x7b at full width cut to 16 of its 32 layers,
+   full width on 20 of its 40 layers (6,794,982,400 parameters), batch 4,
+   prompt 1024, 32 new tokens, q8 then q4; (l2) granite-20b (26 of 52
+   layers, MQA), q8; (l3) mixtral-8x7b at full width cut to 16 of its 32 layers,
    batch 2, prompt 5120 (past its window of 4096), q8; (l4) jamba-v0.1-52b,
    one period of its 8 layers (7 Mamba-2, 4 with MoE, 1 attention), batch
    4, prompt 1024, q8 (the attention cache only). Each as phase 4's (a):
@@ -221,12 +221,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    draws' ms a step (all N workers' values, and a rank's rows alone)
    against the sync's, and (o4)'s peak memory a rank.
 15. tensor-parallel serving, right after phase 14 (this process again
-   holds little device memory; (p3)'s ranks hold 12 B parameters between
-   them): #1, #3, #4 and #6 at the ranks' shapes against their plain
+   holds little device memory; (p3)'s ranks hold 3.6 B parameters
+   between them): #1, #3, #4 and #6 at the ranks' shapes against their plain
    versions, then for each of (p1) gemma3-1b at a 1x2 mesh, q8 (the cache
    split by sequence), (p2) gemma3-1b at 2x2, q4 (the batch over data too)
    and (p3) mistral-nemo-12b at 1x2, q8 (the cache split by KV heads), all
-   full width and depth, batch 4, prompt 1024, 32 new tokens: the
+   full width, (p1) and (p2) at 14 of gemma3-1b's 26 layers, (p3) at 10
+   of its 40 (``P_REPEATS``), batch 4, prompt 1024, 16 new tokens: the
    launcher in this process (graphed decode), then ONE torchrun of data x
    model gloo ranks sharing the card (``chip_smoke.py --tp-rank DIR RUN``,
    ``tp_rank_main``: ``launch/serve.py``'s ``main`` with ``--mesh``, eager
@@ -238,6 +239,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    ranks' bytes/token shares summing to the one-process figure; each
    rank's launches of #1 or #3, #4 and #6, prefill ms, decode ms a token,
    share of host time in collectives and peak memory.
+16. tensor-parallel training, right after phase 15: #1, #3 and #5 at the
+   ranks' factor shapes against their plain versions, then for each of
+   (q1) gemma3-1b whole at a 2x2 mesh, 2 workers x 4 x 512 (the global
+   batch of (j1)), LQ-SGD r1 b8 and Adam, and (q2) mistral-nemo-12b at
+   full width on 2 of its 40 layers at 1x2, 1 x 2 x 512, LQ-SGD r1 b4 and
+   SGD, 3 steps each: ``launch/train.py`` in this process (``--mesh
+   Dx1``, graphed, ``--dump --dump-steps``), then ONE torchrun of data x
+   model gloo ranks sharing the card (``chip_smoke.py --tp-train-rank DIR
+   RUN``, ``tp_train_rank_main``: the launcher's ``main`` with ``--mesh``,
+   eager, then a graphed step under gloo, which must raise). Each rank's
+   losses within Q_LOSS_REL of the one-process run's, its step-0 synced
+   gradient within Q_SYNC_SHARE of each leaf's largest value where no
+   wire code it is made of moved, the codes moved at step 0 reported per
+   phase, the accounted bits the JAX package's figure and the data-axis
+   collectives the plan's every step, each data row's physical bits the
+   accounting plus (M - 1) x the bits replicated over the model axis, the
+   replicated leaves' fingerprints equal on every rank after every step;
+   each rank's launches of #1 or #3 and #5, ms a step, its shares in
+   model-axis and data-axis collectives, and its peak memory.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -417,6 +437,8 @@ def train_tol(bits, flips, workers=TRAIN_WORKERS):
     if flips == 0:
         return 1e-5
     levels = (1 << (bits - 1)) - 1
+    # a code's largest step (its top one), of the factor's largest value
+    step = ((1 + ALPHA) - (1 + ALPHA) ** ((levels - 1) / levels)) / ALPHA
     return 2 * ((1 + ALPHA) ** (1 / (workers * levels)) - 1)
 
 
@@ -558,6 +580,8 @@ def _near_half(x, bits):
     """Where the exact pre-rounding value q*L of normalized ``x`` lies within
     1e-4 of a half-integer: there the device's log1p may round either way."""
     levels = (1 << (bits - 1)) - 1
+    # a code's largest step (its top one), of the factor's largest value
+    step = ((1 + ALPHA) - (1 + ALPHA) ** ((levels - 1) / levels)) / ALPHA
     u = torch.log1p(10.0 * x.double().abs()) / math.log1p(10.0) * levels
     return ((u - u.floor()) - 0.5).abs() < 1e-4
 
@@ -3675,10 +3699,12 @@ def _gia_runs(card):
 # width, seeded bf16. (l1)-(l4) serve, (l5) trains: run -> (arch, the cut of
 # its depth, batch, prompt, cache bits). mixtral-8x7b keeps 16 of its 32
 # layers and jamba-v0.1-52b one period of its 8 (of 4) to fit one card with
-# room for the reference-mode runs; the rest is at full depth.
+# room for the reference-mode runs; mistral-nemo-12b keeps 20 of its 40 and
+# granite-20b 26 of its 52 so that the script keeps within its time with
+# phase 16 added; the rest is at full depth.
 ZOO_SERVE = {
-    "l1": ("mistral-nemo-12b", {}, 4, 1024, (8, 4)),
-    "l2": ("granite-20b", {}, 4, 1024, (8,)),
+    "l1": ("mistral-nemo-12b", {"repeats": 20}, 4, 1024, (8, 4)),
+    "l2": ("granite-20b", {"repeats": 26}, 4, 1024, (8,)),
     "l3": ("mixtral-8x7b", {"repeats": 16}, 2, 5120, (8,)),
     "l4": ("jamba-v0.1-52b", {"repeats": 1}, 4, 1024, (8,)),
     # phase 12 (m): deepseek-v3-671b cut to its 3 dense lead layers and 1
@@ -3690,25 +3716,25 @@ ZOO_SERVE = {
 ZOO_GEN = 32
 # the JAX package's parameter counts of these cuts (tests/test_torch_zoo.py)
 ZOO_PARAMS = {
-    "l1": 12_247_782_400,
-    "l2": 28_167_493_632,
+    "l1": 6_794_982_400,
+    "l2": 14_385_739_776,
     "l3": 23_482_470_400,
     "l4": 13_267_656_416,
     "l5": 1_713_418_240,
     # tests/test_torch_zoo_rest.py
     "m1": 15_797_366_784,
     "m2": 1_837_254_144,
-    "m3": 130_700_416,
-    "m4": 478_189_056,
+    "m3": 91_094_080,
+    "m4": 251_678_208,
     "m5a": 793_408,
     "m5b": 1_480_872,
 }
 # the accounting: layers x (K, V) x KV heads x (head_dim codes + a 4-byte
 # scale) at q8, (head_dim / 2 + 4) at q4
 ZOO_BYTES_PER_TOKEN = {
-    ("l1", 8): 40 * 2 * 8 * (128 + 4),
-    ("l1", 4): 40 * 2 * 8 * (64 + 4),
-    ("l2", 8): 52 * 2 * 1 * (128 + 4),
+    ("l1", 8): 20 * 2 * 8 * (128 + 4),
+    ("l1", 4): 20 * 2 * 8 * (64 + 4),
+    ("l2", 8): 26 * 2 * 1 * (128 + 4),
     ("l3", 8): 16 * 2 * 8 * (128 + 4),
     # MLA: layers x (ckv 512 + krope 64 codes, two 4-byte scales)
     ("m1", 8): 4 * (512 + 64 + 2 * 4),
@@ -3739,18 +3765,19 @@ MOE_FLIP_MARGIN = 0.25
 # which moves a logit by up to ~3 and raises the loss at the second step;
 # 1e-4 moves it by ~0.3, and the full-width runs of phase 12 take it too.
 # (m3) mamba2-370m and (m4) musicgen-medium (with its conditioning prefix)
-# at full width, cut to 12 of their 48 layers so that the script keeps
-# within its time with phases 13 and 15 added (PR 24 trained all 48, PRs
-# 25-26 24: the checks are the same, their bits and parameters the JAX
-# package's for the cut, tests/test_torch_zoo_rest.py); (m5a) deepseek-v3-671b and (m5b) jamba-v0.1-52b
+# at full width, cut to 6 of their 48 layers so that the script keeps
+# within its time with phases 13, 15 and 16 added (the checks are those
+# of the whole depth, their bits and parameters the JAX package's for the
+# cut, tests/test_torch_zoo_rest.py);
+# (m5a) deepseek-v3-671b and (m5b) jamba-v0.1-52b
 # at smoke widths: one MLA layer with deepseek's 129,280-token embedding,
 # head and MTP head is ~3.1 B parameters, ~93 GB to train at (l5)'s ~30
 # bytes a parameter, and jamba's smallest full-width unit (a period) 13.3 B.
-ZOO_CUT12 = {"repeats": 12}
+ZOO_CUT6 = {"repeats": 6}
 ZOO_TRAIN = {
     "l5": ("mixtral-8x7b", {"repeats": 1}, False, ((2, 1), 4, 512), 1e-4, 2_626_336, 1),
-    "m3": ("mamba2-370m", ZOO_CUT12, False, ((4, 1), 8, 512), 1e-4, 1_982_176, 1),
-    "m4": ("musicgen-medium", ZOO_CUT12, False, ((2, 1), 4, 512), 1e-4, 3_847_648, 1),
+    "m3": ("mamba2-370m", ZOO_CUT6, False, ((4, 1), 8, 512), 1e-4, 1_200_544, 1),
+    "m4": ("musicgen-medium", ZOO_CUT6, False, ((2, 1), 4, 512), 1e-4, 2_001_760, 1),
     "m5a": ("deepseek-v3-671b", {}, True, ((2, 1), 4, 64), 1e-3, 122_112, 0),
     "m5b": ("jamba-v0.1-52b", {}, True, ((2, 1), 4, 64), 1e-3, 144_992, 0),
 }
@@ -3786,7 +3813,7 @@ def phase_zoo_rest(card):
     deepseek-v3-671b (MLA with its latent cache, 256 experts) and (m2)
     musicgen-medium (codebook heads after the conditioning prefix) served
     at full width; (m3) mamba2-370m and (m4) musicgen-medium trained at
-    full width on 12 of their 48 layers, (m5) deepseek-v3-671b and
+    full width on 6 of their 48 layers, (m5) deepseek-v3-671b and
     jamba-v0.1-52b at smoke widths, through the LQ-SGD sync. Deterministic
     algorithms are on for the training comparisons, as in (l5). Each model
     is freed before the next is built."""
@@ -4963,8 +4990,31 @@ P_RUNS = {
     "p2": ("gemma3-1b", "2x2", 4),  # the batch over data
     "p3": ("mistral-nemo-12b", "1x2", 8),  # the head-sharded cache
 }
-P_ARGS = ["--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN)]
+# cuts for time, made when phase 16 (q) came: gemma3-1b serves 2 of its 4
+# repeats of the scanned pattern (14 of 26 layers), mistral-nemo-12b 10 of
+# its 40 layers, 16 new tokens (at full depth the phase took twice as long)
+P_REPEATS = {"p1": 2, "p2": 2, "p3": 10}
+P_GEN = 16
+P_ARGS = ["--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(P_GEN)]
 P_RANK_ARGS = ["--dist-backend", "gloo", "--device", "cuda:0"]
+
+
+def _p_argv(run):
+    """``launch/serve.py``'s arguments of ``run`` (no mesh, no device)."""
+    arch, _, bits = P_RUNS[run]
+    cut = ["--repeats", str(P_REPEATS[run])] if run in P_REPEATS else []
+    return ["--arch", arch, "--cache-bits", str(bits), *P_ARGS, *cut]
+
+
+def _p_cfg(run):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(P_RUNS[run][0])
+    if run in P_REPEATS:
+        cfg = dataclasses.replace(cfg, repeats=P_REPEATS[run])
+    return cfg
 # Tensor-parallel vs one process, both bf16: a row-parallel product's ranks
 # each round their partial to bf16 before the f32 sum, where one process
 # rounds the whole sum once, so every layer's output moves by ~2^-8 and the
@@ -4983,8 +5033,9 @@ def _p_world(mesh):
 
 
 def _p_teacher(cfg, params, prompt, bits, tokens, shard=None):
-    """A fresh prefill of ``prompt``, then ``GEN`` decode steps fed
-    ``tokens`` (B, GEN), eager: the logits of every step, (B, GEN, V), and
+    """A fresh prefill of ``prompt``, then ``P_GEN`` decode steps fed
+    ``tokens`` (B, P_GEN), eager: the logits of every step, (B, P_GEN, V),
+    and
     the caches on the host (:func:`_p_cache`), which the one-process run
     and the ranks fill from the same tokens, so they compare even where
     the free-running tokens part."""
@@ -4992,11 +5043,12 @@ def _p_teacher(cfg, params, prompt, bits, tokens, shard=None):
     from repro_torch.serving.kv_cache import CacheQuantConfig
 
     qcfg = CacheQuantConfig(bits=bits)
-    pre = build_prefill_step(cfg, PROMPT + GEN, qcfg=qcfg, shard=shard)
+    pre = build_prefill_step(cfg, PROMPT + P_GEN, qcfg=qcfg, shard=shard)
     dec = build_decode_step(cfg, shard)
     _, caches = pre(params, prompt)
     steps = [
-        dec(params, caches, tokens[:, i : i + 1], PROMPT + i)[0] for i in range(GEN)
+        dec(params, caches, tokens[:, i : i + 1], PROMPT + i)[0]
+        for i in range(P_GEN)
     ]
     return torch.cat(steps, dim=1), _p_cache(caches)
 
@@ -5016,24 +5068,22 @@ def tp_rank_main(out_dir, run):
     the mesh of ``run`` with the launch counts and the peak memory at 0
     first, then the teacher-forced decode on the one-process tokens
     (``out_dir/tokens.pt``); writes ``out_dir/rank<r>.pt``."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import init_distributed
 
-    arch, mesh, bits = P_RUNS[run]
+    _, mesh, bits = P_RUNS[run]
     init_distributed("gloo", "cuda:0")
     try:
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        argv = ["--arch", arch, "--cache-bits", str(bits), *P_ARGS, "--mesh", mesh]
-        out = serve.main(argv + P_RANK_ARGS)
+        out = serve.main(_p_argv(run) + ["--mesh", mesh] + P_RANK_ARGS)
         launches = ops.launch_counts()
         shard = out["shard"]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         rows = shard.rows()
         tokens = torch.load(Path(out_dir, "tokens.pt"))[rows].cuda()
-        cfg = get_config(arch)
+        cfg = _p_cfg(run)
         teacher, caches = _p_teacher(
             cfg, out["params"], out["prompt"], bits, tokens, shard
         )
@@ -5081,7 +5131,7 @@ def _p_kernels(gen):
         log_quantize_triton,
     )
 
-    half = (PROMPT + GEN) // 2
+    half = (PROMPT + P_GEN) // 2
     print("kernels at the tensor-parallel ranks' shapes")
     encodes = (
         ("log_quantize", 8, log_quantize_triton, ref.log_quantize_ref, (4,)),
@@ -5090,7 +5140,7 @@ def _p_kernels(gen):
     for name, bits, kernel, plain, batches in encodes:
         for b in batches:
             for where, shape in (
-                (f"p scan leaf b{b}", (REPEATS, b, 1, half, 256)),
+                (f"p scan leaf b{b}", (P_REPEATS["p1"], b, 1, half, 256)),
                 (f"p decode append b{b}", (b, 1, 1, 256)),
             ):
                 xn, _ = _rows(gen, shape)
@@ -5115,7 +5165,7 @@ def _p_kernels(gen):
     for where, rows, d, bits in (
         ("p1", 4 * half, 256, 8),
         ("p2", 2 * half, 256, 4),
-        ("p3", 4 * 4 * (PROMPT + GEN), 128, 8),
+        ("p3", 4 * 4 * (PROMPT + P_GEN), 128, 8),
     ):
         nb = d * bits // 8
         c = torch.randint(-128, 128, (rows, nb), generator=gen, device="cuda")
@@ -5194,15 +5244,13 @@ def _p_one_process(run, out_dir):
     """``run``'s launcher in this process (graphed decode), then the
     teacher-forced decode on its own tokens: everything on the host, the
     tokens written to ``out_dir/tokens.pt`` for the ranks."""
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    arch, _, bits = P_RUNS[run]
+    bits = P_RUNS[run][2]
     _free_cuda()
     torch.cuda.reset_peak_memory_stats()
-    argv = ["--arch", arch, "--cache-bits", str(bits), *P_ARGS, "--device", "cuda"]
-    out = serve.main(argv)
-    cfg = get_config(arch)
+    out = serve.main(_p_argv(run) + ["--device", "cuda"])
+    cfg = _p_cfg(run)
     teacher, caches = _p_teacher(
         cfg, out["params"], out["prompt"], bits, out["tokens"]
     )
@@ -5335,7 +5383,8 @@ def _p_run(card, run):
         ]
     print(
         f"{label}: one process {one_s:.1f} s (prefill {one['prefill_s'] * 1e3:.1f} "
-        f"ms, decode {one['decode_s'] * 1e3 / (GEN - 1):.2f} ms/token graphed, peak "
+        f"ms, decode {one['decode_s'] * 1e3 / (P_GEN - 1):.2f} ms/token graphed, "
+        "peak "
         f"{one['peak_gb']:.2f} GB); torchrun of {world} gloo ranks {spawn_s:.1f} s"
     )
     flips_total, moved_total, diffs = 0, 0, []
@@ -5347,7 +5396,7 @@ def _p_run(card, run):
         t_rel = max(
             _p_logits(f"{who} teacher step {i}", res["teacher"][:, i],
                       one["teacher"][rows, i])[0]
-            for i in range(GEN)
+            for i in range(P_GEN)
         )  # fmt: skip
         diffs += [
             (r, *d)
@@ -5365,9 +5414,9 @@ def _p_run(card, run):
         total_s = res["prefill_s"] + res["decode_s"]
         print(
             f"  {who}: prefill logits rel {rel:.3e} (argmax {agree}/{n}), teacher-"
-            f"forced {GEN} steps rel <= {t_rel:.3e}, cache codes {flips} one-step "
+            f"forced {P_GEN} steps rel <= {t_rel:.3e}, cache codes {flips} one-step "
             f"flip(s) and {moved2} by 2+; prefill {res['prefill_s'] * 1e3:.1f} ms, decode "
-            f"{res['decode_s'] * 1e3 / (GEN - 1):.2f} ms/token eager, collectives "
+            f"{res['decode_s'] * 1e3 / (P_GEN - 1):.2f} ms/token eager, collectives "
             f"{res['collective_s']:.3f} s = {res['collective_s'] / total_s:.1%} "
             f"(host clock), peak {res['peak_gb']:.2f} GB; {card}"
         )
@@ -5403,6 +5452,440 @@ def _p_run(card, run):
             check(res["launches"].get(name, 0) > 0, f"{label}: {name} not launched")
     print(f"  {label}: the ranks' launches {counts}")
     return counts
+
+
+# ------------------------------------------ phase 16 (q): tensor-parallel training
+# run -> (arch, mesh, arguments): each one torchrun of data x model gloo ranks
+# sharing the card through launch/train.py (one worker a rank), against the
+# one-process launcher (--mesh Dx1, graphed) on the same seeded weights and
+# batches. (q1): gemma3-1b whole, (j1)'s global batch of 8 x 512 over a
+# 2x2 mesh (2 workers x 4 rows), LQ-SGD r1 b8, Adam; (q2): mistral-nemo-12b
+# at full width cut to Q2_REPEATS of its 40 layers (so that the one-process
+# run, whose error feedback and gradients are whole, fits the card), 1x2,
+# 1 worker x 2 x 512, LQ-SGD r1 b4, SGD.
+Q_STEPS = 3
+Q2_REPEATS = 2
+Q_RUNS = {
+    "q1": ("gemma3-1b", "2x2", [
+        "--batch", "8", "--seq", "512", "--compressor", "lq_sgd", "--rank", "1",
+        "--bits", "8", "--optimizer", "adam", "--lr", "1e-3",
+    ]),
+    "q2": ("mistral-nemo-12b", "1x2", [
+        "--repeats", str(Q2_REPEATS), "--batch", "2", "--seq", "512",
+        "--compressor", "lq_sgd", "--rank", "1", "--bits", "4", "--optimizer",
+        "sgd", "--lr", "0.05",
+    ]),
+}  # fmt: skip
+Q_COMMON = ["--steps", str(Q_STEPS), "--log-every", "1", "--runtime", "sync"]
+Q_COMMON += ["--dump-steps"]
+Q_RANK_ARGS = ["--dist-backend", "gloo", "--device", "cuda:0"]
+# The checks, both runs bf16 at full width. A row-parallel product's ranks
+# round their partials to bf16 before the f32 sum where one process rounds
+# once, and so does a split branch's input gradient: the difference is
+# carried through the layers (~2% of the logits over 26-40 layers, phase
+# 15). The loss is a mean over every token: within Q_LOSS_REL of the
+# one-process run's at every step. Step 0's synced gradient, leaf by leaf:
+# |diff| within Q_SYNC_SHARE of the one-process leaf's largest value (phase
+# 15's bound for bf16 logits), plus, for an element made of wire codes that
+# moved by k steps in all (its P and Q codes, rank 1), what k of a code's
+# largest steps move it: (1 + d)^k - 1 of the leaf's largest value, d =
+# ((1 + alpha) - (1 + alpha)^((L - 1) / L)) / alpha the top step of the
+# factor's largest value (L levels: 2.05% at b8, 31.9% at b4; the drift puts
+# some codes across a bin edge); such elements are counted, and the codes
+# moved reported per phase.
+# Replicated leaves: the same bits on every rank after
+# every step. The accounted bits: the JAX package's figure (J1_BITS for
+# (q1)); the physical bits of a data row's model ranks: the accounting plus
+# (M - 1) x the bits replicated over the model axis; the data-axis
+# collectives of every rank: the plan's (Q1_COLLECTIVES: gemma3-1b's LQ-SGD
+# r1 b8 plan, as (j1) counts it; 166 is ResNet-18's).
+Q_LOSS_REL = 1e-2
+Q_SYNC_SHARE = 5e-2
+Q1_COLLECTIVES = 294
+
+
+def _q_world(mesh):
+    data, model = (int(x) for x in mesh.split("x"))
+    return data, model
+
+
+def tp_train_rank_main(out_dir, run):
+    """One rank of a phase (q) torchrun: ``launch/train.py``'s ``main`` over
+    the mesh of ``run`` with the launch counts and the peak memory at 0
+    first, dumping to ``out_dir/rank<r>.pt``; then a graphed step under
+    gloo, which must be refused (its message to ``out_dir/refusal<r>.txt``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.train.step import build_train_step
+
+    arch, mesh, argv = Q_RUNS[run]
+    init_distributed("gloo", "cuda:0")
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = train.main(
+            ["--arch", arch, *argv, *Q_COMMON, "--mesh", mesh, *Q_RANK_ARGS]
+            + ["--dump", out_dir]
+        )
+        rank = out["mesh"].rank
+        from repro_torch.configs import get_config
+        from repro_torch.core.compressors import CompressorConfig
+        from repro_torch.train.optimizer import sgd
+        from repro_torch.train.step import make_model_compressor
+
+        cfg = get_config("gemma3-1b", smoke=True)
+        comp = make_model_compressor(cfg, CompressorConfig(name="lq_sgd"))
+        step = build_train_step(
+            cfg, out["mesh"].shape, comp, sgd(0.05), comm=out["comm"],
+            tp=out["tp"], graph=True,
+        )  # fmt: skip
+        try:
+            step(out["state"], {})
+            refusal = "none"
+        except NotImplementedError as e:
+            refusal = str(e)
+        Path(out_dir, f"refusal{rank}.txt").write_text(refusal)
+        del out, step
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _q_plan(run):
+    """(cfg, the compressor) of ``run``, on abstract shapes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.train.step import make_model_compressor
+
+    arch, _, argv = Q_RUNS[run]
+    cfg = get_config(arch, smoke="--smoke" in argv)
+    if "--repeats" in argv:
+        cfg = dataclasses.replace(cfg, repeats=int(argv[argv.index("--repeats") + 1]))
+    bits = int(argv[argv.index("--bits") + 1])
+    ccfg = CompressorConfig(name="lq_sgd", rank=1, bits=bits)
+    comp = make_model_compressor(cfg, ccfg)
+    return cfg, comp, bits
+
+
+def _q_layout(comp, dims):
+    """For each data-axis gather of one LQ-SGD step, in the sync's order
+    (the raw leaves, then every low-rank leaf's P, then its Q): (phase,
+    leaf index, the factor's per-worker shape, the dim of it a rank holds
+    a block of, or None)."""
+    out = []
+    for i, pl in enumerate(comp.plans):
+        if pl.route != "lowrank":
+            out.append(("raw", i, pl.shape, dims[i]))
+    lowrank = [(i, pl) for i, pl in enumerate(comp.plans) if pl.route == "lowrank"]
+    for phase in ("P", "Q"):
+        for i, pl in lowrank:
+            n, m = pl.mat_shape
+            shape = ((pl.shape[0],) if pl.stacked else ()) + (
+                (n if phase == "P" else m),
+                pl.eff_rank,
+            )
+            d = dims[i]
+            kind = None if d is None else ("col" if d == len(pl.shape) - 1 else "row")
+            split = (phase == "P" and kind == "row") or (phase == "Q" and kind == "col")
+            out.append((phase, i, shape, len(shape) - 2 if split else None))
+    return out
+
+
+def _q_steps(block, stacked, moved):
+    """How many code steps moved in the codes each element of a synced leaf
+    block (``block``'s shape) is made of: a raw leaf's own code; for a
+    low-rank leaf (rank 1: each entry of P Q^T is one P code times one Q
+    code) its row's P code plus its column's Q code; the most any worker's
+    moved."""
+    if "raw" in moved:
+        return moved["raw"].reshape(block.shape)
+    lead = block.shape[:1] if stacked else ()
+    rows = moved["P"].amax(-1)  # (L?, n_b)
+    cols = moved["Q"].amax(-1)  # (L?, m_b)
+    steps = rows.reshape(lead + (-1, 1)) + cols.reshape(lead + (1, -1))
+    return steps.reshape(block.shape)
+
+
+def _q_codes(arr, shape, bits):
+    from repro_torch.core.codec import unpack_nibbles
+
+    numel = int(np.prod(shape))
+    if bits <= 4:
+        arr = unpack_nibbles(arr, 2 * arr.shape[-1])[:, :numel]
+    return arr.reshape((arr.shape[0],) + tuple(shape))
+
+
+def _q_block(x, dim, coords, sizes):
+    if dim is None:
+        return x
+    n = x.shape[dim] // sizes["model"]
+    return x.narrow(dim, coords["model"] * n, n)
+
+
+def _q_kernels(gen):
+    """#1 (b8), #3 (b4) and #5 at the ranks' factor shapes of (q1) / (q2)
+    over a model axis of 2 against their plain versions, with times (CUDA
+    events), bounds and the plain versions' times."""
+    from repro_torch.core.compressors import model_split
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.log_quant import (
+        log_dequantize_triton,
+        log_quantize_pack_triton,
+        log_quantize_triton,
+    )
+    from repro_torch.core.codec import unpack_nibbles
+    from repro_torch.train.step import train_param_specs
+
+    class _Two:  # a model axis of 2, rank 0: shapes only
+        size, rank = 2, 0
+
+    print("kernels at the tensor-parallel training ranks' factor shapes")
+    for run, kernel, plain, name in (
+        ("q1", log_quantize_triton, ref.log_quantize_ref, "log_quantize"),
+        ("q2", log_quantize_pack_triton, ref.log_quantize_pack_ref,
+         "log_quantize_pack"),
+    ):  # fmt: skip
+        cfg, comp, bits = _q_plan(run)
+        dims = model_split(_Two(), train_param_specs(cfg, 2)).dims
+        layout = _q_layout(comp, dims)
+        # the largest block and the largest whole factor a rank encodes
+        blocks = {}
+        for phase, _, shape, dim in layout:
+            shp = list(shape)
+            if dim is not None:
+                shp[dim] //= 2
+            key = "block" if dim is not None else "whole"
+            biggest = int(np.prod(blocks.get(key, [0])))
+            if phase != "raw" and int(np.prod(shp)) > biggest:
+                blocks[key] = [1] + shp
+        for key, shape in blocks.items():
+            x = torch.randn(shape, generator=gen, device="cuda")
+            xn = x / x.abs().amax()
+            n = xn.numel()
+            got, want = kernel(xn, 1.0, bits=bits), plain(xn, 1.0, bits, 10.0)
+            if bits <= 4:
+                got, want = unpack_nibbles(got, n), unpack_nibbles(want, n)
+            _code_flips(
+                got.reshape(-1), want.reshape(-1), _near_half(xn, bits).reshape(-1),
+                f"{name} b={bits} ({run}) {key} factor {shape}",
+            )  # fmt: skip
+            b_ms, b_by = bound_ms(n * 4 + n * bits // 8, n * QUANT_OPS, "f32")
+            ms = cuda_ms(lambda: kernel(xn, 1.0, bits=bits), 50)
+            pl = cuda_ms(lambda: plain(xn, 1.0, bits, 10.0), 20)
+            print(f"    {ms:.5f} ms, bound {b_ms:.5f} ({b_by}), plain {pl:.5f}")
+            emit({"kernel": name, "tp_train": f"{run} {key}", "shape": shape,
+                  "ms": ms, "bound_ms": b_ms, "plain_ms": pl})  # fmt: skip
+            # #5 on the mean of two workers' codes of the same shape
+            c = torch.stack([want.reshape(-1).float(), want.reshape(-1).float()])
+            mean = c.mean(0).reshape(shape)
+            d_got = log_dequantize_triton(mean, 1.0, bits=bits)
+            d_want = ref.log_dequantize_ref(mean, 1.0, bits, 10.0)
+            e = float((d_got - d_want).abs().max())
+            check(e <= 1e-6, f"log_dequantize ({run}) {key} {shape}: max err {e}")
+            b_ms, b_by = bound_ms(n * 8, n * DEQUANT_OPS, "f32")
+            ms = cuda_ms(lambda: log_dequantize_triton(mean, 1.0, bits=bits), 50)
+            pl = cuda_ms(lambda: ref.log_dequantize_ref(mean, 1.0, bits, 10.0), 20)
+            print(
+                f"  log_dequantize b={bits} ({run}) {key} mean codes {shape}: max "
+                f"abs err {e:.2e}; {ms:.5f} ms, bound {b_ms:.5f} ({b_by}), plain "
+                f"{pl:.5f}"
+            )
+            emit({"kernel": "log_dequantize", "tp_train": f"{run} {key}",
+                  "shape": shape, "ms": ms, "bound_ms": b_ms, "plain_ms": pl})  # fmt: skip
+
+
+def phase_tp_train(card):
+    """(q) tensor-parallel training: launch/train.py over gloo ranks sharing
+    the card against the one-process launcher, run by run."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    _q_kernels(gen)
+    del gen
+    total = {}
+    for run in Q_RUNS:
+        for name, c in _q_run(card, run).items():
+            total[name] = total.get(name, 0) + c
+    return total
+
+
+def _q_one_process(run, out_dir):
+    """``run``'s launcher in this process (graphed steps), its dump read
+    back; the device freed after, the cuBLAS workspaces of the streams its
+    warm-up and capture used included: each is an allocation of the
+    caching allocator kept for its stream, which would pin the whole
+    segment it lies in, and (k1) later needs all but ~3 GB of the card."""
+    from repro_torch.launch import train
+
+    arch, mesh, argv = Q_RUNS[run]
+    data, _ = _q_world(mesh)
+    _free_cuda()
+    train.main(
+        ["--arch", arch, *argv, *Q_COMMON, "--mesh", f"{data}x1", "--device", "cuda"]
+        + ["--dump", str(out_dir)]
+    )
+    torch._C._cuda_clearCublasWorkspaces()
+    _free_cuda()
+    return torch.load(Path(out_dir, "rank0.pt"), weights_only=False)
+
+
+def _q_run(card, run):
+    from repro_torch.core.tree import flatten_with_paths
+
+    arch, mesh, argv = Q_RUNS[run]
+    data, model = _q_world(mesh)
+    world = data * model
+    cfg, comp, bits = _q_plan(run)
+    label = f"({run}) {arch} {mesh} LQ-SGD r1 b{bits}"
+    with tempfile.TemporaryDirectory() as tmp:
+        one_dir, rank_dir = Path(tmp, "one"), Path(tmp, "ranks")
+        t0 = time.perf_counter()
+        one = _q_one_process(run, one_dir)
+        one_s = time.perf_counter() - t0
+        args = [str(ROOT / "chip_smoke.py"), "--tp-train-rank", str(rank_dir), run]
+        _, spawn_s = _torchrun(f"({run})", world, args, script=True)
+        ranks = [
+            torch.load(Path(rank_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)
+        ]
+        refusals = [Path(rank_dir, f"refusal{r}.txt").read_text() for r in range(world)]
+    n_params = sum(int(np.prod(pl.shape)) for pl in comp.plans)
+    one_ms = 1e3 * one["step_s"][-1]  # step 0 eager, step 1 the capture
+    print(
+        f"{label}: {n_params / 1e9:.3f} B parameters, {len(cfg.layers)} "
+        f"layers; one process {one_s:.1f} s ({one_ms:.1f} ms a replayed step, peak "
+        f"{one['peak_bytes'] / 1e9:.2f} GB); torchrun of {world} gloo ranks "
+        f"{spawn_s:.1f} s"
+    )
+    one_loss = [h["loss"] for h in one["history"]]
+    one_synced = dict(flatten_with_paths(one["synced0"]))
+    layout = _q_layout(comp, ranks[0]["dims"])
+    n_layout = len(layout)
+    levels = (1 << (bits - 1)) - 1
+    # a code's largest step (its top one), of the factor's largest value
+    step = ((1 + ALPHA) - (1 + ALPHA) ** ((levels - 1) / levels)) / ALPHA
+    check(one["recs"][0][0] == comp.wire_bits_per_step(), f"{label}: one-process bits")
+    if run == "q1":
+        bits0 = one["recs"][0][0]
+        check(bits0 == J1_BITS, f"{label}: {bits0} != {J1_BITS}")
+        check(one["recs"][0][2] == Q1_COLLECTIVES, f"{label}: one-process collectives")
+    rows, moved = {}, {}
+    for r, res in enumerate(ranks):
+        coords, sizes = _q_coords(r, data, model)
+        who = f"{label} rank (d{coords['data']}, m{coords['model']})"
+        loss = [h["loss"] for h in res["history"]]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss, one_loss))
+        check(
+            loss_rel <= Q_LOSS_REL,
+            f"{who}: loss rel {loss_rel:.3e} {loss} vs {one_loss}",
+        )
+        for s, (bits_s, phys, colls) in enumerate(res["recs"]):
+            bits_1, _, colls_1 = one["recs"][s]
+            check(bits_s == bits_1, f"{who}: step {s} accounted bits {bits_s}")
+            check(colls == colls_1, f"{who}: step {s} data-axis collectives {colls}")
+            row = rows.setdefault((coords["data"], s), [])
+            row.append((phys, res["replicated_bits"]))
+        # step 0's wire against the block of the one-process wire
+        moved_at = {}  # leaf index -> phase -> where a worker's code moved
+        for j in range(n_layout):
+            phase, i, shape, dim = layout[j]
+            w = _q_codes(one["gathered"][j], shape, bits)
+            bshape = list(shape)
+            if dim is not None:
+                bshape[dim] //= model
+                w = _q_block(w, dim + 1, coords, sizes)
+            g = _q_codes(res["gathered"][j], bshape, bits)
+            diff = (g.int() - w.int()).abs()
+            m = moved.setdefault(phase, [0, 0, 0])
+            m[0] += int((diff == 1).sum())
+            m[1] += int((diff > 1).sum())
+            m[2] += diff.numel()
+            moved_at.setdefault(i, {})[phase] = diff.amax(0)
+        # step 0's synced gradient: each element within Q_SYNC_SHARE of the
+        # leaf's largest value, plus, where the codes it is made of moved by
+        # k steps in all, the k steps' move of itself
+        worst, touched_n, total_n = (0.0, ""), 0, 0
+        synced = flatten_with_paths(res["synced0"])
+        for i, ((path, g), dim) in enumerate(zip(synced, res["dims"])):
+            w = _q_block(one_synced[path], dim, coords, sizes).float()
+            diff = (g.float() - w).abs()
+            top = max(float(w.abs().max()), 1e-30)
+            share = diff / top
+            if i in moved_at:
+                steps = _q_steps(g, comp.plans[i].stacked, moved_at[i])
+                touched_n += int((steps > 0).sum())
+                share = (share - (torch.pow(1 + step, steps.float()) - 1)).clamp_min(0)
+            total_n += g.numel()
+            worst = max(worst, (float(share.max()), path))
+        check(
+            worst[0] <= Q_SYNC_SHARE,
+            f"{who}: step-0 synced {worst[1]} share {worst[0]:.3e}",
+        )
+        check("gloo" in refusals[r], f"{who}: a graphed step under gloo ran")
+        step_ms = 1e3 * _median(res["step_s"][1:])
+        data_share = sum(res["collective_s"][1:]) / sum(res["step_s"][1:])
+        model_share = sum(res["model_collective_s"][1:]) / sum(res["step_s"][1:])
+        print(
+            f"  {who}: loss rel <= {loss_rel:.3e}, step-0 synced <= {worst[0]:.3e} of "
+            f"its leaf's largest ({worst[1]}) beyond the moved codes' steps, "
+            f"{touched_n / total_n:.3%} of it made of a moved code; "
+            f"{step_ms:.1f} ms a step eager (host "
+            f"clock), model-axis collectives {model_share:.1%}, data-axis "
+            f"{data_share:.1%}; peak {res['peak_bytes'] / 1e9:.2f} GB; {card}"
+        )
+        print(f"    model-axis collectives by tag: {res['model_comm']['calls']}")
+    for (d, s), got in rows.items():
+        rep = {b for _, b in got}
+        check(len(got) == model and len(rep) == 1, f"{label}: row {d} step {s} ranks")
+        total = sum(p for p, _ in got)
+        want = one["recs"][s][0] + (model - 1) * rep.pop()
+        check(total == want, f"{label}: row {d} step {s} physical {total} != {want}")
+    # replicated leaves: the same bits on every rank after every step
+    for s in range(Q_STEPS):
+        first = ranks[0]["prints"][s]
+        for res in ranks[1:]:
+            for (key, fp), dim in zip(first.items(), res["dims"]):
+                if dim is None:
+                    same = res["prints"][s][key] == fp
+                    check(same, f"{label}: step {s} {key} differs")
+    phys = {(d, s): sum(p for p, _ in got) for (d, s), got in rows.items()}
+    shares = {
+        ph: f"{(a + b) / max(n, 1):.3%} moved ({a} by one, {b} by 2+ of {n})"
+        for ph, (a, b, n) in moved.items()
+    }
+    print(
+        f"  {label}: accounted {one['recs'][0][0]} bits a step (the JAX package's "
+        f"figure), data-axis collectives {one['recs'][0][2]} a rank; physical bits "
+        f"of each data row's model ranks {sorted(set(phys.values()))} = accounting "
+        f"+ {model - 1} x {ranks[0]['replicated_bits']} replicated; step-0 codes "
+        f"against one process: {shares}; replicated leaves bit-identical on all "
+        f"{world} ranks after each of {Q_STEPS} steps; a graphed step under gloo "
+        "refused"
+    )
+    emit({"phase": "q", "run": run, "card": card, "one_s": one_s, "spawn_s": spawn_s,
+          "one_ms": one_ms, "codes_moved": moved, "accounted_bits": one["recs"][0][0],
+          "replicated_bits": ranks[0]["replicated_bits"],
+          "ranks": [{"rank": i, "step_s": r["step_s"],
+                     "collective_s": r["collective_s"],
+                     "model_collective_s": r["model_collective_s"],
+                     "peak_bytes": r["peak_bytes"],
+                     "losses": [h["loss"] for h in r["history"]]}
+                    for i, r in enumerate(ranks)]})  # fmt: skip
+    counts = {}
+    encode = "log_quantize" if bits == 8 else "log_quantize_pack"
+    for res in ranks:
+        for name in (encode, "log_dequantize"):
+            check(res["launches"].get(name, 0) > 0, f"{label}: {name} not launched")
+        for name, c in res["launches"].items():
+            counts[name] = counts.get(name, 0) + c
+    print(f"  {label}: the ranks' launches {counts}")
+    return counts
+
+
+def _q_coords(r, data, model):
+    return {"data": r // model, "model": r % model}, {"data": data, "model": model}
 
 
 KERNEL_INFO = {
@@ -5457,11 +5940,16 @@ def main():
     t = time.perf_counter()
     codec_launches = phase_dist_codecs(card)
     seconds["dist_codecs"] = time.perf_counter() - t
-    # (p) next, for the same reason: (p3)'s ranks hold 12 B parameters
+    # (p) next, for the same reason: (p3)'s ranks hold 3.6 B parameters
     t = time.perf_counter()
     for name, c in phase_tp(card).items():
         codec_launches[name] = codec_launches.get(name, 0) + c
     seconds["tp"] = time.perf_counter() - t
+    # (q) next, for the same reason: (q1)'s four ranks share the card
+    t = time.perf_counter()
+    for name, c in phase_tp_train(card).items():
+        codec_launches[name] = codec_launches.get(name, 0) + c
+    seconds["tp_train"] = time.perf_counter() - t
     t = time.perf_counter()
     launches = phase_serve(card, gen)
     seconds["serve"] = time.perf_counter() - t
@@ -5518,5 +6006,7 @@ if __name__ == "__main__":
         rank_main(sys.argv[2])
     elif sys.argv[1:2] == ["--tp-rank"]:  # one rank of a phase (p) torchrun
         tp_rank_main(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--tp-train-rank"]:  # one rank of a (q) torchrun
+        tp_train_rank_main(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -29,10 +29,19 @@ same on every rank. A barrier after the write (in :func:`save`, in
 :meth:`AsyncCheckpointer.drain`) keeps any rank from reading a file still
 being written. A checkpoint written by R ranks resumes under any other
 split of the same N workers, one process included.
+
+Over a ``(data, model)`` mesh (``shards``, a :class:`ModelShards`) the
+leaves split over the model axis (parameters, their optimizer state, the
+error feedback) are gathered into whole leaves too, and rank (d0, m0)
+writes: the file is the one-process layout, whatever the mesh. A restore
+cuts each such leaf to the rank's block, after checking the file holds
+the whole leaf. A checkpoint of a 2x2 mesh resumes in one process, and
+one process's on 2x2.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import queue
@@ -48,6 +57,7 @@ import torch
 from repro_torch.core.tree import Tree, flatten_with_paths, tree_unflatten
 
 __all__ = [
+    "ModelShards",
     "save",
     "restore",
     "peek_step",
@@ -62,6 +72,85 @@ _PYTHON = {"int": int, "float": float, "bool": bool}
 
 def _spans_ranks(comm: Any) -> bool:
     return comm is not None and comm.world > 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShards:
+    """The leaves of a tree that a model axis splits: its comm (a
+    ``core.comm.ModelComm``) and, by tree path, the dim each is cut on
+    (of the leaf as it is held, a leading worker dim included)."""
+
+    comm: Any
+    dims: dict[str, int]
+
+    @classmethod
+    def of(cls, comm: Any, specs: Any) -> ModelShards:
+        """From a spec tree laid out as the tree (``launch.sharding.Spec``
+        leaves; ``train/step.py:train_state_specs``)."""
+        from repro_torch.launch.sharding import flatten_specs, split_dim
+
+        pairs = [(path, split_dim(spec)) for path, spec in flatten_specs(specs)]
+        return cls(comm, {path: d for path, d in pairs if d is not None})
+
+    @property
+    def spans(self) -> bool:
+        return self.comm.size > 1
+
+    def gather(self, tree: Tree) -> Tree:
+        """``tree`` with every split leaf gathered whole over the model axis
+        (a collective: every model rank calls it)."""
+        keyed = flatten_with_paths(tree)
+        return tree_unflatten(
+            tree,
+            [
+                self.comm.all_gather(x.detach(), self.dims[k], "tp.ckpt")
+                if k in self.dims
+                else x
+                for k, x in keyed
+            ],
+        )
+
+    def cut(self, key: str, arr: np.ndarray, want: tuple) -> np.ndarray:
+        """This rank's block of the whole leaf ``arr`` at ``key``, whose
+        held shape is ``want``."""
+        d = self.dims[key]
+        whole = list(want)
+        whole[d] *= self.comm.size
+        if list(arr.shape) != whole:
+            raise ValueError(
+                f"{key}: {list(arr.shape)} in the checkpoint, the whole leaf "
+                f"{whole} wanted (a block {list(want)} over {self.comm.size} "
+                "model ranks)"
+            )
+        n = want[d]
+        idx = [slice(None)] * arr.ndim
+        idx[d] = slice(self.comm.rank * n, (self.comm.rank + 1) * n)
+        return arr[tuple(idx)]
+
+
+def _gather_all(tree: Tree, comm: Any, per_worker: Any, shards: Any) -> Tree:
+    """The model blocks gathered, then the worker rows (collectives)."""
+    if shards is not None and shards.spans:
+        tree = shards.gather(tree)
+    if _spans_ranks(comm):
+        tree = _gather_rows(tree, comm, per_worker)
+    return tree
+
+
+def _is_writer(comm: Any, shards: Any) -> bool:
+    """Rank (d0, m0): data rank 0 of model rank 0."""
+    data0 = comm is None or comm.rank == 0
+    return data0 and (shards is None or shards.comm.rank == 0)
+
+
+def _barrier(comm: Any, shards: Any) -> None:
+    """Every rank past the writer's write: the data group's barrier (the
+    writer's column), then the model group's (each row behind its rank of
+    that column)."""
+    if _spans_ranks(comm):
+        comm.barrier()
+    if shards is not None and shards.spans:
+        shards.comm.barrier()
 
 
 def _is_rows(per_worker: str | tuple[str, ...] | None, key: str, leaf: Any) -> bool:
@@ -147,19 +236,20 @@ def save(
     *,
     comm: Any = None,
     per_worker: str | tuple[str, ...] | None = None,
+    shards: ModelShards | None = None,
 ) -> int:
     """Write ``tree`` (tensors on any device, numpy arrays, Python numbers)
-    to ``path``. Returns the bytes written. Over several ranks (``comm``)
-    every rank calls it: the rows of the ``per_worker`` leaves are
-    gathered, rank 0 writes, and all wait for the write (other ranks
-    return 0)."""
-    if _spans_ranks(comm):
-        tree = _gather_rows(tree, comm, per_worker)
-        try:
-            return _write(path, tree) if comm.rank == 0 else 0
-        finally:
-            comm.barrier()
-    return _write(path, tree)
+    to ``path``. Returns the bytes written. Over several ranks (``comm``,
+    ``shards``) every rank calls it: the rows of the ``per_worker`` leaves
+    and the model blocks of the split ones are gathered, rank (d0, m0)
+    writes, and all wait for the write (other ranks return 0)."""
+    if not (_spans_ranks(comm) or (shards is not None and shards.spans)):
+        return _write(path, tree)
+    tree = _gather_all(tree, comm, per_worker, shards)
+    try:
+        return _write(path, tree) if _is_writer(comm, shards) else 0
+    finally:
+        _barrier(comm, shards)
 
 
 def _write(path: str, tree: Tree) -> int:
@@ -221,6 +311,7 @@ def restore(
     *,
     comm: Any = None,
     per_worker: str | tuple[str, ...] | None = None,
+    shards: ModelShards | None = None,
 ) -> Tree:
     """The checkpoint at ``path`` in the structure of ``like`` (tensors,
     meta tensors or Python numbers). Each tensor leaf must match its
@@ -228,9 +319,11 @@ def restore(
     (``cpu`` for a meta like). Raises on any mismatch: no partial restore.
     Over several ranks (``comm``) each ``per_worker`` leaf of the file
     must hold ``comm.size()`` workers, and is cut to this rank's rows
-    (``comm.workers()``); every rank reads the same header, so every rank
-    raises alike."""
+    (``comm.workers()``); over a model axis (``shards``) each split leaf
+    of the file must be whole, and is cut to this rank's block. Every rank
+    reads the same header, so every rank raises alike."""
     cut = _spans_ranks(comm)
+    blocks = shards is not None and shards.spans
     out = []
     with open(path, "rb") as f:
         entries, start = _read_header(f)
@@ -239,6 +332,11 @@ def restore(
                 raise KeyError(f"checkpoint {path!r} misses leaf {key}")
             entry = entries[key]
             arr = _read_leaf(f, start, entry)
+            if blocks and key in shards.dims:
+                rows = list(ref.shape)
+                if cut and _is_rows(per_worker, key, ref):
+                    rows[0] = comm.size()  # the file holds every worker
+                arr = shards.cut(key, arr, tuple(rows))
             if cut and _is_rows(per_worker, key, ref) and "python" not in entry:
                 if not entry["shape"] or entry["shape"][0] != comm.size():
                     raise ValueError(
@@ -275,19 +373,22 @@ class AsyncCheckpointer:
     hoarding snapshots. A write error is kept and raised by :meth:`drain`;
     after one, the thread drains without writing.
 
-    Over several ranks (``comm``) every rank submits: :meth:`submit`
-    gathers the rows of the ``per_worker`` leaves, rank 0 alone queues the
-    write, and :meth:`drain` ends in a barrier on every rank."""
+    Over several ranks (``comm``, ``shards``) every rank submits:
+    :meth:`submit` gathers the rows of the ``per_worker`` leaves and the
+    model blocks, rank (d0, m0) alone queues the write, and :meth:`drain`
+    ends in a barrier on every rank."""
 
     def __init__(
         self,
         path: str,
         comm: Any = None,
         per_worker: str | tuple[str, ...] | None = None,
+        shards: ModelShards | None = None,
     ):
         self.path = path
         self.comm = comm
         self.per_worker = per_worker
+        self.shards = shards
         self._q: queue.Queue = queue.Queue(maxsize=2)
         self._err: BaseException | None = None
         self._thread = threading.Thread(
@@ -315,18 +416,16 @@ class AsyncCheckpointer:
         """Enqueue a snapshot of ``tree``: ``prepare(tree)`` where given (a
         tree, or a callable the writer thread calls), run on this thread
         after the rows are gathered. Blocks only while two are queued."""
-        if _spans_ranks(self.comm):
-            tree = _gather_rows(tree, self.comm, self.per_worker)
-            if self.comm.rank != 0:
-                return
+        tree = _gather_all(tree, self.comm, self.per_worker, self.shards)
+        if not _is_writer(self.comm, self.shards):
+            return
         self._q.put(prepare(tree) if prepare is not None else tree)
 
     def drain(self) -> None:
         """Wait until every submitted snapshot is written (on every rank:
-        until rank 0's is); raise the first write error."""
+        until rank (d0, m0)'s is); raise the first write error."""
         self._q.join()
-        if _spans_ranks(self.comm):
-            self.comm.barrier()
+        _barrier(self.comm, self.shards)
         if self._err is not None:
             err, self._err = self._err, None
             raise RuntimeError(

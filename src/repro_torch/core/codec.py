@@ -694,6 +694,20 @@ def phase_collectives(n: int, codec: WireCodec, *, wire: str, fuse: bool) -> int
     return scales + (n if wire == "psum_sim" or not fuse else 1)
 
 
+def _model_max(local: list[torch.Tensor], split: Sequence[Any]) -> list[torch.Tensor]:
+    """``local`` with every split tensor's maxima replaced by their max over
+    its model group: one all-reduce for all of them (they share a group)."""
+    idx = [j for j, c in enumerate(split) if c is not None]
+    if not idx:
+        return local
+    flat = torch.cat([local[j].reshape(-1) for j in idx])
+    parts = split[idx[0]].max(flat, "tp.scale").split([local[j].numel() for j in idx])
+    out = list(local)
+    for j, part in zip(idx, parts):
+        out[j] = part.reshape(local[j].shape)
+    return out
+
+
 def codec_phase(
     xs: Sequence[torch.Tensor],
     stacked_flags: Sequence[bool],
@@ -706,6 +720,7 @@ def codec_phase(
     fuse: bool = False,
     keys: Sequence[torch.Generator | None] | None = None,
     account_bits: Sequence[int] | None = None,
+    split: Sequence[Any] | None = None,
 ) -> list[torch.Tensor]:
     """Ship a list of (N, ...) per-worker tensors through one collective phase.
 
@@ -727,14 +742,25 @@ def codec_phase(
     ``rec`` is charged each worker's actual bits of every encoded array plus
     32 per scale, unless ``account_bits`` overrides the payload (TopK's
     sparse accounting over a dense simulation). Collective counts include
-    the scale pmax: one when fused, else one per tensor. Returns the synced
-    tensors, one per input, in the input's per-worker shape (no worker dim):
-    every worker holds the same values.
+    the scale pmax: one when fused, else one per tensor. ``rec.phys_bits``
+    is charged what each worker actually encodes (codes as shipped, f32
+    codes under ``psum_sim``) plus 32 per scale.
+
+    ``split[i]``, a ``ModelComm`` (None: whole), says that tensor i is this
+    rank's block of a tensor split over a model axis of that group: its
+    scale is the max over the group too (one model-axis all-reduce for all
+    such tensors, before the data-axis pmax), the data-axis collectives
+    carry the rank's block, and ``rec``'s static tier is charged the whole
+    tensor's payload (the JAX package's accounting), ``phys_bits`` the
+    block's. Returns the synced tensors, one per input, in the input's
+    per-worker shape (no worker dim): every worker holds the same values.
     """
     n = len(xs)
     if n == 0:
         return []
     wt = as_wire(comm)
+    split = list(split) if split is not None else [None] * n
+    whole = [1 if c is None else c.size for c in split]  # blocks of the tensor
     # a process of k < N workers draws all N workers' values, keeps its rows
     keys = [worker_key(k, wt) for k in keys] if keys is not None else [None] * n
     xs = [x.float() for x in xs]
@@ -742,6 +768,7 @@ def codec_phase(
     # ---- shared quantization grid: per-instance global max ---------------
     if codec.needs_scale:
         local = [_local_absmax(x, st) for x, st in zip(xs, stacked_flags)]
+        local = _model_max(local, split)
         if fuse:
             gmax = wt.fused_pmax(local)
         else:
@@ -765,9 +792,12 @@ def codec_phase(
             c = codec.codes(x, key=key)
             numel = x[0].numel()
             payload = (
-                account_bits[i] if account_bits is not None else codec.wire_bits(numel)
+                account_bits[i]
+                if account_bits is not None
+                else codec.wire_bits(numel * whole[i])
             )
             rec.add(payload + codec.scale_bits(ns), 1)
+            rec.add_phys(numel * 32 + codec.scale_bits(ns))
             if avg_mode == "paper":
                 val = codec.expand(wt.pmean(c.float()))
             else:
@@ -779,13 +809,16 @@ def codec_phase(
 
     # ---- exact wire: encode -> (fused) all-gather -> decode --------------
     wires = [_encode_workers(codec, x, key) for x, key in zip(xn, keys)]
-    for i, (w, ns) in enumerate(zip(wires, n_scales)):
-        payload = (
-            account_bits[i]
-            if account_bits is not None
-            else w[0].numel() * w.element_size() * 8
-        )
+    for i, (w, x, ns) in enumerate(zip(wires, xs, n_scales)):
+        shipped = w[0].numel() * w.element_size() * 8
+        if account_bits is not None:
+            payload = account_bits[i]
+        elif whole[i] > 1:
+            payload = codec.wire_bits(x[0].numel() * whole[i])
+        else:
+            payload = shipped
         rec.add(payload + codec.scale_bits(ns), 0)
+        rec.add_phys(shipped + codec.scale_bits(ns))
     if fuse:
         gathered = wt.fused_all_gather(wires)
         rec.n_collectives += 1

@@ -24,6 +24,11 @@ A tensor-parallel forward's collectives go over :class:`ModelComm`: the
 row-parallel products' all-reduce and the gathers of heads, vocab and
 attention partials within one axis group of a ``(data, model)`` mesh;
 :class:`ModelAxis` is what the sharded forward threads through its layers.
+Its collectives carry their own backward (:func:`copy_to_model`,
+:func:`reduce_from_model`, :func:`gather_from_model`), so a training
+forward over the model axis is differentiated as it is written. Over a
+``(data, model)`` mesh the sync's ``DistComm`` spans the rank's data-axis
+group only (``group``).
 
 Byte accounting is static (plain Python ints from shapes), as in the JAX
 package, so tables never need device work; only a lazily aggregated
@@ -41,7 +46,16 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-__all__ = ["CommRecord", "SimComm", "DistComm", "ModelComm", "ModelAxis"]
+__all__ = [
+    "CommRecord",
+    "SimComm",
+    "DistComm",
+    "ModelComm",
+    "ModelAxis",
+    "copy_to_model",
+    "reduce_from_model",
+    "gather_from_model",
+]
 
 
 @dataclasses.dataclass
@@ -59,6 +73,14 @@ class CommRecord:
       them on the host inside a sync.
     * ``add_down``: the server's broadcast (the server wire).
 
+    ``phys_bits`` is what this process's worker actually puts on its
+    data-axis wire in the codec phases and raw means (``add_phys``): the
+    encoded codes of the tensors it holds plus 32 per scale. Over a model
+    axis of 1 it equals the static tier for the compressors without a
+    stand-in wire; over M > 1 the static tier stays the whole model's
+    figure (the JAX package's accounting) while a rank ships the blocks it
+    holds and, whole, what is replicated over the model axis.
+
     ``effective_bits`` / ``effective_collectives`` fold the static and
     gated tiers; on an eager-only record they stay Python ints."""
 
@@ -67,6 +89,7 @@ class CommRecord:
     dyn_bits: Any = 0  # gate-weighted payload (0-dim f32 tensor, or 0)
     dyn_collectives: Any = 0
     down_bits: int = 0  # server->worker broadcast payload (server wire)
+    phys_bits: int = 0  # what this rank's worker ships on its data-axis wire
 
     def add(self, bits: int, n: int = 1) -> None:
         self.bits_sent += int(bits)
@@ -83,6 +106,9 @@ class CommRecord:
 
     def add_down(self, bits: int) -> None:
         self.down_bits += int(bits)
+
+    def add_phys(self, bits: int) -> None:
+        self.phys_bits += int(bits)
 
     def effective_bits(self) -> int | torch.Tensor:
         """Static + gate-weighted payload bits."""
@@ -247,14 +273,21 @@ class DistComm(_Comm):
     graph once the communicator exists (after the first collective). Gloo
     runs its collectives from the host, copying a CUDA tensor's bytes
     through host memory inside each collective; a step over it cannot be
-    captured (:meth:`graph_refusal`). The collectives used are the ones
+    captured (:meth:`graph_refusal`). ``group`` (default: the whole process
+    group) is the group the workers span: a ``(data, model)`` mesh's
+    data-axis group, whose ranks hold the model-axis coordinate of this
+    one; ``rank`` and ``world`` are then this rank's place in it and its
+    size, ``process_rank`` its rank in the whole group. The collectives
+    used are the ones
     both PyTorch 2.11 and 2.13 offer without a warning (``all_reduce`` and
     the list ``all_gather`` into views of one output buffer). ``host_s``
     sums the host seconds spent inside the collectives' calls: the whole
     collective over gloo, which blocks the host (with the wait for the
     device work queued before it), only the enqueue over NCCL."""
 
-    def __init__(self, local_workers: int = 1, *, record: bool = False):
+    def __init__(
+        self, local_workers: int = 1, *, record: bool = False, group: Any = None
+    ):
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError(
                 "DistComm needs an initialised torch.distributed process group "
@@ -262,10 +295,12 @@ class DistComm(_Comm):
             )
         if local_workers < 1:
             raise ValueError(f"local_workers must be >= 1, got {local_workers}")
-        self.world = dist.get_world_size()
-        self.rank = dist.get_rank()
+        self.group = group
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.process_rank = dist.get_rank()
         self.local = local_workers
-        self.backend = str(dist.get_backend())
+        self.backend = str(dist.get_backend(group))
         self.gathered = [] if record else None
         self.host_s = 0.0
 
@@ -300,7 +335,7 @@ class DistComm(_Comm):
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x)
         s = x.sum(0)
-        self._call(dist.all_reduce, s, op=dist.ReduceOp.SUM)
+        self._call(dist.all_reduce, s, op=dist.ReduceOp.SUM, group=self.group)
         return s
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
@@ -309,7 +344,7 @@ class DistComm(_Comm):
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x)
         m = x.amax(0)
-        self._call(dist.all_reduce, m, op=dist.ReduceOp.MAX)
+        self._call(dist.all_reduce, m, op=dist.ReduceOp.MAX, group=self.group)
         return m
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -317,7 +352,8 @@ class DistComm(_Comm):
         order, unrecorded."""
         self._check(x)
         out = torch.empty((self.size(),) + x.shape[1:], dtype=x.dtype, device=x.device)
-        self._call(dist.all_gather, list(out.chunk(self.world)), x.contiguous())
+        parts = list(out.chunk(self.world))
+        self._call(dist.all_gather, parts, x.contiguous(), group=self.group)
         return out
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -328,7 +364,7 @@ class DistComm(_Comm):
         return out
 
     def barrier(self) -> None:
-        self._call(dist.barrier)
+        self._call(dist.barrier, group=self.group)
 
 
 class ModelComm:
@@ -338,11 +374,15 @@ class ModelComm:
     operation is the identity and nothing is recorded.
 
     * ``all_reduce(x, tag)``: the sum of the ranks' ``x``, cast to f32,
-      summed, cast back once (so gloo never sees bf16);
+      summed, cast back once (so gloo never sees bf16); its backward is the
+      identity (:func:`reduce_from_model`);
     * ``row_parallel(x, w, tag)``: a product whose weight is split by rows,
       its partial kept in f32 through the all-reduce;
     * ``all_gather(x, dim, tag)``: the ranks' blocks concatenated along
-      ``dim`` in rank order.
+      ``dim`` in rank order; its backward keeps the rank's block
+      (:func:`gather_from_model`);
+    * ``max(x, tag)``: the elementwise max over the ranks (no gradient: a
+      quantization scale, a log-sum-exp's shift).
 
     Only ``all_reduce`` and the list ``all_gather`` are used: what gloo
     takes on CUDA tensors in PyTorch 2.11 and 2.13. Over NCCL they can be
@@ -350,10 +390,10 @@ class ModelComm:
     its first collective, which a step graph's eager warm-up makes). Each
     call adds its bytes to ``bytes_by_tag`` and its count to
     ``calls_by_tag`` under its tag (``tp.attn.wo``, ``tp.mlp.down``,
-    ``tp.embed``, ``tp.head``, ...), on the host as it is made: a graph's
-    capture counts once and its replays do not; ``host_s`` sums the host
-    seconds inside the calls (the whole collective over gloo, the enqueue
-    over NCCL)."""
+    ``tp.embed``, ``tp.head``, ...; a backward's under its forward's tag
+    with ``.grad``), on the host as it is made: a graph's capture counts
+    once and its replays do not; ``host_s`` sums the host seconds inside
+    the calls (the whole collective over gloo, the enqueue over NCCL)."""
 
     def __init__(self, group: Any = None, size: int = 1, rank: int = 0):
         if size > 1 and not (dist.is_available() and dist.is_initialized()):
@@ -374,16 +414,25 @@ class ModelComm:
         )
         self.calls_by_tag[tag] = self.calls_by_tag.get(tag, 0) + 1
 
-    def all_reduce(self, x: torch.Tensor, tag: str) -> torch.Tensor:
-        """The sum over the group of every rank's ``x``, in f32, returned in
-        ``x``'s dtype (``x`` itself is left as it was)."""
-        if self.size == 1:
-            return x
-        y = x.to(torch.float32, copy=True).contiguous()
+    def _sum(self, x: torch.Tensor, tag: str) -> torch.Tensor:
+        """The f32 sum over the group, in ``x``'s dtype (no autograd)."""
+        y = x.detach().to(torch.float32, copy=True).contiguous()
         t0 = time.perf_counter()
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.group)
         self._note(tag, y, t0)
         return y.to(x.dtype)
+
+    def _gather(self, x: torch.Tensor, dim: int, tag: str) -> torch.Tensor:
+        out = torch.empty((self.size,) + x.shape, dtype=x.dtype, device=x.device)
+        t0 = time.perf_counter()
+        dist.all_gather(list(out.unbind(0)), x.detach().contiguous(), group=self.group)
+        self._note(tag, out, t0)
+        return torch.cat(out.unbind(0), dim=dim)
+
+    def all_reduce(self, x: torch.Tensor, tag: str) -> torch.Tensor:
+        """The sum over the group of every rank's ``x``, in f32, returned in
+        ``x``'s dtype (``x`` itself is left as it was)."""
+        return reduce_from_model(x, self, tag)
 
     def row_parallel(self, x: torch.Tensor, w: torch.Tensor, tag: str) -> torch.Tensor:
         """``x @ w`` for a ``w`` split by rows over the group (``x`` split by
@@ -395,7 +444,7 @@ class ModelComm:
             partial = x @ w
         elif x.is_cuda:
             flat = x.reshape(-1, x.shape[-1])
-            partial = torch.mm(flat, w, out_dtype=torch.float32)
+            partial = _MatmulF32.apply(flat, w)
             partial = partial.reshape(x.shape[:-1] + (w.shape[-1],))
         else:
             partial = x.float() @ w.float()
@@ -403,13 +452,22 @@ class ModelComm:
 
     def all_gather(self, x: torch.Tensor, dim: int, tag: str) -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+        return gather_from_model(x, self, dim, tag)
+
+    def max(self, x: torch.Tensor, tag: str) -> torch.Tensor:
+        """The elementwise max over the group of every rank's ``x`` (exact;
+        no gradient)."""
         if self.size == 1:
-            return x
-        out = torch.empty((self.size,) + x.shape, dtype=x.dtype, device=x.device)
+            return x.detach()
+        y = x.detach().clone().contiguous()
         t0 = time.perf_counter()
-        dist.all_gather(list(out.unbind(0)), x.contiguous(), group=self.group)
-        self._note(tag, out, t0)
-        return torch.cat(out.unbind(0), dim=dim)
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
+        self._note(tag, y, t0)
+        return y
+
+    def barrier(self) -> None:
+        if self.size > 1:
+            dist.barrier(group=self.group)
 
     def stats(self) -> dict[str, Any]:
         """Calls, bytes and host seconds so far (every tag's)."""
@@ -420,15 +478,96 @@ class ModelComm:
         }
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``x @ w`` of two bf16 matrices with its f32 accumulator kept
+    (``torch.mm(..., out_dtype=float32)``, which has no derivative). The
+    backward takes the gradient in the operands' dtype, whose values it
+    holds (the f32 product is rounded to ``x``'s dtype after the sum), and
+    forms each operand's gradient as one process's bf16 product does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        return g @ w.t(), x.t() @ g
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, tag):
+        ctx.comm, ctx.tag = comm, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm._sum(grad, ctx.tag + ".grad"), None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, tag):
+        return comm._sum(x, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, tag):
+        ctx.comm, ctx.dim, ctx.n = comm, dim, x.shape[dim]
+        return comm._gather(x, dim, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        block = grad.narrow(ctx.dim, ctx.comm.rank * ctx.n, ctx.n)
+        return block, None, None, None
+
+
+def copy_to_model(x: torch.Tensor, comm: ModelComm, tag: str) -> torch.Tensor:
+    """Identity forward, the f32 sum over the model group backward: placed
+    where a replicated activation enters a branch whose products split over
+    the group, so each rank's partial gradient of it is made whole."""
+    if comm.size == 1:
+        return x
+    return _CopyToModel.apply(x, comm, tag)
+
+
+def reduce_from_model(x: torch.Tensor, comm: ModelComm, tag: str) -> torch.Tensor:
+    """The f32 sum over the model group forward (cast back to ``x``'s dtype
+    once), the identity backward: a row-parallel product's partials, a
+    vocab-parallel lookup's terms."""
+    if comm.size == 1:
+        return x
+    return _ReduceFromModel.apply(x, comm, tag)
+
+
+def gather_from_model(
+    x: torch.Tensor, comm: ModelComm, dim: int, tag: str
+) -> torch.Tensor:
+    """The ranks' blocks concatenated along ``dim`` forward, this rank's
+    block of the gradient backward."""
+    if comm.size == 1:
+        return x
+    return _GatherFromModel.apply(x, comm, dim % x.dim(), tag)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
     """What a tensor-parallel forward threads through its layers: the
     model-axis comm, the comm of the group the KV cache's sequence is split
-    over (a group of one where the cache splits by heads or not at all), and
-    the serving tree's parameter specs (``launch/sharding.py``), from which
-    each layer reads which of its products split by rows and so end in an
-    all-reduce. ``gloo``: the collectives run from the host, so a decode
-    over them cannot be one CUDA graph."""
+    over (a group of one where the cache splits by heads or not at all, and
+    in training), and the parameter specs of the serving or the training
+    tree (``launch/sharding.py``), from which each layer reads which of its
+    products split by rows and so end in an all-reduce. ``gloo``: the
+    collectives run from the host, so a decode or a training step over
+    them cannot be one CUDA graph."""
 
     comm: ModelComm
     seq: ModelComm

@@ -297,6 +297,15 @@ class CompositeCompressor(GradCompressor):
             "20, the graphed composite)"
         )
 
+    def tp_refusal(self) -> str | None:
+        from repro_torch.launch.mesh import TP_COMPRESSORS
+
+        return (
+            "the composite compressor (per-leaf policies, schedules, lazy "
+            "groups, the randomized codecs, the server wire) on model-sharded "
+            f"gradients is not ported yet ({TP_COMPRESSORS})"
+        )
+
     def sync(
         self,
         grads: Tree,

@@ -28,6 +28,16 @@ policies, schedules, lazy aggregation, server drop-out and the randomized
 privacy codecs (``codec``, ``dp_epsilon``) to the composite, as the JAX
 package does.
 
+Over a ``(data, model)`` mesh of M > 1 (:class:`ModelSplit`) each rank
+holds its model-axis block of every split gradient leaf, of its error
+feedback (:meth:`GradCompressor.state_pspecs`) and of the parameter; the
+warm-start Q stays whole. The sync ships blocks over the data-axis comm and
+joins what the method needs over the model axis (PowerSGD / LQ-SGD's split
+power iteration, ``core/powersgd.py``); ``CommRecord.bits_sent`` stays the
+whole model's accounting, and ``phys_bits`` says what the rank shipped.
+``none``, ``powersgd`` and ``lq_sgd`` (the log codec) run so; the rest
+raise (:meth:`GradCompressor.tp_refusal`).
+
 Generators: a randomized method draws from one ``torch.Generator`` per
 (leaf, step, stream), seeded from the state's ``key`` seed
 (:func:`leaf_generator`). One generator draws the whole (N, ...) tensor,
@@ -82,6 +92,8 @@ __all__ = [
     "error_corrected",
     "state_dtype",
     "check_across_ranks",
+    "ModelSplit",
+    "model_split",
     "POLICY_METHODS",
     "PHASE_STREAMS",
 ]
@@ -338,10 +350,54 @@ def per_worker(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _pmean_raw(
-    g: torch.Tensor, comm: SimComm | SymmetricWire, rec: CommRecord
+    g: torch.Tensor,
+    comm: SimComm | SymmetricWire,
+    rec: CommRecord,
+    split: Any = None,
 ) -> torch.Tensor:
-    rec.add(g[0].numel() * 32, 1)  # f32 wire, ring all-reduce payload ~ numel
+    """The f32 mean over the workers; ``split`` (a ``ModelComm``): ``g`` is
+    this rank's block of a leaf split over that group, accounted whole."""
+    whole = 1 if split is None else split.size
+    rec.add(g[0].numel() * whole * 32, 1)  # f32 wire, ring payload ~ numel
+    rec.add_phys(g[0].numel() * 32)
     return comm.pmean(g.float()).to(g.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """The model axis a sync's gradients are sharded over: its comm (a
+    ``core.comm.ModelComm``) and, per flattened leaf, the dim of the leaf
+    (without the worker dim) that the axis cuts, None where the leaf is
+    whole on every model rank (``launch/sharding.py:split_dim``)."""
+
+    comm: Any
+    dims: tuple[int | None, ...]
+
+    @property
+    def size(self) -> int:
+        return self.comm.size
+
+    def of(self, i: int) -> Any:
+        """Leaf ``i``'s model comm where the axis splits it, else None."""
+        return self.comm if self.dims[i] is not None else None
+
+    def kind(self, i: int, pl: LeafPlan) -> str | None:
+        """How leaf ``i``'s matricized instance is split: 'col' (its last
+        dim: the columns), 'row' (another dim: a subset of the rows), or
+        None (whole)."""
+        d = self.dims[i]
+        if d is None:
+            return None
+        return "col" if d == len(pl.shape) - 1 else "row"
+
+
+def model_split(comm: Any, param_specs: Tree) -> ModelSplit:
+    """The :class:`ModelSplit` of a model-axis ``comm`` over the gradient
+    tree whose parameters take ``param_specs``."""
+    from repro_torch.launch.sharding import flatten_specs, split_dim
+
+    dims = tuple(split_dim(spec) for _, spec in flatten_specs(param_specs))
+    return ModelSplit(comm, dims)
 
 
 def check_across_ranks(compressor: Any, comm: Any) -> None:
@@ -414,12 +470,20 @@ class LeafGroupHandler:
         rec: CommRecord,
         *,
         key: torch.Generator | None = None,
+        split: Any = None,
     ) -> torch.Tensor:
+        """One raw-route leaf; ``split``, a ``ModelComm``: ``g`` is the
+        rank's block of a leaf split over its group."""
         del key  # the f32 pmean is deterministic
-        return _pmean_raw(g, comm, rec)
+        return _pmean_raw(g, comm, rec, split)
 
-    def sync_group(self, items, state, comm, rec, *, donate=False):
-        return {i: self.sync_raw(g, pl, comm, rec) for i, g, pl in items}, {}
+    def sync_group(self, items, state, comm, rec, *, donate=False, model=None):
+        """``model`` (a :class:`ModelSplit`, handlers that run over one):
+        the items are the rank's blocks of leaves split over it."""
+        return {
+            i: self.sync_raw(g, pl, comm, rec, split=model and model.of(i))
+            for i, g, pl in items
+        }, {}
 
     # ---- static accounting ------------------------------------------------
     def raw_wire_bits(self, pl: LeafPlan, numel: int) -> int:
@@ -433,6 +497,13 @@ class LeafGroupHandler:
         another width than it is accounted (TopK's dense f32 stand-in for the
         sparse payload, ``psum_sim``'s f32 codes)."""
         return self.leaf_wire_bits(pl)
+
+    def leaf_replicated_bits(self, pl: LeafPlan, kind: str | None) -> int:
+        """Of this leaf's accounted bits, those every model rank ships alike
+        over a model axis that splits it as ``kind`` (``ModelSplit.kind``):
+        a whole leaf's all, a split raw leaf's none (each rank ships its
+        block)."""
+        return self.leaf_wire_bits(pl) if kind is None else 0
 
     def leaf_epsilon(self, pl: LeafPlan, delta: float = 1e-5) -> float:
         """Per-step DP epsilon spent transmitting this leaf: the sum of
@@ -482,7 +553,7 @@ class TopKHandler(LeafGroupHandler):
         sd = state_dtype(self.cfg)
         return {"err": torch.zeros((n_workers,) + pl.shape, dtype=sd, device=device)}
 
-    def sync_group(self, items, state, comm, rec, *, donate=False):
+    def sync_group(self, items, state, comm, rec, *, donate=False, model=None):
         from repro_torch.core.codec import codec_phase, make_codec
 
         outs: dict[int, torch.Tensor] = {}
@@ -570,7 +641,7 @@ class QSGDHandler(LeafGroupHandler):
             return state["gen"][str(i)]
         return leaf_generator(state["key"], state["step"], i, device)
 
-    def sync_group(self, items, state, comm, rec, *, donate=False):
+    def sync_group(self, items, state, comm, rec, *, donate=False, model=None):
         from repro_torch.core.codec import codec_phase
 
         outs: dict[int, torch.Tensor] = {}
@@ -658,11 +729,24 @@ class GradCompressor:
         self.handler = self.handler_cls(cfg)
 
     # ---- state -----------------------------------------------------------
-    def init_state(self, seed: int, n_workers: int, device="cuda") -> dict[str, Any]:
+    def init_state(
+        self,
+        seed: int,
+        n_workers: int,
+        device="cuda",
+        model: ModelSplit | None = None,
+    ) -> dict[str, Any]:
         """Per-worker state: every tensor has the leading worker dim, of the
-        ``n_workers`` this process holds (a ``DistComm`` rank's local ones)."""
+        ``n_workers`` this process holds (a ``DistComm`` rank's local ones).
+        Over a model axis (``model``) a param-shaped leaf (the error
+        feedback) is this rank's block; the rest (the warm-start Q) is
+        whole, drawn as in one process."""
         state: dict[str, Any] = {ns: {} for ns in self.handler.namespaces}
         for i, pl in enumerate(self.plans):
+            if model is not None and model.dims[i] is not None:
+                shape = list(pl.shape)
+                shape[model.dims[i]] //= model.size
+                pl = dataclasses.replace(pl, shape=tuple(shape))
             leaf = self.handler.init_leaf_state(seed, i, pl, n_workers, device)
             for ns, v in leaf.items():
                 state[ns][str(i)] = v
@@ -726,13 +810,21 @@ class GradCompressor:
         if wire.kind == "server":
             rec.add_down(32 * sum(_numel(pl.shape) for pl in self.plans))
 
-    def _check_grads(self, leaves: list[torch.Tensor], n_workers: int) -> None:
+    def _check_grads(
+        self,
+        leaves: list[torch.Tensor],
+        n_workers: int,
+        model: ModelSplit | None = None,
+    ) -> None:
         if len(leaves) != len(self.plans):
             raise ValueError(f"{len(leaves)} grad leaves for {len(self.plans)} plans")
-        for g, pl in zip(leaves, self.plans):
-            if tuple(g.shape[1:]) != pl.shape or g.shape[0] != n_workers:
+        for i, (g, pl) in enumerate(zip(leaves, self.plans)):
+            shape = list(pl.shape)
+            if model is not None and model.dims[i] is not None:
+                shape[model.dims[i]] //= model.size
+            if tuple(g.shape[1:]) != tuple(shape) or g.shape[0] != n_workers:
                 raise ValueError(
-                    f"{pl.path}: want ({n_workers}, *{pl.shape}) per-worker "
+                    f"{pl.path}: want ({n_workers}, *{tuple(shape)}) per-worker "
                     f"grads, got {tuple(g.shape)}"
                 )
 
@@ -745,10 +837,14 @@ class GradCompressor:
         *,
         participation_mask: torch.Tensor | None = None,
         donate: bool = False,
+        model: ModelSplit | None = None,
     ) -> tuple[Tree, dict[str, Any], CommRecord]:
         """Per-worker grads (N, *shape) -> synced grads (*shape), new state
         and the round's :class:`CommRecord`. ``participation_mask``: the
         server wire's (N,) bool flags for this round, in place of its draw.
+        ``model``: the gradients, error feedback and synced gradients are
+        this rank's blocks over a model axis (:class:`ModelSplit`); the
+        per-worker shapes checked are the blocks'.
 
         Functional by default, as the JAX ``sync`` is: ``state`` is left as
         it was. ``donate=True`` is the JAX step's ``donate_argnums``: the
@@ -761,9 +857,19 @@ class GradCompressor:
         wire = self._make_wire(comm, state, leaves[0].device, participation_mask)
         wire.prepare(rec)
         check_across_ranks(self, wire)
-        self._check_grads(leaves, wire.local_size())
+        tp = model if model is not None and model.size > 1 else None
+        if tp is not None:
+            why = self.tp_refusal()
+            if why is not None:
+                raise NotImplementedError(
+                    f"a sync over a model axis of {tp.size}: {why}"
+                )
+        self._check_grads(leaves, wire.local_size(), tp)
         items = list(zip(range(len(leaves)), leaves, self.plans))
-        outs, updates = self.handler.sync_group(items, state, wire, rec, donate=donate)
+        kw = {} if tp is None else {"model": tp}
+        outs, updates = self.handler.sync_group(
+            items, state, wire, rec, donate=donate, **kw
+        )
         updates = self._freeze_inactive(updates, state, wire)
         self._charge_downlink(rec, wire)
         out = [outs[i] for i in range(len(leaves))]
@@ -790,6 +896,62 @@ class GradCompressor:
                 "1, item 20, the graphed composite)"
             )
         return None
+
+    def tp_refusal(self) -> str | None:
+        """Why a sync over this compressor cannot run on gradients sharded
+        over a model axis above 1, naming the ROADMAP step that lifts it;
+        None where it can: the f32 mean, PowerSGD and LQ-SGD over the log
+        codec."""
+        from repro_torch.launch.mesh import TP_COMPRESSORS
+
+        if self.method in ("raw", "powersgd", "lq_sgd") and type(self).sync is (
+            GradCompressor.sync
+        ):
+            return None
+        return (
+            f"the {self.cfg.name} compressor on model-sharded gradients is not "
+            f"ported yet ({TP_COMPRESSORS})"
+        )
+
+    def state_pspecs(
+        self, state: dict[str, Any], param_pspecs: Tree, dp_axes: Any = None
+    ) -> dict[str, Any]:
+        """The JAX package's ``state_pspecs``: a ``launch.sharding.Spec``
+        for each leaf of ``state`` WITHOUT its leading worker dim (the step
+        adds it), as ``{namespace: {leaf index: spec}}``. A namespace the
+        handler declares ``param_shaped`` (the error feedback) holds
+        param-shaped tensors keyed by the flattened leaf index and mirrors
+        that parameter's model-axis spec; every other leaf replicates (a
+        Python number is a 0-dim leaf). ``dp_axes`` is the JAX signature's,
+        unused: the worker dim is not part of these specs."""
+        from repro_torch.launch.sharding import Spec, flatten_specs
+
+        del dp_axes
+        flat = [spec for _, spec in flatten_specs(param_pspecs)]
+        param_ns = set(self._param_shaped_namespaces())
+
+        def rep(leaf: Any) -> Any:
+            return Spec(*([None] * len(getattr(leaf, "shape", ()))))
+
+        specs: dict[str, Any] = {}
+        for ns, sub in state.items():
+            if ns in param_ns and isinstance(sub, dict):
+                specs[ns] = {k: flat[int(k)] for k in sub}
+            elif isinstance(sub, dict):
+                specs[ns] = tree_map(rep, sub)
+            else:
+                specs[ns] = rep(sub)
+        return specs
+
+    def model_replicated_bits(self, model: ModelSplit) -> int:
+        """Of ``wire_bits_per_step``, the bits every model rank ships alike
+        over ``model`` (each a whole copy): so the ranks of one data row
+        ship ``wire_bits_per_step() + (M - 1) * model_replicated_bits``
+        together."""
+        return sum(
+            self.handler.leaf_replicated_bits(pl, model.kind(i, pl))
+            for i, pl in enumerate(self.plans)
+        )
 
     def dist_refusal(self) -> str | None:
         """Why a sync over this compressor cannot run across ranks (a

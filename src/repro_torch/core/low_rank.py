@@ -9,6 +9,10 @@ Tensors of ndim != 2 are matricized: conv kernels (kh, kw, cin, cout) ->
 (kh*kw*cin, cout), so the parameters (and gradients) keep the JAX package's
 HWIO layout. Every function takes leading batch dims (workers, stacked
 layers) before the matrix dims, which is what ``vmap`` gave the reference.
+
+Over a model axis a rank may hold a block of P's rows (a gradient split by
+rows): :func:`orthonormalize_split` runs the same Gram-Schmidt with every
+dot product and norm summed over the axis.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 
 __all__ = [
     "orthonormalize",
+    "orthonormalize_split",
     "matricize_shape",
     "power_iter_p",
     "power_iter_q",
@@ -35,6 +40,38 @@ def orthonormalize(p: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
         col = col / (torch.linalg.vector_norm(col, dim=-1, keepdim=True) + eps)
         cols.append(col)
     return torch.stack(cols, dim=-1)
+
+
+def orthonormalize_split(
+    ps: list[torch.Tensor], comm, eps: float = 1e-8
+) -> list[torch.Tensor]:
+    """:func:`orthonormalize` of P's whose rows are split over ``comm`` (a
+    ``ModelComm``): each holds this rank's rows (..., n / M, r). The same
+    column order and updates; every column's dot product with an earlier
+    column and its squared norm is this rank's partial sum, summed over the
+    group in f32, the partials of all ``ps`` in one all-reduce per step
+    (r (r + 1) / 2 steps for rank r)."""
+    cols: list[list[torch.Tensor]] = [[] for _ in ps]
+    for i in range(max(p.shape[-1] for p in ps)):
+        live = [j for j, p in enumerate(ps) if p.shape[-1] > i]
+        cur = {j: ps[j][..., i] for j in live}
+        for k in range(i):
+            parts = [(cols[j][k] * cur[j]).sum(-1, keepdim=True) for j in live]
+            dots = _sum_parts(parts, comm, "tp.orth.dot")
+            for j, dot in zip(live, dots):
+                cur[j] = cur[j] - dot * cols[j][k]
+        parts = [(cur[j] * cur[j]).sum(-1, keepdim=True) for j in live]
+        sq = _sum_parts(parts, comm, "tp.orth.norm")
+        for j, n2 in zip(live, sq):
+            cols[j].append(cur[j] / (torch.sqrt(n2) + eps))
+    return [torch.stack(c, dim=-1) for c in cols]
+
+
+def _sum_parts(parts: list[torch.Tensor], comm, tag: str) -> list[torch.Tensor]:
+    """Each of ``parts`` summed over ``comm``, in one f32 all-reduce."""
+    flat = comm.all_reduce(torch.cat([p.reshape(-1) for p in parts]), tag)
+    sums = flat.split([p.numel() for p in parts])
+    return [x.reshape(p.shape) for x, p in zip(sums, parts)]
 
 
 def matricize_shape(shape: tuple[int, ...]) -> tuple[int, int]:

@@ -74,7 +74,7 @@ class LQSGDHandler(PowerSGDHandler):
     def _raw_needs_key(self, pl) -> bool:
         return self._raw_codec(pl).requires_key
 
-    def sync_raw(self, g, pl, comm, rec, *, key=None):
+    def sync_raw(self, g, pl, comm, rec, *, key=None, split=None):
         codec = self._raw_codec(pl)
         out = codec_phase(
             [g.float()],
@@ -86,8 +86,15 @@ class LQSGDHandler(PowerSGDHandler):
             wire=self.cfg.wire_accounting,
             fuse=False,
             keys=[key] if codec.requires_key else None,
+            split=[split],
         )[0]
         return out.to(g.dtype)
+
+    def raw_replicated_bits(self, pl, kind) -> int:
+        # a split raw leaf's codes go in blocks; its scale is whole
+        if kind is None:
+            return self.leaf_wire_bits(pl)
+        return self._raw_codec(pl).scale_bits(1)
 
     def raw_collectives(self, pl) -> int:
         return phase_collectives(

@@ -16,6 +16,23 @@ m, r) and identical on every worker (it comes from the same seed and then
 from a collective), so mean_i(G_i' Q) = mean(G') Q makes the P all-reduce
 exact in expectation; E stays per worker; after the sync every worker holds
 the same G^, returned once.
+
+Over a model axis (``model``, a ``compressors.ModelSplit``) a rank holds a
+block of a split leaf's G and E, and the whole warm-start Q:
+
+* a column-split G (n, m/M): P = G Q_block is a partial, summed over the
+  model axis in f32, so P is whole and the same on every model rank, which
+  each orthonormalizes alike; Q = G^T P^ is the rank's block of rows,
+  quantized on the model-wide scale, and after the Q phase the blocks are
+  gathered over the model axis into the next warm-start Q;
+* a row-split G (n/M, m): P is the rank's block of rows, quantized on the
+  model-wide scale and orthonormalized with its dot products and norms
+  summed over the model axis (``low_rank.orthonormalize_split``); Q =
+  G_block^T P^_block is a partial, summed over the model axis.
+
+A factor whole on every model rank is quantized and shipped over the data
+axis by each model rank alike. Each product is taken one worker at a time,
+as in one process. The model-axis sums of a phase go in one all-reduce.
 """
 
 from __future__ import annotations
@@ -36,7 +53,10 @@ from repro_torch.core.compressors import (
     state_dtype,
 )
 from repro_torch.core.low_rank import (
+    _sum_parts,
+    matricize_shape,
     orthonormalize,
+    orthonormalize_split,
     power_iter_p,
     power_iter_q,
     reconstruct,
@@ -48,6 +68,19 @@ __all__ = ["PowerSGDCompressor", "PowerSGDHandler"]
 def _instance_shape(pl: LeafPlan) -> tuple[int, ...]:
     """A leaf's matricized shape, (L, n, m) for a stack of L layers."""
     return ((pl.shape[0],) if pl.stacked else ()) + pl.mat_shape
+
+
+def _gather_parts(parts: list[torch.Tensor], comm) -> list[torch.Tensor]:
+    """Each (..., m/M, r) block of ``parts`` gathered over ``comm`` into the
+    whole (..., m, r), rank-major on the row dim, in one all-gather."""
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    g = comm.all_gather(flat[None], 0, "tp.q.gather")  # (M, total)
+    out, off = [], 0
+    for p in parts:
+        blocks = g[:, off : off + p.numel()].reshape((comm.size,) + p.shape)
+        out.append(torch.cat(blocks.unbind(0), dim=-2))
+        off += p.numel()
+    return out
 
 
 def _donate_q(q_old: torch.Tensor, q_new: torch.Tensor) -> torch.Tensor:
@@ -116,9 +149,12 @@ class PowerSGDHandler(LeafGroupHandler):
         (:func:`repro_torch.weights.compressor_state_from_jax`)."""
         if pl.route != "lowrank":
             return {}
-        gen = leaf_generator(seed, 0, i, device)
         q_shape = _instance_shape(pl)[:-2] + (pl.mat_shape[1], pl.eff_rank)
-        q = torch.randn(q_shape, generator=gen, device=device)
+        if torch.device(device).type == "meta":  # shapes only (no draw)
+            q = torch.empty(q_shape, device=device)
+        else:
+            gen = leaf_generator(seed, 0, i, device)
+            q = torch.randn(q_shape, generator=gen, device=device)
         sd = state_dtype(self.cfg)
         return {
             "err": torch.zeros((n_workers,) + pl.shape, dtype=sd, device=device),
@@ -126,12 +162,14 @@ class PowerSGDHandler(LeafGroupHandler):
         }
 
     # ---- one collective phase, sub-grouped by wire codec ------------------
-    def _phase(self, xs, flags, codecs, comm, rec, keys=None):
+    def _phase(self, xs, flags, codecs, comm, rec, keys=None, split=None):
         """Ship one factor phase; leaves sub-group by codec (equal knobs
         compare equal, so a uniform group stays ONE fused collective).
         ``keys(j)`` gives the generator of the j-th tensor, for the codecs
-        that draw."""
+        that draw; ``split[j]`` the model comm where the j-th is a block of
+        a factor split over a model axis (``codec.codec_phase``)."""
         out: list = [None] * len(xs)
+        split = split if split is not None else [None] * len(xs)
         for codec, idxs in _group_by(range(len(xs)), lambda j: codecs[j]):
             ks = [keys(j) for j in idxs] if codec.requires_key else None
             res = codec_phase(
@@ -144,6 +182,7 @@ class PowerSGDHandler(LeafGroupHandler):
                 wire=self.cfg.wire_accounting,
                 fuse=self.cfg.fuse_collectives,
                 keys=ks,
+                split=[split[j] for j in idxs],
             )
             for j, r in zip(idxs, res):
                 out[j] = r
@@ -155,40 +194,74 @@ class PowerSGDHandler(LeafGroupHandler):
         codec that draws asks for it."""
         return lambda j: self._leaf_key(state, comp[j][0], phase, comp[j][1].device)
 
-    def sync_group(self, items, state, comm, rec, *, donate=False):
+    def sync_group(self, items, state, comm, rec, *, donate=False, model=None):
         outs: dict[int, torch.Tensor] = {}
         new_err: dict[str, torch.Tensor] = {}
         new_q: dict[str, torch.Tensor] = {}
         comp = []
         for i, g, pl in items:
+            split = model.of(i) if model is not None else None
             if pl.route == "lowrank":
                 comp.append((i, g, pl))
             elif self._raw_needs_key(pl):
                 key = self._leaf_key(state, i, "raw", g.device)
-                outs[i] = self.sync_raw(g, pl, comm, rec, key=key)
+                outs[i] = self.sync_raw(g, pl, comm, rec, key=key, split=split)
             else:
-                outs[i] = self.sync_raw(g, pl, comm, rec)
+                outs[i] = self.sync_raw(g, pl, comm, rec, split=split)
         if not comp:
             return outs, {"err": new_err, "q": new_q}
         flags = [pl.stacked for _, _, pl in comp]
+        kinds = [model.kind(i, pl) if model else None for i, _, pl in comp]
+        mc = model.comm if model is not None else None
         # ---- P phase ----
         g_efs, ps = [], []
         in_place = [donates(state["err"][str(i)], donate) for i, _, _ in comp]
-        for (i, g, pl), inp in zip(comp, in_place):
-            shp = (g.shape[0],) + _instance_shape(pl)
+        for (i, g, pl), inp, kind in zip(comp, in_place, kinds):
+            if pl.stacked:
+                shp = (g.shape[0], g.shape[1]) + matricize_shape(g.shape[2:])
+            else:
+                shp = (g.shape[0],) + matricize_shape(g.shape[1:])
             g_ef = error_corrected(g, state["err"][str(i)], shp, inp)
             g_efs.append(g_ef)  # Alg.1 l.4
-            ps.append(power_iter_p(g_ef, state["q"][str(i)]))  # Alg.1 l.10
+            q = state["q"][str(i)]
+            if kind == "col":  # the Q rows of this rank's columns
+                m_loc = shp[-1]
+                q = q.narrow(-2, mc.rank * m_loc, m_loc)
+            ps.append(power_iter_p(g_ef, q))  # Alg.1 l.10
+        col = [j for j, kind in enumerate(kinds) if kind == "col"]
+        if col:  # partial P's: summed over the model axis
+            for j, p in zip(col, _sum_parts([ps[j] for j in col], mc, "tp.p")):
+                ps[j] = p
         codecs_p = [self._codec_p(pl) for _, _, pl in comp]
-        ps = self._phase(ps, flags, codecs_p, comm, rec, self._keys(comp, state, "p"))
+        split_p = [mc if kind == "row" else None for kind in kinds]
+        ps = self._phase(
+            ps, flags, codecs_p, comm, rec, self._keys(comp, state, "p"), split_p
+        )
         # ---- orthonormalize + Q phase ----
-        p_hats = [orthonormalize(p) for p in ps]  # Alg.1 l.11
+        row = [j for j, kind in enumerate(kinds) if kind == "row"]
+        p_hats = [  # Alg.1 l.11
+            None if kind == "row" else orthonormalize(p) for p, kind in zip(ps, kinds)
+        ]
+        if row:
+            for j, p_hat in zip(row, orthonormalize_split([ps[j] for j in row], mc)):
+                p_hats[j] = p_hat
         qs = [power_iter_q(g_ef, p_hat) for g_ef, p_hat in zip(g_efs, p_hats)]
+        if row:  # partial Q's: summed over the model axis
+            for j, q in zip(row, _sum_parts([qs[j] for j in row], mc, "tp.q")):
+                qs[j] = q
         codecs_q = [self._codec_q(pl) for _, _, pl in comp]
-        qs = self._phase(qs, flags, codecs_q, comm, rec, self._keys(comp, state, "q"))
+        split_q = [mc if kind == "col" else None for kind in kinds]
+        qs = self._phase(
+            qs, flags, codecs_q, comm, rec, self._keys(comp, state, "q"), split_q
+        )
+        # ---- the next warm-start Q: a column-split leaf's blocks gathered ----
+        q_next = list(qs)
+        if col:
+            for j, q in zip(col, _gather_parts([qs[j] for j in col], mc)):
+                q_next[j] = q
         # ---- reconstruct + error feedback ----
-        for (i, g, pl), g_ef, p_hat, q_new, inp in zip(
-            comp, g_efs, p_hats, qs, in_place
+        for (i, g, pl), g_ef, p_hat, q_new, q_full, inp in zip(
+            comp, g_efs, p_hats, qs, q_next, in_place
         ):
             g_hat = reconstruct(p_hat, q_new)  # Alg.1 l.19
             # in g_ef's own memory: the residual is the new error feedback,
@@ -196,11 +269,11 @@ class PowerSGDHandler(LeafGroupHandler):
             g_res = g_ef.sub_(g_hat).reshape(g.shape)
             if inp:  # g_ef was the old error feedback: donated, updated
                 new_err[str(i)] = state["err"][str(i)]
-                new_q[str(i)] = _donate_q(state["q"][str(i)], q_new)
+                new_q[str(i)] = _donate_q(state["q"][str(i)], q_full)
             else:
                 new_err[str(i)] = g_res.to(state_dtype(self.cfg))  # Alg.1 l.20
-                new_q[str(i)] = q_new.expand((g.shape[0],) + q_new.shape)
-            outs[i] = g_hat.reshape(pl.shape).to(g.dtype)
+                new_q[str(i)] = q_full.expand((g.shape[0],) + q_full.shape)
+            outs[i] = g_hat.reshape(g.shape[1:]).to(g.dtype)
         return outs, {"err": new_err, "q": new_q}
 
     # ----------------------------------------------------------- accounting
@@ -217,6 +290,26 @@ class PowerSGDHandler(LeafGroupHandler):
             + cq.wire_bits(n_layers * m * r)
             + cq.scale_bits(n_layers)  # Q (+ scales)
         )
+
+    def leaf_replicated_bits(self, pl, kind):
+        """A column-split leaf's P and a row-split leaf's Q are whole on
+        every model rank, and so is every scale (the model-wide max); a
+        whole leaf is shipped whole by each."""
+        if pl.route != "lowrank":
+            return self.raw_replicated_bits(pl, kind)
+        if kind is None:
+            return self.leaf_wire_bits(pl)
+        cp, cq = self._codec_p(pl), self._codec_q(pl)
+        n, m = pl.mat_shape
+        r = pl.eff_rank
+        n_layers = pl.shape[0] if pl.stacked else 1
+        scales = cp.scale_bits(n_layers) + cq.scale_bits(n_layers)
+        if kind == "col":
+            return scales + cp.wire_bits(n_layers * n * r)
+        return scales + cq.wire_bits(n_layers * m * r)
+
+    def raw_replicated_bits(self, pl, kind) -> int:
+        return super().leaf_replicated_bits(pl, kind)
 
     def group_collectives(self, plans):
         from repro_torch.core.codec import phase_collectives

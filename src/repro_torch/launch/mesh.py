@@ -17,10 +17,15 @@ A model axis above 1 spans ``data x model`` ranks, rank ``d * model + m``
 holding coordinate (d, m): the model axis is minor, as ``jax.make_mesh``
 orders devices. Every rank makes the model-axis groups (the ranks of one
 d) and the data-axis groups (those of one m) in one fixed order, and the
-mesh keeps its own two. Serving takes such a mesh (the dense attention +
-MLP architectures, the fixed scheduler: ``launch/serve.py``); the rest of
-serving at a model axis above 1 is :data:`LATER_STEPS`, tensor-parallel
-training :data:`TP_TRAINING`, and the production mesh item 17.
+mesh keeps its own two. Serving and training take such a mesh for the dense
+attention + MLP architectures (``launch/serve.py`` with the fixed
+scheduler; ``launch/train.py`` with the ``none``, ``powersgd`` and
+``lq_sgd`` compressors, whose sync's ``DistComm`` spans the data-axis
+group, :func:`make_comm`). The rest of serving and training at a model axis
+above 1 is :data:`LATER_STEPS` (the other architectures, the continuous
+scheduler) and :data:`TP_COMPRESSORS` (the other compressors and codecs,
+per-leaf policies, lazy groups, the server wire), and the production mesh
+item 17.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.comm import DistComm, SimComm
+from repro_torch.core.comm import DistComm, ModelComm, SimComm
 from repro_torch.models.common import resolve_device
 
 __all__ = [
@@ -40,16 +45,20 @@ __all__ = [
     "init_distributed",
     "make_mesh",
     "make_comm",
+    "make_model_comm",
     "make_production_mesh",
     "LATER_STEPS",
-    "TP_TRAINING",
+    "TP_COMPRESSORS",
 ]
 
-# what a model axis above 1 does not run yet: MoE, MLA, Mamba-2, codebooks
-# and the conditioning prefix, and the continuous scheduler (serving), and
-# training
+# what a model axis above 1 does not run yet: MoE, MLA, Mamba-2, codebooks,
+# the conditioning prefix and the MTP head (serving and training), and the
+# continuous scheduler
 LATER_STEPS = "ROADMAP Queue 1, item 15 B, step 2"
-TP_TRAINING = "ROADMAP Queue 1, item 15 B, step 3"
+# ... nor, in training, the compressors but none / powersgd / lq_sgd's log
+# codec: topk, qsgd, the randomized codecs, per-leaf policies, schedules,
+# lazy groups and the server wire on model-sharded gradients
+TP_COMPRESSORS = "ROADMAP Queue 1, item 15 B, step 4"
 PRODUCTION_MESH = "ROADMAP Queue 1, item 17"
 
 
@@ -216,10 +225,17 @@ def make_mesh(
 
 def make_comm(mesh: DataMesh, *, record: bool = False) -> SimComm | DistComm:
     """The workers' comm: a ``DistComm`` of the rank's workers over the
-    process group, or a ``SimComm`` of all of them without one."""
+    process group (over its data-axis group where the model axis is above
+    1), or a ``SimComm`` of all of them without one."""
     if mesh.distributed:
-        return DistComm(mesh.local, record=record)
+        return DistComm(mesh.local, record=record, group=mesh.data_group)
     return SimComm(mesh.data, record=record)
+
+
+def make_model_comm(mesh: DataMesh) -> ModelComm:
+    """The model-axis comm of this rank (a group of one at a model axis
+    of 1)."""
+    return ModelComm(mesh.model_group, mesh.model, mesh.model_index)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> DataMesh:

@@ -41,13 +41,15 @@ share (the ranks' shares sum to the one-process figure). Over gloo (ranks
 sharing a card, or the CPU) the decode runs eagerly, which the launcher
 asks for and prints; over NCCL it replays a graph with the collectives
 captured. The dense attention + MLP architectures and the fixed scheduler
-serve at a model axis above 1; the rest raises (``launch/mesh.py``:
+serve at a model axis above 1 (and train over the same mesh:
+``launch/train.py --mesh DxM``); the rest raises (``launch/mesh.py``:
 ``LATER_STEPS``), and so does ``--production-mesh`` (item 17).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import time
 from typing import Any
@@ -240,6 +242,13 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
     )
     ap.add_argument("--scheduler", default="fixed", choices=("fixed", "continuous"))
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument(
+        "--repeats",
+        type=int,
+        default=None,
+        help="cut the scanned layer pattern to R repeats (the depth only; "
+        "the widths stay the config's)",
+    )
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     ap.add_argument(
         "--mesh",
@@ -282,6 +291,8 @@ def _serve(args: argparse.Namespace) -> dict[str, Any]:
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
     device = resolve_device(mesh.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.repeats is not None:
+        cfg = dataclasses.replace(cfg, repeats=args.repeats)
     cache_dtype = DTYPES[args.cache_dtype]
     qcfg = CacheQuantConfig(bits=args.cache_bits) if args.cache_bits else None
     shard = graph = None

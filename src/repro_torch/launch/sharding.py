@@ -13,6 +13,11 @@ to the serving tree ``{"embed", "layers", "final_norm"[, "head"]}``.
 
 A spec is a :class:`Spec`: one entry a dim, each None (not split), an axis
 name, or a tuple of names (split over their product, the first major).
+
+Training over the model axis reads two more things from the specs:
+:func:`split_dim` (which dim of a leaf the model axis cuts) and
+:func:`partial_grad_flags` (which replicated leaves a rank holds whole but
+receives only a partial gradient for, by where they are used).
 """
 
 from __future__ import annotations
@@ -32,10 +37,18 @@ __all__ = [
     "batch_spec",
     "assert_replicated",
     "spec_tree_leaves",
+    "flatten_specs",
     "shard_count",
     "shard_index",
     "cut",
+    "split_dim",
+    "partial_grad_flags",
+    "tp_refusal",
 ]
+
+# the subtrees of a layer whose input enters through ``copy_to_model`` when
+# one of their products splits over the model axis
+BRANCHES = ("mixer", "ffn")
 
 MODEL_AXIS = "model"
 DATA_AXIS = "data"
@@ -233,6 +246,19 @@ def spec_tree_leaves(specs: Any) -> list[tuple[str, Spec]]:
     return list(_walk(specs))
 
 
+def flatten_specs(specs: Any, path: str = "") -> list[tuple[str, Spec]]:
+    """(keystr path, spec) pairs of a spec tree in JAX flatten order (a
+    dict's keys sorted), the order the compressor numbers its leaves in
+    (``core/tree.py``)."""
+    if isinstance(specs, dict):
+        items = [(f"[{k!r}]", specs[k]) for k in sorted(specs)]
+    elif isinstance(specs, (list, tuple)) and not isinstance(specs, Spec):
+        items = [(f"[{i}]", v) for i, v in enumerate(specs)]
+    else:
+        return [(path, specs)]
+    return [x for key, v in items for x in flatten_specs(v, path + key)]
+
+
 def _axes(entry: Any) -> tuple[str, ...]:
     if entry is None:
         return ()
@@ -273,3 +299,57 @@ def cut(t: torch.Tensor, spec: Spec, sizes: dict[str, int], coords: dict[str, in
         size = t.shape[dim] // n
         t = t.narrow(dim, shard_index(entry, sizes, coords) * size, size)
     return t
+
+
+def split_dim(spec: Spec) -> int | None:
+    """The dim of a leaf that ``spec`` cuts over the model axis, or None
+    where the leaf is whole on every model rank. Only the model axis splits
+    parameters (the data axis replicates them), and at most one dim."""
+    dims = [d for d, e in enumerate(spec) if MODEL_AXIS in _axes(e)]
+    if len(dims) > 1:
+        raise ValueError(f"spec {spec} splits {len(dims)} dims over the model axis")
+    return dims[0] if dims else None
+
+
+def partial_grad_flags(specs: Any) -> Any:
+    """A tree of bools matching ``specs``: True on a replicated leaf used
+    inside a branch split over the model axis, whose gradient a rank holds
+    only in part. A layer's attention mixer or FFN (:data:`BRANCHES`) is
+    split where one of its leaves splits: its input passes a
+    ``copy_to_model``, each rank runs its heads or columns, and a
+    replicated leaf inside it (K/V projections over too few KV heads, the
+    QK norms, a replicated bias) sees only the rank's heads' part of the
+    gradient, which the step sums over the model axis. A replicated leaf
+    used before the ``copy_to_model`` (the pre-norms, the final norm) or in
+    a branch that does not split receives its whole gradient."""
+
+    def flags(t: Any, inside: bool) -> Any:
+        if isinstance(t, dict):
+            out = {}
+            for k, v in t.items():
+                split = k in BRANCHES and any(
+                    split_dim(s) is not None for _, s in _walk(v)
+                )
+                out[k] = flags(v, inside or split)
+            return out
+        if isinstance(t, (list, tuple)) and not isinstance(t, Spec):
+            return [flags(v, inside) for v in t]
+        return inside and split_dim(t) is None
+
+    return flags(specs, False)
+
+
+def tp_refusal(cfg: ModelConfig) -> str | None:
+    """What of ``cfg`` a model axis above 1 does not run yet (serving or
+    training), or None: the dense attention + MLP architectures run."""
+    kinds = {spec.kind for spec in cfg.layers}
+    parts = [
+        ("MoE layers (expert parallelism)", any(spec.moe for spec in cfg.layers)),
+        ("MLA and its latent cache", cfg.use_mla),
+        ("Mamba-2 layers", "mamba" in kinds),
+        ("codebooks", bool(cfg.n_codebooks)),
+        ("the conditioning prefix", bool(cfg.cond_len)),
+        ("the MTP head", bool(cfg.mtp)),
+    ]
+    found = [name for name, has in parts if has]
+    return ", ".join(found) or None

@@ -26,11 +26,27 @@ N / world workers and their rows, and the sync's collectives are
 
 ``--dist-backend`` is NCCL on CUDA by default (one rank a card; the step
 is one CUDA-graph replay) and gloo on the CPU; ``--dist-backend gloo
---device cuda:0`` puts every rank on one card (eager steps). Each rank
-builds the global batch and keeps its rows; rank 0 alone prints and
-writes the checkpoints, which hold all N workers' rows whatever the world
-size. ``--deterministic`` turns PyTorch's deterministic algorithms on
-(warn only), for runs compared bit for bit.
+--device cuda:0`` puts every rank on one card (eager steps: the launcher
+asks for them, ``graph=False``, and prints so). Each rank builds the
+global batch and keeps its rows; rank 0 alone prints and writes the
+checkpoints, which hold all N workers' rows whatever the world size.
+``--deterministic`` turns PyTorch's deterministic algorithms on (warn
+only), for runs compared bit for bit.
+
+``--mesh DxM`` with M > 1 trains tensor-parallel over D x M ranks (rank
+d * M + m holds coordinate (d, m), one worker a rank):
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch gemma3-1b --mesh 2x2 ...
+
+Each rank draws the seeded init and keeps its blocks of the training tree
+(``train/step.py:train_param_specs``), with its optimizer state and error
+feedback; the step's sync runs over its data-axis group and the
+forward's collectives over its model-axis group (``train/step.py``).
+Checkpoints hold the one-process layout, so a run resumes on any mesh of
+the same data axis. The dense attention + MLP architectures and the
+``none``, ``powersgd`` and ``lq_sgd`` compressors train so; the others
+raise (``launch/mesh.py``: ``LATER_STEPS``, ``TP_COMPRESSORS``).
 
 The step runs under the async runtime by default (prefetched batches,
 deferred metric reads, background checkpoints: ``train/runtime.py``);
@@ -40,13 +56,16 @@ codecs on the LQ-SGD wire (through the composite compressor); the run's
 line then also prints the per-step DP epsilon and its kind. Every
 compressor, codec, policy, schedule, lazy group and wire runs over the
 ranks as in one process. Those of parts not ported raise, naming the
-ROADMAP item that ports them: a model axis above 1 (item 15 B, step 3,
-tensor-parallel training; ``launch/serve.py`` serves over one), and
-``--production-mesh`` and ``--multi-pod`` (item 17). ``--dump DIR`` has each rank write
+ROADMAP item that ports them: at a model axis above 1 the parts named
+above (item 15 B, steps 2 and 4), and ``--production-mesh`` and
+``--multi-pod`` (item 17). ``--dump DIR`` has each rank write
 ``DIR/rank<r>.pt`` (the history, every gathered wire array, the
 fingerprints of the final parameters and of this rank's rows of the
 compressor state, its kernel launches, each step's seconds and collective
-seconds, its peak device memory), which a comparison reads.
+seconds, its peak device memory; ``--dump-steps`` adds each step's
+parameter fingerprints and step 0's synced gradients), which a
+comparison reads. ``--repeats R`` cuts the scanned layer pattern to R
+repeats (a depth cut at full width, for a run that must fit one card).
 """
 
 from __future__ import annotations
@@ -54,6 +73,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import os
 import time
 from collections.abc import Iterator
@@ -63,20 +83,24 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.checkpoint.io import leaf_fingerprints, peek_step
+from repro_torch.checkpoint.io import ModelShards, leaf_fingerprints, peek_step
 from repro_torch.checkpoint.io import restore as ckpt_restore
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.core.compressors import CompressorConfig
+from repro_torch.core.comm import ModelAxis, ModelComm
+from repro_torch.core.compressors import CompressorConfig, model_split
 from repro_torch.core.policy import format_plan_report, parse_decay_spec
+from repro_torch.core.tree import tree_map
 from repro_torch.data.synthetic import LMDataConfig, cond_batch, lm_batch
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import (
-    TP_TRAINING,
+    LATER_STEPS,
     init_distributed,
     make_comm,
     make_mesh,
+    make_model_comm,
     make_production_mesh,
 )
+from repro_torch.launch.sharding import tp_refusal
 from repro_torch.models.model import count_params
 from repro_torch.train.data_parallel import _tf32_off
 from repro_torch.train.optimizer import make_optimizer
@@ -85,6 +109,8 @@ from repro_torch.train.step import (
     build_train_step,
     init_train_state,
     make_model_compressor,
+    train_param_specs,
+    train_state_specs,
 )
 from repro_torch.train.trainer import WORKER_ROWS, Trainer, is_rank0
 
@@ -166,8 +192,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--mesh",
         default=None,
-        help="'Nx1': N data-parallel workers over this process or, under "
-        "torchrun, over its ranks (default 1x1)",
+        help="'DxM': D data-parallel workers over this process or, under "
+        "torchrun, over its ranks; M > 1 splits the model over M ranks of "
+        "each data row (D x M ranks under torchrun; default 1x1)",
     )
     ap.add_argument(
         "--dist-backend",
@@ -196,8 +223,21 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--ckpt-path", default="checkpoints/state.ckpt")
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument(
+        "--repeats",
+        type=int,
+        default=None,
+        help="cut the scanned layer pattern to R repeats (the depth only; "
+        "the widths stay the config's)",
+    )
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dump", default=None, help="write DIR/rank<r>.pt")
+    ap.add_argument(
+        "--dump-steps",
+        action="store_true",
+        help="with --dump: each step's parameter fingerprints and step 0's "
+        "synced gradients (on the host) too",
+    )
     return ap
 
 
@@ -248,22 +288,22 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
             return _train(args)
     finally:
         if created:
+            # a captured step holds the NCCL communicators it recorded, whose
+            # destruction waits for it: free the graphs (cycles) first
+            gc.collect()
             dist.destroy_process_group()
 
 
 def _train(args: argparse.Namespace) -> dict[str, Any]:
     shape = parse_mesh(args.mesh)
-    if shape[1] != 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: a model axis above 1 trains only once "
-            f"tensor-parallel training is ported ({TP_TRAINING}); "
-            "launch/serve.py serves over one"
-        )
-    mesh = make_mesh(shape, args.device)
-    n_dp, dev = mesh.data, mesh.device
-    comm = make_comm(mesh, record=args.dump is not None)
-    say = print if is_rank0(comm) else lambda *a, **k: None
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.repeats is not None:
+        cfg = dataclasses.replace(cfg, repeats=args.repeats)
+    if shape[1] > 1 and tp_refusal(cfg) is not None:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: {cfg.name}'s {tp_refusal(cfg)} not "
+            f"tensor-parallel yet ({LATER_STEPS})"
+        )
     comp_cfg = CompressorConfig(
         name=args.compressor,
         rank=args.rank,
@@ -290,6 +330,19 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
         participation_seed=args.participation_seed,
     )
     compressor = make_model_compressor(cfg, comp_cfg)
+    if shape[1] > 1 and compressor.tp_refusal() is not None:
+        raise NotImplementedError(f"--mesh {args.mesh}: {compressor.tp_refusal()}")
+    mesh = make_mesh(shape, args.device)
+    n_dp, dev = mesh.data, mesh.device
+    comm = make_comm(mesh, record=args.dump is not None)
+    say = print if is_rank0(comm) else lambda *a, **k: None
+    tp = None
+    if mesh.model > 1:
+        tp = ModelAxis(
+            comm=make_model_comm(mesh),
+            seq=ModelComm(),
+            specs=train_param_specs(cfg, mesh.model),
+        )
     if getattr(compressor, "plan_report", None):
         say(format_plan_report(compressor.plan_report))
     optimizer = make_optimizer(args.optimizer, args.lr)
@@ -318,12 +371,29 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             b["cond"] = cond_batch(data_cfg, step, cfg.cond_len, cfg.d_model)
         return b
 
-    step_ends = []  # for --dump: (seconds, collective seconds) at each step's end
+    # for --dump: (seconds, data-axis and model-axis collective seconds) at
+    # each step's end, each step's CommRecord numbers, and with
+    # --dump-steps each step's parameter fingerprints and step 0's synced
+    # gradients on the host
+    step_ends, recs, steps_kept, live = [], [], {"prints": []}, {}
+
+    def ends() -> tuple[float, float, float]:
+        model_s = tp.comm.host_s if tp is not None else 0.0
+        return (time.perf_counter(), getattr(comm, "host_s", 0.0), model_s)
 
     def mark(grads, synced, comp_state, rec) -> None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        step_ends.append((time.perf_counter(), getattr(comm, "host_s", 0.0)))
+        step_ends.append(ends())
+        recs.append((rec.bits_sent, rec.phys_bits, rec.n_collectives))
+        if args.dump_steps:
+            steps_kept["prints"].append(leaf_fingerprints(live["params"]))
+            if "synced0" not in steps_kept:
+                steps_kept["synced0"] = tree_map(lambda t: t.detach().cpu(), synced)
+
+    # gloo runs its collectives from the host: the step cannot be a graph,
+    # so the launcher asks for the eager one (and says so)
+    graph = False if mesh.backend == "gloo" else None
 
     def build(comp):
         # the JAX launcher rematerializes at full width (remat_scan)
@@ -336,6 +406,13 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             remat=not args.smoke,
             comm=comm,
             on_sync=None if args.dump is None else mark,
+            graph=graph,
+            tp=tp,
+        )
+
+    def fresh_state(comp):
+        return init_train_state(
+            cfg, 0, optimizer, comp, mesh.local, dev, tp=tp, mesh=mesh
         )
 
     with _tf32_off():
@@ -352,15 +429,22 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             step0 = peek_step(args.ckpt_path)
             if hasattr(compressor, "at_step"):
                 comp0 = compressor.at_step(max(step0 - 1, 0))
-            like = init_train_state(cfg, 0, optimizer, comp0, mesh.local, dev)
+            like = fresh_state(comp0)
+            shards = _shards(tp, like, comp0)
             state = ckpt_restore(
-                args.ckpt_path, like, comm=comm, per_worker=WORKER_ROWS
+                args.ckpt_path,
+                like,
+                comm=comm,
+                per_worker=WORKER_ROWS,
+                shards=shards,
             )
             del like
             say(f"# resumed at step {step0} from {args.ckpt_path}")
         else:
-            state = init_train_state(cfg, 0, optimizer, comp0, mesh.local, dev)
-        n_params = count_params(state["params"])
+            state = fresh_state(comp0)
+            shards = _shards(tp, state, comp0)
+        # the whole model's count, whatever this rank holds
+        n_params = count_params(state["params"]) if tp is None else _whole_params(cfg)
         lazy_note = ""
         if getattr(comp0, "lazy_groups", None):
             lazy_mb = comp0.expected_wire_bits_per_step() / 8e6
@@ -372,6 +456,13 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             privacy_note = f" epsilon/step={eps:g} ({kinds})"
         if mesh.distributed:
             say(f"# comm: {comm!r}")
+        if tp is not None:
+            say(
+                f"# mesh: {{'data': {mesh.data}, 'model': {mesh.model}}} over "
+                f"{mesh.world} ranks ({mesh.backend}); model axis {tp.comm!r}"
+            )
+        if graph is False:
+            say("# step: eager (graph=False): gloo collectives run from the host")
         say(
             f"arch={cfg.name} params={n_params / 1e6:.1f}M "
             f"mesh={{'data': {mesh.data}, 'model': {mesh.model}}} "
@@ -391,7 +482,7 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             prefetch=args.prefetch,
         )
         runner_cls = AsyncRunner if args.runtime == "async" else Trainer
-        runner = runner_cls(build(comp0), batch_fn, rcfg, comm=comm)
+        runner = runner_cls(build(comp0), batch_fn, rcfg, comm=comm, shards=shards)
 
         def rebuild(comp_t, seg_start):
             mb = comp_t.wire_bits_per_step() / 8e6
@@ -400,7 +491,8 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
 
         # ONE runner threads through every schedule phase; phases a restored
         # checkpoint has finished are skipped
-        step_ends.append((time.perf_counter(), getattr(comm, "host_s", 0.0)))
+        live["params"] = state["params"]  # updated in place by every step
+        step_ends.append(ends())
         state = run_schedule(
             runner,
             compressor,
@@ -410,20 +502,57 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             initial=comp0,
         )
     if args.dump is not None:
-        _dump(args.dump, mesh, comm, runner.history, state, step_ends)
-    return {"history": runner.history, "state": state, "n_params": n_params}
+        extra = dict(recs=recs, **steps_kept)
+        if tp is not None:
+            split = model_split(tp.comm, tp.specs)
+            extra.update(
+                dims=split.dims,
+                replicated_bits=comp0.model_replicated_bits(split),
+                model_comm=tp.comm.stats(),
+            )
+        _dump(args.dump, mesh, comm, runner.history, state, step_ends, extra)
+    if hasattr(runner.step_fn, "release"):
+        runner.step_fn.release()  # the graph, before the process group goes
+    return {
+        "history": runner.history,
+        "state": state,
+        "n_params": n_params,
+        "comm": comm,
+        "tp": tp,
+        "mesh": mesh,
+    }
 
 
-def _dump(out_dir, mesh, comm, history, state, step_ends) -> None:
+def _shards(tp: Any, state: dict[str, Any], comp: Any) -> ModelShards | None:
+    """The checkpoints' model shards of ``state`` (None without a model
+    axis)."""
+    if tp is None:
+        return None
+    return ModelShards.of(tp.comm, train_state_specs(state, tp.specs, comp))
+
+
+def _whole_params(cfg: Any) -> int:
+    """The whole model's parameter count (abstract shapes)."""
+    from repro_torch.train.step import abstract_grads_of
+
+    return count_params(abstract_grads_of(cfg)[0])
+
+
+def _dump(out_dir, mesh, comm, history, state, step_ends, extra) -> None:
     """This rank's ``out_dir/rank<r>.pt``: the history, every gathered wire
     array, the leaves' fingerprints (the parameters; the compressor state,
     by worker row where it has them), launches, each step's seconds and
-    collective seconds (host clock, the device synced at each step's end)
-    and peak memory."""
-    (t, c) = zip(*step_ends)
+    collective seconds (host clock, the device synced at each step's end;
+    the model axis's apart), peak memory, and ``extra`` (each step's
+    accounted and physical bits and collectives; over a model axis the
+    leaves' split dims, the bits replicated over it and its collectives by
+    tag; with ``--dump-steps`` each step's parameter fingerprints and step
+    0's synced gradients)."""
+    (t, c, mc) = zip(*step_ends)
     dev = mesh.device
     os.makedirs(out_dir, exist_ok=True)
     dump = {
+        "rank": mesh.rank,
         "history": history,
         "gathered": [g.cpu() for g in comm.gathered],
         "params": leaf_fingerprints(state["params"]),
@@ -431,8 +560,10 @@ def _dump(out_dir, mesh, comm, history, state, step_ends) -> None:
         "launches": ops.launch_counts(),
         "step_s": [b - a for a, b in zip(t, t[1:])],
         "collective_s": [b - a for a, b in zip(c, c[1:])],
+        "model_collective_s": [b - a for a, b in zip(mc, mc[1:])],
         "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
         "comm": repr(comm),
+        **extra,
     }
     torch.save(dump, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
 

@@ -14,7 +14,12 @@ give it (all of them where the spec does not split ``wq``) and the KV
 heads of its ``wk`` / ``wv`` columns; local Q head i is global head
 ``first + i`` and reads global KV head ``(first + i) // (H / Hkv)``
 (:func:`_kv_of_heads`). ``wo`` split by rows ends in the model-axis all-
-reduce of its f32 partials (``ModelComm.row_parallel``). The KV cache is
+reduce of its f32 partials (``ModelComm.row_parallel``), and the layer's
+input enters through ``core.comm.copy_to_model``, so a training
+forward's backward sums the heads' parts of its gradient; a replicated
+``wk`` / ``wv`` / QK norm / bias then holds only the rank's heads' part of
+its own gradient, which the training step sums
+(``launch/sharding.py:partial_grad_flags``). The KV cache is
 split by heads (each rank stores and reads its KV heads) or, where the
 KV heads do not divide the model axis, by sequence over ``tp.seq``:
 prefill computes the whole K/V (``wk`` / ``wv`` replicate) and each rank
@@ -31,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.core.comm import copy_to_model
 from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init, rms_norm
 from repro_torch.models.rope import apply_rope, rope_freqs
@@ -232,12 +238,14 @@ def attn_forward(
     raw zeros, or codes 0 with scale 0 in a QuantKV). ``tp`` / ``pspec``:
     this rank's part of a tensor-parallel layer (the module doc)."""
     b, s, _ = x.shape
+    q_split = _split(pspec, "wq", 1)
+    if q_split:  # the heads split: the input's gradient is summed over them
+        x = copy_to_model(x, tp.comm, "tp.attn.in")
     q, k, v = _qkv(p, x, spec, cfg, positions)
     q = q.transpose(1, 2)  # (B, h, S, hd): this rank's heads
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
     h, h_loc = cfg.n_heads, q.shape[1]
-    q_split = _split(pspec, "wq", 1)
     first = tp.comm.rank * h_loc if q_split else 0
     kv_split = _split(pspec, "wk", 1)
     seq = tp.seq if tp is not None and tp.seq.size > 1 else None

@@ -31,13 +31,15 @@ layer, the conv window and SSM state ``{"conv", "ssm"}`` for a Mamba-2
 layer); each layer works on views of its slice, so prefill and decode fill
 the cache in place.
 
-Tensor-parallel serving (``forward(..., tp=...)``, a ``core.comm.ModelAxis``):
+Tensor parallelism (``forward(..., tp=...)``, a ``core.comm.ModelAxis``):
 each rank holds its shard of every leaf the specs ``tp.specs`` split
-(``launch/sharding.py``); the embedding is vocab-parallel (a rank looks up
-the ids of its vocab rows, zeros elsewhere, and the model-axis all-reduce
-sums the one nonzero term, exact), the head gives logits over the rank's
-vocab rows, gathered over the model axis before sampling, and each layer
-reads its own specs (``models.blocks.layer_forward``).
+(``launch/sharding.py``; the serving or the training tree's); the
+embedding is vocab-parallel (a rank looks up the ids of its vocab rows,
+zeros elsewhere, and the model-axis all-reduce sums the one nonzero term,
+exact), the head gives logits over the rank's vocab rows, gathered over
+the model axis before sampling (training takes the hidden state and the
+vocab-parallel loss of ``train/loss.py`` instead), and each layer reads its
+own specs (``models.blocks.layer_forward``).
 
 Modes (same function, driven by the cache arguments):
   * train:   caches=None                      -> logits
@@ -55,6 +57,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.core.comm import copy_to_model
 from repro_torch.models.blocks import init_layer, init_layer_cache, layer_forward
 from repro_torch.models.common import (
     DTYPES,
@@ -217,14 +220,16 @@ def _run_layers(
     cache_index: int | torch.Tensor | None,
     plain_attention: bool,
     tp: Any = None,
+    pspecs: list[Params] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """``x`` through the layers of ``specs`` with parameters ``ps``, each
     with its cache from ``per_layer`` (or none). Returns (x, ``aux_total``
     plus the MoE layers' load-balance losses, summed in layer order in f32
     as the JAX scan carries them; None while no MoE layer has run). With
-    ``tp`` the layers are the serving tree's, read with their specs."""
-    pspecs = tp.specs["layers"] if tp is not None else [None] * len(ps)
-    for p, spec, pspec in zip(ps, specs, pspecs):
+    ``tp`` each layer is read with its parameter specs from ``pspecs``."""
+    if pspecs is None:
+        pspecs = [None] * len(ps)
+    for p, spec, pspec in zip(ps, specs, pspecs, strict=True):
         c = next(per_layer) if per_layer is not None else None
         x, _, aux = layer_forward(
             p,
@@ -241,6 +246,32 @@ def _run_layers(
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return x, aux_total
+
+
+def _unstack_specs(t: Any) -> Any:
+    if isinstance(t, dict):
+        return {k: _unstack_specs(v) for k, v in t.items()}
+    return type(t)(*tuple(t)[1:])
+
+
+def _layer_specs(tp: Any, cfg: ModelConfig) -> tuple[list, list, list]:
+    """(lead, scan, tail) per-layer parameter specs of ``tp.specs``: the
+    serving tree's ``layers`` cut at the same places, or the training
+    tree's, each scan position's specs without their stacked dim."""
+    if tp is None:
+        n_pat = len(cfg.pattern)
+        return [None] * len(cfg.lead), [None] * n_pat, [None] * len(cfg.tail)
+    specs = tp.specs
+    if "layers" in specs:
+        layers, n_lead = specs["layers"], len(cfg.lead)
+        n_scan = len(cfg.pattern) * cfg.repeats
+        scan = layers[n_lead : n_lead + len(cfg.pattern)]
+        return layers[:n_lead], scan, layers[n_lead + n_scan :]
+    return (
+        list(specs["lead"]),
+        [_unstack_specs(s) for s in specs["scan"]],
+        list(specs["tail"]),
+    )
 
 
 def _tree_select(tree: Any, r: int) -> Any:
@@ -288,18 +319,26 @@ def _embed(
 
 
 def apply_head(
-    params: Params, x: torch.Tensor, cfg: ModelConfig, tp: Any = None
+    params: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    tp: Any = None,
+    *,
+    gather: bool = True,
 ) -> torch.Tensor:
     """The LM head: x @ embed.T when tied, else x @ head; with codebooks a
     head per codebook, (B, S, d) -> (B, S, cb, V). A vocab-parallel head
     (``tp``): this rank's vocab columns, gathered over the model axis in
-    rank order, so every rank holds the whole (B, S, V)."""
+    rank order, so every rank holds the whole (B, S, V); ``gather=False``
+    keeps the rank's columns (the vocab-parallel loss)."""
     if tp is not None:
         tied = cfg.tie_embeddings
         split = tp.specs["embed"][0] if tied else tp.specs["head"][-1]
         w = params["embed"].to(x.dtype).T if tied else params["head"].to(x.dtype)
-        logits = x @ w
         if split is not None:
+            x = copy_to_model(x, tp.comm, "tp.head.in")
+        logits = x @ w
+        if split is not None and gather:
             logits = tp.comm.all_gather(logits, -1, "tp.head")
         return logits
     if cfg.tie_embeddings:
@@ -393,8 +432,10 @@ def forward(
     Gemma).
 
     ``tp`` (a ``core.comm.ModelAxis``): this rank's part of a
-    tensor-parallel serving forward over the serving tree's shards (the
-    dense attention + MLP architectures, without ``cond``)."""
+    tensor-parallel forward over the shards of the serving or the training
+    tree (the dense attention + MLP architectures, without ``cond``),
+    differentiable: the model-axis collectives carry their backward
+    (``core.comm.copy_to_model`` and its kin)."""
     x = _embed(params, tokens, cfg, tp)
     b, s = x.shape[0], x.shape[1]
     offset = 0
@@ -416,12 +457,13 @@ def forward(
         plain_attention=plain_attention,
         tp=tp,
     )
+    lead_s, scan_s, tail_s = _layer_specs(tp, cfg)
     if remat and caches is None and "scan" in params:
-        x, aux = run(params["lead"], cfg.lead, x, None)
+        x, aux = run(params["lead"], cfg.lead, x, None, pspecs=lead_s)
         for r in range(cfg.repeats):
             ps = [_tree_select(scan, r) for scan in params["scan"]]
             x, aux = checkpoint(
-                run,
+                functools.partial(run, pspecs=scan_s),
                 ps,
                 cfg.pattern,
                 x,
@@ -430,10 +472,13 @@ def forward(
                 use_reentrant=False,
                 preserve_rng_state=False,
             )
-        x, aux = run(params["tail"], cfg.tail, x, None, aux)
+        x, aux = run(params["tail"], cfg.tail, x, None, aux, pspecs=tail_s)
     else:
         per_layer = layer_caches(caches, cfg) if caches is not None else None
-        x, aux = run(list(layer_params(params, cfg)), cfg.layers, x, per_layer)
+        pspecs = lead_s + scan_s * cfg.repeats + tail_s
+        x, aux = run(
+            list(layer_params(params, cfg)), cfg.layers, x, per_layer, pspecs=pspecs
+        )
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if offset:
         x = x[:, offset:]

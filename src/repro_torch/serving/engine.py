@@ -40,6 +40,7 @@ from repro_torch.launch.sharding import (
     serving_param_specs,
     shard_count,
     shard_index,
+    tp_refusal,
 )
 from repro_torch.models.model import apply_head, forward, init_caches
 from repro_torch.serving.kv_cache import (
@@ -145,21 +146,6 @@ def serve_shardings(
     return p_specs, c_specs, t_spec
 
 
-def _tp_refusal(cfg: ModelConfig) -> str | None:
-    """What of ``cfg`` a model axis above 1 does not serve yet, or None."""
-    kinds = {spec.kind for spec in cfg.layers}
-    parts = [
-        ("MoE layers (expert parallelism)", any(spec.moe for spec in cfg.layers)),
-        ("MLA and its latent cache", cfg.use_mla),
-        ("Mamba-2 layers", "mamba" in kinds),
-        ("codebooks", bool(cfg.n_codebooks)),
-        ("the conditioning prefix", bool(cfg.cond_len)),
-        ("the MTP head", bool(cfg.mtp)),
-    ]
-    found = [name for name, has in parts if has]
-    return ", ".join(found) or None
-
-
 def _kv_spec(c_specs: Any) -> Spec:
     """The (B, Hkv, S, hd) spec every K/V leaf of a cache spec tree takes (a
     stacked scan leaf's without its leading None)."""
@@ -247,7 +233,7 @@ def serve_shard(
     from repro_torch.launch.mesh import LATER_STEPS
 
     if mesh.model > 1:
-        refusal = _tp_refusal(cfg)
+        refusal = tp_refusal(cfg)
         if refusal:
             raise NotImplementedError(
                 f"{cfg.name} at a model axis of {mesh.model}: {refusal} are not "

@@ -17,6 +17,14 @@ MTP head the loss adds 0.3 x the CE against token t + 2 (a roll by two,
 the last two positions masked), reported as ``mtp_ce``. A batch's ``cond``
 (B, L, d) is the conditioning prefix. The chunked-head path is taken only
 without MTP and codebooks, as in the JAX package.
+
+Over a model axis (``tp``, a ``core.comm.ModelAxis`` over the training
+tree's shards) the forward is the tensor-parallel one, and where the head
+splits the vocabulary the cross-entropy is vocab-parallel
+(:func:`_ce_vocab_parallel`): a rank forms the logits of its vocab columns
+only, by ``head_chunk`` chunks as above, and the (B, S, V) logits are never
+gathered (gemma3-1b's V is 262,144). MTP and codebook losses do not run
+over a model axis above 1 (``launch/sharding.py:tp_refusal``).
 """
 
 from __future__ import annotations
@@ -38,6 +46,38 @@ def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, targets[..., None].long())[..., 0]
 
 
+def _ce_vocab_parallel(
+    logits: torch.Tensor, targets: torch.Tensor, tp: Any
+) -> torch.Tensor:
+    """:func:`_ce` of logits whose last dim is this rank's block of the
+    vocabulary (rank m holds ids ``m * Vl`` .. ``(m + 1) * Vl - 1``): the
+    f32 max of each row over the model axis (exact, no gradient), each
+    rank's sum of ``exp(l - max)`` and its target logit (0 where another
+    rank owns the target) summed over the axis in one f32 all-reduce
+    (identity backward), then ``log(sum) + max - target``. One process's
+    ``log_softmax`` computes the same up to the order of the sum."""
+    comm = tp.comm
+    lg = logits.float()
+    vl = lg.shape[-1]
+    m = comm.max(lg.amax(-1), "tp.loss.max")
+    sumexp = torch.exp(lg - m[..., None]).sum(-1)
+    local = targets.long() - comm.rank * vl
+    mine = (local >= 0) & (local < vl)
+    tgt = lg.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    tgt = torch.where(mine, tgt, torch.zeros_like(tgt))
+    both = comm.all_reduce(torch.stack([sumexp, tgt]), "tp.loss.sum")
+    return torch.log(both[0]) + m - both[1]
+
+
+def _vocab_split(cfg: ModelConfig, tp: Any) -> bool:
+    """Does the head (or the tied embedding) split the vocab over ``tp``?"""
+    if tp is None or tp.comm.size == 1:
+        return False
+    if cfg.tie_embeddings:
+        return tp.specs["embed"][0] is not None
+    return tp.specs["head"][-1] is not None
+
+
 def _masked_mean(nll: torch.Tensor, shift: int = 1) -> torch.Tensor:
     """The mean over the positions whose target ``shift`` ahead exists."""
     b, s = nll.shape
@@ -52,14 +92,18 @@ def lm_loss(
     *,
     head_chunk: int = 0,
     remat: bool = False,
+    tp: Any = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """batch: {"tokens": (B, S) or (B, S, cb) integer ids, optionally
     "cond": (B, L, d)}. Returns (scalar loss, {"ce", "loss"} and, with
     experts, "moe_aux", with an MTP head, "mtp_ce"), the loss of the
-    training or the serving tree."""
+    training or the serving tree; with ``tp`` this rank's part of the
+    tensor-parallel loss (its value is the whole loss on every model
+    rank)."""
     tokens, cond = batch["tokens"], batch.get("cond")
     tgt = torch.roll(tokens, -1, dims=1)
-    if head_chunk and not cfg.mtp and not cfg.n_codebooks:
+    vocab_split = _vocab_split(cfg, tp)
+    if vocab_split or (head_chunk and not cfg.mtp and not cfg.n_codebooks):
         hidden, _, aux = forward(
             params,
             tokens,
@@ -69,16 +113,22 @@ def lm_loss(
             plain_attention=True,
             remat=remat,
             return_aux=True,
+            tp=tp,
         )
         key = "embed" if cfg.tie_embeddings else "head"
 
         def chunk_nll(h: torch.Tensor, t: torch.Tensor, w: torch.Tensor):
+            if vocab_split:
+                return _ce_vocab_parallel(
+                    apply_head({key: w}, h, cfg, tp, gather=False), t, tp
+                )
             return _ce(apply_head({key: w}, h, cfg), t)
 
         # each chunk's logits are recomputed in the backward, not kept; no
         # RNG state is saved (nothing draws, and a CUDA-graph capture
         # refuses reads of the generator's state)
-        chunks = zip(hidden.split(head_chunk, 1), tgt.split(head_chunk, 1))
+        size = head_chunk or hidden.shape[1]
+        chunks = zip(hidden.split(size, 1), tgt.split(size, 1))
         nll = torch.cat(
             [
                 checkpoint(
@@ -102,6 +152,7 @@ def lm_loss(
             plain_attention=True,
             remat=remat,
             return_aux=True,
+            tp=tp,
         )
         nll = _ce(logits, tgt)
         if cfg.n_codebooks:

@@ -191,11 +191,13 @@ class AsyncRunner:
         cfg: RuntimeConfig,
         *,
         comm: Any = None,
+        shards: Any = None,
     ):
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.cfg = cfg
         self.comm = comm
+        self.shards = shards  # a checkpoint.io.ModelShards over a model axis
         self.history: list[dict[str, float]] = []
         self.host_s = 0.0  # main-thread seconds blocked (cf. Trainer.host_s)
         self._t0: float | None = None
@@ -222,7 +224,7 @@ class AsyncRunner:
         cfg = self.cfg
         comm = self.comm
         saver = (
-            AsyncCheckpointer(cfg.ckpt_path, comm, WORKER_ROWS)
+            AsyncCheckpointer(cfg.ckpt_path, comm, WORKER_ROWS, self.shards)
             if cfg.ckpt_every
             else None
         )

@@ -18,9 +18,25 @@ optimizer steps the parameters in place, the same on every rank.
 The parameters are the training tree, the JAX package's layout (scan
 leaves stacked by repeat, ``models.model.stacked_flags``), so the
 compressor's plans, per-layer scales, bits and collective counts are the
-JAX package's. A mesh is ``(data, model)``; serving takes a model axis
-above 1 (``serving/engine.py``), training does not yet (ROADMAP Queue 1,
-item 15 B, step 3: tensor-parallel training).
+JAX package's. A mesh is ``(data, model)``.
+
+Over a model axis above 1 (``tp``, a ``core.comm.ModelAxis`` over the
+training tree's specs, ``launch/sharding.py:param_specs``) each rank of a
+``data x model`` process group holds one worker (``comm`` spans its
+data-axis group) and 1/M of every split parameter, its optimizer state and
+its error feedback (:func:`train_state_specs`): the JAX package's layout,
+whose ``model`` axis GSPMD shards automatically, so the sharded step
+computes what the unsharded one does, up to rounding. The forward and the
+loss are the tensor-parallel ones (``models/model.py``, the vocab-parallel
+``train/loss.py``), whose model-axis collectives carry their backward; a
+replicated leaf used inside a split branch gets only the rank's part of
+its gradient, and the step sums those over the model axis in one
+all-reduce before the sync (``launch/sharding.py:partial_grad_flags``).
+The sync runs on the blocks (``core/compressors.py:ModelSplit``), and the
+optimizer steps each block in place: SGD and Adam are elementwise, so a
+block's update is the whole update's block. The dense attention + MLP
+architectures and the ``none``, ``powersgd`` and ``lq_sgd`` compressors
+run so; the rest raise, naming their ROADMAP step.
 """
 
 from __future__ import annotations
@@ -39,15 +55,25 @@ from repro_torch.core.comm import CommRecord, DistComm, SimComm
 from repro_torch.core.compressors import (
     CompressorConfig,
     GradCompressor,
+    ModelSplit,
     make_compressor,
+    model_split,
 )
+from repro_torch.core.lazy import STALE_NS
 from repro_torch.core.tree import Tree, tree_leaves, tree_map, tree_unflatten
-from repro_torch.launch.mesh import TP_TRAINING
+from repro_torch.launch.mesh import LATER_STEPS
+from repro_torch.launch.sharding import (
+    Spec,
+    assert_replicated,
+    param_specs,
+    partial_grad_flags,
+    tp_refusal,
+)
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import init_params, stacked_flags
 from repro_torch.train.loss import lm_loss
 from repro_torch.train.optimizer import Optimizer
-from repro_torch.weights import to_jax_layout
+from repro_torch.weights import init_sharded_params, to_jax_layout
 
 __all__ = [
     "build_train_step",
@@ -57,6 +83,8 @@ __all__ = [
     "make_model_compressor",
     "abstract_grads_of",
     "n_dp_of",
+    "train_param_specs",
+    "train_state_specs",
 ]
 
 Mesh = tuple[int, int]  # (data, model)
@@ -66,16 +94,65 @@ OnSync = Callable[[Tree, Tree, Any, CommRecord], None]
 
 
 def n_dp_of(mesh: Mesh) -> int:
-    """The data-parallel workers of a (data, model) mesh (all ranks')."""
+    """The data-parallel workers of a (data, model) mesh (all ranks'): its
+    data axis, whatever its model axis."""
     data, model = mesh
-    if model != 1:
-        raise NotImplementedError(
-            f"a model axis of {model}: tensor-parallel training is not ported "
-            f"yet ({TP_TRAINING}; serving takes a model axis)"
-        )
+    if model < 1:
+        raise ValueError(f"a model axis of {model}")
     if data < 1:
         raise ValueError(f"a data axis of {data}")
     return data
+
+
+def train_param_specs(cfg: ModelConfig, model: int) -> Tree:
+    """The training tree's parameter specs over a model axis of ``model``
+    (``launch/sharding.py:param_specs`` of the abstract tree)."""
+    abstract, flags = abstract_grads_of(cfg)
+    return param_specs(abstract, flags, axis_size=model, cfg=cfg)
+
+
+def _replicated(leaf: Any) -> Spec:
+    return Spec(*([None] * len(getattr(leaf, "shape", ()))))
+
+
+def train_state_specs(
+    state: dict[str, Any], specs: Tree, compressor: GradCompressor
+) -> dict[str, Any]:
+    """The spec of every leaf of a training state ``{params, opt, comp,
+    step}``: the parameters' ``specs``; an optimizer state's param-shaped
+    subtrees (Adam's moments, SGD's momentum) the same, the rest (Adam's
+    step count) replicated; the compressor state's
+    :meth:`~repro_torch.core.compressors.GradCompressor.state_pspecs`
+    behind the leading worker dim; ``step`` replicated."""
+    opt = {
+        k: specs if isinstance(v, dict) else _replicated(v)
+        for k, v in state["opt"].items()
+    }
+    inner = tree_map(
+        lambda x: x[0] if isinstance(x, torch.Tensor) and x.dim() else x,
+        state["comp"],
+    )
+    comp_specs = compressor.state_pspecs(inner, specs)
+    if STALE_NS in comp_specs:
+        # the lazy fire decision reads the staleness counter on every rank:
+        # a counter sharded over the model axis could split the branch
+        assert_replicated(comp_specs[STALE_NS], f"comp.{STALE_NS}")
+    return dict(
+        params=specs,
+        opt=opt,
+        comp=_map_specs(lambda sp: Spec(None, *sp), comp_specs, state["comp"]),
+        step=Spec(),
+    )
+
+
+def _map_specs(fn: Callable, specs: Any, like: Any) -> Any:
+    """``fn`` over the specs of a spec tree laid out as ``like`` (a Python
+    number's spec is kept: it has no worker dim)."""
+    if isinstance(like, dict):
+        return {k: _map_specs(fn, specs[k], v) for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return [_map_specs(fn, sp, v) for sp, v in zip(specs, like)]
+    return fn(specs) if isinstance(like, torch.Tensor) and like.dim() else specs
 
 
 def abstract_grads_of(cfg: ModelConfig) -> tuple[Tree, Tree]:
@@ -109,15 +186,28 @@ def init_train_state(
     compressor: GradCompressor,
     n_dp: int,
     device: torch.device | str = "cuda",
+    *,
+    tp: Any = None,
+    mesh: Any = None,
 ) -> dict[str, Any]:
     """{params, opt, comp (per-worker, leading dim ``n_dp``: the workers
-    this process holds), step (int32)}."""
+    this process holds), step (int32)}. With ``tp`` (a ``ModelAxis`` over
+    the training tree's specs) and its ``mesh``, this rank's blocks: the
+    seeded init cut as it is drawn (``weights.init_sharded_params``), the
+    optimizer state of the blocks, the error feedback's blocks."""
     dev = resolve_device(device)
-    params = init_train_params(cfg, seed, dev)
+    if tp is None or tp.comm.size == 1:
+        params = init_train_params(cfg, seed, dev)
+        comp = compressor.init_state(seed, n_dp, dev)
+    else:
+        params = init_sharded_params(cfg, seed, dev, tp.specs, mesh)
+        params = tree_map(lambda w: w.requires_grad_(True), params)
+        split = model_split(tp.comm, tp.specs)
+        comp = compressor.init_state(seed, n_dp, dev, model=split)
     return dict(
         params=params,
         opt=optimizer.init(params),
-        comp=compressor.init_state(seed, n_dp, dev),
+        comp=comp,
         step=torch.zeros((), dtype=torch.int32, device=dev),
     )
 
@@ -154,6 +244,7 @@ def build_train_step(
     comm: SimComm | None = None,
     on_sync: OnSync | None = None,
     graph: bool | None = None,
+    tp: Any = None,
 ) -> TrainStep:
     """Returns ``step_fn(state, batch) -> (state, metrics)``, a
     :class:`TrainStep`.
@@ -196,15 +287,43 @@ def build_train_step(
     ``on_sync`` is called after each
     step, outside any capture, with the step's per-worker gradients into
     the sync, its synced gradients, the new compressor state and its
-    ``CommRecord``: the step's buffers, which the next step overwrites."""
+    ``CommRecord``: the step's buffers, which the next step overwrites.
+
+    A mesh whose model axis is above 1 takes ``tp``, a ``ModelAxis`` of
+    that size over the training tree's specs (:func:`train_param_specs`);
+    ``comm`` then spans the rank's data-axis group and the state is the
+    rank's blocks (:func:`init_train_state` with ``tp``). The per-worker
+    gradients are the blocks, the partial ones of replicated leaves summed
+    over the model axis; ``metrics`` are the same on every model rank of a
+    data row. Over NCCL the step is one graph with its model-axis and
+    data-axis collectives captured; over gloo it runs eagerly, and
+    ``graph=True`` raises."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     n = n_dp_of(mesh)
+    model = mesh[1]
+    if model > 1:
+        if tp is None or tp.comm.size != model:
+            raise ValueError(
+                f"a model axis of {model} needs a ModelAxis of {model} ranks (tp)"
+            )
+        why = tp_refusal(cfg)
+        if why is not None:
+            raise NotImplementedError(
+                f"{cfg.name} over a model axis of {model}: {why} not "
+                f"tensor-parallel yet ({LATER_STEPS})"
+            )
+        why = compressor.tp_refusal()
+        if why is not None:
+            raise NotImplementedError(why)
+    elif tp is not None and tp.comm.size != 1:
+        raise ValueError(f"a ModelAxis of {tp.comm.size} for a model axis of 1")
     comm = comm if comm is not None else SimComm(n)
     if comm.size() != n:
         raise ValueError(f"a comm of {comm.size()} workers for a mesh of {n}")
+    tp = tp if model > 1 else None
     loss_fn = loss_fn or functools.partial(
-        lm_loss, cfg=cfg, head_chunk=head_chunk, remat=remat
+        lm_loss, cfg=cfg, head_chunk=head_chunk, remat=remat, tp=tp
     )
     return TrainStep(
         n,
@@ -215,6 +334,7 @@ def build_train_step(
         accum_steps=accum_steps,
         on_sync=on_sync,
         graph=graph,
+        tp=tp,
     )
 
 
@@ -233,7 +353,12 @@ class TrainStep:
     drops the graph and binds anew. Attributes a caller may read after
     a call: ``batch`` (the static batch of a graphed step), ``grads`` (the
     per-worker gradient buffers), ``synced`` (the last step's synced
-    gradients), ``graph`` (the ``StepGraph``, or None) and ``capture_s``."""
+    gradients), ``graph`` (the ``StepGraph``, or None) and ``capture_s``.
+
+    ``tp`` (a ``ModelAxis``): the state holds this rank's blocks over the
+    model axis; ``model`` is the sync's ``ModelSplit`` and ``partial`` the
+    flattened indices of the leaves whose gradients are summed over the
+    axis before the sync."""
 
     def __init__(
         self,
@@ -246,6 +371,7 @@ class TrainStep:
         accum_steps: int = 1,
         on_sync: OnSync | None = None,
         graph: bool | None = None,
+        tp: Any = None,
     ):
         self.n = n
         self.k = comm.local_size()  # the workers this process holds
@@ -262,6 +388,13 @@ class TrainStep:
         self.synced: Tree | None = None
         self._call_state: dict[str, Any] | None = None  # the call's state
         self._out: tuple | None = None  # the graph body's (state, metrics, rec)
+        self.tp = tp
+        self.model: ModelSplit | None = None
+        self.partial: list[int] = []
+        if tp is not None:
+            self.model = model_split(tp.comm, tp.specs)
+            flags = tree_leaves(partial_grad_flags(tp.specs))
+            self.partial = [i for i, f in enumerate(flags) if f]
 
     @property
     def graph(self) -> graphs.StepGraph | None:
@@ -294,10 +427,21 @@ class TrainStep:
         # tensors, copied on the stream before the next replay
         return new_state, {k: v.clone() for k, v in metrics.items()}
 
+    def graph_refusal(self) -> str | None:
+        """Why this step cannot be one CUDA graph (its compressor, its
+        data-axis comm, its model axis's), or None."""
+        why = self.compressor.graph_refusal() or self.comm.graph_refusal()
+        if why is None and self.tp is not None and self.tp.gloo:
+            why = (
+                "the model axis's gloo collectives run from the host, which a "
+                "CUDA graph cannot capture (use NCCL, one rank a card)"
+            )
+        return why
+
     def _graphed(self, dev: torch.device) -> bool:
         if not graphs.use_graph(self.graph_arg, dev):
             return False
-        why = self.compressor.graph_refusal() or self.comm.graph_refusal()
+        why = self.graph_refusal()
         if why is not None:
             if self.graph_arg:
                 raise NotImplementedError(f"a graphed step: {why}")
@@ -379,6 +523,11 @@ class TrainStep:
             name: torch.stack([m[name] for m in ms]).mean(0) for name in ms[0]
         }
 
+    def _sum_partial(self, bufs: list[torch.Tensor]) -> None:
+        """The partial gradients of the replicated leaves used inside a
+        split branch, summed over the model axis (every worker's rows)."""
+        _sum_partial_into([bufs[i] for i in self.partial], self.tp.comm)
+
     def _run(self, state, batch, dev, gens=None):
         """The step's work on a batch already on ``dev``: every worker's
         gradients into ``grads``, the donated sync (drawing from ``gens``,
@@ -403,10 +552,17 @@ class TrainStep:
                 buf[wk].copy_(g)
             del gs
             worker_metrics.append(m)
+        if self.partial:
+            self._sum_partial(bufs)
         comp = state["comp"]
         with torch.no_grad():
+            kw = {} if self.model is None else {"model": self.model}
             synced, comp, rec = self.compressor.sync(
-                self.grads, {**comp, "gen": gens} if gens else comp, comm, donate=True
+                self.grads,
+                {**comp, "gen": gens} if gens else comp,
+                comm,
+                donate=True,
+                **kw,
             )
         comp = {k: v for k, v in comp.items() if k != "gen"}
         self.synced = synced
@@ -422,6 +578,16 @@ class TrainStep:
             state["step"].add_(1)
         new_state = dict(params=params, opt=opt, comp=comp, step=state["step"])
         return new_state, metrics, rec
+
+
+@torch.no_grad()
+def _sum_partial_into(bufs: list[torch.Tensor], comm: Any) -> None:
+    """Each of ``bufs`` replaced in place by its f32 sum over ``comm``, all
+    in one all-reduce."""
+    flat = torch.cat([b.reshape(-1).float() for b in bufs])
+    flat = comm.all_reduce(flat, "tp.grad.partial")
+    for b, x in zip(bufs, flat.split([b.numel() for b in bufs])):
+        b.copy_(x.reshape(b.shape))
 
 
 def _dtype_of(v: Any) -> torch.dtype:

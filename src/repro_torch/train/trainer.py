@@ -13,7 +13,11 @@ from the first run.
 Over several ranks (a ``DistComm``, ``comm=``) every rank builds the global
 batch from the step and keeps its workers' rows (``comm.rows``); the
 history is the same on every rank, and rank 0 alone prints it and writes
-the checkpoints (``checkpoint/io.py``).
+the checkpoints (``checkpoint/io.py``). Over a ``(data, model)`` mesh the
+comm spans the rank's data-axis group: the rows are its data row's, the
+metrics the mean over the data group (equal on a row's model ranks), and
+``shards`` (a ``checkpoint.io.ModelShards``) has each checkpoint gather
+the model blocks too.
 """
 
 from __future__ import annotations
@@ -75,8 +79,9 @@ def checkpoint_due(cfg: TrainerConfig, step: int) -> bool:
 
 
 def is_rank0(comm: Any = None) -> bool:
-    """Whether this process prints and writes: rank 0, or the one process."""
-    return comm is None or comm.rank == 0
+    """Whether this process prints and writes: rank 0 of the whole process
+    group (a data-axis comm's ``process_rank``), or the one process."""
+    return comm is None or getattr(comm, "process_rank", comm.rank) == 0
 
 
 def local_rows(batch: dict[str, Any], comm: Any = None) -> dict[str, Any]:
@@ -105,11 +110,13 @@ class Trainer:
         cfg: TrainerConfig,
         *,
         comm: Any = None,
+        shards: Any = None,
     ):
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.cfg = cfg
         self.comm = comm
+        self.shards = shards
         self.history: list[dict[str, float]] = []
         # main-thread seconds blocked on host work (batch, metric reads,
         # checkpoint IO): what the async runtime shrinks
@@ -141,7 +148,11 @@ class Trainer:
             if checkpoint_due(cfg, step):
                 th = time.time()
                 ckpt_save(
-                    cfg.ckpt_path, state, comm=self.comm, per_worker=WORKER_ROWS
+                    cfg.ckpt_path,
+                    state,
+                    comm=self.comm,
+                    per_worker=WORKER_ROWS,
+                    shards=self.shards,
                 )
                 self.host_s += time.time() - th
         return state

@@ -21,7 +21,11 @@ scan leaves stacked by repeat, as copies), which the compressor sees;
 ``shard_params(params, specs, mesh)`` cuts a rank's shard of each leaf
 along the dims its spec names (``launch/sharding.py``), and
 ``init_sharded_params`` does so leaf by leaf as the seeded init draws
-them, so a rank never holds the whole model.
+them, so a rank never holds the whole model: the serving tree, or the
+training tree (stacked leaves, the JAX layout) given its specs.
+``train_state_from_jax`` and ``compressor_state_from_jax`` take the specs
+of the state too and cut each JAX array to the rank's block as it is
+carried over.
 
 ``resnet_params_from_jax(tree)`` returns the ResNet-18 (or mini-CNN) tree
 as it is: the same keys, HWIO conv kernels. ``compressor_state_from_jax``
@@ -142,7 +146,19 @@ def init_sharded_params(
     """``models.model.init_params(cfg, seed, device)`` cut to this rank's
     shards as it goes: each part (the embedding, a layer, the head) is
     drawn whole, cast and cut before the next is drawn, so the draws, and
-    so the shards, are those of the one-process init."""
+    so the shards, are those of the one-process init. ``specs`` of the
+    training tree (``lead`` / ``scan`` / ``tail``) give the training tree:
+    each layer cut by its stacked leaf's spec without the stacked dim, the
+    scan layers' shards then stacked (``to_jax_layout``)."""
+    if "scan" in specs:
+        layers = _layer_specs_of_train(specs, cfg)
+
+        def shard(path: tuple, tree: Any) -> Any:
+            if path[0] == "layers":
+                return shard_params(tree, layers[path[1]], mesh)
+            return shard_params(tree, specs[path[0]], mesh)
+
+        return to_jax_layout(init_params(cfg, seed, device, shard=shard), cfg)
 
     def shard(path: tuple, tree: Any) -> Any:
         sub = specs
@@ -153,6 +169,31 @@ def init_sharded_params(
     return init_params(cfg, seed, device, shard=shard)
 
 
+def _unstack(spec: Any) -> Any:
+    if isinstance(spec, dict):
+        return {k: _unstack(v) for k, v in spec.items()}
+    return type(spec)(*tuple(spec)[1:])
+
+
+def _layer_specs_of_train(specs: dict[str, Any], cfg: ModelConfig) -> list[Any]:
+    """Each layer's specs in execution order from the training tree's:
+    lead, then every repeat of the scan positions (unstacked), then tail."""
+    scan = [_unstack(s) for s in specs["scan"]]
+    return list(specs["lead"]) + scan * cfg.repeats + list(specs["tail"])
+
+
+def _block(a: Any, spec: Any, mesh: Any, dev: torch.device) -> torch.Tensor:
+    """The rank's block of the numpy array ``a`` under ``spec`` on ``dev``:
+    only the block is copied (bfloat16 bit-reinterpreted)."""
+    a = np.asarray(a)
+    bf16 = a.dtype.name == "bfloat16"
+    t = torch.from_numpy(np.ascontiguousarray(a.view(np.uint16) if bf16 else a))
+    if spec is not None and any(e is not None for e in spec):
+        t = cut(t, spec, mesh.sizes, mesh.coords)
+    t = t.to(dev, copy=True)
+    return t.view(torch.bfloat16) if bf16 else t
+
+
 def _stack(trees: list[Any]) -> Any:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -160,16 +201,32 @@ def _stack(trees: list[Any]) -> Any:
 
 
 def train_state_from_jax(
-    state: dict[str, Any], device: torch.device | str = "cuda"
+    state: dict[str, Any],
+    device: torch.device | str = "cuda",
+    *,
+    specs: Any = None,
+    mesh: Any = None,
 ) -> dict[str, Any]:
     """A JAX ``init_train_state`` (numpy leaves) -> the port's training
     state: params in the training tree, the optimizer state, the
     per-worker compressor state (its leading worker dim kept) and the
-    int32 step, every leaf as it is. A PRNG key cannot carry over."""
+    int32 step, every leaf as it is, or, given the state's ``specs``
+    (``train/step.py:train_state_specs``) and a ``mesh``, cut leaf by leaf
+    to this rank's blocks. A PRNG key cannot carry over."""
     if "key" in state["comp"]:
         raise ValueError("a PRNG key cannot carry over; seed the port's state")
     dev = resolve_device(device)
-    return tree_map(lambda a: tensor_from_numpy(a, dev), state)
+    if specs is None:
+        return tree_map(lambda a: tensor_from_numpy(a, dev), state)
+    return _cut_tree(state, specs, mesh, dev)
+
+
+def _cut_tree(tree: Any, specs: Any, mesh: Any, dev: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _cut_tree(v, specs[k], mesh, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cut_tree(v, s, mesh, dev) for v, s in zip(tree, specs, strict=True)]
+    return _block(tree, specs, mesh, dev)
 
 
 def resnet_params_from_jax(
@@ -182,18 +239,26 @@ def resnet_params_from_jax(
 
 
 def compressor_state_from_jax(
-    state: dict[str, Any], n_workers: int, device: torch.device | str = "cuda"
+    state: dict[str, Any],
+    n_workers: int,
+    device: torch.device | str = "cuda",
+    *,
+    specs: Any = None,
+    mesh: Any = None,
 ) -> dict[str, Any]:
     """A JAX compressor state (numpy leaves: E and warm-start Q, without a
     worker dim) -> the port's per-worker state, every leaf copied over a
-    leading dim of ``n_workers``. The randomized compressors' PRNG state
+    leading dim of ``n_workers``; given ``specs`` (the compressor's
+    ``state_pspecs``, without the worker dim) and a ``mesh``, each leaf is
+    first cut to this rank's block. The randomized compressors' PRNG state
     does not carry over: their streams are the port's own."""
     if "key" in state:
         raise ValueError("a PRNG key cannot carry over; seed the port's state")
     dev = resolve_device(device)
 
-    def per_worker(a):
-        t = tensor_from_numpy(a, dev)
+    def per_worker(t):
         return t.expand((n_workers,) + t.shape).clone()
 
-    return tree_map(per_worker, state)
+    if specs is None:
+        return tree_map(lambda a: per_worker(tensor_from_numpy(a, dev)), state)
+    return tree_map(per_worker, _cut_tree(state, specs, mesh, dev))

@@ -1437,6 +1437,75 @@ def test_nccl_two_ranks_tp_serve_equals_one_process(cuda, tmp_path):
     assert sum(r["graphed"]["bytes"] for r in ranks) == want["bytes"]
 
 
+def test_nccl_two_ranks_tp_train_equals_one_process(cuda, tmp_path):
+    """gemma3-1b smoke (f32) trained 3 steps with LQ-SGD r1 b8 and SGD at a
+    1x2 mesh over NCCL, one card a rank: the graphed step, its model-axis
+    and data-axis collectives captured, equals the eager tensor-parallel
+    step bit for bit (losses, step 0's gradients, every step's synced
+    gradients, parameters), and both equal the one-process run on card 0:
+    losses rtol 1e-5, step 0's gradients within 1e-5 of each leaf's
+    largest value, the synced gradients and parameters within
+    ``flip_tol`` a step (a wire code on a bin edge may flip)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(
+            "needs 2 CUDA devices: NCCL refuses two ranks on one card, so "
+            "tensor-parallel training over NCCL stays unverified until run on "
+            "such a machine"
+        )
+    import _torch_dist as td
+    import _torch_tp_train as tt
+
+    from repro_torch.core.compressors import model_split
+    from repro_torch.core.tree import flatten_with_paths
+    from repro_torch.train.step import train_param_specs
+
+    levels = (1 << 7) - 1
+    flip = 2 * ((1 + 10.0) ** (1 / levels) - 1)  # _torch_lm.flip_tol(8, 1)
+    want = tt.card_tp_train("cuda:0")
+    join = td.spawn(None, str(tmp_path), world=2, target=tt.card_tp_train_rank)
+    cfg = get_config(tt.CARD_RUN[0], smoke=True)
+    dims = model_split(None, train_param_specs(cfg, 2)).dims  # flatten order
+
+    def close(a, b, tol, label):
+        a, b = a.float(), b.float()
+        atol = tol * max(float(b.abs().max()), 1e-30)
+        torch.testing.assert_close(a, b, atol=atol, rtol=1e-4, msg=label)
+
+    for got in join():
+        g, e, m = got["graphed"], got["eager"], got["coords"]["model"]
+        assert g["graphed"] and not e["graphed"]
+        assert g["losses"] == e["losses"]
+        np.testing.assert_allclose(g["losses"], want["losses"], rtol=1e-5)
+        for key in ("params",):
+            for a, b in zip(tree_leaves(g[key]), tree_leaves(e[key])):
+                assert torch.equal(a, b)
+        for s, (gs, es, ws) in enumerate(zip(g["seen"], e["seen"], want["seen"])):
+            pairs = [("synced", 1 + s)] + ([("grads", 0)] if s == 0 else [])
+            for key, steps in pairs:
+                leaves = zip(
+                    flatten_with_paths(gs[key]),
+                    tree_leaves(es[key]),
+                    tree_leaves(ws[key]),
+                    dims,
+                    strict=True,
+                )
+                for (path, a), b, w, dim in leaves:
+                    assert torch.equal(a, b), (s, key, path)
+                    if key == "grads":
+                        a, w = a[0], w[0]
+                    if dim is not None:
+                        n = w.shape[dim] // 2
+                        w = w.narrow(dim, m * n, n)
+                    close(a, w, 1e-5 if key == "grads" else steps * flip, path)
+        for (path, a), w, dim in zip(
+            flatten_with_paths(g["params"]), tree_leaves(want["params"]), dims
+        ):
+            if dim is not None:
+                n = w.shape[dim] // 2
+                w = w.narrow(dim, m * n, n)
+            close(a, w, 3 * flip, path)
+
+
 def _ranks_equal_simcomm(got, want, name):
     """A rank's :func:`lm_smoke_steps` against ``SimComm(4)``'s: bit for
     bit, but for QSGD, whose raw leaves psum in f32 in the ring's order:

@@ -53,7 +53,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.core.codec import unpack_nibbles
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import sharding as tsharding
-from repro_torch.launch.mesh import LATER_STEPS, TP_TRAINING, DataMesh
+from repro_torch.launch.mesh import LATER_STEPS, TP_COMPRESSORS, DataMesh
 from repro_torch.models.model import init_params, stacked_flags
 from repro_torch.models.multimodal import vq_tokens_stub
 from repro_torch.serving import engine as tengine
@@ -459,7 +459,8 @@ REFUSALS = {
     "mamba2-370m": ("NotImplementedError", LATER_STEPS),
     "musicgen-medium": ("NotImplementedError", LATER_STEPS),
     "continuous": ("NotImplementedError", LATER_STEPS),
-    "train": ("NotImplementedError", TP_TRAINING),
+    # training takes a model axis; TopK on model-sharded gradients does not
+    "train": ("NotImplementedError", TP_COMPRESSORS),
     "graph_under_gloo": ("ValueError", "gloo"),
 }
 

@@ -91,6 +91,9 @@ FULL_WIDTH_PARAMS = {
     "qwen2-72b": ({}, 72_706_203_648),
     "mistral-nemo-12b": ({}, 12_247_782_400),
     "granite-20b": ({}, 28_167_493_632),
+    # chip_smoke's (l1) / (l2) cuts, for time
+    "mistral-nemo-12b/20-layers": (dict(repeats=20), 6_794_982_400),
+    "granite-20b/26-layers": (dict(repeats=26), 14_385_739_776),
     "chameleon-34b": ({}, 34_293_436_416),
     "mixtral-8x7b": ({}, 46_702_792_704),
     "mixtral-8x7b/16-layers": (dict(repeats=16), 23_482_470_400),

@@ -80,12 +80,14 @@ FULL_WIDTH = {
     "deepseek-v3-671b/4-layers": (dict(repeats=1), 15_797_366_784, 43_602_112),
     "musicgen-medium": ({}, 1_837_254_144, 14_922_976),
     "mamba2-370m": ({}, 368_338_432, 6_671_968),
-    # chip_smoke's (m3) / (m4) training cuts: 24 of the 48 layers to PR 26,
-    # 12 since
+    # chip_smoke's (m3) / (m4) training cuts: 24 of the 48 layers, then 12,
+    # then 6
     "mamba2-370m/24-layers": (dict(repeats=24), 209_913_088, 3_545_440),
     "musicgen-medium/24-layers": (dict(repeats=24), 931_210_752, 7_539_424),
     "mamba2-370m/12-layers": (dict(repeats=12), 130_700_416, 1_982_176),
     "musicgen-medium/12-layers": (dict(repeats=12), 478_189_056, 3_847_648),
+    "mamba2-370m/6-layers": (dict(repeats=6), 91_094_080, 1_200_544),
+    "musicgen-medium/6-layers": (dict(repeats=6), 251_678_208, 2_001_760),
 }
 
 
