@@ -197,18 +197,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    gradients, gathered wire arrays, bits, losses, final parameters,
    launches), then ms a step graphed and eager against (j1)'s; (n2)
    ResNet-18 as (d) over 4 gloo ranks sharing the card, 1 worker x 128
-   each, 2 eager steps, spawned through ``python -m
-   torch.distributed.run`` and ``launch/train_resnet.py``: every rank's
+   each, 2 eager steps, ``launch/train_resnet.py`` in the 2x2 torchrun of
+   ``phase_tp`` (phases 13-17 share their torchruns): every rank's
    gathers byte for byte, synced gradients, losses and parameters equal
    to ``SimComm(4)``'s in this process, the gathered bits plus the scales
    the accounting, the ranks' launches of #1 and #5 counted, ms a step and
    its share in the collectives; (n3) ``launch.train`` at gemma3-1b's
-   smoke widths over 2 gloo ranks on the card, a checkpoint at step 2
-   resumed in this process equal to 4 steps at once;
+   smoke widths over 2 gloo ranks on the card (the 1x2 torchrun), a
+   checkpoint at step 2 resumed in this process equal to 4 steps at once;
 14. the compressors that raised across ranks before, right after phase
-   3, while this process holds little device memory: ONE torchrun of 2
-   gloo ranks x 2 workers sharing the card runs this script with
-   ``--ranks DIR`` (``rank_main``), which drives (o1)
+   3, while this process holds little device memory: 2 gloo ranks x 2
+   workers sharing the card, in the 1x2 torchrun that phases 14-17 share
+   (``phase_tp``; ``_o_rank``), drive (o1)
    (f)'s QSGD b4, (o2) a dlog / log / lrq b4 policy with a warm-up step
    and lazy groups (elide), (o3) (i3)'s server wire (gate) and (o4)
    (k1)'s gemma3-1b at full width (its error feedback in bf16) through
@@ -228,10 +228,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    and (p3) mistral-nemo-12b at 1x2, q8 (the cache split by KV heads), all
    full width, (p1) and (p2) at 14 of gemma3-1b's 26 layers, (p3) at 10
    of its 40 (``P_REPEATS``), batch 4, prompt 1024, 16 new tokens: the
-   launcher in this process (graphed decode), then ONE torchrun of data x
-   model gloo ranks sharing the card (``chip_smoke.py --tp-rank DIR RUN``,
-   ``tp_rank_main``: ``launch/serve.py``'s ``main`` with ``--mesh``, eager
-   decode, then a teacher-forced decode on this process's tokens). Each
+   launcher in this process (graphed decode), then, in the torchrun of
+   its mesh that phases 15-17 share (``phase_tp``, ``TP_SPAWNS``), its
+   gloo ranks sharing the card (``_p_rank``: ``launch/serve.py``'s
+   ``main`` with ``--mesh``, eager decode, then a teacher-forced decode on
+   this process's tokens). Each
    rank's prefill and teacher-forced logits within LOGITS_REL_TOL of the
    one-process run's, its free-running greedy tokens equal but where the
    one-process margin is below P_TOKEN_MARGIN, its cache shard against
@@ -245,10 +246,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch of (j1)), LQ-SGD r1 b8 and Adam, and (q2) mistral-nemo-12b at
    full width on 2 of its 40 layers at 1x2, 1 x 2 x 512, LQ-SGD r1 b4 and
    SGD, 3 steps each: ``launch/train.py`` in this process (``--mesh
-   Dx1``, graphed, ``--dump --dump-steps``), then ONE torchrun of data x
-   model gloo ranks sharing the card (``chip_smoke.py --tp-train-rank DIR
-   RUN``, ``tp_train_rank_main``: the launcher's ``main`` with ``--mesh``,
-   eager, then a graphed step under gloo, which must raise). Each rank's
+   Dx1``, graphed, ``--dump --dump-steps``), then, in the shared torchrun
+   of its mesh, its gloo ranks (``_q_rank``: the launcher's ``main`` with
+   ``--mesh``, eager, then a graphed step under gloo, which must raise).
+   Each rank's
    losses within Q_LOSS_REL of the one-process run's, its step-0 synced
    gradient within Q_SYNC_SHARE of each leaf's largest value where no
    wire code it is made of moved, the codes moved at step 0 reported per
@@ -258,6 +259,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    replicated leaves' fingerprints equal on every rank after every step;
    each rank's launches of #1 or #3 and #5, ms a step, its shares in
    model-axis and data-axis collectives, and its peak memory.
+17. tensor-parallel serving of the rest of the zoo and the continuous
+   scheduler, right after phase 16: #1, #3, #4, #6 and #7 at the ranks'
+   shapes against their plain versions, then per mesh the one-process
+   runs in this process (eager, their MoE routing recorded) and, in the
+   shared torchrun of each mesh (``chip_smoke.py --tp-spawn-rank DIR
+   MESH``, ``tp_spawn_rank_main``, which runs the mesh's (p), (q) and (r)
+   runs in turn, their device memory returned between runs), its gloo
+   ranks: at 1x2 (r1) jamba-v0.1-52b one period, q8, (r3)
+   deepseek-v3-671b on 4 of 61 layers, q8 latent cache, (r4)
+   musicgen-medium on 12 of 48 layers after its prefix, q4, each
+   ``launch/serve.py``'s ``main`` with ``--mesh`` and the one-process
+   routing held, then a teacher-forced decode on the one-process tokens;
+   at 2x2 (r2) mamba2-370m on 12 of 48 layers, raw cache, the same, and
+   (r5) gemma3-1b on 14 of 26 layers through the continuous scheduler
+   (``run_continuous`` over (c)'s 8 requests, 4 slots, q8). All at full
+   width, batch 4, prompt 1024, 16 new tokens. Checks as phase 15's, plus
+   every rank's raw SSM state and conv window within LOGITS_REL_TOL of
+   the block of the one-process one, MoE flips from the ranks' own
+   router logits at margins <= MOE_FLIP_MARGIN, and (r5)'s requests equal
+   up to a token at a one-process margin below P_TOKEN_MARGIN; each
+   run's kernels launched on every rank (``R_KERNELS``).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -4296,24 +4318,23 @@ N3_ARGS = [
     "32", "--compressor", "lq_sgd", "--rank", "1", "--bits", "8",
     "--log-every", "1", "--deterministic",
 ]  # fmt: skip
-TORCHRUN_TIMEOUT_S = 300  # a spawn that has not ended by then fails (n)
+# a spawn that has not ended by then fails (phase_tp's 1x2 torchrun, the
+# longest, took ~150 s)
+TORCHRUN_TIMEOUT_S = 450
 
 
 def phase_dist(card):
-    """(n) the LQ-SGD sync's collectives as torch.distributed ones."""
-    total = {}
-    for part in (_dist_n1, _dist_n2, _dist_n3):
-        for name, c in part(card).items():
-            total[name] = total.get(name, 0) + c
-    return total
+    """(n1) the LQ-SGD sync's collectives as torch.distributed ones, in this
+    process ((n2) and (n3) run in the torchruns of ``phase_tp``)."""
+    return _dist_n1(card)
 
 
-def _torchrun(label, ranks, module_args, script=False):
+def _torchrun(label, ranks, module_args, script=False, env=None):
     """``python -m torch.distributed.run`` of ``ranks`` processes on this
     host (a rendezvous on a free local port) running a module (or, with
     ``script``, the script ``module_args`` begins with), in a process
-    group of its own that is killed whole on the deadline. Returns
-    (stdout, seconds)."""
+    group of its own that is killed whole on the deadline, with ``env``
+    added to this process's environment. Returns (stdout, seconds)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
     cmd += [f"--nproc-per-node={ranks}", *([] if script else ["-m"]), *module_args]
     paths = (str(ROOT / "src"), os.environ.get("PYTHONPATH"))
@@ -4322,7 +4343,7 @@ def _torchrun(label, ranks, module_args, script=False):
     proc = subprocess.Popen(
         cmd,
         cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=path),
+        env=dict(os.environ, PYTHONPATH=path, **(env or {})),
         stdout=subprocess.PIPE,
         stderr=subprocess.PIPE,
         text=True,
@@ -4338,6 +4359,8 @@ def _torchrun(label, ranks, module_args, script=False):
     for line in out.splitlines()[-8:]:
         print(f"    {label} | {line}")
     rc = proc.returncode
+    if rc != 0:  # the ranks' tracebacks, beyond the failure's own tail
+        print(err[-20000:])
     check(rc == 0, f"{label}: torchrun exited {rc}: {err[-3000:]}")
     return out, secs
 
@@ -4427,7 +4450,26 @@ def _dist_n1(card):
     return counts
 
 
-def _dist_n2(card):
+N2_ARGV = [
+    "--workers", str(N2_RANKS), "--batch", str(TRAIN_BATCH),
+    "--hw", str(TRAIN_HW), "--classes", str(TRAIN_CLASSES),
+    "--steps", str(N2_STEPS), "--lr", str(TRAIN_LR),
+    "--dist-backend", "gloo", "--device", "cuda:0", "--deterministic",
+]  # fmt: skip
+
+
+def _n2_rank(out_dir):
+    """One rank's (n2) run in the torchrun of the 2x2 mesh (world 4) that
+    phases (n2)-(r) share: ``launch/train_resnet.py``'s ``main``, dumping
+    to ``out_dir/n2/``."""
+    from repro_torch.launch import train_resnet
+
+    train_resnet.main(N2_ARGV + ["--dump", str(Path(out_dir, "n2"))])
+
+
+def _n2_checks(card, out_dir):
+    """(n2): the 4 ranks' dumps against the same run over SimComm(4) in
+    this process."""
     from repro_torch.core.comm import SimComm
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.core.tree import tree_leaves
@@ -4441,23 +4483,10 @@ def _dist_n2(card):
     )
     # the same algorithms in every process: the ranks' --deterministic
     torch.backends.cudnn.deterministic = True
-    with tempfile.TemporaryDirectory() as tmp:
-        _, spawn_s = _torchrun(
-            "(n2)",
-            N2_RANKS,
-            [
-                "repro_torch.launch.train_resnet",
-                "--workers", str(N2_RANKS), "--batch", str(TRAIN_BATCH),
-                "--hw", str(TRAIN_HW), "--classes", str(TRAIN_CLASSES),
-                "--steps", str(N2_STEPS), "--lr", str(TRAIN_LR),
-                "--dist-backend", "gloo", "--device", "cuda:0",
-                "--deterministic", "--dump", tmp,
-            ],  # fmt: skip
-        )
-        ranks = [
-            torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-            for r in range(N2_RANKS)
-        ]
+    ranks = [
+        torch.load(Path(out_dir, "n2", f"rank{r}.pt"), weights_only=False)
+        for r in range(N2_RANKS)
+    ]
     comm = SimComm(N2_RANKS, record=True)
     synced = []
     ops.reset_launch_counts()
@@ -4519,8 +4548,7 @@ def _dist_n2(card):
         f"{r0['step_ms'][-1]:.1f} ({share:.1%}, host clock, gloo's host staging "
         f"included); SimComm({N2_RANKS}) in one process "
         f"{[round(st.step_ms, 1) for st in want.steps]} (sync "
-        f"{[round(st.sync_ms, 1) for st in want.steps]}); spawn {spawn_s:.1f} s; "
-        f"{card}"
+        f"{[round(st.sync_ms, 1) for st in want.steps]}); {card}"
     )
     emit(
         {
@@ -4534,14 +4562,35 @@ def _dist_n2(card):
             "rank0_collective_s_at_step_end": r0["collective_s"],
             "collective_share": share,
             "simcomm_step_ms": [st.step_ms for st in want.steps],
-            "spawn_s": spawn_s,
             "launches": launches,
         }
     )
     return {name: launches[name] + counts[name] for name in launches}
 
 
-def _dist_n3(card):
+def _n3_ckpt(out_dir):
+    return Path(out_dir, "n3", "state.ckpt")
+
+
+def _n3_rank(out_dir):
+    """One rank's (n3) run in the torchrun of the 1x2 mesh (world 2) that
+    phases (n3)-(r) share: ``launch.train`` at smoke widths, a checkpoint
+    at step N3_CKPT to ``out_dir/n3/``."""
+    from repro_torch.launch import train as launch_train
+
+    ck = _n3_ckpt(out_dir)
+    ck.parent.mkdir(exist_ok=True)
+    launch_train.main(
+        N3_ARGS
+        + ["--device", "cuda:0", "--dist-backend", "gloo"]
+        + ["--steps", str(N3_CKPT), "--ckpt-every", str(N3_CKPT)]
+        + ["--ckpt-path", str(ck)]
+    )
+
+
+def _n3_checks(card, out_dir, spawn_out):
+    """(n3): the ranks' checkpoint resumed in this process equals one run
+    of N3_STEPS steps here."""
     import io
 
     from repro_torch.core.tree import tree_leaves
@@ -4558,21 +4607,12 @@ def _dist_n3(card):
             out = launch_train.main(N3_ARGS + ["--device", "cuda"] + argv)
         return [w.detach().cpu() for w in tree_leaves(out["state"]["params"])], out
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ck = os.path.join(tmp, "state.ckpt")
-        out, spawn_s = _torchrun(
-            "(n3)",
-            N3_RANKS,
-            ["repro_torch.launch.train", *N3_ARGS]
-            + ["--device", "cuda:0", "--dist-backend", "gloo"]
-            + ["--steps", str(N3_CKPT), "--ckpt-every", str(N3_CKPT)]
-            + ["--ckpt-path", ck],
-        )
-        check(f"world={N3_RANKS}" in out, f"{label}: no process group of {N3_RANKS}")
-        ops.reset_launch_counts()
-        resumed, r = here(["--steps", str(N3_STEPS), "--resume", "--ckpt-path", ck])
-        whole, w = here(["--steps", str(N3_STEPS)])
-        counts = ops.launch_counts()
+    ck = str(_n3_ckpt(out_dir))
+    check(f"world={N3_RANKS}" in spawn_out, f"{label}: no process group of {N3_RANKS}")
+    ops.reset_launch_counts()
+    resumed, r = here(["--steps", str(N3_STEPS), "--resume", "--ckpt-path", ck])
+    whole, w = here(["--steps", str(N3_STEPS)])
+    counts = ops.launch_counts()
     for a, b in zip(resumed, whole, strict=True):
         check(torch.equal(a, b), f"{label}: params differ from one {N3_STEPS}-step run")
     tail = [m["loss"] for m in w["history"][N3_CKPT:]]
@@ -4580,7 +4620,7 @@ def _dist_n3(card):
     print(
         f"{label}: the {N3_RANKS} ranks' checkpoint (all 2 workers' rows, "
         f"written by rank 0) resumed here equals {N3_STEPS} steps at once bit "
-        f"for bit (params, losses); spawn {spawn_s:.1f} s; {card}"
+        f"for bit (params, losses); {card}"
     )
     return counts
 
@@ -4657,58 +4697,50 @@ def _launcher(name):
     return {"train": train, "train_resnet": train_resnet}[name]
 
 
-def rank_main(out_dir):
-    """One rank of phase (o)'s torchrun: every run of ``O_RUNS`` through its
-    launcher's ``main`` in this process group, each with the launch counts
-    and the peak memory at 0 first, dumping to ``out_dir/<run>/``; rank 0
-    writes each run's seconds to ``out_dir/seconds.json``."""
+def _o_rank(out_dir):
+    """One rank's (o) runs in the torchrun of the 1x2 mesh that phases (o),
+    (p), (q) and (r) share (``tp_spawn_rank_main``): every run of
+    ``O_RUNS`` through its launcher's ``main`` in this process group, each
+    with the launch counts and the peak memory at 0 first, dumping to
+    ``out_dir/o/<run>/``; rank 0 writes each run's seconds to
+    ``out_dir/o/seconds.json``."""
     import torch.distributed as dist
 
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import init_distributed
 
-    init_distributed("gloo", "cuda:0")
-    try:
-        seconds = {}
-        for run, (name, argv, _, _) in O_RUNS.items():
-            ops.reset_launch_counts()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            dump = ["--dump", os.path.join(out_dir, run)]
-            _launcher(name).main(argv + O_RANK_ARGS + dump)
-            seconds[run] = time.perf_counter() - t0
-            _free_cuda()
-        if dist.get_rank() == 0:
-            Path(out_dir, "seconds.json").write_text(json.dumps(seconds))
-    finally:
-        dist.destroy_process_group()
+    seconds = {}
+    for run, (name, argv, _, _) in O_RUNS.items():
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dump = ["--dump", os.path.join(out_dir, "o", run)]
+        _launcher(name).main(argv + O_RANK_ARGS + dump)
+        seconds[run] = time.perf_counter() - t0
+        _free_cuda()
+    if dist.get_rank() == 0:
+        Path(out_dir, "o", "seconds.json").write_text(json.dumps(seconds))
 
 
-def phase_dist_codecs(card):
+def _o_checks(card, out_dir):
     """(o) QSGD, the randomized codecs, a policy with schedules, lazy groups
-    and the server wire across processes, each equal to SimComm(4)."""
-    _free_cuda()
-    held_gb = torch.cuda.memory_reserved() / 1e9
-    with tempfile.TemporaryDirectory() as tmp:
-        args = [str(ROOT / "chip_smoke.py"), "--ranks", tmp]
-        _, spawn_s = _torchrun("(o)", O_RANKS, args, script=True)
-        seconds = json.loads(Path(tmp, "seconds.json").read_text())
-        dumps = {
-            run: [
-                torch.load(Path(tmp, run, f"rank{r}.pt"), weights_only=False)
-                for r in range(O_RANKS)
-            ]
-            for run in O_RUNS
-        }
+    and the server wire across processes (the ranks' dumps under
+    ``out_dir/o``), each equal to SimComm(4)."""
+    seconds = json.loads(Path(out_dir, "o", "seconds.json").read_text())
+    dumps = {
+        run: [
+            torch.load(Path(out_dir, "o", run, f"rank{r}.pt"), weights_only=False)
+            for r in range(O_RANKS)
+        ]
+        for run in O_RUNS
+    }
     by_run = {run: round(s, 1) for run, s in seconds.items()}
     print(
-        f"(o) one torchrun of {O_RANKS} gloo ranks on one card x "
-        f"{O_WORKERS // O_RANKS} workers: {spawn_s:.1f} s, of it by run "
-        f"{by_run}, beside this process's {held_gb:.2f} GB; {card}"
+        f"(o) {O_RANKS} gloo ranks on one card x {O_WORKERS // O_RANKS} workers: "
+        f"by run {by_run}; {card}"
     )
     total = {}
     for run in O_RUNS:
-        counts = _dist_codecs_run(card, run, dumps.pop(run), seconds[run], spawn_s)
+        counts = _dist_codecs_run(card, run, dumps.pop(run), seconds[run])
         for name, c in counts.items():
             total[name] = total.get(name, 0) + c
     return total
@@ -4871,7 +4903,7 @@ def _fingerprints_equal(who, got, want, rank, k):
         check(got[key] == mine, f"{who}: compressor state {key} differs")
 
 
-def _dist_codecs_run(card, run, ranks, run_s, spawn_s):
+def _dist_codecs_run(card, run, ranks, run_s):
     name, argv, steps, kernels = O_RUNS[run]
     k = O_WORKERS // O_RANKS
     label = f"({run}) {name} over {O_RANKS} gloo ranks x {k} workers"
@@ -4951,7 +4983,7 @@ def _dist_codecs_run(card, run, ranks, run_s, spawn_s):
         f"{ {n: c for n, c in launches.items() if c} }; {extra}"
     )
     print(
-        f"  ({run}) {run_s:.1f} s in the spawn of {spawn_s:.1f}; rank 0 ms a "
+        f"  ({run}) {run_s:.1f} s in the shared spawn; rank 0 ms a "
         f"step {[round(v, 1) for v in step_ms]} (host clock), the last step's "
         f"collectives {coll_ms[-1]:.1f} ms ({share:.1%}, gloo's host staging "
         f"included); the draws {draw_ms:.3f} ms a step on each rank (all "
@@ -4965,7 +4997,6 @@ def _dist_codecs_run(card, run, ranks, run_s, spawn_s):
             "equal_to_simcomm": run != "o1",
             "step1_code_moves": moves,
             "step1_synced_and_param_rel": drift,
-            "spawn_s": spawn_s,
             "run_s": run_s,
             "rank0_step_ms": step_ms,
             "rank0_collective_ms": coll_ms,
@@ -5063,60 +5094,51 @@ def _p_cache(caches):
     ]
 
 
-def tp_rank_main(out_dir, run):
-    """One rank of a phase (p) torchrun: ``launch/serve.py``'s ``main`` over
-    the mesh of ``run`` with the launch counts and the peak memory at 0
-    first, then the teacher-forced decode on the one-process tokens
-    (``out_dir/tokens.pt``); writes ``out_dir/rank<r>.pt``."""
+def _p_rank(out_dir, run):
+    """One rank's (p) run in the shared torchrun (``tp_spawn_rank_main``):
+    ``launch/serve.py``'s ``main`` over the mesh of ``run`` with the launch
+    counts and the peak memory at 0 first, then the teacher-forced decode
+    on the one-process tokens (``out_dir/<run>_tokens.pt``)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.launch.mesh import init_distributed
 
     _, mesh, bits = P_RUNS[run]
-    init_distributed("gloo", "cuda:0")
-    try:
-        ops.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        out = serve.main(_p_argv(run) + ["--mesh", mesh] + P_RANK_ARGS)
-        launches = ops.launch_counts()
-        shard = out["shard"]
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        rows = shard.rows()
-        tokens = torch.load(Path(out_dir, "tokens.pt"))[rows].cuda()
-        cfg = _p_cfg(run)
-        teacher, caches = _p_teacher(
-            cfg, out["params"], out["prompt"], bits, tokens, shard
-        )
-        res = dict(
-            rows=(rows.start, rows.stop),
-            sizes=shard.mesh.sizes,
-            coords=shard.mesh.coords,
-            cache_specs=shard.cache_specs,
-            seq_shards=shard.seq_shards(),
-            logits=out["logits"].cpu(),
-            tokens=out["tokens"].cpu(),
-            teacher=teacher.cpu(),
-            caches=caches,
-            bytes=out["bytes_per_token"],
-            bytes_accounted=out["bytes_per_token_accounted"],
-            prefill_s=out["prefill_s"],
-            decode_s=out["decode_s"],
-            collective_s=out["collective_s"],
-            collectives=shard.axis.comm.stats(),
-            seq_collectives=(
-                shard.axis.seq.stats()["calls"]
-                if shard.axis.seq is not shard.axis.comm
-                else "the model group's"
-            ),
-            launches=launches,
-            peak_gb=peak_gb,
-        )
-        rank = shard.mesh.rank
-        torch.save(res, Path(out_dir, f"rank{rank}.pt"))
-    finally:
-        import torch.distributed as dist
-
-        dist.destroy_process_group()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(_p_argv(run) + ["--mesh", mesh] + P_RANK_ARGS)
+    launches = ops.launch_counts()
+    shard = out["shard"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = shard.rows()
+    tokens = torch.load(Path(out_dir, f"{run}_tokens.pt"))[rows].cuda()
+    cfg = _p_cfg(run)
+    teacher, caches = _p_teacher(cfg, out["params"], out["prompt"], bits, tokens, shard)
+    res = dict(
+        rows=(rows.start, rows.stop),
+        sizes=shard.mesh.sizes,
+        coords=shard.mesh.coords,
+        cache_specs=shard.cache_specs,
+        seq_shards=shard.seq_shards(),
+        logits=out["logits"].cpu(),
+        tokens=out["tokens"].cpu(),
+        teacher=teacher.cpu(),
+        caches=caches,
+        bytes=out["bytes_per_token"],
+        bytes_accounted=out["bytes_per_token_accounted"],
+        prefill_s=out["prefill_s"],
+        decode_s=out["decode_s"],
+        collective_s=out["collective_s"],
+        collectives=shard.axis.comm.stats(),
+        seq_collectives=(
+            shard.axis.seq.stats()["calls"]
+            if shard.axis.seq is not shard.axis.comm
+            else "the model group's"
+        ),
+        launches=launches,
+        peak_gb=peak_gb,
+    )
+    del out
+    return res
 
 
 def _p_kernels(gen):
@@ -5227,23 +5249,10 @@ def _p_kernels(gen):
         del q, k, v, want, got
 
 
-def phase_tp(card):
-    """(p) tensor-parallel serving: launch/serve.py over gloo ranks sharing
-    the card against the one-process launcher, run by run."""
-    gen = torch.Generator(device="cuda").manual_seed(15)
-    _p_kernels(gen)
-    del gen
-    total = {}
-    for run in P_RUNS:
-        for name, c in _p_run(card, run).items():
-            total[name] = total.get(name, 0) + c
-    return total
-
-
 def _p_one_process(run, out_dir):
     """``run``'s launcher in this process (graphed decode), then the
     teacher-forced decode on its own tokens: everything on the host, the
-    tokens written to ``out_dir/tokens.pt`` for the ranks."""
+    tokens written to ``out_dir/<run>_tokens.pt`` for the ranks."""
     from repro_torch.launch import serve
 
     bits = P_RUNS[run][2]
@@ -5265,7 +5274,7 @@ def _p_one_process(run, out_dir):
         decode_s=out["decode_s"],
         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
-    torch.save(one["tokens"], Path(out_dir, "tokens.pt"))
+    torch.save(one["tokens"], Path(out_dir, f"{run}_tokens.pt"))
     del out, teacher
     _free_cuda()
     return one
@@ -5327,6 +5336,9 @@ def _p_caches(who, res, one, bits):
     from repro_torch.serving.kv_cache import QuantKV, dequantize_kv, tree_leaves
 
     specs = {path: s for path, s in tree_leaves(res["cache_specs"])}
+    # the model's first layer (a quantized cache only where it attends:
+    # jamba-v0.1-52b's first layer is a Mamba-2 one, its state raw)
+    first = ("lead", 0) if res["cache_specs"]["lead"] else ("scan", 0)
     flips = moved2 = 0
     shares, worst = [], 0.0
     bound = LOGITS_REL_TOL + (1 + ALPHA) ** (1 / ((1 << (bits - 1)) - 1)) - 1
@@ -5354,7 +5366,7 @@ def _p_caches(who, res, one, bits):
                 a, b = unpack_nibbles(a, d), unpack_nibbles(b, d)
             diff = (a.int() - b.int()).abs()
             one_step, more = int((diff == 1).sum()), int((diff > 1).sum())
-            if path[:-1] == res["caches"][0][0][:-1] and r == 0:
+            if path[:2] == first and r == 0:
                 check(more == 0, f"{who}: the first layer's {path} moved {more} by 2+")
             flips, moved2 = flips + one_step, moved2 + more
             where = "/".join(str(x) for x in path) + (f"[{r}]" if stacked else "")
@@ -5367,25 +5379,16 @@ def _p_caches(who, res, one, bits):
     return flips, moved2
 
 
-def _p_run(card, run):
+def _p_run(card, run, one, ranks, one_s):
+    """(p)'s checks of ``run``: its ranks (from the shared torchrun)
+    against the one-process run ``one``."""
     arch, mesh, bits = P_RUNS[run]
-    world = _p_world(mesh)
     label = f"({run}) {arch} {mesh} q{bits}"
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        one = _p_one_process(run, tmp)
-        one_s = time.perf_counter() - t0
-        args = [str(ROOT / "chip_smoke.py"), "--tp-rank", tmp, run]
-        _, spawn_s = _torchrun(f"({run})", world, args, script=True)
-        ranks = [
-            torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)
-        ]
     print(
         f"{label}: one process {one_s:.1f} s (prefill {one['prefill_s'] * 1e3:.1f} "
         f"ms, decode {one['decode_s'] * 1e3 / (P_GEN - 1):.2f} ms/token graphed, "
-        "peak "
-        f"{one['peak_gb']:.2f} GB); torchrun of {world} gloo ranks {spawn_s:.1f} s"
+        f"peak {one['peak_gb']:.2f} GB); the ranks' run "
+        f"{max(r['run_s'] for r in ranks):.1f} s"
     )
     flips_total, moved_total, diffs = 0, 0, []
     for res in ranks:
@@ -5439,7 +5442,7 @@ def _p_run(card, run):
     )
     emit({"phase": "p", "run": run, "card": card, "cache_flips": flips_total,
           "cache_moved_2": moved_total,
-          "token_differences": diffs, "spawn_s": spawn_s, "one_s": one_s,
+          "token_differences": diffs, "one_s": one_s,
           "ranks": [{k: res[k] for k in ("coords", "prefill_s", "decode_s",
                      "collective_s", "peak_gb", "bytes")} for res in ranks]})  # fmt: skip
     counts = {}
@@ -5509,48 +5512,41 @@ def _q_world(mesh):
     return data, model
 
 
-def tp_train_rank_main(out_dir, run):
-    """One rank of a phase (q) torchrun: ``launch/train.py``'s ``main`` over
-    the mesh of ``run`` with the launch counts and the peak memory at 0
-    first, dumping to ``out_dir/rank<r>.pt``; then a graphed step under
-    gloo, which must be refused (its message to ``out_dir/refusal<r>.txt``)."""
+def _q_rank(out_dir, run):
+    """One rank's (q) run in the shared torchrun (``tp_spawn_rank_main``):
+    ``launch/train.py``'s ``main`` over the mesh of ``run`` with the launch
+    counts and the peak memory at 0 first, dumping to
+    ``out_dir/<run>_ranks/rank<r>.pt``; then a graphed step under gloo,
+    which must be refused (its message to ``refusal<r>.txt`` beside)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressors import CompressorConfig
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    from repro_torch.launch.mesh import init_distributed
-    from repro_torch.train.step import build_train_step
+    from repro_torch.train.optimizer import sgd
+    from repro_torch.train.step import build_train_step, make_model_compressor
 
     arch, mesh, argv = Q_RUNS[run]
-    init_distributed("gloo", "cuda:0")
+    dump = Path(out_dir, f"{run}_ranks")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = train.main(
+        ["--arch", arch, *argv, *Q_COMMON, "--mesh", mesh, *Q_RANK_ARGS]
+        + ["--dump", str(dump)]
+    )
+    rank = out["mesh"].rank
+    cfg = get_config("gemma3-1b", smoke=True)
+    comp = make_model_compressor(cfg, CompressorConfig(name="lq_sgd"))
+    step = build_train_step(
+        cfg, out["mesh"].shape, comp, sgd(0.05), comm=out["comm"],
+        tp=out["tp"], graph=True,
+    )  # fmt: skip
     try:
-        ops.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        out = train.main(
-            ["--arch", arch, *argv, *Q_COMMON, "--mesh", mesh, *Q_RANK_ARGS]
-            + ["--dump", out_dir]
-        )
-        rank = out["mesh"].rank
-        from repro_torch.configs import get_config
-        from repro_torch.core.compressors import CompressorConfig
-        from repro_torch.train.optimizer import sgd
-        from repro_torch.train.step import make_model_compressor
-
-        cfg = get_config("gemma3-1b", smoke=True)
-        comp = make_model_compressor(cfg, CompressorConfig(name="lq_sgd"))
-        step = build_train_step(
-            cfg, out["mesh"].shape, comp, sgd(0.05), comm=out["comm"],
-            tp=out["tp"], graph=True,
-        )  # fmt: skip
-        try:
-            step(out["state"], {})
-            refusal = "none"
-        except NotImplementedError as e:
-            refusal = str(e)
-        Path(out_dir, f"refusal{rank}.txt").write_text(refusal)
-        del out, step
-    finally:
-        import torch.distributed as dist
-
-        dist.destroy_process_group()
+        step(out["state"], {})
+        refusal = "none"
+    except NotImplementedError as e:
+        refusal = str(e)
+    Path(dump, f"refusal{rank}.txt").write_text(refusal)
+    del out, step
 
 
 def _q_plan(run):
@@ -5698,19 +5694,6 @@ def _q_kernels(gen):
                   "shape": shape, "ms": ms, "bound_ms": b_ms, "plain_ms": pl})  # fmt: skip
 
 
-def phase_tp_train(card):
-    """(q) tensor-parallel training: launch/train.py over gloo ranks sharing
-    the card against the one-process launcher, run by run."""
-    gen = torch.Generator(device="cuda").manual_seed(16)
-    _q_kernels(gen)
-    del gen
-    total = {}
-    for run in Q_RUNS:
-        for name, c in _q_run(card, run).items():
-            total[name] = total.get(name, 0) + c
-    return total
-
-
 def _q_one_process(run, out_dir):
     """``run``'s launcher in this process (graphed steps), its dump read
     back; the device freed after, the cuBLAS workspaces of the streams its
@@ -5731,7 +5714,9 @@ def _q_one_process(run, out_dir):
     return torch.load(Path(out_dir, "rank0.pt"), weights_only=False)
 
 
-def _q_run(card, run):
+def _q_run(card, run, one, rank_dir, one_s):
+    """(q)'s checks of ``run``: its ranks' dumps in ``rank_dir`` (from the
+    shared torchrun) against the one-process run ``one``."""
     from repro_torch.core.tree import flatten_with_paths
 
     arch, mesh, argv = Q_RUNS[run]
@@ -5739,25 +5724,17 @@ def _q_run(card, run):
     world = data * model
     cfg, comp, bits = _q_plan(run)
     label = f"({run}) {arch} {mesh} LQ-SGD r1 b{bits}"
-    with tempfile.TemporaryDirectory() as tmp:
-        one_dir, rank_dir = Path(tmp, "one"), Path(tmp, "ranks")
-        t0 = time.perf_counter()
-        one = _q_one_process(run, one_dir)
-        one_s = time.perf_counter() - t0
-        args = [str(ROOT / "chip_smoke.py"), "--tp-train-rank", str(rank_dir), run]
-        _, spawn_s = _torchrun(f"({run})", world, args, script=True)
-        ranks = [
-            torch.load(Path(rank_dir, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)
-        ]
-        refusals = [Path(rank_dir, f"refusal{r}.txt").read_text() for r in range(world)]
+    ranks = [
+        torch.load(Path(rank_dir, f"rank{r}.pt"), weights_only=False)
+        for r in range(world)
+    ]
+    refusals = [Path(rank_dir, f"refusal{r}.txt").read_text() for r in range(world)]
     n_params = sum(int(np.prod(pl.shape)) for pl in comp.plans)
     one_ms = 1e3 * one["step_s"][-1]  # step 0 eager, step 1 the capture
     print(
         f"{label}: {n_params / 1e9:.3f} B parameters, {len(cfg.layers)} "
         f"layers; one process {one_s:.1f} s ({one_ms:.1f} ms a replayed step, peak "
-        f"{one['peak_bytes'] / 1e9:.2f} GB); torchrun of {world} gloo ranks "
-        f"{spawn_s:.1f} s"
+        f"{one['peak_bytes'] / 1e9:.2f} GB)"
     )
     one_loss = [h["loss"] for h in one["history"]]
     one_synced = dict(flatten_with_paths(one["synced0"]))
@@ -5805,16 +5782,19 @@ def _q_run(card, run):
             moved_at.setdefault(i, {})[phase] = diff.amax(0)
         # step 0's synced gradient: each element within Q_SYNC_SHARE of the
         # leaf's largest value, plus, where the codes it is made of moved by
-        # k steps in all, the k steps' move of itself
+        # k steps in all, the k steps' move of itself (on the card: a
+        # billion elements a rank)
         worst, touched_n, total_n = (0.0, ""), 0, 0
         synced = flatten_with_paths(res["synced0"])
         for i, ((path, g), dim) in enumerate(zip(synced, res["dims"])):
-            w = _q_block(one_synced[path], dim, coords, sizes).float()
+            w = _q_block(one_synced[path], dim, coords, sizes).cuda().float()
+            g = g.cuda()
             diff = (g.float() - w).abs()
             top = max(float(w.abs().max()), 1e-30)
             share = diff / top
             if i in moved_at:
-                steps = _q_steps(g, comp.plans[i].stacked, moved_at[i])
+                at = {ph: m.cuda() for ph, m in moved_at[i].items()}
+                steps = _q_steps(g, comp.plans[i].stacked, at)
                 touched_n += int((steps > 0).sum())
                 share = (share - (torch.pow(1 + step, steps.float()) - 1)).clamp_min(0)
             total_n += g.numel()
@@ -5864,7 +5844,7 @@ def _q_run(card, run):
         f"{world} ranks after each of {Q_STEPS} steps; a graphed step under gloo "
         "refused"
     )
-    emit({"phase": "q", "run": run, "card": card, "one_s": one_s, "spawn_s": spawn_s,
+    emit({"phase": "q", "run": run, "card": card, "one_s": one_s,
           "one_ms": one_ms, "codes_moved": moved, "accounted_bits": one["recs"][0][0],
           "replicated_bits": ranks[0]["replicated_bits"],
           "ranks": [{"rank": i, "step_s": r["step_s"],
@@ -5886,6 +5866,718 @@ def _q_run(card, run):
 
 def _q_coords(r, data, model):
     return {"data": r // model, "model": r % model}, {"data": data, "model": model}
+
+
+# ------------------------------------ phase 17 (r): tensor-parallel zoo serving
+# run -> (arch, mesh, cache bits, the cut of its depth), at full width, batch
+# 4, prompt 1024, R_GEN new tokens; the ranks of one mesh run their runs in
+# ONE torchrun of gloo ranks sharing the card (TP_SPAWNS), against the
+# one-process run in this process on the same seeded weights and prompts.
+# (r1) jamba-v0.1-52b one period (8 layers): Mamba-2 heads, 8 of 16 experts
+# a rank, attention over 4 of 8 KV heads, #7 on 64 heads; (r2) mamba2-370m
+# 12 of 48 layers at 2x2: the data axis with a head-split SSM state; (r3)
+# deepseek-v3-671b 4 of 61 layers (3 dense + 1 MoE): 128 experts and 64
+# heads a rank, the latent cache split by sequence, #6 at head_dim 192;
+# (r4) musicgen-medium 12 of 48 layers after its 64-step prefix: codebooks
+# and cond, 12 of 24 KV heads; (r5) gemma3-1b on 14 of 26 layers (as (p1)),
+# the continuous scheduler over (c)'s 8 requests through 4 slots at 2x2.
+R_RUNS = {
+    "r1": ("jamba-v0.1-52b", "1x2", 8, {"repeats": 1}),
+    "r2": ("mamba2-370m", "2x2", 0, {"repeats": 12}),
+    "r3": ("deepseek-v3-671b", "1x2", 8, {"repeats": 1}),
+    "r4": ("musicgen-medium", "1x2", 4, {"repeats": 12}),
+    "r5": ("gemma3-1b", "2x2", 8, {"repeats": 2}),
+}
+# the runs of phases (p), (q) and (r) over each mesh, in ONE torchrun each
+TP_SPAWNS = {
+    "1x2": ("o", "n3", "p1", "p3", "q2", "r1", "r3", "r4"),
+    "2x2": ("n2", "p2", "q1", "r2", "r5"),
+}
+R_CONTINUOUS = "r5"
+# The ranks share the card and draw their weights in turn (launch/serve.py),
+# each returning its cached blocks after its turn; a rank's shards are cut
+# while the whole layer is live, so they land inside the segments of its
+# draws (a 15 GB f32 draw of a deepseek-v3-671b expert stack) and pin them:
+# expandable segments return the unused pages of a segment.
+R_ALLOC = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+R_GEN = 16
+# the kernels each run's path must launch, on every rank
+R_KERNELS = {
+    "r1": ("log_quantize", "log_dequantize_rows", "flash_attention", "ssd_chunk"),
+    "r2": ("ssd_chunk",),
+    "r3": ("log_quantize", "log_dequantize_rows", "flash_attention"),
+    "r4": ("log_quantize_pack", "log_dequantize_rows", "flash_attention"),
+    "r5": ("log_quantize", "log_dequantize_rows", "flash_attention"),
+}
+
+
+def _r_release():
+    """Return this process's device memory to the card, the cuBLAS
+    workspaces of its streams included (each pins the segment it lies in,
+    as ``_q_one_process`` found): the ranks that share the card next draw
+    a deepseek-v3-671b MoE layer whole (~48 GB at its peak)."""
+    torch._C._cuda_clearCublasWorkspaces()
+    _free_cuda()
+
+
+def _r_cfg(run):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch, _, _, cut = R_RUNS[run]
+    return dataclasses.replace(get_config(arch), **cut)
+
+
+def _r_argv(run):
+    """``launch/serve.py``'s arguments of a fixed run (no mesh, no device)."""
+    arch, _, bits, cut = R_RUNS[run]
+    return ["--arch", arch, "--cache-bits", str(bits), "--repeats",
+            str(cut["repeats"]), *P_ARGS[:4], "--gen", str(R_GEN)]  # fmt: skip
+
+
+def _r_qcfg(bits):
+    from repro_torch.serving.kv_cache import CacheQuantConfig
+
+    return CacheQuantConfig(bits=bits) if bits else None
+
+
+def _r5_prompts(cfg):
+    """(c)'s 8 requests: phase 4's draws after its (a) / (b) prompts."""
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab_size, (BATCH, PROMPT))
+    return [
+        rng.integers(0, cfg.vocab_size, size=int(n))
+        for n in rng.integers(200, 1001, size=N_REQUESTS)
+    ]
+
+
+def _r_caches(caches):
+    """(path, codes, scale) of every quantized cache leaf and (path, raw)
+    of every raw one (SSM state, conv window), on the host."""
+    from repro_torch.serving.kv_cache import QuantKV, tree_leaves
+
+    quant, raw = [], []
+    for path, leaf in tree_leaves(caches):
+        if isinstance(leaf, QuantKV):
+            quant.append((path, leaf.codes.cpu(), leaf.scale.cpu()))
+        else:
+            raw.append((path, leaf.float().cpu()))
+    return quant, raw
+
+
+def _r_teacher(cfg, params, prompt, cond, bits, tokens, shard=None):
+    """A fresh prefill of ``prompt`` (after ``cond``), then R_GEN decode
+    steps fed ``tokens``, eager: the prefill logits, every step's logits
+    and the caches on the host (:func:`_r_caches`)."""
+    from repro_torch.serving.engine import build_decode_step, build_prefill_step
+
+    start = PROMPT + cfg.cond_len
+    qcfg = _r_qcfg(bits)
+    pre = build_prefill_step(cfg, start + R_GEN, qcfg=qcfg, shard=shard)
+    dec = build_decode_step(cfg, shard)
+    logits, caches = pre(params, prompt, cond)
+    steps = [
+        dec(params, caches, tokens[:, i : i + 1], start + i)[0]
+        for i in range(R_GEN)
+    ]
+    return logits.cpu(), torch.cat(steps, dim=1).cpu(), _r_caches(caches)
+
+
+def _r_calls(rec):
+    return [(c.cpu(), lg.cpu()) for c, lg in rec.calls]
+
+
+def _r_fixed_rank(out_dir, run, mesh):
+    """One rank's fixed run: ``launch/serve.py``'s ``main`` over ``mesh``
+    with its MoE layers held to the one-process run's routing, then the
+    teacher-forced run on the one-process tokens, held alike."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+
+    bits = R_RUNS[run][2]
+    held = torch.load(Path(out_dir, f"{run}_routing.pt"))
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with moe.routing([c.cuda() for c in held["free"]] or None):
+        out = serve.main(_r_argv(run) + ["--mesh", mesh] + P_RANK_ARGS)
+    launches = ops.launch_counts()
+    shard = out["shard"]
+    rows = shard.rows()
+    tokens = torch.load(Path(out_dir, f"{run}_tokens.pt"))[rows].cuda()
+    with moe.routing([c.cuda() for c in held["teacher"]] or None) as rec:
+        prefill, teacher, (quant, raw) = _r_teacher(
+            _r_cfg(run), out["params"], out["prompt"], out["cond"], bits, tokens, shard
+        )
+    res = dict(
+        rows=(rows.start, rows.stop),
+        sizes=shard.mesh.sizes,
+        coords=shard.mesh.coords,
+        cache_specs=shard.cache_specs,
+        logits=prefill,
+        tokens=out["tokens"].cpu(),
+        teacher=teacher,
+        caches=quant,
+        raw=raw,
+        routing=_r_calls(rec),
+        bytes=out["bytes_per_token"],
+        bytes_accounted=out["bytes_per_token_accounted"],
+        prefill_s=out["prefill_s"],
+        decode_s=out["decode_s"],
+        collective_s=out["collective_s"],
+        collectives=shard.axis.comm.stats()["calls"],
+        launches=launches,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    del out
+    return res
+
+
+def _r_continuous_rank(out_dir, run, mesh):
+    """One rank's continuous run: ``launch/serve.py``'s ``run_continuous``
+    over ``mesh`` on (c)'s requests, eager."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.serving.engine import serve_shard
+    from repro_torch.weights import init_sharded_params
+
+    cfg, bits = _r_cfg(run), R_RUNS[run][2]
+    dmesh = make_mesh(parse_mesh(mesh), "cuda:0")
+    shard = serve_shard(cfg, dmesh, SLOTS)
+    params = init_sharded_params(cfg, 1, "cuda:0", shard.param_specs, dmesh)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.run_continuous(
+        cfg, params, _r5_prompts(cfg), gen=R_GEN, slots=SLOTS,
+        qcfg=_r_qcfg(bits), graph=False, shard=shard,
+    )  # fmt: skip
+    return dict(
+        coords=dmesh.coords,
+        tokens=out["tokens"],
+        bytes=out["bytes_per_token"],
+        bytes_accounted=out["bytes_per_token_accounted"],
+        seconds=out["seconds"],
+        collective_s=out["collective_s"],
+        steps=out["scheduler"].steps,
+        launches=ops.launch_counts(),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+
+
+def tp_spawn_rank_main(out_dir, mesh):
+    """One rank of the torchrun of ``mesh`` that phases (p), (q) and (r)
+    share: each run of ``TP_SPAWNS[mesh]`` in turn (:func:`_p_rank`,
+    :func:`_q_rank`, :func:`_r_fixed_rank`, :func:`_r_continuous_rank`),
+    its device memory returned before the next; writes
+    ``out_dir/<run>_rank<r>.pt`` ((q): its launcher's dump)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    init_distributed("gloo", "cuda:0")
+    try:
+        for run in TP_SPAWNS[mesh]:
+            t0 = time.perf_counter()
+            if run in ("o", "n2", "n3"):
+                res = {"o": _o_rank, "n2": _n2_rank, "n3": _n3_rank}[run](out_dir)
+            elif run in Q_RUNS:
+                res = _q_rank(out_dir, run)
+            elif run in P_RUNS:
+                res = _p_rank(out_dir, run)
+            elif run == R_CONTINUOUS:
+                res = _r_continuous_rank(out_dir, run, mesh)
+            else:
+                res = _r_fixed_rank(out_dir, run, mesh)
+            if res is not None:
+                res["run_s"] = time.perf_counter() - t0
+                torch.save(res, Path(out_dir, f"{run}_rank{dist.get_rank()}.pt"))
+            del res
+            _r_release()
+            print(
+                f"# ({run}) rank {dist.get_rank()}: {time.perf_counter() - t0:.1f} "
+                f"s, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved after",
+                flush=True,
+            )
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _r_one_fixed(run, out_dir):
+    """``run`` in this process, eager, on the launcher's seeded weights and
+    prompts (``launch_inputs``), its MoE layers' routing recorded, then the
+    teacher-forced run on its own tokens; writes the tokens and the
+    routing for the ranks."""
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+
+    cfg, bits = _r_cfg(run), R_RUNS[run][2]
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 1, "cuda")
+    tokens, cond = serve.launch_inputs(cfg, BATCH, PROMPT)
+    tokens, cond = tokens.cuda(), None if cond is None else cond.cuda()
+    with moe.routing() as free:
+        out = serve.run_fixed(
+            cfg, params, tokens, gen=R_GEN, qcfg=_r_qcfg(bits), graph=False, cond=cond
+        )
+    with moe.routing() as rec:
+        prefill, teacher, (quant, raw) = _r_teacher(
+            cfg, params, tokens, cond, bits, out["tokens"]
+        )
+    one = dict(
+        logits=prefill,
+        free_logits=out["logits"].cpu(),
+        tokens=out["tokens"].cpu(),
+        teacher=teacher,
+        caches=quant,
+        raw=raw,
+        routing=_r_calls(rec),
+        bytes=out["bytes_per_token"],
+        bytes_accounted=out["bytes_per_token_accounted"],
+        prefill_s=out["prefill_s"],
+        decode_s=out["decode_s"],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    torch.save(one["tokens"], Path(out_dir, f"{run}_tokens.pt"))
+    routing = {"free": [c.cpu() for c in free.choices], "teacher": [c for c, _ in one["routing"]]}
+    torch.save(routing, Path(out_dir, f"{run}_routing.pt"))
+    del params, out, free, rec
+    _r_release()
+    return one
+
+
+def _r_one_continuous(run):
+    """(r5) in this process, eager: every request's tokens, and each
+    request's one-process top-2 margins at the positions that chose them
+    (a prefill of its prompt and tokens with full logits: the decode's
+    logits but for the q8 cache's rounding)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import build_prefill_step
+
+    cfg, bits = _r_cfg(run), R_RUNS[run][2]
+    _free_cuda()
+    params = init_params(cfg, 1, "cuda")
+    prompts = _r5_prompts(cfg)
+    out = serve.run_continuous(
+        cfg, params, prompts, gen=R_GEN, slots=SLOTS, qcfg=_r_qcfg(bits), graph=False
+    )
+    margins = {}
+    for uid, p in enumerate(prompts):
+        toks = out["tokens"][uid]
+        seq = np.concatenate([p, np.asarray(toks[:-1])])
+        pre = build_prefill_step(cfg, len(seq), full_logits=True)
+        logits, _ = pre(params, torch.from_numpy(seq)[None].cuda())
+        w = logits[0, len(p) - 1 :].float()
+        top2 = w.topk(2, dim=-1).values
+        margins[uid] = ((top2[:, 0] - top2[:, 1]) / w.abs().amax(-1)).cpu()
+        del logits, w
+    one = dict(
+        tokens=out["tokens"],
+        margins=margins,
+        bytes=out["bytes_per_token"],
+        bytes_accounted=out["bytes_per_token_accounted"],
+        seconds=out["seconds"],
+    )
+    del params, out
+    _r_release()
+    return one
+
+
+def _r_tokens(label, got, want, prefill, teacher):
+    """``_p_tokens`` with codebooks: a step's token is one id a codebook
+    (B, G, cb), and every codebook of a row reads all of the row's previous
+    ids, so a row is compared up to its first step where any codebook
+    differs, and each codebook that differs there must do so at a
+    one-process margin below P_TOKEN_MARGIN."""
+    if got.dim() == 2:
+        return _p_tokens(label, got, want, prefill, teacher)
+    w = torch.cat([prefill, teacher[:, : want.shape[1] - 1]], dim=1).float()
+    top2 = w.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]) / w.abs().amax(-1)  # (B, G, cb)
+    found = []
+    for r in range(want.shape[0]):
+        for i in range(want.shape[1]):
+            differ = (got[r, i] != want[r, i]).nonzero().flatten().tolist()
+            if differ:
+                m = max(float(margin[r, i, c]) for c in differ)
+                check(m < P_TOKEN_MARGIN, f"{label}: row {r} step {i} at margin {m}")
+                found.append((r, i, m))
+                break
+    return found
+
+
+def _r_raw(who, res, one):
+    """A rank's raw cache shard (SSM state, conv window) against the block
+    of the one-process run's, within LOGITS_REL_TOL of its largest value
+    (no code step: the leaves stay raw). Returns the worst share."""
+    from repro_torch.launch.sharding import cut
+    from repro_torch.serving.kv_cache import tree_leaves
+
+    specs = {path: s for path, s in tree_leaves(res["cache_specs"])}
+    worst = {}
+    for (path, got), (p2, want) in zip(res["raw"], one["raw"], strict=True):
+        check(path == p2, f"{who}: raw leaves {path} / {p2}")
+        want = cut(want, specs[path], res["sizes"], res["coords"])
+        check(got.shape == want.shape, f"{who}: raw shape at {path}")
+        check(bool(torch.isfinite(got).all()), f"{who}: non-finite {path}")
+        rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        check(rel <= LOGITS_REL_TOL, f"{who}: {path} rel {rel:.3e}")
+        worst[path[-1]] = max(worst.get(path[-1], 0.0), rel)
+    return worst
+
+
+def _r_launches(run, ranks):
+    """Each kernel of ``run``'s path launched on every rank; the ranks'
+    launches summed."""
+    total = {}
+    for res in ranks:
+        for name in R_KERNELS[run]:
+            n = res["launches"].get(name, 0)
+            check(n > 0, f"({run}) rank {res['coords']}: {name} not launched")
+        for name, c in res["launches"].items():
+            total[name] = total.get(name, 0) + c
+    print(f"  ({run}) the ranks' launches {total}")
+    return total
+
+
+def _r_fixed_checks(card, run, one, ranks):
+    arch, mesh, bits, cut = R_RUNS[run]
+    cfg = _r_cfg(run)
+    label = f"({run}) {arch} {cfg.n_layers} layers {mesh} q{bits}"
+    flips, moved2, diffs, flips_moe = 0, 0, [], []
+    for res in ranks:
+        r = res["coords"]
+        rows = slice(*res["rows"])
+        who = f"{label} rank (d{r['data']}, m{r['model']})"
+        rel, agree, n = _p_logits(f"{who} prefill", res["logits"], one["logits"][rows])
+        t_rel = max(
+            _p_logits(f"{who} teacher step {i}", res["teacher"][:, i],
+                      one["teacher"][rows, i])[0]
+            for i in range(R_GEN)
+        )  # fmt: skip
+        found = _r_tokens(
+            who,
+            res["tokens"],
+            one["tokens"][rows],
+            one["free_logits"][rows],
+            one["teacher"][rows],
+        )
+        diffs += [(r, *d) for d in found]
+        if res["caches"]:
+            f1, f2 = _p_caches(who, res, one, bits)
+            flips, moved2 = flips + f1, moved2 + f2
+        raw = _r_raw(who, res, one) if res["raw"] else {}
+        if cfg.n_experts:
+            flips_moe.append(_moe_flips(who, cfg, one["routing"], res["routing"]))
+        total_s = res["prefill_s"] + res["decode_s"]
+        print(
+            f"  {who}: prefill logits rel {rel:.3e} (argmax {agree}/{n}), teacher-"
+            f"forced {R_GEN} steps rel <= {t_rel:.3e}, raw caches rel {raw}; "
+            f"prefill {res['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{res['decode_s'] * 1e3 / (R_GEN - 1):.2f} ms/token eager, collectives "
+            f"{res['collective_s']:.3f} s = {res['collective_s'] / total_s:.1%} "
+            f"(host clock), peak {res['peak_gb']:.2f} GB; rank's run "
+            f"{res['run_s']:.1f} s; {card}"
+        )
+        print(f"    collectives by tag: {res['collectives']}")
+    for key in ("bytes", "bytes_accounted"):
+        total = sum(res[key] for res in ranks)
+        check(
+            abs(total - one[key]) <= 1e-9 * one[key],
+            f"{label}: summed {key} {total} vs one process {one[key]}",
+        )
+    print(
+        f"  {label}: one process prefill {one['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{one['decode_s'] * 1e3 / (R_GEN - 1):.2f} ms/token eager, peak "
+        f"{one['peak_gb']:.2f} GB; bytes/token summed over ranks "
+        f"{sum(r['bytes'] for r in ranks)} = one process {one['bytes']}; cache "
+        f"codes moved by one {flips}, by 2+ {moved2}; greedy differences (rank, "
+        f"row, step, one-process margin) {diffs}; MoE flips by rank {flips_moe}"
+    )
+    emit({"phase": "r", "run": run, "card": card, "cache_flips": flips,
+          "cache_moved_2": moved2, "token_differences": diffs,
+          "moe_flips": flips_moe, "one": {k: one[k] for k in (
+              "prefill_s", "decode_s", "peak_gb", "bytes")},
+          "ranks": [{k: res[k] for k in ("coords", "prefill_s", "decode_s",
+                     "collective_s", "peak_gb", "bytes", "run_s")}
+                    for res in ranks]})  # fmt: skip
+    return _r_launches(run, ranks)
+
+
+def _r_continuous_checks(card, run, one, ranks):
+    arch, mesh, bits, _ = R_RUNS[run]
+    label = f"({run}) {arch} continuous {mesh} q{bits}"
+    diffs = []
+    for res in ranks:
+        r = res["coords"]
+        who = f"{label} rank (d{r['data']}, m{r['model']})"
+        check(sorted(res["tokens"]) == sorted(one["tokens"]), f"{who}: requests")
+        for uid, want in one["tokens"].items():
+            got = res["tokens"][uid]
+            check(len(got) == len(want) == R_GEN, f"{who}: request {uid} length")
+            for i, (g, w) in enumerate(zip(got, want)):
+                if g != w:
+                    m = float(one["margins"][uid][i])
+                    check(m < P_TOKEN_MARGIN, f"{who}: request {uid} step {i} at margin {m}")
+                    diffs.append((r, uid, i, m))
+                    break
+        print(
+            f"  {who}: {res['steps']} chunks in {res['seconds']:.2f} s eager, "
+            f"collectives {res['collective_s']:.3f} s = "
+            f"{res['collective_s'] / res['seconds']:.1%} (host clock), peak "
+            f"{res['peak_gb']:.2f} GB; rank's run {res['run_s']:.1f} s; {card}"
+        )
+    for key in ("bytes", "bytes_accounted"):
+        total = sum(res[key] for res in ranks)
+        check(
+            abs(total - one[key]) <= 1e-9 * one[key],
+            f"{label}: summed {key} {total} vs one process {one[key]}",
+        )
+    print(
+        f"  {label}: one process {one['seconds']:.2f} s eager; bytes/token summed "
+        f"{sum(r['bytes'] for r in ranks)} = one process {one['bytes']}; greedy "
+        f"differences (rank, request, step, one-process margin) {diffs}"
+    )
+    emit({"phase": "r", "run": run, "card": card, "token_differences": diffs,
+          "one_s": one["seconds"], "ranks": [{k: res[k] for k in (
+              "coords", "seconds", "collective_s", "peak_gb", "bytes", "run_s")}
+              for res in ranks]})  # fmt: skip
+    return _r_launches(run, ranks)
+
+
+def phase_tp(card):
+    """(o), (p), (q) and (r): every compressor across 2 ranks, and
+    tensor-parallel serving and training, over gloo ranks sharing the card.
+    Each phase's kernels at its ranks' shapes first; then per mesh the
+    one-process runs here and ONE torchrun of its ranks for the runs of
+    all four phases (``TP_SPAWNS``: a torchrun's start-up and first calls
+    cost ~15-25 s), then each run's checks ((o)'s SimComm(4) runs here).
+    Returns the ranks' launches and the seconds of each phase: its
+    kernels, one-process runs, checks and its runs' share of the torchruns
+    (the slowest rank's time in its runs, and the start-up split over the
+    runs)."""
+    seconds = dict.fromkeys(("n2", "n3", "o", "p", "q", "r"), 0.0)
+    for phase, kernels, seed in (("p", _p_kernels, 15), ("q", _q_kernels, 16),
+                                 ("r", _r_kernels, 17)):  # fmt: skip
+        t0 = time.perf_counter()
+        kernels(torch.Generator(device="cuda").manual_seed(seed))
+        seconds[phase] += time.perf_counter() - t0
+    total = {}
+    for mesh, runs in TP_SPAWNS.items():
+        world = _p_world(mesh)
+        with tempfile.TemporaryDirectory() as tmp:
+            one, one_s = {}, {}
+            for run in runs:
+                t0 = time.perf_counter()
+                if run in ("o", "n2", "n3"):  # references after the ranks'
+                    one[run] = None
+                elif run in P_RUNS:
+                    one[run] = _p_one_process(run, tmp)
+                elif run in Q_RUNS:
+                    one[run] = _q_one_process(run, Path(tmp, f"{run}_one"))
+                elif run == R_CONTINUOUS:
+                    one[run] = _r_one_continuous(run)
+                else:
+                    one[run] = _r_one_fixed(run, tmp)
+                one_s[run] = time.perf_counter() - t0
+                seconds[run if run in seconds else run[0]] += one_s[run]
+            args = [str(ROOT / "chip_smoke.py"), "--tp-spawn-rank", tmp, mesh]
+            print(
+                f"(o, p, q, r) {mesh}: this process holds "
+                f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved"
+            )
+            out, spawn_s = _torchrun(
+                f"(o, p, q, r) {mesh}", world, args, script=True, env=R_ALLOC
+            )
+            # each run's slowest rank, from the ranks' own lines
+            run_s = {run: 0.0 for run in runs}
+            for line in out.splitlines():
+                if line.startswith("# (") and " s, " in line:
+                    run = line[3 : line.index(")")]
+                    took = float(line.split(": ")[1].split(" s,")[0])
+                    run_s[run] = max(run_s[run], took)
+            start_s = (spawn_s - sum(run_s.values())) / len(runs)
+            print(
+                f"(o, p, q, r) {mesh}: ONE torchrun of {world} gloo ranks for {runs}: "
+                f"{spawn_s:.1f} s, by run (slowest rank) {run_s}, start-up "
+                f"{start_s * len(runs):.1f} s"
+            )
+            for run in runs:
+                t0 = time.perf_counter()
+                if run == "o":
+                    counts = _o_checks(card, tmp)
+                elif run == "n2":
+                    counts = _n2_checks(card, tmp)
+                elif run == "n3":
+                    counts = _n3_checks(card, tmp, out)
+                elif run in Q_RUNS:
+                    counts = _q_run(card, run, one[run], Path(tmp, f"{run}_ranks"), one_s[run])
+                else:
+                    ranks = [
+                        torch.load(Path(tmp, f"{run}_rank{r}.pt"), weights_only=False)
+                        for r in range(world)
+                    ]
+                    if run in P_RUNS:
+                        counts = _p_run(card, run, one[run], ranks, one_s[run])
+                    elif run == R_CONTINUOUS:
+                        counts = _r_continuous_checks(card, run, one[run], ranks)
+                    else:
+                        counts = _r_fixed_checks(card, run, one[run], ranks)
+                t = time.perf_counter() - t0 + run_s[run] + start_s
+                seconds[run if run in seconds else run[0]] += t
+                for name, c in counts.items():
+                    total[name] = total.get(name, 0) + c
+    print(
+        "(o, p, q, r) seconds by phase (kernels, one process, checks, the ranks' "
+        "runs and a share of the torchruns' start-up): "
+        + ", ".join(f"({k}) {v:.1f}" for k, v in seconds.items())
+    )
+    return total, seconds
+
+
+def _r_kernels(gen):
+    """#1, #3, #4, #6 and #7 at the (r) ranks' shapes against their plain
+    versions, with times (graph replays), bounds and SDPA's time for #6."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec import unpack_nibbles
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.log_dequant_rows import log_dequantize_rows_cuda
+    from repro_torch.kernels.log_quant import (
+        log_quantize_pack_triton,
+        log_quantize_triton,
+    )
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
+
+    seq = PROMPT + R_GEN
+    music = seq + get_config("musicgen-medium").cond_len
+    print("kernels at the tensor-parallel zoo ranks' shapes")
+    encodes = (
+        # (r1) a layer's K (or V) over 4 of jamba's 8 KV heads, (r3) a
+        # rank's half of the latent rows, (r4) musicgen's over 12 of 24
+        ("log_quantize", 8, log_quantize_triton, ref.log_quantize_ref, (
+            ("r1 K/V leaf", (4, 4, seq, 128)), ("r1 decode append", (4, 4, 1, 128)),
+            ("r3 ckv shard", (4, seq // 2, 512)), ("r3 decode append", (4, 1, 512)))),
+        ("log_quantize_pack", 4, log_quantize_pack_triton, ref.log_quantize_pack_ref, (
+            ("r4 K/V leaf", (4, 12, music, 64)), ("r4 decode append", (4, 12, 1, 64)))),
+    )  # fmt: skip
+    for name, bits, kernel, plain, shapes in encodes:
+        for where, shape in shapes:
+            xn, _ = _rows(gen, shape)
+            n = xn.numel()
+            got, want = kernel(xn, 1.0, bits=bits), plain(xn, 1.0, bits, 10.0)
+            if bits <= 4:
+                got, want = unpack_nibbles(got, n), unpack_nibbles(want, n)
+            _code_flips(
+                got.reshape(-1),
+                want.reshape(-1),
+                _near_half(xn, bits).reshape(-1),
+                f"{name} b={bits} {where} {shape}",
+            )
+            b_ms, b_by = bound_ms(n * 4 + n * bits // 8, n * QUANT_OPS, "f32")
+            ms = cuda_ms(lambda: kernel(xn, 1.0, bits=bits), 50)
+            pl = cuda_ms(lambda: plain(xn, 1.0, bits, 10.0), 20)
+            print(f"    {ms:.5f} ms, bound {b_ms:.5f} ({b_by}), plain {pl:.5f}")
+            emit({"kernel": name, "tp": where, "shape": list(shape), "ms": ms,
+                  "bound_ms": b_ms, "plain_ms": pl})  # fmt: skip
+    # #4 over a rank's leaf of one layer: (r1) 4 x 4 x 1040 rows of 128 B,
+    # (r3) 4 x 520 ckv rows of 512 B, (r4) 4 x 12 x 1104 rows of 32 B (q4)
+    for where, rows, d, bits in (
+        ("r1", 4 * 4 * seq, 128, 8),
+        ("r3", 4 * seq // 2, 512, 8),
+        ("r4", 4 * 12 * music, 64, 4),
+    ):
+        nb = d * bits // 8
+        c = torch.randint(-128, 128, (rows, nb), generator=gen, device="cuda")
+        c = c.to(torch.int8)
+        sc = torch.rand((rows, 1), generator=gen, device="cuda")
+        got = log_dequantize_rows_cuda(c, sc, bits=bits)
+        want = ref.log_dequantize_rows_ref(c, sc, bits, 10.0)
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).masked_fill(
+            want == 0, 0
+        )
+        check(float(rel.max()) <= 1e-6, f"dequant {where}: rel {float(rel.max())}")
+        b_ms, b_by = bound_ms(rows * (nb + 4 + d * 4), rows * d * DEQUANT_OPS, "f32")
+        ms = cuda_ms(lambda: log_dequantize_rows_cuda(c, sc, bits=bits), 50)
+        pl = cuda_ms(lambda: ref.log_dequantize_rows_ref(c, sc, bits, 10.0), 20)
+        print(
+            f"  log_dequantize_rows {where} ({rows} rows of {nb} B): max rel "
+            f"{float(rel.max()):.2e}; {ms:.5f} ms, bound {b_ms:.5f} ({b_by}), "
+            f"plain {pl:.5f}"
+        )
+        emit({"kernel": "log_dequantize_rows", "tp": where, "rows": rows, "ms": ms,
+              "bound_ms": b_ms, "plain_ms": pl})  # fmt: skip
+    # #6 on a rank's heads: (r1) 16 of jamba's 32 over 4 of its 8 KV heads;
+    # (r3) 64 of deepseek's 128 at head_dim 192; (r4) 12 of musicgen's 24
+    # over its prefix and prompt; (r5) one request's prefill bucket, 2 of
+    # gemma3-1b's 4 query heads over its one KV head
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for where, b, hq, hkv, s, hd in (
+        ("r1", 4, 16, 4, PROMPT, 128),
+        ("r3", 4, 64, 64, PROMPT, 192),
+        ("r4", 4, 12, 12, PROMPT + get_config("musicgen-medium").cond_len, 64),
+        ("r5", 1, 2, 1, PROMPT, 256),
+    ):
+        q, k, v = (
+            torch.randn((b, h, s, hd), generator=gen, device="cuda").bfloat16()
+            for h in (hq, hkv, hkv)
+        )
+        got = flash_attention_cuda(q, k, v)
+        want = ref.attention_ref(q.float(), k.float(), v.float())
+        e = float((got.float() - want).abs().max())
+        check(e <= 2e-2, f"flash_attention {where}: max err {e}")
+        i = torch.arange(s, device="cuda")
+        mask = i[None, :] <= i[:, None]
+        pairs = int(mask.sum()) * b * hq
+        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound_ms(n_bytes, 4 * hd * pairs, "bf16")
+        ms = cuda_ms(lambda: flash_attention_cuda(q, k, v), 10)
+        pl = cuda_ms(lambda: ref.attention_ref(q, k, v), 5)
+        lib = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10)
+        print(
+            f"  flash_attention {where} q {list(q.shape)} k/v {list(k.shape)}: max "
+            f"abs err {e:.2e}; {ms:.4f} ms, bound {b_ms:.4f} ({b_by}), plain "
+            f"{pl:.4f}, SDPA {lib:.4f}"
+        )
+        emit({"kernel": "flash_attention", "tp": where, "shape": list(q.shape),
+              "ms": ms, "bound_ms": b_ms, "plain_ms": pl, "library_ms": lib})  # fmt: skip
+        del q, k, v, want, got
+    # #7 on a rank's heads: (r1) 64 of jamba's 128 (state 16), (r2) 16 of
+    # mamba2-370m's 32 (state 128) on a data rank's 2 rows
+    for where, arch, batch in (("r1", "jamba-v0.1-52b", 4), ("r2", "mamba2-370m", 2)):
+        cfg = get_config(arch)
+        half = dataclasses.replace(cfg, d_model=cfg.d_model // 2)  # H / 2 heads
+        h, q = half.ssm_heads, half.ssm_chunk
+        x, a_cum, bm, cm = _ssd_inputs(gen, half, batch, PROMPT // q)
+        got = ssd_chunk_cuda(x, a_cum, bm, cm)
+        bh, ch = (t.expand(-1, h, -1, -1, -1) for t in (bm, cm))
+        want = ref.ssd_chunk_ref(x, a_cum, bh, ch)
+        err, top = float((got - want).abs().max()), float(want.abs().max())
+        check(err <= SSD_REL_TOL * top, f"ssd_chunk ({where}): max err {err} of {top}")
+        pairs = q * (q + 1) // 2
+        groups = x.shape[0] * bm.shape[1] * x.shape[2]
+        cells = x.shape[0] * h * x.shape[2]
+        n_ops = pairs * (groups * 2 * cfg.ssm_state + cells * 2 * cfg.ssm_head_dim)
+        n_bytes = 4 * (2 * x.numel() + bm.numel() + cm.numel() + a_cum.numel())
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "f32")
+        ms = cuda_ms(lambda: ssd_chunk_cuda(x, a_cum, bm, cm), 10)
+        pl = cuda_ms(lambda: ref.ssd_chunk_ref(x, a_cum, bh, ch), 3)
+        print(
+            f"  ssd_chunk ({where}) x {list(x.shape)}, N {cfg.ssm_state}: max abs "
+            f"err {err:.2e}, {err / top:.2e} of max |Y|; {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), plain {pl:.4f}"
+        )
+        emit({"kernel": "ssd_chunk", "tp": where, "shape": list(x.shape), "ms": ms,
+              "bound_ms": b_ms, "plain_ms": pl})  # fmt: skip
+        del x, a_cum, bm, cm, got, want
 
 
 KERNEL_INFO = {
@@ -5934,22 +6626,15 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = phase_kernels(gen)
     seconds = {"device_build_kernels": time.perf_counter() - t0}
-    # (o) first of the runs: its two ranks share the card with this process
-    # while it holds little device memory ((o4) takes 36 GB a rank; after
-    # the other phases this process held ~7 GB more, and a rank ran out)
+    # (o), (p), (q), (r) first of the runs, in one torchrun a mesh: their
+    # ranks share the card with this process while it holds little device
+    # memory ((o4) takes 36 GB a rank, and after the other phases this
+    # process held ~7 GB more, and a rank ran out; (q1)'s four ranks share
+    # the card, (r3)'s two hold 15.8 B parameters)
     t = time.perf_counter()
-    codec_launches = phase_dist_codecs(card)
-    seconds["dist_codecs"] = time.perf_counter() - t
-    # (p) next, for the same reason: (p3)'s ranks hold 3.6 B parameters
-    t = time.perf_counter()
-    for name, c in phase_tp(card).items():
-        codec_launches[name] = codec_launches.get(name, 0) + c
-    seconds["tp"] = time.perf_counter() - t
-    # (q) next, for the same reason: (q1)'s four ranks share the card
-    t = time.perf_counter()
-    for name, c in phase_tp_train(card).items():
-        codec_launches[name] = codec_launches.get(name, 0) + c
-    seconds["tp_train"] = time.perf_counter() - t
+    codec_launches, tp_seconds = phase_tp(card)
+    seconds["ranks_o_p_q_r"] = time.perf_counter() - t
+    seconds.update({f"ranks_{k}": v for k, v in tp_seconds.items()})
     t = time.perf_counter()
     launches = phase_serve(card, gen)
     seconds["serve"] = time.perf_counter() - t
@@ -6002,11 +6687,7 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--ranks"]:  # one rank of phase (o)'s torchrun
-        rank_main(sys.argv[2])
-    elif sys.argv[1:2] == ["--tp-rank"]:  # one rank of a phase (p) torchrun
-        tp_rank_main(sys.argv[2], sys.argv[3])
-    elif sys.argv[1:2] == ["--tp-train-rank"]:  # one rank of a (q) torchrun
-        tp_train_rank_main(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--tp-spawn-rank"]:  # one rank of an (o)-(r) torchrun
+        tp_spawn_rank_main(sys.argv[2], sys.argv[3])
     else:
         main()

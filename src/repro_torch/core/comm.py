@@ -55,6 +55,7 @@ __all__ = [
     "copy_to_model",
     "reduce_from_model",
     "gather_from_model",
+    "partial_product",
 ]
 
 
@@ -440,15 +441,7 @@ class ModelComm:
         card a bf16 product's f32 accumulator, ``out_dtype``), summed over
         the group in f32 and rounded to ``x``'s dtype once, as one process
         rounds the whole product once."""
-        if x.dtype == torch.float32:
-            partial = x @ w
-        elif x.is_cuda:
-            flat = x.reshape(-1, x.shape[-1])
-            partial = _MatmulF32.apply(flat, w)
-            partial = partial.reshape(x.shape[:-1] + (w.shape[-1],))
-        else:
-            partial = x.float() @ w.float()
-        return self.all_reduce(partial, tag).to(x.dtype)
+        return self.all_reduce(partial_product(x, w), tag).to(x.dtype)
 
     def all_gather(self, x: torch.Tensor, dim: int, tag: str) -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``dim`` in rank order."""
@@ -476,6 +469,18 @@ class ModelComm:
             "bytes": dict(self.bytes_by_tag),
             "host_s": self.host_s,
         }
+
+
+def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in f32: a row-parallel product's partial before its sum
+    over the ranks (on the card a bf16 product's f32 accumulator)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        flat = x.reshape(-1, x.shape[-1])
+        partial = _MatmulF32.apply(flat, w)
+        return partial.reshape(x.shape[:-1] + (w.shape[-1],))
+    return x.float() @ w.float()
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -563,19 +568,24 @@ class ModelAxis:
     """What a tensor-parallel forward threads through its layers: the
     model-axis comm, the comm of the group the KV cache's sequence is split
     over (a group of one where the cache splits by heads or not at all, and
-    in training), and the parameter specs of the serving or the training
-    tree (``launch/sharding.py``), from which each layer reads which of its
-    products split by rows and so end in an all-reduce. ``gloo``: the
-    collectives run from the host, so a decode or a training step over
+    in training), the parameter specs of the serving or the training tree
+    (``launch/sharding.py``), from which each layer reads which of its
+    products split by rows and so end in an all-reduce, and the comm of the
+    data-axis group the batch's rows are split over (a group of one where
+    every rank holds every row): an MoE layer's one capacity table over
+    the whole batch gathers the routing of every row over it. ``gloo``:
+    the collectives run from the host, so a decode or a training step over
     them cannot be one CUDA graph."""
 
     comm: ModelComm
     seq: ModelComm
     specs: Any
+    data: ModelComm = dataclasses.field(default_factory=ModelComm)
 
     @property
     def gloo(self) -> bool:
-        return "gloo" in (self.comm.backend, self.seq.backend)
+        return "gloo" in (self.comm.backend, self.seq.backend, self.data.backend)
 
     def collective_host_s(self) -> float:
-        return self.comm.host_s + (self.seq.host_s if self.seq is not self.comm else 0)
+        comms = {id(c): c for c in (self.comm, self.seq, self.data)}
+        return sum(c.host_s for c in comms.values())

@@ -17,15 +17,15 @@ A model axis above 1 spans ``data x model`` ranks, rank ``d * model + m``
 holding coordinate (d, m): the model axis is minor, as ``jax.make_mesh``
 orders devices. Every rank makes the model-axis groups (the ranks of one
 d) and the data-axis groups (those of one m) in one fixed order, and the
-mesh keeps its own two. Serving and training take such a mesh for the dense
-attention + MLP architectures (``launch/serve.py`` with the fixed
-scheduler; ``launch/train.py`` with the ``none``, ``powersgd`` and
+mesh keeps its own two. Serving takes such a mesh for all ten
+architectures (``launch/serve.py``, the fixed scheduler, and the continuous
+one for the token LMs); training for the dense attention + MLP
+architectures (``launch/train.py`` with the ``none``, ``powersgd`` and
 ``lq_sgd`` compressors, whose sync's ``DistComm`` spans the data-axis
-group, :func:`make_comm`). The rest of serving and training at a model axis
-above 1 is :data:`LATER_STEPS` (the other architectures, the continuous
-scheduler) and :data:`TP_COMPRESSORS` (the other compressors and codecs,
-per-leaf policies, lazy groups, the server wire), and the production mesh
-item 17.
+group, :func:`make_comm`). The rest of training at a model axis above 1 is
+:data:`LATER_STEPS` (the other architectures) and :data:`TP_COMPRESSORS`
+(the other compressors and codecs, per-leaf policies, lazy groups, the
+server wire), and the production mesh item 17.
 """
 
 from __future__ import annotations
@@ -51,10 +51,9 @@ __all__ = [
     "TP_COMPRESSORS",
 ]
 
-# what a model axis above 1 does not run yet: MoE, MLA, Mamba-2, codebooks,
-# the conditioning prefix and the MTP head (serving and training), and the
-# continuous scheduler
-LATER_STEPS = "ROADMAP Queue 1, item 15 B, step 2"
+# what training over a model axis above 1 does not run yet: MoE, MLA,
+# Mamba-2, codebooks, the conditioning prefix and the MTP head
+LATER_STEPS = "ROADMAP Queue 1, item 15 B, step 2 B"
 # ... nor, in training, the compressors but none / powersgd / lq_sgd's log
 # codec: topk, qsgd, the randomized codecs, per-leaf policies, schedules,
 # lazy groups and the server wire on model-sharded gradients

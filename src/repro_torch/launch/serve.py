@@ -40,10 +40,13 @@ batch (``launch/sharding.py:batch_spec``) and holds its shard of the cache
 share (the ranks' shares sum to the one-process figure). Over gloo (ranks
 sharing a card, or the CPU) the decode runs eagerly, which the launcher
 asks for and prints; over NCCL it replays a graph with the collectives
-captured. The dense attention + MLP architectures and the fixed scheduler
-serve at a model axis above 1 (and train over the same mesh:
-``launch/train.py --mesh DxM``); the rest raises (``launch/mesh.py``:
-``LATER_STEPS``), and so does ``--production-mesh`` (item 17).
+captured. Every architecture serves so with the fixed scheduler (MoE
+expert-parallel, MLA's latent cache and Mamba-2's state split as the JAX
+package splits them, codebooks and the ``cond`` prefix), and the token
+LMs with ``--scheduler continuous`` (the grid's slots over the data axis,
+every request's tokens gathered to every rank after the run). Training
+over the same mesh: ``launch/train.py --mesh DxM``. ``--production-mesh``
+raises (item 17).
 """
 
 from __future__ import annotations
@@ -61,7 +64,6 @@ import torch.distributed as dist
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import (
-    LATER_STEPS,
     init_distributed,
     make_mesh,
     make_production_mesh,
@@ -90,7 +92,7 @@ from repro_torch.serving.kv_cache import (
 from repro_torch.serving.scheduler import ContinuousScheduler, Request
 from repro_torch.weights import init_sharded_params
 
-__all__ = ["run_fixed", "run_continuous", "main"]
+__all__ = ["run_fixed", "run_continuous", "launch_inputs", "main"]
 
 
 def _sync(device: torch.device) -> None:
@@ -130,7 +132,7 @@ def run_fixed(
     device = tokens.device
     prompt_len = tokens.shape[1]
     b = shard.batch if shard is not None else tokens.shape[0]
-    copies = shard.copies() if shard is not None else 1
+    copies = shard.copies if shard is not None else 1
     start = prompt_len + (cond.shape[1] if cond is not None else 0)
     max_seq = start + gen
     prefill = build_prefill_step(
@@ -178,15 +180,25 @@ def run_continuous(
     cache_dtype: torch.dtype = torch.bfloat16,
     temperature: float = 0.0,
     graph: bool | None = None,
+    shard: ServeShard | None = None,
 ) -> dict[str, Any]:
     """Every prompt as a request of ``gen`` new tokens through ``slots``
     decode slots of the continuous scheduler, on the device of ``params``,
     its decode chunks replayed from a CUDA graph on the card unless
     ``graph=False``. Returns each request's tokens, the scheduler,
-    bytes/token (measured and accounted), the host seconds of the whole run
-    and, within them, of the graph's capture (``capture_s``)."""
+    bytes/token (measured and accounted) and the host seconds of the whole
+    run and, within them, of the graph's capture (``capture_s``).
+
+    ``shard`` (``serving.engine.serve_shard`` of ``slots`` rows): this
+    rank's part of a run over a mesh, ``params`` its shards; every rank
+    gets the same prompts and returns every request's tokens; the cache's
+    positions are rounded up to a multiple of its sequence shards;
+    bytes/token are its share, ``collective_s`` the host seconds inside
+    the collectives."""
     device = params["embed"].device
     max_seq = max(len(p) for p in prompts) + gen
+    if shard is not None:
+        max_seq = -(-max_seq // shard.seq_shards()) * shard.seq_shards()
     sched = ContinuousScheduler(
         cfg,
         params,
@@ -197,7 +209,9 @@ def run_continuous(
         temperature=temperature,
         device=device,
         graph=graph,
+        shard=shard,
     )
+    copies = shard.copies if shard is not None else 1
     reqs = [Request(uid=i, prompt=p, max_new=gen) for i, p in enumerate(prompts)]
     t0 = time.perf_counter()
     done = sched.run(reqs)
@@ -205,13 +219,33 @@ def run_continuous(
     return {
         "tokens": done,
         "scheduler": sched,
-        "bytes_per_token": cache_bytes_per_token(sched.caches, slots, max_seq),
+        "bytes_per_token": cache_bytes_per_token(sched.caches, slots, max_seq, copies),
         "bytes_per_token_accounted": cache_bytes_per_token_accounting(
-            sched.caches, slots, max_seq
+            sched.caches, slots, max_seq, copies
         ),
         "seconds": time.perf_counter() - t0,
         "capture_s": sched.capture_s,
+        "collective_s": (
+            shard.axis.collective_host_s() if shard is not None else 0.0
+        ),
     }
+
+
+def launch_inputs(
+    cfg: ModelConfig, batch: int, prompt_len: int
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The fixed scheduler's seeded prompts on the host, (B, L) or (B, L,
+    cb), and the conditioning prefix where ``cfg`` has one (else None): a
+    VLM's mixed image and text ids, a codebook grid, or uniform ids."""
+    gen = torch.Generator().manual_seed(0)
+    if cfg.n_codebooks:
+        tokens = codec_tokens_stub(gen, batch, prompt_len, cfg)
+    elif cfg.arch_type == "vlm":
+        tokens = vq_tokens_stub(gen, batch, prompt_len, cfg)
+    else:
+        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen)
+    cond = conditioning_stub(gen, batch, cfg) if cfg.cond_len else None
+    return tokens, cond
 
 
 def main(argv: list[str] | None = None) -> dict[str, Any]:
@@ -297,11 +331,6 @@ def _serve(args: argparse.Namespace) -> dict[str, Any]:
     qcfg = CacheQuantConfig(bits=args.cache_bits) if args.cache_bits else None
     shard = graph = None
     if mesh.distributed or mesh.model > 1:
-        if args.scheduler == "continuous":
-            raise NotImplementedError(
-                "the continuous scheduler across ranks (a model axis above 1 "
-                f"included) is not ported yet ({LATER_STEPS})"
-            )
         shard = serve_shard(cfg, mesh, args.batch, cache_dtype=cache_dtype)
         say(
             f"# mesh: {{'data': {mesh.data}, 'model': {mesh.model}}} over "
@@ -314,7 +343,18 @@ def _serve(args: argparse.Namespace) -> dict[str, Any]:
                 "# decode: eager (graph=False): gloo runs the collectives "
                 "from the host, which a CUDA graph cannot capture"
             )
-        params = init_sharded_params(cfg, 1, device, shard.param_specs, mesh)
+        # ranks that share a card (gloo) draw their weights in turn, each
+        # returning its cached blocks to the card after its turn: a layer is
+        # drawn whole before it is cut (a deepseek-v3-671b MoE layer's
+        # expert stacks, 22.5 GB in bf16 after 30 GB of f32 draws), and the
+        # ranks' draws at once would not fit
+        turns = mesh.world if mesh.backend == "gloo" and device.type == "cuda" else 1
+        for turn in range(turns):
+            if turns == 1 or turn == mesh.rank:
+                params = init_sharded_params(cfg, 1, device, shard.param_specs, mesh)
+            if turns > 1:
+                torch.cuda.empty_cache()
+                dist.barrier()
     else:
         params = init_params(cfg, 1, device)
 
@@ -333,34 +373,33 @@ def _serve(args: argparse.Namespace) -> dict[str, Any]:
             qcfg=qcfg,
             cache_dtype=cache_dtype,
             temperature=args.temperature,
+            graph=graph,
+            shard=shard,
         )
         dt = out["seconds"]
         total = sum(len(v) for v in out["tokens"].values())
-        print(
+        share = " (this rank's share)" if shard is not None else ""
+        say(
             f"continuous: {n_req} requests x {args.gen} tokens through "
             f"{args.batch} slots in {dt:.2f}s ({total / max(dt, 1e-9):.1f} tok/s, "
             f"{out['scheduler'].steps} chunks, capture {out['capture_s']:.3f}s) "
             f"on {device}"
         )
-        print(
+        say(
             f"cache: quantized={tree_is_quantized(out['scheduler'].caches)} "
-            f"{out['bytes_per_token']:.1f} bytes/token"
+            f"{out['bytes_per_token']:.1f} bytes/token{share}"
         )
-        print("sample token ids:", out["tokens"][0][:16])
+        if shard is not None:
+            say(
+                f"collectives: {out['collective_s']:.3f}s of {dt:.3f}s on the "
+                f"host ({out['collective_s'] / max(dt, 1e-9):.1%})"
+            )
+        say("sample token ids:", out["tokens"][0][:16])
+        out.update(params=params, prompts=prompts, shard=shard)
         return out
 
-    tok_gen = torch.Generator().manual_seed(0)
-    if cfg.n_codebooks:
-        tokens = codec_tokens_stub(tok_gen, args.batch, args.prompt_len, cfg)
-    elif cfg.arch_type == "vlm":
-        tokens = vq_tokens_stub(tok_gen, args.batch, args.prompt_len, cfg)
-    else:
-        tokens = torch.randint(
-            0, cfg.vocab_size, (args.batch, args.prompt_len), generator=tok_gen
-        )
-    cond = None
-    if cfg.cond_len:
-        cond = conditioning_stub(tok_gen, args.batch, cfg).to(device)
+    tokens, cond = launch_inputs(cfg, args.batch, args.prompt_len)
+    cond = cond.to(device) if cond is not None else None
     full_shape = tuple(tokens.shape)
     if shard is not None:
         tokens = tokens[shard.rows()]
@@ -398,8 +437,8 @@ def _serve(args: argparse.Namespace) -> dict[str, Any]:
         )
     say("sample token ids:", out["tokens"][0, :16].tolist())
     # for a caller that goes on from this run (a comparison's teacher-forced
-    # decode): the weights, this rank's prompt rows and its shard
-    out.update(params=params, prompt=tokens, shard=shard)
+    # decode): the weights, this rank's prompt rows and prefix, its shard
+    out.update(params=params, prompt=tokens, cond=cond, shard=shard)
     return out
 
 

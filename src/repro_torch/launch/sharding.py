@@ -43,7 +43,7 @@ __all__ = [
     "cut",
     "split_dim",
     "partial_grad_flags",
-    "tp_refusal",
+    "tp_train_refusal",
 ]
 
 # the subtrees of a layer whose input enters through ``copy_to_model`` when
@@ -339,9 +339,11 @@ def partial_grad_flags(specs: Any) -> Any:
     return flags(specs, False)
 
 
-def tp_refusal(cfg: ModelConfig) -> str | None:
-    """What of ``cfg`` a model axis above 1 does not run yet (serving or
-    training), or None: the dense attention + MLP architectures run."""
+def tp_train_refusal(cfg: ModelConfig) -> str | None:
+    """What of ``cfg`` training over a model axis above 1 does not run yet,
+    or None: the dense attention + MLP architectures train. Serving takes
+    every architecture over the model axis (``serving/engine.py``), so
+    only training refuses."""
     kinds = {spec.kind for spec in cfg.layers}
     parts = [
         ("MoE layers (expert parallelism)", any(spec.moe for spec in cfg.layers)),

@@ -57,7 +57,7 @@ line then also prints the per-step DP epsilon and its kind. Every
 compressor, codec, policy, schedule, lazy group and wire runs over the
 ranks as in one process. Those of parts not ported raise, naming the
 ROADMAP item that ports them: at a model axis above 1 the parts named
-above (item 15 B, steps 2 and 4), and ``--production-mesh`` and
+above (item 15 B, steps 2 B and 4), and ``--production-mesh`` and
 ``--multi-pod`` (item 17). ``--dump DIR`` has each rank write
 ``DIR/rank<r>.pt`` (the history, every gathered wire array, the
 fingerprints of the final parameters and of this rank's rows of the
@@ -100,7 +100,7 @@ from repro_torch.launch.mesh import (
     make_model_comm,
     make_production_mesh,
 )
-from repro_torch.launch.sharding import tp_refusal
+from repro_torch.launch.sharding import tp_train_refusal
 from repro_torch.models.model import count_params
 from repro_torch.train.data_parallel import _tf32_off
 from repro_torch.train.optimizer import make_optimizer
@@ -299,9 +299,9 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.repeats is not None:
         cfg = dataclasses.replace(cfg, repeats=args.repeats)
-    if shape[1] > 1 and tp_refusal(cfg) is not None:
+    if shape[1] > 1 and tp_train_refusal(cfg) is not None:
         raise NotImplementedError(
-            f"--mesh {args.mesh}: {cfg.name}'s {tp_refusal(cfg)} not "
+            f"--mesh {args.mesh}: {cfg.name}'s {tp_train_refusal(cfg)} not "
             f"tensor-parallel yet ({LATER_STEPS})"
         )
     comp_cfg = CompressorConfig(

@@ -90,8 +90,8 @@ def layer_forward(
     ``plain_attention``: see ``models.model.forward``. ``tp`` (a
     ``core.comm.ModelAxis``) and ``pspec`` (this layer's parameter specs):
     a rank's part of a tensor-parallel layer, whose products split by rows
-    in ``pspec`` end in the model-axis all-reduce (dense attention + MLP
-    layers only)."""
+    in ``pspec`` end in the model-axis all-reduce (each mixer and FFN says
+    how it splits)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.kind == "attn" and not cfg.use_mla:
         mix, cache = attn_forward(
@@ -116,17 +116,26 @@ def layer_forward(
             cache=cache,
             cache_index=cache_index,
             plain=plain_attention,
+            tp=tp,
+            pspec=None if pspec is None else pspec["mixer"],
         )
     else:
         mix, cache = mamba_forward(
-            p["mixer"], h, cfg, cache=cache, plain=plain_attention
+            p["mixer"], h, cfg, cache=cache, plain=plain_attention, tp=tp
         )
     x = x + mix
     aux = None
     if has_ffn(spec, cfg):
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if spec.moe:
-            y, aux = moe_forward(p["ffn"], h2, cfg, cfg.mlp_act)
+            y, aux = moe_forward(
+                p["ffn"],
+                h2,
+                cfg,
+                cfg.mlp_act,
+                tp=tp,
+                pspec=None if pspec is None else pspec["ffn"],
+            )
         else:
             y = mlp_forward(
                 p["ffn"],

@@ -16,6 +16,10 @@ Decode is the absorbed form: W_UK folded into the query and W_UV into the
 output, so attention runs in latent space over ``kv_read`` of the cache, in
 f32, as the JAX package computes it. The new token's latent rows are
 appended in place (quantized against their own scales for a ``QuantKV``).
+
+Tensor-parallel serving (``tp``): a rank holds its heads and its sequence
+shard of the latent cache (:func:`mla_forward`); the decode merges the
+shards' partials as the attention's flash-decoding merge does.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.core.comm import copy_to_model
 from repro_torch.kernels import ops
+from repro_torch.models.attention import _owned_index
 from repro_torch.models.common import dense_init, rms_norm
 from repro_torch.models.rope import apply_rope, rope_freqs
 from repro_torch.serving.kv_cache import (
@@ -69,16 +75,31 @@ def init_mla_cache(
     }
 
 
-def _latents(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    """The query (nope and roped parts, (B, S, H, .)), the normed KV latent
-    (B, S, r_kv) and the roped shared key (B, S, rope)."""
+def _latents(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    tp: Any = None,
+    pspec: Params | None = None,
+):
+    """The query (nope and roped parts, (B, S, h, .), this rank's heads),
+    the normed KV latent (B, S, r_kv) and the roped shared key (B, S,
+    rope). Where ``pspec`` splits the columns of ``wq_a`` or ``wkv_a``,
+    a rank's columns are gathered over the model axis before the norms
+    (``tp.mla.q_a``, ``tp.mla.kv_a``)."""
     b, s, _ = x.shape
-    h = cfg.n_heads
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
-    cq = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_a_norm"], cfg.norm_eps)
+    h = p["wq_b"].shape[1] // (nope + rope)
+    cq = x @ p["wq_a"].to(x.dtype)
+    if _split(pspec, "wq_a", 1):
+        cq = tp.comm.all_gather(cq, -1, "tp.mla.q_a")
+    cq = rms_norm(cq, p["q_a_norm"], cfg.norm_eps)
     q = (cq @ p["wq_b"].to(x.dtype)).reshape(b, s, h, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     kv_a = x @ p["wkv_a"].to(x.dtype)
+    if _split(pspec, "wkv_a", 1):
+        kv_a = tp.comm.all_gather(kv_a, -1, "tp.mla.kv_a")
     ckv = rms_norm(kv_a[..., : cfg.kv_lora_rank], p["kv_a_norm"], cfg.norm_eps)
     k_rope = kv_a[..., cfg.kv_lora_rank :]
     cos, sin = rope_freqs(positions, rope, cfg.rope_theta)
@@ -87,42 +108,96 @@ def _latents(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tens
     return q_nope, q_rope, ckv, k_rope
 
 
+def _absorbed(p, cfg, q_nope):
+    """(q_lat (B, 1, h, r) f32, W_UV (r, h, v) f32) of this rank's h heads."""
+    h, nope, vdim = q_nope.shape[2], cfg.qk_nope_dim, cfg.v_head_dim
+    wkv_b = p["wkv_b"].float().reshape(cfg.kv_lora_rank, h, nope + vdim)
+    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+    return torch.einsum("bthn,rhn->bthr", q_nope.float(), w_uk), w_uv
+
+
+def _visible(idx, j: torch.Tensor) -> torch.Tensor:
+    """Positions ``j`` visible to a query at ``idx`` (an int or (B,)), shaped
+    to mask (B, H, 1, S) scores."""
+    if isinstance(idx, int):
+        return (j <= idx)[None, None, None, :]
+    return (j[None, :] <= idx[:, None])[:, None, None, :]
+
+
 def _absorbed_decode(p, cfg, q_nope, q_rope, ckv_c, kr_c, idx):
     """One query per row against the whole latent cache, in f32; keys
     j <= idx visible (``idx`` an int or a (B,) tensor of positions)."""
-    b = q_nope.shape[0]
-    h = cfg.n_heads
-    nope, vdim = cfg.qk_nope_dim, cfg.v_head_dim
-    wkv_b = p["wkv_b"].float().reshape(cfg.kv_lora_rank, h, nope + vdim)
-    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+    b, h = q_nope.shape[0], q_nope.shape[2]
+    q_lat, w_uv = _absorbed(p, cfg, q_nope)
     ckv_c, kr_c = ckv_c.float(), kr_c.float()
-    q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(), w_uk)
     scores = torch.einsum("bthr,bsr->bhts", q_lat, ckv_c)
     scores = scores + torch.einsum("bthr,bsr->bhts", q_rope.float(), kr_c)
-    scores = scores * (1.0 / float(nope + cfg.qk_rope_dim) ** 0.5)
-    j = torch.arange(ckv_c.shape[1], device=ckv_c.device)
-    if isinstance(idx, int):
-        mask = (j <= idx)[None, None, None, :]
-    else:
-        mask = (j[None, :] <= idx[:, None])[:, None, None, :]
+    scores = scores * (1.0 / float(cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5)
+    mask = _visible(idx, torch.arange(ckv_c.shape[1], device=ckv_c.device))
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     w = torch.softmax(scores, dim=-1)
     ctx_lat = torch.einsum("bhts,bsr->bthr", w, ckv_c)
     out = torch.einsum("bthr,rhv->bthv", ctx_lat, w_uv)
-    return out.reshape(b, 1, h * vdim)
+    return out.reshape(b, 1, h * cfg.v_head_dim)
 
 
-def _fill(leaf: Any, new: torch.Tensor) -> None:
-    """Write a prefill's (B, S, r) rows into a (B, max_seq, r) cache leaf,
-    in place, the rows past S zero (codes 0 with scale 0 in a QuantKV)."""
+def _absorbed_decode_sharded(p, cfg, q_nope, q_rope, ckv_c, kr_c, idx, tp, q_split):
+    """The absorbed decode over a latent cache split by sequence over
+    ``tp.seq``: this rank holds positions ``r * S_loc`` ..
+    ``(r + 1) * S_loc - 1`` of the latent rows. The absorbed queries of the
+    rank's heads (``q_lat`` and the roped part, f32) are gathered to all H
+    heads over the model axis (``tp.mla.q``, where the heads split), each
+    rank takes over its positions a partial max, sum and weighted latent
+    for every head (masked on global positions), the partials are
+    gathered (``tp.mla.decode``) and merged by their log-sum-exp, and the
+    rank keeps its heads' rows for ``W_UV``, as the attention's
+    flash-decoding merge (``models.attention._decode_seq_sharded``)."""
+    b, h_loc = q_nope.shape[0], q_nope.shape[2]
+    r = cfg.kv_lora_rank
+    q_lat, w_uv = _absorbed(p, cfg, q_nope)
+    q = torch.cat([q_lat, q_rope.float()], dim=-1)  # (B, 1, h, r + rope)
+    if q_split:
+        q = tp.comm.all_gather(q, 2, "tp.mla.q")
+    ckv_c, kr_c = ckv_c.float(), kr_c.float()
+    scores = torch.einsum("bthr,bsr->bhts", q[..., :r], ckv_c)
+    scores = scores + torch.einsum("bthr,bsr->bhts", q[..., r:], kr_c)
+    scores = scores * (1.0 / float(cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5)
+    s_loc = ckv_c.shape[1]
+    j = tp.seq.rank * s_loc + torch.arange(s_loc, device=ckv_c.device)
+    mask = _visible(idx, j)
+    scores = scores.masked_fill(~mask, -1e30)
+    m = scores.amax(dim=-1, keepdim=True)
+    w = torch.exp(scores - m) * mask  # 0 on a shard with no visible position
+    o = torch.einsum("bhts,bsr->bhtr", w, ckv_c)
+    part = torch.cat([o, m, w.sum(-1, keepdim=True)], dim=-1)  # (B, H, 1, r + 2)
+    parts = tp.seq.all_gather(part[None], 0, "tp.mla.decode")
+    o, mr, sr = parts[..., :r], parts[..., r : r + 1], parts[..., r + 1 :]
+    c = torch.exp(mr - mr.amax(dim=0, keepdim=True))
+    ctx = (c * o).sum(0) / (c * sr).sum(0)  # (B, H, 1, r)
+    first = tp.comm.rank * h_loc if q_split else 0
+    ctx = ctx[:, first : first + h_loc].transpose(1, 2)  # (B, 1, h, r)
+    out = torch.einsum("bthr,rhv->bthv", ctx, w_uv)
+    return out.reshape(b, 1, h_loc * cfg.v_head_dim)
+
+
+def _fill(leaf: Any, new: torch.Tensor, start: int = 0) -> None:
+    """Write a prefill's (B, S, r) rows into a cache leaf of ``n`` positions
+    from global position ``start`` (a rank's sequence shard), in place,
+    the rows past S zero (codes 0 with scale 0 in a QuantKV)."""
     raw = leaf.codes if isinstance(leaf, QuantKV) else leaf
-    full = F.pad(new, (0, 0, 0, raw.shape[1] - new.shape[1]))
+    n, s = raw.shape[1], new.shape[1]
+    full = F.pad(new, (0, 0, 0, start + n - s)) if start + n > s else new
+    full = full[:, start : start + n]
     if isinstance(leaf, QuantKV):
         qf = quantize_kv(full, leaf.bits, leaf.alpha)
         leaf.codes.copy_(qf.codes)
         leaf.scale.copy_(qf.scale)
     else:
         leaf.copy_(full)
+
+
+def _split(pspec: Params | None, name: str, dim: int) -> bool:
+    return pspec is not None and pspec[name][dim] is not None
 
 
 def mla_forward(
@@ -135,37 +210,72 @@ def mla_forward(
     cache: Params | None = None,
     cache_index: int | torch.Tensor | None = None,
     plain: bool = False,
+    tp: Any = None,
+    pspec: Params | None = None,
 ) -> tuple[torch.Tensor, Params | None]:
     """Returns (y, cache): train (no cache), prefill (a cache and S > 1,
-    filled in place) or decode (a cache and one token, appended in place)."""
+    filled in place) or decode (a cache and one token, appended in place).
+
+    Tensor-parallel (``tp``, a ``core.comm.ModelAxis``, with the layer's
+    specs ``pspec``): a rank holds its heads' columns of ``wq_b`` and
+    ``wkv_b`` and rows of ``wo`` (a row-parallel all-reduce, ``tp.mla.wo``),
+    and its columns of ``wq_a`` and ``wkv_a`` (the JAX rules: ``wkv_a``
+    takes the K/V rule, whose head test passes with no KV heads), gathered
+    before the norms, so every rank holds the whole latent rows and stores
+    its sequence shard of them
+    (``tp.seq``: the model group, or every rank where the batch does not
+    split). A prefill attends its heads over the whole sequence; a decode
+    step appends on the rank that holds the position and merges the
+    shards' partials (:func:`_absorbed_decode_sharded`)."""
     b, s, _ = x.shape
-    h = cfg.n_heads
     nope, rope, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q_nope, q_rope, ckv, k_rope = _latents(p, x, cfg, positions)
+    q_split = _split(pspec, "wq_b", 1)
+    if q_split:  # the heads split: the input's gradient is summed over them
+        x = copy_to_model(x, tp.comm, "tp.mla.in")
+    q_nope, q_rope, ckv, k_rope = _latents(p, x, cfg, positions, tp, pspec)
+    h = q_nope.shape[2]  # this rank's heads
+    seq = tp.seq if tp is not None and tp.seq.size > 1 else None
 
     if cache is not None and s == 1:
-        ckv_leaf = kv_update_token(cache["ckv"], ckv, cache_index, axis=1)
-        kr_leaf = kv_update_token(cache["krope"], k_rope, cache_index, axis=1)
+        if seq is not None:
+            own = _owned_index(cache_index, seq.rank, _seq_len(cache["ckv"]))
+        else:
+            own = cache_index
+        ckv_leaf, kr_leaf = cache["ckv"], cache["krope"]
+        if own is not None:
+            ckv_leaf = kv_update_token(ckv_leaf, ckv, own, axis=1)
+            kr_leaf = kv_update_token(kr_leaf, k_rope, own, axis=1)
         ckv_c, kr_c = kv_read(ckv_leaf), kv_read(kr_leaf)
-        out = _absorbed_decode(p, cfg, q_nope, q_rope, ckv_c, kr_c, cache_index)
+        if seq is not None:
+            out = _absorbed_decode_sharded(
+                p, cfg, q_nope, q_rope, ckv_c, kr_c, cache_index, tp, q_split
+            )
+        else:
+            out = _absorbed_decode(p, cfg, q_nope, q_rope, ckv_c, kr_c, cache_index)
         out = out.to(x.dtype)
-        return out @ p["wo"].to(x.dtype), cache
-
-    kv = (ckv @ p["wkv_b"].to(x.dtype)).reshape(b, s, h, nope + vdim)
-    k_nope, v = kv[..., :nope], kv[..., nope:]
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rope)], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    v_pad = F.pad(v, (0, nope + rope - vdim))
-    out = ops.flash_attention(
-        q.transpose(1, 2),
-        k.transpose(1, 2),
-        v_pad.transpose(1, 2),
-        causal=True,
-        window=spec.window,
-        plain=plain,
-    )
-    out = out[..., :vdim].transpose(1, 2).reshape(b, s, h * vdim)
-    if cache is not None:
-        _fill(cache["ckv"], ckv)
-        _fill(cache["krope"], k_rope)
+    else:
+        kv = (ckv @ p["wkv_b"].to(x.dtype)).reshape(b, s, h, nope + vdim)
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rope)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        v_pad = F.pad(v, (0, nope + rope - vdim))
+        out = ops.flash_attention(
+            q.transpose(1, 2),
+            k.transpose(1, 2),
+            v_pad.transpose(1, 2),
+            causal=True,
+            window=spec.window,
+            plain=plain,
+        )
+        out = out[..., :vdim].transpose(1, 2).reshape(b, s, h * vdim)
+        if cache is not None:
+            start = seq.rank * _seq_len(cache["ckv"]) if seq is not None else 0
+            _fill(cache["ckv"], ckv, start)
+            _fill(cache["krope"], k_rope, start)
+    if _split(pspec, "wo", 0):
+        return tp.comm.row_parallel(out, p["wo"].to(x.dtype), "tp.mla.wo"), cache
     return out @ p["wo"].to(x.dtype), cache
+
+
+def _seq_len(leaf: Any) -> int:
+    return (leaf.codes if isinstance(leaf, QuantKV) else leaf).shape[1]

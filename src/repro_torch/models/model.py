@@ -301,19 +301,33 @@ def _embed(
 ) -> torch.Tensor:
     """(B, S) ids -> (B, S, d); (B, S, cb) codebook ids -> the sum of their
     codebooks' embeddings, added in codebook order as the JAX package does.
-    A vocab-parallel embedding (``tp``): this rank's rows, zeros for ids
-    outside them, summed over the model axis."""
-    if tp is not None and tp.specs["embed"][0] is not None:
+    A vocab-parallel embedding (``tp``, the vocab dim of the leaf's own
+    spec: 0, or 1 of a (cb, V, d) codebook table): this rank's rows, zeros
+    for ids outside them, summed over the model axis (each codebook's
+    lookup in one all-reduce, then added in codebook order: exact)."""
+    cb = cfg.n_codebooks
+    vdim = 1 if cb else 0
+    if tp is not None and tp.specs["embed"][vdim] is not None:
         w = params["embed"]
-        n = w.shape[0]
+        n = w.shape[vdim]
         ids = tokens - tp.comm.rank * n
         mine = (ids >= 0) & (ids < n)
-        x = torch.where(mine[..., None], w[ids.clamp(0, n - 1)], 0)
-        return tp.comm.all_reduce(x, "tp.embed")
-    if not cfg.n_codebooks:
+        ids = ids.clamp(0, n - 1)
+        if not cb:
+            x = torch.where(mine[..., None], w[ids], 0)
+            return tp.comm.all_reduce(x, "tp.embed")
+        parts = torch.stack(
+            [torch.where(mine[..., c, None], w[c][ids[..., c]], 0) for c in range(cb)]
+        )
+        parts = tp.comm.all_reduce(parts, "tp.embed")
+        x = parts[0]
+        for c in range(1, cb):
+            x = x + parts[c]
+        return x
+    if not cb:
         return params["embed"][tokens]
     x = params["embed"][0][tokens[..., 0]]
-    for c in range(1, cfg.n_codebooks):
+    for c in range(1, cb):
         x = x + params["embed"][c][tokens[..., c]]
     return x
 
@@ -328,28 +342,24 @@ def apply_head(
 ) -> torch.Tensor:
     """The LM head: x @ embed.T when tied, else x @ head; with codebooks a
     head per codebook, (B, S, d) -> (B, S, cb, V). A vocab-parallel head
-    (``tp``): this rank's vocab columns, gathered over the model axis in
-    rank order, so every rank holds the whole (B, S, V); ``gather=False``
-    keeps the rank's columns (the vocab-parallel loss)."""
+    (``tp``): this rank's vocab columns (of every codebook), gathered over
+    the model axis in rank order, so every rank holds the whole (B, S[,
+    cb], V); ``gather=False`` keeps the rank's columns (the vocab-parallel
+    loss)."""
+    tied, cb = cfg.tie_embeddings, cfg.n_codebooks
+    w = (params["embed"] if tied else params["head"]).to(x.dtype)
+    split = None
     if tp is not None:
-        tied = cfg.tie_embeddings
-        split = tp.specs["embed"][0] if tied else tp.specs["head"][-1]
-        w = params["embed"].to(x.dtype).T if tied else params["head"].to(x.dtype)
+        split = tp.specs["embed"][1 if cb else 0] if tied else tp.specs["head"][-1]
         if split is not None:
             x = copy_to_model(x, tp.comm, "tp.head.in")
-        logits = x @ w
-        if split is not None and gather:
-            logits = tp.comm.all_gather(logits, -1, "tp.head")
-        return logits
-    if cfg.tie_embeddings:
-        w = params["embed"].to(x.dtype)
-        if cfg.n_codebooks:
-            return torch.einsum("bsd,cvd->bscv", x, w)
-        return x @ w.T
-    w = params["head"].to(x.dtype)
-    if cfg.n_codebooks:
-        return torch.einsum("bsd,cdv->bscv", x, w)
-    return x @ w
+    if cb:
+        logits = torch.einsum("bsd,cvd->bscv" if tied else "bsd,cdv->bscv", x, w)
+    else:
+        logits = x @ (w.T if tied else w)
+    if split is not None and gather:
+        logits = tp.comm.all_gather(logits, -1, "tp.head")
+    return logits
 
 
 def _mtp_logits(
@@ -433,9 +443,12 @@ def forward(
 
     ``tp`` (a ``core.comm.ModelAxis``): this rank's part of a
     tensor-parallel forward over the shards of the serving or the training
-    tree (the dense attention + MLP architectures, without ``cond``),
-    differentiable: the model-axis collectives carry their backward
-    (``core.comm.copy_to_model`` and its kin)."""
+    tree, differentiable: the model-axis collectives carry their backward
+    (``core.comm.copy_to_model`` and its kin). Serving runs every
+    architecture so (the MTP head unused); training the dense attention +
+    MLP ones (``launch/sharding.py:tp_train_refusal``). A ``cond`` prefix
+    is prepended after the vocab-parallel embedding, so a cache split by
+    sequence stores its positions on the ranks that hold them."""
     x = _embed(params, tokens, cfg, tp)
     b, s = x.shape[0], x.shape[1]
     offset = 0

@@ -33,6 +33,10 @@ on one card it has nothing to do and is left out.
 :func:`routing` records every MoE call's choices and router logits in call
 order, or holds each call to given choices, so a comparison run (reference
 mode) can route as the kernel run did.
+
+Over a model axis (:func:`moe_forward`'s ``tp``) the experts split as the
+JAX rules split them, each rank running its experts' slots of the same
+table.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.comm import copy_to_model, partial_product
 from repro_torch.models.common import act_fn, dense_init
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
@@ -251,49 +256,116 @@ def _gather_rows(src: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 
 def _moe_sets(
-    p: Params, x: torch.Tensor, cfg: ModelConfig, act: str, hits_first: bool
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    act: str,
+    hits_first: bool,
+    data: Any = None,
+    first: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (R, T, D), R token sets of T, each with its own table -> (y, aux (R,))."""
+    """x (R, T, D), R token sets of T, each with its own table -> (y in f32,
+    aux (R,)). ``p``'s expert stacks may hold a block of E / M experts
+    (``first`` .. ``first + E / M - 1``): the slots of the others' experts
+    then come back zero. ``data`` (a ``core.comm.ModelComm``): the token
+    sets are this rank's rows of sets split over its group, and each
+    table is built from every rank's choices, gathered in rank order."""
     r, t, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
-    cap = moe_capacity(t, cfg)
+    e_loc = p["w_gate"].shape[0]
     rec = _ACTIVE[-1] if _ACTIVE else None
     held = rec.take() if rec is not None else None
     top_i, weights, aux, logits = route(p, x, cfg, held, hits_first=hits_first)
     if rec is not None:
         rec.record(top_i, logits)
+    off = 0
+    if data is not None and data.size > 1:
+        off = data.rank * t
+        top_i = data.all_gather(top_i, 1, "tp.moe.route")
+    cap = moe_capacity(top_i.shape[1], cfg)
     slot_of, assign_of = _slots(top_i, e, cap)
+    # this rank's slots and its tokens' assignments, in local numbering: an
+    # assignment of another rank's token reads the zero row, a slot of
+    # another rank's expert gives zero
+    assign_of = assign_of[:, first * cap : (first + e_loc) * cap] - off * k
+    assign_of = torch.where((assign_of >= 0) & (assign_of < t * k), assign_of, t * k)
+    slot_of = slot_of[:, off * k : (off + t) * k] - first * cap
+    slot_of = torch.where((slot_of >= 0) & (slot_of < e_loc * cap), slot_of, e_loc * cap)
     # dispatch: each slot's token, as the gather of its assignment's copy
     x_rep = x.repeat_interleave(k, dim=1)  # (R, T*k, D), assignment t*k + j
     xin = _SlotGather.apply(x_rep, assign_of, slot_of)  # (R, E*cap, D)
-    xin = xin.reshape(r, e, cap, d).transpose(0, 1).reshape(e, r * cap, d)
+    xin = xin.reshape(r, e_loc, cap, d).transpose(0, 1).reshape(e_loc, r * cap, d)
     g = act_fn(act)(torch.bmm(xin, p["w_gate"].to(x.dtype)))
     u = torch.bmm(xin, p["w_up"].to(x.dtype))
     y_e = torch.bmm(g * u, p["w_down"].to(x.dtype))  # (E, R*cap, D)
-    y_e = y_e.reshape(e, r, cap, d).transpose(0, 1).reshape(r, e * cap, d)
+    y_e = y_e.reshape(e_loc, r, cap, d).transpose(0, 1).reshape(r, e_loc * cap, d)
     # combine: every assignment collects its slot's output (zero if dropped)
     got = _SlotGather.apply(y_e, slot_of, assign_of).reshape(r, t, k, d)
     contrib = got.float() * weights[..., None]
     y = contrib[:, :, 0]
     for j in range(1, k):
         y = y + contrib[:, :, j]
-    return y.to(x.dtype), aux
+    return y, aux
 
 
 def moe_forward(
-    p: Params, x: torch.Tensor, cfg: ModelConfig, act: str = "silu"
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    act: str = "silu",
+    *,
+    tp: Any = None,
+    pspec: Params | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y, the load-balance loss, f32 0-dim). "global" routes
     the B*S tokens through one table; "batched" each row through its own,
-    the loss then the mean over rows."""
+    the loss then the mean over rows.
+
+    Expert-parallel (``tp``, a ``core.comm.ModelAxis``, with the layer's
+    FFN specs ``pspec``): a rank holds the experts its ``w_gate`` / ``w_up``
+    / ``w_down`` block gives it (E / M of them where E divides the model
+    axis, else all) and the replicated router, so every model rank routes
+    the same tokens alike and runs only its experts' slots; the shared
+    expert splits as a dense MLP does. The partial sums of what splits
+    (the routed combine, the shared expert's ``down``) go through one f32
+    all-reduce over the model axis, each rounded to ``x``'s dtype after it
+    as one process rounds them. Where the batch's rows split over the
+    data axis (``tp.data``), the global table is built from every row's
+    choices (``tp.moe.route``: a gather of the (T, k) expert ids), so a
+    rank drops what one process drops; the load-balance loss is then over
+    the rank's rows (serving discards it)."""
     b, s, d = x.shape
+    e_split = pspec is not None and pspec["w_gate"][0] is not None
+    sh_split = pspec is not None and "shared" in pspec
+    sh_split = sh_split and pspec["shared"]["down"][0] is not None
+    if e_split or sh_split:
+        x = copy_to_model(x, tp.comm, "tp.moe.in")
+    first = tp.comm.rank * p["w_gate"].shape[0] if e_split else 0
     if cfg.moe_impl == "batched":
-        y, aux = _moe_sets(p, x, cfg, act, hits_first=False)
+        y, aux = _moe_sets(p, x, cfg, act, hits_first=False, first=first)
     elif cfg.moe_impl == "global":
-        y, aux = _moe_sets(p, x.reshape(1, b * s, d), cfg, act, hits_first=True)
+        data = tp.data if tp is not None else None
+        flat = x.reshape(1, b * s, d)
+        y, aux = _moe_sets(p, flat, cfg, act, True, data, first)
         y = y.reshape(b, s, d)
     else:
         raise ValueError(f"moe_impl {cfg.moe_impl!r}: 'global' or 'batched'")
+    shared = None
     if cfg.n_shared_experts:
-        y = y + mlp_forward(p["shared"], x, act)
+        if sh_split:
+            sp = p["shared"]
+            h = act_fn(act)(x @ sp["gate"].to(x.dtype)) * (x @ sp["up"].to(x.dtype))
+            shared = partial_product(h, sp["down"].to(x.dtype))
+        else:
+            shared = mlp_forward(p["shared"], x, act)
+    if e_split and sh_split:
+        both = tp.comm.all_reduce(torch.stack([y, shared]), "tp.moe.out")
+        return both[0].to(x.dtype) + both[1].to(x.dtype), aux.mean()
+    if e_split:
+        y = tp.comm.all_reduce(y, "tp.moe.out")
+    elif sh_split:
+        shared = tp.comm.all_reduce(shared, "tp.moe.out")
+    y = y.to(x.dtype)
+    if shared is not None:
+        y = y + shared.to(x.dtype)
     return y, aux.mean()

@@ -21,6 +21,9 @@ pre-broadcast arguments.
 Unlike the JAX package, which returns new caches, prefill and decode write
 the new conv window and SSM state into the cache tensors in place (``copy_``):
 they are views into the model's stacked cache leaves.
+
+Tensor-parallel serving splits the SSM state over heads and the conv window
+over channels, as the JAX package's cache specs do (:func:`mamba_forward`).
 """
 
 from __future__ import annotations
@@ -200,6 +203,64 @@ def _ssm_inputs(xbc_conv, dt_raw, p: Params, cfg: ModelConfig):
     return xs, bm, cm, dt, a
 
 
+def _heads_of(t: torch.Tensor, n_heads: int, first: int, count: int) -> torch.Tensor:
+    """The groups (dim 2 of a (B, S, G, N) B or C) that heads ``first`` ..
+    ``first + count - 1`` of ``n_heads`` read, laid out so that local head
+    i reads group ``i // (count / groups returned)``, as :func:`_heads`
+    repeats them: a slice of whole groups where the heads cover them
+    evenly, else one group a head."""
+    if count == n_heads:
+        return t
+    r = n_heads // t.shape[2]
+    idx = [(first + i) // r for i in range(count)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    if count % n == 0 and idx == [lo + i // (count // n) for i in range(count)]:
+        return t[:, :, lo : lo + n]
+    return t.index_select(2, torch.tensor(idx, device=t.device))
+
+
+class _Split:
+    """A rank's part of a Mamba-2 layer over the model axis, read from the
+    shapes of its cache shard (``serving/engine.py:cache_specs``): the SSM
+    state's heads ``h0`` .. ``h0 + h - 1`` and the conv window's channels
+    ``c0`` .. ``c0 + c - 1`` (all of them where the spec does not split
+    them). The projections and the conv weights replicate, so every rank
+    computes the conv over all channels and its heads' scan."""
+
+    def __init__(self, cfg: ModelConfig, cache: Params | None, tp: Any):
+        _, _, _, heads, conv_ch = _dims(cfg)
+        self.tp = tp
+        self.h = cache["ssm"].shape[1] if cache is not None else heads
+        self.c = cache["conv"].shape[2] if cache is not None else conv_ch
+        self.heads_split, self.conv_split = self.h < heads, self.c < conv_ch
+        self.h0 = tp.comm.rank * self.h if self.heads_split else 0
+        self.c0 = tp.comm.rank * self.c if self.conv_split else 0
+        self.n_heads = heads
+
+    def heads(self, xs, bm, cm, dt, a):
+        """The scan's inputs of this rank's heads."""
+        if not self.heads_split:
+            return xs, bm, cm, dt, a
+        hs = slice(self.h0, self.h0 + self.h)
+        pick = lambda t: _heads_of(t, self.n_heads, self.h0, self.h)
+        return xs[:, :, hs], pick(bm), pick(cm), dt[..., hs], a[hs]
+
+    def gather(self, y: torch.Tensor) -> torch.Tensor:
+        """(B, S, h * P) -> every head's (B, S, d_inner), in head order."""
+        if not self.heads_split:
+            return y
+        return self.tp.comm.all_gather(y, -1, "tp.ssm.y")
+
+    def window(self, conv: torch.Tensor) -> torch.Tensor:
+        """A conv window shard (B, K - 1, c) -> every channel's."""
+        if not self.conv_split:
+            return conv
+        return self.tp.comm.all_gather(conv, -1, "tp.ssm.conv")
+
+    def channels(self, t: torch.Tensor) -> torch.Tensor:
+        return t[..., self.c0 : self.c0 + self.c]
+
+
 def mamba_forward(
     p: Params,
     x: torch.Tensor,
@@ -207,55 +268,82 @@ def mamba_forward(
     *,
     cache: Params | None = None,
     plain: bool = False,
+    tp: Any = None,
 ) -> tuple[torch.Tensor, Params | None]:
     """Full-sequence (train/prefill) or single-token (decode) Mamba-2 block.
     With a cache, a one-token input is decode, as in the JAX package.
     ``plain=True`` (a training forward) takes the SSD's plain version on any
-    device, so autograd runs through it."""
+    device, so autograd runs through it.
+
+    Over the model axis (``tp``, serving): the projections replicate (the
+    JAX rule), the cache's SSM state splits over heads and its conv window
+    over contiguous channels (:class:`_Split`). A rank convolves every
+    channel (a decode step first gathers the conv window's shards,
+    ``tp.ssm.conv``), scans its heads only (the SSD kernel on them), and
+    the heads' outputs are gathered (``tp.ssm.y``) before the gated norm
+    over the whole ``d_inner`` and the replicated ``out_proj``, which every
+    rank then computes alike."""
     b, s, _ = x.shape
     di = cfg.d_inner
+    split = _Split(cfg, cache, tp) if tp is not None else None
     proj = x @ p["in_proj"].to(x.dtype)
     z, xbc, dt_raw = _split_in(proj, cfg)
 
     if cache is not None and s == 1:
-        return _mamba_step(p, cfg, z, xbc, dt_raw, cache)
+        return _mamba_step(p, cfg, z, xbc, dt_raw, cache, split)
 
     xbc_conv = _causal_conv(xbc.float(), p["conv_w"], p["conv_b"])
     xs, bm, cm, dt, a = _ssm_inputs(xbc_conv, dt_raw, p, cfg)
+    d_skip = p["D"].float()
+    if split is not None:
+        xs, bm, cm, dt, a = split.heads(xs, bm, cm, dt, a)
+        d_skip = d_skip[split.h0 : split.h0 + split.h]
     y, h_last = ssd_chunked(
         xs * dt[..., None], dt * a, bm, cm, cfg.ssm_chunk, plain=plain
     )
-    y = y + xs * p["D"].float()[:, None]
-    y = y.reshape(b, s, di).to(x.dtype)
+    y = y + xs * d_skip[:, None]
+    y = y.reshape(b, s, -1).to(x.dtype)
+    if split is not None:
+        y = split.gather(y)
     y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"].to(x.dtype)
 
     if cache is not None:
         kw = cfg.ssm_conv - 1
         tail = xbc[:, -kw:, :] if s >= kw else F.pad(xbc, (0, 0, kw - s, 0))
-        cache["conv"].copy_(tail)
+        cache["conv"].copy_(split.channels(tail) if split is not None else tail)
         cache["ssm"].copy_(h_last)
     return out, cache
 
 
-def _mamba_step(p: Params, cfg: ModelConfig, z, xbc, dt_raw, cache):
-    """O(1) decode update, written into ``cache`` in place."""
+def _mamba_step(p: Params, cfg: ModelConfig, z, xbc, dt_raw, cache, split=None):
+    """O(1) decode update, written into ``cache`` in place (over the model
+    axis, a rank's :class:`_Split` of it)."""
     b = z.shape[0]
     di, g, n, h, conv_ch = _dims(cfg)
-    window = torch.cat([cache["conv"].float(), xbc.float()], dim=1)  # (B, K, C)
+    conv_win = cache["conv"] if split is None else split.window(cache["conv"])
+    window = torch.cat([conv_win.float(), xbc.float()], dim=1)  # (B, K, C)
     w = p["conv_w"]
     conv = sum(window[:, i] * w[i] for i in range(w.shape[0])) + p["conv_b"]
     xs, bm, cm, dt, a = _ssm_inputs(conv[:, None, :], dt_raw, p, cfg)
+    d_skip = p["D"]
+    if split is not None:
+        xs, bm, cm, dt, a = split.heads(xs, bm, cm, dt, a)
+        d_skip = d_skip[split.h0 : split.h0 + split.h]
+    h = xs.shape[2]
     xs, dt = xs[:, 0], dt[:, 0]  # drop the seq dim
     bm, cm = _heads(bm[:, 0], h, 1), _heads(cm[:, 0], h, 1)  # (B, H, N)
     decay = torch.exp(dt * a)  # (B, H)
     hs = cache["ssm"] * decay[..., None, None] + torch.einsum(
         "bhp,bhn->bhpn", xs * dt[..., None], bm
     )
-    y = torch.einsum("bhpn,bhn->bhp", hs, cm) + xs * p["D"][:, None]
-    y = y.reshape(b, 1, di).to(z.dtype)
+    y = torch.einsum("bhpn,bhn->bhp", hs, cm) + xs * d_skip[:, None]
+    y = y.reshape(b, 1, -1).to(z.dtype)
+    if split is not None:
+        y = split.gather(y)
     y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"].to(z.dtype)
-    cache["conv"].copy_(window[:, 1:, :])
+    new_win = window[:, 1:, :]
+    cache["conv"].copy_(split.channels(new_win) if split is not None else new_win)
     cache["ssm"].copy_(hs)
     return out, cache

@@ -13,12 +13,13 @@ Tensor-parallel serving over a ``(data, model)`` mesh of processes
 and :func:`serve_shardings` are its rules (parameters by
 ``launch/sharding.py``; the K/V cache's batch over data where it divides,
 its KV heads over ``model`` where they divide, else its sequence over
-``model``, or over data + model where the batch does not split). A
-:class:`ServeShard` (:func:`serve_shard`) is one rank's part: its batch
-rows, the zero caches of its shard, and the ``core.comm.ModelAxis`` the
-steps thread through the forward. The dense attention + MLP architectures
-and the fixed scheduler run so; everything else at a model axis above 1
-raises (``launch/mesh.py:LATER_STEPS``).
+``model``, or over data + model where the batch does not split; MLA's
+latent rows by sequence alike; the Mamba-2 state by heads and its conv
+window by channels). A :class:`ServeShard` (:func:`serve_shard`) is one
+rank's part: its batch rows, the zero caches of its shard, and the
+``core.comm.ModelAxis`` the steps thread through the forward. All ten
+architectures run so with the fixed scheduler, and the token LMs with
+the continuous one (``serving/scheduler.py``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,6 @@ from repro_torch.launch.sharding import (
     serving_param_specs,
     shard_count,
     shard_index,
-    tp_refusal,
 )
 from repro_torch.models.model import apply_head, forward, init_caches
 from repro_torch.serving.kv_cache import (
@@ -146,15 +146,19 @@ def serve_shardings(
     return p_specs, c_specs, t_spec
 
 
-def _kv_spec(c_specs: Any) -> Spec:
-    """The (B, Hkv, S, hd) spec every K/V leaf of a cache spec tree takes (a
-    stacked scan leaf's without its leading None)."""
-    specs = {
-        tuple(s)[-4:] for path, s in tree_leaves(c_specs) if path[-1] in ("k", "v")
+# the cache leaves with a sequence dim (second to last), split alike
+SEQ_LEAVES = ("k", "v", "ckv", "krope")
+
+
+def _seq_entry(c_specs: Any) -> Any:
+    """The spec entry of the sequence dim every K/V or latent leaf of a
+    cache spec tree takes (None where the tree has none: Mamba-2)."""
+    entries = {
+        tuple(s)[-2] for path, s in tree_leaves(c_specs) if path[-1] in SEQ_LEAVES
     }
-    if len(specs) != 1:
-        raise ValueError(f"the K/V leaves take {len(specs)} layouts: {specs}")
-    return Spec(*specs.pop())
+    if len(entries) > 1:
+        raise ValueError(f"the sequence leaves take {len(entries)} layouts: {entries}")
+    return entries.pop() if entries else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,13 +185,18 @@ class ServeShard:
 
     def seq_shards(self) -> int:
         """How many shards the caches' sequence dim is cut into."""
-        return shard_count(_kv_spec(self.cache_specs)[-2], self.mesh.sizes)
+        return shard_count(_seq_entry(self.cache_specs), self.mesh.sizes)
 
-    def copies(self) -> int:
-        """How many ranks hold each shard of the caches (the ranks over
-        which the cache spec replicates)."""
+    def copies(self, path: tuple | None = None) -> int:
+        """How many ranks hold each shard of the cache leaf at ``path`` (the
+        ranks over which its spec replicates); without ``path``, of the
+        K/V or latent leaves (of the first leaf where there are none)."""
+        leaves = list(tree_leaves(self.cache_specs))
+        if path is None:
+            seq = [p for p, _ in leaves if p[-1] in SEQ_LEAVES]
+            path = seq[0] if seq else leaves[0][0]
         n = 1
-        for e in _kv_spec(self.cache_specs):
+        for e in self._spec_at(path):
             n *= shard_count(e, self.mesh.sizes)
         return self.mesh.world // n
 
@@ -195,7 +204,8 @@ class ServeShard:
         self, cfg: ModelConfig, max_seq: int, dtype: torch.dtype, device: Any
     ) -> Any:
         """This rank's shard of ``init_caches(cfg, batch, max_seq, ...)``:
-        zeros of each leaf's cut shape, raw."""
+        zeros of each leaf's cut shape, raw (a Mamba-2 layer's SSM state in
+        f32, as ``init_caches`` makes it)."""
         if max_seq % self.seq_shards():
             raise ValueError(
                 f"a cache of {max_seq} positions does not split into "
@@ -207,9 +217,28 @@ class ServeShard:
         def zeros(path: tuple, x: torch.Tensor) -> torch.Tensor:
             spec = self._spec_at(path)
             shape = cut(x, spec, sizes, coords).shape
-            return torch.zeros(shape, dtype=dtype, device=device)
+            return torch.zeros(shape, dtype=x.dtype, device=device)
 
         return map_cache_tree(abstract, zeros)
+
+    def one_row(self) -> ServeShard:
+        """The layout of one request's prefill on this rank's data row (the
+        continuous scheduler's admission): a batch of one, whole, with the
+        grid's split of every other dim, the same model-axis and sequence
+        comms, and no data-axis gather (the other data rows do not run
+        it)."""
+
+        def whole_batch(path: tuple, spec: Spec) -> Spec:
+            entries = list(spec)
+            entries[1 if path[0] == "scan" else 0] = None  # after the repeats
+            return Spec(*entries)
+
+        c_specs = map_cache_tree(self.cache_specs, whole_batch)
+        t_spec = Spec(None, *tuple(self.token_spec)[1:])
+        axis = dataclasses.replace(self.axis, data=ModelComm())
+        return dataclasses.replace(
+            self, batch=1, cache_specs=c_specs, token_spec=t_spec, axis=axis
+        )
 
     def _spec_at(self, path: tuple) -> Spec:
         sub = self.cache_specs
@@ -226,19 +255,11 @@ def serve_shard(
     cache_dtype: torch.dtype = torch.bfloat16,
 ) -> ServeShard:
     """This rank's :class:`ServeShard` of ``batch`` rows over ``mesh``: the
-    specs, the model-axis comm over the mesh's model group and the comm of
-    the group the caches' sequence is cut over (the model group, or every
-    rank where the sequence is cut over data + model). Raises at a model
-    axis above 1 for what is not ported (``launch/mesh.py:LATER_STEPS``)."""
-    from repro_torch.launch.mesh import LATER_STEPS
-
-    if mesh.model > 1:
-        refusal = tp_refusal(cfg)
-        if refusal:
-            raise NotImplementedError(
-                f"{cfg.name} at a model axis of {mesh.model}: {refusal} are not "
-                f"tensor-parallel yet ({LATER_STEPS})"
-            )
+    specs, the model-axis comm over the mesh's model group, the comm of the
+    group the caches' sequence is cut over (the model group, or every rank
+    where the sequence is cut over data + model) and the comm of the
+    data-axis group the rows are cut over (for an MoE layer's table). Every
+    architecture serves so."""
     if mesh.distributed and mesh.world != mesh.data * mesh.model:
         raise ValueError(
             f"serving over a {mesh.data}x{mesh.model} mesh takes "
@@ -248,7 +269,7 @@ def serve_shard(
         cfg, mesh, batch, cache_dtype=cache_dtype
     )
     comm = ModelComm(mesh.model_group, mesh.model, mesh.model_index)
-    seq_entry = _kv_spec(c_specs)[-2]
+    seq_entry = _seq_entry(c_specs)
     n_seq = shard_count(seq_entry, mesh.sizes)
     if n_seq == 1:
         seq = ModelComm()
@@ -257,7 +278,9 @@ def serve_shard(
     else:  # data + model: every rank, in global rank order
         rank = shard_index(seq_entry, mesh.sizes, mesh.coords)
         seq = ModelComm(dist.group.WORLD, n_seq, rank)
-    axis = ModelAxis(comm=comm, seq=seq, specs=p_specs)
+    n_rows = shard_count(t_spec[0], mesh.sizes)
+    data = ModelComm(mesh.data_group, n_rows, mesh.data_index) if n_rows > 1 else None
+    axis = ModelAxis(comm=comm, seq=seq, specs=p_specs, data=data or ModelComm())
     return ServeShard(mesh, batch, p_specs, c_specs, t_spec, axis)
 
 

@@ -229,38 +229,44 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _share(copies: int | Callable[[tuple], int], path: tuple) -> int:
+    return copies(path) if callable(copies) else copies
+
+
 def cache_bytes_per_token(
-    caches: Any, batch: int, max_seq: int, copies: int = 1
+    caches: Any, batch: int, max_seq: int, copies: int | Callable = 1
 ) -> float:
     """MEASURED bytes per (request, position): the bytes of every cache
     tensor (codes and scales included) / (batch * max_seq). A rank of a
     tensor-parallel server passes the global ``batch`` and ``max_seq`` with
     its shard of the caches and ``copies``, the ranks that hold each shard
-    (``serving.engine.ServeShard.copies``): its share, and the ranks' shares
-    sum to the one-process figure."""
-    total = 0
-    for _, leaf in tree_leaves(caches):
+    (``serving.engine.ServeShard.copies``, of a leaf's path): its share,
+    and the ranks' shares sum to the one-process figure."""
+    total = 0.0
+    for path, leaf in tree_leaves(caches):
         if isinstance(leaf, QuantKV):
-            total += _nbytes(leaf.codes) + _nbytes(leaf.scale)
+            n = _nbytes(leaf.codes) + _nbytes(leaf.scale)
         else:
-            total += _nbytes(leaf)
-    return total / float(batch * max_seq * copies)
+            n = _nbytes(leaf)
+        total += n / _share(copies, path)
+    return total / float(batch * max_seq)
 
 
 def cache_bytes_per_token_accounting(
-    caches: Any, batch: int, max_seq: int, copies: int = 1
+    caches: Any, batch: int, max_seq: int, copies: int | Callable = 1
 ) -> float:
     """ACCOUNTED bytes per token: ``packed_wire_bits`` + a 32-bit scale per
     block for quantized leaves, itemsize for raw ones (a rank's share as in
     :func:`cache_bytes_per_token`)."""
     total = 0.0
-    for _, leaf in tree_leaves(caches):
+    for path, leaf in tree_leaves(caches):
         if isinstance(leaf, QuantKV):
             blocks = leaf.scale.numel()
-            total += blocks * (packed_wire_bits(leaf.d, leaf.bits) + 32) / 8.0
+            n = blocks * (packed_wire_bits(leaf.d, leaf.bits) + 32) / 8.0
         else:
-            total += _nbytes(leaf)
-    return total / float(batch * max_seq * copies)
+            n = _nbytes(leaf)
+        total += n / _share(copies, path)
+    return total / float(batch * max_seq)
 
 
 # ------------------------------------------------------------ block pool

@@ -26,6 +26,19 @@ Phases per :meth:`ContinuousScheduler.step`, as in the JAX package:
 
 Right-padded prefill is pad-safe for attention stacks only: pad rows land
 beyond the causal mask and decode overwrites them before they enter it.
+
+Over a ``(data, model)`` mesh of processes (``shard``, a
+``serving.engine.ServeShard`` of the grid's ``slots`` rows): the grid's
+slots split over the data axis as its cache spec says, and every rank runs
+the same host bookkeeping on the same requests (admission, pages and
+retirement read only lengths, so they agree). A request is prefilled by
+the data row that holds its slot (with its model-axis neighbours, in the
+grid's layout of one row: ``ServeShard.one_row``), and each row decodes its
+own slots, one chunk of the whole grid together (an MoE layer's table
+gathers every row's routing, as one process routes the whole grid). A
+rank keeps the tokens of its own slots (a placeholder count for the
+others'), and :meth:`ContinuousScheduler.run` gathers the requests'
+tokens from the rows that made them, so every rank returns all of them.
 """
 
 from __future__ import annotations
@@ -36,10 +49,13 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import shard_count
 from repro_torch.serving.engine import (
     DecodeLoop,
+    ServeShard,
     build_prefill_step,
     init_serving_caches,
     temperature_sample,
@@ -94,6 +110,7 @@ class ContinuousScheduler:
         decode_chunk: int = 8,
         device: torch.device | str = "cuda",
         graph: bool | None = None,
+        shard: ServeShard | None = None,
     ):
         if any(s.kind == "mamba" for s in cfg.layers):
             raise ValueError(
@@ -105,20 +122,30 @@ class ContinuousScheduler:
                 "conditioned / multi-codebook configs are not supported by "
                 "the continuous scheduler"
             )
+        if shard is not None and shard.batch != slots:
+            raise ValueError(f"a shard of {shard.batch} rows for {slots} slots")
         self.cfg, self.params = cfg, params
         self.device = torch.device(device)
         self.slots, self.max_seq = slots, max_seq
         self.temperature = temperature
         self.decode_chunk = decode_chunk
+        self.shard = shard
+        # this rank's slots of the grid (all of them in one process)
+        self.rows = shard.rows() if shard is not None else slice(0, slots)
         # pages for every slot's full max_seq: the JAX package's default pool
         self.pool = BlockPool(slots * (-(-max_seq // BLOCK_TOKENS)), BLOCK_TOKENS)
         self.caches = init_serving_caches(
-            cfg, slots, max_seq, cache_dtype, qcfg, self.device
+            cfg, slots, max_seq, cache_dtype, qcfg, self.device, shard
         )
         # Full logits of a padded bucket: at gemma3-1b's vocab of 262144 and a
         # 1024 bucket that is 0.5 GB in bf16 per admission, which the card holds.
         self._prefill = build_prefill_step(
-            cfg, max_seq, cache_dtype=cache_dtype, qcfg=qcfg, full_logits=True
+            cfg,
+            max_seq,
+            cache_dtype=cache_dtype,
+            qcfg=qcfg,
+            full_logits=True,
+            shard=shard.one_row() if shard is not None else None,
         )
         self._gen = torch.Generator(device=self.device).manual_seed(0)
         # the grid's decode chunk: a CUDA graph unless graph=False or the CPU
@@ -126,16 +153,18 @@ class ContinuousScheduler:
             cfg,
             params,
             self.caches,
-            slots,
+            self.rows.stop - self.rows.start,
             decode_chunk,
             temperature=temperature,
             gen=self._gen,
             graph=graph,
+            shard=shard,
         )
         self.lengths = np.zeros(slots, np.int64)  # per-slot next write position
         self.cur = np.zeros(slots, np.int64)  # per-slot pending token
         self.active: dict[int, Request] = {}
         self.waiting: deque[Request] = deque()
+        self._made: set[int] = set()  # the requests this rank's row prefilled
         self.steps = 0
 
     @property
@@ -144,9 +173,15 @@ class ContinuousScheduler:
         return self._loop.capture_s
 
     # ------------------------------------------------------------- plumbing
+    def _mine(self, slot: int) -> bool:
+        """Whether this rank's data row holds ``slot``."""
+        return self.rows.start <= slot < self.rows.stop
+
     def _insert(self, one_caches: Any, slot: int) -> None:
-        """Copy a batch-1 cache tree into slot ``slot`` of the serving grid,
-        in place. Scan leaves carry a leading repeats dim (batch axis 1)."""
+        """Copy a batch-1 cache tree into slot ``slot`` of the serving grid
+        (this rank's, which holds it), in place. Scan leaves carry a
+        leading repeats dim (batch axis 1)."""
+        row = slot - self.rows.start
         for (path, dst), (_, src) in zip(
             tree_leaves(self.caches), tree_leaves(one_caches)
         ):
@@ -156,7 +191,7 @@ class ContinuousScheduler:
             else:
                 pairs = ((dst, src),)
             for d, s in pairs:
-                d.narrow(ax, slot, 1).copy_(s)
+                d.narrow(ax, row, 1).copy_(s)
 
     # -------------------------------------------------------------- control
     def submit(self, req: Request) -> None:
@@ -178,15 +213,19 @@ class ContinuousScheduler:
             slot = free.pop(0)
             self.pool.alloc(req.uid, need)
             ln = len(req.prompt)
-            toks = torch.zeros((1, _bucket(ln, self.max_seq)), dtype=torch.long)
-            toks[0, :ln] = torch.as_tensor(req.prompt, dtype=torch.long)
-            logits, one = self._prefill(self.params, toks.to(self.device))
-            first = temperature_sample(
-                self._gen, logits[:, ln - 1, :], self.temperature
-            )
-            self._insert(one, slot)
             req.slot = slot
-            req.out.append(int(first[0]))
+            if self._mine(slot):
+                toks = torch.zeros((1, _bucket(ln, self.max_seq)), dtype=torch.long)
+                toks[0, :ln] = torch.as_tensor(req.prompt, dtype=torch.long)
+                logits, one = self._prefill(self.params, toks.to(self.device))
+                first = temperature_sample(
+                    self._gen, logits[:, ln - 1, :], self.temperature
+                )
+                self._insert(one, slot)
+                req.out.append(int(first[0]))
+                self._made.add(req.uid)
+            else:  # another data row's: only its count is kept here
+                req.out.append(-1)
             self.lengths[slot] = ln
             self.cur[slot] = req.out[-1]
             self.active[slot] = req
@@ -199,11 +238,13 @@ class ContinuousScheduler:
         req.slot = -2
 
     def _decode_chunk(self) -> np.ndarray:
-        """One chunk over the whole grid from the slots' pending tokens and
-        lengths: the (slots, decode_chunk) sampled tokens, read once."""
+        """One chunk over this rank's slots of the grid from their pending
+        tokens and lengths: the (slots, decode_chunk) sampled tokens, read
+        once."""
+        rows = self.rows
         sampled = self._loop.run(
-            torch.as_tensor(self.cur[:, None], device=self.device),
-            torch.as_tensor(self.lengths, device=self.device),
+            torch.as_tensor(self.cur[rows, None], device=self.device),
+            torch.as_tensor(self.lengths[rows], device=self.device),
         )
         return sampled.cpu().numpy()
 
@@ -219,7 +260,10 @@ class ContinuousScheduler:
         for slot in list(self.active):
             req = self.active[slot]
             take = min(self.decode_chunk, req.max_new - len(req.out))
-            req.out.extend(sampled[slot, :take].tolist())
+            if self._mine(slot):
+                req.out.extend(sampled[slot - self.rows.start, :take].tolist())
+            else:
+                req.out.extend([-1] * take)
             harvested += take
             self.lengths[slot] += take
             self.cur[slot] = req.out[-1]
@@ -230,7 +274,9 @@ class ContinuousScheduler:
     def run(
         self, requests: list[Request] | None = None, max_steps: int = 100_000
     ) -> dict[int, list[int]]:
-        """Drive until every submitted request completes."""
+        """Drive until every submitted request completes; over a mesh, each
+        request's tokens are then gathered from the data row that made
+        them (every rank returns all of them)."""
         for r in requests or []:
             self.submit(r)
         for _ in range(max_steps):
@@ -239,4 +285,17 @@ class ContinuousScheduler:
             self.step()
         else:
             raise RuntimeError("scheduler did not drain within max_steps")
-        return {r.uid: r.out for r in requests or []}
+        return self._gather({r.uid: r.out for r in requests or []})
+
+    def _gather(self, done: dict[int, list[int]]) -> dict[int, list[int]]:
+        """The tokens of every request from the data row that made them:
+        each rank's own requests, gathered over its data-axis group."""
+        shard = self.shard
+        if shard is None or shard_count(shard.token_spec[0], shard.mesh.sizes) == 1:
+            return done
+        mine = {uid: out for uid, out in done.items() if uid in self._made}
+        parts: list[Any] = [None] * shard.mesh.data
+        dist.all_gather_object(parts, mine, group=shard.mesh.data_group)
+        for part in parts:
+            done.update(part)
+        return done

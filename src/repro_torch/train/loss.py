@@ -24,7 +24,7 @@ splits the vocabulary the cross-entropy is vocab-parallel
 (:func:`_ce_vocab_parallel`): a rank forms the logits of its vocab columns
 only, by ``head_chunk`` chunks as above, and the (B, S, V) logits are never
 gathered (gemma3-1b's V is 262,144). MTP and codebook losses do not run
-over a model axis above 1 (``launch/sharding.py:tp_refusal``).
+over a model axis above 1 (``launch/sharding.py:tp_train_refusal``).
 """
 
 from __future__ import annotations

@@ -67,7 +67,7 @@ from repro_torch.launch.sharding import (
     assert_replicated,
     param_specs,
     partial_grad_flags,
-    tp_refusal,
+    tp_train_refusal,
 )
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import init_params, stacked_flags
@@ -307,7 +307,7 @@ def build_train_step(
             raise ValueError(
                 f"a model axis of {model} needs a ModelAxis of {model} ranks (tp)"
             )
-        why = tp_refusal(cfg)
+        why = tp_train_refusal(cfg)
         if why is not None:
             raise NotImplementedError(
                 f"{cfg.name} over a model axis of {model}: {why} not "

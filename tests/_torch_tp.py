@@ -43,7 +43,6 @@ LAUNCH_ARGS = [
     "--cache-dtype", "float32",
 ]  # fmt: skip
 LAUNCH_MESH = ["--mesh", "2x2", "--dist-backend", "gloo"]
-REFUSED_ARCHS = ("mixtral-8x7b", "deepseek-v3-671b", "mamba2-370m", "musicgen-medium")
 
 
 def _host_cache(caches):
@@ -163,7 +162,6 @@ def _refusal(fn):
 
 def _refusals(res, inputs):
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.serving.engine import DecodeLoop, serve_shard
@@ -174,14 +172,6 @@ def _refusals(res, inputs):
     out = {"mesh_1x2": _refusal(lambda: make_mesh((1, 2), "cpu"))}
     out["mesh_3x2"] = _refusal(lambda: make_mesh((3, 2), "cpu"))
     mesh = make_mesh((2, 2), "cpu")
-    for arch in REFUSED_ARCHS:
-        cfg = get_config(arch, smoke=True)
-        out[arch] = _refusal(lambda cfg=cfg: serve_shard(cfg, mesh, 4))
-    out["continuous"] = _refusal(
-        lambda: quiet_call(
-            launch_serve.main, LAUNCH_ARGS + LAUNCH_MESH + ["--scheduler", "continuous"]
-        )
-    )
     train = [
         "--arch", "gemma3-1b", "--smoke", "--device", "cpu", "--mesh", "2x2",
         "--batch", "4", "--seq", "16", "--steps", "1", "--compressor", "topk",
@@ -220,7 +210,7 @@ def run_rank(rank, world, store, out_dir, inputs_path):
         dist.destroy_process_group()
 
 
-# the card test: gemma3-1b smoke at 1x2 over NCCL, one card a rank
+# the card tests: smoke configs at 1x2 over NCCL, one card a rank
 CARD_BITS = 8
 
 
@@ -231,17 +221,17 @@ def card_prompts():
     return torch.from_numpy(rng.integers(0, 512, (4, PROMPT)))
 
 
-def card_serve(device, shard=None, graph=None):
-    """gemma3-1b smoke (the seeded init, seed 1, cut to ``shard``'s
+def card_serve(device, shard=None, graph=None, arch="gemma3-1b"):
+    """``arch``'s smoke config (the seeded init, seed 1, cut to ``shard``'s
     shards) through ``run_fixed`` on ``device``: prefill logits, tokens
-    and caches on the host."""
+    and caches on the host (a raw leaf's scale None)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_fixed
     from repro_torch.models.model import init_params
     from repro_torch.serving.kv_cache import CacheQuantConfig
     from repro_torch.weights import init_sharded_params
 
-    cfg = get_config("gemma3-1b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     tokens = card_prompts()
     if shard is None:
         params = init_params(cfg, 1, device)
@@ -258,7 +248,10 @@ def card_serve(device, shard=None, graph=None):
         graph=graph,
         shard=shard,
     )
-    caches = [(p, c.cpu(), s.cpu()) for p, c, s in _host_cache(out["caches"])]
+    caches = [
+        (p, c.cpu(), None if s is None else s.cpu())
+        for p, c, s in _host_cache(out["caches"])
+    ]
     return dict(
         logits=out["logits"].cpu(),
         tokens=out["tokens"].cpu(),
@@ -267,8 +260,8 @@ def card_serve(device, shard=None, graph=None):
     )
 
 
-def card_tp_rank(rank, world, store, out_dir):
-    """One NCCL rank of the card test: the graphed decode (its model-axis
+def card_tp_rank(rank, world, store, out_dir, arch="gemma3-1b"):
+    """One NCCL rank of a card test: the graphed decode (its model-axis
     collectives captured) and the eager one, to ``<out_dir>/card<r>.pt``."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.serving.engine import serve_shard
@@ -282,11 +275,11 @@ def card_tp_rank(rank, world, store, out_dir):
         from repro_torch.configs import get_config
 
         mesh = make_mesh((1, world), device)
-        cfg = get_config("gemma3-1b", smoke=True)
+        cfg = get_config(arch, smoke=True)
         shard = serve_shard(cfg, mesh, 4, cache_dtype=torch.float32)
         res = dict(
-            graphed=card_serve(device, shard),
-            eager=card_serve(device, shard, graph=False),
+            graphed=card_serve(device, shard, arch=arch),
+            eager=card_serve(device, shard, graph=False, arch=arch),
             rows=shard.rows(),
             sizes=mesh.sizes,
             coords=mesh.coords,

@@ -1437,6 +1437,67 @@ def test_nccl_two_ranks_tp_serve_equals_one_process(cuda, tmp_path):
     assert sum(r["graphed"]["bytes"] for r in ranks) == want["bytes"]
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-v0.1-52b"])
+def test_nccl_two_ranks_tp_serve_of_the_zoo_equals_one_process(cuda, tmp_path, arch):
+    """mixtral-8x7b (2 of 4 experts a rank) and jamba-v0.1-52b (Mamba-2
+    heads, conv channels, MoE and attention) smoke configs (f32, q8 cache)
+    at a 1x2 mesh over NCCL, one card a rank: the graphed decode, its
+    model-axis collectives captured, equals the eager tensor-parallel
+    decode bit for bit (tokens, logits, cache shards), and both equal the
+    one-process run on card 0: tokens equal, prefill logits atol / rtol
+    1e-4, cache codes within one step of the block the rank's spec cuts,
+    and raw leaves (the SSM state and conv window) rtol 1e-4 and within
+    1e-4 of their largest value, or within 2e-2 of it where a cache code
+    moved (a moved code moves the later decode steps' inputs, which the
+    states carry: the zoo tests' allowance for decode after a code flip),
+    bytes/token shares summing to its figure. The decode graphs are freed
+    before the process group is destroyed (``card_tp_rank``)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(
+            "needs 2 CUDA devices: NCCL refuses two ranks on one card, so "
+            "tensor-parallel serving over NCCL stays unverified until run on "
+            "such a machine"
+        )
+    import _torch_dist as td
+    import _torch_tp as tt
+
+    from repro_torch.launch.sharding import cut
+
+    want = tt.card_serve("cuda:0", arch=arch)
+    join = td.spawn(
+        None, str(tmp_path), world=2, target=tt.card_tp_rank, extra=(arch,)
+    )
+    ranks = join()
+    for got in ranks:
+        g, e, rows = got["graphed"], got["eager"], got["rows"]
+        assert torch.equal(g["tokens"], e["tokens"])
+        assert torch.equal(g["logits"], e["logits"])
+        for (_, gc, gs), (_, ec, es) in zip(g["caches"], e["caches"], strict=True):
+            assert torch.equal(gc, ec) and (gs is None or torch.equal(gs, es))
+        assert torch.equal(g["tokens"], want["tokens"][rows])
+        torch.testing.assert_close(
+            g["logits"], want["logits"][rows], atol=1e-4, rtol=1e-4
+        )
+        specs = [s for _, s in kv_tree_leaves(got["cache_specs"])]
+        raw, moved = [], 0
+        for (_, c, sc), (_, wc, _), spec in zip(
+            g["caches"], want["caches"], specs, strict=True
+        ):
+            block = cut(wc, spec, got["sizes"], got["coords"])
+            if sc is None:
+                raw.append((c, block))
+            else:
+                diff = (c.int() - block.int()).abs()
+                assert int(diff.max()) <= 1
+                moved += int((diff > 0).sum())
+        share = 2e-2 if moved else 1e-4
+        for c, block in raw:
+            atol = share * float(block.abs().max())
+            torch.testing.assert_close(c, block, atol=atol, rtol=1e-4)
+    total = sum(r["graphed"]["bytes"] for r in ranks)
+    assert total == pytest.approx(want["bytes"], rel=1e-12)
+
+
 def test_nccl_two_ranks_tp_train_equals_one_process(cuda, tmp_path):
     """gemma3-1b smoke (f32) trained 3 steps with LQ-SGD r1 b8 and SGD at a
     1x2 mesh over NCCL, one card a rank: the graphed step, its model-axis

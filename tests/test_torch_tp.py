@@ -26,7 +26,8 @@
   the JAX caches the rank's spec cuts; the ranks' bytes/token shares sum
   to the one-process figure; every row-parallel product and nothing else
   all-reduced. In the same spawn the launcher at ``--mesh 2x2`` against
-  one process, the refusals, and a time pin.
+  one process, the refusals, and a time pin. The other architectures and
+  the continuous scheduler over ranks: ``test_torch_tp_zoo.py``.
 """
 
 import functools
@@ -53,7 +54,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.core.codec import unpack_nibbles
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import sharding as tsharding
-from repro_torch.launch.mesh import LATER_STEPS, TP_COMPRESSORS, DataMesh
+from repro_torch.launch.mesh import TP_COMPRESSORS, DataMesh
 from repro_torch.models.model import init_params, stacked_flags
 from repro_torch.models.multimodal import vq_tokens_stub
 from repro_torch.serving import engine as tengine
@@ -454,11 +455,6 @@ def test_launcher_prints_on_rank_zero_only(tp_run):
 REFUSALS = {
     "mesh_1x2": ("ValueError", "takes data x model ranks"),
     "mesh_3x2": ("ValueError", "takes data x model ranks"),
-    "mixtral-8x7b": ("NotImplementedError", LATER_STEPS),
-    "deepseek-v3-671b": ("NotImplementedError", LATER_STEPS),
-    "mamba2-370m": ("NotImplementedError", LATER_STEPS),
-    "musicgen-medium": ("NotImplementedError", LATER_STEPS),
-    "continuous": ("NotImplementedError", LATER_STEPS),
     # training takes a model axis; TopK on model-sharded gradients does not
     "train": ("NotImplementedError", TP_COMPRESSORS),
     "graph_under_gloo": ("ValueError", "gloo"),
