@@ -280,6 +280,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    router logits at margins <= MOE_FLIP_MARGIN, and (r5)'s requests equal
    up to a token at a one-process margin below P_TOKEN_MARGIN; each
    run's kernels launched on every rank (``R_KERNELS``).
+18. tensor-parallel training of the rest of the zoo, right after phase 17,
+   run as phase 16's runs (``S_RUNS``, in the same shared torchruns): #1,
+   #3 and #5 at the ranks' factor shapes against their plain versions,
+   then at 1x2 (s1) mixtral-8x7b one MoE layer (4 of 8 experts a rank),
+   b8, Adam, (s2) deepseek-v3-671b's 3 dense MLA lead layers and the MTP
+   head, b8, SGD and a bf16 error feedback, (s3) jamba-v0.1-52b positions
+   1 and 4 of its period (a Mamba-2 layer with a MoE FFN of 16 experts,
+   and the attention layer), b8, SGD, (s4) musicgen-medium on 6 of 48
+   layers with its codebooks and conditioning prefix, b4, Adam, and at
+   2x2 (s5) mamba2-370m on 6 of 48 layers, b8, Adam; all at full width, 2
+   x 512 tokens a worker, 3 steps, LQ-SGD r1. Phase 16's checks, plus
+   every rank's ce, mtp_ce and moe_aux within Q_LOSS_REL of the
+   one-process run's, the router's and MLA's ``wq_a`` / ``wkv_a`` step-0
+   synced gradients printed, the accounted bits of (s1) and (s5) the JAX
+   package's (``S_BITS``), and each rank's step-0 MoE choices against the
+   one-process run's, a flip only at a router margin (from the rank's own
+   logits) <= MOE_FLIP_MARGIN.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -3867,11 +3884,11 @@ def _zoo_cfg(arch, cut, smoke=False):
     return dataclasses.replace(get_config(arch, smoke=smoke), **cut)
 
 
-def _moe_flips(label, cfg, kernel_calls, held_calls):
-    """Per MoE layer, the assignments reference mode would route otherwise
-    (from its own router logits, the layers before held to the kernel
-    run's choices), each at a reference margin <= MOE_FLIP_MARGIN. Returns
-    the flips per layer."""
+def _moe_flips(label, cfg, kernel_calls, held_calls, who="reference-mode"):
+    """Per MoE layer, the assignments reference mode (``who``) would route
+    otherwise (from its own router logits, the layers before held to the
+    kernel run's choices), each at a reference margin <= MOE_FLIP_MARGIN.
+    Returns the flips per layer."""
     k = cfg.experts_per_token
     per_layer, worst = [], 0.0
     for (chosen, _), (_, logits) in zip(kernel_calls, held_calls, strict=True):
@@ -3892,7 +3909,7 @@ def _moe_flips(label, cfg, kernel_calls, held_calls):
         per_layer.append(int(moved.sum()))
     n = kernel_calls[0][0].numel()
     print(
-        f"  {label}: reference-mode routing flips per MoE layer {per_layer} of "
+        f"  {label}: {who} routing flips per MoE layer {per_layer} of "
         f"{n} assignments each, largest reference margin {worst:.3g} "
         f"(bound {MOE_FLIP_MARGIN})"
     )
@@ -5513,11 +5530,13 @@ def _q_world(mesh):
 
 
 def _q_rank(out_dir, run):
-    """One rank's (q) run in the shared torchrun (``tp_spawn_rank_main``):
-    ``launch/train.py``'s ``main`` over the mesh of ``run`` with the launch
-    counts and the peak memory at 0 first, dumping to
-    ``out_dir/<run>_ranks/rank<r>.pt``; then a graphed step under gloo,
-    which must be refused (its message to ``refusal<r>.txt`` beside)."""
+    """One rank's (q) or (s) run in the shared torchrun
+    (``tp_spawn_rank_main``): ``launch/train.py``'s ``main`` over the mesh
+    of ``run`` with the launch counts and the peak memory at 0 first,
+    dumping to ``out_dir/<run>_ranks/rank<r>.pt`` (an MoE model's routing
+    of step 0's forward to ``routing<r>.pt`` beside); then a graphed step
+    under gloo, which must be refused (its message to ``refusal<r>.txt``
+    beside)."""
     from repro_torch.configs import get_config
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.kernels import ops
@@ -5525,14 +5544,16 @@ def _q_rank(out_dir, run):
     from repro_torch.train.optimizer import sgd
     from repro_torch.train.step import build_train_step, make_model_compressor
 
-    arch, mesh, argv = Q_RUNS[run]
+    arch, mesh, argv = TRAIN_RUNS[run]
     dump = Path(out_dir, f"{run}_ranks")
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    out = train.main(
-        ["--arch", arch, *argv, *Q_COMMON, "--mesh", mesh, *Q_RANK_ARGS]
-        + ["--dump", str(dump)]
-    )
+    with _s_routing(run, dump) as keep:
+        out = train.main(
+            ["--arch", arch, *argv, *Q_COMMON, "--mesh", mesh, *Q_RANK_ARGS]
+            + ["--dump", str(dump)]
+        )
+        keep(f"routing{out['mesh'].rank}.pt")
     rank = out["mesh"].rank
     cfg = get_config("gemma3-1b", smoke=True)
     comp = make_model_compressor(cfg, CompressorConfig(name="lq_sgd"))
@@ -5557,10 +5578,13 @@ def _q_plan(run):
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.train.step import make_model_compressor
 
-    arch, _, argv = Q_RUNS[run]
+    arch, _, argv = TRAIN_RUNS[run]
     cfg = get_config(arch, smoke="--smoke" in argv)
     if "--repeats" in argv:
         cfg = dataclasses.replace(cfg, repeats=int(argv[argv.index("--repeats") + 1]))
+    if "--keep-pattern" in argv:
+        keep = [int(i) for i in argv[argv.index("--keep-pattern") + 1].split(",") if i]
+        cfg = dataclasses.replace(cfg, pattern=tuple(cfg.pattern[i] for i in keep))
     bits = int(argv[argv.index("--bits") + 1])
     ccfg = CompressorConfig(name="lq_sgd", rank=1, bits=bits)
     comp = make_model_compressor(cfg, ccfg)
@@ -5571,24 +5595,42 @@ def _q_layout(comp, dims):
     """For each data-axis gather of one LQ-SGD step, in the sync's order
     (the raw leaves, then every low-rank leaf's P, then its Q): (phase,
     leaf index, the factor's per-worker shape, the dim of it a rank holds
-    a block of, or None)."""
+    a block of, or None, and that dim's unflattened sizes with the index
+    of the one the model axis cuts: a P's rows are the leaf's dims but its
+    last, so a rank's rows of a (cb, V, d) leaf split on V are a block of
+    every codebook's)."""
     out = []
     for i, pl in enumerate(comp.plans):
         if pl.route != "lowrank":
-            out.append(("raw", i, pl.shape, dims[i]))
+            d = dims[i]
+            rows = None if d is None else ((pl.shape[d],), 0)
+            out.append(("raw", i, pl.shape, d, rows))
     lowrank = [(i, pl) for i, pl in enumerate(comp.plans) if pl.route == "lowrank"]
     for phase in ("P", "Q"):
         for i, pl in lowrank:
             n, m = pl.mat_shape
-            shape = ((pl.shape[0],) if pl.stacked else ()) + (
-                (n if phase == "P" else m),
-                pl.eff_rank,
-            )
+            lead = (pl.shape[0],) if pl.stacked else ()
+            shape = lead + ((n if phase == "P" else m), pl.eff_rank)
             d = dims[i]
             kind = None if d is None else ("col" if d == len(pl.shape) - 1 else "row")
-            split = (phase == "P" and kind == "row") or (phase == "Q" and kind == "col")
-            out.append((phase, i, shape, len(shape) - 2 if split else None))
+            if phase == "P" and kind == "row":
+                rows = (pl.shape[len(lead) : -1], d - len(lead))
+                out.append((phase, i, shape, len(shape) - 2, rows))
+            elif phase == "Q" and kind == "col":
+                out.append((phase, i, shape, len(shape) - 2, ((m,), 0)))
+            else:
+                out.append((phase, i, shape, None, None))
     return out
+
+
+def _q_factor_block(w, dim, rows, coords, sizes):
+    """The rank's block of a gathered (N, ...) factor ``w`` whose per-worker
+    ``dim`` flattens the sizes ``rows[0]``, of which the model axis cuts
+    the one at ``rows[1]`` (:func:`_q_layout`)."""
+    dims, cut = rows
+    shape = w.shape[: dim + 1] + tuple(dims) + w.shape[dim + 2 :]
+    block = _q_block(w.reshape(shape), dim + 1 + cut, coords, sizes)
+    return block.reshape(w.shape[: dim + 1] + (-1,) + w.shape[dim + 2 :])
 
 
 def _q_steps(block, stacked, moved):
@@ -5626,6 +5668,18 @@ def _q_kernels(gen):
     """#1 (b8), #3 (b4) and #5 at the ranks' factor shapes of (q1) / (q2)
     over a model axis of 2 against their plain versions, with times (CUDA
     events), bounds and the plain versions' times."""
+    _train_kernels(gen, ("q1", "q2"))
+
+
+def _s_kernels(gen):
+    """:func:`_q_kernels` at (s1)-(s5)'s ranks' factor shapes."""
+    _train_kernels(gen, tuple(S_RUNS))
+
+
+def _train_kernels(gen, runs):
+    """#1 (b8) or #3 (b4), and #5, at the largest factor block and the
+    largest whole factor a rank of each of ``runs`` encodes over a model
+    axis of 2, against their plain versions."""
     from repro_torch.core.compressors import model_split
     from repro_torch.kernels import ref
     from repro_torch.kernels.log_quant import (
@@ -5639,18 +5693,20 @@ def _q_kernels(gen):
     class _Two:  # a model axis of 2, rank 0: shapes only
         size, rank = 2, 0
 
-    print("kernels at the tensor-parallel training ranks' factor shapes")
-    for run, kernel, plain, name in (
-        ("q1", log_quantize_triton, ref.log_quantize_ref, "log_quantize"),
-        ("q2", log_quantize_pack_triton, ref.log_quantize_pack_ref,
-         "log_quantize_pack"),
-    ):  # fmt: skip
+    print(f"kernels at the tensor-parallel training ranks' factor shapes {runs}")
+    for run in runs:
         cfg, comp, bits = _q_plan(run)
+        kernel, plain, name = (
+            (log_quantize_triton, ref.log_quantize_ref, "log_quantize")
+            if bits == 8
+            else (log_quantize_pack_triton, ref.log_quantize_pack_ref,
+                  "log_quantize_pack")
+        )  # fmt: skip
         dims = model_split(_Two(), train_param_specs(cfg, 2)).dims
         layout = _q_layout(comp, dims)
         # the largest block and the largest whole factor a rank encodes
         blocks = {}
-        for phase, _, shape, dim in layout:
+        for phase, _, shape, dim, _ in layout:
             shp = list(shape)
             if dim is not None:
                 shp[dim] //= 2
@@ -5702,13 +5758,16 @@ def _q_one_process(run, out_dir):
     segment it lies in, and (k1) later needs all but ~3 GB of the card."""
     from repro_torch.launch import train
 
-    arch, mesh, argv = Q_RUNS[run]
+    arch, mesh, argv = TRAIN_RUNS[run]
     data, _ = _q_world(mesh)
     _free_cuda()
-    train.main(
-        ["--arch", arch, *argv, *Q_COMMON, "--mesh", f"{data}x1", "--device", "cuda"]
-        + ["--dump", str(out_dir)]
-    )
+    torch.cuda.reset_peak_memory_stats()
+    with _s_routing(run, out_dir) as keep:
+        train.main(
+            ["--arch", arch, *argv, *Q_COMMON, "--mesh", f"{data}x1"]
+            + ["--device", "cuda", "--dump", str(out_dir)]
+        )
+        keep("routing.pt")
     torch._C._cuda_clearCublasWorkspaces()
     _free_cuda()
     return torch.load(Path(out_dir, "rank0.pt"), weights_only=False)
@@ -5718,8 +5777,9 @@ def _q_run(card, run, one, rank_dir, one_s):
     """(q)'s checks of ``run``: its ranks' dumps in ``rank_dir`` (from the
     shared torchrun) against the one-process run ``one``."""
     from repro_torch.core.tree import flatten_with_paths
+    from repro_torch.launch.train import sample_stride
 
-    arch, mesh, argv = Q_RUNS[run]
+    arch, mesh, argv = TRAIN_RUNS[run]
     data, model = _q_world(mesh)
     world = data * model
     cfg, comp, bits = _q_plan(run)
@@ -5733,7 +5793,8 @@ def _q_run(card, run, one, rank_dir, one_s):
     one_ms = 1e3 * one["step_s"][-1]  # step 0 eager, step 1 the capture
     print(
         f"{label}: {n_params / 1e9:.3f} B parameters, {len(cfg.layers)} "
-        f"layers; one process {one_s:.1f} s ({one_ms:.1f} ms a replayed step, peak "
+        f"layers; one process {one_s:.1f} s ({one_ms:.1f} ms its last step, "
+        f"a replay where the step is graphed, peak "
         f"{one['peak_bytes'] / 1e9:.2f} GB)"
     )
     one_loss = [h["loss"] for h in one["history"]]
@@ -5748,6 +5809,9 @@ def _q_run(card, run, one, rank_dir, one_s):
         bits0 = one["recs"][0][0]
         check(bits0 == J1_BITS, f"{label}: {bits0} != {J1_BITS}")
         check(one["recs"][0][2] == Q1_COLLECTIVES, f"{label}: one-process collectives")
+    if run in S_BITS:
+        bits0 = one["recs"][0][0]
+        check(bits0 == S_BITS[run], f"{label}: {bits0} != {S_BITS[run]}")
     rows, moved = {}, {}
     for r, res in enumerate(ranks):
         coords, sizes = _q_coords(r, data, model)
@@ -5767,12 +5831,12 @@ def _q_run(card, run, one, rank_dir, one_s):
         # step 0's wire against the block of the one-process wire
         moved_at = {}  # leaf index -> phase -> where a worker's code moved
         for j in range(n_layout):
-            phase, i, shape, dim = layout[j]
+            phase, i, shape, dim, flat = layout[j]
             w = _q_codes(one["gathered"][j], shape, bits)
             bshape = list(shape)
             if dim is not None:
                 bshape[dim] //= model
-                w = _q_block(w, dim + 1, coords, sizes)
+                w = _q_factor_block(w, dim, flat, coords, sizes)
             g = _q_codes(res["gathered"][j], bshape, bits)
             diff = (g.int() - w.int()).abs()
             m = moved.setdefault(phase, [0, 0, 0])
@@ -5784,21 +5848,28 @@ def _q_run(card, run, one, rank_dir, one_s):
         # leaf's largest value, plus, where the codes it is made of moved by
         # k steps in all, the k steps' move of itself (on the card: a
         # billion elements a rank)
-        worst, touched_n, total_n = (0.0, ""), 0, 0
+        worst, touched_n, total_n, named = (0.0, ""), 0, 0, {}
         synced = flatten_with_paths(res["synced0"])
+        tops = one.get("synced0_max")  # a sample's leaves: the whole leaf's
         for i, ((path, g), dim) in enumerate(zip(synced, res["dims"])):
             w = _q_block(one_synced[path], dim, coords, sizes).cuda().float()
             g = g.cuda()
             diff = (g.float() - w).abs()
-            top = max(float(w.abs().max()), 1e-30)
+            top = max(float(w.abs().max()) if tops is None else tops[i], 1e-30)
             share = diff / top
             if i in moved_at:
                 at = {ph: m.cuda() for ph, m in moved_at[i].items()}
-                steps = _q_steps(g, comp.plans[i].stacked, at)
+                stride = 1
+                if "--dump-sample" in argv:  # the block's whole last dim
+                    stride = sample_stride(comp.plans[i].shape[-1])
+                whole = torch.empty(g.shape[:-1] + (g.shape[-1] * stride,), device="meta")
+                steps = _q_steps(whole, comp.plans[i].stacked, at)[..., ::stride]
                 touched_n += int((steps > 0).sum())
                 share = (share - (torch.pow(1 + step, steps.float()) - 1)).clamp_min(0)
             total_n += g.numel()
             worst = max(worst, (float(share.max()), path))
+            if run in S_RUNS and any(f"['{k}']" in path for k in S_NAMED):
+                named[path] = float(share.max())
         check(
             worst[0] <= Q_SYNC_SHARE,
             f"{who}: step-0 synced {worst[1]} share {worst[0]:.3e}",
@@ -5816,6 +5887,11 @@ def _q_run(card, run, one, rank_dir, one_s):
             f"{data_share:.1%}; peak {res['peak_bytes'] / 1e9:.2f} GB; {card}"
         )
         print(f"    model-axis collectives by tag: {res['model_comm']['calls']}")
+        if named:
+            print(
+                "    step-0 synced share beyond the moved codes' steps: "
+                + ", ".join(f"{p} {v:.3e}" for p, v in named.items())
+            )
     for (d, s), got in rows.items():
         rep = {b for _, b in got}
         check(len(got) == model and len(rep) == 1, f"{label}: row {d} step {s} ranks")
@@ -5844,7 +5920,7 @@ def _q_run(card, run, one, rank_dir, one_s):
         f"{world} ranks after each of {Q_STEPS} steps; a graphed step under gloo "
         "refused"
     )
-    emit({"phase": "q", "run": run, "card": card, "one_s": one_s,
+    emit({"phase": run[0], "run": run, "card": card, "one_s": one_s,
           "one_ms": one_ms, "codes_moved": moved, "accounted_bits": one["recs"][0][0],
           "replicated_bits": ranks[0]["replicated_bits"],
           "ranks": [{"rank": i, "step_s": r["step_s"],
@@ -5866,6 +5942,109 @@ def _q_run(card, run, one, rank_dir, one_s):
 
 def _q_coords(r, data, model):
     return {"data": r // model, "model": r % model}, {"data": data, "model": model}
+
+
+# ------------------ phase 18 (s): tensor-parallel training of the rest of the zoo
+# run -> (arch, mesh, arguments), run as (q)'s: in the shared torchrun of its
+# mesh through launch/train.py (one worker a rank) against the one-process
+# launcher (--mesh Dx1) on the same seeded weights and batches, 3 steps of
+# LQ-SGD r1 at the configs' widths, 2 x 512 tokens a worker, cut in depth so
+# that two ranks, or the one-process run, fit the card: (s1) mixtral-8x7b one
+# MoE layer of 32 (4 of 8 experts a rank), b8, Adam 1e-4 as (l5); (s2)
+# deepseek-v3-671b its 3 dense MLA lead layers and the MTP head, no MoE
+# layer (one is 11.3 B parameters), b8, SGD, a bf16 error feedback as (o4)
+# (Adam's moments would not fit the one-process run); (s3) jamba-v0.1-52b
+# positions 1 and 4 of its period (a Mamba-2 layer with an FFN of 16
+# experts, 8 a rank, and the attention layer), b8, SGD; (s4)
+# musicgen-medium 6 of 48 layers with its codebooks and conditioning prefix,
+# b4, Adam 1e-4 as (m4); (s5) mamba2-370m 6 of 48 layers at 2x2 (2 workers),
+# b8, Adam 1e-4 as (m3). Step 0's synced gradients are kept at a sample of
+# each leaf's last dim (launch/train.py --dump-sample: 56-128 columns a
+# matrix), held to Q_SYNC_SHARE of the whole leaf's largest value: whole,
+# (s1)-(s3)'s dumps wrote ~39 GB, past the machine's 45 GiB of disk
+# writes with the earlier phases'. SGD at 0.005: at (q2)'s 0.05 both models' losses
+# rose at the third step (deepseek 16.1, 14.0, 18.2), and the ranks' bf16
+# drift grew with it past Q_LOSS_REL.
+S_TOKENS = ["--seq", "512", "--compressor", "lq_sgd", "--rank", "1", "--dump-sample"]
+S_ADAM = ["--optimizer", "adam", "--lr", "1e-4"]
+S_SGD = ["--optimizer", "sgd", "--lr", "0.005"]
+S_RUNS = {
+    "s1": ("mixtral-8x7b", "1x2", [
+        "--repeats", "1", "--batch", "2", *S_TOKENS, "--bits", "8", *S_ADAM,
+    ]),
+    "s2": ("deepseek-v3-671b", "1x2", [
+        "--keep-pattern", "", "--batch", "2", *S_TOKENS, "--bits", "8", *S_SGD,
+        "--comp-dtype", "bfloat16",
+    ]),
+    "s3": ("jamba-v0.1-52b", "1x2", [
+        "--repeats", "1", "--keep-pattern", "1,4", "--batch", "2", *S_TOKENS,
+        "--bits", "8", *S_SGD,
+    ]),
+    "s4": ("musicgen-medium", "1x2", [
+        "--repeats", "6", "--batch", "2", *S_TOKENS, "--bits", "4", *S_ADAM,
+    ]),
+    "s5": ("mamba2-370m", "2x2", [
+        "--repeats", "6", "--batch", "4", *S_TOKENS, "--bits", "8", *S_ADAM,
+    ]),
+}  # fmt: skip
+TRAIN_RUNS = {**Q_RUNS, **S_RUNS}
+# the accounted bits a step where the CPU tests hold the JAX package's figure
+# for the same tree ((l5), (m3))
+S_BITS = {"s1": 2_626_336, "s5": 1_200_544}
+# the leaves whose step-0 synced gradient (s) prints, beside the worst
+S_NAMED = ("router", "wq_a", "wkv_a")
+# the step metrics besides the loss held to Q_LOSS_REL
+S_METRICS = ("ce", "mtp_ce", "moe_aux")
+
+
+@contextlib.contextmanager
+def _s_routing(run, out_dir):
+    """For an (s) run of a model with MoE layers: its MoE calls' routing
+    recorded (``models.moe.routing``); ``keep(name)`` writes step 0's
+    forward calls (the first of the run: one a MoE layer) to
+    ``out_dir/name``. Otherwise nothing is recorded or written."""
+    from repro_torch.models import moe
+
+    cfg = _q_plan(run)[0] if run in S_RUNS else None
+    n_moe = 0 if cfg is None else sum(spec.moe for spec in cfg.layers)
+    if not n_moe:
+        yield lambda name: None
+        return
+    with moe.routing() as rec:
+
+        def keep(name):
+            calls = [(c.cpu(), lg.cpu()) for c, lg in rec.calls[:n_moe]]
+            torch.save(calls, Path(out_dir, name))
+
+        yield keep
+
+
+def _s_checks(run, one_dir, rank_dir, one):
+    """(s)'s checks beside (q)'s (:func:`_q_run`): every rank's ce, mtp_ce
+    and moe_aux within Q_LOSS_REL of the one-process run's at every step,
+    and its step-0 MoE choices against the one-process run's, each flip at
+    a router margin (from the rank's own logits) <= MOE_FLIP_MARGIN."""
+    arch, mesh, _ = S_RUNS[run]
+    data, model = _q_world(mesh)
+    cfg = _q_plan(run)[0]
+    label = f"({run}) {arch} {mesh}"
+    for r in range(data * model):
+        res = torch.load(Path(rank_dir, f"rank{r}.pt"), weights_only=False)
+        worst = {}
+        for key in S_METRICS:
+            if key not in one["history"][0]:
+                continue
+            for h, w in zip(res["history"], one["history"], strict=True):
+                rel = abs(h[key] - w[key]) / max(abs(w[key]), 1e-30)
+                check(rel <= Q_LOSS_REL, f"{label} rank {r}: {key} {h[key]} vs {w[key]}")
+                worst[key] = max(worst.get(key, 0.0), rel)
+        print(f"  {label} rank {r}: rel of each metric against one process {worst}")
+        if Path(one_dir, "routing.pt").exists():
+            want = torch.load(Path(one_dir, "routing.pt"), weights_only=False)
+            got = torch.load(Path(rank_dir, f"routing{r}.pt"), weights_only=False)
+            who = "the rank's (its own router logits against one process's choices)"
+            flips = _moe_flips(f"{label} rank {r} step 0", cfg, want, got, who)
+            emit({"phase": "s", "run": run, "rank": r, "moe_flips": flips})
 
 
 # ------------------------------------ phase 17 (r): tensor-parallel zoo serving
@@ -5890,8 +6069,8 @@ R_RUNS = {
 }
 # the runs of phases (p), (q) and (r) over each mesh, in ONE torchrun each
 TP_SPAWNS = {
-    "1x2": ("o", "n3", "p1", "p3", "q2", "r1", "r3", "r4"),
-    "2x2": ("n2", "p2", "q1", "r2", "r5"),
+    "1x2": ("o", "n3", "p1", "p3", "q2", "r1", "r3", "r4", "s1", "s2", "s3", "s4"),
+    "2x2": ("n2", "p2", "q1", "r2", "r5", "s5"),
 }
 R_CONTINUOUS = "r5"
 # The ranks share the card and draw their weights in turn (launch/serve.py),
@@ -6083,7 +6262,7 @@ def tp_spawn_rank_main(out_dir, mesh):
             t0 = time.perf_counter()
             if run in ("o", "n2", "n3"):
                 res = {"o": _o_rank, "n2": _n2_rank, "n3": _n3_rank}[run](out_dir)
-            elif run in Q_RUNS:
+            elif run in TRAIN_RUNS:
                 res = _q_rank(out_dir, run)
             elif run in P_RUNS:
                 res = _p_rank(out_dir, run)
@@ -6352,19 +6531,19 @@ def _r_continuous_checks(card, run, one, ranks):
 
 
 def phase_tp(card):
-    """(o), (p), (q) and (r): every compressor across 2 ranks, and
+    """(o), (p), (q), (r) and (s): every compressor across 2 ranks, and
     tensor-parallel serving and training, over gloo ranks sharing the card.
     Each phase's kernels at its ranks' shapes first; then per mesh the
     one-process runs here and ONE torchrun of its ranks for the runs of
-    all four phases (``TP_SPAWNS``: a torchrun's start-up and first calls
+    all the phases (``TP_SPAWNS``: a torchrun's start-up and first calls
     cost ~15-25 s), then each run's checks ((o)'s SimComm(4) runs here).
     Returns the ranks' launches and the seconds of each phase: its
     kernels, one-process runs, checks and its runs' share of the torchruns
     (the slowest rank's time in its runs, and the start-up split over the
     runs)."""
-    seconds = dict.fromkeys(("n2", "n3", "o", "p", "q", "r"), 0.0)
+    seconds = dict.fromkeys(("n2", "n3", "o", "p", "q", "r", "s"), 0.0)
     for phase, kernels, seed in (("p", _p_kernels, 15), ("q", _q_kernels, 16),
-                                 ("r", _r_kernels, 17)):  # fmt: skip
+                                 ("r", _r_kernels, 17), ("s", _s_kernels, 18)):  # fmt: skip
         t0 = time.perf_counter()
         kernels(torch.Generator(device="cuda").manual_seed(seed))
         seconds[phase] += time.perf_counter() - t0
@@ -6379,7 +6558,7 @@ def phase_tp(card):
                     one[run] = None
                 elif run in P_RUNS:
                     one[run] = _p_one_process(run, tmp)
-                elif run in Q_RUNS:
+                elif run in TRAIN_RUNS:
                     one[run] = _q_one_process(run, Path(tmp, f"{run}_one"))
                 elif run == R_CONTINUOUS:
                     one[run] = _r_one_continuous(run)
@@ -6416,8 +6595,11 @@ def phase_tp(card):
                     counts = _n2_checks(card, tmp)
                 elif run == "n3":
                     counts = _n3_checks(card, tmp, out)
-                elif run in Q_RUNS:
-                    counts = _q_run(card, run, one[run], Path(tmp, f"{run}_ranks"), one_s[run])
+                elif run in TRAIN_RUNS:
+                    rank_dir = Path(tmp, f"{run}_ranks")
+                    counts = _q_run(card, run, one[run], rank_dir, one_s[run])
+                    if run in S_RUNS:
+                        _s_checks(run, Path(tmp, f"{run}_one"), rank_dir, one[run])
                 else:
                     ranks = [
                         torch.load(Path(tmp, f"{run}_rank{r}.pt"), weights_only=False)

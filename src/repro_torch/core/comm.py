@@ -25,7 +25,8 @@ row-parallel products' all-reduce and the gathers of heads, vocab and
 attention partials within one axis group of a ``(data, model)`` mesh;
 :class:`ModelAxis` is what the sharded forward threads through its layers.
 Its collectives carry their own backward (:func:`copy_to_model`,
-:func:`reduce_from_model`, :func:`gather_from_model`), so a training
+:func:`reduce_from_model`, :func:`gather_from_model`,
+:func:`gather_to_split`), so a training
 forward over the model axis is differentiated as it is written. Over a
 ``(data, model)`` mesh the sync's ``DistComm`` spans the rank's data-axis
 group only (``group``).
@@ -55,6 +56,7 @@ __all__ = [
     "copy_to_model",
     "reduce_from_model",
     "gather_from_model",
+    "gather_to_split",
     "partial_product",
 ]
 
@@ -381,7 +383,8 @@ class ModelComm:
       its partial kept in f32 through the all-reduce;
     * ``all_gather(x, dim, tag)``: the ranks' blocks concatenated along
       ``dim`` in rank order; its backward keeps the rank's block
-      (:func:`gather_from_model`);
+      (:func:`gather_from_model`; :func:`gather_to_split` sums the ranks'
+      gradients first);
     * ``max(x, tag)``: the elementwise max over the ranks (no gradient: a
       quantization scale, a log-sum-exp's shift).
 
@@ -535,6 +538,19 @@ class _GatherFromModel(torch.autograd.Function):
         return block, None, None, None
 
 
+class _GatherToSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, tag):
+        ctx.comm, ctx.dim, ctx.n, ctx.tag = comm, dim, x.shape[dim], tag
+        return comm._gather(x, dim, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = ctx.comm._sum(grad, ctx.tag + ".grad")
+        block = whole.narrow(ctx.dim, ctx.comm.rank * ctx.n, ctx.n)
+        return block, None, None, None
+
+
 def copy_to_model(x: torch.Tensor, comm: ModelComm, tag: str) -> torch.Tensor:
     """Identity forward, the f32 sum over the model group backward: placed
     where a replicated activation enters a branch whose products split over
@@ -561,6 +577,21 @@ def gather_from_model(
     if comm.size == 1:
         return x
     return _GatherFromModel.apply(x, comm, dim % x.dim(), tag)
+
+
+def gather_to_split(
+    x: torch.Tensor, comm: ModelComm, dim: int, tag: str
+) -> torch.Tensor:
+    """The ranks' blocks concatenated along ``dim`` forward; backward, the
+    f32 sum of the ranks' gradients over the group, then this rank's block
+    (a reduce-scatter, written as the all-reduce and a narrow: gloo's
+    reduce-scatter takes no CUDA tensors). For an activation gathered to
+    feed a product split over the group (MLA's latent down-projections,
+    gathered before the head-split up-projections): each rank's gradient of
+    the gathered tensor is only its heads' part."""
+    if comm.size == 1:
+        return x
+    return _GatherToSplit.apply(x, comm, dim % x.dim(), tag)
 
 
 @dataclasses.dataclass(frozen=True)

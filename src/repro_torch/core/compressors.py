@@ -945,8 +945,10 @@ class GradCompressor:
 
     def model_replicated_bits(self, model: ModelSplit) -> int:
         """Of ``wire_bits_per_step``, the bits every model rank ships alike
-        over ``model`` (each a whole copy): so the ranks of one data row
-        ship ``wire_bits_per_step() + (M - 1) * model_replicated_bits``
+        over ``model`` (each a whole copy: the replicated leaves, such as
+        the norms, an MoE router and a Mamba-2 mixer's projections, and a
+        split leaf's whole factor): so the ranks of one data row ship
+        ``wire_bits_per_step() + (M - 1) * model_replicated_bits``
         together."""
         return sum(
             self.handler.leaf_replicated_bits(pl, model.kind(i, pl))

@@ -28,7 +28,10 @@ block of a split leaf's G and E, and the whole warm-start Q:
 * a row-split G (n/M, m): P is the rank's block of rows, quantized on the
   model-wide scale and orthonormalized with its dot products and norms
   summed over the model axis (``low_rank.orthonormalize_split``); Q =
-  G_block^T P^_block is a partial, summed over the model axis.
+  G_block^T P^_block is a partial, summed over the model axis. A leaf cut
+  on any dim but its last is row-split so: an MoE expert stack (E, D, F)
+  cut on E, matricized (E*D, F), holds E/M experts' rows; a (cb, V, d)
+  codebook table cut on V holds a block of every codebook's rows.
 
 A factor whole on every model rank is quantized and shipped over the data
 axis by each model rank alike. Each product is taken one worker at a time,

@@ -43,12 +43,13 @@ __all__ = [
     "cut",
     "split_dim",
     "partial_grad_flags",
-    "tp_train_refusal",
 ]
 
 # the subtrees of a layer whose input enters through ``copy_to_model`` when
 # one of their products splits over the model axis
 BRANCHES = ("mixer", "ffn")
+# MLA's latent down-projections: split by columns, gathered whole before use
+GATHERED = ("wq_a", "wkv_a")
 
 MODEL_AXIS = "model"
 DATA_AXIS = "data"
@@ -314,22 +315,32 @@ def split_dim(spec: Spec) -> int | None:
 def partial_grad_flags(specs: Any) -> Any:
     """A tree of bools matching ``specs``: True on a replicated leaf used
     inside a branch split over the model axis, whose gradient a rank holds
-    only in part. A layer's attention mixer or FFN (:data:`BRANCHES`) is
-    split where one of its leaves splits: its input passes a
+    only in part. A layer's attention mixer or dense FFN (:data:`BRANCHES`)
+    is split where one of its leaves splits: its input passes a
     ``copy_to_model``, each rank runs its heads or columns, and a
     replicated leaf inside it (K/V projections over too few KV heads, the
-    QK norms, a replicated bias) sees only the rank's heads' part of the
-    gradient, which the step sums over the model axis. A replicated leaf
-    used before the ``copy_to_model`` (the pre-norms, the final norm) or in
-    a branch that does not split receives its whole gradient."""
+    QK norms, a replicated bias, MLA's latent norms) sees only the rank's
+    heads' part of the gradient, which the step sums over the model axis.
+    MLA's column-split latent down-projections (:data:`GATHERED`) do not
+    split their mixer by themselves: their outputs are gathered whole
+    (``models/mla.py:_latents``). An MoE FFN (one with a ``router``) has no
+    such leaf: the router and any expert stack or shared expert the axis
+    does not split run on the FFN's input itself, and only the split parts
+    on its copy (``models/moe.py``). A replicated leaf used before the
+    ``copy_to_model`` (the pre-norms, the final norm, the MTP head's
+    projection and norms) or in a branch that does not split (a Mamba-2
+    mixer, whose leaves all replicate) receives its whole gradient."""
+
+    def splits(path: str, spec: Spec) -> bool:
+        name = path.rsplit("[", 1)[-1].strip("']")
+        return split_dim(spec) is not None and name not in GATHERED
 
     def flags(t: Any, inside: bool) -> Any:
         if isinstance(t, dict):
             out = {}
             for k, v in t.items():
-                split = k in BRANCHES and any(
-                    split_dim(s) is not None for _, s in _walk(v)
-                )
+                split = k in BRANCHES and isinstance(v, dict) and "router" not in v
+                split = split and any(splits(p, s) for p, s in _walk(v))
                 out[k] = flags(v, inside or split)
             return out
         if isinstance(t, (list, tuple)) and not isinstance(t, Spec):
@@ -337,21 +348,3 @@ def partial_grad_flags(specs: Any) -> Any:
         return inside and split_dim(t) is None
 
     return flags(specs, False)
-
-
-def tp_train_refusal(cfg: ModelConfig) -> str | None:
-    """What of ``cfg`` training over a model axis above 1 does not run yet,
-    or None: the dense attention + MLP architectures train. Serving takes
-    every architecture over the model axis (``serving/engine.py``), so
-    only training refuses."""
-    kinds = {spec.kind for spec in cfg.layers}
-    parts = [
-        ("MoE layers (expert parallelism)", any(spec.moe for spec in cfg.layers)),
-        ("MLA and its latent cache", cfg.use_mla),
-        ("Mamba-2 layers", "mamba" in kinds),
-        ("codebooks", bool(cfg.n_codebooks)),
-        ("the conditioning prefix", bool(cfg.cond_len)),
-        ("the MTP head", bool(cfg.mtp)),
-    ]
-    found = [name for name, has in parts if has]
-    return ", ".join(found) or None

@@ -44,9 +44,9 @@ Each rank draws the seeded init and keeps its blocks of the training tree
 feedback; the step's sync runs over its data-axis group and the
 forward's collectives over its model-axis group (``train/step.py``).
 Checkpoints hold the one-process layout, so a run resumes on any mesh of
-the same data axis. The dense attention + MLP architectures and the
-``none``, ``powersgd`` and ``lq_sgd`` compressors train so; the others
-raise (``launch/mesh.py``: ``LATER_STEPS``, ``TP_COMPRESSORS``).
+the same data axis. All ten architectures and the ``none``, ``powersgd``
+and ``lq_sgd`` compressors train so; the other compressors raise
+(``launch/mesh.py:TP_COMPRESSORS``).
 
 The step runs under the async runtime by default (prefetched batches,
 deferred metric reads, background checkpoints: ``train/runtime.py``);
@@ -56,16 +56,19 @@ codecs on the LQ-SGD wire (through the composite compressor); the run's
 line then also prints the per-step DP epsilon and its kind. Every
 compressor, codec, policy, schedule, lazy group and wire runs over the
 ranks as in one process. Those of parts not ported raise, naming the
-ROADMAP item that ports them: at a model axis above 1 the parts named
-above (item 15 B, steps 2 B and 4), and ``--production-mesh`` and
+ROADMAP item that ports them: at a model axis above 1 the compressors
+named above (item 15 B, step 4), and ``--production-mesh`` and
 ``--multi-pod`` (item 17). ``--dump DIR`` has each rank write
 ``DIR/rank<r>.pt`` (the history, every gathered wire array, the
 fingerprints of the final parameters and of this rank's rows of the
 compressor state, its kernel launches, each step's seconds and collective
 seconds, its peak device memory; ``--dump-steps`` adds each step's
-parameter fingerprints and step 0's synced gradients), which a
-comparison reads. ``--repeats R`` cuts the scanned layer pattern to R
-repeats (a depth cut at full width, for a run that must fit one card).
+parameter fingerprints and step 0's synced gradients, ``--dump-sample``
+only a sample of their positions), which a comparison reads.
+``--repeats R`` cuts the scanned layer pattern to R repeats and
+``--keep-pattern I,J`` to its positions I, J (``''``: none, the lead
+layers alone): depth cuts at full width, for a run that must fit one
+card.
 """
 
 from __future__ import annotations
@@ -75,6 +78,7 @@ import contextlib
 import dataclasses
 import gc
 import os
+import statistics
 import time
 from collections.abc import Iterator
 from typing import Any
@@ -89,18 +93,16 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.comm import ModelAxis, ModelComm
 from repro_torch.core.compressors import CompressorConfig, model_split
 from repro_torch.core.policy import format_plan_report, parse_decay_spec
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_unflatten
 from repro_torch.data.synthetic import LMDataConfig, cond_batch, lm_batch
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import (
-    LATER_STEPS,
     init_distributed,
     make_comm,
     make_mesh,
     make_model_comm,
     make_production_mesh,
 )
-from repro_torch.launch.sharding import tp_train_refusal
 from repro_torch.models.model import count_params
 from repro_torch.train.data_parallel import _tf32_off
 from repro_torch.train.optimizer import make_optimizer
@@ -230,6 +232,13 @@ def _parser() -> argparse.ArgumentParser:
         help="cut the scanned layer pattern to R repeats (the depth only; "
         "the widths stay the config's)",
     )
+    ap.add_argument(
+        "--keep-pattern",
+        default=None,
+        help="keep only these comma-separated positions of the scanned layer "
+        "pattern ('' keeps none: the lead and tail layers alone); a depth cut "
+        "like --repeats",
+    )
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dump", default=None, help="write DIR/rank<r>.pt")
     ap.add_argument(
@@ -237,6 +246,14 @@ def _parser() -> argparse.ArgumentParser:
         action="store_true",
         help="with --dump: each step's parameter fingerprints and step 0's "
         "synced gradients (on the host) too",
+    )
+    ap.add_argument(
+        "--dump-sample",
+        action="store_true",
+        help="with --dump-steps: step 0's synced gradients at every "
+        "sample_stride-th position of each leaf's last dim only, the same "
+        "positions of a rank's block as of the whole leaf, and each leaf's "
+        "(block's) largest absolute value",
     )
     return ap
 
@@ -299,11 +316,9 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.repeats is not None:
         cfg = dataclasses.replace(cfg, repeats=args.repeats)
-    if shape[1] > 1 and tp_train_refusal(cfg) is not None:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: {cfg.name}'s {tp_train_refusal(cfg)} not "
-            f"tensor-parallel yet ({LATER_STEPS})"
-        )
+    if args.keep_pattern is not None:
+        keep = [int(i) for i in args.keep_pattern.split(",") if i]
+        cfg = dataclasses.replace(cfg, pattern=tuple(cfg.pattern[i] for i in keep))
     comp_cfg = CompressorConfig(
         name=args.compressor,
         rank=args.rank,
@@ -371,8 +386,9 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             b["cond"] = cond_batch(data_cfg, step, cfg.cond_len, cfg.d_model)
         return b
 
-    # for --dump: (seconds, data-axis and model-axis collective seconds) at
-    # each step's end, each step's CommRecord numbers, and with
+    # for --dump and a model axis's time line: (seconds, data-axis and
+    # model-axis collective seconds) at each step's end; for --dump each
+    # step's CommRecord numbers, and with
     # --dump-steps each step's parameter fingerprints and step 0's synced
     # gradients on the host
     step_ends, recs, steps_kept, live = [], [], {"prints": []}, {}
@@ -389,7 +405,10 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
         if args.dump_steps:
             steps_kept["prints"].append(leaf_fingerprints(live["params"]))
             if "synced0" not in steps_kept:
-                steps_kept["synced0"] = tree_map(lambda t: t.detach().cpu(), synced)
+                steps_kept["synced0"] = _host_sample(synced, tp, args.dump_sample)
+                if args.dump_sample:  # each leaf's largest value, all of it
+                    leaves = tree_leaves(synced)
+                    steps_kept["synced0_max"] = [float(t.abs().max()) for t in leaves]
 
     # gloo runs its collectives from the host: the step cannot be a graph,
     # so the launcher asks for the eager one (and says so)
@@ -405,7 +424,7 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             accum_steps=args.microbatch,
             remat=not args.smoke,
             comm=comm,
-            on_sync=None if args.dump is None else mark,
+            on_sync=None if args.dump is None and tp is None else mark,
             graph=graph,
             tp=tp,
         )
@@ -501,6 +520,8 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             rebuild=rebuild,
             initial=comp0,
         )
+    if tp is not None and len(step_ends) > 1:
+        say(_tp_step_line(step_ends))
     if args.dump is not None:
         extra = dict(recs=recs, **steps_kept)
         if tp is not None:
@@ -529,6 +550,52 @@ def _shards(tp: Any, state: dict[str, Any], comp: Any) -> ModelShards | None:
     if tp is None:
         return None
     return ModelShards.of(tp.comm, train_state_specs(state, tp.specs, comp))
+
+
+def sample_stride(n: int, keep: int = 64) -> int:
+    """``--dump-sample``'s stride along a leaf's last dim of ``n`` positions
+    (the whole leaf's): the largest power of two that divides ``n / 8``
+    and leaves at least ``keep`` positions (1 where ``n`` is not a multiple
+    of 16), so it divides the block of any model axis that divides 8 and a
+    block's sampled positions are those of the whole leaf."""
+    s = 1
+    while n % (16 * s) == 0 and n // (2 * s) >= keep:
+        s *= 2
+    return s
+
+
+def _host_sample(tree: Any, tp: Any, sample: bool) -> Any:
+    """``tree`` (this rank's blocks) on the host, each leaf cut to its
+    ``sample_stride`` positions along its last dim where ``sample``."""
+    leaves = tree_leaves(tree)
+    dims = [None] * len(leaves)
+    if tp is not None:
+        dims = model_split(tp.comm, tp.specs).dims
+    out = []
+    for t, dim in zip(leaves, dims, strict=True):
+        if sample:
+            last = t.dim() - 1
+            whole = t.shape[-1] * (tp.comm.size if dim == last else 1)
+            t = t[..., :: sample_stride(whole)]
+        out.append(t.detach().to("cpu", copy=True))
+    return tree_unflatten(tree, out)
+
+
+def _tp_step_line(step_ends: list[tuple[float, float, float]]) -> str:
+    """The tensor-parallel run's line: ms a step (host clock, the device
+    synced at each step's end; the median of the steps after the first,
+    which builds what the later ones reuse) and the shares of those steps'
+    time in model-axis and data-axis collectives."""
+    t, c, mc = zip(*step_ends)
+    steps, data_s, model_s = ([b - a for a, b in zip(x, x[1:])] for x in (t, c, mc))
+    first = 1 if len(steps) > 1 else 0
+    total = sum(steps[first:])
+    return (
+        f"# tp step: {1e3 * statistics.median(steps[first:]):.1f} ms a step "
+        f"(steps {first}..{len(steps) - 1}), model-axis collectives "
+        f"{sum(model_s[first:]) / total:.1%}, data-axis "
+        f"{sum(data_s[first:]) / total:.1%} (host clock)"
+    )
 
 
 def _whole_params(cfg: Any) -> int:

@@ -19,7 +19,9 @@ appended in place (quantized against their own scales for a ``QuantKV``).
 
 Tensor-parallel serving (``tp``): a rank holds its heads and its sequence
 shard of the latent cache (:func:`mla_forward`); the decode merges the
-shards' partials as the attention's flash-decoding merge does.
+shards' partials as the attention's flash-decoding merge does. Training
+over the model axis runs the train mode on the rank's heads, the gathered
+latents' gradients summed over the ranks (:func:`_latents`).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.core.comm import copy_to_model
+from repro_torch.core.comm import copy_to_model, gather_from_model, gather_to_split
 from repro_torch.kernels import ops
 from repro_torch.models.attention import _owned_index
 from repro_torch.models.common import dense_init, rms_norm
@@ -87,19 +89,30 @@ def _latents(
     the normed KV latent (B, S, r_kv) and the roped shared key (B, S,
     rope). Where ``pspec`` splits the columns of ``wq_a`` or ``wkv_a``,
     a rank's columns are gathered over the model axis before the norms
-    (``tp.mla.q_a``, ``tp.mla.kv_a``)."""
+    (``tp.mla.q_a``, ``tp.mla.kv_a``). Where the heads split too, each
+    rank's gradient of a gathered latent is its heads' part, so the
+    gather's backward sums the ranks' before it keeps the rank's columns
+    (``core.comm.gather_to_split``); where they do not, the latents are
+    whole on every rank, and the input of the split down-projections
+    passes a ``copy_to_model`` (``tp.mla.a.in``) instead."""
     b, s, _ = x.shape
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
     h = p["wq_b"].shape[1] // (nope + rope)
-    cq = x @ p["wq_a"].to(x.dtype)
-    if _split(pspec, "wq_a", 1):
-        cq = tp.comm.all_gather(cq, -1, "tp.mla.q_a")
+    q_a, kv_a_split = _split(pspec, "wq_a", 1), _split(pspec, "wkv_a", 1)
+    heads = _split(pspec, "wq_b", 1)
+    gather = gather_to_split if heads else gather_from_model
+    xa = x
+    if (q_a or kv_a_split) and not heads:
+        xa = copy_to_model(x, tp.comm, "tp.mla.a.in")
+    cq = (xa if q_a else x) @ p["wq_a"].to(x.dtype)
+    if q_a:
+        cq = gather(cq, tp.comm, -1, "tp.mla.q_a")
     cq = rms_norm(cq, p["q_a_norm"], cfg.norm_eps)
     q = (cq @ p["wq_b"].to(x.dtype)).reshape(b, s, h, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    kv_a = x @ p["wkv_a"].to(x.dtype)
-    if _split(pspec, "wkv_a", 1):
-        kv_a = tp.comm.all_gather(kv_a, -1, "tp.mla.kv_a")
+    kv_a = (xa if kv_a_split else x) @ p["wkv_a"].to(x.dtype)
+    if kv_a_split:
+        kv_a = gather(kv_a, tp.comm, -1, "tp.mla.kv_a")
     ckv = rms_norm(kv_a[..., : cfg.kv_lora_rank], p["kv_a_norm"], cfg.norm_eps)
     k_rope = kv_a[..., cfg.kv_lora_rank :]
     cos, sin = rope_freqs(positions, rope, cfg.rope_theta)
@@ -221,7 +234,8 @@ def mla_forward(
     ``wkv_b`` and rows of ``wo`` (a row-parallel all-reduce, ``tp.mla.wo``),
     and its columns of ``wq_a`` and ``wkv_a`` (the JAX rules: ``wkv_a``
     takes the K/V rule, whose head test passes with no KV heads), gathered
-    before the norms, so every rank holds the whole latent rows and stores
+    before the norms (:func:`_latents`, whose gathers carry a training
+    backward), so every rank holds the whole latent rows and stores
     its sequence shard of them
     (``tp.seq``: the model group, or every rank where the batch does not
     split). A prefill attends its heads over the whole sequence; a decode

@@ -362,21 +362,27 @@ def apply_head(
     return logits
 
 
-def _mtp_logits(
+def _mtp_hidden(
     params: Params,
     x: torch.Tensor,
     tokens: torch.Tensor,
     cfg: ModelConfig,
     positions: torch.Tensor,
     plain_attention: bool,
+    tp: Any = None,
 ) -> torch.Tensor:
-    """DeepSeek's MTP head on the final-normed hidden state ``x``: h_t joined
-    with the embedding of token t + 1 (a roll by one, the wrapped last
-    position masked by the loss), projected, one MLA layer, a norm and the
-    shared head."""
+    """DeepSeek's MTP block on the final-normed hidden state ``x``: h_t
+    joined with the embedding of token t + 1 (a roll by one, the wrapped
+    last position masked by the loss), projected, one MLA layer and a norm;
+    the shared head then gives its logits. Over a model axis (``tp``) the
+    embedding is the vocab-parallel one and the layer runs on the rank's
+    shards by its own specs (``tp.specs["mtp"]["layer"]``: its MLA and
+    FFN leaves split as the trunk's); the projection and the norms
+    replicate and take their whole gradients, before the layer's
+    ``copy_to_model``."""
     mp = params["mtp"]
     h_norm = rms_norm(x, mp["norm_h"], cfg.norm_eps)
-    e_next = rms_norm(_embed(params, tokens, cfg), mp["norm_e"], cfg.norm_eps)
+    e_next = rms_norm(_embed(params, tokens, cfg, tp), mp["norm_e"], cfg.norm_eps)
     e_shift = torch.roll(e_next, -1, dims=1)
     h = torch.cat([h_norm, e_shift], dim=-1) @ mp["proj"].to(x.dtype)
     h, _, _ = layer_forward(
@@ -386,9 +392,10 @@ def _mtp_logits(
         cfg,
         positions=positions,
         plain_attention=plain_attention,
+        tp=tp,
+        pspec=None if tp is None else tp.specs["mtp"]["layer"],
     )
-    h = rms_norm(h, mp["final_norm"], cfg.norm_eps)
-    return apply_head(params, h, cfg)
+    return rms_norm(h, mp["final_norm"], cfg.norm_eps)
 
 
 def forward(
@@ -412,7 +419,9 @@ def forward(
     layers' load-balance losses summed in layer order in f32 (0 without MoE
     layers), the JAX forward's ``aux``; with an MTP head, a forward with no
     caches over (B, S > 1) tokens adds ``"mtp_logits"`` (only when
-    ``return_aux``: nothing else reads them).
+    ``return_aux``: nothing else reads them), or with ``return_hidden`` the
+    MTP block's final-normed hidden state ``"mtp_hidden"``, to which the
+    caller applies the head (the vocab-parallel loss).
 
     ``cond`` (B, L, D), train and prefill only: prepended to the embedded
     tokens, positions 0 .. L + S - 1, and sliced off after the final norm,
@@ -444,11 +453,10 @@ def forward(
     ``tp`` (a ``core.comm.ModelAxis``): this rank's part of a
     tensor-parallel forward over the shards of the serving or the training
     tree, differentiable: the model-axis collectives carry their backward
-    (``core.comm.copy_to_model`` and its kin). Serving runs every
-    architecture so (the MTP head unused); training the dense attention +
-    MLP ones (``launch/sharding.py:tp_train_refusal``). A ``cond`` prefix
-    is prepended after the vocab-parallel embedding, so a cache split by
-    sequence stores its positions on the ranks that hold them."""
+    (``core.comm.copy_to_model`` and its kin). Serving and training run
+    every architecture so (serving leaves the MTP head unused). A ``cond``
+    prefix is prepended after the vocab-parallel embedding, so a cache
+    split by sequence stores its positions on the ranks that hold them."""
     x = _embed(params, tokens, cfg, tp)
     b, s = x.shape[0], x.shape[1]
     offset = 0
@@ -502,8 +510,10 @@ def forward(
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     aux_out = {"moe_aux": aux}
     mtp = cfg.mtp and caches is None and tokens.dim() == 2 and tokens.shape[1] > 1
-    if mtp and not return_hidden:
-        aux_out["mtp_logits"] = _mtp_logits(
-            params, x, tokens, cfg, positions, plain_attention
-        )
+    if mtp:
+        h = _mtp_hidden(params, x, tokens, cfg, positions, plain_attention, tp)
+        if return_hidden:
+            aux_out["mtp_hidden"] = h
+        else:
+            aux_out["mtp_logits"] = apply_head(params, h, cfg, tp)
     return out, caches, aux_out

@@ -36,7 +36,8 @@ mode) can route as the kernel run did.
 
 Over a model axis (:func:`moe_forward`'s ``tp``) the experts split as the
 JAX rules split them, each rank running its experts' slots of the same
-table.
+table; the router runs on the layer's input as one process does, so the
+load-balance loss is charged once.
 """
 
 from __future__ import annotations
@@ -263,13 +264,21 @@ def _moe_sets(
     hits_first: bool,
     data: Any = None,
     first: int = 0,
+    split: Any = None,
+    xe: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (R, T, D), R token sets of T, each with its own table -> (y in f32,
     aux (R,)). ``p``'s expert stacks may hold a block of E / M experts
     (``first`` .. ``first + E / M - 1``): the slots of the others' experts
     then come back zero. ``data`` (a ``core.comm.ModelComm``): the token
     sets are this rank's rows of sets split over its group, and each
-    table is built from every rank's choices, gathered in rank order."""
+    table is built from every rank's choices, gathered in rank order.
+    ``split`` (a ``core.comm.ModelComm``, where the experts split over it):
+    the router runs on ``x`` as it is, so the load-balance loss and its
+    gradient are one process's on every rank, and the experts on ``xe``,
+    the caller's ``copy_to_model`` of it; the combine weights pass a
+    ``copy_to_model`` too (``tp.moe.w``), as each rank's gradient of them
+    is its experts' part."""
     r, t, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     e_loc = p["w_gate"].shape[0]
@@ -278,6 +287,10 @@ def _moe_sets(
     top_i, weights, aux, logits = route(p, x, cfg, held, hits_first=hits_first)
     if rec is not None:
         rec.record(top_i, logits)
+    if xe is not None:
+        x = xe
+    if split is not None:
+        weights = copy_to_model(weights, split, "tp.moe.w")
     off = 0
     if data is not None and data.size > 1:
         off = data.rank * t
@@ -329,24 +342,34 @@ def moe_forward(
     expert splits as a dense MLP does. The partial sums of what splits
     (the routed combine, the shared expert's ``down``) go through one f32
     all-reduce over the model axis, each rounded to ``x``'s dtype after it
-    as one process rounds them. Where the batch's rows split over the
-    data axis (``tp.data``), the global table is built from every row's
-    choices (``tp.moe.route``: a gather of the (T, k) expert ids), so a
-    rank drops what one process drops; the load-balance loss is then over
-    the rank's rows (serving discards it)."""
+    as one process rounds them. The split parts take a ``copy_to_model``
+    of ``x`` (``tp.moe.in``), the router and what does not split take
+    ``x`` itself (:func:`_moe_sets`), so every replicated leaf of the FFN
+    (the router, an expert stack or shared expert the axis does not split)
+    receives its whole gradient on every rank. Where the batch's rows
+    split over the data axis (``tp.data``, serving), the global table is
+    built from every row's choices (``tp.moe.route``: a gather of the (T,
+    k) expert ids), so a rank drops what one process drops; the
+    load-balance loss is then over the rank's rows (serving discards it).
+    A training step's ``ModelAxis`` has no data comm: each worker routes
+    its own rows through its own table, as the JAX step's workers do."""
     b, s, d = x.shape
     e_split = pspec is not None and pspec["w_gate"][0] is not None
     sh_split = pspec is not None and "shared" in pspec
     sh_split = sh_split and pspec["shared"]["down"][0] is not None
-    if e_split or sh_split:
-        x = copy_to_model(x, tp.comm, "tp.moe.in")
     first = tp.comm.rank * p["w_gate"].shape[0] if e_split else 0
+    split = tp.comm if e_split else None
+    xc = x
+    if e_split or sh_split:
+        xc = copy_to_model(x, tp.comm, "tp.moe.in")
+    xe = xc if e_split else None
     if cfg.moe_impl == "batched":
-        y, aux = _moe_sets(p, x, cfg, act, hits_first=False, first=first)
+        y, aux = _moe_sets(p, x, cfg, act, False, first=first, split=split, xe=xe)
     elif cfg.moe_impl == "global":
         data = tp.data if tp is not None else None
         flat = x.reshape(1, b * s, d)
-        y, aux = _moe_sets(p, flat, cfg, act, True, data, first)
+        xe = None if xe is None else xe.reshape(1, b * s, d)
+        y, aux = _moe_sets(p, flat, cfg, act, True, data, first, split, xe)
         y = y.reshape(b, s, d)
     else:
         raise ValueError(f"moe_impl {cfg.moe_impl!r}: 'global' or 'batched'")
@@ -354,7 +377,7 @@ def moe_forward(
     if cfg.n_shared_experts:
         if sh_split:
             sp = p["shared"]
-            h = act_fn(act)(x @ sp["gate"].to(x.dtype)) * (x @ sp["up"].to(x.dtype))
+            h = act_fn(act)(xc @ sp["gate"].to(x.dtype)) * (xc @ sp["up"].to(x.dtype))
             shared = partial_product(h, sp["down"].to(x.dtype))
         else:
             shared = mlp_forward(p["shared"], x, act)

@@ -23,8 +23,10 @@ tree's shards) the forward is the tensor-parallel one, and where the head
 splits the vocabulary the cross-entropy is vocab-parallel
 (:func:`_ce_vocab_parallel`): a rank forms the logits of its vocab columns
 only, by ``head_chunk`` chunks as above, and the (B, S, V) logits are never
-gathered (gemma3-1b's V is 262,144). MTP and codebook losses do not run
-over a model axis above 1 (``launch/sharding.py:tp_train_refusal``).
+gathered (gemma3-1b's V is 262,144): the codebook heads' (B, S, cb, V / M)
+likewise, their CE averaged over the codebooks as above, and the MTP
+block's logits, whose vocab-parallel CE two ahead joins at 0.3 as above.
+The value is the whole loss on every model rank.
 """
 
 from __future__ import annotations
@@ -70,12 +72,56 @@ def _ce_vocab_parallel(
 
 
 def _vocab_split(cfg: ModelConfig, tp: Any) -> bool:
-    """Does the head (or the tied embedding) split the vocab over ``tp``?"""
+    """Does the head (or the tied embedding: its vocab dim, 1 of a (cb, V,
+    d) codebook table) split the vocab over ``tp``?"""
     if tp is None or tp.comm.size == 1:
         return False
     if cfg.tie_embeddings:
-        return tp.specs["embed"][0] is not None
+        return tp.specs["embed"][1 if cfg.n_codebooks else 0] is not None
     return tp.specs["head"][-1] is not None
+
+
+def _chunked_nll(
+    params: Any,
+    hidden: torch.Tensor,
+    tgt: torch.Tensor,
+    cfg: ModelConfig,
+    head_chunk: int,
+    tp: Any,
+) -> torch.Tensor:
+    """The per-position CE of ``hidden`` (B, S, d) against ``tgt`` (B, S[,
+    cb]), the head applied per sequence chunk of ``head_chunk`` (all of S
+    at 0) and each chunk's logits recomputed in the backward, not kept (no
+    RNG state is saved: nothing draws, and a CUDA-graph capture refuses
+    reads of the generator's state); vocab-parallel over ``tp`` where it
+    splits the vocab. With codebooks, the mean over them: (B, S)."""
+    vocab_split = _vocab_split(cfg, tp)
+    key = "embed" if cfg.tie_embeddings else "head"
+
+    def chunk_nll(h: torch.Tensor, t: torch.Tensor, w: torch.Tensor):
+        if vocab_split:
+            return _ce_vocab_parallel(
+                apply_head({key: w}, h, cfg, tp, gather=False), t, tp
+            )
+        return _ce(apply_head({key: w}, h, cfg), t)
+
+    size = head_chunk or hidden.shape[1]
+    chunks = zip(hidden.split(size, 1), tgt.split(size, 1))
+    nll = torch.cat(
+        [
+            checkpoint(
+                chunk_nll,
+                h,
+                t,
+                params[key],
+                use_reentrant=False,
+                preserve_rng_state=False,
+            )
+            for h, t in chunks
+        ],
+        dim=1,
+    )
+    return nll.mean(dim=-1) if cfg.n_codebooks else nll
 
 
 def _masked_mean(nll: torch.Tensor, shift: int = 1) -> torch.Tensor:
@@ -102,6 +148,8 @@ def lm_loss(
     rank)."""
     tokens, cond = batch["tokens"], batch.get("cond")
     tgt = torch.roll(tokens, -1, dims=1)
+    tgt2 = torch.roll(tokens, -2, dims=1)  # the MTP head's targets
+    mtp_nll = None
     vocab_split = _vocab_split(cfg, tp)
     if vocab_split or (head_chunk and not cfg.mtp and not cfg.n_codebooks):
         hidden, _, aux = forward(
@@ -115,34 +163,9 @@ def lm_loss(
             return_aux=True,
             tp=tp,
         )
-        key = "embed" if cfg.tie_embeddings else "head"
-
-        def chunk_nll(h: torch.Tensor, t: torch.Tensor, w: torch.Tensor):
-            if vocab_split:
-                return _ce_vocab_parallel(
-                    apply_head({key: w}, h, cfg, tp, gather=False), t, tp
-                )
-            return _ce(apply_head({key: w}, h, cfg), t)
-
-        # each chunk's logits are recomputed in the backward, not kept; no
-        # RNG state is saved (nothing draws, and a CUDA-graph capture
-        # refuses reads of the generator's state)
-        size = head_chunk or hidden.shape[1]
-        chunks = zip(hidden.split(size, 1), tgt.split(size, 1))
-        nll = torch.cat(
-            [
-                checkpoint(
-                    chunk_nll,
-                    h,
-                    t,
-                    params[key],
-                    use_reentrant=False,
-                    preserve_rng_state=False,
-                )
-                for h, t in chunks
-            ],
-            dim=1,
-        )
+        nll = _chunked_nll(params, hidden, tgt, cfg, head_chunk, tp)
+        if "mtp_hidden" in aux:
+            mtp_nll = _chunked_nll(params, aux["mtp_hidden"], tgt2, cfg, head_chunk, tp)
     else:
         logits, _, aux = forward(
             params,
@@ -157,11 +180,13 @@ def lm_loss(
         nll = _ce(logits, tgt)
         if cfg.n_codebooks:
             nll = nll.mean(dim=-1)
+        if "mtp_logits" in aux:
+            mtp_nll = _ce(aux["mtp_logits"], tgt2)
     ce = _masked_mean(nll)
     metrics = {"ce": ce}
     loss = ce
-    if "mtp_logits" in aux:
-        mtp = _masked_mean(_ce(aux["mtp_logits"], torch.roll(tokens, -2, dims=1)), 2)
+    if mtp_nll is not None:
+        mtp = _masked_mean(mtp_nll, 2)
         loss = loss + 0.3 * mtp
         metrics["mtp_ce"] = mtp
     if cfg.n_experts:

@@ -34,9 +34,9 @@ its gradient, and the step sums those over the model axis in one
 all-reduce before the sync (``launch/sharding.py:partial_grad_flags``).
 The sync runs on the blocks (``core/compressors.py:ModelSplit``), and the
 optimizer steps each block in place: SGD and Adam are elementwise, so a
-block's update is the whole update's block. The dense attention + MLP
-architectures and the ``none``, ``powersgd`` and ``lq_sgd`` compressors
-run so; the rest raise, naming their ROADMAP step.
+block's update is the whole update's block. Every architecture and the
+``none``, ``powersgd`` and ``lq_sgd`` compressors run so; the other
+compressors raise, naming their ROADMAP step.
 """
 
 from __future__ import annotations
@@ -61,13 +61,11 @@ from repro_torch.core.compressors import (
 )
 from repro_torch.core.lazy import STALE_NS
 from repro_torch.core.tree import Tree, tree_leaves, tree_map, tree_unflatten
-from repro_torch.launch.mesh import LATER_STEPS
 from repro_torch.launch.sharding import (
     Spec,
     assert_replicated,
     param_specs,
     partial_grad_flags,
-    tp_train_refusal,
 )
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import init_params, stacked_flags
@@ -306,12 +304,6 @@ def build_train_step(
         if tp is None or tp.comm.size != model:
             raise ValueError(
                 f"a model axis of {model} needs a ModelAxis of {model} ranks (tp)"
-            )
-        why = tp_train_refusal(cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"{cfg.name} over a model axis of {model}: {why} not "
-                f"tensor-parallel yet ({LATER_STEPS})"
             )
         why = compressor.tp_refusal()
         if why is not None:

@@ -41,18 +41,15 @@ LAUNCH_ARGS = [
 ]  # fmt: skip
 LAUNCH_MESH = ["--mesh", "2x2", "--dist-backend", "gloo"]
 LAUNCH_STEPS, CKPT_STEPS = 4, 2
-# at a model axis above 1: (argv after LAUNCH_ARGS + LAUNCH_MESH, ROADMAP step)
+# refused at a model axis above 1 (ROADMAP 15 B step 4): argv after
+# LAUNCH_ARGS + LAUNCH_MESH
 REFUSED = {
-    "topk": (["--compressor", "topk"], 4),
-    "qsgd": (["--compressor", "qsgd"], 4),
-    "dlog": (["--codec", "dlog", "--dp-epsilon", "8"], 4),
-    "policy": (["--policy", "w=powersgd,*=lq_sgd:bits=8"], 4),
-    "lazy": (["--lazy-thresh", "2.0"], 4),
-    "server": (["--wire", "server", "--participation", "0.5"], 4),
-    "mixtral-8x7b": (["--arch", "mixtral-8x7b"], 2),
-    "deepseek-v3-671b": (["--arch", "deepseek-v3-671b"], 2),
-    "mamba2-370m": (["--arch", "mamba2-370m"], 2),
-    "musicgen-medium": (["--arch", "musicgen-medium"], 2),
+    "topk": ["--compressor", "topk"],
+    "qsgd": ["--compressor", "qsgd"],
+    "dlog": ["--codec", "dlog", "--dp-epsilon", "8"],
+    "policy": ["--policy", "w=powersgd,*=lq_sgd:bits=8"],
+    "lazy": ["--lazy-thresh", "2.0"],
+    "server": ["--wire", "server", "--participation", "0.5"],
 }
 
 
@@ -78,18 +75,20 @@ def train_run(
     mesh=None,
     jax_comp=None,
     steps=STEPS,
+    cfg=None,
 ):
-    """``steps`` steps of ``arch`` (smoke, f32) from the numpy ``weights``
-    (the JAX training layout) on ``tokens`` (a list of (BATCH, SEQ) global
-    batches), SGD at ``LR``, the compressor ``COMPRESSORS[cname]``: over
+    """``steps`` steps of ``arch`` (smoke, f32, or ``cfg``) from the numpy
+    ``weights`` (the JAX training layout) on ``tokens`` (a list of global
+    batches: (BATCH, SEQ) token tensors, or batch dicts, a conditioning
+    prefix beside), SGD at ``LR``, the compressor ``COMPRESSORS[cname]``: over
     a ``SimComm`` of the mesh's data axis in one process (no ``mesh``), or
     as this rank of ``mesh`` (a ``DataMesh`` over the process group), its
     blocks cut from the same weights. ``jax_comp`` (numpy, without a worker
     dim): the JAX package's compressor state, cut to the rank's blocks,
     in place of the port's draw. Returns, on the host: step 0's per-worker
-    gradients into the sync, every step's synced gradients and CommRecord
-    numbers, the final error feedback and parameters, and the data-axis
-    gathers."""
+    gradients into the sync, every step's synced gradients, CommRecord
+    numbers and metrics, the final error feedback and parameters, and the
+    data-axis gathers."""
     from repro_torch.configs import get_config
     from repro_torch.core.comm import ModelAxis, ModelComm, SimComm
     from repro_torch.core.compressors import CompressorConfig, model_split
@@ -105,7 +104,7 @@ def train_run(
     from repro_torch.train.trainer import local_rows
     from repro_torch.weights import compressor_state_from_jax, train_state_from_jax
 
-    cfg = get_config(arch, smoke=True)
+    cfg = cfg if cfg is not None else get_config(arch, smoke=True)
     comp = make_model_compressor(cfg, CompressorConfig(**COMPRESSORS[cname]))
     data, model = mesh_shape
     tp = split = None
@@ -154,14 +153,16 @@ def train_run(
     step = build_train_step(
         cfg, mesh_shape, comp, opt, comm=comm, on_sync=on_sync, graph=False, tp=tp
     )
-    losses = []
+    losses, metrics = [], []
     for i in range(steps):
-        batch = local_rows({"tokens": tokens[i]}, comm)
-        state, m = step(state, batch)
+        batch = tokens[i] if isinstance(tokens[i], dict) else {"tokens": tokens[i]}
+        state, m = step(state, local_rows(batch, comm))
         losses.append(float(m["loss"]))
+        metrics.append({k: float(v) for k, v in m.items()})
     out = dict(
         recs=recs,
         losses=losses,
+        metrics=metrics,
         params=_host(state["params"]),
         err=_host(state["comp"].get("err", {})),
         q=_host(state["comp"].get("q", {})),
@@ -242,7 +243,7 @@ def _refusals(res):
     from _torch_dist import quiet_call
 
     out = {}
-    for name, (extra, _) in REFUSED.items():
+    for name, extra in REFUSED.items():
         argv = LAUNCH_ARGS + LAUNCH_MESH + ["--steps", "1", *extra]
         out[name] = _refusal(lambda argv=argv: quiet_call(launch_train.main, argv))
     res["refusals"] = out
@@ -267,17 +268,19 @@ def run_rank(rank, world, store, out_dir, inputs_path):
         dist.destroy_process_group()
 
 
-# the card test: gemma3-1b smoke at 1x2 over NCCL, one card a rank
+# the card tests: gemma3-1b smoke at 1x2 over NCCL, one card a rank (and
+# mixtral and deepseek smoke in its place: CARD_ZOO)
 CARD_RUN = ("gemma3-1b", (1, 2), "lq_sgd_b8")
+CARD_ZOO = ("mixtral-8x7b", "deepseek-v3-671b")
 
 
-def card_weights():
-    """gemma3-1b smoke's seeded init in the training layout, as numpy."""
+def card_weights(arch=CARD_RUN[0]):
+    """``arch`` smoke's seeded init in the training layout, as numpy."""
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_map
     from repro_torch.train.step import init_train_params
 
-    cfg = get_config(CARD_RUN[0], smoke=True)
+    cfg = get_config(arch, smoke=True)
     params = init_train_params(cfg, 1, "cpu")
     return tree_map(lambda t: t.detach().numpy(), params)
 
@@ -287,10 +290,11 @@ def card_tokens():
     return [torch.from_numpy(rng.integers(0, 512, (BATCH, SEQ))) for _ in range(STEPS)]
 
 
-def card_tp_train(device, mesh=None, graph=None):
-    """:func:`train_run`'s step on ``device`` (one process, or this rank of
-    ``mesh``), graphed where the comm allows (``graph``): losses, step 0's
-    gradients and every step's synced gradients, final parameters."""
+def card_tp_train(device, mesh=None, graph=None, arch=CARD_RUN[0]):
+    """:func:`train_run`'s step of ``arch`` (smoke, token ids below 512) on
+    ``device`` (one process, or this rank of ``mesh``), graphed where the
+    comm allows (``graph``): losses, step 0's gradients and every step's
+    synced gradients, final parameters."""
     from repro_torch.configs import get_config
     from repro_torch.core.comm import ModelAxis, ModelComm, SimComm
     from repro_torch.core.compressors import CompressorConfig
@@ -305,7 +309,7 @@ def card_tp_train(device, mesh=None, graph=None):
     )
     from repro_torch.weights import train_state_from_jax
 
-    arch, shape, cname = CARD_RUN
+    _, shape, cname = CARD_RUN
     cfg = get_config(arch, smoke=True)
     comp = make_model_compressor(cfg, CompressorConfig(**COMPRESSORS[cname]))
     tp, specs, split = None, None, None
@@ -318,7 +322,9 @@ def card_tp_train(device, mesh=None, graph=None):
         specs = train_param_specs(cfg, shape[1])
         tp = ModelAxis(comm=make_model_comm(mesh), seq=ModelComm(), specs=specs)
         split = model_split(tp.comm, specs)
-    np_state = dict(params=card_weights(), opt={}, comp={}, step=np.zeros((), np.int32))
+    np_state = dict(
+        params=card_weights(arch), opt={}, comp={}, step=np.zeros((), np.int32)
+    )
     st_specs = None if specs is None else dict(params=specs, opt={}, comp={}, step=Spec())
     params = train_state_from_jax(np_state, device, specs=st_specs, mesh=mesh)["params"]
     params = tree_map(lambda w: w.requires_grad_(True), params)
@@ -357,10 +363,10 @@ def card_tp_train(device, mesh=None, graph=None):
     return out
 
 
-def card_tp_train_rank(rank, world, store, out_dir):
-    """One NCCL rank of the card test: the graphed tensor-parallel step (its
-    model-axis and data-axis collectives captured) and the eager one, to
-    ``<out_dir>/card<r>.pt``."""
+def card_tp_train_rank(rank, world, store, out_dir, arch=CARD_RUN[0]):
+    """One NCCL rank of the card test of ``arch``: the graphed
+    tensor-parallel step (its model-axis and data-axis collectives
+    captured) and the eager one, to ``<out_dir>/card<r>.pt``."""
     import gc
 
     from repro_torch.launch.mesh import make_mesh
@@ -373,8 +379,8 @@ def card_tp_train_rank(rank, world, store, out_dir):
     try:
         mesh = make_mesh(CARD_RUN[1], device)
         res = dict(
-            graphed=card_tp_train(device, mesh),
-            eager=card_tp_train(device, mesh, graph=False),
+            graphed=card_tp_train(device, mesh, arch=arch),
+            eager=card_tp_train(device, mesh, graph=False, arch=arch),
             coords=mesh.coords,
             sizes=mesh.sizes,
         )

@@ -1507,6 +1507,18 @@ def test_nccl_two_ranks_tp_train_equals_one_process(cuda, tmp_path):
     losses rtol 1e-5, step 0's gradients within 1e-5 of each leaf's
     largest value, the synced gradients and parameters within
     ``flip_tol`` a step (a wire code on a bin edge may flip)."""
+    _nccl_tp_train(tmp_path, "gemma3-1b")
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b"])
+def test_nccl_two_ranks_tp_train_of_the_zoo_equals_one_process(cuda, tmp_path, arch):
+    """As :func:`test_nccl_two_ranks_tp_train_equals_one_process` for mixtral
+    (2 of 4 experts a rank, the router on the FFN's input) and deepseek
+    (MLA's gathered latents, the shared expert, the MTP head) smoke."""
+    _nccl_tp_train(tmp_path, arch)
+
+
+def _nccl_tp_train(tmp_path, arch):
     if torch.cuda.device_count() < 2:
         pytest.skip(
             "needs 2 CUDA devices: NCCL refuses two ranks on one card, so "
@@ -1522,9 +1534,11 @@ def test_nccl_two_ranks_tp_train_equals_one_process(cuda, tmp_path):
 
     levels = (1 << 7) - 1
     flip = 2 * ((1 + 10.0) ** (1 / levels) - 1)  # _torch_lm.flip_tol(8, 1)
-    want = tt.card_tp_train("cuda:0")
-    join = td.spawn(None, str(tmp_path), world=2, target=tt.card_tp_train_rank)
-    cfg = get_config(tt.CARD_RUN[0], smoke=True)
+    want = tt.card_tp_train("cuda:0", arch=arch)
+    join = td.spawn(
+        None, str(tmp_path), world=2, target=tt.card_tp_train_rank, extra=(arch,)
+    )
+    cfg = get_config(arch, smoke=True)
     dims = model_split(None, train_param_specs(cfg, 2)).dims  # flatten order
 
     def close(a, b, tol, label):

@@ -349,11 +349,15 @@ def test_launcher_trains_at_smoke_widths_on_the_cpu():
         # the production and multi-pod meshes are the dry run's (item 17)
         (["--production-mesh"], "item 17"),
         # mamba2-370m and jamba-v0.1-52b train since the zoo's last slice
-        # (tests/test_torch_zoo_rest.py takes their steps); the two cases
-        # keep their ids and now ask for them on a multi-card mesh, which
-        # is still refused
+        # (tests/test_torch_zoo_rest.py takes their steps), and over a model
+        # axis since step 2 B (tests/test_torch_tp_train_zoo.py); the two
+        # cases keep their ids and now ask for what is still refused: the
+        # multi-pod mesh, and QSGD on jamba's model-sharded gradients
         (["--arch", "mamba2-370m", "--multi-pod"], "item 17"),
-        (["--arch", "jamba-v0.1-52b", "--mesh", "1x2"], "item 15 B, step 2"),
+        (
+            ["--arch", "jamba-v0.1-52b", "--mesh", "1x2", "--compressor", "qsgd"],
+            "item 15 B, step 4",
+        ),
     ],
     ids=["mesh-2x2", "production-mesh", "mamba2", "mixtral"],
 )
