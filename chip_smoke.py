@@ -297,6 +297,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    package's (``S_BITS``), and each rank's step-0 MoE choices against the
    one-process run's, a flip only at a router margin (from the rank's own
    logits) <= MOE_FLIP_MARGIN.
+19. training over a (data, model) mesh with every compressor, in the 2x2
+   torchrun after phase 18's (s5) (``T_RUNS``, ``_t_rank``,
+   ``_t_one_process``, ``_t_checks``): gemma3-1b whole at (q1)'s shapes,
+   bf16, Adam 1e-3, with (t1) TopK 1%, (t2) QSGD b4, (t3) LQ-SGD r1 b8
+   over dlog at DP epsilon 48, (t4) r1 b4 over lrq, (t5) a per-leaf
+   policy of two lazy groups after a warm-up step (a warm fire, skips and
+   a forced fire in 4 steps), (t6) r1 b8 on the server wire at
+   participation 0.5, each against the one-process launcher. Phase 16's
+   checks (the synced gradient with TopK's swap allowance, QSGD's moved
+   elements held through their codes), plus TopK's k entries a worker
+   and leaf, (t5)'s fire pattern and (t6)'s participation flags the one
+   process's on every rank, (t3)'s DP epsilon the JAX package's figure,
+   a lazy round's physical bits without its skipped groups; each run's
+   kernels launched on every rank (``T_KERNELS``), the phase's seconds
+   and the script's disk writes printed.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -3736,33 +3751,36 @@ def _gia_runs(card):
 
 # Phase 11, the model zoo (l): the untied head and the MoE layers at full
 # width, seeded bf16. (l1)-(l4) serve, (l5) trains: run -> (arch, the cut of
-# its depth, batch, prompt, cache bits). mixtral-8x7b keeps 16 of its 32
-# layers and jamba-v0.1-52b one period of its 8 (of 4) to fit one card with
-# room for the reference-mode runs; mistral-nemo-12b keeps 20 of its 40 and
-# granite-20b 26 of its 52 so that the script keeps within its time with
-# phase 16 added; the rest is at full depth.
+# its depth, batch, prompt, cache bits). jamba-v0.1-52b keeps one period of
+# its 8 (of 4) to fit one card with room for the reference-mode runs;
+# mixtral-8x7b 8 of its 32 layers, mistral-nemo-12b 10 of its 40 and
+# granite-20b 13 of its 52 so that the script keeps within its time (16,
+# 20 and 26 from phase 16 to phase 18; halved with phase 19, when the
+# script's final run took 1174.2 s of its 1200 on a slower host than the
+# one before); the rest is at full depth.
 ZOO_SERVE = {
-    "l1": ("mistral-nemo-12b", {"repeats": 20}, 4, 1024, (8, 4)),
-    "l2": ("granite-20b", {"repeats": 26}, 4, 1024, (8,)),
-    "l3": ("mixtral-8x7b", {"repeats": 16}, 2, 5120, (8,)),
+    "l1": ("mistral-nemo-12b", {"repeats": 10}, 4, 1024, (8, 4)),
+    "l2": ("granite-20b", {"repeats": 13}, 4, 1024, (8,)),
+    "l3": ("mixtral-8x7b", {"repeats": 8}, 2, 5120, (8,)),
     "l4": ("jamba-v0.1-52b", {"repeats": 1}, 4, 1024, (8,)),
     # phase 12 (m): deepseek-v3-671b cut to its 3 dense lead layers and 1
     # MoE layer (4 of 61, about 31.6 GB in bf16), MTP in the tree;
-    # musicgen-medium at full depth, prompts after its 64-step prefix
+    # musicgen-medium on 24 of its 48 layers (whole until phase 19),
+    # prompts after its 64-step prefix
     "m1": ("deepseek-v3-671b", {"repeats": 1}, 4, 1024, (8,)),
-    "m2": ("musicgen-medium", {}, 4, 1024, (8, 4)),
+    "m2": ("musicgen-medium", {"repeats": 24}, 4, 1024, (8, 4)),
 }
 ZOO_GEN = 32
 # the JAX package's parameter counts of these cuts (tests/test_torch_zoo.py)
 ZOO_PARAMS = {
-    "l1": 6_794_982_400,
-    "l2": 14_385_739_776,
-    "l3": 23_482_470_400,
+    "l1": 4_068_582_400,
+    "l2": 7_494_862_848,
+    "l3": 11_872_309_248,
     "l4": 13_267_656_416,
     "l5": 1_713_418_240,
     # tests/test_torch_zoo_rest.py
     "m1": 15_797_366_784,
-    "m2": 1_837_254_144,
+    "m2": 931_210_752,
     "m3": 91_094_080,
     "m4": 251_678_208,
     "m5a": 793_408,
@@ -3771,14 +3789,14 @@ ZOO_PARAMS = {
 # the accounting: layers x (K, V) x KV heads x (head_dim codes + a 4-byte
 # scale) at q8, (head_dim / 2 + 4) at q4
 ZOO_BYTES_PER_TOKEN = {
-    ("l1", 8): 20 * 2 * 8 * (128 + 4),
-    ("l1", 4): 20 * 2 * 8 * (64 + 4),
-    ("l2", 8): 26 * 2 * 1 * (128 + 4),
-    ("l3", 8): 16 * 2 * 8 * (128 + 4),
+    ("l1", 8): 10 * 2 * 8 * (128 + 4),
+    ("l1", 4): 10 * 2 * 8 * (64 + 4),
+    ("l2", 8): 13 * 2 * 1 * (128 + 4),
+    ("l3", 8): 8 * 2 * 8 * (128 + 4),
     # MLA: layers x (ckv 512 + krope 64 codes, two 4-byte scales)
     ("m1", 8): 4 * (512 + 64 + 2 * 4),
-    ("m2", 8): 48 * 2 * 24 * (64 + 4),
-    ("m2", 4): 48 * 2 * 24 * (32 + 4),
+    ("m2", 8): 24 * 2 * 24 * (64 + 4),
+    ("m2", 4): 24 * 2 * 24 * (32 + 4),
 }
 # The MoE layers against reference mode. At seeded init the router's top-2
 # margins are small, and the kernel path (#6) and the plain attention round
@@ -5038,10 +5056,11 @@ P_RUNS = {
     "p2": ("gemma3-1b", "2x2", 4),  # the batch over data
     "p3": ("mistral-nemo-12b", "1x2", 8),  # the head-sharded cache
 }
-# cuts for time, made when phase 16 (q) came: gemma3-1b serves 2 of its 4
-# repeats of the scanned pattern (14 of 26 layers), mistral-nemo-12b 10 of
-# its 40 layers, 16 new tokens (at full depth the phase took twice as long)
-P_REPEATS = {"p1": 2, "p2": 2, "p3": 10}
+# cuts for time, made when phase 16 (q) came and halved with phase 19:
+# gemma3-1b serves 1 of its 4 repeats of the scanned pattern (8 of 26
+# layers), mistral-nemo-12b 5 of its 40 layers, 16 new tokens (at full
+# depth the phase took twice as long as at 14 and 10 layers)
+P_REPEATS = {"p1": 1, "p2": 1, "p3": 5}
 P_GEN = 16
 P_ARGS = ["--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(P_GEN)]
 P_RANK_ARGS = ["--dist-backend", "gloo", "--device", "cuda:0"]
@@ -6047,6 +6066,422 @@ def _s_checks(run, one_dir, rank_dir, one):
             emit({"phase": "s", "run": run, "rank": r, "moe_flips": flips})
 
 
+# ------------- phase 19 (t): training over a (data, model) mesh, every compressor
+# run -> (steps, arguments): gemma3-1b whole at (q1)'s shapes (2 workers x 4
+# x 512 over 2x2, bf16, Adam 1e-3), in the 2x2 torchrun, each held as (q)
+# holds (q1) to the one-process launcher (--mesh 2x1) on the same seeded
+# weights and batches: (t1) TopK 1%; (t2) QSGD b4; (t3) LQ-SGD r1 b8 over
+# dlog at (k1)'s budget, DP epsilon 48 a use; (t4) r1 b4 over lrq; (t5) a
+# per-leaf policy of two lazy groups (the power iteration on the leaves
+# named w*, at most 2 skips in a row; LQ-SGD b8 on the rest, at most 1;
+# threshold 2.0) after a warm-up step, so that a warm fire, skips, voted
+# and forced fires occur in 4 steps (with at most 2 in both, the LQ-SGD
+# group voted at steps 2 and 3 and was never forced, NVIDIA H100 80GB
+# HBM3, 700 W; the lazy knobs ride the policy spec: --lazy-thresh reaches a
+# uniform policy only, as in the JAX package), its error feedback, cached
+# aggregate and references in bf16 as (s2)'s (in f32 the composite's
+# state, which it does not donate, took each rank to 18.7 GB at a fired
+# step, and four ranks beside this process overran the card); (t6) r1 b8
+# on the server wire at participation 0.5. The wire arrays of step 0 only
+# are kept (--dump-wire-steps; TopK's, the dense f32 stand-in, none):
+# whole, they would be tens of GB on the disk.
+T_ARCH, T_MESH, T_DEVICE = "gemma3-1b", "2x2", "cuda"
+T_POLICY = (
+    "w=powersgd:lazy_thresh=2.0:max_stale=2,"
+    "*=lq_sgd:bits=8:lazy_thresh=2.0:max_stale=1"
+)
+T_COMMON = ["--batch", "8", "--seq", "512", "--optimizer", "adam", "--lr", "1e-3"]
+T_COMMON += ["--log-every", "1", "--runtime", "sync", "--dump-steps", "--dump-sample"]
+T_LQ = ["--compressor", "lq_sgd", "--rank", "1"]
+T_RUNS = {
+    "t1": (2, ["--compressor", "topk", "--dump-wire-steps", "0"]),
+    "t2": (2, ["--compressor", "qsgd", "--bits", "4", "--dump-wire-steps", "1"]),
+    "t3": (2, [*T_LQ, "--bits", "8", "--codec", "dlog", "--dp-epsilon", "48",
+               "--dump-wire-steps", "1"]),
+    "t4": (2, [*T_LQ, "--bits", "4", "--codec", "lrq", "--dump-wire-steps", "1"]),
+    "t5": (4, ["--policy", T_POLICY, "--warmup", "1", "--comp-dtype", "bfloat16",
+               "--dump-wire-steps", "0"]),
+    "t6": (3, [*T_LQ, "--bits", "8", "--wire", "server", "--participation", "0.5",
+               "--dump-wire-steps", "1"]),
+}  # fmt: skip
+# (t3)'s per-step DP epsilon over gemma3-1b's whole tree at dp_epsilon 48:
+# the JAX package's figure (tests/test_torch_privacy_codecs.py holds it)
+T3_EPSILON = 7056.0
+# the kernels each run's path must launch on every rank: the randomized
+# codes (QSGD, dlog, lrq) come from plain torch, their b <= 4 pack and the
+# log codec's expand from the Triton kernels
+T_KERNELS = {
+    "t2": ("pack_nibbles",),
+    "t3": ("log_dequantize",),
+    "t4": ("pack_nibbles", "log_dequantize"),
+    "t5": ("log_quantize", "log_dequantize"),
+    "t6": ("log_quantize", "log_dequantize"),
+}
+
+
+def _t_argv(run):
+    steps, argv = T_RUNS[run]
+    if run == "t6":
+        argv = [*argv, "--participation-seed", str(_t6_seed())]
+    return ["--arch", T_ARCH, *argv, *T_COMMON, "--steps", str(steps)]
+
+
+@functools.cache
+def _t6_seed():
+    """The first participation seed whose round 0 takes one of the two
+    workers on this device (the draw is the device's generator's), so that
+    (t6)'s step-0 synced gradient is a participation-weighted mean: seed 0
+    drops both at round 0 on the H100, and its step 0 syncs zeros."""
+    from repro_torch.core.wire import participation_draw
+
+    for seed in range(64):
+        if int(participation_draw(seed, 0, 2, 0.5, T_DEVICE).sum()) == 1:
+            return seed
+    raise SmokeFailure("(t6): no participation seed below 64 takes one worker")
+
+
+@contextlib.contextmanager
+def _t_recording():
+    """Inside the block: each server round's participation flags of this
+    process's workers (``ServerWire.prepare``) and, for each TopK leaf a
+    step, ``k``, each worker's count of kept entries of this process's
+    block and the least magnitude kept (``compressors.topk_mask``; not in a
+    CUDA graph's capture, so a graphed run records its eager step 0)."""
+    from repro_torch.core import compressors, wire
+
+    seen = {"flags": [], "kept": []}
+    prepare, mask = wire.ServerWire.prepare, compressors.topk_mask
+
+    def rec_prepare(self, rec):
+        seen["flags"].append(self.active().cpu())
+        return prepare(self, rec)
+
+    def rec_mask(flat, k, block=None):
+        out = mask(flat, k, block)
+        if not torch.cuda.is_current_stream_capturing():  # a graph's: none
+            least = torch.where(out > 0, flat.abs(), torch.inf).amin(1)
+            seen["kept"].append((k, out.sum(1).cpu(), least.cpu()))
+        return out
+
+    wire.ServerWire.prepare, compressors.topk_mask = rec_prepare, rec_mask
+    try:
+        yield seen
+    finally:
+        wire.ServerWire.prepare, compressors.topk_mask = prepare, mask
+
+
+def _t_rank(out_dir, run):
+    """One rank's (t) run in the 2x2 torchrun: ``launch/train.py``'s
+    ``main`` over the mesh with the launch counts and peak memory at 0
+    first, dumping to ``out_dir/<run>_ranks/rank<r>.pt``, what
+    :func:`_t_recording` saw to ``seen<r>.pt`` beside."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    dump = Path(out_dir, f"{run}_ranks")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with _t_recording() as seen:
+        out = train.main(
+            _t_argv(run) + ["--mesh", T_MESH, *Q_RANK_ARGS, "--dump", str(dump)]
+        )
+    torch.save(seen, Path(dump, f"seen{out['mesh'].rank}.pt"))
+    del out
+
+
+def _t_one_process(run, out_dir):
+    """``run``'s launcher in this process (--mesh 2x1: graphed where the
+    compressor allows), its dump and recording read back."""
+    from repro_torch.launch import train
+
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    with _t_recording() as seen:
+        train.main(
+            _t_argv(run) + ["--mesh", "2x1", "--device", "cuda"]
+            + ["--dump", str(out_dir)]
+        )  # fmt: skip
+    torch._C._cuda_clearCublasWorkspaces()
+    _free_cuda()
+    one = torch.load(Path(out_dir, "rank0.pt"), weights_only=False)
+    return {**one, **seen}
+
+
+def _t_plan(run):
+    """``run``'s compressor on gemma3-1b's abstract tree, its config's
+    fields from the launcher's own parser."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.launch.train import _parser
+    from repro_torch.train.step import make_model_compressor
+
+    a = _parser().parse_args(_t_argv(run))
+    ccfg = CompressorConfig(
+        name=a.compressor, rank=a.rank, bits=a.bits, codec=a.codec,
+        dp_epsilon=a.dp_epsilon, policy=a.policy, warmup_steps=a.warmup,
+        topology=a.wire, participation=a.participation,
+    )  # fmt: skip
+    return make_model_compressor(get_config(T_ARCH), ccfg)
+
+
+def _t_layout(run, comp, dims):
+    """Step 0's data-axis gathers of ``run`` as :func:`_q_layout` gives
+    them (QSGD: each low-rank leaf's codes), after the server wire's
+    participation flags; None where its wire is not kept."""
+    if run == "t2":
+        return [
+            ("raw", i, pl.shape, dims[i],
+             None if dims[i] is None else ((pl.shape[dims[i]],), 0))
+            for i, pl in enumerate(comp.plans)
+            if pl.route == "lowrank"
+        ]  # fmt: skip
+    if run in ("t3", "t4", "t6"):
+        return _q_layout(comp, dims)
+    return None
+
+
+def _t_checks(card, run, one, rank_dir, one_s):
+    """(t)'s checks of ``run``: its ranks' dumps in ``rank_dir`` against the
+    one-process run ``one`` (module comment above :data:`T_RUNS`)."""
+    from repro_torch.core.compressors import ModelSplit
+    from repro_torch.core.tree import flatten_with_paths
+    from repro_torch.launch.train import sample_stride
+
+    t0 = time.perf_counter()
+    data, model = _q_world(T_MESH)
+    steps, argv = T_RUNS[run]
+    comp = _t_plan(run)
+    bits = int(argv[argv.index("--bits") + 1]) if "--bits" in argv else 8
+    label = f"({run}) {T_ARCH} {T_MESH} {' '.join(argv[:-2])}"
+    ranks = [
+        torch.load(Path(rank_dir, f"rank{r}.pt"), weights_only=False)
+        for r in range(data * model)
+    ]
+    seen = [
+        torch.load(Path(rank_dir, f"seen{r}.pt"), weights_only=False)
+        for r in range(data * model)
+    ]
+    dims = ranks[0]["dims"]
+    split = ModelSplit(None, dims)
+    one_loss = [h["loss"] for h in one["history"]]
+    one_synced = dict(flatten_with_paths(one["synced0"]))
+    levels = (1 << (bits - 1)) - 1
+    step = ((1 + ALPHA) - (1 + ALPHA) ** ((levels - 1) / levels)) / ALPHA
+    check(len(one_loss) == steps, f"{label}: {len(one_loss)} one-process steps")
+    if run == "t3":
+        eps = comp.privacy_epsilon_per_step(1e-5)
+        check(eps == T3_EPSILON, f"{label}: epsilon a step {eps} != {T3_EPSILON}")
+    if run not in ("t5", "t6"):  # no gate, no sideband: the plan's bits
+        bits0 = one["recs"][0][0]
+        check(bits0 == comp.wire_bits_per_step(), f"{label}: one-process bits {bits0}")
+    layout = _t_layout(run, comp, dims)
+    skip = 1 if run == "t6" else 0  # the participation flags' gather
+    one_stale = one.get("stale")
+    if run == "t5":  # a warm fire in every group; skips, forced and voted fires
+        from repro_torch.core.lazy import group_max_stale
+
+        seen_kinds = set()
+        for m in one_stale[0]:
+            cap = group_max_stale(comp.plans, comp.lazy_groups[m])
+            pattern = [int(st[m]) for st in one_stale]
+            print(f"  {label}: group {m} (cap {cap}) staleness by step {pattern}")
+            check(pattern[0] == 0, f"{label}: group {m} skipped its warm step")
+            for s_, p in enumerate(pattern[1:], 1):
+                before = pattern[s_ - 1]
+                seen_kinds.add("skip" if p else "forced" if before >= cap else "vote")
+        check(
+            seen_kinds >= {"skip", "forced"},
+            f"{label}: the groups' rounds were {sorted(seen_kinds)}: no skip and "
+            "forced fire",
+        )
+    if run == "t6":
+        pattern = [f.tolist() for f in one["flags"]]
+        check(sum(pattern[0]) == 1, f"{label}: round 0's flags {pattern[0]}")
+        print(
+            f"  {label}: participation seed {_t6_seed()}, flags by round {pattern}"
+        )
+    # TopK at step 0: each worker's k-th largest magnitude of each leaf (its
+    # least kept, over its data row's ranks; the larger of the ranks' and
+    # one process's), at which the bf16 drift may swap an entry in or out
+    # of that worker's kept set: the synced mean moves by at most the sum
+    # over the workers / n
+    least = {}
+    if run == "t1":
+        lowrank = [i for i, pl in enumerate(comp.plans) if pl.route == "lowrank"]
+        for j, i in enumerate(lowrank):
+            taus = []
+            for w in range(data):
+                row = range(w * model, (w + 1) * model)  # its data row's ranks
+                tau = min(float(seen[q]["kept"][j][2].max()) for q in row)
+                taus.append(max(tau, float(one["kept"][j][2][w])))
+            least[i] = sum(taus)
+    rows, moved = {}, {}
+    summary = {}
+    for r, res in enumerate(ranks):
+        coords, sizes = _q_coords(r, data, model)
+        d = coords["data"]
+        who = f"{label} rank (d{d}, m{coords['model']})"
+        loss = [h["loss"] for h in res["history"]]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss, one_loss, strict=True))
+        check(loss_rel <= Q_LOSS_REL, f"{who}: loss rel {loss_rel:.3e}")
+        for s, (bits_s, phys, colls) in enumerate(res["recs"]):
+            bits_1, _, colls_1 = one["recs"][s]
+            check(bits_s == bits_1, f"{who}: step {s} accounted bits {bits_s}")
+            check(colls == colls_1, f"{who}: step {s} data-axis collectives {colls}")
+            rows.setdefault((d, s), []).append(phys)
+        if one_stale is not None:  # the fire pattern: one process's
+            got = [{m: int(v) for m, v in st.items()} for st in res["stale"]]
+            want = [{m: int(v) for m, v in st.items()} for st in one_stale]
+            check(got == want, f"{who}: staleness {got} != {want}")
+        if run == "t6":
+            got = [f.tolist() for f in seen[r]["flags"]]
+            want = [f[d : d + 1].tolist() for f in one["flags"]]
+            check(got == want, f"{who}: participation flags {got} != {want}")
+        # step 0's wire against the block of the one-process wire, on the card
+        moved_at = {}
+        for j in range(len(layout or ())):
+            phase, i, shape, dim, flat = layout[j]
+            w = _q_codes(one["gathered"][skip + j].cuda(), shape, bits)
+            bshape = list(shape)
+            if dim is not None:
+                bshape[dim] //= model
+                w = _q_factor_block(w, dim, flat, coords, sizes)
+            g = _q_codes(res["gathered"][skip + j].cuda(), bshape, bits)
+            diff = (g.int() - w.int()).abs()
+            m = moved.setdefault(phase, [0, 0, 0])
+            m[0] += int((diff == 1).sum())
+            m[1] += int((diff > 1).sum())
+            m[2] += diff.numel()
+            moved_at.setdefault(i, {})[phase] = diff.amax(0)
+            if run == "t2":  # QSGD's linear grid: one level, or a sign flip
+                bad = (diff > 1) & (g.int() != -w.int())  # of a value near 0
+                check(not bad.any(), f"{who}: {phase} {i} code moved {diff.max()}")
+
+        # step 0's synced gradient, at the sampled positions
+        worst, held, total_n = (0.0, "", ""), 0, 0
+        synced = flatten_with_paths(res["synced0"])
+        tops = one["synced0_max"]
+        for i, ((path, g), dim) in enumerate(zip(synced, dims, strict=True)):
+            w = _q_block(one_synced[path], dim, coords, sizes).cuda().float()
+            g = g.cuda().float()
+            top = max(tops[i], 1e-30)
+            share = (g - w).abs() / top
+            if i in least:  # a swapped entry moves the mean by |x| / n
+                share = (share - least[i] / data / top).clamp_min(0)
+            if i in moved_at and run != "t5":
+                stride = sample_stride(comp.plans[i].shape[-1])
+                shape = g.shape[:-1] + (g.shape[-1] * stride,)
+                whole = torch.empty(shape, device="meta")
+                at = {ph: v.cuda() for ph, v in moved_at[i].items()}
+                steps_at = _q_steps(whole, comp.plans[i].stacked, at)[..., ::stride]
+                if run == "t2":  # a QSGD element is held through its codes
+                    share = torch.where(steps_at > 0, 0.0, share)
+                else:
+                    allow = torch.pow(1 + step, steps_at.float()) - 1
+                    share = (share - allow).clamp_min(0)
+                held += int((steps_at > 0).sum())
+            total_n += g.numel()
+            if float(share.max()) > worst[0]:  # its largest difference, and why
+                at = int(share.argmax())
+                beyond = int((share > Q_SYNC_SHARE).sum())
+                one_side = int(((g == 0) != (w == 0)).sum())
+                why = (
+                    f"one {float(w.reshape(-1)[at]):.4e}, rank "
+                    f"{float(g.reshape(-1)[at]):.4e}, largest {top:.4e}, least "
+                    f"kept (sum over workers) {least.get(i, 0.0):.4e}; {beyond} of {g.numel()} sampled "
+                    f"beyond, {one_side} kept on one side only"
+                )
+                worst = (float(share.max()), path, why)
+        ok = worst[0] <= Q_SYNC_SHARE
+        check(ok, f"{who}: step-0 synced {worst[1]} {worst[0]:.3e}: {worst[2]}")
+        step_ms = 1e3 * _median(res["step_s"][1:])
+        data_share = sum(res["collective_s"][1:]) / sum(res["step_s"][1:])
+        model_share = sum(res["model_collective_s"][1:]) / sum(res["step_s"][1:])
+        summary[r] = dict(
+            loss_rel=loss_rel, synced=worst[0], step_ms=step_ms,
+            model_share=model_share, data_share=data_share,
+            peak_gb=res["peak_bytes"] / 1e9,
+        )  # fmt: skip
+        print(
+            f"  {who}: loss rel <= {loss_rel:.3e}, step-0 synced <= {worst[0]:.3e} "
+            f"of its leaf's largest ({worst[1]}: {worst[2]}) beyond the allowance, "
+            f"{held / max(total_n, 1):.3%} of it made of a moved code; "
+            f"{step_ms:.1f} ms a step eager (host clock), model-axis collectives "
+            f"{model_share:.1%}, data-axis {data_share:.1%}; peak "
+            f"{res['peak_bytes'] / 1e9:.2f} GB; {card}"
+        )
+        print(f"    model-axis collectives by tag: {res['model_comm']['calls']}")
+    if run == "t1":  # k a worker and leaf, over each data row's ranks
+        lowrank = [i for i, pl in enumerate(comp.plans) if pl.route == "lowrank"]
+        for d in range(data):
+            row = [seen[r]["kept"] for r in range(data * model) if r // model == d]
+            for j, (k, _, _) in enumerate(one["kept"][: len(lowrank)]):
+                counts = [int(x[j][1].sum()) for x in row]
+                want = k if dims[lowrank[j]] is not None else k * model
+                check(sum(counts) == want, f"{label}: row {d} TopK call {j} {counts}")
+        check(all(bool((c == k).all()) for k, c, _ in one["kept"]), f"{label}: one k")
+    for (d, s), got in rows.items():
+        skipped = []
+        if one_stale is not None:
+            skipped = [m for m, v in one_stale[s].items() if int(v) != 0]
+        if skipped:
+            rep = comp.model_replicated_bits(split, skipped)
+        else:
+            rep = comp.model_replicated_bits(split)
+        want = one["recs"][s][1] + (model - 1) * rep
+        check(sum(got) == want, f"{label}: row {d} step {s} physical {sum(got)}")
+    for s in range(steps):  # replicated leaves: the same bits on every rank
+        first = ranks[0]["prints"][s]
+        for res in ranks[1:]:
+            for (key, fp), dim in zip(first.items(), dims):
+                if dim is None:
+                    check(res["prints"][s][key] == fp, f"{label}: step {s} {key}")
+    shares = {
+        ph: f"{(a + b) / max(n, 1):.3%} moved ({a} by one, {b} by 2+ of {n})"
+        for ph, (a, b, n) in moved.items()
+    }
+    one_ms = 1e3 * one["step_s"][-1]
+    print(
+        f"  {label}: accounted {one['recs'][0][0]} bits at step 0, data-axis "
+        f"collectives {one['recs'][0][2]} a rank; each data row's physical bits = "
+        f"one process's + {model - 1} x the replicated; step-0 codes against one "
+        f"process: {shares or 'no codes kept'}; replicated leaves bit-identical on "
+        f"all ranks after each of {steps} steps; one process {one_s:.1f} s "
+        f"({one_ms:.1f} ms its last step, peak {one['peak_bytes'] / 1e9:.2f} GB); "
+        f"checks {time.perf_counter() - t0:.1f} s; the run's dumps "
+        f"{_tree_gb(rank_dir) + _tree_gb(rank_dir.parent / f'{run}_one'):.3f} GB"
+    )
+    emit({"phase": "t", "run": run, "card": card, "one_s": one_s, "one_ms": one_ms,
+          "codes_moved": moved, "ranks": summary,
+          "accounted_bits": one["recs"][0][0]})  # fmt: skip
+    counts = {}
+    for res in ranks:
+        for name in T_KERNELS.get(run, ()):
+            check(res["launches"].get(name, 0) > 0, f"{label}: {name} not launched")
+        for name, c in res["launches"].items():
+            counts[name] = counts.get(name, 0) + c
+    print(f"  {label}: the ranks' launches {counts}")
+    return counts
+
+
+def _tree_gb(path):
+    """The bytes of the files under ``path``, in GB."""
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file()) / 1e9
+
+
+def _disk_writes_gb():
+    """The bytes this process and its reaped children wrote to storage,
+    in GB (``write_bytes`` of /proc/self/io)."""
+    try:
+        with open("/proc/self/io") as f:
+            for line in f:
+                if line.startswith("write_bytes:"):
+                    return int(line.split()[1]) / 1e9
+    except OSError:
+        pass
+    return float("nan")  # not readable here
+
+
 # ------------------------------------ phase 17 (r): tensor-parallel zoo serving
 # run -> (arch, mesh, cache bits, the cut of its depth), at full width, batch
 # 4, prompt 1024, R_GEN new tokens; the ranks of one mesh run their runs in
@@ -6054,23 +6489,26 @@ def _s_checks(run, one_dir, rank_dir, one):
 # one-process run in this process on the same seeded weights and prompts.
 # (r1) jamba-v0.1-52b one period (8 layers): Mamba-2 heads, 8 of 16 experts
 # a rank, attention over 4 of 8 KV heads, #7 on 64 heads; (r2) mamba2-370m
-# 12 of 48 layers at 2x2: the data axis with a head-split SSM state; (r3)
+# 6 of 48 layers at 2x2: the data axis with a head-split SSM state; (r3)
 # deepseek-v3-671b 4 of 61 layers (3 dense + 1 MoE): 128 experts and 64
 # heads a rank, the latent cache split by sequence, #6 at head_dim 192;
-# (r4) musicgen-medium 12 of 48 layers after its 64-step prefix: codebooks
-# and cond, 12 of 24 KV heads; (r5) gemma3-1b on 14 of 26 layers (as (p1)),
+# (r4) musicgen-medium 6 of 48 layers after its 64-step prefix: codebooks
+# and cond, 12 of 24 KV heads; (r5) gemma3-1b on 8 of 26 layers (as (p1)),
 # the continuous scheduler over (c)'s 8 requests through 4 slots at 2x2.
+# (r2), (r4) and (r5) at half their depth of phases 17 and 18 since phase 19.
 R_RUNS = {
     "r1": ("jamba-v0.1-52b", "1x2", 8, {"repeats": 1}),
-    "r2": ("mamba2-370m", "2x2", 0, {"repeats": 12}),
+    "r2": ("mamba2-370m", "2x2", 0, {"repeats": 6}),
     "r3": ("deepseek-v3-671b", "1x2", 8, {"repeats": 1}),
-    "r4": ("musicgen-medium", "1x2", 4, {"repeats": 12}),
-    "r5": ("gemma3-1b", "2x2", 8, {"repeats": 2}),
+    "r4": ("musicgen-medium", "1x2", 4, {"repeats": 6}),
+    "r5": ("gemma3-1b", "2x2", 8, {"repeats": 1}),
 }
 # the runs of phases (p), (q) and (r) over each mesh, in ONE torchrun each
 TP_SPAWNS = {
     "1x2": ("o", "n3", "p1", "p3", "q2", "r1", "r3", "r4", "s1", "s2", "s3", "s4"),
-    "2x2": ("n2", "p2", "q1", "r2", "r5", "s5"),
+    "2x2": (
+        "n2", "p2", "q1", "r2", "r5", "s5", "t1", "t2", "t3", "t4", "t5", "t6",
+    ),
 }
 R_CONTINUOUS = "r5"
 # The ranks share the card and draw their weights in turn (launch/serve.py),
@@ -6264,6 +6702,8 @@ def tp_spawn_rank_main(out_dir, mesh):
                 res = {"o": _o_rank, "n2": _n2_rank, "n3": _n3_rank}[run](out_dir)
             elif run in TRAIN_RUNS:
                 res = _q_rank(out_dir, run)
+            elif run in T_RUNS:
+                res = _t_rank(out_dir, run)
             elif run in P_RUNS:
                 res = _p_rank(out_dir, run)
             elif run == R_CONTINUOUS:
@@ -6531,8 +6971,9 @@ def _r_continuous_checks(card, run, one, ranks):
 
 
 def phase_tp(card):
-    """(o), (p), (q), (r) and (s): every compressor across 2 ranks, and
-    tensor-parallel serving and training, over gloo ranks sharing the card.
+    """(o), (p), (q), (r), (s) and (t): every compressor across 2 ranks,
+    tensor-parallel serving and training, and training over a (data, model)
+    mesh with every compressor, over gloo ranks sharing the card.
     Each phase's kernels at its ranks' shapes first; then per mesh the
     one-process runs here and ONE torchrun of its ranks for the runs of
     all the phases (``TP_SPAWNS``: a torchrun's start-up and first calls
@@ -6541,13 +6982,13 @@ def phase_tp(card):
     kernels, one-process runs, checks and its runs' share of the torchruns
     (the slowest rank's time in its runs, and the start-up split over the
     runs)."""
-    seconds = dict.fromkeys(("n2", "n3", "o", "p", "q", "r", "s"), 0.0)
+    seconds = dict.fromkeys(("n2", "n3", "o", "p", "q", "r", "s", "t"), 0.0)
     for phase, kernels, seed in (("p", _p_kernels, 15), ("q", _q_kernels, 16),
                                  ("r", _r_kernels, 17), ("s", _s_kernels, 18)):  # fmt: skip
         t0 = time.perf_counter()
         kernels(torch.Generator(device="cuda").manual_seed(seed))
         seconds[phase] += time.perf_counter() - t0
-    total = {}
+    total, dumps_gb = {}, 0.0
     for mesh, runs in TP_SPAWNS.items():
         world = _p_world(mesh)
         with tempfile.TemporaryDirectory() as tmp:
@@ -6560,6 +7001,8 @@ def phase_tp(card):
                     one[run] = _p_one_process(run, tmp)
                 elif run in TRAIN_RUNS:
                     one[run] = _q_one_process(run, Path(tmp, f"{run}_one"))
+                elif run in T_RUNS:
+                    one[run] = _t_one_process(run, Path(tmp, f"{run}_one"))
                 elif run == R_CONTINUOUS:
                     one[run] = _r_one_continuous(run)
                 else:
@@ -6600,6 +7043,9 @@ def phase_tp(card):
                     counts = _q_run(card, run, one[run], rank_dir, one_s[run])
                     if run in S_RUNS:
                         _s_checks(run, Path(tmp, f"{run}_one"), rank_dir, one[run])
+                elif run in T_RUNS:
+                    rank_dir = Path(tmp, f"{run}_ranks")
+                    counts = _t_checks(card, run, one[run], rank_dir, one_s[run])
                 else:
                     ranks = [
                         torch.load(Path(tmp, f"{run}_rank{r}.pt"), weights_only=False)
@@ -6615,10 +7061,16 @@ def phase_tp(card):
                 seconds[run if run in seconds else run[0]] += t
                 for name, c in counts.items():
                     total[name] = total.get(name, 0) + c
+            dumps_gb += _tree_gb(tmp)
     print(
         "(o, p, q, r) seconds by phase (kernels, one process, checks, the ranks' "
         "runs and a share of the torchruns' start-up): "
         + ", ".join(f"({k}) {v:.1f}" for k, v in seconds.items())
+    )
+    print(
+        f"(t) {seconds['t']:.1f} s; the script's disk writes so far "
+        f"{_disk_writes_gb():.2f} GB (write_bytes, this process and its reaped "
+        f"children); the torchruns' dumps {dumps_gb:.3f} GB"
     )
     return total, seconds
 
@@ -6842,6 +7294,7 @@ def main():
         seconds[phase.__name__.removeprefix("phase_")] = time.perf_counter() - t
     seconds["total"] = time.perf_counter() - t0
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    print(f"disk writes: {_disk_writes_gb():.2f} GB (write_bytes, with reaped children)")
     emit({"phase_seconds": seconds, "card": card})
     kernels = []
     for name, (route, source, replaces) in KERNEL_INFO.items():

@@ -43,7 +43,9 @@ is not. Every draw goes through :func:`draw`: a plain generator draws
 values of the tensor's shape; a :class:`WorkerRows` draws every worker's
 values of the (N, ...) tensor and keeps this process's rows, so a worker's
 bits depend on the seed, step, leaf, phase and its global index, never on
-how many workers share its process.
+how many workers share its process. Where the tensor is a rank's block of
+one split over a model axis (:class:`ModelBlock`), the draw covers the
+whole tensor too and keeps the block, so the codes are one process's.
 
 Privacy contract: ``privacy_sigma()`` is the std of the injected noise in
 normalized units (0.0 when deterministic) and ``epsilon_per_use(delta)``
@@ -88,6 +90,7 @@ __all__ = [
     "DitheredLogQuantCodec",
     "LayeredRandQuantCodec",
     "value_unbiased_round",
+    "ModelBlock",
     "WorkerRows",
     "draw",
     "draw_values",
@@ -212,22 +215,55 @@ def packed_wire_bits(numel: int, bits: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class ModelBlock:
+    """This rank's block of a per-worker tensor split over a model axis:
+    ``comm`` (a ``core.comm.ModelComm``), the whole tensor's per-worker
+    shape ``view`` and the dim of ``view`` the axis cuts. ``view`` unflattens
+    a dim where the axis cuts one of its factors (the rows of a (cb, V, d)
+    leaf's P factor, split on V, are a block of every codebook's), so the
+    block is ``view`` narrowed to the rank's 1/M of ``dim``, flattened back
+    to the block's own shape."""
+
+    comm: Any
+    view: tuple[int, ...]
+    dim: int
+
+    @property
+    def size(self) -> int:
+        return self.comm.size
+
+    def max(self, x: torch.Tensor, tag: str) -> torch.Tensor:
+        return self.comm.max(x, tag)
+
+    def cut(self, whole: torch.Tensor) -> torch.Tensor:
+        """The rank's block of ``whole``: leading dims, then ``view``."""
+        n = self.view[self.dim] // self.comm.size
+        lead = whole.dim() - len(self.view)
+        return whole.narrow(lead + self.dim, self.comm.rank * n, n)
+
+
+@dataclasses.dataclass(frozen=True)
 class WorkerRows:
-    """A codec key over a process's share of the workers: ``gen`` draws the
-    values of all ``n`` workers of a (N, ...) tensor, as one process
-    holding every worker draws them, and the process keeps ``rows``."""
+    """A codec key over a process's share of a tensor: ``gen`` draws the
+    values of all ``n`` workers of the whole (N, ...) tensor, as one process
+    holding every worker and the whole tensor draws them, and the process
+    keeps ``rows`` and, over a model axis, its ``block``."""
 
     gen: torch.Generator
     rows: slice
     n: int
+    block: ModelBlock | None = None
 
 
-def worker_key(key: torch.Generator | None, comm) -> Any:
+def worker_key(
+    key: torch.Generator | None, comm, block: ModelBlock | None = None
+) -> Any:
     """``key`` over ``comm``'s workers: as it is where the process holds all
-    of them, else a :class:`WorkerRows` of its rows."""
-    if key is None or comm.local_size() == comm.size():
+    of them and the whole tensor, else a :class:`WorkerRows` of its rows
+    and ``block``."""
+    if key is None or (comm.local_size() == comm.size() and block is None):
         return key
-    return WorkerRows(key, comm.workers(), comm.size())
+    return WorkerRows(key, comm.workers(), comm.size(), block)
 
 
 def draw_values(kind: str, shape, gen: torch.Generator, device, high: int = 0):
@@ -244,11 +280,15 @@ def draw(kind: str, x: torch.Tensor, key, high: int = 0) -> torch.Tensor:
     """A :func:`draw_values` of ``x``'s shape from ``key``; over a
     :class:`WorkerRows` ``x`` leads with this process's workers, and the
     draw covers all N of them (the one-process stream) before keeping the
-    rows."""
-    rows = isinstance(key, WorkerRows)
-    shape = (key.n,) + tuple(x.shape[1:]) if rows else tuple(x.shape)
-    out = draw_values(kind, shape, key.gen if rows else key, x.device, high)
-    return out[key.rows] if rows else out
+    rows; with a ``block`` it covers the whole tensor and keeps the block
+    (one draw a call, freed once cut)."""
+    if not isinstance(key, WorkerRows):
+        return draw_values(kind, tuple(x.shape), key, x.device, high)
+    if key.block is None:
+        shape = (key.n,) + tuple(x.shape[1:])
+        return draw_values(kind, shape, key.gen, x.device, high)[key.rows]
+    whole = draw_values(kind, (key.n,) + key.block.view, key.gen, x.device, high)
+    return key.block.cut(whole[key.rows]).reshape(x.shape)
 
 
 # --------------------------------------------------------------------------
@@ -720,7 +760,7 @@ def codec_phase(
     fuse: bool = False,
     keys: Sequence[torch.Generator | None] | None = None,
     account_bits: Sequence[int] | None = None,
-    split: Sequence[Any] | None = None,
+    split: Sequence[ModelBlock | None] | None = None,
 ) -> list[torch.Tensor]:
     """Ship a list of (N, ...) per-worker tensors through one collective phase.
 
@@ -746,14 +786,15 @@ def codec_phase(
     is charged what each worker actually encodes (codes as shipped, f32
     codes under ``psum_sim``) plus 32 per scale.
 
-    ``split[i]``, a ``ModelComm`` (None: whole), says that tensor i is this
-    rank's block of a tensor split over a model axis of that group: its
-    scale is the max over the group too (one model-axis all-reduce for all
-    such tensors, before the data-axis pmax), the data-axis collectives
-    carry the rank's block, and ``rec``'s static tier is charged the whole
-    tensor's payload (the JAX package's accounting), ``phys_bits`` the
-    block's. Returns the synced tensors, one per input, in the input's
-    per-worker shape (no worker dim): every worker holds the same values.
+    ``split[i]``, a :class:`ModelBlock` (None: whole), says that tensor i is
+    this rank's block of a tensor split over a model axis: its scale is the
+    max over the axis too (one model-axis all-reduce for all such tensors,
+    before the data-axis pmax), its draws are the whole tensor's cut to the
+    block (:func:`draw`), the data-axis collectives carry the rank's block,
+    and ``rec``'s static tier is charged the whole tensor's payload (the JAX
+    package's accounting), ``phys_bits`` the block's. Returns the synced
+    tensors, one per input, in the input's per-worker shape (no worker dim):
+    every worker holds the same values.
     """
     n = len(xs)
     if n == 0:
@@ -761,8 +802,13 @@ def codec_phase(
     wt = as_wire(comm)
     split = list(split) if split is not None else [None] * n
     whole = [1 if c is None else c.size for c in split]  # blocks of the tensor
-    # a process of k < N workers draws all N workers' values, keeps its rows
-    keys = [worker_key(k, wt) for k in keys] if keys is not None else [None] * n
+    # a process of k < N workers draws all N workers' values, keeps its rows;
+    # a rank's block of a model-split tensor draws the whole, keeps its block
+    keys = (
+        [worker_key(k, wt, blk) for k, blk in zip(keys, split)]
+        if keys is not None
+        else [None] * n
+    )
     xs = [x.float() for x in xs]
 
     # ---- shared quantization grid: per-instance global max ---------------

@@ -56,6 +56,18 @@ contribution mask is gathered, and its mean gates the byte accounting.
 Per-worker state (``err``, ``lazy_ref``, ``lazy_stale``) freezes unless the
 worker contributed; collective-derived state (warm Q, the drift EMA)
 advances every round. There is no ``lazy_out`` cache on the server wire.
+
+Over a ``(data, model)`` mesh of M > 1 (``sync(..., model=)``, a
+``compressors.ModelSplit``) each rank holds its block of every split leaf's
+gradient and of its param-shaped state (``err``, ``lazy_out``,
+``lazy_ref``: :meth:`state_pspecs`, the JAX package's), while the plans,
+policies and schedule phases are the whole leaves', as one process makes
+them. Every group's handler syncs the blocks (``model=``), the warm-up's
+exact mean and the server's freezes act on them elementwise, and the lazy
+statistics and drift of a split leaf are summed over the model axis before
+any decision (``core/lazy.py:model_sum``), so every rank of the mesh fires
+alike. The server wire's flags are indexed by data row, so every model rank
+of a row acts on its row's flags.
 """
 
 from __future__ import annotations
@@ -200,7 +212,14 @@ class CompositeCompressor(GradCompressor):
         }
 
     # ---- state -----------------------------------------------------------
-    def init_state(self, seed: int, n_workers: int, device="cuda") -> dict[str, Any]:
+    def init_state(
+        self, seed: int, n_workers: int, device="cuda", model=None
+    ) -> dict[str, Any]:
+        """The composite's state: see the module doc; with ``model`` (a
+        ``ModelSplit``) the param-shaped tensors are this rank's blocks."""
+        plans = self.plans
+        if model is not None:
+            plans = [model.block_plan(i, pl) for i, pl in enumerate(plans)]
         state: dict[str, Any] = {"step": 0}
         for m, h in self.handlers.items():
             for ns in h.namespaces:
@@ -211,7 +230,7 @@ class CompositeCompressor(GradCompressor):
         for m, idxs in self.groups.items():
             h = self.handlers[m]
             for i in idxs:
-                leaf = h.init_leaf_state(seed, i, self.plans[i], n_workers, device)
+                leaf = h.init_leaf_state(seed, i, plans[i], n_workers, device)
                 for ns, v in leaf.items():
                     state[ns][str(i)] = v
         # ---- lazy aggregation ---------------------------------------------
@@ -225,7 +244,7 @@ class CompositeCompressor(GradCompressor):
             state.setdefault(lazy_mod.REF_NS, {})
             state.setdefault(lazy_mod.STALE_NS, {})
             for i in lz:
-                shape = self.plans[i].shape
+                shape = plans[i].shape
                 if not server:
                     out = torch.zeros(shape, dtype=sd, device=device)
                     state[lazy_mod.OUT_NS][str(i)] = out
@@ -297,15 +316,6 @@ class CompositeCompressor(GradCompressor):
             "20, the graphed composite)"
         )
 
-    def tp_refusal(self) -> str | None:
-        from repro_torch.launch.mesh import TP_COMPRESSORS
-
-        return (
-            "the composite compressor (per-leaf policies, schedules, lazy "
-            "groups, the randomized codecs, the server wire) on model-sharded "
-            f"gradients is not ported yet ({TP_COMPRESSORS})"
-        )
-
     def sync(
         self,
         grads: Tree,
@@ -314,11 +324,14 @@ class CompositeCompressor(GradCompressor):
         *,
         participation_mask: torch.Tensor | None = None,
         donate: bool = False,
+        model: Any = None,
     ) -> tuple[Tree, dict[str, Any], CommRecord]:
         """As :meth:`GradCompressor.sync`, but always functional: the lazy
         and warm-up paths read the old error feedback after the groups'
         syncs, so ``donate`` is taken for the step's interface and the
-        state is not donated yet (ROADMAP item 20, the graphed composite)."""
+        state is not donated yet (ROADMAP item 20, the graphed composite).
+        ``model``: the gradients and param-shaped state are this rank's
+        blocks over a model axis (module doc)."""
         del donate
         rec = CommRecord()
         leaves = tree_leaves(grads)
@@ -326,7 +339,8 @@ class CompositeCompressor(GradCompressor):
         # the participation sideband is gathered (and charged) once a round
         check_across_ranks(self, wire)
         wire.prepare(rec)
-        self._check_grads(leaves, wire.local_size())
+        tp = model if model is not None and model.size > 1 else None
+        self._check_grads(leaves, wire.local_size(), tp)
         server = wire.kind == "server"
         outs: dict[int, torch.Tensor] = {}
         updates: dict[str, dict] = {}
@@ -338,11 +352,14 @@ class CompositeCompressor(GradCompressor):
             eager = [i for i in idxs if i not in lz]
             if eager:
                 items = [(i, leaves[i], self.plans[i]) for i in eager]
-                parts.append(self.handlers[m].sync_group(items, state, wire, rec))
+                h = self.handlers[m]
+                parts.append(h.sync_group(items, state, wire, rec, model=tp))
             if lz:
                 sync_lazy = self._sync_lazy_server if server else self._sync_lazy
                 lazy_idxs = self.lazy_groups[m]
-                parts.append(sync_lazy(m, lazy_idxs, leaves, state, wire, rec, warm))
+                parts.append(
+                    sync_lazy(m, lazy_idxs, leaves, state, wire, rec, warm, tp)
+                )
             for o, upd in parts:
                 outs.update(o)
                 for ns, sub in upd.items():
@@ -383,13 +400,28 @@ class CompositeCompressor(GradCompressor):
             return None
         return lazy_mod.tau_scale2(state[lazy_mod.EMA_NS][m], cap)
 
+    def _model_stats(self, idxs, model) -> dict[str, Any]:
+        """The lazy decisions' model-axis arguments for leaves ``idxs``."""
+        if model is None:
+            return {}
+        return {"model": model.comm, "split": [model.dims[i] is not None for i in idxs]}
+
+    def _drift(self, idxs, outs, model) -> torch.Tensor:
+        """The squared magnitude of a group's applied aggregate, each split
+        leaf's block sum completed over the model axis."""
+        parts = [outs[j].float().square().sum() for j in range(len(idxs))]
+        if model is not None:
+            split = [model.dims[i] is not None for i in idxs]
+            parts = lazy_mod.model_sum(parts, split, model.comm, "tp.lazy.drift")
+        return sum(parts)
+
     def _fired_accounting(self, m: str, idxs: list[int]) -> tuple[int, int]:
         """The bits and collectives the group's handler sync charges on a
         fired round: static, from the plans and the handler."""
         h, plans = self.handlers[m], [self.plans[i] for i in idxs]
         return sum(h.leaf_wire_bits(pl) for pl in plans), h.group_collectives(plans)
 
-    def _sync_lazy(self, m, idxs, leaves, state, comm, rec, warm):
+    def _sync_lazy(self, m, idxs, leaves, state, comm, rec, warm, model=None):
         """One method group's lazy subset on the symmetric wire: the
         collective skip decision, the handler sync dispatched on it, and the
         cached aggregate on a skip (LAQ-faithful: a skipped round's gradient
@@ -408,13 +440,15 @@ class CompositeCompressor(GradCompressor):
             rec,
             force=warm,
             tau_scale2=self._tau_scale2(m, idxs, state),
+            **self._model_stats(idxs, model),
         )
         items = [(i, leaves[i], self.plans[i]) for i in idxs]
         cached = {i: state[lazy_mod.OUT_NS][str(i)] for i in idxs}
         if self.cfg.lazy_mode == "gate":
             sub = CommRecord()
-            o, upd = h.sync_group(items, state, comm, sub)
+            o, upd = h.sync_group(items, state, comm, sub, model=model)
             rec.add_gated(sub.bits_sent, sub.n_collectives, dec.fire)
+            rec.add_phys(sub.phys_bits)  # the group shipped, whatever fired
             # handler state advances only on a fired round
             for ns, subd in upd.items():
                 for k in subd:
@@ -425,7 +459,9 @@ class CompositeCompressor(GradCompressor):
             bits, n = self._fired_accounting(m, idxs)
             rec.add_gated(bits, n, dec.fire)
             if bool(dec.fire):  # the one host read of the decision
-                o, upd = h.sync_group(items, state, comm, CommRecord())
+                sub = CommRecord()
+                o, upd = h.sync_group(items, state, comm, sub, model=model)
+                rec.add_phys(sub.phys_bits)
                 for ns, subd in upd.items():
                     for k, v in subd.items():
                         subd[k] = _as_gate_would(v, state.get(ns, {}).get(k), ns, k)
@@ -444,12 +480,12 @@ class CompositeCompressor(GradCompressor):
         upd[lazy_mod.STALE_NS] = {m: dec.new_stale}
         if lazy_mod.group_adaptive_cap(self.plans, idxs) > 0:
             # drift: the squared magnitude of the applied aggregate
-            drift = sum(s.square().sum() for s in sel_outs)
+            drift = self._drift(idxs, sel_outs, model)
             ema = lazy_mod.ema_update(state[lazy_mod.EMA_NS][m], drift, dec.fire)
             upd[lazy_mod.EMA_NS] = {m: ema}
         return outs, upd
 
-    def _sync_lazy_server(self, m, idxs, leaves, state, wire, rec, warm):
+    def _sync_lazy_server(self, m, idxs, leaves, state, wire, rec, warm, model=None):
         """One method group's lazy subset on the server wire: a per-worker
         decision, substitution of what the server already holds for a
         worker that does not contribute, and the handler's collectives
@@ -467,6 +503,7 @@ class CompositeCompressor(GradCompressor):
             lazy_mod.group_max_stale(self.plans, idxs),
             force=warm,
             tau_scale2=self._tau_scale2(m, idxs, state),
+            **self._model_stats(idxs, model),
         )
         contrib = dec.fire & wire.active()
         # the server learns who shipped fresh payload: one f32 flag a worker
@@ -482,8 +519,9 @@ class CompositeCompressor(GradCompressor):
             g_eff = torch.where(per_worker(contrib, sub), leaves[i].float(), sub)
             items.append((i, g_eff, self.plans[i]))
         sub_rec = CommRecord()
-        o, upd = h.sync_group(items, state, wire, sub_rec)
+        o, upd = h.sync_group(items, state, wire, sub_rec, model=model)
         rec.add(0, sub_rec.n_collectives)
+        rec.add_phys(sub_rec.phys_bits)
         rec.add_gated(sub_rec.bits_sent, 0, p_round)
         # per-worker namespaces freeze for non-contributors
         for ns, subd in upd.items():
@@ -506,7 +544,7 @@ class CompositeCompressor(GradCompressor):
         }
         if lazy_mod.group_adaptive_cap(self.plans, idxs) > 0:
             # the aggregate refreshes every server round, and so does the EMA
-            drift = sum(o[i].float().square().sum() for i in idxs)
+            drift = self._drift(idxs, [o[i] for i in idxs], model)
             fire = torch.ones((), dtype=torch.bool, device=p_round.device)
             ema = lazy_mod.ema_update(state[lazy_mod.EMA_NS][m], drift, fire)
             upd[lazy_mod.EMA_NS] = {m: ema}
@@ -521,6 +559,16 @@ class CompositeCompressor(GradCompressor):
         return (
             lazy_mod.DECISION_BITS_PER_LEAF * len(lz)
             + lazy_mod.DECISION_BITS_PER_GROUP
+        )
+
+    def model_replicated_bits(self, model: Any, skipped: Sequence[str] = ()) -> int:
+        """:meth:`GradCompressor.model_replicated_bits` over every group's
+        handler, but the lazy groups in ``skipped``, which an elided round
+        did not ship."""
+        return sum(
+            self.handlers[pl.policy.method].leaf_replicated_bits(pl, model.kind(i, pl))
+            for i, pl in enumerate(self.plans)
+            if not any(i in self.lazy_groups.get(m, ()) for m in skipped)
         )
 
     def decision_bits_per_step(self) -> int:

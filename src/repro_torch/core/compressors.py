@@ -32,11 +32,14 @@ Over a ``(data, model)`` mesh of M > 1 (:class:`ModelSplit`) each rank
 holds its model-axis block of every split gradient leaf, of its error
 feedback (:meth:`GradCompressor.state_pspecs`) and of the parameter; the
 warm-start Q stays whole. The sync ships blocks over the data-axis comm and
-joins what the method needs over the model axis (PowerSGD / LQ-SGD's split
-power iteration, ``core/powersgd.py``); ``CommRecord.bits_sent`` stays the
-whole model's accounting, and ``phys_bits`` says what the rank shipped.
-``none``, ``powersgd`` and ``lq_sgd`` (the log codec) run so; the rest
-raise (:meth:`GradCompressor.tp_refusal`).
+joins what the method needs over the model axis, so that each rank's
+synced block is the block of what one process computes: PowerSGD / LQ-SGD's
+split power iteration (``core/powersgd.py``), TopK's candidates
+(:func:`topk_mask`), the quantization scales' max, and the whole tensor's
+draws cut to the block (``codec.ModelBlock``). ``CommRecord.bits_sent``
+stays the whole model's accounting, and ``phys_bits`` says what the rank
+shipped. Every compressor runs so, the composite's policies, lazy groups
+and server wire too (``core/composite.py``).
 
 Generators: a randomized method draws from one ``torch.Generator`` per
 (leaf, step, stream), seeded from the state's ``key`` seed
@@ -94,6 +97,7 @@ __all__ = [
     "check_across_ranks",
     "ModelSplit",
     "model_split",
+    "topk_mask",
     "POLICY_METHODS",
     "PHASE_STREAMS",
 ]
@@ -377,9 +381,24 @@ class ModelSplit:
     def size(self) -> int:
         return self.comm.size
 
-    def of(self, i: int) -> Any:
-        """Leaf ``i``'s model comm where the axis splits it, else None."""
-        return self.comm if self.dims[i] is not None else None
+    def block(self, i: int, view: tuple[int, ...], dim: int | None = None) -> Any:
+        """A ``codec.ModelBlock`` where the axis splits leaf ``i``, else
+        None: of the leaf itself (``view`` its whole shape), or of a tensor
+        made from it whose ``view`` cuts the leaf's split on ``dim``."""
+        from repro_torch.core.codec import ModelBlock
+
+        if self.dims[i] is None:
+            return None
+        d = self.dims[i] if dim is None else dim % len(view)
+        return ModelBlock(self.comm, tuple(view), d)
+
+    def block_plan(self, i: int, pl: LeafPlan) -> LeafPlan:
+        """``pl`` with the shape of this rank's block of leaf ``i``."""
+        if self.dims[i] is None:
+            return pl
+        shape = list(pl.shape)
+        shape[self.dims[i]] //= self.size
+        return dataclasses.replace(pl, shape=tuple(shape))
 
     def kind(self, i: int, pl: LeafPlan) -> str | None:
         """How leaf ``i``'s matricized instance is split: 'col' (its last
@@ -409,6 +428,40 @@ def check_across_ranks(compressor: Any, comm: Any) -> None:
         why = compressor.dist_refusal()
         if why is not None:
             raise NotImplementedError(f"a sync across {world} ranks: {why}")
+
+
+def _block(model: ModelSplit | None, i: int, pl: LeafPlan) -> Any:
+    """Leaf ``i``'s ``codec.ModelBlock`` over ``model``, None where it is
+    whole (or there is no model axis)."""
+    return None if model is None else model.block(i, pl.shape)
+
+
+def topk_mask(flat: torch.Tensor, k: int, block: Any = None) -> torch.Tensor:
+    """The f32 0/1 mask of each worker's top ``k`` entries by magnitude of a
+    (w, numel) ``flat``, the whole leaf flattened. With ``block`` (a
+    ``codec.ModelBlock``) ``flat`` is this rank's block of the leaf, and
+    the top k are the whole leaf's: each rank's top ``min(k, block numel)``
+    magnitudes are gathered over the model axis (one all-gather,
+    ``tp.topk.cand``), every rank picks the same top k of them and keeps
+    those of its own block. The whole leaf's top k lie inside the union of
+    the blocks' top k, so the mask is one process's; equal magnitudes at
+    the k-th place are taken in candidate order (entries of 0 change no
+    value)."""
+    mag = flat.abs()
+    if block is None:
+        idx = torch.topk(mag, k, dim=1).indices
+        return torch.zeros_like(flat).scatter_(1, idx, 1.0)
+    kc = min(k, flat.shape[1])
+    vals, loc = torch.topk(mag, kc, dim=1)  # (w, kc) each
+    cand = block.comm.all_gather(vals[None], 0, "tp.topk.cand")  # (M, w, kc)
+    pick = torch.topk(cand.permute(1, 0, 2).reshape(flat.shape[0], -1), k, dim=1)
+    pos = pick.indices  # (w, k) in rank-major candidate order
+    mine = pos // kc == block.comm.rank
+    local = torch.gather(loc, 1, torch.where(mine, pos % kc, 0))
+    # a spare slot past the block takes the other ranks' picks
+    local = torch.where(mine, local, flat.shape[1])
+    mask = flat.new_zeros((flat.shape[0], flat.shape[1] + 1))
+    return mask.scatter_(1, local, 1.0)[:, : flat.shape[1]]
 
 
 def _group_by(items: Iterable[Any], keyf: Callable[[Any], Any]):
@@ -481,7 +534,7 @@ class LeafGroupHandler:
         """``model`` (a :class:`ModelSplit`, handlers that run over one):
         the items are the rank's blocks of leaves split over it."""
         return {
-            i: self.sync_raw(g, pl, comm, rec, split=model and model.of(i))
+            i: self.sync_raw(g, pl, comm, rec, split=_block(model, i, pl))
             for i, g, pl in items
         }, {}
 
@@ -499,11 +552,11 @@ class LeafGroupHandler:
         return self.leaf_wire_bits(pl)
 
     def leaf_replicated_bits(self, pl: LeafPlan, kind: str | None) -> int:
-        """Of this leaf's accounted bits, those every model rank ships alike
+        """Of this leaf's physical bits, those every model rank ships alike
         over a model axis that splits it as ``kind`` (``ModelSplit.kind``):
         a whole leaf's all, a split raw leaf's none (each rank ships its
         block)."""
-        return self.leaf_wire_bits(pl) if kind is None else 0
+        return self.leaf_physical_bits(pl) if kind is None else 0
 
     def leaf_epsilon(self, pl: LeafPlan, delta: float = 1e-5) -> float:
         """Per-step DP epsilon spent transmitting this leaf: the sum of
@@ -561,14 +614,14 @@ class TopKHandler(LeafGroupHandler):
         comp, kepts, account = [], [], []
         for i, g, pl in items:
             if pl.route != "lowrank":
-                outs[i] = self.sync_raw(g, pl, comm, rec)
+                outs[i] = self.sync_raw(g, pl, comm, rec, split=_block(model, i, pl))
                 continue
             err = state["err"][str(i)]
             in_place = donates(err, donate)
             flat = error_corrected(g, err, (g.shape[0], -1), in_place)
-            k = self._k(flat.shape[1], pl.policy.topk_ratio)
-            idx = torch.topk(flat.abs(), k, dim=1).indices
-            kept = flat * torch.zeros_like(flat).scatter_(1, idx, 1.0)
+            numel = _numel(pl.shape)  # the whole leaf's, over a model axis too
+            k = self._k(numel, pl.policy.topk_ratio)
+            kept = flat * topk_mask(flat, k, _block(model, i, pl))
             if in_place:  # the residual in the old error feedback's memory
                 new_err[str(i)] = err
                 flat.sub_(kept)
@@ -577,7 +630,7 @@ class TopKHandler(LeafGroupHandler):
                 new_err[str(i)] = err_new.to(state_dtype(self.cfg))
             comp.append((i, g, pl))
             kepts.append(kept.reshape(g.shape))
-            account.append(k * (32 + self.index_bits(flat.shape[1])))
+            account.append(k * (32 + self.index_bits(numel)))
         if comp:
             synced = codec_phase(
                 kepts,
@@ -648,7 +701,7 @@ class QSGDHandler(LeafGroupHandler):
         comp = []
         for i, g, pl in items:
             if pl.route != "lowrank":
-                outs[i] = self.sync_raw(g, pl, comm, rec)
+                outs[i] = self.sync_raw(g, pl, comm, rec, split=_block(model, i, pl))
             else:
                 comp.append((i, g, pl))
         # one codec == one wire dtype == one (fused) phase
@@ -665,6 +718,7 @@ class QSGDHandler(LeafGroupHandler):
                 wire=self.cfg.wire_accounting,
                 fuse=self.cfg.fuse_collectives,
                 keys=[self._generator(state, i, g.device) for i, g, _ in sub],
+                split=[_block(model, i, pl) for i, _, pl in sub],
             )
             for (i, g, pl), s in zip(sub, synced):
                 outs[i] = s.to(g.dtype)
@@ -684,6 +738,13 @@ class QSGDHandler(LeafGroupHandler):
         codec = self._codec(pl.policy.bits)
         n_scales = pl.shape[0] if pl.stacked else 1
         return _numel(pl.shape) * 32 + codec.scale_bits(n_scales)  # f32 codes
+
+    def leaf_replicated_bits(self, pl, kind):
+        # a split leaf's codes go in blocks; its scales are the model-wide max
+        if pl.route != "lowrank" or kind is None:
+            return super().leaf_replicated_bits(pl, kind)
+        n_scales = pl.shape[0] if pl.stacked else 1
+        return self._codec(pl.policy.bits).scale_bits(n_scales)
 
     def group_collectives(self, plans):
         from repro_torch.core.codec import phase_collectives
@@ -743,10 +804,8 @@ class GradCompressor:
         whole, drawn as in one process."""
         state: dict[str, Any] = {ns: {} for ns in self.handler.namespaces}
         for i, pl in enumerate(self.plans):
-            if model is not None and model.dims[i] is not None:
-                shape = list(pl.shape)
-                shape[model.dims[i]] //= model.size
-                pl = dataclasses.replace(pl, shape=tuple(shape))
+            if model is not None:
+                pl = model.block_plan(i, pl)
             leaf = self.handler.init_leaf_state(seed, i, pl, n_workers, device)
             for ns, v in leaf.items():
                 state[ns][str(i)] = v
@@ -819,9 +878,7 @@ class GradCompressor:
         if len(leaves) != len(self.plans):
             raise ValueError(f"{len(leaves)} grad leaves for {len(self.plans)} plans")
         for i, (g, pl) in enumerate(zip(leaves, self.plans)):
-            shape = list(pl.shape)
-            if model is not None and model.dims[i] is not None:
-                shape[model.dims[i]] //= model.size
+            shape = pl.shape if model is None else model.block_plan(i, pl).shape
             if tuple(g.shape[1:]) != tuple(shape) or g.shape[0] != n_workers:
                 raise ValueError(
                     f"{pl.path}: want ({n_workers}, *{tuple(shape)}) per-worker "
@@ -858,17 +915,10 @@ class GradCompressor:
         wire.prepare(rec)
         check_across_ranks(self, wire)
         tp = model if model is not None and model.size > 1 else None
-        if tp is not None:
-            why = self.tp_refusal()
-            if why is not None:
-                raise NotImplementedError(
-                    f"a sync over a model axis of {tp.size}: {why}"
-                )
         self._check_grads(leaves, wire.local_size(), tp)
         items = list(zip(range(len(leaves)), leaves, self.plans))
-        kw = {} if tp is None else {"model": tp}
         outs, updates = self.handler.sync_group(
-            items, state, wire, rec, donate=donate, **kw
+            items, state, wire, rec, donate=donate, model=tp
         )
         updates = self._freeze_inactive(updates, state, wire)
         self._charge_downlink(rec, wire)
@@ -896,22 +946,6 @@ class GradCompressor:
                 "1, item 20, the graphed composite)"
             )
         return None
-
-    def tp_refusal(self) -> str | None:
-        """Why a sync over this compressor cannot run on gradients sharded
-        over a model axis above 1, naming the ROADMAP step that lifts it;
-        None where it can: the f32 mean, PowerSGD and LQ-SGD over the log
-        codec."""
-        from repro_torch.launch.mesh import TP_COMPRESSORS
-
-        if self.method in ("raw", "powersgd", "lq_sgd") and type(self).sync is (
-            GradCompressor.sync
-        ):
-            return None
-        return (
-            f"the {self.cfg.name} compressor on model-sharded gradients is not "
-            f"ported yet ({TP_COMPRESSORS})"
-        )
 
     def state_pspecs(
         self, state: dict[str, Any], param_pspecs: Tree, dp_axes: Any = None
@@ -944,12 +978,12 @@ class GradCompressor:
         return specs
 
     def model_replicated_bits(self, model: ModelSplit) -> int:
-        """Of ``wire_bits_per_step``, the bits every model rank ships alike
-        over ``model`` (each a whole copy: the replicated leaves, such as
-        the norms, an MoE router and a Mamba-2 mixer's projections, and a
-        split leaf's whole factor): so the ranks of one data row ship
-        ``wire_bits_per_step() + (M - 1) * model_replicated_bits``
-        together."""
+        """Of a step's physical bits (``CommRecord.phys_bits``), those every
+        model rank ships alike over ``model`` (each a whole copy: the
+        replicated leaves, such as the norms, an MoE router and a Mamba-2
+        mixer's projections, a split leaf's whole factor and its scales): so
+        the ranks of one data row ship one process's physical bits plus
+        ``(M - 1) * model_replicated_bits`` together."""
         return sum(
             self.handler.leaf_replicated_bits(pl, model.kind(i, pl))
             for i, pl in enumerate(self.plans)
@@ -1043,13 +1077,13 @@ class QSGDCompressor(GradCompressor):
     method = "qsgd"
     handler_cls = QSGDHandler
 
-    def init_state(self, seed: int, n_workers: int, device="cuda") -> dict[str, Any]:
+    def init_state(
+        self, seed: int, n_workers: int, device="cuda", model=None
+    ) -> dict[str, Any]:
         return {"key": int(seed), "step": 0}
 
-    def sync(self, grads, state, comm, *, participation_mask=None, donate=False):
-        out, new_state, rec = super().sync(
-            grads, state, comm, participation_mask=participation_mask, donate=donate
-        )
+    def sync(self, grads, state, comm, **kw):
+        out, new_state, rec = super().sync(grads, state, comm, **kw)
         return out, self.next_host_state(new_state), rec
 
     def prng_seeds(self, state: dict[str, Any]) -> dict[str, int]:

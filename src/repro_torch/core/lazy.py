@@ -38,22 +38,33 @@ On the server wire each worker decides alone (:func:`worker_decision`):
 no collective, an (N,) decision, and only a one-flag contribution mask is
 gathered.
 
+Over a model axis (a ``(data, model)`` mesh) a rank holds a block of each
+split leaf: its innovation and norm, and the adaptive drift, are partial
+sums, which :func:`model_sum` completes over the model axis in rank order
+(one all-gather a group, ``tp.lazy.stats`` / ``tp.lazy.drift``) before the
+data-axis gather. Every rank of the mesh then computes the same ``fire``,
+so no model rank issues a group's collectives while its neighbour skips
+them.
+
 State the composite adds (port layout: per-worker tensors lead with N):
 
     lazy_out[i]   cached synced aggregate, (*shape), the same on every worker
+                  (no worker dim)
     lazy_ref[i]   x at the last fired round, (k, *shape)
     lazy_stale[m] skips in a row per method group: 0-dim int32 on the
                   symmetric wire, (k,) on the server wire; born AT the cap
     lazy_ema[m]   the adaptive drift tracker [ema, peak], (2,) f32
 
 (k the workers a process holds: N with one process.) ``lazy_ref`` and the
-server wire's ``lazy_stale`` are per-worker rows; the rest is shared.
+server wire's ``lazy_stale`` are per-worker rows; the rest is shared, and
+``lazy_out`` and ``lazy_ema`` (:data:`SHARED_NS`) carry no worker dim.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections.abc import Sequence
+from typing import Any
 
 import torch
 
@@ -71,6 +82,7 @@ __all__ = [
     "group_decision",
     "group_max_stale",
     "lazy_subset",
+    "model_sum",
     "p_fire",
     "staleness_err",
     "tau_scale2",
@@ -89,6 +101,8 @@ SERVER_DECISION_BITS_PER_GROUP = 32
 OUT_NS, REF_NS, STALE_NS = "lazy_out", "lazy_ref", "lazy_stale"
 EMA_NS = "lazy_ema"
 PARAM_SHAPED_NS = (OUT_NS, REF_NS)
+# the namespaces whose tensors carry no leading worker dim
+SHARED_NS = (OUT_NS, EMA_NS)
 
 # adaptive-LAQ drift tracker smoothing (per fired round)
 ADAPTIVE_BETA = 0.9
@@ -150,6 +164,37 @@ class LazyDecision:
         return torch.where(fire, fresh, cached)
 
 
+def model_sum(
+    parts: Sequence[torch.Tensor], split: Sequence[bool], comm: Any, tag: str
+) -> list[torch.Tensor]:
+    """``parts`` (one a leaf, of one shape) with each split leaf's part, a
+    block's partial sum, summed over the model axis ``comm`` (a
+    ``ModelComm``; None: no axis) in rank order: one all-gather of them and
+    a local sum, so every model rank holds the same bits. A whole leaf's
+    part is the same on every rank and kept."""
+    idx = [j for j, s in enumerate(split) if s]
+    if comm is None or comm.size == 1 or not idx:
+        return list(parts)
+    mine = torch.stack([parts[j] for j in idx])[None]
+    whole = comm.all_gather(mine, 0, tag).sum(0)
+    out = list(parts)
+    for j, v in zip(idx, whole.unbind(0)):
+        out[j] = v
+    return out
+
+
+def _stats(xs, refs, split, model) -> tuple[list, list]:
+    """Each leaf's per-worker innovation and norm, (k,) each, whole over a
+    model axis (:func:`model_sum`)."""
+    parts = [
+        torch.stack([_sq_per_worker(x - r.float()), _sq_per_worker(x)])
+        for x, r in zip(xs, refs)
+    ]
+    split = split if split is not None else [False] * len(parts)
+    parts = model_sum(parts, split, model, "tp.lazy.stats")
+    return [p[0] for p in parts], [p[1] for p in parts]
+
+
 def _sq_per_worker(x: torch.Tensor) -> torch.Tensor:
     """Each worker's sum of squares of a (N, ...) tensor, (N,)."""
     return x.square().reshape(x.shape[0], -1).sum(1)
@@ -176,6 +221,8 @@ def group_decision(
     *,
     force: bool | torch.Tensor | None = None,
     tau_scale2: torch.Tensor | None = None,
+    model: Any = None,
+    split: Sequence[bool] | None = None,
 ) -> LazyDecision:
     """The collective skip test of one leaf group.
 
@@ -187,10 +234,10 @@ def group_decision(
     worker's statistics and a local sum over them in worker order (module
     doc). Charges the psum (64 bits a leaf + 32, one collective) to
     ``rec``'s static tier. ``tau_scale2`` scales every squared threshold
-    (adaptive LAQ)."""
+    (adaptive LAQ). ``model`` (a ``ModelComm``): ``xs[j]`` is a block where
+    ``split[j]``, and its statistics are summed over the axis first."""
     n, n_workers = len(xs), xs[0].shape[0]
-    innov = [_sq_per_worker(x - r.float()) for x, r in zip(xs, refs)]
-    norms = [_sq_per_worker(x) for x in xs]
+    innov, norms = _stats(xs, refs, split, model)
     forced = _forced(stale, max_stale, force)
     votes_in = forced.float().expand(n_workers)
     stats = comm.gather(torch.stack(innov + norms + [votes_in], dim=1)).sum(0)
@@ -211,13 +258,17 @@ def worker_decision(
     *,
     force: bool | torch.Tensor | None = None,
     tau_scale2: torch.Tensor | None = None,
+    model: Any = None,
+    split: Sequence[bool] | None = None,
 ) -> LazyDecision:
     """The per-worker skip test of one leaf group on the server wire: each
     worker compares its own innovation with its own norm, with no
-    collective. ``stale`` is the (k,) counter of this process's workers;
-    ``fire`` a (k,) bool tensor, which may differ between workers."""
-    innov = torch.stack([_sq_per_worker(x - r.float()) for x, r in zip(xs, refs)], 1)
-    norms = torch.stack([_sq_per_worker(x) for x in xs], 1)
+    data-axis collective. ``stale`` is the (k,) counter of this process's
+    workers; ``fire`` a (k,) bool tensor, which may differ between workers.
+    ``model`` and ``split`` as :func:`group_decision`'s: a worker's model
+    ranks decide alike."""
+    innov, norms = _stats(xs, refs, split, model)
+    innov, norms = torch.stack(innov, 1), torch.stack(norms, 1)
     taus = _taus(threshs, tau_scale2, innov.device)
     fire = (innov > taus * norms).any(1) | _forced(stale, max_stale, force)
     new_stale = torch.where(fire, torch.zeros_like(stale), stale + 1)

@@ -169,8 +169,8 @@ class PowerSGDHandler(LeafGroupHandler):
         """Ship one factor phase; leaves sub-group by codec (equal knobs
         compare equal, so a uniform group stays ONE fused collective).
         ``keys(j)`` gives the generator of the j-th tensor, for the codecs
-        that draw; ``split[j]`` the model comm where the j-th is a block of
-        a factor split over a model axis (``codec.codec_phase``)."""
+        that draw; ``split[j]`` the ``codec.ModelBlock`` where the j-th is
+        a block of a factor split over a model axis (``codec.codec_phase``)."""
         out: list = [None] * len(xs)
         split = split if split is not None else [None] * len(xs)
         for codec, idxs in _group_by(range(len(xs)), lambda j: codecs[j]):
@@ -203,7 +203,7 @@ class PowerSGDHandler(LeafGroupHandler):
         new_q: dict[str, torch.Tensor] = {}
         comp = []
         for i, g, pl in items:
-            split = model.of(i) if model is not None else None
+            split = model.block(i, pl.shape) if model is not None else None
             if pl.route == "lowrank":
                 comp.append((i, g, pl))
             elif self._raw_needs_key(pl):
@@ -236,7 +236,11 @@ class PowerSGDHandler(LeafGroupHandler):
             for j, p in zip(col, _sum_parts([ps[j] for j in col], mc, "tp.p")):
                 ps[j] = p
         codecs_p = [self._codec_p(pl) for _, _, pl in comp]
-        split_p = [mc if kind == "row" else None for kind in kinds]
+        # a row-split leaf's P rows: the leaf's dims but its last, cut alike
+        split_p = [
+            model.block(i, pl.shape[:-1] + (pl.eff_rank,)) if kind == "row" else None
+            for (i, _, pl), kind in zip(comp, kinds)
+        ]
         ps = self._phase(
             ps, flags, codecs_p, comm, rec, self._keys(comp, state, "p"), split_p
         )
@@ -253,7 +257,13 @@ class PowerSGDHandler(LeafGroupHandler):
             for j, q in zip(row, _sum_parts([qs[j] for j in row], mc, "tp.q")):
                 qs[j] = q
         codecs_q = [self._codec_q(pl) for _, _, pl in comp]
-        split_q = [mc if kind == "col" else None for kind in kinds]
+        # a column-split leaf's Q rows: its last dim, a block of them
+        split_q = [
+            model.block(i, _instance_shape(pl)[:-2] + (pl.shape[-1], pl.eff_rank), -2)
+            if kind == "col"
+            else None
+            for (i, _, pl), kind in zip(comp, kinds)
+        ]
         qs = self._phase(
             qs, flags, codecs_q, comm, rec, self._keys(comp, state, "q"), split_q
         )

@@ -19,12 +19,10 @@ orders devices. Every rank makes the model-axis groups (the ranks of one
 d) and the data-axis groups (those of one m) in one fixed order, and the
 mesh keeps its own two. Serving takes such a mesh for all ten
 architectures (``launch/serve.py``, the fixed scheduler, and the continuous
-one for the token LMs), and so does training (``launch/train.py`` with the
-``none``, ``powersgd`` and ``lq_sgd`` compressors, whose sync's
-``DistComm`` spans the data-axis group, :func:`make_comm`). The rest of
-training at a model axis above 1 is :data:`TP_COMPRESSORS` (the other
-compressors and codecs, per-leaf policies, lazy groups, the server wire),
-and the production mesh item 17.
+one for the token LMs), and so does training (``launch/train.py`` with
+every compressor, codec, per-leaf policy, schedule, lazy group and wire,
+whose sync's ``DistComm`` spans the data-axis group, :func:`make_comm`).
+The production mesh is item 17.
 """
 
 from __future__ import annotations
@@ -46,14 +44,8 @@ __all__ = [
     "make_comm",
     "make_model_comm",
     "make_production_mesh",
-    "TP_COMPRESSORS",
 ]
 
-# what training over a model axis above 1 does not run yet: the compressors
-# but none / powersgd / lq_sgd's log codec: topk, qsgd, the randomized
-# codecs, per-leaf policies, schedules, lazy groups and the server wire on
-# model-sharded gradients
-TP_COMPRESSORS = "ROADMAP Queue 1, item 15 B, step 4"
 PRODUCTION_MESH = "ROADMAP Queue 1, item 17"
 
 

@@ -44,9 +44,9 @@ Each rank draws the seeded init and keeps its blocks of the training tree
 feedback; the step's sync runs over its data-axis group and the
 forward's collectives over its model-axis group (``train/step.py``).
 Checkpoints hold the one-process layout, so a run resumes on any mesh of
-the same data axis. All ten architectures and the ``none``, ``powersgd``
-and ``lq_sgd`` compressors train so; the other compressors raise
-(``launch/mesh.py:TP_COMPRESSORS``).
+the same data axis. All ten architectures and every compressor, codec,
+policy, schedule, lazy group and wire train so: each rank's synced block
+is the block of what one process computes.
 
 The step runs under the async runtime by default (prefetched batches,
 deferred metric reads, background checkpoints: ``train/runtime.py``);
@@ -56,15 +56,16 @@ codecs on the LQ-SGD wire (through the composite compressor); the run's
 line then also prints the per-step DP epsilon and its kind. Every
 compressor, codec, policy, schedule, lazy group and wire runs over the
 ranks as in one process. Those of parts not ported raise, naming the
-ROADMAP item that ports them: at a model axis above 1 the compressors
-named above (item 15 B, step 4), and ``--production-mesh`` and
-``--multi-pod`` (item 17). ``--dump DIR`` has each rank write
+ROADMAP item that ports them: ``--production-mesh`` and ``--multi-pod``
+(item 17). ``--dump DIR`` has each rank write
 ``DIR/rank<r>.pt`` (the history, every gathered wire array, the
 fingerprints of the final parameters and of this rank's rows of the
 compressor state, its kernel launches, each step's seconds and collective
 seconds, its peak device memory; ``--dump-steps`` adds each step's
-parameter fingerprints and step 0's synced gradients, ``--dump-sample``
-only a sample of their positions), which a comparison reads.
+parameter fingerprints and lazy staleness counters and step 0's synced
+gradients, ``--dump-sample`` only a sample of their positions;
+``--dump-wire-steps K`` keeps the wire arrays of the first K steps only,
+0 none: TopK's is the dense f32 stand-in), which a comparison reads.
 ``--repeats R`` cuts the scanned layer pattern to R repeats and
 ``--keep-pattern I,J`` to its positions I, J (``''``: none, the lead
 layers alone): depth cuts at full width, for a run that must fit one
@@ -92,6 +93,7 @@ from repro_torch.checkpoint.io import restore as ckpt_restore
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.comm import ModelAxis, ModelComm
 from repro_torch.core.compressors import CompressorConfig, model_split
+from repro_torch.core.lazy import STALE_NS
 from repro_torch.core.policy import format_plan_report, parse_decay_spec
 from repro_torch.core.tree import tree_leaves, tree_unflatten
 from repro_torch.data.synthetic import LMDataConfig, cond_batch, lm_batch
@@ -255,6 +257,13 @@ def _parser() -> argparse.ArgumentParser:
         "positions of a rank's block as of the whole leaf, and each leaf's "
         "(block's) largest absolute value",
     )
+    ap.add_argument(
+        "--dump-wire-steps",
+        type=int,
+        default=None,
+        help="with --dump: keep the gathered wire arrays of the first K steps "
+        "only (default: every step's; 0: none)",
+    )
     return ap
 
 
@@ -345,11 +354,10 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
         participation_seed=args.participation_seed,
     )
     compressor = make_model_compressor(cfg, comp_cfg)
-    if shape[1] > 1 and compressor.tp_refusal() is not None:
-        raise NotImplementedError(f"--mesh {args.mesh}: {compressor.tp_refusal()}")
     mesh = make_mesh(shape, args.device)
     n_dp, dev = mesh.data, mesh.device
-    comm = make_comm(mesh, record=args.dump is not None)
+    keep_wire = args.dump_wire_steps
+    comm = make_comm(mesh, record=args.dump is not None and keep_wire != 0)
     say = print if is_rank0(comm) else lambda *a, **k: None
     tp = None
     if mesh.model > 1:
@@ -402,8 +410,15 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
             torch.cuda.synchronize(dev)
         step_ends.append(ends())
         recs.append((rec.bits_sent, rec.phys_bits, rec.n_collectives))
+        if comm.gathered is not None and keep_wire is not None:
+            if len(recs) == keep_wire:  # the steps kept end here
+                live["wire"] = len(comm.gathered)
+            del comm.gathered[live.get("wire", len(comm.gathered)) :]
         if args.dump_steps:
             steps_kept["prints"].append(leaf_fingerprints(live["params"]))
+            if STALE_NS in comp_state:  # 0 where a lazy group fired
+                stale = {m: v.tolist() for m, v in comp_state[STALE_NS].items()}
+                steps_kept.setdefault("stale", []).append(stale)
             if "synced0" not in steps_kept:
                 steps_kept["synced0"] = _host_sample(synced, tp, args.dump_sample)
                 if args.dump_sample:  # each leaf's largest value, all of it
@@ -621,7 +636,7 @@ def _dump(out_dir, mesh, comm, history, state, step_ends, extra) -> None:
     dump = {
         "rank": mesh.rank,
         "history": history,
-        "gathered": [g.cpu() for g in comm.gathered],
+        "gathered": [g.cpu() for g in comm.gathered or []],
         "params": leaf_fingerprints(state["params"]),
         "comp": leaf_fingerprints({"comp": state["comp"]}, WORKER_ROWS),
         "launches": ops.launch_counts(),

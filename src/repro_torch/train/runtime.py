@@ -282,7 +282,9 @@ def run_schedule(
     over by ``adapt_state``. ``initial`` names the compressor the runner's
     current ``step_fn`` was built for (default ``compressor``): the
     ``at_step(resume - 1)`` one when resuming a checkpoint. Phases that end
-    at or before ``state["step"]`` are skipped."""
+    at or before ``state["step"]`` are skipped. ``state`` is donated, as the
+    step donates it: a phase boundary adapts its compressor state in
+    place, so no caller holds the state of an earlier phase."""
     sched = getattr(compressor, "schedule", None)
     bounds = (
         [b for b in sched.boundaries() if 0 < b < total_steps]
@@ -297,7 +299,6 @@ def run_schedule(
         at = getattr(comp_prev, "at_step", None)
         comp_t = at(max(seg_start, resume)) if at is not None else comp_prev
         if comp_t is not comp_prev:
-            state = dict(state)
             state["comp"] = comp_t.adapt_state(state["comp"])
             runner.step_fn = rebuild(comp_t, seg_start)
             comp_prev = comp_t

@@ -34,9 +34,10 @@ its gradient, and the step sums those over the model axis in one
 all-reduce before the sync (``launch/sharding.py:partial_grad_flags``).
 The sync runs on the blocks (``core/compressors.py:ModelSplit``), and the
 optimizer steps each block in place: SGD and Adam are elementwise, so a
-block's update is the whole update's block. Every architecture and the
-``none``, ``powersgd`` and ``lq_sgd`` compressors run so; the other
-compressors raise, naming their ROADMAP step.
+block's update is the whole update's block. Every architecture and every
+compressor run so, the composite's per-leaf policies, schedules, lazy
+groups and server wire too: each rank's synced block is the block of what
+one process computes on the same weights and batches.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ from repro_torch.core.compressors import (
     make_compressor,
     model_split,
 )
-from repro_torch.core.lazy import STALE_NS
+from repro_torch.core.lazy import SHARED_NS, STALE_NS
 from repro_torch.core.tree import Tree, tree_leaves, tree_map, tree_unflatten
 from repro_torch.launch.sharding import (
     Spec,
@@ -121,26 +122,35 @@ def train_state_specs(
     subtrees (Adam's moments, SGD's momentum) the same, the rest (Adam's
     step count) replicated; the compressor state's
     :meth:`~repro_torch.core.compressors.GradCompressor.state_pspecs`
-    behind the leading worker dim; ``step`` replicated."""
+    behind the leading worker dim (but the lazy groups' shared
+    namespaces, ``lazy.SHARED_NS``, which have none); ``step``
+    replicated."""
     opt = {
         k: specs if isinstance(v, dict) else _replicated(v)
         for k, v in state["opt"].items()
     }
-    inner = tree_map(
-        lambda x: x[0] if isinstance(x, torch.Tensor) and x.dim() else x,
-        state["comp"],
-    )
+
+    def strip(x):
+        return x[0] if isinstance(x, torch.Tensor) and x.dim() else x
+
+    inner = {
+        ns: sub if ns in SHARED_NS else tree_map(strip, sub)
+        for ns, sub in state["comp"].items()
+    }
     comp_specs = compressor.state_pspecs(inner, specs)
     if STALE_NS in comp_specs:
         # the lazy fire decision reads the staleness counter on every rank:
         # a counter sharded over the model axis could split the branch
         assert_replicated(comp_specs[STALE_NS], f"comp.{STALE_NS}")
-    return dict(
-        params=specs,
-        opt=opt,
-        comp=_map_specs(lambda sp: Spec(None, *sp), comp_specs, state["comp"]),
-        step=Spec(),
-    )
+    comp = {
+        ns: sp if ns in SHARED_NS else _map_specs(_worker_dim, sp, state["comp"][ns])
+        for ns, sp in comp_specs.items()
+    }
+    return dict(params=specs, opt=opt, comp=comp, step=Spec())
+
+
+def _worker_dim(spec: Spec) -> Spec:
+    return Spec(None, *spec)
 
 
 def _map_specs(fn: Callable, specs: Any, like: Any) -> Any:
@@ -305,9 +315,6 @@ def build_train_step(
             raise ValueError(
                 f"a model axis of {model} needs a ModelAxis of {model} ranks (tp)"
             )
-        why = compressor.tp_refusal()
-        if why is not None:
-            raise NotImplementedError(why)
     elif tp is not None and tp.comm.size != 1:
         raise ValueError(f"a ModelAxis of {tp.comm.size} for a model axis of 1")
     comm = comm if comm is not None else SimComm(n)
@@ -568,8 +575,10 @@ class TrainStep:
             metrics["collectives_per_step"] = _f32(rec.effective_collectives(), dev)
             metrics["down_mb_per_step"] = _f32(rec.down_bits / 8e6, dev)
             state["step"].add_(1)
-        new_state = dict(params=params, opt=opt, comp=comp, step=state["step"])
-        return new_state, metrics, rec
+        # donated: the caller's dict takes the new state, so no caller keeps
+        # an old compressor state alive (the composite's is new every step)
+        state.update(params=params, opt=opt, comp=comp)
+        return state, metrics, rec
 
 
 @torch.no_grad()

@@ -174,7 +174,7 @@ def _refusals(res, inputs):
     mesh = make_mesh((2, 2), "cpu")
     train = [
         "--arch", "gemma3-1b", "--smoke", "--device", "cpu", "--mesh", "2x2",
-        "--batch", "4", "--seq", "16", "--steps", "1", "--compressor", "topk",
+        "--batch", "4", "--seq", "16", "--steps", "1", "--production-mesh",
     ]  # fmt: skip
     out["train"] = _refusal(lambda: quiet_call(launch_train.main, train))
     cfg = get_config("gemma3-1b", smoke=True)

@@ -41,16 +41,20 @@ LAUNCH_ARGS = [
 ]  # fmt: skip
 LAUNCH_MESH = ["--mesh", "2x2", "--dist-backend", "gloo"]
 LAUNCH_STEPS, CKPT_STEPS = 4, 2
-# refused at a model axis above 1 (ROADMAP 15 B step 4): argv after
-# LAUNCH_ARGS + LAUNCH_MESH
-REFUSED = {
+# the launcher's other compressors, wires and loops at 2x2, each against
+# its one-process --mesh 2x1 run: argv after LAUNCH_ARGS + LAUNCH_MESH
+LAUNCH_CASES = {
     "topk": ["--compressor", "topk"],
     "qsgd": ["--compressor", "qsgd"],
     "dlog": ["--codec", "dlog", "--dp-epsilon", "8"],
     "policy": ["--policy", "w=powersgd,*=lq_sgd:bits=8"],
     "lazy": ["--lazy-thresh", "2.0"],
     "server": ["--wire", "server", "--participation", "0.5"],
+    "server_full": ["--wire", "server"],
+    "async": ["--runtime", "async"],
+    "microbatch": ["--microbatch", "2"],
 }
+CASE_STEPS = 2
 
 
 def run_names():
@@ -76,19 +80,24 @@ def train_run(
     jax_comp=None,
     steps=STEPS,
     cfg=None,
+    ccfg=None,
+    jax_q=None,
 ):
     """``steps`` steps of ``arch`` (smoke, f32, or ``cfg``) from the numpy
     ``weights`` (the JAX training layout) on ``tokens`` (a list of global
     batches: (BATCH, SEQ) token tensors, or batch dicts, a conditioning
-    prefix beside), SGD at ``LR``, the compressor ``COMPRESSORS[cname]``: over
-    a ``SimComm`` of the mesh's data axis in one process (no ``mesh``), or
-    as this rank of ``mesh`` (a ``DataMesh`` over the process group), its
-    blocks cut from the same weights. ``jax_comp`` (numpy, without a worker
-    dim): the JAX package's compressor state, cut to the rank's blocks,
-    in place of the port's draw. Returns, on the host: step 0's per-worker
-    gradients into the sync, every step's synced gradients, CommRecord
-    numbers and metrics, the final error feedback and parameters, and the
-    data-axis gathers."""
+    prefix beside), SGD at ``LR``, the compressor ``COMPRESSORS[cname]`` (or
+    the ``CompressorConfig`` fields ``ccfg``): over a ``SimComm`` of the
+    mesh's data axis in one process (no ``mesh``), or as this rank of
+    ``mesh`` (a ``DataMesh`` over the process group), its blocks cut from
+    the same weights. ``jax_comp`` (numpy, without a worker dim): the JAX
+    package's compressor state, cut to the rank's blocks, in place of the
+    port's draw; ``jax_q`` (numpy by leaf index) its warm-start Q alone,
+    over the port's state of a composite. Returns, on the host: step 0's
+    per-worker gradients into the sync, every step's synced gradients,
+    CommRecord numbers, lazy staleness counters and metrics, the final
+    error feedback, compressor state and parameters, and the data-axis
+    gathers."""
     from repro_torch.configs import get_config
     from repro_torch.core.comm import ModelAxis, ModelComm, SimComm
     from repro_torch.core.compressors import CompressorConfig, model_split
@@ -105,7 +114,8 @@ def train_run(
     from repro_torch.weights import compressor_state_from_jax, train_state_from_jax
 
     cfg = cfg if cfg is not None else get_config(arch, smoke=True)
-    comp = make_model_compressor(cfg, CompressorConfig(**COMPRESSORS[cname]))
+    fields = ccfg if ccfg is not None else COMPRESSORS[cname]
+    comp = make_model_compressor(cfg, CompressorConfig(**fields))
     data, model = mesh_shape
     tp = split = None
     if mesh is None:
@@ -130,6 +140,11 @@ def train_run(
         comp_state = compressor_state_from_jax(
             jax_comp, k, "cpu", specs=cspecs, mesh=mesh
         )
+    if jax_q is not None:  # whole on every rank
+        comp_state["q"] = {
+            i: torch.from_numpy(np.asarray(q)).expand((k,) + q.shape).clone()
+            for i, q in jax_q.items()
+        }
     opt = sgd(LR)
     state = dict(
         params=params,
@@ -147,6 +162,7 @@ def train_run(
                 bits=rec.bits_sent,
                 phys=rec.phys_bits,
                 colls=rec.n_collectives,
+                stale=_host(comp_state.get("lazy_stale", {})),
             )
         )
 
@@ -166,6 +182,7 @@ def train_run(
         params=_host(state["params"]),
         err=_host(state["comp"].get("err", {})),
         q=_host(state["comp"].get("q", {})),
+        comp=_host(state["comp"]),
         gathered=_host(comm.gathered),
         wire_bits=comp.wire_bits_per_step(),
         refusal=step.graph_refusal(),
@@ -229,24 +246,20 @@ def _launcher(res, inputs, out_dir):
     res["resumed"] = dict(history=out["history"], printed=printed)
 
 
-def _refusal(fn):
-    try:
-        fn()
-    except (NotImplementedError, ValueError) as e:
-        return f"{type(e).__name__}: {e}"
-    return None
+def case_argv(name, mesh=LAUNCH_MESH):
+    """The launcher's argv of ``LAUNCH_CASES[name]`` over ``mesh``."""
+    return LAUNCH_ARGS + mesh + ["--steps", str(CASE_STEPS), *LAUNCH_CASES[name]]
 
 
-def _refusals(res):
+def _launch_cases(res):
     from repro_torch.launch import train as launch_train
 
     from _torch_dist import quiet_call
 
-    out = {}
-    for name, extra in REFUSED.items():
-        argv = LAUNCH_ARGS + LAUNCH_MESH + ["--steps", "1", *extra]
-        out[name] = _refusal(lambda argv=argv: quiet_call(launch_train.main, argv))
-    res["refusals"] = out
+    res["cases"] = {
+        name: quiet_call(launch_train.main, case_argv(name))[0]["history"]
+        for name in LAUNCH_CASES
+    }
 
 
 def run_rank(rank, world, store, out_dir, inputs_path):
@@ -261,7 +274,7 @@ def run_rank(rank, world, store, out_dir, inputs_path):
         res = {"rank": rank, "t0": time.time()}
         _runs(res, inputs)
         _launcher(res, inputs, out_dir)
-        _refusals(res)
+        _launch_cases(res)
         res["seconds"] = time.time() - res["t0"]
         torch.save(res, os.path.join(out_dir, f"card{rank}.pt"))
     finally:
@@ -272,6 +285,13 @@ def run_rank(rank, world, store, out_dir, inputs_path):
 # mixtral and deepseek smoke in its place: CARD_ZOO)
 CARD_RUN = ("gemma3-1b", (1, 2), "lq_sgd_b8")
 CARD_ZOO = ("mixtral-8x7b", "deepseek-v3-671b")
+# and the other compressors over it: TopK and QSGD b4 (one graph a step),
+# a lazy LQ-SGD group (the composite: eager)
+CARD_COMPRESSORS = {
+    "topk": dict(name="topk"),
+    "qsgd_b4": dict(name="qsgd", bits=4),
+    "lazy": dict(name="lq_sgd", rank=1, bits=8, lazy_thresh=2.0, max_stale=1),
+}
 
 
 def card_weights(arch=CARD_RUN[0]):
@@ -290,11 +310,12 @@ def card_tokens():
     return [torch.from_numpy(rng.integers(0, 512, (BATCH, SEQ))) for _ in range(STEPS)]
 
 
-def card_tp_train(device, mesh=None, graph=None, arch=CARD_RUN[0]):
+def card_tp_train(device, mesh=None, graph=None, arch=CARD_RUN[0], cname=None):
     """:func:`train_run`'s step of ``arch`` (smoke, token ids below 512) on
     ``device`` (one process, or this rank of ``mesh``), graphed where the
-    comm allows (``graph``): losses, step 0's gradients and every step's
-    synced gradients, final parameters."""
+    comm and the compressor allow (``graph``), LQ-SGD b8 or
+    ``CARD_COMPRESSORS[cname]``: losses, step 0's gradients and every
+    step's synced gradients, final parameters."""
     from repro_torch.configs import get_config
     from repro_torch.core.comm import ModelAxis, ModelComm, SimComm
     from repro_torch.core.compressors import CompressorConfig
@@ -309,9 +330,10 @@ def card_tp_train(device, mesh=None, graph=None, arch=CARD_RUN[0]):
     )
     from repro_torch.weights import train_state_from_jax
 
-    _, shape, cname = CARD_RUN
+    _, shape, lq = CARD_RUN
+    fields = COMPRESSORS[lq] if cname is None else CARD_COMPRESSORS[cname]
     cfg = get_config(arch, smoke=True)
-    comp = make_model_compressor(cfg, CompressorConfig(**COMPRESSORS[cname]))
+    comp = make_model_compressor(cfg, CompressorConfig(**fields))
     tp, specs, split = None, None, None
     if mesh is None:
         comm = SimComm(shape[0])
@@ -363,10 +385,11 @@ def card_tp_train(device, mesh=None, graph=None, arch=CARD_RUN[0]):
     return out
 
 
-def card_tp_train_rank(rank, world, store, out_dir, arch=CARD_RUN[0]):
-    """One NCCL rank of the card test of ``arch``: the graphed
-    tensor-parallel step (its model-axis and data-axis collectives
-    captured) and the eager one, to ``<out_dir>/card<r>.pt``."""
+def card_tp_train_rank(rank, world, store, out_dir, arch=CARD_RUN[0], cname=None):
+    """One NCCL rank of the card test of ``arch`` (and ``cname``, as
+    :func:`card_tp_train` takes it): the graphed tensor-parallel step (its
+    model-axis and data-axis collectives captured) and the eager one, to
+    ``<out_dir>/card<r>.pt``."""
     import gc
 
     from repro_torch.launch.mesh import make_mesh
@@ -379,8 +402,8 @@ def card_tp_train_rank(rank, world, store, out_dir, arch=CARD_RUN[0]):
     try:
         mesh = make_mesh(CARD_RUN[1], device)
         res = dict(
-            graphed=card_tp_train(device, mesh, arch=arch),
-            eager=card_tp_train(device, mesh, graph=False, arch=arch),
+            graphed=card_tp_train(device, mesh, arch=arch, cname=cname),
+            eager=card_tp_train(device, mesh, graph=False, arch=arch, cname=cname),
             coords=mesh.coords,
             sizes=mesh.sizes,
         )

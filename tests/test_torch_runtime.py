@@ -342,21 +342,23 @@ def test_launcher_trains_at_smoke_widths_on_the_cpu():
 @pytest.mark.parametrize(
     "argv, item",
     [
-        # a model axis above 1 trains (item 15 B, step 3); TopK on its
-        # sharded gradients does not yet, and is refused before any rank
-        # is needed
-        (["--mesh", "2x2", "--compressor", "topk"], "item 15 B, step 4"),
+        # a model axis above 1 trains with every compressor since step 4
+        # (tests/test_torch_tp_train_wire.py); the case keeps its id and asks
+        # for what is still refused over it, before any rank is needed: the
+        # production mesh
+        (["--mesh", "2x2", "--compressor", "topk", "--production-mesh"], "item 17"),
         # the production and multi-pod meshes are the dry run's (item 17)
         (["--production-mesh"], "item 17"),
         # mamba2-370m and jamba-v0.1-52b train since the zoo's last slice
         # (tests/test_torch_zoo_rest.py takes their steps), and over a model
-        # axis since step 2 B (tests/test_torch_tp_train_zoo.py); the two
-        # cases keep their ids and now ask for what is still refused: the
-        # multi-pod mesh, and QSGD on jamba's model-sharded gradients
+        # axis since step 2 B (tests/test_torch_tp_train_zoo.py), with every
+        # compressor since step 4; the two cases keep their ids and now ask
+        # for what is still refused: the multi-pod mesh
         (["--arch", "mamba2-370m", "--multi-pod"], "item 17"),
         (
-            ["--arch", "jamba-v0.1-52b", "--mesh", "1x2", "--compressor", "qsgd"],
-            "item 15 B, step 4",
+            ["--arch", "jamba-v0.1-52b", "--mesh", "1x2", "--compressor", "qsgd"]
+            + ["--multi-pod"],
+            "item 17",
         ),
     ],
     ids=["mesh-2x2", "production-mesh", "mamba2", "mixtral"],

@@ -54,7 +54,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.core.codec import unpack_nibbles
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import sharding as tsharding
-from repro_torch.launch.mesh import TP_COMPRESSORS, DataMesh
+from repro_torch.launch.mesh import PRODUCTION_MESH, DataMesh
 from repro_torch.models.model import init_params, stacked_flags
 from repro_torch.models.multimodal import vq_tokens_stub
 from repro_torch.serving import engine as tengine
@@ -455,8 +455,9 @@ def test_launcher_prints_on_rank_zero_only(tp_run):
 REFUSALS = {
     "mesh_1x2": ("ValueError", "takes data x model ranks"),
     "mesh_3x2": ("ValueError", "takes data x model ranks"),
-    # training takes a model axis; TopK on model-sharded gradients does not
-    "train": ("NotImplementedError", TP_COMPRESSORS),
+    # training takes a model axis with every compressor; the production
+    # mesh is still refused
+    "train": ("NotImplementedError", PRODUCTION_MESH),
     "graph_under_gloo": ("ValueError", "gloo"),
 }
 

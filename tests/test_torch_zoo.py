@@ -91,12 +91,15 @@ FULL_WIDTH_PARAMS = {
     "qwen2-72b": ({}, 72_706_203_648),
     "mistral-nemo-12b": ({}, 12_247_782_400),
     "granite-20b": ({}, 28_167_493_632),
-    # chip_smoke's (l1) / (l2) cuts, for time
+    # chip_smoke's (l1) / (l2) cuts, for time (halved with its phase 19)
     "mistral-nemo-12b/20-layers": (dict(repeats=20), 6_794_982_400),
     "granite-20b/26-layers": (dict(repeats=26), 14_385_739_776),
+    "mistral-nemo-12b/10-layers": (dict(repeats=10), 4_068_582_400),
+    "granite-20b/13-layers": (dict(repeats=13), 7_494_862_848),
     "chameleon-34b": ({}, 34_293_436_416),
     "mixtral-8x7b": ({}, 46_702_792_704),
     "mixtral-8x7b/16-layers": (dict(repeats=16), 23_482_470_400),
+    "mixtral-8x7b/8-layers": (dict(repeats=8), 11_872_309_248),
     "mixtral-8x7b/1-layer": (dict(repeats=1), 1_713_418_240),
     "jamba-v0.1-52b/1-period": (dict(repeats=1), 13_267_656_416),
 }

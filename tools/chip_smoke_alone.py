@@ -8,7 +8,8 @@ first, as in the whole script).
 
 The copy lies under ``build/`` (ignored by git), its ranks run the copy
 itself, and it ends by printing the launches and seconds of ``phase_tp``.
-Phases: ``o``, ``n`` (n2, n3), ``p``, ``q``, ``r``, ``s``.
+Phases: ``o``, ``n`` (n2, n3), ``p``, ``q``, ``r``, ``s``, ``t`` (no
+kernel checks of its own: its factors are (q1)'s).
 """
 
 import argparse
