@@ -311,7 +311,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    process's on every rank, (t3)'s DP epsilon the JAX package's figure,
    a lazy round's physical bits without its skipped groups; each run's
    kernels launched on every rank (``T_KERNELS``), the phase's seconds
-   and the script's disk writes printed.
+   and the script's disk writes printed;
+20. the dry run (``launch/dryrun.py``), right after phase 9 (u): (u1) the
+   CLI in a subprocess traces gemma3-1b ``train_4k`` and ``decode_32k`` on
+   the H100 production mesh (32 x 8 over a fake process group of 256
+   ranks) with fake CUDA tensors, and prints its records; meanwhile (u2)
+   traces (j1)'s own configuration in this process (gemma3-1b, one
+   process, 4 workers x 2 x 512, LQ-SGD r1 b8, Adam) and holds it to
+   (j1)'s timed run: the argument bytes equal (j1)'s state and batch bytes
+   exactly, the traced peak lies within ``U2_PEAK_REL`` x + ``U2_PEAK_SLACK``
+   of ``torch.cuda.max_memory_allocated`` over (j1)'s eager step, the trace
+   allocates nothing on the card, and the counted FLOPs over (j1)'s replay
+   ms are printed as a share of 989 TFLOP/s (``mfu``).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -440,6 +451,17 @@ J1_BITS, J2_BITS = 9_236_960, 4_624_864
 # sign may move the other way, by up to 2 x 1.01 lr a step.
 BF16_ULP = 2.0**-8
 ADAM_STEP_MAX = 1.01
+
+# Phase 20, the dry run (u). (u2)'s traced peak of live bytes against the
+# caching allocator's peak over (j1)'s eager step: the trace counts storage
+# bytes as they are; the card adds the allocator's rounding (512 B a block)
+# and the libraries' workspaces (cuBLAS's, kept across the script's
+# phases), so within 10% of the measured peak plus 256 MiB
+U2_PEAK_REL, U2_PEAK_SLACK = 0.10, 256 * 2**20
+# (u1): counted FLOPs within 15% of the analytic model with the attention
+# term charged as the plain attention computes it (tests/test_torch_dryrun.py)
+U1_ANALYTIC_REL = 0.15
+U1_SHAPES = ("train_4k", "decode_32k")
 
 # Phase 10, the randomized privacy codecs (k). (k1): (j1)'s run with dlog at
 # a per-use budget of 48; the JAX package's per-step epsilon for it, 2 x 48
@@ -2542,7 +2564,9 @@ def _lm_timed(
     opt = adam(lr)
     # one state for them all: only the times, tokens/s and memory are read
     state = init_train_state(cfg, 0, opt, comp, mesh[0], "cuda")
-    out = {}
+    # the step's arguments on the card: the state's storages and a batch's
+    arg_bytes = _storage_bytes(state) + sum(v.nbytes for v in batches[0].values())
+    out = {"argument_bytes": arg_bytes}
     for name, graph, remat in (
         ("graph", None, True),
         ("graph_no_remat", None, False),
@@ -2573,6 +2597,7 @@ def _lm_timed(
             device_ms=device_ms,
             tokens_per_s=tokens / (host_ms / 1e3),
             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            peak_bytes=torch.cuda.max_memory_allocated(),
             capture_s=step.capture_s,
             per_step_host_ms=host,
         )
@@ -2585,6 +2610,8 @@ def _lm_timed(
         _free_cuda()
     del state
     for name, r in out.items():
+        if not isinstance(r, dict):
+            continue
         print(
             f"  ({tag}) timed, {name}: {r['host_ms']:.1f} ms a step on the host "
             f"clock ({r['device_ms']:.1f} ms between CUDA events), "
@@ -2599,6 +2626,18 @@ def _lm_timed(
         f"{out['eager']['host_ms']:.1f} ms); deterministic algorithms off; {card}"
     )
     return {**out, "idle_share": idle}
+
+
+def _storage_bytes(tree):
+    """The bytes of the distinct storages of ``tree``'s tensors."""
+    from repro_torch.core.tree import tree_leaves
+
+    seen = {}
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
 
 
 SPLIT_KEYS = ("grad", "sync", "update")
@@ -4356,6 +4395,147 @@ N3_ARGS = [
 # a spawn that has not ended by then fails (phase_tp's 1x2 torchrun, the
 # longest, took ~150 s)
 TORCHRUN_TIMEOUT_S = 450
+
+
+def phase_dryrun(card):
+    """(u) The dry run: (u1) the CLI over the production mesh in a
+    subprocess, (u2) (j1)'s configuration in this process against (j1)'s
+    timed run (module doc, phase 20). Launches no kernel."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "dryrun_u1.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+        cmd += ["--arch", "gemma3-1b", "--shape", ",".join(U1_SHAPES)]
+        cmd += ["--device", "cuda", "--out", str(out)]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        u1 = subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        try:
+            u2 = _dryrun_u2(card)
+            log, _ = u1.communicate(timeout=300)
+        finally:
+            if u1.poll() is None:
+                u1.kill()
+                u1.wait()
+        print(log.rstrip())
+        check(u1.returncode == 0, f"(u1) the dry run exited {u1.returncode}")
+        u1_s = time.perf_counter() - t0
+        recs = {r["shape"]: r for r in json.loads(out.read_text())}
+    check(sorted(recs) == sorted(U1_SHAPES), f"(u1) records {sorted(recs)}")
+    for shape, r in recs.items():
+        check(r["status"] == "ok", f"(u1) {shape}: {r['status']}")
+        check(
+            r["chips"] == 256 and r["mesh"] == [32, 8] and r["device"] == "cuda:0",
+            f"(u1) {shape}: {r['chips']} cards, mesh {r['mesh']}, {r['device']}",
+        )
+        check(r["counted_flops_per_device"] > 0, f"(u1) {shape}: no FLOPs counted")
+    train = recs["train_4k"]
+    dense = train["analytic_dense_attn_flops_per_device"]
+    rel = abs(train["counted_flops_per_device"] - dense) / dense
+    check(rel < U1_ANALYTIC_REL, f"(u1) train_4k: counted FLOPs {rel:.3f} off")
+    keep = (
+        "trace_s",
+        "counted_flops_per_device",
+        "analytic_flops_per_device",
+        "analytic_dense_attn_flops_per_device",
+        "bytes_per_device",
+        "memory",
+        "collective_counts",
+        "model_axis_wire_bytes",
+        "data_axis_wire_bytes",
+        "compressor_phys_bits",
+        "compute_s",
+        "memory_s",
+        "collective_s",
+        "dominant",
+    )
+    for shape, r in recs.items():
+        emit(
+            {
+                "dryrun": f"u1_gemma3_1b_{shape}_32x8",
+                "card": card,
+                **{k: r[k] for k in keep if k in r},
+            }
+        )
+    print(
+        f"  (u1) gemma3-1b on the production mesh 32x8 (fake CUDA tensors): "
+        f"{u1_s:.1f} s with its start; train_4k counted FLOPs {rel:.2%} from "
+        f"the analytic model (attention as computed), "
+        f"{train['counted_flops_per_device'] / train['analytic_flops_per_device']:.3f}"
+        f"x the JAX model's; {card}"
+    )
+    emit({"dryrun": "u2_j1", "card": card, **u2})
+    return {}
+
+
+def _dryrun_u2(card):
+    """(j1)'s configuration traced in this process (fake CUDA tensors),
+    held to (j1)'s timed run."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import hw
+    from repro_torch.train.optimizer import adam
+
+    timed = _J1_GRAPH["timed"]
+    label = (
+        f"(u2) {LM_ARCH} {LM_MESH[0]} workers x {LM_BATCH // LM_MESH[0]} x "
+        f"{LM_SEQ}, LQ-SGD r1 b8, Adam, traced"
+    )
+    shape = InputShape("j1", LM_SEQ, LM_BATCH, "train")
+    before = torch.cuda.memory_allocated()
+    r = dryrun.trace_one(
+        get_config(LM_ARCH),
+        shape,
+        mesh=LM_MESH,
+        one_process=True,
+        comp_cfg=CompressorConfig(name="lq_sgd", rank=1, bits=8),
+        optimizer=adam(J1_LR),
+        device="cuda",
+        verbose=False,
+    )
+    check(
+        torch.cuda.memory_allocated() == before,
+        f"{label}: the trace allocated on the card",
+    )
+    mem = r["memory"]
+    want_args = timed["argument_bytes"]
+    check(
+        mem["argument_bytes"] == want_args,
+        f"{label}: argument bytes {mem['argument_bytes']} against (j1)'s {want_args}",
+    )
+    measured = timed["eager"]["peak_bytes"]
+    traced = mem["peak_est_bytes"]
+    bound = U2_PEAK_REL * measured + U2_PEAK_SLACK
+    check(
+        abs(traced - measured) <= bound,
+        f"{label}: traced peak {traced} against (j1)'s eager {measured} (bound "
+        f"{bound:.0f})",
+    )
+    replay_ms = timed["graph"]["device_ms"]
+    mfu = r["counted_flops_per_device"] / (replay_ms / 1e3) / hw.PEAK_FLOPS_BF16
+    print(
+        f"  {label}: argument bytes {mem['argument_bytes']} = (j1)'s state and "
+        f"batch; traced peak {traced / 1e9:.3f} GB against the eager step's "
+        f"{measured / 1e9:.3f} GB ({(traced - measured) / measured:+.2%}, bound "
+        f"+-{bound / 1e9:.3f} GB); counted {r['counted_flops_per_device']:.4e} "
+        f"FLOPs a step over (j1)'s replay {replay_ms:.1f} ms: mfu {mfu:.4f} of "
+        f"989 TFLOP/s; traced in {r['trace_s']} s, nothing allocated on the "
+        f"card; {card}"
+    )
+    return dict(
+        argument_bytes=mem["argument_bytes"],
+        traced_peak_bytes=traced,
+        eager_peak_bytes=measured,
+        peak_rel=(traced - measured) / measured,
+        counted_flops=r["counted_flops_per_device"],
+        analytic_flops=r["analytic_flops_per_device"],
+        replay_ms=replay_ms,
+        mfu=mfu,
+        trace_s=r["trace_s"],
+    )
 
 
 def phase_dist(card):
@@ -7283,6 +7463,7 @@ def main():
         phase_ssm,
         phase_composite,
         phase_lm_train,
+        phase_dryrun,
         phase_dist,
         phase_privacy,
         phase_gia,

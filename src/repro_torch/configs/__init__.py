@@ -43,8 +43,13 @@ ARCHS = {
     "musicgen-medium": musicgen_medium,
 }
 
+# archs with a sub-quadratic (or windowed) path run long_500k; the rest skip
+# it (full attention), as in the JAX package
+LONG_CONTEXT_ARCHS = ("mamba2-370m", "jamba-v0.1-52b", "gemma3-1b", "mixtral-8x7b")
+
 __all__ = [
     "ARCHS",
+    "LONG_CONTEXT_ARCHS",
     "INPUT_SHAPES",
     "InputShape",
     "LayerSpec",
@@ -53,6 +58,7 @@ __all__ = [
     "mamba",
     "get_config",
     "list_archs",
+    "shape_supported",
 ]
 
 
@@ -67,3 +73,10 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return sorted(ARCHS)
+
+
+def shape_supported(arch: str, shape: str) -> bool:
+    """long_500k only for sub-quadratic archs (decode is O(window)/O(1))."""
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_ARCHS
+    return True

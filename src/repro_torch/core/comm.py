@@ -121,6 +121,46 @@ class CommRecord:
         return self.n_collectives + self.dyn_collectives
 
 
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+class _Books:
+    """A comm's books, by tag: ``calls_by_tag``, ``bytes_by_tag`` (each
+    collective's output on this rank: the gathered tensor, the reduced
+    one), ``sent_by_tag`` (what this rank put in: its block, its summand)
+    and ``op_by_tag`` (``all-reduce`` or ``all-gather``), kept on the host
+    as the calls are made (a graph's capture counts once, its replays do
+    not); ``host_s`` sums the host seconds inside the calls."""
+
+    def _open_books(self) -> None:
+        self.bytes_by_tag: dict[str, int] = {}
+        self.sent_by_tag: dict[str, int] = {}
+        self.calls_by_tag: dict[str, int] = {}
+        self.op_by_tag: dict[str, str] = {}
+        self.host_s = 0.0
+
+    def _note(
+        self, tag: str, op: str, out: torch.Tensor, sent: torch.Tensor, t0: float
+    ) -> None:
+        self.host_s += time.perf_counter() - t0
+        self.bytes_by_tag[tag] = self.bytes_by_tag.get(tag, 0) + _nbytes(out)
+        self.sent_by_tag[tag] = self.sent_by_tag.get(tag, 0) + _nbytes(sent)
+        self.calls_by_tag[tag] = self.calls_by_tag.get(tag, 0) + 1
+        self.op_by_tag[tag] = op
+
+    def stats(self) -> dict[str, Any]:
+        """Calls, bytes out, bytes sent, each tag's op, and host seconds so
+        far (every tag's)."""
+        return {
+            "calls": dict(self.calls_by_tag),
+            "bytes": dict(self.bytes_by_tag),
+            "sent": dict(self.sent_by_tag),
+            "ops": dict(self.op_by_tag),
+            "host_s": self.host_s,
+        }
+
+
 class _Comm:
     """The surface both comms share: the fused collectives over the
     workers this process holds (``local_size()``), and the worker and row
@@ -257,7 +297,7 @@ class SimComm(_Comm):
         return x
 
 
-class DistComm(_Comm):
+class DistComm(_Comm, _Books):
     """The workers of the default ``torch.distributed`` process group: each
     of its ``world`` ranks holds ``local_workers`` of them on the leading dim of
     every per-worker tensor (see the module doc).
@@ -283,10 +323,15 @@ class DistComm(_Comm):
     size, ``process_rank`` its rank in the whole group. The collectives
     used are the ones
     both PyTorch 2.11 and 2.13 offer without a warning (``all_reduce`` and
-    the list ``all_gather`` into views of one output buffer). ``host_s``
-    sums the host seconds spent inside the collectives' calls: the whole
-    collective over gloo, which blocks the host (with the wait for the
-    device work queued before it), only the enqueue over NCCL."""
+    the list ``all_gather`` into views of one output buffer). The books
+    (``stats()``) hold every collective under its method's name:
+    ``all_gather``, ``pmax`` and ``psum`` (``pmean`` too) are the wire, whose
+    ``sent_by_tag`` a compressor's ``CommRecord.phys_bits`` counts, and
+    ``gather`` what is reduced locally off the wire (metrics, the lazy
+    statistics). ``host_s`` sums the host seconds spent inside the
+    collectives' calls: the whole collective over gloo, which blocks the
+    host (with the wait for the device work queued before it), only the
+    enqueue over NCCL."""
 
     def __init__(
         self, local_workers: int = 1, *, record: bool = False, group: Any = None
@@ -305,12 +350,7 @@ class DistComm(_Comm):
         self.local = local_workers
         self.backend = str(dist.get_backend(group))
         self.gathered = [] if record else None
-        self.host_s = 0.0
-
-    def _call(self, collective, *args, **kwargs) -> None:
-        t0 = time.perf_counter()
-        collective(*args, **kwargs)
-        self.host_s += time.perf_counter() - t0
+        self._open_books()
 
     def __repr__(self) -> str:
         staged = ", host collectives: a CUDA tensor is staged through host memory" * (
@@ -338,7 +378,9 @@ class DistComm(_Comm):
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x)
         s = x.sum(0)
-        self._call(dist.all_reduce, s, op=dist.ReduceOp.SUM, group=self.group)
+        t0 = time.perf_counter()
+        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=self.group)
+        self._note("psum", "all-reduce", s, x, t0)
         return s
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
@@ -347,30 +389,39 @@ class DistComm(_Comm):
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x)
         m = x.amax(0)
-        self._call(dist.all_reduce, m, op=dist.ReduceOp.MAX, group=self.group)
+        t0 = time.perf_counter()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
+        self._note("pmax", "all-reduce", m, x, t0)
         return m
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's (k, ...) ``x`` -> the (N, ...) stack in global worker
-        order, unrecorded."""
+    def _gather(self, x: torch.Tensor, tag: str) -> torch.Tensor:
         self._check(x)
         out = torch.empty((self.size(),) + x.shape[1:], dtype=x.dtype, device=x.device)
         parts = list(out.chunk(self.world))
-        self._call(dist.all_gather, parts, x.contiguous(), group=self.group)
+        t0 = time.perf_counter()
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        self._note(tag, "all-gather", out, x, t0)
         return out
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's (k, ...) ``x`` -> the (N, ...) stack in global worker
+        order, unrecorded (booked as ``gather``, off the wire)."""
+        return self._gather(x, "gather")
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every worker's ``x[w]`` -> the stacked (N, ...) tensor."""
-        out = self.gather(x)
+        out = self._gather(x, "all_gather")
         if self.gathered is not None:
             self.gathered.append(out)
         return out
 
     def barrier(self) -> None:
-        self._call(dist.barrier, group=self.group)
+        t0 = time.perf_counter()
+        dist.barrier(group=self.group)
+        self.host_s += time.perf_counter() - t0
 
 
-class ModelComm:
+class ModelComm(_Books):
     """The collectives of a tensor-parallel forward over one process group
     of ``size`` ranks (this rank ``rank`` within it): the model axis, or the
     group a KV cache's sequence is split over. Over a group of one every
@@ -396,41 +447,33 @@ class ModelComm:
     ``calls_by_tag`` under its tag (``tp.attn.wo``, ``tp.mlp.down``,
     ``tp.embed``, ``tp.head``, ...; a backward's under its forward's tag
     with ``.grad``), on the host as it is made: a graph's capture counts
-    once and its replays do not; ``host_s`` sums the host seconds inside
-    the calls (the whole collective over gloo, the enqueue over NCCL)."""
+    once and its replays do not; ``sent_by_tag`` and ``op_by_tag`` beside
+    them (``_Books``); ``host_s`` sums the host seconds inside the calls
+    (the whole collective over gloo, the enqueue over NCCL)."""
 
     def __init__(self, group: Any = None, size: int = 1, rank: int = 0):
         if size > 1 and not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError("a ModelComm of several ranks needs a process group")
         self.group, self.size, self.rank = group, size, rank
         self.backend = str(dist.get_backend(group)) if size > 1 else None
-        self.bytes_by_tag: dict[str, int] = {}
-        self.calls_by_tag: dict[str, int] = {}
-        self.host_s = 0.0
+        self._open_books()
 
     def __repr__(self) -> str:
         return f"ModelComm(backend={self.backend}, size={self.size}, rank={self.rank})"
-
-    def _note(self, tag: str, x: torch.Tensor, t0: float) -> None:
-        self.host_s += time.perf_counter() - t0
-        self.bytes_by_tag[tag] = self.bytes_by_tag.get(tag, 0) + (
-            x.numel() * x.element_size()
-        )
-        self.calls_by_tag[tag] = self.calls_by_tag.get(tag, 0) + 1
 
     def _sum(self, x: torch.Tensor, tag: str) -> torch.Tensor:
         """The f32 sum over the group, in ``x``'s dtype (no autograd)."""
         y = x.detach().to(torch.float32, copy=True).contiguous()
         t0 = time.perf_counter()
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.group)
-        self._note(tag, y, t0)
+        self._note(tag, "all-reduce", y, y, t0)
         return y.to(x.dtype)
 
     def _gather(self, x: torch.Tensor, dim: int, tag: str) -> torch.Tensor:
         out = torch.empty((self.size,) + x.shape, dtype=x.dtype, device=x.device)
         t0 = time.perf_counter()
         dist.all_gather(list(out.unbind(0)), x.detach().contiguous(), group=self.group)
-        self._note(tag, out, t0)
+        self._note(tag, "all-gather", out, x, t0)
         return torch.cat(out.unbind(0), dim=dim)
 
     def all_reduce(self, x: torch.Tensor, tag: str) -> torch.Tensor:
@@ -458,20 +501,12 @@ class ModelComm:
         y = x.detach().clone().contiguous()
         t0 = time.perf_counter()
         dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
-        self._note(tag, y, t0)
+        self._note(tag, "all-reduce", y, y, t0)
         return y
 
     def barrier(self) -> None:
         if self.size > 1:
             dist.barrier(group=self.group)
-
-    def stats(self) -> dict[str, Any]:
-        """Calls, bytes and host seconds so far (every tag's)."""
-        return {
-            "calls": dict(self.calls_by_tag),
-            "bytes": dict(self.bytes_by_tag),
-            "host_s": self.host_s,
-        }
 
 
 def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

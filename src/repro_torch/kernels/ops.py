@@ -22,6 +22,7 @@ import contextlib
 from collections.abc import Iterator
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -88,6 +89,12 @@ def _plain(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
     if t.device.type == "cuda":
+        if not _reference and is_fake(t):
+            # a dry run's fake tensor has no memory for a kernel to read
+            raise RuntimeError(
+                "a fake tensor reached a kernel's launch: trace under "
+                "ops.reference_mode() (launch/dryrun.py)"
+            )
         return _reference
     raise ValueError(f"no kernel or plain version for device {t.device}")
 

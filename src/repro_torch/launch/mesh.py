@@ -22,7 +22,15 @@ architectures (``launch/serve.py``, the fixed scheduler, and the continuous
 one for the token LMs), and so does training (``launch/train.py`` with
 every compressor, codec, per-leaf policy, schedule, lazy group and wire,
 whose sync's ``DistComm`` spans the data-axis group, :func:`make_comm`).
-The production mesh is item 17.
+
+The production mesh (:func:`make_production_mesh`) is the H100 cluster
+the port is deployed on: one DGX SuperPOD scalable unit of 32 nodes of 8
+cards, ``(data 32, model 8)``, with the model axis inside a node's NVLink
+domain and the data axis across nodes over InfiniBand; ``multi_pod`` takes
+two units, ``(64, 8)``. The JAX package's is a TPU v5e 16 x 16; the port's
+shape differs on purpose, since a model axis of 16 would span two nodes.
+The dry run (``launch/dryrun.py``) builds it over a fake process group
+(:func:`init_fake_distributed`) and fake tensors, on no card.
 """
 
 from __future__ import annotations
@@ -44,9 +52,15 @@ __all__ = [
     "make_comm",
     "make_model_comm",
     "make_production_mesh",
+    "init_fake_distributed",
+    "PRODUCTION_MESH_SHAPE",
 ]
 
-PRODUCTION_MESH = "ROADMAP Queue 1, item 17"
+# (data, model) of the production mesh: one scalable unit (256 cards), or
+# two with multi_pod (512); the model axis is a node's 8 cards
+PRODUCTION_MESH_SHAPE = {False: (32, 8), True: (64, 8)}
+# what a refusal of the production mesh names
+PRODUCTION_MESH = "the H100 production mesh"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,10 +239,31 @@ def make_model_comm(mesh: DataMesh) -> ModelComm:
     return ModelComm(mesh.model_group, mesh.model, mesh.model_index)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DataMesh:
-    """The JAX package's TPU production mesh (16 x 16 data x model, x 2
-    pods), which it builds for its dry run: not ported."""
-    raise NotImplementedError(
-        f"the production{' multi-pod' * multi_pod} mesh is not ported yet "
-        f"({PRODUCTION_MESH}: the dry run's H100 mesh)"
-    )
+def make_production_mesh(
+    *, multi_pod: bool = False, device: torch.device | str = "cuda"
+) -> DataMesh:
+    """:func:`make_mesh` of the production mesh's shape over the process
+    group, which must have its 256 ranks (512 with ``multi_pod``): under
+    torchrun across the cluster, or the dry run's fake group."""
+    data, model = PRODUCTION_MESH_SHAPE[multi_pod]
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != data * model:
+        kind = "multi-pod " if multi_pod else ""
+        raise ValueError(
+            f"{PRODUCTION_MESH} ({kind}{data}x{model}) takes {data * model} ranks, "
+            f"not {world}: run it under torchrun over {data * model} ranks, or "
+            "trace it with python -m repro_torch.launch.dryrun"
+        )
+    return make_mesh((data, model), device)
+
+
+def init_fake_distributed(world: int, rank: int = 0) -> None:
+    """A fake process group of ``world`` ranks in which this process is
+    ``rank``: its collectives return at once and move nothing (PyTorch's
+    ``fake`` backend), so a rank's step can be traced over fake tensors at
+    the production mesh's size in one process. The caller destroys it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists already")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)

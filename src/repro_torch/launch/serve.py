@@ -46,7 +46,9 @@ package splits them, codebooks and the ``cond`` prefix), and the token
 LMs with ``--scheduler continuous`` (the grid's slots over the data axis,
 every request's tokens gathered to every rank after the run). Training
 over the same mesh: ``launch/train.py --mesh DxM``. ``--production-mesh``
-raises (item 17).
+serves on the H100 production mesh (32 x 8 over 256 ranks; with
+``--multi-pod`` 64 x 8 over 512) under a torchrun of that many ranks, and
+raises at another world size (``launch/mesh.py:make_production_mesh``).
 """
 
 from __future__ import annotations
@@ -63,12 +65,8 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import (
-    init_distributed,
-    make_mesh,
-    make_production_mesh,
-)
-from repro_torch.launch.train import parse_mesh
+from repro_torch.launch.mesh import init_distributed, make_mesh
+from repro_torch.launch.train import launch_mesh, parse_mesh
 from repro_torch.models.common import DTYPES, resolve_device
 from repro_torch.models.model import init_params
 from repro_torch.models.multimodal import (
@@ -297,10 +295,17 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         help="under torchrun: the process group's backend (default nccl on "
         "CUDA, gloo on the CPU)",
     )
-    ap.add_argument("--production-mesh", action="store_true", help="not ported")
+    ap.add_argument(
+        "--production-mesh",
+        action="store_true",
+        help="the H100 production mesh, 32x8 over 256 ranks (in place of --mesh)",
+    )
+    ap.add_argument(
+        "--multi-pod",
+        action="store_true",
+        help="the production mesh of two scalable units, 64x8 over 512 ranks",
+    )
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        make_production_mesh()
     created = init_distributed(args.dist_backend, args.device)
     try:
         if args.dist_backend and not dist.is_initialized():
@@ -320,8 +325,11 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
 
 def _serve(args: argparse.Namespace) -> dict[str, Any]:
     world = dist.get_world_size() if dist.is_initialized() else 1
-    shape = parse_mesh(args.mesh) if args.mesh else (1, world)
-    mesh = make_mesh(shape, args.device)
+    if args.production_mesh or args.multi_pod:
+        mesh = launch_mesh(args)
+    else:
+        shape = parse_mesh(args.mesh) if args.mesh else (1, world)
+        mesh = make_mesh(shape, args.device)
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
     device = resolve_device(mesh.device)
     cfg = get_config(args.arch, smoke=args.smoke)

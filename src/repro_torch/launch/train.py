@@ -55,9 +55,13 @@ over. ``--codec dlog|lrq`` and ``--dp-epsilon`` put the randomized privacy
 codecs on the LQ-SGD wire (through the composite compressor); the run's
 line then also prints the per-step DP epsilon and its kind. Every
 compressor, codec, policy, schedule, lazy group and wire runs over the
-ranks as in one process. Those of parts not ported raise, naming the
-ROADMAP item that ports them: ``--production-mesh`` and ``--multi-pod``
-(item 17). ``--dump DIR`` has each rank write
+ranks as in one process. ``--production-mesh`` trains on the H100
+production mesh (``launch/mesh.py:make_production_mesh``: 32 x 8, one
+DGX SuperPOD scalable unit of 256 cards; ``--multi-pod`` two units, 64 x
+8, 512 cards) under a torchrun of that many ranks across the nodes
+(``--nnodes 32 --nproc-per-node 8``); at another world size it raises,
+naming the ranks it takes. ``python -m repro_torch.launch.dryrun`` traces
+one rank's step of it on no card. ``--dump DIR`` has each rank write
 ``DIR/rank<r>.pt`` (the history, every gathered wire array, the
 fingerprints of the final parameters and of this rank's rows of the
 compressor state, its kernel launches, each step's seconds and collective
@@ -99,6 +103,7 @@ from repro_torch.core.tree import tree_leaves, tree_unflatten
 from repro_torch.data.synthetic import LMDataConfig, cond_batch, lm_batch
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import (
+    DataMesh,
     init_distributed,
     make_comm,
     make_mesh,
@@ -118,7 +123,7 @@ from repro_torch.train.step import (
 )
 from repro_torch.train.trainer import WORKER_ROWS, Trainer, is_rank0
 
-__all__ = ["main", "parse_mesh"]
+__all__ = ["main", "parse_mesh", "launch_mesh"]
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -213,8 +218,16 @@ def _parser() -> argparse.ArgumentParser:
         help="PyTorch's deterministic algorithms (warn only), for bit-for-bit "
         "comparisons",
     )
-    ap.add_argument("--production-mesh", action="store_true", help="not ported")
-    ap.add_argument("--multi-pod", action="store_true", help="not ported")
+    ap.add_argument(
+        "--production-mesh",
+        action="store_true",
+        help="the H100 production mesh, 32x8 over 256 ranks (in place of --mesh)",
+    )
+    ap.add_argument(
+        "--multi-pod",
+        action="store_true",
+        help="the production mesh of two scalable units, 64x8 over 512 ranks",
+    )
     ap.add_argument("--runtime", default="async", choices=("async", "sync"))
     ap.add_argument(
         "--microbatch",
@@ -276,9 +289,19 @@ def parse_mesh(spec: str | None) -> tuple[int, int]:
     return data, model
 
 
-def _check_ported(args: argparse.Namespace) -> None:
+def launch_mesh(args: argparse.Namespace) -> DataMesh:
+    """The launcher's mesh: the production mesh with ``--production-mesh``
+    or ``--multi-pod`` (``--mesh``, if given, must name its shape), else
+    ``--mesh``'s."""
     if args.production_mesh or args.multi_pod:
-        make_production_mesh(multi_pod=args.multi_pod)
+        mesh = make_production_mesh(multi_pod=args.multi_pod, device=args.device)
+        if args.mesh is not None and parse_mesh(args.mesh) != mesh.shape:
+            raise ValueError(
+                f"--mesh {args.mesh} with the production mesh "
+                f"{mesh.data}x{mesh.model}"
+            )
+        return mesh
+    return make_mesh(parse_mesh(args.mesh), args.device)
 
 
 @contextlib.contextmanager
@@ -297,7 +320,6 @@ def _deterministic(on: bool) -> Iterator[None]:
 
 def main(argv: list[str] | None = None) -> dict[str, Any]:
     args = _parser().parse_args(argv)
-    _check_ported(args)
     created = init_distributed(args.dist_backend, args.device)
     try:
         if args.dist_backend and not dist.is_initialized():
@@ -321,7 +343,6 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
 
 
 def _train(args: argparse.Namespace) -> dict[str, Any]:
-    shape = parse_mesh(args.mesh)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.repeats is not None:
         cfg = dataclasses.replace(cfg, repeats=args.repeats)
@@ -354,7 +375,7 @@ def _train(args: argparse.Namespace) -> dict[str, Any]:
         participation_seed=args.participation_seed,
     )
     compressor = make_model_compressor(cfg, comp_cfg)
-    mesh = make_mesh(shape, args.device)
+    mesh = launch_mesh(args)
     n_dp, dev = mesh.data, mesh.device
     keep_wire = args.dump_wire_steps
     comm = make_comm(mesh, record=args.dump is not None and keep_wire != 0)

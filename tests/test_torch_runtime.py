@@ -343,29 +343,27 @@ def test_launcher_trains_at_smoke_widths_on_the_cpu():
     "argv, item",
     [
         # a model axis above 1 trains with every compressor since step 4
-        # (tests/test_torch_tp_train_wire.py); the case keeps its id and asks
-        # for what is still refused over it, before any rank is needed: the
-        # production mesh
-        (["--mesh", "2x2", "--compressor", "topk", "--production-mesh"], "item 17"),
-        # the production and multi-pod meshes are the dry run's (item 17)
-        (["--production-mesh"], "item 17"),
-        # mamba2-370m and jamba-v0.1-52b train since the zoo's last slice
-        # (tests/test_torch_zoo_rest.py takes their steps), and over a model
-        # axis since step 2 B (tests/test_torch_tp_train_zoo.py), with every
-        # compressor since step 4; the two cases keep their ids and now ask
-        # for what is still refused: the multi-pod mesh
-        (["--arch", "mamba2-370m", "--multi-pod"], "item 17"),
+        # (tests/test_torch_tp_train_wire.py); the production mesh is the
+        # H100 cluster's since item 17, and takes its 256 ranks
+        (["--mesh", "2x2", "--compressor", "topk", "--production-mesh"], "256 ranks"),
+        (["--production-mesh"], "256 ranks"),
+        # the multi-pod mesh: two scalable units, 512 ranks (mamba2-370m and
+        # jamba-v0.1-52b train since the zoo's last slice, over a model axis
+        # with every compressor since step 4)
+        (["--arch", "mamba2-370m", "--multi-pod"], "512 ranks"),
         (
             ["--arch", "jamba-v0.1-52b", "--mesh", "1x2", "--compressor", "qsgd"]
             + ["--multi-pod"],
-            "item 17",
+            "512 ranks",
         ),
     ],
     ids=["mesh-2x2", "production-mesh", "mamba2", "mixtral"],
 )
 def test_launcher_refuses_what_is_not_ported(argv, item):
+    """The production meshes at a world of one process: a ValueError that
+    names the ranks they take (item 17 ported them; the ids are kept)."""
     base = ["--arch", "gemma3-1b", "--smoke", "--device", "cpu", "--steps", "1"]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=f"production mesh .* takes {item}, not 1"):
         launch_train.main(base + argv)
 
 

@@ -456,8 +456,8 @@ REFUSALS = {
     "mesh_1x2": ("ValueError", "takes data x model ranks"),
     "mesh_3x2": ("ValueError", "takes data x model ranks"),
     # training takes a model axis with every compressor; the production
-    # mesh is still refused
-    "train": ("NotImplementedError", PRODUCTION_MESH),
+    # mesh takes its 256 ranks, not these 4
+    "train": ("ValueError", PRODUCTION_MESH + " (32x8) takes 256 ranks, not 4"),
     "graph_under_gloo": ("ValueError", "gloo"),
 }
 
